@@ -2,8 +2,9 @@
 
 Usage (repo root, one NVIDIA GPU): ``python3 scripts/torch_step_profile.py``
 
-Runs the single-group FT loop of ``chip_smoke.py`` (d512 L8 h8 ff1408
-vocab 32000 bf16, batch 8 x seq 1024, flash attention) and reports:
+Runs the single-group FT loop of ``chip_smoke.py``, with its headline
+configuration and Manager wiring (d512 L8 h8 ff1408 vocab 32000 bf16,
+batch 8 x seq 1024, flash attention), and reports:
 
 * host-clock phases per step, with a device synchronise at each boundary:
   quorum start, forward+backward, gradient averaging (D2H, ring, H2D),
@@ -20,24 +21,17 @@ import statistics
 import subprocess
 import sys
 import time
-from datetime import timedelta
 
-import numpy as np
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport  # noqa: E402
-from torchft_tpu_torch.collectives import CollectivesTcp  # noqa: E402
+from chip_smoke import HEADLINE, headline_config, make_manager, make_tokens  # noqa: E402
 from torchft_tpu_torch.coordination import LighthouseServer  # noqa: E402
 from torchft_tpu_torch.ddp import allreduce_gradients  # noqa: E402
-from torchft_tpu_torch.manager import Manager  # noqa: E402
-from torchft_tpu_torch.models.transformer import TransformerConfig  # noqa: E402
 from torchft_tpu_torch.parallel.ft import FTTrainer  # noqa: E402
 from torchft_tpu_torch.parallel.train_step import TrainStep  # noqa: E402
 from torchft_tpu_torch.store import StoreServer  # noqa: E402
-
-BATCH, SEQ = 8, 1024
 
 
 def main() -> None:
@@ -48,27 +42,15 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = TransformerConfig(
-        vocab_size=32000, d_model=512, n_layers=8, n_heads=8, head_dim=64,
-        d_ff=1408, dtype=torch.bfloat16, attention_impl="flash",
-    )
-    timeout = timedelta(seconds=120)
+    cfg = headline_config()
     lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
     store = StoreServer()
-    manager = Manager(
-        collectives=CollectivesTcp(timeout=timeout), load_state_dict=None,
-        state_dict=None, min_replica_size=1, replica_id="profile",
-        store_addr=store.address(), rank=0, world_size=1,
-        lighthouse_addr=lighthouse.address(), timeout=timeout,
-        checkpoint_transport=HTTPTransport(timeout=timeout, device="cuda"),
-    )
+    manager = make_manager(lighthouse.address(), store, "profile")
     try:
         ts = TrainStep(cfg, device="cuda")
         trainer = FTTrainer(manager, ts)
         trainer.init(seed=0)
-        tokens = torch.from_numpy(
-            np.random.default_rng(0).integers(0, cfg.vocab_size, (BATCH, SEQ))
-        ).to("cuda")
+        tokens = make_tokens(cfg, 0, HEADLINE["batch"], HEADLINE["seq"])
         for _ in range(3):
             trainer.step(tokens)
         torch.cuda.synchronize()

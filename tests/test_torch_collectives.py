@@ -102,3 +102,25 @@ def test_error_swallowing_latches_until_configure():
     coll.configure("unused:0", 0, 1)  # world 1 needs no store
     assert coll.error() is None
     coll.shutdown()
+
+
+def test_native_build_is_keyed_by_its_sources(tmp_path, monkeypatch):
+    """An edit of any native source or the Makefile moves the core's build
+    directory, so a stale libtftcore.so is never loaded for new sources."""
+    import shutil
+
+    from torchft_tpu_torch import _native
+
+    src = tmp_path / "native"
+    shutil.copytree(_native._NATIVE_SRC, src,
+                    ignore=shutil.ignore_patterns("*.so", "*.o", "__pycache__"))
+    monkeypatch.setattr(_native, "_NATIVE_SRC", str(src))
+    before = _native._sources_digest()
+    assert _native._sources_digest() == before
+    for name in ("coord.cc", "wire.h", "Makefile"):
+        path = src / name
+        original = path.read_bytes()
+        path.write_bytes(original + b"\n")
+        assert _native._sources_digest() != before, name
+        path.write_bytes(original)
+    assert _native._sources_digest() == before

@@ -106,7 +106,10 @@ def test_kernel_wrappers_reject_cpu_tensors(call):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,causal", [(torch.bfloat16, True), (torch.float32, False)])
+@pytest.mark.parametrize(
+    "dtype,causal",
+    [(torch.bfloat16, True), (torch.float32, False), (torch.float32, True)],
+)
 def test_kernels_match_plain_on_card(dtype, causal):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
@@ -115,18 +118,28 @@ def test_kernels_match_plain_on_card(dtype, causal):
     q, k, v, do = (
         torch.randn(64, 256, 64, device="cuda", generator=g).to(dtype) for _ in range(4)
     )
-    # bf16: one rounding of the output (2e-2 abs for O, 5e-2 of max|ref| for
-    # gradients); f32: the JAX test bars
-    tol_o, tol_g = (2e-2, None) if dtype == torch.bfloat16 else (2e-5, 3e-4)
     o, lse = fa.fwd_kernel(q, k, v, causal)
     o_ref, lse_ref = fa.fwd_plain(q, k, v, causal)
-    assert float((o.float() - o_ref.float()).abs().max()) <= tol_o
-    assert float((lse - lse_ref).abs().max()) <= tol_o
     delta = (do.float() * o.float()).sum(-1)
     got = (fa.dq_kernel(q, k, v, do, lse, delta, causal),
            *fa.dkv_kernel(q, k, v, do, lse, delta, causal))
     ref = (fa.dq_plain(q, k, v, do, lse, delta, causal),
            *fa.dkv_plain(q, k, v, do, lse, delta, causal))
+    if dtype == torch.float32:
+        # the JAX test bars: float32 summation order only
+        assert float((o - o_ref).abs().max()) <= 2e-5
+        assert float((lse - lse_ref).abs().max()) <= 2e-5
+        for a, r in zip(got, ref):
+            assert float((a - r).abs().max()) <= 3e-4
+        return
+    # bf16: O within one rounding (2e-2 abs); gradients elementwise within
+    # 2^-6 * (|ref| + rms of ref's row) + 1e-5: two ulps of the output
+    # rounding, the kernels' bf16 rounding of P and dS, which scales with the
+    # row, and float32 summation order in rows that are exactly 0 (dQ of
+    # query 0)
+    assert float((o.float() - o_ref.float()).abs().max()) <= 2e-2
+    assert float((lse - lse_ref).abs().max()) <= 2e-2
     for a, r in zip(got, ref):
-        bar = tol_g if tol_g is not None else 5e-2 * float(r.float().abs().max())
-        assert float((a.float() - r.float()).abs().max()) <= bar
+        a, r = a.float(), r.float()
+        bar = 2.0 ** -6 * (r.abs() + r.pow(2).mean(-1, keepdim=True).sqrt()) + 1e-5
+        assert bool(((a - r).abs() <= bar).all())

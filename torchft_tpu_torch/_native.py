@@ -4,13 +4,15 @@ training step uses: the RPC client, the lighthouse, the manager server
 and the key-value store.
 
 The library is built from the repo's ``native/`` sources at first use into
-``build/torch_native/`` (``make -C native OUTDIR=...``; the Makefile stays
-as it is), under a file lock so concurrent first users build once.
+``build/torch_native/<sources digest>/`` (``make -C native OUTDIR=...``;
+the Makefile stays as it is), under a file lock so concurrent first users
+build once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import threading
 from typing import Any, Dict, Optional, Tuple
@@ -39,10 +41,24 @@ _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
 
+def _sources_digest() -> str:
+    """sha256 of the sources ``make`` compiles the core from."""
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(_NATIVE_SRC)):
+        if name == "Makefile" or name.endswith((".cc", ".h")):
+            h.update(name.encode())
+            with open(os.path.join(_NATIVE_SRC, name), "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()[:16]
+
+
 def build() -> str:
-    """Build ``libtftcore.so`` into ``build/torch_native/`` unless it is
-    there; returns its path."""
-    out_dir = build_dir("torch_native")
+    """Build ``libtftcore.so`` into ``build/torch_native/<sources digest>/``
+    unless it is there; returns its path. Keying the directory by the
+    sources means an edit of ``native/`` is never answered by a stale
+    library."""
+    out_dir = os.path.join(build_dir("torch_native"), _sources_digest())
+    os.makedirs(out_dir, exist_ok=True)
     lib = os.path.join(out_dir, "libtftcore.so")
     # CXX=g++ overrides a CXX from the environment: the host's own compiler
     # links the shared libstdc++ that PyTorch loads too, while a compiler

@@ -18,10 +18,9 @@ import threading
 import urllib.request
 from datetime import timedelta
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Generic, List, Optional, TypeVar, Union
+from typing import Generic, List, Optional, TypeVar
 
 import numpy as np
-import torch
 
 from torchft_tpu_torch.checkpointing._rwlock import RWLock
 from torchft_tpu_torch.checkpointing.serialization import (
@@ -45,18 +44,17 @@ class _Server(ThreadingHTTPServer):
 
 
 class HTTPTransport(CheckpointTransport[T], Generic[T]):
-    """Serves the staged checkpoint over HTTP; received tensors land on
-    ``device``."""
+    """Serves the staged checkpoint over HTTP. A received state tree is
+    host staging: the receiver's ``load_state_dict`` copies it into its
+    own tensors, which puts it on the receiver's device."""
 
     def __init__(
         self,
         timeout: timedelta = timedelta(seconds=60),
         hostname: Optional[str] = None,
-        device: Union[str, torch.device] = "cpu",
     ) -> None:
         self._timeout = timeout
         self._hostname = hostname or socket.gethostname()
-        self._device = torch.device(device)
         self._lock = RWLock(timeout=timeout.total_seconds())
         self._step: Optional[int] = None
         self._header: Optional[bytes] = None
@@ -152,7 +150,7 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
     ) -> T:
         url = f"{metadata}/checkpoint/{step}/full"
         with urllib.request.urlopen(url, timeout=timeout.total_seconds()) as resp:
-            return load_state(resp, device=self._device)
+            return load_state(resp)
 
     def shutdown(self, wait: bool = True) -> None:
         self._server.shutdown()

@@ -17,7 +17,8 @@ where ``leaf_infos[i]`` is
 
 Leaves are visited in ``jax.tree_util`` order (sorted dict keys), so for a
 tree of numpy leaves the buffers are exactly the JAX package's buffers.
-Unflattened tensors land on the device the caller names.
+Unflattened tensors lie on the host; the receiver's ``load_state_dict``
+copies them into its own tensors, on its own device.
 """
 
 from __future__ import annotations
@@ -88,9 +89,8 @@ def buffer_sizes(infos: List[Tuple]) -> List[int]:
 def unflatten_state(
     header: bytes,
     buffers: List[Union[np.ndarray, bytes, bytearray, memoryview]],
-    device: Union[str, torch.device] = "cpu",
 ) -> Any:
-    """Inverse of :func:`flatten_state`; tensor leaves land on ``device``."""
+    """Inverse of :func:`flatten_state`; tensor leaves are host tensors."""
     treedef, infos = pickle.loads(header)
     leaves: List[Any] = []
     it = iter(buffers)
@@ -105,13 +105,13 @@ def unflatten_state(
                 t = torch.from_numpy(raw.copy()).view(_torch_dtype(dtype)).reshape(shape)
             else:
                 t = torch.empty(shape, dtype=_torch_dtype(dtype))
-            leaves.append(t.to(device))
+            leaves.append(t)
         else:
             leaves.append(pickle.loads(info[1]))
     return tree_unflatten(treedef, leaves)
 
 
-def load_state(f: BinaryIO, device: Union[str, torch.device] = "cpu") -> Any:
+def load_state(f: BinaryIO) -> Any:
     """Read one ``u64 header_len | header | buffers`` stream (what the HTTP
     transport serves) and unflatten it."""
     (header_len,) = _LEN.unpack(f.read(_LEN.size))
@@ -123,5 +123,5 @@ def load_state(f: BinaryIO, device: Union[str, torch.device] = "cpu") -> Any:
         if len(raw) != nbytes:
             raise EOFError("truncated checkpoint stream")
         buffers.append(raw)
-    return unflatten_state(header, buffers, device=device)
+    return unflatten_state(header, buffers)
 

@@ -56,14 +56,22 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 # launches of each kernel since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+# replica groups may run as threads of one process: the counts stay exact
+_launches_lock = threading.Lock()
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _launches_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _launches_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -163,7 +171,7 @@ def fwd_kernel(
             _stream(q),
         )
     _raise_if_failed("flash_fwd", lib, rc)
-    LAUNCHES["flash_fwd"] += 1
+    _count_launch("flash_fwd")
     return o, lse
 
 
@@ -188,7 +196,7 @@ def dq_kernel(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
             bh, s, d, d ** -0.5, int(causal), _stream(q),
         )
     _raise_if_failed("flash_dq", lib, rc)
-    LAUNCHES["flash_dq"] += 1
+    _count_launch("flash_dq")
     return dq
 
 
@@ -204,7 +212,7 @@ def dkv_kernel(q, k, v, do, lse, delta, causal: bool) -> Tuple[torch.Tensor, tor
             dv.data_ptr(), bh, s, d, d ** -0.5, int(causal), _stream(q),
         )
     _raise_if_failed("flash_dkv", lib, rc)
-    LAUNCHES["flash_dkv"] += 1
+    _count_launch("flash_dkv")
     return dk, dv
 
 

@@ -55,7 +55,10 @@ class FTTrainer:
         return {"params": self._params, "opt_state": self._opt.state_dict()}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        # in place: the optimizer holds these very tensors
+        # a received state lies on the host; copy_ puts the params on this
+        # trainer's device in place (the optimizer holds these very
+        # tensors), and Optimizer.load_state_dict casts the moments onto
+        # each param's device
         with torch.no_grad():
             for dst, src in zip(tree_leaves(self._params), tree_leaves(state["params"])):
                 dst.copy_(src)
