@@ -6,11 +6,16 @@ Phases, each of which either passes or ends the run with a non-zero exit:
 
 1. the card's name and power limit; TF32 off for float32 matmuls.
 2. kernel parity at the headline attention shapes (B8 S1024 H8 D64, bf16,
-   causal): K1 (forward), K2 (dQ) and K3 (dK/dV) each against its plain
-   PyTorch version on the same inputs, and the autograd op against plain
-   attention evaluated in float32; plus a small float32 non-causal case.
-3. timing of each kernel (CUDA events), its plain version, the
-   ``scaled_dot_product_attention`` yardstick and the roofline bound.
+   causal) and at a ragged length (B2 S192 H2): K1 (forward), K2 (dQ) and
+   K3 (dK/dV) each against its plain PyTorch version on the same inputs,
+   elementwise, and bitwise equal across two launches; the autograd op
+   against plain attention evaluated in float32; float32 cases at the JAX
+   test bars.
+3. timing of each kernel: launched eagerly between CUDA events (``ms``),
+   and replayed from a CUDA graph (device time alone) with its inputs warm
+   in the L2 and L2-cold; its host cost per call, its plain version, the
+   ``scaled_dot_product_attention`` yardsticks by both methods and the
+   roofline bound.
 4. the headline fault-tolerant training loop on one replica group:
    in-process lighthouse + store, Manager over CollectivesTcp, TrainStep
    at d512 L8 h8 ff1408 vocab 32000 bf16, batch 8 x seq 1024; 2 warm-up
@@ -63,23 +68,57 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def gpu_time_ms(fn, reps: int = 25, inner: int = 5) -> float:
-    """Median over ``reps`` of the mean time of ``inner`` back-to-back
-    calls, between CUDA events."""
+def gpu_time_ms(fns, reps: int = 25, inner: int = 5, graph: bool = False) -> float:
+    """Median over ``reps`` of the mean time of one call, from ``inner``
+    back-to-back rounds between CUDA events. ``fns`` is one callable, or a
+    list called in turn each round: over inputs whose sum exceeds the L2,
+    each call then finds its own inputs evicted (an L2-cold time).
+
+    Launched eagerly, each timed round starts from an idle card, so the
+    host's cost of the first launch (tens of microseconds through a
+    kernel's Python wrapper, see ``host_us_per_call``) is in the time.
+    ``graph=True`` captures the rounds in a CUDA graph and replays it: the
+    device's time alone."""
+    fns = fns if isinstance(fns, (list, tuple)) else [fns]
+
+    def rounds():
+        for _ in range(inner):
+            for fn in fns:
+                fn()
+
     for _ in range(3):
-        fn()
+        for fn in fns:
+            fn()
     torch.cuda.synchronize()
+    run = rounds
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            rounds()
+        run = g.replay
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(inner):
-            fn()
+        run()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
+        times.append(start.elapsed_time(end) / (inner * len(fns)))
     return statistics.median(times)
+
+
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """Host time of one call (at a size where the device keeps up)."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / calls * 1e6
 
 
 # ---------------------------------------------------------------------------
@@ -136,6 +175,11 @@ def _max_err(a, b) -> float:
 # block or a wrong mask moves an element by about its row's rms, dozens of
 # times the bar, at every key position.
 KERNEL_BAR = dict(rtol=2.0 ** -6, atol=1e-5, row_scaled=True)
+# K1's float32 lse against its plain version, absolute: lse is about 7 at
+# S=1024, where one float32 ulp is 4.8e-7; exp2 with the scale folded in
+# versus exp, and another summation order, move it by a few ulps. A wrong
+# tile moves it by about log(1 + its share of the row's mass), 1e-2 or more.
+LSE_TOL = 1e-4
 # The autograd op vs plain attention in float32: rtol 2^-7 (the output's
 # bf16 rounding, with a 2x margin) and atol 2e-2, twice the largest excess
 # that scripts/torch_flash_grad_errors.py measured over four seeds and
@@ -166,26 +210,29 @@ def _hold(name, got, ref, what, rtol, atol, row_scaled) -> float:
     return float(err.max())
 
 
-def phase_kernels():
-    """Each kernel against its plain version at the headline shapes, the
-    autograd op against plain attention, and float32 cases at the JAX test
-    bars: causal at the headline shapes, non-causal at a small size."""
-    from torchft_tpu_torch.ops import flash_attention as fa
+def _hold_lse(name, got, ref) -> float:
+    err = _max_err(got, ref)
+    log(f"{name}: max|lse-ref|={err:.3e} (tol {LSE_TOL:g})")
+    check(err <= LSE_TOL, f"{name}: lse disagrees with its plain version")
+    return err
 
-    b, s, h, d = (HEADLINE[k] for k in ("batch", "seq", "heads", "head_dim"))
-    q, k, v, do = _qkv(b, s, h, d, torch.bfloat16, seed=1)
+
+def _check_kernels(fa, shape, seed, tag):
+    """K1, K2 and K3 against their plain versions on the same bf16 causal
+    inputs, and each launched twice on those inputs with bitwise equal
+    results. Returns each kernel's max |err|."""
+    b, s, h, d = shape
+    q, k, v, do = _qkv(b, s, h, d, torch.bfloat16, seed=seed)
     pq, pk, pv, pdo = map(_pack, (q, k, v, do))
+    plain = "its plain version"
     res = {}
 
-    # K1 vs its plain version (o and lse)
+    # K1: O elementwise at the kernel bar, lse at LSE_TOL
     o, lse = fa.fwd_kernel(pq, pk, pv, True)
     o_ref, lse_ref = fa.fwd_plain(pq, pk, pv, True)
     torch.cuda.synchronize()
-    err_o, err_lse = _max_err(o, o_ref), _max_err(lse, lse_ref)
-    log(f"K1 flash_fwd bf16: max|O-ref|={err_o:.3e} (tol 2e-2) "
-        f"max|lse-ref|={err_lse:.3e} (tol 2e-2)")
-    check(err_o <= 2e-2 and err_lse <= 2e-2, "K1 disagrees with its plain version")
-    res["flash_fwd"] = max(err_o, err_lse)
+    res["flash_fwd"] = max(_hold(f"K1 flash_fwd O {tag}", o, o_ref, plain, **KERNEL_BAR),
+                           _hold_lse(f"K1 flash_fwd {tag}", lse, lse_ref))
 
     # K2 / K3 vs their plain versions on the same (kernel) lse and delta
     delta = (pdo.float() * o.float()).sum(-1)
@@ -194,12 +241,38 @@ def phase_kernels():
     dq_ref = fa.dq_plain(pq, pk, pv, pdo, lse, delta, True)
     dk_ref, dv_ref = fa.dkv_plain(pq, pk, pv, pdo, lse, delta, True)
     torch.cuda.synchronize()
-    plain = "its plain version"
-    res["flash_dq"] = _hold("K2 flash_dq", dq, dq_ref, plain, **KERNEL_BAR)
-    res["flash_dkv"] = max(_hold("K3 flash_dk", dk, dk_ref, plain, **KERNEL_BAR),
-                           _hold("K3 flash_dv", dv, dv_ref, plain, **KERNEL_BAR))
+    res["flash_dq"] = _hold(f"K2 flash_dq {tag}", dq, dq_ref, plain, **KERNEL_BAR)
+    res["flash_dkv"] = max(_hold(f"K3 flash_dk {tag}", dk, dk_ref, plain, **KERNEL_BAR),
+                           _hold(f"K3 flash_dv {tag}", dv, dv_ref, plain, **KERNEL_BAR))
+
+    # determinism: the checkpoint recompute must reproduce the forward
+    # bit for bit (phase 5's identical checksums rest on it)
+    o2, lse2 = fa.fwd_kernel(pq, pk, pv, True)
+    dq2 = fa.dq_kernel(pq, pk, pv, pdo, lse, delta, True)
+    dk2, dv2 = fa.dkv_kernel(pq, pk, pv, pdo, lse, delta, True)
+    torch.cuda.synchronize()
+    same = {"flash_fwd": torch.equal(o, o2) and torch.equal(lse, lse2),
+            "flash_dq": torch.equal(dq, dq2),
+            "flash_dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2)}
+    log(f"bitwise equal across two launches {tag}: {same}")
+    check(all(same.values()), f"a kernel is not deterministic {tag}: {same}")
+    return res
+
+
+def phase_kernels():
+    """Each kernel against its plain version at the headline shapes and at
+    a ragged length (S=192, not a multiple of 128), the autograd op against
+    plain attention, and float32 cases at the JAX test bars: causal at the
+    headline shapes, non-causal at a small size."""
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, d = (HEADLINE[k] for k in ("batch", "seq", "heads", "head_dim"))
+    res = _check_kernels(fa, (b, s, h, d), 1, f"b{b} s{s} h{h}")
+    ragged = _check_kernels(fa, (2, 192, 2, d), 4, "b2 s192 h2")
+    res = {n: max(res[n], ragged[n]) for n in res}
 
     # the autograd op (K1 forward, K2/K3 via backward) vs plain float32 attention
+    q, k, v, do = _qkv(b, s, h, d, torch.bfloat16, seed=1)
     o_op, *g_op = _op_grads(q, k, v, do, True)
     o_pl, *g_pl = _plain_grads(q, k, v, do, True)
     err = _max_err(o_op, o_pl)
@@ -250,51 +323,78 @@ def _bounds():
     return out
 
 
+COLD_SETS = 4  # input sets rotated for L2-cold times: 135-200 MB, over the 50 MB L2
+
+
 def phase_timing():
+    """Each kernel's time launched eagerly (``ms``, the method of the first
+    slice's records); its device time replayed from a CUDA graph with its
+    inputs warm (one set, called back to back: ``ms_graph``) and L2-cold
+    (``COLD_SETS`` independent sets in turn: ``ms_cold``); its host cost per
+    call; its plain version's time; and the ``scaled_dot_product_attention``
+    yardsticks, each by both methods."""
     import torch.nn.functional as F
 
     from torchft_tpu_torch.ops import flash_attention as fa
 
     b, s, h, d = (HEADLINE[k] for k in ("batch", "seq", "heads", "head_dim"))
-    q, k, v, do = _qkv(b, s, h, d, torch.bfloat16, seed=3)
-    pq, pk, pv, pdo = map(_pack, (q, k, v, do))
-    o, lse = fa.fwd_kernel(pq, pk, pv, True)
-    delta = (pdo.float() * o.float()).sum(-1)
-    t = {
-        "flash_fwd": (
-            gpu_time_ms(lambda: fa.fwd_kernel(pq, pk, pv, True)),
-            gpu_time_ms(lambda: fa.fwd_plain(pq, pk, pv, True)),
-        ),
-        "flash_dq": (
-            gpu_time_ms(lambda: fa.dq_kernel(pq, pk, pv, pdo, lse, delta, True)),
-            gpu_time_ms(lambda: fa.dq_plain(pq, pk, pv, pdo, lse, delta, True)),
-        ),
-        "flash_dkv": (
-            gpu_time_ms(lambda: fa.dkv_kernel(pq, pk, pv, pdo, lse, delta, True)),
-            gpu_time_ms(lambda: fa.dkv_plain(pq, pk, pv, pdo, lse, delta, True)),
-        ),
+    sets = []
+    for seed in range(3, 3 + COLD_SETS):
+        q, k, v, do = _qkv(b, s, h, d, torch.bfloat16, seed=seed)
+        pq, pk, pv, pdo = map(_pack, (q, k, v, do))
+        o, lse = fa.fwd_kernel(pq, pk, pv, True)
+        delta = (pdo.float() * o.float()).sum(-1)
+        sets.append((pq, pk, pv, pdo, lse, delta))
+    tiny = [x[:, :128].contiguous() for x in sets[0]]  # device keeps up: host cost
+    calls = {
+        "flash_fwd": (lambda x: fa.fwd_kernel(*x[:3], True),
+                      lambda x: fa.fwd_plain(*x[:3], True)),
+        "flash_dq": (lambda x: fa.dq_kernel(*x, True), lambda x: fa.dq_plain(*x, True)),
+        "flash_dkv": (lambda x: fa.dkv_kernel(*x, True), lambda x: fa.dkv_plain(*x, True)),
     }
+    t = {}
+    for name, (kernel, plain) in calls.items():
+        t[name] = dict(
+            ms=gpu_time_ms(lambda: kernel(sets[0])),
+            ms_graph=gpu_time_ms(lambda: kernel(sets[0]), graph=True),
+            ms_cold=gpu_time_ms([lambda x=x: kernel(x) for x in sets], graph=True),
+            host_us=host_us_per_call(lambda: kernel(tiny)),
+            plain_ms=gpu_time_ms(lambda: plain(sets[0])),
+        )
+    del sets
 
-    # yardstick only: PyTorch's own fused attention, never called by the port
+    # yardsticks only: PyTorch's own fused attention, never called by the port
+    q, k, v, do = _qkv(b, s, h, d, torch.bfloat16, seed=3)
     qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
-    sdpa_fwd = gpu_time_ms(
-        lambda: F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
-    )
     qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (qh, kh, vh))
 
-    def sdpa_fwd_bwd():
-        F.scaled_dot_product_attention(qg, kg, vg, is_causal=True).backward(doh)
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
 
-    sdpa_both = gpu_time_ms(sdpa_fwd_bwd)
-    ours_both = sum(t[n][0] for n in t)
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        return torch.autograd.grad(o, (qg, kg, vg), doh)
+
+    sdpa = {  # (eager, CUDA graph)
+        "fwd": (gpu_time_ms(sdpa_fwd), gpu_time_ms(sdpa_fwd, graph=True)),
+        "fwd_bwd": (gpu_time_ms(sdpa_fwd_bwd), gpu_time_ms(sdpa_fwd_bwd, graph=True)),
+    }
     bounds = _bounds()
-    for name, (ms, plain) in t.items():
+    for name, r in t.items():
         bound, by, flops, nbytes = bounds[name]
-        log(f"{name}: {ms:.4f} ms (plain {plain:.4f} ms, bound {bound:.4f} ms by "
-            f"{by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB)")
-    log(f"sdpa(is_causal) forward {sdpa_fwd:.4f} ms; forward+backward "
-        f"{sdpa_both:.4f} ms vs flash fwd+dq+dkv {ours_both:.4f} ms")
-    return t, bounds, sdpa_fwd
+        log(f"{name}: {r['ms']:.4f} ms eager (host launches included); CUDA graph "
+            f"(device time) {r['ms_graph']:.4f} ms warm, {r['ms_cold']:.4f} ms L2-cold; host "
+            f"{r['host_us']:.1f} us/call; plain {r['plain_ms']:.4f} ms; bound {bound:.4f} ms "
+            f"by {by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB")
+    for i, method in enumerate(("eager", "CUDA graph")):
+        fwd, both = sdpa["fwd"][i], sdpa["fwd_bwd"][i]
+        key = "ms" if i == 0 else "ms_graph"
+        ours = {n: t[n][key] for n in t}
+        log(f"sdpa(is_causal), {method}: forward {fwd:.4f} ms, forward+backward {both:.4f} "
+            f"ms vs flash fwd+dq+dkv {sum(ours.values()):.4f} ms; backward alone "
+            f"(fwd+bwd - fwd) {both - fwd:.4f} ms vs flash dq+dkv "
+            f"{ours['flash_dq'] + ours['flash_dkv']:.4f} ms")
+    return t, bounds, sdpa["fwd"]
 
 
 # ---------------------------------------------------------------------------
@@ -492,10 +592,24 @@ def main() -> None:
 
     # build the native core and the kernels together; a failed build ends the run
     t0 = time.perf_counter()
+
+    def timed(fn):
+        start = time.perf_counter()
+        fn()
+        return time.perf_counter() - start
+
     with ThreadPoolExecutor(max_workers=2) as pool:
-        for fut in [pool.submit(_native.build), pool.submit(fa.build)]:
-            fut.result()
-    log(f"builds done in {time.perf_counter() - t0:.1f}s")
+        native_s, kernels_s = (f.result() for f in [pool.submit(timed, _native.build),
+                                                    pool.submit(timed, fa.build)])
+    log(f"builds done in {time.perf_counter() - t0:.1f}s (native core {native_s:.1f}s, "
+        f"kernels {kernels_s:.1f}s, in parallel)")
+    # ptxas -v: each kernel's entry, registers and spills, and any warning
+    # (a setmaxnreg that was ignored shows here)
+    keep = ("entry function", "Used", "spill", "warning")
+    build_log = fa.build_log() or "(no build log: the library was built earlier)"
+    for line in build_log.splitlines():
+        if any(word in line for word in keep):
+            log(f"ptxas | {line.strip()}")
 
     errs = phase_kernels()
     t, bounds, sdpa_fwd = phase_timing()
@@ -506,9 +620,11 @@ def main() -> None:
         {
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": errs[name], "ms": t[name][0], "plain_ms": t[name][1],
+            "max_abs_err": errs[name], "ms": t[name]["ms"], "ms_graph": t[name]["ms_graph"],
+            "ms_cold": t[name]["ms_cold"], "plain_ms": t[name]["plain_ms"],
             "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-            "library_ms": sdpa_fwd if name == "flash_fwd" else None,
+            "library_ms": sdpa_fwd[0] if name == "flash_fwd" else None,
+            "library_ms_graph": sdpa_fwd[1] if name == "flash_fwd" else None,
         }
         for name in ("flash_fwd", "flash_dq", "flash_dkv")
     ]

@@ -10,8 +10,8 @@ batch 8 x seq 1024, flash attention), and reports:
   quorum start, forward+backward, gradient averaging (D2H, ring, H2D),
   commit vote, optimizer update;
 * a ``torch.profiler`` trace of 3 unsynchronised steps: device time by
-  kernel (top 15), the flash kernels' share, and the device's busy share
-  of the wall clock.
+  kernel (top 15), the flash kernels' share and each flash kernel's
+  device time per launch, and the device's busy share of the wall clock.
 """
 
 from __future__ import annotations
@@ -90,9 +90,10 @@ def main() -> None:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
-        by_name = {}
+        by_name, launches = {}, {}
         for e in kernels:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            launches[e.name] = launches.get(e.name, 0) + 1
         busy_us = 0.0
         intervals = sorted((e.time_range.start, e.time_range.end) for e in kernels)
         cur_s = cur_e = None
@@ -112,6 +113,12 @@ def main() -> None:
         flash = sum(v for k, v in by_name.items() if "flash_" in k)
         print(f"flash kernels: {flash / steps / 1e3:.3f} ms/step "
               f"({100 * flash / total:.1f}% of device op time)")
+        for name, us in sorted(by_name.items()):
+            if "flash_" in name:
+                short = name.replace("(anonymous namespace)::", "").replace("void ", "")
+                short = short.split("(")[0]
+                print(f"  {short}: {us / steps / 1e3:.3f} ms/step, {launches[name] // steps} "
+                      f"launches/step, {us / launches[name] / 1e3:.4f} ms each")
         print("top device ops (ms/step):")
         for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
             print(f"  {us / steps / 1e3:8.3f}  {name[:110]}")

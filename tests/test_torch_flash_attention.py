@@ -9,6 +9,9 @@ the card it runs with ``python -m pytest --noconftest -m cuda
 tests/test_torch_flash_attention.py``.
 """
 
+import os
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -29,12 +32,14 @@ def _jax_flash():
     return jax, flash_attention
 
 
+@pytest.mark.parametrize("s", [256, 192], ids=["s256", "s192"])
 @pytest.mark.parametrize("causal", [True, False])
-def test_forward_matches_jax_kernel(causal):
-    # f32 at b2 s256 h2 d64, blocks 64: the JAX test's own bar (2e-5) — the
-    # two differ only in float32 summation order
+def test_forward_matches_jax_kernel(causal, s):
+    # f32 at b2 h2 d64, blocks 64: the JAX test's own bar (2e-5) — the two
+    # differ only in float32 summation order. S=192 is the ragged length the
+    # card checks (not a multiple of the card kernels' 128-row tiles).
     jax, jax_flash = _jax_flash()
-    q, k, v = _qkv()
+    q, k, v = _qkv(s=s)
     expect = np.asarray(jax_flash(q, k, v, causal=causal, block_q=64, block_k=64))
     got = fa.flash_attention(
         *map(torch.from_numpy, (q, k, v)), causal=causal, block_q=64, block_k=64
@@ -42,11 +47,13 @@ def test_forward_matches_jax_kernel(causal):
     np.testing.assert_allclose(got.numpy(), expect, atol=2e-5)
 
 
-def test_grads_match_jax_kernels():
+@pytest.mark.parametrize("s", [128, 192], ids=["s128", "s192"])
+def test_grads_match_jax_kernels(s):
     # gradients through the JAX dQ and dK/dV kernels vs the port's op under
-    # autograd: the JAX test's bar (3e-4), f32 accumulation order only
+    # autograd: the JAX test's bar (3e-4), f32 accumulation order only; at
+    # the ragged S=192 that the card checks too
     jax, jax_flash = _jax_flash()
-    q, k, v = _qkv(s=128)
+    q, k, v = _qkv(s=s)
 
     def loss(q, k, v):
         return (jax_flash(q, k, v, causal=True, block_q=64, block_k=64) ** 2).sum()
@@ -69,12 +76,13 @@ def _pack(x):
     return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
 
 
+@pytest.mark.parametrize("s", [128, 192], ids=["s128", "s192"])
 @pytest.mark.parametrize("causal", [True, False])
-def test_plain_kernel_versions_match_autograd(causal):
+def test_plain_kernel_versions_match_autograd(causal, s):
     """fwd_plain / dq_plain / dkv_plain — what the card holds the kernels
     against — equal plain attention and its autograd gradients (f32, same
-    math in another order: 1e-5)."""
-    q, k, v, do = map(torch.from_numpy, _qkv(s=128) + _qkv(s=128, seed=1)[:1])
+    math in another order: 1e-5), at the ragged length S=192 too."""
+    q, k, v, do = map(torch.from_numpy, _qkv(s=s) + _qkv(s=s, seed=1)[:1])
     ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
     o = attention(*ts, causal=causal)
     o.backward(do)
@@ -86,6 +94,27 @@ def test_plain_kernel_versions_match_autograd(causal):
     dk, dv = fa.dkv_plain(pq, pk, pv, pdo, lse, delta, causal)
     for got, t in zip((dq, dk, dv), ts):
         np.testing.assert_allclose(got, _pack(t.grad), atol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(os.listdir(fa.CSRC_DIR)))
+def test_build_digest_covers_every_source(tmp_path, name):
+    """The kernel library is keyed by every file under csrc/: an edit of any
+    of them, a header included, must change the key, or a stale library
+    would be loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(fa.CSRC_DIR, csrc)
+    before = fa.source_digest(str(csrc))
+    assert before == fa.source_digest()  # content, not location
+    with open(csrc / name, "ab") as f:
+        f.write(b" ")
+    assert fa.source_digest(str(csrc)) != before
+
+
+def test_nvcc_compiles_every_source_in_one_call():
+    cmd = fa.nvcc_command("/tmp/lib.so")
+    units = sorted(n for n in os.listdir(fa.CSRC_DIR) if n.endswith(".cu"))
+    assert units and sorted(os.path.basename(a) for a in cmd if a.endswith(".cu")) == units
+    assert "arch=compute_90a,code=sm_90a" in cmd
 
 
 @pytest.mark.parametrize(
@@ -107,16 +136,23 @@ def test_kernel_wrappers_reject_cpu_tensors(call):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "dtype,causal",
-    [(torch.bfloat16, True), (torch.float32, False), (torch.float32, True)],
+    "dtype,causal,bh,s",
+    [
+        (torch.bfloat16, True, 64, 256),
+        (torch.float32, False, 64, 256),
+        (torch.float32, True, 64, 256),
+        # ragged: S not a multiple of the 128-row tiles
+        (torch.bfloat16, True, 4, 192),
+        (torch.bfloat16, False, 4, 192),
+    ],
 )
-def test_kernels_match_plain_on_card(dtype, causal):
+def test_kernels_match_plain_on_card(dtype, causal, bh, s):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v, do = (
-        torch.randn(64, 256, 64, device="cuda", generator=g).to(dtype) for _ in range(4)
+        torch.randn(bh, s, 64, device="cuda", generator=g).to(dtype) for _ in range(4)
     )
     o, lse = fa.fwd_kernel(q, k, v, causal)
     o_ref, lse_ref = fa.fwd_plain(q, k, v, causal)
@@ -132,14 +168,19 @@ def test_kernels_match_plain_on_card(dtype, causal):
         for a, r in zip(got, ref):
             assert float((a - r).abs().max()) <= 3e-4
         return
-    # bf16: O within one rounding (2e-2 abs); gradients elementwise within
-    # 2^-6 * (|ref| + rms of ref's row) + 1e-5: two ulps of the output
-    # rounding, the kernels' bf16 rounding of P and dS, which scales with the
-    # row, and float32 summation order in rows that are exactly 0 (dQ of
-    # query 0)
-    assert float((o.float() - o_ref.float()).abs().max()) <= 2e-2
-    assert float((lse - lse_ref).abs().max()) <= 2e-2
-    for a, r in zip(got, ref):
+    # bf16: O, dQ, dK and dV elementwise within 2^-6 * (|ref| + rms of ref's
+    # row) + 1e-5: two ulps of the output rounding, the kernels' bf16
+    # rounding of P and dS, which scales with the row, and float32 summation
+    # order in rows that are exactly 0 (dQ of query 0). lse (float32, about
+    # 5 here) within 1e-4: exp2 vs exp and summation order move it by a few
+    # ulps, a wrong tile by 1e-2 or more.
+    for a, r in zip((o,) + got, (o_ref,) + ref):
         a, r = a.float(), r.float()
         bar = 2.0 ** -6 * (r.abs() + r.pow(2).mean(-1, keepdim=True).sqrt()) + 1e-5
         assert bool(((a - r).abs() <= bar).all())
+    assert float((lse - lse_ref).abs().max()) <= 1e-4
+    # deterministic: a second launch on the same inputs is bitwise equal
+    o2, lse2 = fa.fwd_kernel(q, k, v, causal)
+    dk2, dv2 = fa.dkv_kernel(q, k, v, do, lse, delta, causal)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(got[1], dk2) and torch.equal(got[2], dv2)

@@ -10,7 +10,8 @@ CPU (plain :func:`~torchft_tpu_torch.ops.attention.attention` under
 autograd); a CUDA tensor launches the kernels or raises.
 
 The kernels are built with ``nvcc`` at first use into
-``build/torch_kernels/`` and loaded with ctypes (a plain C interface).
+``build/torch_kernels/``, keyed by a digest of every file under ``csrc/``,
+and loaded with ctypes (a plain C interface).
 Every launch adds one to :data:`LAUNCHES`, keyed by kernel name.
 """
 
@@ -33,21 +34,22 @@ __all__ = [
     "LAUNCHES",
     "reset_launches",
     "build",
+    "nvcc_command",
     "fwd_kernel",
     "dq_kernel",
     "dkv_kernel",
     "fwd_plain",
     "dq_plain",
     "dkv_plain",
-    "KERNEL_SOURCE",
+    "CSRC_DIR",
+    "source_digest",
+    "build_log",
     "HEAD_DIM",
     "TILE",
 ]
 
-KERNEL_SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "csrc",
-    "flash_attention.cu",
+CSRC_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
 )
 HEAD_DIM = 64  # the head dim the kernels take
 TILE = 64  # the kernels' tile rows: S must be a multiple on the card
@@ -82,19 +84,57 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
+def _csrc_files(csrc: str):
+    return sorted(
+        os.path.relpath(os.path.join(root, name), csrc)
+        for root, _, names in os.walk(csrc)
+        for name in names
+    )
+
+
+def source_digest(csrc: str = CSRC_DIR) -> str:
+    """sha256 over the names and bytes of every file under ``csrc``: the
+    library's key, so an edit of any source or header rebuilds it."""
+    h = hashlib.sha256()
+    for rel in _csrc_files(csrc):
+        with open(os.path.join(csrc, rel), "rb") as f:
+            data = f.read()
+        h.update(f"{rel}\0{len(data)}\0".encode())
+        h.update(data)
+    return h.hexdigest()[:16]
+
+
+def _library_path() -> str:
+    return os.path.join(build_dir("torch_kernels"), f"libtft_flash_{source_digest()}.so")
+
+
+def nvcc_command(out: str):
+    """One ``nvcc`` call over every ``.cu`` file under ``csrc/``; ``-Xptxas -v``
+    reports each kernel's registers and spills into the build log."""
+    sources = [
+        os.path.join(CSRC_DIR, rel) for rel in _csrc_files(CSRC_DIR) if rel.endswith(".cu")
+    ]
+    return [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", out, *sources,
+    ]
+
+
 def build() -> str:
     """Compile the kernels (once per source content) and return the
     shared library's path."""
-    with open(KERNEL_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(build_dir("torch_kernels"), f"libtft_flash_{digest}.so")
-    return run_locked_build(
-        out,
-        [
-            _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", out, KERNEL_SOURCE,
-        ],
-    )
+    out = _library_path()
+    return run_locked_build(out, nvcc_command(out), log=out + ".log")
+
+
+def build_log() -> str:
+    """The output of the build that made the current library (ptxas'
+    registers and spills per kernel); empty if it was built elsewhere."""
+    log = _library_path() + ".log"
+    if not os.path.exists(log):
+        return ""
+    with open(log) as f:
+        return f.read()
 
 
 def _load() -> ctypes.CDLL:

@@ -6,7 +6,7 @@ import fcntl
 import os
 import subprocess
 from contextlib import contextmanager
-from typing import Iterator, List, Union
+from typing import Iterator, List, Optional, Union
 
 import torch
 
@@ -48,15 +48,19 @@ def _file_lock(path: str) -> Iterator[None]:
             fcntl.flock(lock, fcntl.LOCK_UN)
 
 
-def run_locked_build(out: str, cmd: List[str]) -> str:
+def run_locked_build(out: str, cmd: List[str], log: Optional[str] = None) -> str:
     """Run ``cmd`` to produce ``out`` unless it exists, holding a lock in
     ``out``'s directory so concurrent first users build once. The build's
-    output is shown only when it fails."""
+    output goes into the error raised when it fails, and into ``log`` (when
+    given) either way."""
     if os.path.exists(out):
         return out
     with _file_lock(os.path.join(os.path.dirname(out), ".build.lock")):
         if not os.path.exists(out):
             proc = subprocess.run(cmd, cwd=_REPO_ROOT, capture_output=True, text=True)
+            if log is not None:
+                with open(log, "w") as f:
+                    f.write(proc.stdout + proc.stderr)
             if proc.returncode != 0 or not os.path.exists(out):
                 raise RuntimeError(
                     f"build of {out} failed (rc={proc.returncode}):\n"
