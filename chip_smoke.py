@@ -25,7 +25,9 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    with bit-identical parameters.
 
 Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
-The native core and the kernels are built from the checkout on first use.
+The native core and the kernels are built from the checkout on first use;
+ptxas must report 0 spill bytes for each bf16 (wgmma) kernel of a fresh
+build.
 """
 
 from __future__ import annotations
@@ -119,6 +121,23 @@ def host_us_per_call(fn, calls: int = 200) -> float:
     elapsed = time.perf_counter() - t0
     torch.cuda.synchronize()
     return elapsed / calls * 1e6
+
+
+WGMMA_KERNELS = ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma")
+
+
+def check_no_spills(build_log: str) -> None:
+    """Each wgmma kernel's section of a ptxas -v log reports 0 spill bytes
+    (a spill of a wgmma accumulator serialises the tensor cores). An empty
+    log (a library built earlier) is not checked."""
+    if not build_log:
+        return
+    sections = build_log.split("Compiling entry function")[1:]
+    for name in WGMMA_KERNELS:
+        found = [sec for sec in sections if name in sec.splitlines()[0]]
+        check(len(found) == 1, f"ptxas log: no single entry for {name}")
+        check("0 bytes spill stores, 0 bytes spill loads" in found[0],
+              f"{name} spills registers")
 
 
 # ---------------------------------------------------------------------------
@@ -606,10 +625,11 @@ def main() -> None:
     # ptxas -v: each kernel's entry, registers and spills, and any warning
     # (a setmaxnreg that was ignored shows here)
     keep = ("entry function", "Used", "spill", "warning")
-    build_log = fa.build_log() or "(no build log: the library was built earlier)"
-    for line in build_log.splitlines():
+    build_log = fa.build_log()
+    for line in (build_log or "(no build log: the library was built earlier)").splitlines():
         if any(word in line for word in keep):
             log(f"ptxas | {line.strip()}")
+    check_no_spills(build_log)
 
     errs = phase_kernels()
     t, bounds, sdpa_fwd = phase_timing()

@@ -11,7 +11,11 @@ batch 8 x seq 1024, flash attention), and reports:
   commit vote, optimizer update;
 * a ``torch.profiler`` trace of 3 unsynchronised steps: device time by
   kernel (top 15), the flash kernels' share and each flash kernel's
-  device time per launch, and the device's busy share of the wall clock.
+  device time per launch, the device's busy share of the wall clock, and
+  the device time of each range named with ``record_function`` (AdamW's
+  step; ``flash_attention.delta``, the plain ops that compute the
+  backward's ``delta``). Those ranges also lie on the device's timeline,
+  spanning their kernels, and are left out of the kernel sums.
 """
 
 from __future__ import annotations
@@ -89,7 +93,9 @@ def main() -> None:
                 trainer.step(tokens)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        events = prof.events()
+        kernels = [e for e in events
+                   if e.device_type.name == "CUDA" and not e.is_user_annotation]
         by_name, launches = {}, {}
         for e in kernels:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
@@ -119,6 +125,16 @@ def main() -> None:
                 short = short.split("(")[0]
                 print(f"  {short}: {us / steps / 1e3:.3f} ms/step, {launches[name] // steps} "
                       f"launches/step, {us / launches[name] / 1e3:.4f} ms each")
+        # named ranges (record_function: AdamW's step, the backward's
+        # delta) lie on the device timeline too, spanning their kernels;
+        # left out of the sums above, each is reported by the device time
+        # of the kernels launched inside its host-side event
+        names = {e.name for e in events if e.device_type.name == "CUDA" and e.is_user_annotation}
+        for name in sorted(names):
+            hosts = [e for e in events if e.name == name and e.device_type.name == "CPU"]
+            us = sum(e.device_time_total for e in hosts)
+            print(f"range {name}: {us / steps / 1e3:.3f} ms/step, {len(hosts) // steps} "
+                  f"per step, {us / max(len(hosts), 1) / 1e3:.4f} ms each")
         print("top device ops (ms/step):")
         for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
             print(f"  {us / steps / 1e3:8.3f}  {name[:110]}")

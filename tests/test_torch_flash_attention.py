@@ -139,6 +139,9 @@ def test_kernel_wrappers_reject_cpu_tensors(call):
     "dtype,causal,bh,s",
     [
         (torch.bfloat16, True, 64, 256),
+        # the headline shape (B8 H8 S1024): K2's diagonal-first ring over 8
+        # key tiles per block at most
+        (torch.bfloat16, True, 64, 1024),
         (torch.float32, False, 64, 256),
         (torch.float32, True, 64, 256),
         # ragged: S not a multiple of the 128-row tiles
@@ -181,6 +184,8 @@ def test_kernels_match_plain_on_card(dtype, causal, bh, s):
     assert float((lse - lse_ref).abs().max()) <= 1e-4
     # deterministic: a second launch on the same inputs is bitwise equal
     o2, lse2 = fa.fwd_kernel(q, k, v, causal)
+    dq2 = fa.dq_kernel(q, k, v, do, lse, delta, causal)
     dk2, dv2 = fa.dkv_kernel(q, k, v, do, lse, delta, causal)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(got[0], dq2)
     assert torch.equal(got[1], dk2) and torch.equal(got[2], dv2)

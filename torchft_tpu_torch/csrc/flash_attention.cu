@@ -5,11 +5,10 @@
 //   K1 forward  <- _fwd_kernel  (lines 67-109, pallas_call at 115)
 //   K2 dQ       <- _dq_kernel   (lines 145-174, pallas_call at 219)
 //   K3 dK/dV    <- _dkv_kernel  (lines 177-210, pallas_call at 238)
-// bf16 K1 and K3: flash_fwd_wgmma and flash_dkv_wgmma (TMA, mbarriers,
-// wgmma; their notes below). bf16 K2 and every float32 kernel:
-// flash_dq_kernel, flash_fwd_kernel and flash_dkv_kernel (WMMA for bf16,
-// FMA loops for float32, which keep float32 exact enough for the parity
-// tests at the JAX bars).
+// bf16 is all wgmma: flash_fwd_wgmma, flash_dq_wgmma and flash_dkv_wgmma
+// (TMA, mbarriers, wgmma; their notes below). float32 is the FMA path,
+// flash_fwd_kernel, flash_dq_kernel and flash_dkv_kernel, kept because its
+// float32 products hold the parity tests at the JAX bars.
 //
 // Layout: q, k, v, o, dO, dQ, dK, dV are [BH, S, D] row-major; lse and
 // delta are [BH, S] float32 (the TPU's 8-sublane broadcast and 128-lane
@@ -23,11 +22,12 @@
 // q-tiles. Nothing crosses blocks, so there are no atomics and every
 // result is deterministic.
 //
-// WMMA / FMA kernels: a block has 4 warps; warp w owns rows [16w, 16w+16)
-// of a 64-row tile, for the matrix products and for the row-wise softmax,
-// so most steps need only a warp barrier. Score tiles and accumulators live
-// in shared memory in float32; tiles pass 48 KB, so shared memory is
-// dynamic (cudaFuncSetAttribute). They do not try to reach either bound.
+// FMA kernels (float32): a block has 4 warps; warp w owns rows
+// [16w, 16w+16) of a 64-row tile, for the matrix products and for the
+// row-wise softmax, so most steps need only a warp barrier. Tiles, score
+// tiles and accumulators live in shared memory; they pass 48 KB, so shared
+// memory is dynamic (cudaFuncSetAttribute). They do not try to reach
+// either bound.
 //
 // Numerics kept from the TPU kernels: mask value -1e30 where
 // k_pos > q_pos; blocks above the causal diagonal skipped
@@ -37,10 +37,8 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cstdint>
-#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -53,41 +51,10 @@ constexpr float kNegInf = -1e30f;
 
 using bf16 = __nv_bfloat16;
 
-// Shared-memory row strides (elements). bf16: a multiple of 8 for WMMA,
-// padded off 64 to spread banks; float32 accumulators: a multiple of 4
-// for WMMA. The float32-input path uses odd strides (no WMMA there).
-template <typename T>
-struct Layout;
-template <>
-struct Layout<bf16> {
-  static constexpr int kLdT = 72;
-  static constexpr int kLdF = 68;
-};
-template <>
-struct Layout<float> {
-  static constexpr int kLdT = 65;
-  static constexpr int kLdF = 65;
-};
-
-template <typename T>
-constexpr size_t tile_bytes() {
-  return sizeof(T) * kTile * Layout<T>::kLdT;
-}
-template <typename T>
-constexpr size_t ftile_bytes() {
-  return sizeof(float) * kTile * Layout<T>::kLdF;
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+// Shared-memory row stride (floats) of the FMA kernels' tiles: odd, so
+// that a warp reading a column touches 32 banks.
+constexpr int kLd = 65;
+constexpr size_t kTileBytes = sizeof(float) * kTile * kLd;
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -102,59 +69,17 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Copy one [kTile x kHeadDim] tile (global row stride kHeadDim) into
-// shared memory (row stride Layout<T>::kLdT). All threads take part.
-template <typename T>
-__device__ void load_tile(T* dst, const T* __restrict__ src) {
-  constexpr int ld = Layout<T>::kLdT;
-  if constexpr (std::is_same<T, bf16>::value) {
-    constexpr int kVec = 8;  // 16 bytes
-    for (int i = threadIdx.x; i < kTile * kHeadDim / kVec; i += kThreads) {
-      const int r = i / (kHeadDim / kVec), c = (i % (kHeadDim / kVec)) * kVec;
-      *reinterpret_cast<uint4*>(dst + r * ld + c) =
-          *reinterpret_cast<const uint4*>(src + r * kHeadDim + c);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kTile * kHeadDim; i += kThreads) {
-      const int r = i / kHeadDim, c = i % kHeadDim;
-      dst[r * ld + c] = src[r * kHeadDim + c];
-    }
+// shared memory (row stride kLd). All threads take part.
+__device__ void load_tile(float* dst, const float* __restrict__ src) {
+  for (int i = threadIdx.x; i < kTile * kHeadDim; i += kThreads) {
+    const int r = i / kHeadDim, c = i % kHeadDim;
+    dst[r * kLd + c] = src[r * kHeadDim + c];
   }
 }
 
 // The calling warp's stripe of a product: C[16 x 64] (+)= A[16 x K] B[K x 64].
 // A_T: A(m, k) is stored at A[k * lda + m] (a transposed operand);
-// B_T: B(k, n) is stored at B[n * ldb + k]. C is float32, row stride ldc.
-template <bool A_T, bool B_T>
-__device__ void warp_mm(const bf16* A, int lda, const bf16* B, int ldb, float* C,
-                        int ldc, int K, bool accumulate) {
-  using namespace nvcuda;
-  using LA = typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type;
-  using LB = typename std::conditional<B_T, wmma::col_major, wmma::row_major>::type;
-  __syncwarp();
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    if (accumulate)
-      wmma::load_matrix_sync(acc[n], C + 16 * n, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(acc[n], 0.0f);
-  }
-  for (int kk = 0; kk < K; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LA> a;
-    wmma::load_matrix_sync(a, A_T ? A + kk * lda : A + kk, lda);
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LB> b;
-      wmma::load_matrix_sync(b, B_T ? B + 16 * n * ldb + kk : B + kk * ldb + 16 * n, ldb);
-      wmma::mma_sync(acc[n], a, b, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-    wmma::store_matrix_sync(C + 16 * n, acc[n], ldc, wmma::mem_row_major);
-  __syncwarp();
-}
-
+// B_T: B(k, n) is stored at B[n * ldb + k]. Row stride of C: ldc.
 template <bool A_T, bool B_T>
 __device__ void warp_mm(const float* A, int lda, const float* B, int ldb, float* C,
                         int ldc, int K, bool accumulate) {
@@ -183,28 +108,27 @@ __device__ __forceinline__ float masked(float dot, float scale, int causal, int 
 }
 
 // ---------------------------------------------------------------------------
-// K1: forward. One block per (q-tile, bh); online softmax over k-tiles.
+// K1: forward, float32. One block per (q-tile, bh); online softmax over
+// k-tiles.
 // ---------------------------------------------------------------------------
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
+    flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int seq, float scale, int causal) {
-  constexpr int LT = Layout<T>::kLdT, LF = Layout<T>::kLdF;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + kTile * LT;
-  T* sV = sK + kTile * LT;
-  T* sP = sV + kTile * LT;
-  float* sS = reinterpret_cast<float*>(sP + kTile * LT);
-  float* sO = sS + kTile * LF;
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sK = sQ + kTile * kLd;
+  float* sV = sK + kTile * kLd;
+  float* sP = sV + kTile * kLd;
+  float* sS = sP + kTile * kLd;
+  float* sO = sS + kTile * kLd;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * 16;
   const int qi = blockIdx.x;
   const size_t base = static_cast<size_t>(blockIdx.y) * seq * kHeadDim;
 
   load_tile(sQ, q + base + static_cast<size_t>(qi) * kTile * kHeadDim);
-  for (int i = threadIdx.x; i < kTile * LF; i += kThreads) sO[i] = 0.0f;
+  for (int i = threadIdx.x; i < kTile * kLd; i += kThreads) sO[i] = 0.0f;
   float m[16], l[16];
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
@@ -218,55 +142,53 @@ __global__ void __launch_bounds__(kThreads)
     load_tile(sK, k + base + static_cast<size_t>(j) * kTile * kHeadDim);
     load_tile(sV, v + base + static_cast<size_t>(j) * kTile * kHeadDim);
     __syncthreads();
-    warp_mm<false, true>(sQ + r0 * LT, LT, sK, LT, sS + r0 * LF, LF, kHeadDim, false);
+    warp_mm<false, true>(sQ + r0 * kLd, kLd, sK, kLd, sS + r0 * kLd, kLd, kHeadDim, false);
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
       const int row = r0 + r, qp = qi * kTile + row;
-      const float s0 = masked(sS[row * LF + lane], scale, causal, qp, j * kTile + lane);
-      const float s1 = masked(sS[row * LF + lane + 32], scale, causal, qp, j * kTile + lane + 32);
+      const float s0 = masked(sS[row * kLd + lane], scale, causal, qp, j * kTile + lane);
+      const float s1 = masked(sS[row * kLd + lane + 32], scale, causal, qp, j * kTile + lane + 32);
       const float m_new = fmaxf(m[r], warp_max(fmaxf(s0, s1)));
       const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
       const float corr = expf(m[r] - m_new);
       l[r] = l[r] * corr + warp_sum(p0 + p1);
       m[r] = m_new;
-      sP[row * LT + lane] = from_f<T>(p0);
-      sP[row * LT + lane + 32] = from_f<T>(p1);
-      sO[row * LF + lane] *= corr;
-      sO[row * LF + lane + 32] *= corr;
+      sP[row * kLd + lane] = p0;
+      sP[row * kLd + lane + 32] = p1;
+      sO[row * kLd + lane] *= corr;
+      sO[row * kLd + lane + 32] *= corr;
     }
-    warp_mm<false, false>(sP + r0 * LT, LT, sV, LT, sO + r0 * LF, LF, kTile, true);
+    warp_mm<false, false>(sP + r0 * kLd, kLd, sV, kLd, sO + r0 * kLd, kLd, kTile, true);
   }
 
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
     const int row = r0 + r;
     const float lr = fmaxf(l[r], 1e-30f);
-    T* orow = o + base + static_cast<size_t>(qi * kTile + row) * kHeadDim;
-    orow[lane] = from_f<T>(sO[row * LF + lane] / lr);
-    orow[lane + 32] = from_f<T>(sO[row * LF + lane + 32] / lr);
+    float* orow = o + base + static_cast<size_t>(qi * kTile + row) * kHeadDim;
+    orow[lane] = sO[row * kLd + lane] / lr;
+    orow[lane + 32] = sO[row * kLd + lane + 32] / lr;
     if (lane == 0) lse[static_cast<size_t>(blockIdx.y) * seq + qi * kTile + row] = m[r] + logf(lr);
   }
 }
 
 // ---------------------------------------------------------------------------
-// K2: dQ. One block per (q-tile, bh); loops over k-tiles.
+// K2: dQ, float32. One block per (q-tile, bh); loops over k-tiles.
 // ---------------------------------------------------------------------------
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int seq, float scale, int causal) {
-  constexpr int LT = Layout<T>::kLdT, LF = Layout<T>::kLdF;
+                    float* __restrict__ dq, int seq, float scale, int causal) {
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sDO = sQ + kTile * LT;
-  T* sK = sDO + kTile * LT;
-  T* sV = sK + kTile * LT;
-  T* sDS = sV + kTile * LT;
-  float* sS = reinterpret_cast<float*>(sDS + kTile * LT);
-  float* sDP = sS + kTile * LF;
-  float* sAcc = sDP + kTile * LF;
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sDO = sQ + kTile * kLd;
+  float* sK = sDO + kTile * kLd;
+  float* sV = sK + kTile * kLd;
+  float* sDS = sV + kTile * kLd;
+  float* sS = sDS + kTile * kLd;
+  float* sDP = sS + kTile * kLd;
+  float* sAcc = sDP + kTile * kLd;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * 16;
   const int qi = blockIdx.x;
@@ -275,7 +197,7 @@ __global__ void __launch_bounds__(kThreads)
 
   load_tile(sQ, q + base + static_cast<size_t>(qi) * kTile * kHeadDim);
   load_tile(sDO, dout + base + static_cast<size_t>(qi) * kTile * kHeadDim);
-  for (int i = threadIdx.x; i < kTile * LF; i += kThreads) sAcc[i] = 0.0f;
+  for (int i = threadIdx.x; i < kTile * kLd; i += kThreads) sAcc[i] = 0.0f;
   float lse_r[16], delta_r[16];
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
@@ -289,54 +211,51 @@ __global__ void __launch_bounds__(kThreads)
     load_tile(sK, k + base + static_cast<size_t>(j) * kTile * kHeadDim);
     load_tile(sV, v + base + static_cast<size_t>(j) * kTile * kHeadDim);
     __syncthreads();
-    warp_mm<false, true>(sQ + r0 * LT, LT, sK, LT, sS + r0 * LF, LF, kHeadDim, false);
-    warp_mm<false, true>(sDO + r0 * LT, LT, sV, LT, sDP + r0 * LF, LF, kHeadDim, false);
+    warp_mm<false, true>(sQ + r0 * kLd, kLd, sK, kLd, sS + r0 * kLd, kLd, kHeadDim, false);
+    warp_mm<false, true>(sDO + r0 * kLd, kLd, sV, kLd, sDP + r0 * kLd, kLd, kHeadDim, false);
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
       const int row = r0 + r, qp = qi * kTile + row;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int c = lane + 32 * h;
-        const float s = masked(sS[row * LF + c], scale, causal, qp, j * kTile + c);
+        const float s = masked(sS[row * kLd + c], scale, causal, qp, j * kTile + c);
         const float p = expf(s - lse_r[r]);
-        const float ds = p * (sDP[row * LF + c] - delta_r[r]) * scale;
-        sDS[row * LT + c] = from_f<T>(ds);
+        sDS[row * kLd + c] = p * (sDP[row * kLd + c] - delta_r[r]) * scale;
       }
     }
-    warp_mm<false, false>(sDS + r0 * LT, LT, sK, LT, sAcc + r0 * LF, LF, kTile, true);
+    warp_mm<false, false>(sDS + r0 * kLd, kLd, sK, kLd, sAcc + r0 * kLd, kLd, kTile, true);
   }
 
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
     const int row = r0 + r;
-    T* out = dq + base + static_cast<size_t>(qi * kTile + row) * kHeadDim;
-    out[lane] = from_f<T>(sAcc[row * LF + lane]);
-    out[lane + 32] = from_f<T>(sAcc[row * LF + lane + 32]);
+    float* out = dq + base + static_cast<size_t>(qi * kTile + row) * kHeadDim;
+    out[lane] = sAcc[row * kLd + lane];
+    out[lane + 32] = sAcc[row * kLd + lane + 32];
   }
 }
 
 // ---------------------------------------------------------------------------
-// K3: dK and dV. One block per (k-tile, bh); loops over q-tiles.
+// K3: dK and dV, float32. One block per (k-tile, bh); loops over q-tiles.
 // ---------------------------------------------------------------------------
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+    flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk, T* __restrict__ dv, int seq, float scale,
+                     float* __restrict__ dk, float* __restrict__ dv, int seq, float scale,
                      int causal) {
-  constexpr int LT = Layout<T>::kLdT, LF = Layout<T>::kLdF;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);
-  T* sV = sK + kTile * LT;
-  T* sQ = sV + kTile * LT;
-  T* sDO = sQ + kTile * LT;
-  T* sP = sDO + kTile * LT;
-  T* sDS = sP + kTile * LT;
-  float* sS = reinterpret_cast<float*>(sDS + kTile * LT);
-  float* sDP = sS + kTile * LF;
-  float* sDK = sDP + kTile * LF;
-  float* sDV = sDK + kTile * LF;
+  float* sK = reinterpret_cast<float*>(smem);
+  float* sV = sK + kTile * kLd;
+  float* sQ = sV + kTile * kLd;
+  float* sDO = sQ + kTile * kLd;
+  float* sP = sDO + kTile * kLd;
+  float* sDS = sP + kTile * kLd;
+  float* sS = sDS + kTile * kLd;
+  float* sDP = sS + kTile * kLd;
+  float* sDK = sDP + kTile * kLd;
+  float* sDV = sDK + kTile * kLd;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * 16;
   const int kj = blockIdx.x;
@@ -344,7 +263,7 @@ __global__ void __launch_bounds__(kThreads)
 
   load_tile(sK, k + base + static_cast<size_t>(kj) * kTile * kHeadDim);
   load_tile(sV, v + base + static_cast<size_t>(kj) * kTile * kHeadDim);
-  for (int i = threadIdx.x; i < kTile * LF; i += kThreads) {
+  for (int i = threadIdx.x; i < kTile * kLd; i += kThreads) {
     sDK[i] = 0.0f;
     sDV[i] = 0.0f;
   }
@@ -356,8 +275,8 @@ __global__ void __launch_bounds__(kThreads)
     load_tile(sDO, dout + base + static_cast<size_t>(i) * kTile * kHeadDim);
     __syncthreads();
     // warp w: q rows [r0, r0+16) of this q-tile
-    warp_mm<false, true>(sQ + r0 * LT, LT, sK, LT, sS + r0 * LF, LF, kHeadDim, false);
-    warp_mm<false, true>(sDO + r0 * LT, LT, sV, LT, sDP + r0 * LF, LF, kHeadDim, false);
+    warp_mm<false, true>(sQ + r0 * kLd, kLd, sK, kLd, sS + r0 * kLd, kLd, kHeadDim, false);
+    warp_mm<false, true>(sDO + r0 * kLd, kLd, sV, kLd, sDP + r0 * kLd, kLd, kHeadDim, false);
     const size_t rbase = static_cast<size_t>(blockIdx.y) * seq + i * kTile + r0;
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
@@ -366,32 +285,31 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int c = lane + 32 * h;
-        const float s = masked(sS[row * LF + c], scale, causal, qp, kj * kTile + c);
+        const float s = masked(sS[row * kLd + c], scale, causal, qp, kj * kTile + c);
         const float p = expf(s - lse_r);
-        const float ds = p * (sDP[row * LF + c] - delta_r) * scale;
-        sP[row * LT + c] = from_f<T>(p);
-        sDS[row * LT + c] = from_f<T>(ds);
+        sP[row * kLd + c] = p;
+        sDS[row * kLd + c] = p * (sDP[row * kLd + c] - delta_r) * scale;
       }
     }
     __syncthreads();  // P and dS of all q rows are in place
     // warp w: k rows [r0, r0+16): dV += P^T dO, dK += dS^T Q
-    warp_mm<true, false>(sP + r0, LT, sDO, LT, sDV + r0 * LF, LF, kTile, true);
-    warp_mm<true, false>(sDS + r0, LT, sQ, LT, sDK + r0 * LF, LF, kTile, true);
+    warp_mm<true, false>(sP + r0, kLd, sDO, kLd, sDV + r0 * kLd, kLd, kTile, true);
+    warp_mm<true, false>(sDS + r0, kLd, sQ, kLd, sDK + r0 * kLd, kLd, kTile, true);
   }
 
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
     const int row = r0 + r;
     const size_t off = base + static_cast<size_t>(kj * kTile + row) * kHeadDim;
-    dk[off + lane] = from_f<T>(sDK[row * LF + lane]);
-    dk[off + lane + 32] = from_f<T>(sDK[row * LF + lane + 32]);
-    dv[off + lane] = from_f<T>(sDV[row * LF + lane]);
-    dv[off + lane + 32] = from_f<T>(sDV[row * LF + lane + 32]);
+    dk[off + lane] = sDK[row * kLd + lane];
+    dk[off + lane + 32] = sDK[row * kLd + lane + 32];
+    dv[off + lane] = sDV[row * kLd + lane];
+    dv[off + lane + 32] = sDV[row * kLd + lane + 32];
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16 K1 and K3 for Hopper: TMA, mbarriers and wgmma, warp-specialised.
+// bf16 K1, K2 and K3 for Hopper: TMA, mbarriers and wgmma, warp-specialised.
 //
 // A block is three warpgroups. Warpgroup 0 is the producer: it gives up its
 // registers (setmaxnreg) and one of its threads keeps a ring of
@@ -409,7 +327,8 @@ __global__ void __launch_bounds__(kThreads)
 // 4c + 2 + e the second row's. Row sums therefore reduce over the 4 lanes
 // of a quad (shuffles xor 1 and 2), and registers 8kk..8kk+7, rounded to
 // bf16 in pairs, are exactly the A fragment of the k16 step kk of a
-// product with this accumulator as its left operand (P.V, P^T.dO, dS^T.Q).
+// product with this accumulator as its left operand (P.V, dS.K, P^T.dO,
+// dS^T.Q).
 //
 // Determinism: every output element is computed by one block in a fixed
 // order, with no split over keys and no atomics.
@@ -630,6 +549,189 @@ __global__ void __launch_bounds__(kHThreads, 1)
       float* out = lse + static_cast<size_t>(bh) * seq;
       if (qrow < seq) out[qrow] = m0 * kLn2 + logf(l0);
       if (qrow + 8 < seq) out[qrow + 8] = m1 * kLn2 + logf(l1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2 dQ, bf16. Replaces _dq_kernel, torchft_tpu/ops/pallas/
+// flash_attention.py:145 (pallas_call at :219).
+//
+// Bound at the headline shapes: 12.9 GFLOP of causal products (three per
+// (q, k) pair), 0.0130 ms at 989 TFLOP/s, over 42.5 MB (0.0127 ms): the
+// two are close. The design is K1's: one block per (bh, 128-row q-tile),
+// the heaviest first; Q and dO loaded once; K and V streamed by TMA
+// through a two-stage ring from the diagonal down (tiles above it are
+// never loaded). Each consumer (64 query rows) takes a stage's 128 keys
+// in two halves of 64 (the registers of a whole stage's S, dP and dQ
+// spill) and skips a half that lies past seq or, under the causal mask,
+// past all of its rows. Per half it computes S = Q.K^T and dP = dO.V^T on
+// wgmma (m64n64, both operands K-major), then
+// P = exp2(S.scale.log2(e) - lse.log2(e)) and dS = P (dP - delta) scale in
+// registers, with lse and delta of its two rows held for the whole loop;
+// dS is rounded to bf16 and packed straight into the A fragments of
+// dQ += dS.K, which reads K MN-major from the same stage (the layout K1
+// uses for V). Neither S, dP, dS nor dQ touches shared memory until dQ
+// leaves through the warpgroup's own Q rows and a TMA store. Only the
+// first tile visited (the diagonal, or the ragged last one) is masked.
+// No split over keys and no atomics: dQ is bitwise reproducible.
+// ---------------------------------------------------------------------------
+
+struct DqSmem {
+  alignas(1024) bf16 q[2 * kBoxElems];  // rows 0-63: consumer 0, 64-127: consumer 1
+  alignas(1024) bf16 dout[2 * kBoxElems];
+  alignas(1024) bf16 k[kStages][2 * kBoxElems];
+  alignas(1024) bf16 v[kStages][2 * kBoxElems];
+  uint64_t qdo_full;
+  uint64_t kv_full[kStages];
+  uint64_t kv_empty[kStages];
+};
+
+__global__ void __launch_bounds__(kHThreads, 1)
+    flash_dq_wgmma(const __grid_constant__ CUtensorMap map_q,
+                   const __grid_constant__ CUtensorMap map_k,
+                   const __grid_constant__ CUtensorMap map_v,
+                   const __grid_constant__ CUtensorMap map_do,
+                   const __grid_constant__ CUtensorMap map_dq,
+                   const float* __restrict__ lse, const float* __restrict__ delta, int seq,
+                   float scale, float scale_log2, int causal) {
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  DqSmem& sm = aligned_smem<DqSmem>(smem_raw);
+  const int bh = blockIdx.x;
+  const int ntiles = (seq + 127) / 128;
+  const int qi = ntiles - 1 - static_cast<int>(blockIdx.y);  // heaviest first
+  const int nk = causal ? qi + 1 : ntiles;                   // key tiles to visit
+  const int wg = threadIdx.x / kWg;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.qdo_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.kv_full[s], 1);
+      mbar_init(&sm.kv_empty[s], 2 * kWg);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    // ---- producer: Q and dO once, then K/V tiles from the diagonal down ----
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      tma_prefetch(&map_q);
+      tma_prefetch(&map_do);
+      tma_prefetch(&map_k);
+      tma_prefetch(&map_v);
+      mbar_expect_tx(&sm.qdo_full, 4 * kBoxBytes);
+      tma_load(sm.q, &map_q, qi * 128, bh, &sm.qdo_full);
+      tma_load(sm.q + kBoxElems, &map_q, qi * 128 + kBox, bh, &sm.qdo_full);
+      tma_load(sm.dout, &map_do, qi * 128, bh, &sm.qdo_full);
+      tma_load(sm.dout + kBoxElems, &map_do, qi * 128 + kBox, bh, &sm.qdo_full);
+      for (int it = 0; it < nk; ++it) {
+        const int j = nk - 1 - it, st = it % kStages;
+        mbar_wait(&sm.kv_empty[st], ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(&sm.kv_full[st], 4 * kBoxBytes);
+        tma_load(sm.k[st], &map_k, j * 128, bh, &sm.kv_full[st]);
+        tma_load(sm.k[st] + kBoxElems, &map_k, j * 128 + kBox, bh, &sm.kv_full[st]);
+        tma_load(sm.v[st], &map_v, j * 128, bh, &sm.kv_full[st]);
+        tma_load(sm.v[st] + kBoxElems, &map_v, j * 128 + kBox, bh, &sm.kv_full[st]);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    regs_alloc<kConsumerRegs>();
+    const int cw = wg - 1, tid = threadIdx.x % kWg;
+    const int warp = tid / 32, lane = tid % 32, t = lane % 4;
+    const int r0 = warp * 16 + lane / 4;          // rows r0 and r0 + 8 of the 64
+    const int qrow = qi * 128 + cw * kBox + r0;   // sequence position of row r0
+    bf16* q_half = sm.q + cw * kBoxElems;
+    const uint64_t q_desc = desc_sw128(q_half);
+    const uint64_t do_desc = desc_sw128(sm.dout + cw * kBoxElems);
+
+    // lse (log2 domain) and delta of the thread's two rows; rows past seq
+    // are not read (their Q and dO rows are zero-filled and their dQ rows
+    // are dropped by the store)
+    const float* lse_bh = lse + static_cast<size_t>(bh) * seq;
+    const float* delta_bh = delta + static_cast<size_t>(bh) * seq;
+    const float lse0 = qrow < seq ? lse_bh[qrow] * kLog2e : 0.0f;
+    const float lse1 = qrow + 8 < seq ? lse_bh[qrow + 8] * kLog2e : 0.0f;
+    const float dl0 = qrow < seq ? delta_bh[qrow] : 0.0f;
+    const float dl1 = qrow + 8 < seq ? delta_bh[qrow + 8] : 0.0f;
+
+    float dq[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[i] = 0.0f;
+
+    mbar_wait(&sm.qdo_full, 0);
+    for (int it = 0; it < nk; ++it) {
+      const int j = nk - 1 - it, st = it % kStages;
+      mbar_wait(&sm.kv_full[st], (it / kStages) & 1);
+      const bool mask = it == 0 && (causal || (j + 1) * 128 > seq);
+
+      // the stage's 128 keys in two halves of 64: S, dP and dQ of a whole
+      // stage (160 accumulator registers) do not fit ptxas' 168 without
+      // spills; a half needs 96
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int key0 = j * 128 + h * kBox;  // first key of the half
+        // every key past seq, or past every query row of this consumer
+        if (key0 >= seq || (causal && key0 > qi * 128 + cw * kBox + kBox - 1)) continue;
+        const uint64_t k_desc = desc_sw128(sm.k[st] + h * kBoxElems);
+        const uint64_t v_desc = desc_sw128(sm.v[st] + h * kBoxElems);
+        float s[32], dp[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_ss_m64n64(s, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_ss_m64n64(dp, do_desc + 2 * kk, v_desc + 2 * kk, kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // dS = exp2(s.scale.log2(e) - lse.log2(e)) (dP - delta) scale,
+        // rounded to bf16 in pairs: the A fragments of dS.K; the first
+        // tile visited is masked (keys past seq, and past the query under
+        // the causal mask)
+        uint32_t da[4][4];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          float d[4];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float a = s[4 * c + e] * scale_log2, b = s[4 * c + 2 + e] * scale_log2;
+            if (mask) {
+              const int col = key0 + 8 * c + 2 * t + e;
+              if (col >= seq || (causal && col > qrow)) a = kNegInf;
+              if (col >= seq || (causal && col > qrow + 8)) b = kNegInf;
+            }
+            d[e] = exp2f(a - lse0) * (dp[4 * c + e] - dl0) * scale;
+            d[2 + e] = exp2f(b - lse1) * (dp[4 * c + 2 + e] - dl1) * scale;
+          }
+          da[c / 2][(c % 2) * 2] = pack_bf16(d[0], d[1]);
+          da[c / 2][(c % 2) * 2 + 1] = pack_bf16(d[2], d[3]);
+        }
+
+        fence_regs(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs_m64n64_tb(dq, da[kk], k_desc + 128 * kk, 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq);
+      }
+      mbar_arrive(&sm.kv_empty[st]);
+    }
+
+    // ---- epilogue: dQ through this warpgroup's Q rows (no longer read)
+    // and a TMA store, which drops rows past seq ----
+    warpgroup_sync(1 + cw);
+    stage_tile(q_half, dq, 1.0f, 1.0f, r0);
+    fence_async_smem();
+    warpgroup_sync(1 + cw);
+    if (tid == 0) {
+      tma_store(&map_dq, q_half, qi * 128 + cw * kBox, bh);
+      tma_store_wait();
     }
   }
 }
@@ -882,6 +984,25 @@ int fwd_hopper(const void* q, const void* k, const void* v, void* o, float* lse,
   return cudaGetLastError();
 }
 
+int dq_hopper(const void* q, const void* k, const void* v, const void* dout,
+              const float* lse, const float* delta, void* dqp, int bh, int seq, float scale,
+              int causal, cudaStream_t stream) {
+  static bool ready = false;
+  const size_t smem = sizeof(DqSmem) + 1024;
+  cudaError_t err = allow_smem(flash_dq_wgmma, smem, &ready);
+  if (err != cudaSuccess) return err;
+  CUtensorMap mq, mk, mv, mdo, mdq;
+  if ((err = tensor_map(&mq, q, bh, seq)) != cudaSuccess ||
+      (err = tensor_map(&mk, k, bh, seq)) != cudaSuccess ||
+      (err = tensor_map(&mv, v, bh, seq)) != cudaSuccess ||
+      (err = tensor_map(&mdo, dout, bh, seq)) != cudaSuccess ||
+      (err = tensor_map(&mdq, dqp, bh, seq)) != cudaSuccess)
+    return err;
+  flash_dq_wgmma<<<dim3(bh, (seq + 127) / 128), kHThreads, smem, stream>>>(
+      mq, mk, mv, mdo, mdq, lse, delta, seq, scale, scale * kLog2eHost, causal);
+  return cudaGetLastError();
+}
+
 int dkv_hopper(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dkp, void* dvp, int bh, int seq,
                float scale, int causal, cudaStream_t stream) {
@@ -902,45 +1023,43 @@ int dkv_hopper(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
-template <typename T>
-int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
-        int seq, float scale, int causal, cudaStream_t stream) {
+int fwd_f32(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
+            int seq, float scale, int causal, cudaStream_t stream) {
   static bool ready = false;
-  const size_t smem = 4 * tile_bytes<T>() + 2 * ftile_bytes<T>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<T>, smem, &ready);
+  const size_t smem = 6 * kTileBytes;
+  cudaError_t err = allow_smem(flash_fwd_kernel, smem, &ready);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T><<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, seq, scale, causal);
+  flash_fwd_kernel<<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, seq, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-int dq(const void* q, const void* k, const void* v, const void* dout,
-       const float* lse, const float* delta, void* dqp, int bh, int seq, float scale,
-       int causal, cudaStream_t stream) {
+int dq_f32(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+           const float* delta, void* dqp, int bh, int seq, float scale, int causal,
+           cudaStream_t stream) {
   static bool ready = false;
-  const size_t smem = 5 * tile_bytes<T>() + 3 * ftile_bytes<T>();
-  cudaError_t err = allow_smem(flash_dq_kernel<T>, smem, &ready);
+  const size_t smem = 8 * kTileBytes;
+  cudaError_t err = allow_smem(flash_dq_kernel, smem, &ready);
   if (err != cudaSuccess) return err;
-  flash_dq_kernel<T><<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dqp), seq, scale, causal);
+  flash_dq_kernel<<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dqp), seq, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
-int dkv(const void* q, const void* k, const void* v, const void* dout,
-        const float* lse, const float* delta, void* dkp, void* dvp, int bh, int seq,
-        float scale, int causal, cudaStream_t stream) {
+int dkv_f32(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+            const float* delta, void* dkp, void* dvp, int bh, int seq, float scale,
+            int causal, cudaStream_t stream) {
   static bool ready = false;
-  const size_t smem = 6 * tile_bytes<T>() + 4 * ftile_bytes<T>();
-  cudaError_t err = allow_smem(flash_dkv_kernel<T>, smem, &ready);
+  const size_t smem = 10 * kTileBytes;
+  cudaError_t err = allow_smem(flash_dkv_kernel, smem, &ready);
   if (err != cudaSuccess) return err;
-  flash_dkv_kernel<T><<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dkp),
-      static_cast<T*>(dvp), seq, scale, causal);
+  flash_dkv_kernel<<<dim3(seq / kTile, bh), kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse, delta,
+      static_cast<float*>(dkp), static_cast<float*>(dvp), seq, scale, causal);
   return cudaGetLastError();
 }
 
@@ -955,7 +1074,7 @@ int tft_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* 
                   void* stream) {
   if (!shape_ok(bh, seq, d)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return fwd<float>(q, k, v, o, lse, bh, seq, scale, causal, st);
+  if (dtype == 0) return fwd_f32(q, k, v, o, lse, bh, seq, scale, causal, st);
   if (dtype == 1) return fwd_hopper(q, k, v, o, lse, bh, seq, scale, causal, st);
   return cudaErrorInvalidValue;
 }
@@ -965,8 +1084,9 @@ int tft_flash_dq(int dtype, const void* q, const void* k, const void* v,
                  int bh, int seq, int d, float scale, int causal, void* stream) {
   if (!shape_ok(bh, seq, d)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dq<float>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
-  if (dtype == 1) return dq<bf16>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
+  if (dtype == 0) return dq_f32(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
+  if (dtype == 1)
+    return dq_hopper(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
   return cudaErrorInvalidValue;
 }
 
@@ -977,7 +1097,7 @@ int tft_flash_dkv(int dtype, const void* q, const void* k, const void* v,
   if (!shape_ok(bh, seq, d)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dkv<float>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
+    return dkv_f32(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
   if (dtype == 1)
     return dkv_hopper(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
   return cudaErrorInvalidValue;

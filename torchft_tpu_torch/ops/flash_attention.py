@@ -321,8 +321,10 @@ class _Flash(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         do = do.contiguous()
         # delta = rowsum(dO * O): a plain reduction outside the kernels,
-        # as in the JAX backward
-        delta = (do.float() * o.float()).sum(dim=-1)
+        # as in the JAX backward; the named range lets a profile report
+        # its device time (scripts/torch_step_profile.py)
+        with torch.profiler.record_function("flash_attention.delta"):
+            delta = (do.float() * o.float()).sum(dim=-1)
         dq = dq_kernel(q, k, v, do, lse, delta, ctx.causal)
         dk, dv = dkv_kernel(q, k, v, do, lse, delta, ctx.causal)
         return dq, dk, dv, None
