@@ -23,6 +23,18 @@ Phases, each of which either passes or ends the run with a non-zero exit:
 5. two replica groups as threads on the card: the second joins late,
    heals from the first over HTTP, both commit 3 steps together and end
    with bit-identical parameters.
+6. DiLoCo, two groups as threads at the headline size: sync quorum, 8
+   inner AdamW steps per sync, outer SGD(0.7, momentum 0.9, Nesterov).
+   The second group joins after the first one's first committed sync,
+   heals at its first sync quorum, and both run 2 more syncs together;
+   both end with one params sha256 and one outer-momentum sha256, and the
+   last joint sync's new backup and momentum are held against a plain
+   recomputation of the outer step from both groups' tensors.
+7. the pipelined commit against the synchronous one: two groups (one
+   driving FTTrainer, one ManagedOptimizer) take 6 steps from one seed,
+   once with each commit; both vote False at step 3 (a fault injected
+   at the vote), so the pipelined run rolls a speculative update back and
+   replays its batch. Both runs end at step 5 with one params sha256.
 
 Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 The native core and the kernels are built from the checkout on first use;
@@ -435,8 +447,9 @@ def make_tokens(cfg, seed, batch, seq):
     return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq))).to("cuda")
 
 
-def make_manager(lighthouse_addr, store, replica_id):
-    """The headline loop's Manager: CollectivesTcp and the HTTP heal."""
+def make_manager(lighthouse_addr, store, replica_id, **kwargs):
+    """The headline loop's Manager: CollectivesTcp and the HTTP heal;
+    ``kwargs`` go to the Manager (``use_async_quorum``, ``commit_pipeline``)."""
     from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
     from torchft_tpu_torch.collectives import CollectivesTcp
     from torchft_tpu_torch.manager import Manager
@@ -454,6 +467,7 @@ def make_manager(lighthouse_addr, store, replica_id):
         lighthouse_addr=lighthouse_addr,
         timeout=timeout,
         checkpoint_transport=HTTPTransport(timeout=timeout),
+        **kwargs,
     )
 
 
@@ -530,56 +544,48 @@ def phase_two_groups(together: int = 3):
     batch, seq = HEADLINE["batch"], HEADLINE["seq"]
     lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
     first_commit = threading.Event()
-    results = {}
-    errors = []
     calls = {0: 0, 1: 0}  # trainer.step calls per group
 
-    def group(gid: int) -> None:
+    def group(gid: int):
         try:
-            if gid == 1:
-                if not first_commit.wait(timeout=600):
-                    raise TimeoutError("group 0 never committed")
-            store = StoreServer()
-            manager = make_manager(lighthouse.address(), store, f"group{gid}")
-            try:
-                trainer = FTTrainer(manager, TrainStep(cfg, device="cuda"))
-                trainer.init(seed=100 + gid)  # different inits: the heal must matter
-                tokens = make_tokens(cfg, 10 + gid, batch, seq)
-                joint = healed_at = 0
-                while joint < together:
-                    step_before = manager.current_step()
-                    loss, committed = trainer.step(tokens)
-                    calls[gid] += 1
-                    if gid == 1 and manager.current_step() > step_before + 1:
-                        healed_at = manager.current_step()
-                    if committed and manager.num_participants() == 2:
-                        joint += 1
-                    if gid == 0 and committed:
-                        first_commit.set()
-                    log(f"group{gid}: step={manager.current_step()} loss={loss:.5f} "
-                        f"committed={committed} participants={manager.num_participants()}")
-                torch.cuda.synchronize()
-                results[gid] = (manager.current_step(), _param_digest(trainer.params),
-                                healed_at)
-            finally:
-                manager.shutdown(wait=False)
-                store.shutdown()
-        except Exception as e:  # noqa: BLE001 — reported by the main thread
+            if gid == 1 and not first_commit.wait(timeout=600):
+                raise TimeoutError("group 0 never committed")
+            return member(gid)
+        finally:
             first_commit.set()
-            errors.append(f"group{gid}: {e!r}")
 
-    threads = [threading.Thread(target=group, args=(g,)) for g in (0, 1)]
+    def member(gid: int):
+        store = StoreServer()
+        manager = make_manager(lighthouse.address(), store, f"group{gid}")
+        try:
+            trainer = FTTrainer(manager, TrainStep(cfg, device="cuda"))
+            trainer.init(seed=100 + gid)  # different inits: the heal must matter
+            tokens = make_tokens(cfg, 10 + gid, batch, seq)
+            joint = healed_at = 0
+            while joint < together:
+                step_before = manager.current_step()
+                loss, committed = trainer.step(tokens)
+                calls[gid] += 1
+                if gid == 1 and manager.current_step() > step_before + 1:
+                    healed_at = manager.current_step()
+                if committed and manager.num_participants() == 2:
+                    joint += 1
+                if gid == 0 and committed:
+                    first_commit.set()
+                log(f"group{gid}: step={manager.current_step()} loss={loss:.5f} "
+                    f"committed={committed} participants={manager.num_participants()}")
+            torch.cuda.synchronize()
+            return manager.current_step(), _param_digest(trainer.params), healed_at
+        finally:
+            manager.shutdown(wait=False)
+            store.shutdown()
+
     torch.cuda.synchronize()
     fa.reset_launches()
     try:
-        for th in threads:
-            th.start()
-        for th in threads:
-            th.join(timeout=900)
+        results = _run_threads(group, "two-group phase")
     finally:
         lighthouse.shutdown()
-    check(not errors, f"two-group phase failed: {errors}")
-    check(all(not th.is_alive() for th in threads), "two-group phase hung")
     (s0, d0, _), (s1, d1, healed_at) = results[0], results[1]
     log(f"group0 step={s0} checksum={d0}")
     log(f"group1 step={s1} checksum={d1} (healed to step {healed_at})")
@@ -590,6 +596,408 @@ def phase_two_groups(together: int = 3):
     expect = {n: c * (calls[0] + calls[1]) for n, c in _launches_per_step(cfg).items()}
     log(f"two groups: {calls[0]} + {calls[1]} steps, kernel launches {launches}")
     check(launches == expect, f"two-group launches {launches} != {expect}")
+
+
+def _run_threads(target, what, timeout=900):
+    """Run ``target(gid)`` for groups 0 and 1 on threads; fail on an error
+    or a hang. Returns {gid: result}."""
+    results, errors = {}, []
+
+    def wrap(gid):
+        try:
+            results[gid] = target(gid)
+        except Exception as e:  # noqa: BLE001 — reported by the main thread
+            errors.append(f"group{gid}: {e!r}")
+
+    threads = [threading.Thread(target=wrap, args=(g,)) for g in (0, 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=timeout)
+    check(not errors, f"{what} failed: {errors}")
+    check(all(not th.is_alive() for th in threads), f"{what} hung")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 6 / 7: DiLoCo and the pipelined commit
+# ---------------------------------------------------------------------------
+
+
+def _time_quorums(manager, out):
+    """Record the wall ms of every ``start_quorum`` (with sync quorum: the
+    wait for the other groups and a heal's transfer and apply)."""
+    start = manager.start_quorum
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        start(*args, **kwargs)
+        out.append((time.perf_counter() - t0) * 1e3)
+
+    manager.start_quorum = timed
+
+
+def _fail_vote_at(manager, step):
+    """Fault injection at the commit vote: latch an error on this group
+    just before its vote of ``step`` (once), so the group votes False."""
+    prepare = manager._prepare_commit
+    fired = []
+
+    def faulty():
+        if manager.current_step() == step and not fired:
+            fired.append(step)
+            manager.report_error(RuntimeError(f"injected fault at the vote of step {step}"))
+        return prepare()
+
+    manager._prepare_commit = faulty
+
+
+def _tensor_digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+SYNC_EVERY = 8  # examples/train_diloco.py's default
+
+
+def _time_heal(manager, heal):
+    """Record the wall ms of the heal's checkpoint fetch and the bytes of
+    the tensors it received."""
+    from torchft_tpu_torch.utils.tree import tree_leaves
+
+    transport = manager._checkpoint_transport
+    recv = transport.recv_checkpoint
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        state = recv(*args, **kwargs)
+        heal["get_ms"] = (time.perf_counter() - t0) * 1e3
+        heal["bytes"] = sum(x.nbytes for x in tree_leaves(state)
+                            if isinstance(x, (torch.Tensor, np.ndarray)))
+        return state
+
+    transport.recv_checkpoint = timed
+
+
+def _outer_tensors(diloco):
+    """The backup tensors and their outer momentum buffers (None before the
+    first outer step), in the outer optimizer's order."""
+    opt = diloco.outer_optimizer
+    backup = opt.param_groups[0]["params"]
+    return backup, [opt.state.get(p, {}).get("momentum_buffer") for p in backup]
+
+
+def _keep_joint_sync(diloco, manager, out):
+    """Keep copies of the last committed joint sync's inputs and results in
+    ``out``: the backup, the local params, the outer momentum before it, and
+    the backup and momentum after it."""
+    from torchft_tpu_torch.utils.tree import tree_leaves
+
+    perform = diloco._perform_sync
+
+    def kept(params):
+        def copy(ts):
+            return [None if t is None else t.detach().clone() for t in ts]
+
+        backup, momentum = _outer_tensors(diloco)
+        before = dict(backup=copy(backup), local=copy(tree_leaves(params)),
+                      momentum=copy(momentum))
+        committed = perform(params)
+        if committed and manager.num_participants() == 2:
+            backup, momentum = _outer_tensors(diloco)
+            out.update(before, new_backup=copy(backup), new_momentum=copy(momentum))
+        return committed
+
+    diloco._perform_sync = kept
+
+
+# the plain outer step is held to the port's within this (float32; the
+# pseudogradient average is the same IEEE sum and division on both sides,
+# and SGD's fused a + alpha*b may round once where the plain one rounds
+# twice)
+OUTER_RTOL, OUTER_ATOL = 1e-6, 1e-9
+
+
+def _hold_outer_step(kept, lr=0.7, momentum=0.9):
+    """Recompute the last joint sync's outer step plainly from both groups'
+    kept tensors: g = mean over groups of (backup - local), buf = momentum *
+    buf + g (g at the first step), backup -= lr * (g + momentum * buf)
+    (torch SGD with Nesterov and no dampening), and hold both groups'
+    results to it."""
+    a, b = kept[0], kept[1]
+    for name in ("backup", "momentum"):
+        check(all((x is None and y is None) or torch.equal(x, y)
+                  for x, y in zip(a[name], b[name])),
+              f"DiLoCo outer check: the groups entered the sync with different {name}")
+    err = {"backup": 0.0, "momentum": 0.0}
+    moved = 0.0
+    for i, old in enumerate(a["backup"]):
+        g = ((old - a["local"][i]) + (old - b["local"][i])) / 2
+        buf_old = a["momentum"][i]
+        buf = g.clone() if buf_old is None else buf_old * momentum + g
+        new = old - lr * (g + momentum * buf)
+        moved = max(moved, (new - old).abs().max().item())
+        for grp in (a, b):
+            for name, got, ref in (("backup", grp["new_backup"][i], new),
+                                   ("momentum", grp["new_momentum"][i], buf)):
+                excess = ((got - ref).abs() - OUTER_RTOL * ref.abs() - OUTER_ATOL).max().item()
+                check(excess <= 0, f"DiLoCo outer {name} tensor {i} misses the plain "
+                                   f"outer step by {excess:.3e} over its bar")
+                err[name] = max(err[name], (got - ref).abs().max().item())
+    check(moved > 0, "DiLoCo outer step did not move the backup")
+    log(f"diloco outer step held against its plain version (last joint sync, both "
+        f"groups): max |err| backup {err['backup']:.3e}, momentum {err['momentum']:.3e} "
+        f"(bar {OUTER_RTOL:g}*|ref| + {OUTER_ATOL:g}); the step moved the backup by up "
+        f"to {moved:.3e}")
+
+
+def phase_diloco(joint_syncs: int = 2):
+    """DiLoCo with a late joiner (examples/train_diloco.py's setup at the
+    headline size). Returns nothing; prints the inner step's, each sync's
+    and the heal's times, and holds the last joint sync's outer step
+    against its plain version."""
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.local_sgd import DiLoCo
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.parallel.train_step import TrainStep
+    from torchft_tpu_torch.store import StoreServer
+    from torchft_tpu_torch.utils.tree import tree_leaves
+
+    cfg = headline_config()
+    batch, seq = HEADLINE["batch"], HEADLINE["seq"]
+    lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
+    first_sync = threading.Event()
+    inner = {0: 0, 1: 0}
+
+    def outer_sgd(ps):
+        return torch.optim.SGD(ps, lr=0.7, momentum=0.9, nesterov=True)
+
+    def group(gid):
+        try:
+            if gid == 1 and not first_sync.wait(timeout=600):
+                raise TimeoutError("group 0 never synced")
+            return member(gid)
+        finally:
+            first_sync.set()
+
+    def member(gid):
+        store = StoreServer()
+        manager = make_manager(lighthouse.address(), store, f"diloco{gid}",
+                               use_async_quorum=False)
+        quorum_ms = []
+        _time_quorums(manager, quorum_ms)
+        heal, kept = {}, {}
+        _time_heal(manager, heal)
+        try:
+            ts = TrainStep(cfg, device="cuda")
+            params = ts.init_params(200 + gid)  # different inits: the heal must matter
+            diloco = DiLoCo(manager, outer_sgd, sync_every=SYNC_EVERY)
+            diloco.save(params)
+            _keep_joint_sync(diloco, manager, kept)
+            state = {"opt": ts.init_opt(params)}
+
+            def load(s):
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    for dst, src in zip(tree_leaves(params), tree_leaves(s["params"])):
+                        dst.copy_(src)
+                diloco.load_state_dict(s["diloco"])
+                state["opt"] = ts.init_opt(params)
+                torch.cuda.synchronize()
+                heal["apply_ms"] = (time.perf_counter() - t0) * 1e3
+
+            manager.set_state_dict_fns(
+                load, lambda: {"params": params, "diloco": diloco.state_dict()}
+            )
+            tokens = make_tokens(cfg, 20 + gid, batch, seq)
+            step_ms, syncs = [], []
+            joint = 0
+            while joint < 1 + joint_syncs:
+                t0 = time.perf_counter()
+                loss, _, _ = ts.step(params, state["opt"], tokens)
+                loss = float(loss)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+                inner[gid] += 1
+                before = manager.current_step()
+                t0 = time.perf_counter()
+                if not diloco.step(params):
+                    continue
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                committed = manager.current_step() > before
+                healed = "apply_ms" in heal and not any(x.get("healed") for x in syncs)
+                if diloco._just_healed:
+                    raise RuntimeError("a heal's flag outlived its sync")
+                n = manager.num_participants()
+                syncs.append(dict(ms=ms, quorum_ms=quorum_ms[-1], committed=committed,
+                                  participants=n, healed=healed, loss=loss))
+                state["opt"] = ts.init_opt(params)  # fresh inner state per outer step
+                if committed and n == 2:
+                    joint += 1
+                if committed:
+                    first_sync.set()
+            torch.cuda.synchronize()
+            return dict(step=manager.current_step(), params=_param_digest(params),
+                        momentum=_tensor_digest(_outer_tensors(diloco)[1]), step_ms=step_ms,
+                        syncs=syncs, heal=heal, kept=kept)
+        finally:
+            manager.shutdown(wait=False)
+            store.shutdown()
+
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    try:
+        res = _run_threads(group, "DiLoCo phase")
+    finally:
+        lighthouse.shutdown()
+    launches = dict(fa.LAUNCHES)
+    for gid in (0, 1):
+        r = res[gid]
+        steady = r["step_ms"][1:] or r["step_ms"]
+        log(f"diloco group{gid}: {inner[gid]} inner steps, inner step median "
+            f"{statistics.median(steady):.3f} ms (first {r['step_ms'][0]:.3f} ms; "
+            f"two groups share the card)")
+        for i, x in enumerate(r["syncs"]):
+            log(f"diloco group{gid} sync {i}: committed={x['committed']} "
+                f"participants={x['participants']} healed={x['healed']} "
+                f"total {x['ms']:.3f} ms = quorum {x['quorum_ms']:.3f} ms + pseudogradient "
+                f"average and outer step {x['ms'] - x['quorum_ms']:.3f} ms; "
+                f"inner loss {x['loss']:.5f}")
+        log(f"diloco group{gid}: step={r['step']} params sha256={r['params']} "
+            f"outer momentum sha256={r['momentum']}")
+    heal = res[1]["heal"]
+    check("apply_ms" in heal and sum(x["healed"] for x in res[1]["syncs"]) == 1,
+          "DiLoCo: group 1 did not heal exactly once")
+    check(not res[0]["heal"].get("apply_ms"), "DiLoCo: group 0 healed")
+    log(f"diloco heal: {heal['bytes']} bytes of tensors, fetch {heal['get_ms']:.3f} ms "
+        f"({heal['bytes'] / heal['get_ms'] / 1e6:.3f} GB/s), apply {heal['apply_ms']:.3f} ms")
+    check(res[0]["step"] == res[1]["step"], "DiLoCo groups ended at different steps")
+    check(res[0]["params"] == res[1]["params"], "DiLoCo groups ended with different params")
+    check(res[0]["momentum"] == res[1]["momentum"],
+          "DiLoCo groups ended with different outer momentum")
+    check(all(res[g]["kept"] for g in (0, 1)), "DiLoCo: no committed joint sync was kept")
+    _hold_outer_step({g: res[g]["kept"] for g in (0, 1)})
+    expect = {n: c * (inner[0] + inner[1]) for n, c in _launches_per_step(cfg).items()}
+    log(f"diloco: {inner[0]} + {inner[1]} inner steps, kernel launches {launches}")
+    check(launches == expect, f"DiLoCo launches {launches} != {expect}")
+
+
+VETO_STEP = 3
+
+
+def phase_pipeline(steps: int = 6):
+    """The pipelined commit against the synchronous one, each from one seed
+    over the same batches, with a vetoed vote at step ``VETO_STEP``; then
+    the snapshot's bytes and clone time."""
+    check(steps > VETO_STEP, "the veto must fall inside the run")
+    runs = {}
+    snapshot = None
+    for pipelined in (False, True):
+        res, elapsed = _pipeline_run(pipelined, steps)
+        tag = "pipelined" if pipelined else "sync"
+        for gid in (0, 1):
+            r = res[gid]
+            log(f"{tag} group{gid} ({r['loop']}): step={r['step']} rollbacks="
+                f"{r['rollbacks']} params sha256={r['params']}")
+        log(f"{tag}: {steps} steps in {elapsed:.3f} s, {steps / elapsed:.4f} steps/s "
+            f"(two groups on one card; no gain is claimed)")
+        check(all(res[g]["step"] == steps - 1 for g in (0, 1)),
+              f"{tag}: a group did not end at step {steps - 1}")
+        rollbacks = res[0]["rollbacks"]
+        check(rollbacks >= 1 if pipelined else rollbacks == 0,
+              f"{tag}: group 0 made {rollbacks} rollbacks")
+        runs[tag] = res
+        if pipelined:
+            snapshot = res[0]["snapshot"]
+    digests = {runs[t][g]["params"] for t in runs for g in (0, 1)}
+    check(len(digests) == 1, f"params differ across groups and runs: {digests}")
+    nbytes, ms, ms_graph = snapshot
+    log(f"snapshot (FTTrainer, params + AdamW state): {nbytes} bytes; clone per "
+        f"speculative step {ms:.4f} ms eager (host launches included), {ms_graph:.4f} ms "
+        f"device time by CUDA graph ({nbytes / ms_graph / 1e6:.1f} GB/s copied, read + "
+        "write counted once)")
+
+
+def _pipeline_run(pipelined, steps):
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.optim import ManagedOptimizer
+    from torchft_tpu_torch.parallel.ft import FTTrainer
+    from torchft_tpu_torch.parallel.train_step import TrainStep
+    from torchft_tpu_torch.store import StoreServer
+    from torchft_tpu_torch.utils.tree import tree_leaves
+
+    cfg = headline_config()
+    batch, seq = HEADLINE["batch"], HEADLINE["seq"]
+    lighthouse = LighthouseServer(bind="[::]:0", min_replicas=2)
+    ready = threading.Barrier(2)
+    replays = {}
+
+    def group(gid):
+        store = StoreServer()
+        manager = make_manager(lighthouse.address(), store, f"pipe{gid}",
+                               commit_pipeline=pipelined)
+        _fail_vote_at(manager, VETO_STEP)
+        try:
+            ts = TrainStep(cfg, device="cuda")
+            tokens = [make_tokens(cfg, 40 + 10 * gid + i, batch, seq) for i in range(steps)]
+            if gid == 0:
+                loop = FTTrainer(manager, ts)
+                loop.init(seed=300)
+
+                def step(tok):
+                    loop.step(tok)
+            else:
+                loop = ManagedOptimizer(manager, ts.init_opt)
+                loop.init(ts.init_params(300))
+
+                def step(tok):
+                    loop.begin_step()
+                    _, grads = ts.grads(loop.params, tok)
+                    loop.step(grads, grad_fn=lambda p: ts.grads(p, tok)[1])
+            torch.cuda.synchronize()
+            ready.wait(timeout=600)
+            t0 = time.perf_counter()
+            for tok in tokens:
+                step(tok)
+            loop.finish()
+            torch.cuda.synchronize()
+            elapsed = time.perf_counter() - t0
+            replays[gid] = loop.rollbacks
+            return dict(step=manager.current_step(), rollbacks=loop.rollbacks,
+                        params=_param_digest(loop.params), elapsed=elapsed,
+                        loop=loop)
+        finally:
+            manager.shutdown(wait=False)
+            store.shutdown()
+
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    try:
+        res = _run_threads(group, f"pipeline phase (pipelined={pipelined})")
+    finally:
+        lighthouse.shutdown()
+    launches = dict(fa.LAUNCHES)
+    # every step runs forward + backward once, and once more per replay;
+    # the snapshot timing launches no kernel
+    calls = 2 * steps + replays[0] + replays[1]
+    expect = {n: c * calls for n, c in _launches_per_step(cfg).items()}
+    log(f"pipelined={pipelined}: {calls} forward+backward passes "
+        f"({replays[0]} + {replays[1]} replays), kernel launches {launches}")
+    check(launches == expect, f"pipeline launches {launches} != {expect}")
+    if pipelined:
+        # the clone that one speculative step of FTTrainer takes, timed alone
+        trainer = res[0]["loop"]
+        ms = gpu_time_ms(trainer._take_snapshot, reps=5, inner=1)
+        ms_graph = gpu_time_ms(trainer._take_snapshot, reps=5, inner=1, graph=True)
+        nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(trainer._snapshot)
+                     if isinstance(t, torch.Tensor))
+        res[0]["snapshot"] = (nbytes, ms, ms_graph)
+    for r in res.values():
+        r["loop"] = type(r["loop"]).__name__
+    return res, max(res[g]["elapsed"] for g in (0, 1))
 
 
 # ---------------------------------------------------------------------------
@@ -635,6 +1043,8 @@ def main() -> None:
     t, bounds, sdpa_fwd = phase_timing()
     launches = phase_ft_loop()
     phase_two_groups()
+    phase_diloco()
+    phase_pipeline()
 
     kernels = [
         {

@@ -1,9 +1,10 @@
 """The port stands alone: it imports neither JAX nor ``torchft_tpu``.
 
 ``tests/conftest.py`` imports jax for the whole session, so the runtime
-check runs a one-group fault-tolerant step of the port in a fresh
-subprocess and inspects its ``sys.modules``. A static check covers every
-module of the package and ``chip_smoke.py``.
+check runs a one-group fault-tolerant step of the port and one DiLoCo
+sync (``sync_every=1``) in a fresh subprocess and inspects its
+``sys.modules``. A static check covers every module of the package and
+``chip_smoke.py``.
 """
 
 import ast
@@ -22,7 +23,9 @@ from datetime import timedelta
 import numpy as np, torch
 from torchft_tpu_torch.collectives import CollectivesTcp
 from torchft_tpu_torch.coordination import LighthouseServer
+from torchft_tpu_torch.local_sgd import DiLoCo
 from torchft_tpu_torch.manager import Manager
+from torchft_tpu_torch.optim import ManagedOptimizer
 from torchft_tpu_torch.models.transformer import TransformerConfig
 from torchft_tpu_torch.parallel.ft import FTTrainer
 from torchft_tpu_torch.parallel.train_step import TrainStep
@@ -35,14 +38,22 @@ store = StoreServer()
 manager = Manager(collectives=CollectivesTcp(timeout=timedelta(seconds=20)),
                   load_state_dict=None, state_dict=None, min_replica_size=1,
                   replica_id="solo", store_addr=store.address(), rank=0, world_size=1,
-                  lighthouse_addr=lighthouse.address(), timeout=timedelta(seconds=20))
-trainer = FTTrainer(manager, TrainStep(cfg, device="cpu"))
+                  lighthouse_addr=lighthouse.address(), timeout=timedelta(seconds=20),
+                  use_async_quorum=False)
+ts = TrainStep(cfg, device="cpu")
+trainer = FTTrainer(manager, ts)
 trainer.init(seed=0)
 tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 64, (2, 64)))
 loss, committed = trainer.step(tokens)
+diloco = DiLoCo(manager, lambda ps: torch.optim.SGD(ps, lr=0.7, momentum=0.9, nesterov=True),
+                sync_every=1)
+diloco.save(trainer.params)
+ts.step(trainer.params, trainer.opt, tokens)
+synced = diloco.step(trainer.params)
+assert ManagedOptimizer.__name__ == "ManagedOptimizer"
 manager.shutdown(wait=False); store.shutdown(); lighthouse.shutdown()
-print(json.dumps({"loss": loss, "committed": committed, "step": manager.current_step(),
-                  "modules": sorted(sys.modules)}))
+print(json.dumps({"loss": loss, "committed": committed, "synced": synced,
+                  "step": manager.current_step(), "modules": sorted(sys.modules)}))
 """
 
 
@@ -59,7 +70,7 @@ def test_ft_step_runs_without_jax_or_reference_package():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["committed"] and out["step"] == 1
+    assert out["committed"] and out["synced"] and out["step"] == 2
     assert math.isfinite(out["loss"]) and out["loss"] > 0
     leaked = [m for m in out["modules"] if _forbidden(m)]
     assert not leaked, f"the port pulled in {leaked}"

@@ -1,0 +1,272 @@
+"""The port's ManagedOptimizer and the Manager's sync quorum.
+
+Two replica groups as threads (a real native lighthouse, stores and
+manager servers, CollectivesTcp, the HTTP heal transport) train the tiny
+transformer of ``tests/test_torch_ft_slice.py`` through ManagedOptimizer
+on both packages, from one ``params_from_jax`` init and the same tokens;
+the per-step losses agree within rtol 1e-4 (float32: summation order and
+the two AdamW formulations' rounding, compounded over the steps), and the
+port's groups end bit-identical.
+
+The sync quorum (``use_async_quorum=False``) heals inside
+``start_quorum``, and a healed group is a full participant: it takes the
+replica rank and world size, contributes real gradients, and ends
+bit-identical to the group it healed from. ``shrink_only`` reaches the
+quorum RPC. Everything but the losses is compared exactly.
+"""
+
+import threading
+from datetime import timedelta
+from unittest.mock import MagicMock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from tests.test_torch_commit_pipeline import ManagerHarness, quorum_result
+from tests.test_torch_ft_slice import (
+    JCFG,
+    STEPS,
+    TCFG,
+    TIMEOUT,
+    _digest,
+    _np_init,
+    _run_groups,
+    _tokens,
+)
+from torchft_tpu_torch.collectives import CollectivesTcp
+from torchft_tpu_torch.coordination import LighthouseServer, ManagerClient
+from torchft_tpu_torch.manager import Manager
+from torchft_tpu_torch.models import transformer as T
+from torchft_tpu_torch.optim import ManagedOptimizer
+from torchft_tpu_torch.parallel.train_step import TrainStep
+from torchft_tpu_torch.store import StoreServer
+
+
+@pytest.fixture
+def store_server():
+    s = StoreServer()
+    yield s
+    s.shutdown()
+
+
+def port_manager(gid, lighthouse, store, min_replica_size, **kwargs):
+    from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
+
+    return Manager(
+        collectives=CollectivesTcp(timeout=TIMEOUT),
+        load_state_dict=None,
+        state_dict=None,
+        min_replica_size=min_replica_size,
+        replica_id=f"g{gid}",
+        store_addr=store.address(),
+        rank=0,
+        world_size=1,
+        lighthouse_addr=lighthouse.address(),
+        timeout=TIMEOUT,
+        checkpoint_transport=HTTPTransport(timeout=TIMEOUT, hostname="localhost"),
+        **kwargs,
+    )
+
+
+def _port_run(np_params):
+    lighthouse = LighthouseServer(bind="[::]:0", min_replicas=2)
+
+    def group(gid):
+        store = StoreServer()
+        manager = port_manager(gid, lighthouse, store, min_replica_size=2)
+        try:
+            ts = TrainStep(TCFG, device="cpu")
+            opt = ManagedOptimizer(manager, ts.init_opt)
+            opt.init(T.params_from_jax(np_params, device="cpu"))
+            losses = []
+            while manager.current_step() < STEPS:
+                tokens = torch.from_numpy(_tokens(gid, manager.current_step()))
+                opt.begin_step()
+                loss, grads = ts.grads(opt.params, tokens)
+                opt.step(grads)
+                losses.append(float(loss))
+            return losses, _digest(opt.params)
+        finally:
+            manager.shutdown(wait=False)
+            store.shutdown()
+
+    try:
+        return _run_groups(group)
+    finally:
+        lighthouse.shutdown()
+
+
+def _jax_run(np_params):
+    from torchft_tpu.collectives import CollectivesTcp as JCollectivesTcp
+    from torchft_tpu.coordination import LighthouseServer as JLighthouse
+    from torchft_tpu.manager import Manager as JManager
+    from torchft_tpu.optim import ManagedOptimizer as JManagedOptimizer
+    from torchft_tpu.parallel.mesh import MeshConfig, make_mesh
+    from torchft_tpu.parallel.train_step import TrainStep as JTrainStep
+    from torchft_tpu.store import StoreServer as JStore
+
+    lighthouse = JLighthouse(bind="[::]:0", min_replicas=2)
+
+    def group(gid):
+        store = JStore()
+        manager = JManager(
+            collectives=JCollectivesTcp(timeout=TIMEOUT), load_state_dict=None,
+            state_dict=None, min_replica_size=2, replica_id=f"g{gid}",
+            store_addr=store.address(), rank=0, world_size=1,
+            lighthouse_addr=lighthouse.address(), timeout=TIMEOUT,
+        )
+        try:
+            tx = optax.adamw(3e-4)
+            ts = JTrainStep(JCFG, tx, make_mesh(MeshConfig(), jax.devices()[:1]))
+            opt = JManagedOptimizer(manager, tx)
+            opt.init(jax.device_put(np_params, ts._param_shardings))
+            losses = []
+            while manager.current_step() < STEPS:
+                tokens = ts.shard_batch(jnp.asarray(_tokens(gid, manager.current_step())))
+                opt.begin_step()
+                loss, grads = ts.grads(opt.params, tokens)
+                opt.step(grads)
+                losses.append(float(loss))
+            return losses
+        finally:
+            manager.shutdown(wait=False)
+            store.shutdown()
+
+    try:
+        return _run_groups(group)
+    finally:
+        lighthouse.shutdown()
+
+
+def test_managed_optimizer_two_groups_match_jax():
+    np_params = _np_init()
+    jax_losses = _jax_run(np_params)
+    port = _port_run(np_params)
+    for gid in (0, 1):
+        assert len(port[gid][0]) == STEPS
+        np.testing.assert_allclose(port[gid][0], jax_losses[gid], rtol=1e-4)
+    assert port[0][1] == port[1][1], "port groups diverged"
+
+
+def test_sync_quorum_late_joiner_heals_in_start_quorum():
+    lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
+    first_commit = threading.Event()
+
+    def group(gid):
+        if gid == 1 and not first_commit.wait(timeout=120):
+            raise TimeoutError("group 0 never committed")
+        store = StoreServer()
+        manager = port_manager(gid, lighthouse, store, min_replica_size=1,
+                               use_async_quorum=False)
+        try:
+            ts = TrainStep(TCFG, device="cpu")
+            opt = ManagedOptimizer(manager, ts.init_opt)
+            opt.init(ts.init_params(10 + gid))  # different inits: the heal must matter
+            joint = 0
+            healed = None
+            while joint < 2:
+                before = manager.current_step()
+                opt.begin_step()
+                batches = manager.batches_committed()
+                if manager.current_step() > before:
+                    # healed inside start_quorum, before the forward pass:
+                    # a full participant of this very step
+                    healed = (manager.current_step(), manager.is_participating(),
+                              manager.participating_rank(), manager.num_participants())
+                tokens = torch.from_numpy(_tokens(gid, manager.current_step()))
+                _, grads = ts.grads(opt.params, tokens)
+                opt.step(grads)
+                if manager.num_participants() == 2:
+                    # both groups' batches count, the healed group's too
+                    assert manager.batches_committed() == batches + 2
+                    joint += 1
+                first_commit.set()
+            return manager.current_step(), _digest(opt.params), healed
+        finally:
+            first_commit.set()
+            manager.shutdown(wait=False)
+            store.shutdown()
+
+    try:
+        (s0, d0, h0), (s1, d1, healed) = (r for _, r in sorted(_run_groups(group).items()))
+    finally:
+        lighthouse.shutdown()
+    assert h0 is None
+    assert healed is not None, "group 1 did not heal"
+    step, participating, rank, n = healed
+    assert step >= 1 and participating and rank is not None and n == 2
+    assert s0 == s1 and d0 == d1
+
+
+def test_sync_quorum_participants(store_server):
+    """Unit view of the participant rule: with sync quorum a healing group
+    takes its replica rank and world size and is never zeroed; with
+    ``allow_heal=False`` the max-step cohort participates and no heal
+    traffic runs."""
+    h = ManagerHarness(store_server, use_async_quorum=False, commit_pipeline=False)
+    try:
+        m = h.manager
+        h.client._quorum.return_value = quorum_result(
+            heal=True, max_step=20, max_rank=None, max_world_size=1,
+            replica_rank=1, replica_world_size=2, recover_src_rank=0,
+        )
+        h.transport.recv_checkpoint.return_value = {
+            "user": {"recovered": True},
+            "torchft": {"step": 20, "batches_committed": 40},
+        }
+        m.start_quorum()
+        # the heal landed before start_quorum returned
+        h.load_state_dict.assert_called_once_with({"recovered": True})
+        assert m.current_step() == 20 and not m._healing
+        assert m.is_participating()
+        assert (m.participating_rank(), m.num_participants()) == (1, 2)
+        grads = np.full(3, 4.0, dtype=np.float32)
+        m.allreduce_many([grads]).wait()
+        # contributes its own gradients (not zeros), divided by 2
+        np.testing.assert_array_equal(grads, np.full(3, 2.0, dtype=np.float32))
+        h.client.should_commit.return_value = True
+        assert m.should_commit()
+        assert m.batches_committed() == 42
+
+        h.transport.recv_checkpoint.reset_mock()
+        h.client._quorum.return_value = quorum_result(
+            heal=True, max_step=30, max_rank=None, max_world_size=1,
+            recover_src_rank=0, recover_dst_ranks=[0],
+        )
+        m.start_quorum(allow_heal=False)
+        assert m.participating_rank() is None and m.num_participants() == 1
+        assert not m.is_participating() and not m._healing
+        h.transport.recv_checkpoint.assert_not_called()
+        h.transport.send_checkpoint.assert_not_called()
+    finally:
+        h.shutdown()
+
+
+def test_shrink_only_reaches_the_rpc(store_server):
+    # the client puts the caller's value on the wire
+    client = ManagerClient.__new__(ManagerClient)
+    client._client = MagicMock()
+    client._client.call.return_value = {"quorum_id": 7}
+    for value in (True, False):
+        q = client._quorum(rank=0, step=3, checkpoint_metadata="m", shrink_only=value,
+                           timeout=timedelta(seconds=1))
+        method, req, _ = client._client.call.call_args[0]
+        assert method == "mgr.quorum" and req["shrink_only"] is value
+        assert q.quorum_id == 7
+
+    # the Manager and ManagedOptimizer forward it
+    h = ManagerHarness(store_server, commit_pipeline=False)
+    try:
+        h.client._quorum.return_value = quorum_result(max_rank=1)
+        opt = ManagedOptimizer(h.manager, lambda p: torch.optim.SGD([p["w"]], lr=0.1))
+        opt.init({"w": torch.zeros(2)})
+        for value in (True, False):
+            opt.begin_step(shrink_only=value)
+            h.manager.wait_quorum()
+            assert h.client._quorum.call_args.kwargs["shrink_only"] is value
+    finally:
+        h.shutdown()

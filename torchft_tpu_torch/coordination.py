@@ -155,17 +155,19 @@ class ManagerClient:
         rank: int,
         step: int,
         checkpoint_metadata: str,
+        shrink_only: bool,
         timeout: timedelta,
         commit_failures: int = 0,
     ) -> QuorumResult:
-        """``commit_failures > 0`` requests a data-plane flush: the
-        lighthouse bumps quorum_id even without a membership change, so
+        """``shrink_only`` lets the quorum only lose members (a planned
+        downscale). ``commit_failures > 0`` requests a data-plane flush:
+        the lighthouse bumps quorum_id even without a membership change, so
         every group re-rendezvouses its collectives."""
         req: Dict[str, Any] = {
             "rank": rank,
             "step": step,
             "checkpoint_metadata": checkpoint_metadata,
-            "shrink_only": False,
+            "shrink_only": shrink_only,
             "commit_failures": commit_failures,
         }
         return QuorumResult._from_wire(

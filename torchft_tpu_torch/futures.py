@@ -18,7 +18,7 @@ from typing import Any, Callable, Generic, List, Optional, Tuple, TypeVar
 T = TypeVar("T")
 S = TypeVar("S")
 
-__all__ = ["Future", "future_timeout"]
+__all__ = ["Future", "future_timeout", "run_in_executor"]
 
 
 class Future(Generic[T]):
@@ -188,3 +188,18 @@ def future_timeout(fut: Future[T], timeout: timedelta) -> Future[T]:
     _TIMEOUT_MANAGER.register(out, timeout)
     return out
 
+
+def run_in_executor(executor: Any, fn: Callable[..., T], *args: Any, **kwargs: Any) -> Future[T]:
+    """Run ``fn`` on ``executor`` (a ``concurrent.futures`` executor) and
+    return a chainable :class:`Future` for the result. The Manager's
+    pipelined commit ships its vote RPC onto the vote thread with it."""
+    out: Future[T] = Future()
+
+    def task() -> None:
+        try:
+            out.set_result(fn(*args, **kwargs))
+        except BaseException as e:  # noqa: BLE001 — error futures carry anything
+            out.set_exception(e)
+
+    executor.submit(task)
+    return out

@@ -2,18 +2,24 @@
 ``torchft_tpu/manager.py`` trimmed to the core protocol:
 
 * ``start_quorum`` runs the quorum RPC on a worker thread so it overlaps
-  the forward pass; a new ``quorum_id`` reconfigures the collectives;
+  the forward pass (``use_async_quorum=False`` waits for it, and applies a
+  heal before returning); a new ``quorum_id`` reconfigures the collectives;
 * the single-source heal: the quorum thread serves a checkpoint to
   ``recover_dst_ranks`` or receives one when ``quorum.heal``, and stages it
-  for the main thread, which applies it at the commit barrier;
+  for the main thread, which applies it at the commit barrier (async
+  quorum) or inside ``start_quorum`` (sync quorum);
 * ``allreduce_many`` averages host buffers across replica groups in place;
   healing replicas contribute zeros and the divisor is the issue-time
   participant count, not the world size;
 * ``should_commit`` is the per-step commit barrier: drain pending work,
-  apply staged state, vote; the optimizer steps only on a unanimous True.
+  apply staged state, vote; the optimizer steps only on a unanimous True;
+* the pipelined commit (``commit_pipeline=True``): ``should_commit_async``
+  issues the vote on its own thread and socket while the trainer runs the
+  next step, ``resolve_pending_commit`` lands it, and a speculation fence
+  keeps the quorum thread's heal traffic off speculative state.
 
-Left out (ROADMAP): telemetry, tracing, the step watchdog, the pipelined
-commit, the divergence sentinel, striped / differential heal, eviction
+Left out (ROADMAP): telemetry, tracing, the step watchdog and the death
+watch, the divergence sentinel, striped / differential heal, eviction
 reports from the data plane, and ``WorldSizeMode.FIXED_WITH_SPARES``.
 """
 
@@ -23,6 +29,7 @@ import concurrent.futures
 import logging
 import os
 import socket
+import threading
 import uuid
 from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
@@ -34,7 +41,7 @@ from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
 from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
 from torchft_tpu_torch.collectives import Collectives, ReduceOp
 from torchft_tpu_torch.coordination import ManagerClient, ManagerServer
-from torchft_tpu_torch.futures import Future, future_timeout
+from torchft_tpu_torch.futures import Future, future_timeout, run_in_executor
 from torchft_tpu_torch.store import StoreClient
 
 T = TypeVar("T")
@@ -44,8 +51,27 @@ REPLICA_ID_KEY: str = "manager/replica_id"
 MANAGER_PORT_ENV: str = "TORCHFT_MANAGER_PORT"
 LIGHTHOUSE_ENV: str = "TORCHFT_LIGHTHOUSE"
 STORE_ADDR_ENV: str = "TORCHFT_STORE_ADDR"
+COMMIT_PIPELINE_ENV: str = "TORCHFT_COMMIT_PIPELINE"
 
 __all__ = ["Manager"]
+
+
+class _PendingCommit:
+    """One in-flight pipelined vote. What the post-vote accounting needs is
+    taken at issue time: when the vote resolves, the manager's live fields
+    already describe the next step."""
+
+    __slots__ = ("future", "step", "n_step", "local_vote", "enough_replicas",
+                 "errored", "on_resolved")
+
+    def __init__(self) -> None:
+        self.future: Optional[Future] = None
+        self.step = 0
+        self.n_step = 0
+        self.local_vote = False
+        self.enough_replicas = False
+        self.errored: Optional[Exception] = None
+        self.on_resolved: Optional[Callable[[bool], None]] = None
 
 
 class _ManagerLogger:
@@ -79,6 +105,7 @@ class Manager:
         load_state_dict: Optional[Callable[[T], None]],
         state_dict: Optional[Callable[[], T]],
         min_replica_size: int,
+        use_async_quorum: bool = True,
         timeout: timedelta = timedelta(seconds=60),
         quorum_timeout: timedelta = timedelta(seconds=60),
         connect_timeout: timedelta = timedelta(seconds=60),
@@ -90,6 +117,7 @@ class Manager:
         port: Optional[int] = None,
         hostname: Optional[str] = None,
         checkpoint_transport: Optional[CheckpointTransport[Dict[str, T]]] = None,
+        commit_pipeline: bool = False,
     ) -> None:
         """
         Args:
@@ -98,6 +126,8 @@ class Manager:
             load_state_dict / state_dict: user snapshot/restore callbacks for
                 live recovery (or later via :meth:`set_state_dict_fns`)
             min_replica_size: minimum replica groups for a step to commit
+            use_async_quorum: overlap the quorum RPC with the forward pass;
+                False waits for it in ``start_quorum`` and heals there
             timeout: deadline for collectives, commit votes and transfers
             quorum_timeout: deadline for quorum formation
             rank / world_size: this rank within the replica group (env RANK /
@@ -111,12 +141,21 @@ class Manager:
                 else ephemeral)
             checkpoint_transport: defaults to an :class:`HTTPTransport`
                 that lands received tensors on the CPU
+            commit_pipeline: issue the commit vote asynchronously
+                (:meth:`should_commit_async`) so the next step's compute
+                overlaps it; the trainer keeps a rollback snapshot.
+                ``TORCHFT_COMMIT_PIPELINE=1`` enables it too. Every replica
+                group must agree on it.
         """
         self._load_state_dict = load_state_dict
         self._user_state_dict = state_dict
         # staged by the quorum thread during a heal, applied on the main
         # thread strictly after wait_quorum()
         self._pending_state_dict: Optional[Dict[str, object]] = None
+        self._use_async_quorum = use_async_quorum
+        self._commit_pipeline = commit_pipeline or (
+            os.environ.get(COMMIT_PIPELINE_ENV, "0") == "1"
+        )
         self._timeout = timeout
         self._quorum_timeout = quorum_timeout
         self._connect_timeout = connect_timeout
@@ -133,6 +172,7 @@ class Manager:
         )
         self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="async_quorum")
         self._quorum_future: Optional[concurrent.futures.Future] = None
+        self._shutting_down = False
 
         self._store = StoreClient(store_addr, connect_timeout=connect_timeout)
         self._collectives = collectives
@@ -176,6 +216,17 @@ class Manager:
         self._participating_rank: Optional[int] = None
         self._participating_world_size: int = 0
 
+        # pipelined commit: at most one vote in flight. _spec_cond fences
+        # the quorum thread's heal send/recv until the main thread resolves
+        # it, so a served checkpoint is never speculative state. The vote
+        # has its own client: self._client serializes calls on one socket,
+        # so the vote would otherwise queue behind the next step's quorum
+        # long-poll.
+        self._pending_commit: Optional[_PendingCommit] = None
+        self._spec_cond = threading.Condition()
+        self._commit_executor: Optional[ThreadPoolExecutor] = None
+        self._commit_client: Optional[ManagerClient] = None
+
     def set_state_dict_fns(
         self, load_state_dict: Callable[[T], None], state_dict: Callable[[], T]
     ) -> None:
@@ -184,11 +235,20 @@ class Manager:
 
     def shutdown(self, wait: bool = True) -> None:
         """Shut down the manager server, checkpoint transport and data plane."""
+        self._shutting_down = True
+        # release a quorum thread parked on the speculation fence
+        with self._spec_cond:
+            self._pending_commit = None
+            self._spec_cond.notify_all()
         self._checkpoint_transport.shutdown(wait=wait)
         if self._manager is not None:
             self._manager.shutdown()
         self._executor.shutdown(wait=wait)
+        if self._commit_executor is not None:
+            self._commit_executor.shutdown(wait=wait)
         self._collectives.shutdown()
+        if self._commit_client is not None:
+            self._commit_client.close()
         self._client.close()
         self._store.close()
 
@@ -196,10 +256,26 @@ class Manager:
     # quorum
     # ------------------------------------------------------------------
 
-    def start_quorum(self) -> None:
+    def start_quorum(
+        self,
+        allow_heal: bool = True,
+        shrink_only: bool = False,
+        timeout: Optional[timedelta] = None,
+    ) -> None:
         """Start this step's quorum on the quorum thread and ready the
-        manager for a new step. Call before the forward pass: the RPC (and
-        a heal's transfer) overlaps compute."""
+        manager for a new step. Call before the forward pass: with async
+        quorum the RPC (and a heal's transfer) overlaps compute; with sync
+        quorum this waits for it and applies a heal before returning.
+
+        Every replica group must pass the same ``allow_heal``. With
+        ``shrink_only`` the quorum can only lose members.
+
+        A sync quorum first resolves a pipelined vote still in flight (so a
+        veto rolls back before the forward pass): the main thread would
+        otherwise block here while the quorum thread waits on the
+        speculation fence for it."""
+        if not self._use_async_quorum and self._pending_commit is not None:
+            self.resolve_pending_commit()
         self._errored = None
         self._healing = False
         self._group_healing = False
@@ -212,7 +288,22 @@ class Manager:
                 # the failure already reached the caller through
                 # wait_quorum/allreduce/should_commit; this call IS the retry
                 self._logger.warn(f"previous quorum attempt failed ({e}); retrying")
-        self._quorum_future = self._executor.submit(self._async_quorum)
+        self._quorum_future = self._executor.submit(
+            self._async_quorum,
+            pending=self._pending_commit,
+            allow_heal=allow_heal,
+            shrink_only=shrink_only,
+            quorum_timeout=timeout or self._quorum_timeout,
+        )
+        if not self._use_async_quorum:
+            self.wait_quorum()
+            if self._healing:
+                # the forward pass then runs from the received state
+                self._apply_pending_state_dict()
+                self._healing = False
+            # every rank healed before the forward pass: the whole group
+            # contributes real gradients
+            self._group_healing = False
 
     def wait_quorum(self) -> None:
         """Block until the in-flight quorum completes; the data plane is
@@ -221,23 +312,48 @@ class Manager:
             raise RuntimeError("must call start_quorum before wait_quorum")
         self._quorum_future.result()
 
-    def _async_quorum(self) -> None:
+    def _reported_step(self, pending: Optional[_PendingCommit]) -> int:
+        """The step this group reports to the quorum. While a pipelined vote
+        is in flight the committed count lags one vote behind a group that
+        voted synchronously (a healing or errored step never speculates),
+        and the quorum would then heal this group from it, and the other
+        from this one at the next step, turn by turn. So the quorum thread
+        waits for the vote's decision (not for the main thread to resolve
+        it) and reports the step as the decision leaves it."""
+        if pending is None or pending.future is None:
+            return self._step
+        try:
+            return pending.step + (1 if pending.future.wait() else 0)
+        except Exception:  # noqa: BLE001 — a lost vote restores the snapshot
+            return pending.step
+
+    def _async_quorum(
+        self,
+        pending: Optional[_PendingCommit],
+        allow_heal: bool,
+        shrink_only: bool,
+        quorum_timeout: timedelta,
+    ) -> None:
         quorum = self._client._quorum(
             rank=self._rank,
-            step=self._step,
+            step=self._reported_step(pending),
             checkpoint_metadata=self._checkpoint_transport.metadata(),
-            timeout=self._quorum_timeout,
+            shrink_only=shrink_only,
+            timeout=quorum_timeout,
             # latched data-plane errors request a flush: quorum_id bumps so
             # every group (healthy ones too) re-rendezvouses
             commit_failures=self._commit_failures,
         )
-        # the quorum overlaps the forward pass, so a healing replica can't
+        # async quorum overlaps the forward pass, so a healing replica can't
         # contribute this step (its state is in flight): the max-step cohort
-        # participates
-        self._participating_rank = quorum.max_rank
-        self._participating_world_size = quorum.max_world_size
+        # participates. Sync quorum heals first, so every group does.
+        self._participating_rank, self._participating_world_size = (
+            (quorum.max_rank, quorum.max_world_size)
+            if self._use_async_quorum or not allow_heal
+            else (quorum.replica_rank, quorum.replica_world_size)
+        )
         # if ANY local rank of this group heals, every rank contributes zeros
-        self._group_healing = quorum.group_heal
+        self._group_healing = allow_heal and quorum.group_heal
 
         if quorum.quorum_id != self._quorum_id:
             store_prefixed_addr = (
@@ -254,6 +370,18 @@ class Manager:
             if self._rank == 0:
                 self._sweep_stale_epochs(quorum.quorum_id)
 
+        if not allow_heal:
+            return
+        if (quorum.recover_dst_ranks or quorum.heal) and not self._await_speculation_settled():
+            # a speculative update is still outstanding on the main thread:
+            # the state served now would be the snapshot, one update behind
+            # the step this quorum reported, and a received state would race
+            # the rollback. Skip the heal traffic and fail the step; the
+            # next quorum asks for the heal again.
+            self.report_error(
+                RuntimeError("speculation fence timed out; heal traffic skipped")
+            )
+            return
         if quorum.recover_dst_ranks:
             self._logger.info(f"peers need recovery from us {quorum.recover_dst_ranks}")
             self._checkpoint_transport.send_checkpoint(
@@ -344,6 +472,14 @@ class Manager:
         average is unperturbed."""
         if not arrays or self.errored():
             return Future.completed(arrays)
+        if self._pending_commit is not None:
+            # the previous step's vote is in flight: on a veto these inputs
+            # (gradients of speculative params) are garbage, and waiting on
+            # the quorum here could deadlock against its speculation fence
+            raise RuntimeError(
+                "pipelined commit: resolve_pending_commit() before issuing "
+                "collectives for the next step"
+            )
         self.wait_quorum()
         if self.errored():
             # the quorum thread latched a failure (e.g. a failed heal) during
@@ -406,11 +542,53 @@ class Manager:
     # commit
     # ------------------------------------------------------------------
 
-    def should_commit(self, timeout: Optional[timedelta] = None) -> bool:
-        """Per-step commit barrier: True iff every rank in the quorum had a
-        clean step. Call after backward; step the optimizer only on True."""
-        if self._quorum_future is None:
-            raise RuntimeError("must call start_quorum before should_commit")
+    def commit_pipeline_enabled(self) -> bool:
+        """Whether this manager was opted into the pipelined commit."""
+        return self._commit_pipeline
+
+    def pending_commit(self) -> Optional[Future]:
+        """The in-flight pipelined vote's future, or None (a peek; use
+        :meth:`resolve_pending_commit` to consume it)."""
+        rec = self._pending_commit
+        return rec.future if rec is not None else None
+
+    def speculation_allowed(self) -> bool:
+        """Whether the trainer may apply this step's update speculatively
+        and vote through :meth:`should_commit_async`: never when the step
+        is already doomed (an error latched, too few replicas), and never
+        on a healing replica (its heal lands at the commit barrier)."""
+        if not self._commit_pipeline or self._quorum_future is None:
+            return False
+        if self._pending_commit is not None:
+            return False  # at most one speculative step outstanding
+        self.wait_quorum()
+        if self._healing or self._group_healing or self._errored is not None:
+            return False
+        n = self._step_n if self._step_n is not None else self._participating_world_size
+        return n >= self._min_replica_size
+
+    def _await_speculation_settled(self) -> bool:
+        """Quorum-thread fence: block (bounded) until no speculative commit
+        is outstanding; False if the bound ran out. The main thread resolves
+        the vote early in every step; the bound keeps a misbehaving caller
+        from wedging the quorum."""
+        cap = min(self._timeout.total_seconds(), 10.0)
+        with self._spec_cond:
+            settled = self._spec_cond.wait_for(
+                lambda: self._pending_commit is None or self._shutting_down,
+                timeout=cap,
+            )
+        if not settled:
+            self._logger.warn(
+                "speculation fence timed out (resolve_pending_commit() is "
+                "overdue on the trainer)"
+            )
+        return settled
+
+    def _prepare_commit(self) -> _PendingCommit:
+        """The pre-vote half of the commit barrier: drain the step's pending
+        work, land a staged heal, and record what the post-vote accounting
+        needs."""
         for work in self._pending_work:
             if self._errored is not None:
                 break
@@ -422,29 +600,144 @@ class Manager:
         if self._healing:
             self._apply_pending_state_dict()
 
+        rec = _PendingCommit()
+        rec.step = self._step
         # membership as of the step's ops (issue-time snapshot)
-        n_step = self._step_n if self._step_n is not None else self.num_participants()
-        enough_replicas = n_step >= self._min_replica_size
-        local_vote = enough_replicas and self._errored is None
+        rec.n_step = self._step_n if self._step_n is not None else self.num_participants()
+        rec.enough_replicas = rec.n_step >= self._min_replica_size
+        rec.errored = self._errored
+        rec.local_vote = rec.enough_replicas and self._errored is None
         if self._errored is not None and self._errored_epoch == self._quorum_id:
             # the data plane is suspect: request a flush so the next quorum
             # moves every group to a fresh rendezvous epoch
             self._commit_failures += 1
+        return rec
 
-        should_commit = self._client.should_commit(
-            self._rank, self._step, local_vote, timeout=timeout or self._timeout
-        )
+    def _finish_commit(
+        self, rec: _PendingCommit, should_commit: bool, disallow: bool = True
+    ) -> None:
+        """The post-vote half (main thread only): the step counters."""
         self._logger.info(
-            f"should_commit={should_commit} enough_replicas={enough_replicas} "
-            f"errored={self._errored}"
+            f"should_commit={should_commit} enough_replicas={rec.enough_replicas} "
+            f"errored={rec.errored}"
         )
-        # close the checkpoint-serving window: after the commit the staged
-        # state is stale
-        self._checkpoint_transport.disallow_checkpoint()
+        if disallow:
+            # close the checkpoint-serving window: after the commit the
+            # staged state is stale
+            self._checkpoint_transport.disallow_checkpoint()
         if should_commit:
             self._step += 1
-            self._batches_committed += n_step
+            self._batches_committed += rec.n_step
+
+    def should_commit(self, timeout: Optional[timedelta] = None) -> bool:
+        """Per-step commit barrier: True iff every rank in the quorum had a
+        clean step. Call after backward; step the optimizer only on True."""
+        if self._quorum_future is None:
+            raise RuntimeError("must call start_quorum before should_commit")
+        if self._pending_commit is not None:
+            # a stray vote of the previous step (a caller mixing pipelined
+            # and sync paths, e.g. a LocalSGD sync): resolve it first
+            self.resolve_pending_commit()
+        rec = self._prepare_commit()
+        should_commit = self._client.should_commit(
+            self._rank, rec.step, rec.local_vote, timeout=timeout or self._timeout
+        )
+        self._finish_commit(rec, should_commit)
         return should_commit
+
+    def should_commit_async(
+        self,
+        timeout: Optional[timedelta] = None,
+        on_resolved: Optional[Callable[[bool], None]] = None,
+    ) -> Future:
+        """Pipelined commit barrier: issue this step's vote on the vote
+        thread and return at once, so the next step's compute overlaps it.
+
+        The caller applies the update speculatively before this call,
+        keeping a rollback snapshot, and calls
+        :meth:`resolve_pending_commit` before the next step's collectives
+        or commit. ``on_resolved(committed)`` runs on the main thread
+        inside that resolution, before the speculation fence lifts: restore
+        the snapshot there on a veto. Returns the vote's future."""
+        if self._quorum_future is None:
+            raise RuntimeError("must call start_quorum before should_commit_async")
+        if self._pending_commit is not None:
+            raise RuntimeError("at most one speculative commit may be outstanding")
+        if self._healing:
+            raise RuntimeError("a healing replica must not speculate")
+
+        rec = self._prepare_commit()
+        rec.on_resolved = on_resolved
+        # close the serving window at issue time: the vote resolves after
+        # the next step's quorum, which may stage a fresh checkpoint
+        self._checkpoint_transport.disallow_checkpoint()
+        if self._commit_executor is None:
+            self._commit_executor = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="commit_vote"
+            )
+        if self._commit_client is None:
+            self._commit_client = ManagerClient(
+                self._manager_addr, connect_timeout=self._connect_timeout
+            )
+        client = self._commit_client
+        vote_timeout = timeout or self._timeout
+        rec.future = run_in_executor(
+            self._commit_executor,
+            lambda: client.should_commit(
+                self._rank, rec.step, rec.local_vote, timeout=vote_timeout
+            ),
+        )
+        # publish under the fence lock: the quorum thread reads it to decide
+        # whether heal traffic must wait
+        with self._spec_cond:
+            self._pending_commit = rec
+        return rec.future
+
+    def resolve_pending_commit(self) -> Optional[bool]:
+        """Resolve the in-flight pipelined vote (main thread only): wait
+        for it, count the step, run ``on_resolved`` (which restores the
+        snapshot on a veto) and lift the speculation fence. Returns the
+        decision, or None when no vote was outstanding. If the vote RPC
+        fails, the snapshot is restored (the step counts as not applied, as
+        in the sync path, where the error comes before the update) and the
+        error is raised."""
+        rec = self._pending_commit
+        if rec is None:
+            return None
+        try:
+            decision = rec.future.wait()
+        except BaseException as e:  # noqa: BLE001 — restore, then re-raise
+            self._rollback(rec, error=e)
+            self._lift_fence()
+            raise
+        self._finish_commit(rec, decision, disallow=False)
+        if not decision:
+            self._rollback(rec)
+        elif rec.on_resolved is not None:
+            try:
+                rec.on_resolved(True)
+            except Exception:  # noqa: BLE001
+                self._logger.exception("on_resolved callback failed")
+        self._lift_fence()
+        return decision
+
+    def _lift_fence(self) -> None:
+        with self._spec_cond:
+            self._pending_commit = None
+            self._spec_cond.notify_all()
+
+    def _rollback(self, rec: _PendingCommit, error: Optional[BaseException] = None) -> None:
+        """Run the caller's snapshot restore for a vetoed (or lost) vote."""
+        why = "vetoed" if error is None else f"lost ({error})"
+        self._logger.warn(
+            f"pipelined commit {why} at step {rec.step}; rolling back the "
+            "speculative update"
+        )
+        if rec.on_resolved is not None:
+            try:
+                rec.on_resolved(False)
+            except Exception:  # noqa: BLE001
+                self._logger.exception("rollback callback failed")
 
     # ------------------------------------------------------------------
     # state
@@ -467,6 +760,10 @@ class Manager:
         """Committed steps; all participants agree on it."""
         return self._step
 
+    def batches_committed(self) -> int:
+        """Batches committed across all replica groups and steps."""
+        return self._batches_committed
+
     def num_participants(self) -> int:
         """Replica groups participating in the current step (0 before the
         first ``start_quorum``)."""
@@ -474,6 +771,14 @@ class Manager:
             return 0
         self.wait_quorum()
         return self._participating_world_size
+
+    def participating_rank(self) -> Optional[int]:
+        """This group's rank among the participating groups, or None for a
+        healing replica and before the first ``start_quorum``."""
+        if self._quorum_future is None:
+            return None
+        self.wait_quorum()
+        return self._participating_rank
 
     def is_participating(self) -> bool:
         """Whether this replica's contributions count this step."""

@@ -1,12 +1,19 @@
 """Fault-tolerant trainer — the port's counterpart of
-``torchft_tpu/parallel/ft.py`` with the synchronous commit: quorum ->
-gradients on the device -> cross-group average through the Manager ->
-commit vote -> optimizer update.
+``torchft_tpu/parallel/ft.py``: quorum -> gradients on the device ->
+cross-group average through the Manager -> commit vote -> optimizer
+update.
 
 ``init`` registers the trainer's ``state_dict`` / ``load_state_dict``
 with the Manager, so a healing group receives the params and the
-optimizer state of a group at the max step. The pipelined commit
-(``SpeculativeCommitMixin``) is not ported yet (ROADMAP).
+optimizer state of a group at the max step.
+
+Pipelined commit (``Manager(commit_pipeline=True)``): ``step`` applies the
+update at once, keeping a copy of the pre-update state as the rollback
+snapshot, issues the vote asynchronously, and the next step's
+forward/backward runs while the vote is in flight. The vote resolves
+before the next step's own collectives; on a veto the snapshot is restored
+and the in-flight batch is replayed on it, so the sequence of committed
+states is the sync mode's.
 """
 
 from __future__ import annotations
@@ -17,13 +24,14 @@ import torch
 
 from torchft_tpu_torch.ddp import allreduce_gradients
 from torchft_tpu_torch.manager import Manager
+from torchft_tpu_torch.optim import SpeculativeCommitMixin
 from torchft_tpu_torch.parallel.train_step import TrainStep
-from torchft_tpu_torch.utils.tree import tree_leaves, tree_map
+from torchft_tpu_torch.utils.tree import tree_map
 
 __all__ = ["FTTrainer"]
 
 
-class FTTrainer:
+class FTTrainer(SpeculativeCommitMixin):
     def __init__(self, manager: Manager, train_step: TrainStep) -> None:
         self._manager = manager
         self._ts = train_step
@@ -49,35 +57,22 @@ class FTTrainer:
     def opt(self) -> torch.optim.Optimizer:
         return self._opt
 
-    # -- state (registered with the Manager for live recovery) --
-
-    def state_dict(self) -> Dict[str, Any]:
-        return {"params": self._params, "opt_state": self._opt.state_dict()}
-
-    def load_state_dict(self, state: Dict[str, Any]) -> None:
-        # a received state lies on the host; copy_ puts the params on this
-        # trainer's device in place (the optimizer holds these very
-        # tensors), and Optimizer.load_state_dict casts the moments onto
-        # each param's device
-        with torch.no_grad():
-            for dst, src in zip(tree_leaves(self._params), tree_leaves(state["params"])):
-                dst.copy_(src)
-        opt_state = state["opt_state"]
-        for per_param in opt_state["state"].values():
-            # torch.optim keeps AdamW's step count on the host unless the
-            # optimizer is capturable or fused
-            if isinstance(per_param.get("step"), torch.Tensor):
-                per_param["step"] = per_param["step"].cpu()
-        self._opt.load_state_dict(opt_state)
-
     # -- drive --
 
     def step(self, tokens: torch.Tensor) -> Tuple[float, bool]:
-        """One fault-tolerant step; returns (loss, committed)."""
-        self._manager.start_quorum()
+        """One fault-tolerant step; returns (loss, committed).
+
+        Under the pipelined commit ``committed`` is the expected outcome
+        (True): the vote lands in the next step (or :meth:`finish`), and a
+        veto rolls the update back, replays, and bumps :attr:`rollbacks`."""
+        self._start_quorum()
+        # under the pipeline (async quorum) this is the compute that hides
+        # the previous step's vote
         loss, grads = self._ts.grads(self._params, tokens)
+        if self._resolve_speculation():
+            # the previous step was vetoed: these gradients were taken on
+            # the rolled-back params; replay the batch on the restored state
+            loss, grads = self._ts.grads(self._params, tokens)
         grads = allreduce_gradients(self._manager, grads)
-        committed = self._manager.should_commit()
-        if committed:
-            self._ts.apply(self._params, self._opt, grads)
+        committed = self._commit(grads, lambda g: self._ts.apply(self._params, self._opt, g))
         return float(loss), committed
