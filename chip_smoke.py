@@ -17,12 +17,17 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    ``scaled_dot_product_attention`` yardsticks by both methods and the
    roofline bound.
 4. the headline fault-tolerant training loop on one replica group:
-   in-process lighthouse + store, Manager over CollectivesTcp, TrainStep
-   at d512 L8 h8 ff1408 vocab 32000 bf16, batch 8 x seq 1024; 2 warm-up
-   and 5 timed steps; kernel launch counts checked per step.
-5. two replica groups as threads on the card: the second joins late,
-   heals from the first over HTTP, both commit 3 steps together and end
-   with bit-identical parameters.
+   in-process lighthouse + store, Manager over the device data plane
+   (CollectivesDevice, the JAX headline's wiring), TrainStep at d512 L8
+   h8 ff1408 vocab 32000 bf16, batch 8 x seq 1024; 2 warm-up and 5 timed
+   steps, run on the device plane and on the TCP plane in turns (device,
+   tcp, tcp, device); on the device plane ``allreduce_gradients`` hands
+   back the very gradient tensors it was given; kernel launch counts
+   checked per step on both planes.
+5. two replica groups as threads on the card over CollectivesTcp: the
+   second joins late, heals from the first over HTTP, both commit 3 steps
+   together and end with bit-identical parameters; the heal's bytes,
+   transfer and apply times and the joint steps' wall are printed.
 6. DiLoCo, two groups as threads at the headline size: sync quorum, 8
    inner AdamW steps per sync, outer SGD(0.7, momentum 0.9, Nesterov).
    The second group joins after the first one's first committed sync,
@@ -35,6 +40,12 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    once with each commit; both vote False at step 3 (a fault injected
    at the vote), so the pipelined run rolls a speculative update back and
    replays its batch. Both runs end at step 5 with one params sha256.
+8. phase 5 over the device data plane, each group on a CUDA stream of its
+   own: the second group heals over CollectivesTransport; both end with
+   one sha256. For one joint step, each group's averaged gradients equal
+   the plain ``(g0 + g1) / 2`` of both groups' gradients, bit for bit. The
+   reduction's device time for the gradient tree is printed beside its
+   bound, and the joint steps and the heal beside phase 5's.
 
 Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
 The native core and the kernels are built from the checkout on first use;
@@ -44,6 +55,7 @@ build.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import statistics
@@ -447,16 +459,24 @@ def make_tokens(cfg, seed, batch, seq):
     return torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, seq))).to("cuda")
 
 
-def make_manager(lighthouse_addr, store, replica_id, **kwargs):
-    """The headline loop's Manager: CollectivesTcp and the HTTP heal;
-    ``kwargs`` go to the Manager (``use_async_quorum``, ``commit_pipeline``)."""
-    from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
+def make_manager(lighthouse_addr, store, replica_id, plane="device", transport="http",
+                 **kwargs):
+    """The headline loop's Manager. ``plane``: ``"device"`` (CollectivesDevice
+    on the card, the headline's wiring) or ``"tcp"`` (CollectivesTcp);
+    ``transport``: the heal over ``"http"`` or over the data plane
+    (``"collectives"``); ``kwargs`` go to the Manager (``use_async_quorum``,
+    ``commit_pipeline``)."""
+    from torchft_tpu_torch.checkpointing import CollectivesTransport, HTTPTransport
     from torchft_tpu_torch.collectives import CollectivesTcp
+    from torchft_tpu_torch.collectives_device import CollectivesDevice
     from torchft_tpu_torch.manager import Manager
 
     timeout = timedelta(seconds=120)
+    collectives = {"device": CollectivesDevice, "tcp": CollectivesTcp}[plane](timeout=timeout)
+    heal = {"http": lambda: HTTPTransport(timeout=timeout),
+            "collectives": lambda: CollectivesTransport(collectives, timeout=timeout)}
     return Manager(
-        collectives=CollectivesTcp(timeout=timeout),
+        collectives=collectives,
         load_state_dict=None,
         state_dict=None,
         min_replica_size=1,
@@ -466,56 +486,96 @@ def make_manager(lighthouse_addr, store, replica_id, **kwargs):
         world_size=1,
         lighthouse_addr=lighthouse_addr,
         timeout=timeout,
-        checkpoint_transport=HTTPTransport(timeout=timeout),
+        checkpoint_transport=heal[transport](),
         **kwargs,
     )
 
 
-def phase_ft_loop(warmup: int = 2, steps: int = 5):
+def _headline_run(plane, warmup=2, steps=5):
+    """The headline loop on one plane: returns (steps/s, launches over the
+    timed steps)."""
     from torchft_tpu_torch.coordination import LighthouseServer
     from torchft_tpu_torch.ops import flash_attention as fa
-    from torchft_tpu_torch.parallel.ft import FTTrainer
+    from torchft_tpu_torch.parallel import ft
     from torchft_tpu_torch.parallel.train_step import TrainStep
     from torchft_tpu_torch.store import StoreServer
+    from torchft_tpu_torch.utils.tree import tree_leaves
 
     cfg = headline_config()
     batch, seq = HEADLINE["batch"], HEADLINE["seq"]
     lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
     store = StoreServer()
-    manager = make_manager(lighthouse.address(), store, "smoke")
+    manager = make_manager(lighthouse.address(), store, f"smoke-{plane}", plane=plane)
+    average = ft.allreduce_gradients
+    handed_back = []
+
+    def same_tensors(mgr, grads):
+        out = average(mgr, grads)
+        handed_back.append(all(a is b for a, b in zip(tree_leaves(out), tree_leaves(grads))))
+        return out
+
+    ft.allreduce_gradients = same_tensors
     try:
-        trainer = FTTrainer(manager, TrainStep(cfg, device="cuda"))
+        check(manager.device_data_plane() == (plane == "device"),
+              f"the {plane} plane's Manager reports device_data_plane() wrongly")
+        trainer = ft.FTTrainer(manager, TrainStep(cfg, device="cuda"))
         trainer.init(seed=0)
         tokens = make_tokens(cfg, 0, batch, seq)
         for i in range(warmup):
             loss, committed = trainer.step(tokens)
-            log(f"warmup step {i}: loss={loss:.5f} committed={committed}")
+            log(f"{plane} plane warmup step {i}: loss={loss:.5f} committed={committed}")
+            check(committed, f"a {plane}-plane warm-up step did not commit")
         torch.cuda.synchronize()
         fa.reset_launches()
         t0 = time.perf_counter()
         losses = []
         for _ in range(steps):
             loss, committed = trainer.step(tokens)
-            check(committed, "a headline step did not commit")
+            check(committed, f"a headline step did not commit ({plane} plane)")
             losses.append(loss)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = dict(fa.LAUNCHES)
     finally:
+        ft.allreduce_gradients = average
         manager.shutdown(wait=False)
         store.shutdown()
         lighthouse.shutdown()
-    for i, loss in enumerate(losses):
-        log(f"step {i}: loss={loss:.5f}")
+    log(f"{plane} plane steps: losses {', '.join(f'{x:.5f}' for x in losses)}")
     check(all(np.isfinite(losses)), "non-finite loss")
-    sps = steps / elapsed
-    log(f"headline FT loop: {sps:.4f} steps/s, {sps * batch * seq:.1f} tokens/s "
-        f"({steps} steps, batch {batch} x seq {seq}, {cfg.n_layers} layers)")
+    # one group: the device plane's average is the identity, the TCP one
+    # copies down to the host and back
+    check(len(handed_back) == warmup + steps and all(handed_back) == (plane == "device"),
+          f"{plane} plane: allreduce_gradients handed back {handed_back} (the very "
+          "gradient tensors: True)")
     per_step = {n: c / steps for n, c in launches.items()}
-    log(f"kernel launches per step: {per_step}")
     expect = _launches_per_step(cfg)
-    check(per_step == expect, f"launches per step {per_step} != {expect}")
-    return launches
+    log(f"{plane} plane kernel launches per step: {per_step}")
+    check(per_step == expect, f"{plane} plane launches per step {per_step} != {expect}")
+    return steps / elapsed, launches
+
+
+def phase_ft_loop():
+    """The headline loop on the device plane and on the TCP plane, each
+    from 2 warm-up + 5 timed steps, in turns over 2 rounds (device, tcp,
+    tcp, device) so that neither plane always runs first. Returns the
+    launches of the first device-plane run (the main path's)."""
+    batch, seq = HEADLINE["batch"], HEADLINE["seq"]
+    sps = {"device": [], "tcp": []}
+    main_launches = None
+    for order in (("device", "tcp"), ("tcp", "device")):
+        for plane in order:
+            rate, launches = _headline_run(plane)
+            sps[plane].append(rate)
+            if plane == "device" and main_launches is None:
+                main_launches = launches
+            log(f"headline FT loop, {plane} plane: {rate:.4f} steps/s, "
+                f"{rate * batch * seq:.1f} tokens/s (5 steps, batch {batch} x seq {seq})")
+    names = {"device": "CollectivesDevice", "tcp": "CollectivesTcp"}
+    for plane, rates in sps.items():
+        log(f"headline steps/s, {plane} plane ({names[plane]}), rounds 1 and 2: "
+            f"{', '.join(f'{r:.4f}' for r in rates)}")
+    return main_launches
 
 
 def _launches_per_step(cfg):
@@ -533,7 +593,45 @@ def _param_digest(params) -> str:
     return h.hexdigest()
 
 
-def phase_two_groups(together: int = 3):
+def _keep_average(manager, kept):
+    """Keep copies of one joint step's gradients in ``kept``: this group's
+    (``pre``) and what the Manager averaged them to (``post``), at the first
+    step where both groups take part on a two-group plane."""
+    average = manager.allreduce_many
+
+    def keeping(tensors):
+        fut = average(tensors)
+        if ("post" not in kept and manager.num_participants() == 2
+                and manager.is_participating() and manager._collectives.size() == 2):
+            reduced = fut.wait()  # resolved with this group's stream current
+            kept.update(step=manager.current_step(),
+                        pre=[t.detach().clone() for t in tensors],
+                        post=[t.detach().clone() for t in reduced])
+        return fut
+
+    manager.allreduce_many = keeping
+
+
+def _time_apply(trainer, heal):
+    """Record the wall ms of applying a received state (set before
+    ``init``, which registers the trainer's ``load_state_dict``)."""
+    load = trainer.load_state_dict
+
+    def timed(state):
+        t0 = time.perf_counter()
+        load(state)
+        torch.cuda.current_stream().synchronize()
+        heal["apply_ms"] = (time.perf_counter() - t0) * 1e3
+
+    trainer.load_state_dict = timed
+
+
+def phase_two_groups(plane="tcp", transport="http", own_streams=False, together=3):
+    """Two groups as threads on the card; the second joins late and heals
+    from the first, then both commit ``together`` steps. With
+    ``own_streams`` each group runs on a CUDA stream of its own and keeps
+    one joint step's gradients (``_keep_average``). Returns the heal's and
+    the joint steps' numbers, and the kept gradients."""
     from torchft_tpu_torch.coordination import LighthouseServer
     from torchft_tpu_torch.ops import flash_attention as fa
     from torchft_tpu_torch.parallel.ft import FTTrainer
@@ -545,37 +643,52 @@ def phase_two_groups(together: int = 3):
     lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
     first_commit = threading.Event()
     calls = {0: 0, 1: 0}  # trainer.step calls per group
+    tag = f"{plane}/{transport}"
 
     def group(gid: int):
         try:
             if gid == 1 and not first_commit.wait(timeout=600):
                 raise TimeoutError("group 0 never committed")
-            return member(gid)
+            stream = torch.cuda.Stream() if own_streams else None
+            with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+                return member(gid)
         finally:
             first_commit.set()
 
     def member(gid: int):
         store = StoreServer()
-        manager = make_manager(lighthouse.address(), store, f"group{gid}")
+        manager = make_manager(lighthouse.address(), store, f"{plane}-group{gid}",
+                               plane=plane, transport=transport)
+        heal, kept, joint_ms = {}, {}, []
+        _time_heal(manager, heal)
+        if own_streams:
+            _keep_average(manager, kept)
         try:
             trainer = FTTrainer(manager, TrainStep(cfg, device="cuda"))
+            _time_apply(trainer, heal)
             trainer.init(seed=100 + gid)  # different inits: the heal must matter
             tokens = make_tokens(cfg, 10 + gid, batch, seq)
             joint = healed_at = 0
             while joint < together:
                 step_before = manager.current_step()
+                t0 = time.perf_counter()
                 loss, committed = trainer.step(tokens)
+                torch.cuda.current_stream().synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
                 calls[gid] += 1
                 if gid == 1 and manager.current_step() > step_before + 1:
                     healed_at = manager.current_step()
                 if committed and manager.num_participants() == 2:
                     joint += 1
+                    joint_ms.append(ms)
                 if gid == 0 and committed:
                     first_commit.set()
-                log(f"group{gid}: step={manager.current_step()} loss={loss:.5f} "
-                    f"committed={committed} participants={manager.num_participants()}")
+                log(f"{tag} group{gid}: step={manager.current_step()} loss={loss:.5f} "
+                    f"committed={committed} participants={manager.num_participants()} "
+                    f"{ms:.3f} ms")
             torch.cuda.synchronize()
-            return manager.current_step(), _param_digest(trainer.params), healed_at
+            return dict(step=manager.current_step(), digest=_param_digest(trainer.params),
+                        healed_at=healed_at, heal=heal, kept=kept, joint_ms=joint_ms)
         finally:
             manager.shutdown(wait=False)
             store.shutdown()
@@ -583,19 +696,83 @@ def phase_two_groups(together: int = 3):
     torch.cuda.synchronize()
     fa.reset_launches()
     try:
-        results = _run_threads(group, "two-group phase")
+        res = _run_threads(group, f"two-group phase ({tag})")
     finally:
         lighthouse.shutdown()
-    (s0, d0, _), (s1, d1, healed_at) = results[0], results[1]
-    log(f"group0 step={s0} checksum={d0}")
-    log(f"group1 step={s1} checksum={d1} (healed to step {healed_at})")
-    check(healed_at > 0, "group 1 never healed from group 0")
-    check(s0 == s1 and d0 == d1, "groups ended with different parameters")
+    for gid in (0, 1):
+        r = res[gid]
+        log(f"{tag} group{gid} step={r['step']} checksum={r['digest']}"
+            + (f" (healed to step {r['healed_at']})" if gid == 1 else ""))
+    check(res[1]["healed_at"] > 0, f"{tag}: group 1 never healed from group 0")
+    check(res[0]["step"] == res[1]["step"] and res[0]["digest"] == res[1]["digest"],
+          f"{tag}: groups ended with different parameters")
+    heal = dict(res[1]["heal"], serve_ms=res[0]["heal"].get("serve_ms"))
+    check("apply_ms" in heal and "get_ms" in heal and heal["serve_ms"] is not None,
+          f"{tag}: group 1's heal was not timed")
+    joint_ms = res[0]["joint_ms"] + res[1]["joint_ms"]
+    out = dict(heal=heal, joint_ms=statistics.median(joint_ms),
+               kept={g: res[g]["kept"] for g in (0, 1)})
+    log(f"{tag} heal: {heal['bytes']} bytes of tensors, transfer {heal['get_ms']:.3f} ms "
+        f"({heal['bytes'] / heal['get_ms'] / 1e6:.3f} GB/s), group 0's send_checkpoint "
+        f"{heal['serve_ms']:.3f} ms, apply {heal['apply_ms']:.3f} ms; joint steps "
+        f"{out['joint_ms']:.3f} ms median wall per step (both groups, {len(joint_ms)} steps)")
     # every step of either group, committed or not, runs forward + backward
     launches = dict(fa.LAUNCHES)
     expect = {n: c * (calls[0] + calls[1]) for n, c in _launches_per_step(cfg).items()}
-    log(f"two groups: {calls[0]} + {calls[1]} steps, kernel launches {launches}")
-    check(launches == expect, f"two-group launches {launches} != {expect}")
+    log(f"{tag} two groups: {calls[0]} + {calls[1]} steps, kernel launches {launches}")
+    check(launches == expect, f"{tag} two-group launches {launches} != {expect}")
+    return out
+
+
+def phase_device_groups(tcp):
+    """Phase 5 over the device plane, each group on its own CUDA stream,
+    healing over CollectivesTransport; then the averaging check and the
+    reduction's device time, printed beside ``tcp`` (phase 5's numbers)."""
+    from torchft_tpu_torch import collectives_device as cd
+    from torchft_tpu_torch.collectives import ReduceOp
+
+    res = phase_two_groups(plane="device", transport="collectives", own_streams=True)
+    dev_heal, tcp_heal = res["heal"], tcp["heal"]
+
+    def heal_line(h):
+        return (f"{h['bytes']} bytes, transfer {h['get_ms']:.3f} ms, send_checkpoint "
+                f"{h['serve_ms']:.3f} ms, apply {h['apply_ms']:.3f} ms")
+
+    log(f"heal over CollectivesTransport (device plane): {heal_line(dev_heal)}; "
+        f"phase 5 over HTTP: {heal_line(tcp_heal)}")
+    log(f"joint step wall, median: device plane {res['joint_ms']:.3f} ms, phase 5's TCP "
+        f"plane {tcp['joint_ms']:.3f} ms (two groups share the card)")
+
+    # the averaging check: each group's averaged gradients against the
+    # plain mean of both groups' saved gradients, bit for bit
+    k0, k1 = res["kept"][0], res["kept"][1]
+    check("post" in k0 and "post" in k1, "device plane: no joint step's gradients kept")
+    check(k0["step"] == k1["step"], f"kept steps differ: {k0['step']} vs {k1['step']}")
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, (g0 + g1) / 2) and torch.equal(b, (g0 + g1) / 2)
+                for a, b, g0, g1 in zip(k0["post"], k1["post"], k0["pre"], k1["pre"]))
+    moved = any(not torch.equal(g0, g1) for g0, g1 in zip(k0["pre"], k1["pre"]))
+    log(f"averaging check (step {k0['step']}, {len(k0['pre'])} tensors): both groups' "
+        f"averaged gradients == plain (g0 + g1) / 2 bitwise: {equal}; the groups' "
+        f"gradients differ: {moved}")
+    check(equal, "device plane: an averaged gradient differs from the plain mean")
+    check(moved, "device plane: both groups had the same gradients; the check saw nothing")
+
+    # the reduction alone, on the kept gradients: the plane's own function
+    # (sum in rank order, one result per group), timed between CUDA events
+    inputs = {0: k0["pre"], 1: k1["pre"]}
+    nbytes = sum(t.numel() * t.element_size() for t in k0["pre"])
+
+    def reduce():
+        return cd._compute_allreduce(inputs, (ReduceOp.SUM,))
+
+    eager = gpu_time_ms(reduce, reps=10, inner=3)
+    graph = gpu_time_ms(reduce, reps=10, inner=3, graph=True)
+    bound = 4 * nbytes / PEAK_BYTES * 1e3
+    log(f"reduction of the gradient tree ({nbytes / 1e6:.1f} MB, {len(k0['pre'])} tensors, "
+        f"2 groups): {eager:.4f} ms eager (host launches included), {graph:.4f} ms device "
+        f"time (CUDA graph); bound {bound:.4f} ms (bytes: reads 2 x {nbytes / 1e6:.1f} MB, "
+        f"writes 2 x {nbytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12:.2f} TB/s)")
 
 
 def _run_threads(target, what, timeout=900):
@@ -664,11 +841,20 @@ SYNC_EVERY = 8  # examples/train_diloco.py's default
 
 def _time_heal(manager, heal):
     """Record the wall ms of the heal's checkpoint fetch and the bytes of
-    the tensors it received."""
+    the tensors it received, and on the serving side the wall ms of
+    ``send_checkpoint`` (over HTTP: staging the state; over the data
+    plane: staging and sending it)."""
     from torchft_tpu_torch.utils.tree import tree_leaves
 
     transport = manager._checkpoint_transport
-    recv = transport.recv_checkpoint
+    recv, send = transport.recv_checkpoint, transport.send_checkpoint
+
+    def timed_send(*args, **kwargs):
+        t0 = time.perf_counter()
+        send(*args, **kwargs)
+        heal["serve_ms"] = (time.perf_counter() - t0) * 1e3
+
+    transport.send_checkpoint = timed_send
 
     def timed(*args, **kwargs):
         t0 = time.perf_counter()
@@ -784,7 +970,7 @@ def phase_diloco(joint_syncs: int = 2):
 
     def member(gid):
         store = StoreServer()
-        manager = make_manager(lighthouse.address(), store, f"diloco{gid}",
+        manager = make_manager(lighthouse.address(), store, f"diloco{gid}", plane="tcp",
                                use_async_quorum=False)
         quorum_ms = []
         _time_quorums(manager, quorum_ms)
@@ -937,7 +1123,7 @@ def _pipeline_run(pipelined, steps):
 
     def group(gid):
         store = StoreServer()
-        manager = make_manager(lighthouse.address(), store, f"pipe{gid}",
+        manager = make_manager(lighthouse.address(), store, f"pipe{gid}", plane="tcp",
                                commit_pipeline=pipelined)
         _fail_vote_at(manager, VETO_STEP)
         try:
@@ -1042,9 +1228,10 @@ def main() -> None:
     errs = phase_kernels()
     t, bounds, sdpa_fwd = phase_timing()
     launches = phase_ft_loop()
-    phase_two_groups()
+    tcp_groups = phase_two_groups()
     phase_diloco()
     phase_pipeline()
+    phase_device_groups(tcp_groups)
 
     kernels = [
         {

@@ -1,14 +1,18 @@
 """Where the time of the port's headline fault-tolerant step goes.
 
-Usage (repo root, one NVIDIA GPU): ``python3 scripts/torch_step_profile.py``
+Usage (repo root, one NVIDIA GPU):
+``python3 scripts/torch_step_profile.py [--plane device|tcp]``
 
 Runs the single-group FT loop of ``chip_smoke.py``, with its headline
 configuration and Manager wiring (d512 L8 h8 ff1408 vocab 32000 bf16,
-batch 8 x seq 1024, flash attention), and reports:
+batch 8 x seq 1024, flash attention) over the data plane ``--plane`` names:
+``device`` (CollectivesDevice, the default and the headline's wiring) or
+``tcp`` (CollectivesTcp, whose average copies the gradients to the host and
+back). It reports:
 
 * host-clock phases per step, with a device synchronise at each boundary:
-  quorum start, forward+backward, gradient averaging (D2H, ring, H2D),
-  commit vote, optimizer update;
+  quorum start, forward+backward, gradient averaging, commit vote,
+  optimizer update;
 * a ``torch.profiler`` trace of 3 unsynchronised steps: device time by
   kernel (top 15), the flash kernels' share and each flash kernel's
   device time per launch, the device's busy share of the wall clock, and
@@ -20,6 +24,7 @@ batch 8 x seq 1024, flash attention), and reports:
 
 from __future__ import annotations
 
+import argparse
 import os
 import statistics
 import subprocess
@@ -39,6 +44,9 @@ from torchft_tpu_torch.store import StoreServer  # noqa: E402
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--plane", choices=("device", "tcp"), default="device")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("CUDA is not available: this script needs an NVIDIA GPU")
     print(subprocess.run(
@@ -49,7 +57,8 @@ def main() -> None:
     cfg = headline_config()
     lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
     store = StoreServer()
-    manager = make_manager(lighthouse.address(), store, "profile")
+    manager = make_manager(lighthouse.address(), store, "profile", plane=args.plane)
+    print(f"data plane: {args.plane}")
     try:
         ts = TrainStep(cfg, device="cuda")
         trainer = FTTrainer(manager, ts)

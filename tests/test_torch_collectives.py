@@ -87,6 +87,26 @@ def test_broadcast_send_recv_barrier():
         assert (got == (rank - 1) % WORLD).all()
 
 
+def test_allgather_reduce_scatter_alltoall():
+    """The ring's allgather, reduce-scatter (SUM and AVG) and alltoall:
+    exact on integer-valued inputs, as the JAX package's cases are."""
+
+    def fn(coll, rank):
+        ag = coll.allgather(np.full(3, rank, dtype=np.float32)).wait(timedelta(seconds=30))
+        ins = [np.full(2, rank * 10 + j, dtype=np.float32) for j in range(WORLD)]
+        rs = coll.reduce_scatter(ins, ReduceOp.SUM).wait(timedelta(seconds=30))
+        avg = coll.reduce_scatter(ins, ReduceOp.AVG).wait(timedelta(seconds=30))
+        a2a = coll.alltoall(ins).wait(timedelta(seconds=30))
+        assert all((x == rank * 10 + j).all() for j, x in enumerate(ins))  # untouched
+        return ag, rs, avg, a2a
+
+    for rank, (ag, rs, avg, a2a) in enumerate(_on_ranks(fn, "rs")):
+        assert [float(x[0]) for x in ag] == [0.0, 1.0, 2.0]
+        want = sum(j * 10 + rank for j in range(WORLD))
+        assert (rs == want).all() and (avg == np.float32(want) / WORLD).all()
+        assert [float(x[0]) for x in a2a] == [j * 10 + rank for j in range(WORLD)]
+
+
 class _Broken(CollectivesTcp):
     def allreduce(self, arrays, op=ReduceOp.SUM):
         raise ConnectionError("peer gone")
@@ -101,6 +121,9 @@ def test_error_swallowing_latches_until_configure():
     assert isinstance(coll.barrier(), Work) and coll.barrier().wait() is None
     coll.configure("unused:0", 0, 1)  # world 1 needs no store
     assert coll.error() is None
+    # the plane's labels pass through the wrapper
+    assert not coll.device_arrays
+    assert coll.plane_info() == "python-ring" and coll.wire_codec() == "f32"
     coll.shutdown()
 
 

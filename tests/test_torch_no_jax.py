@@ -1,10 +1,12 @@
 """The port stands alone: it imports neither JAX nor ``torchft_tpu``.
 
 ``tests/conftest.py`` imports jax for the whole session, so the runtime
-check runs a one-group fault-tolerant step of the port and one DiLoCo
-sync (``sync_every=1``) in a fresh subprocess and inspects its
-``sys.modules``. A static check covers every module of the package and
-``chip_smoke.py``.
+checks run in fresh subprocesses whose imports of jax, jaxlib, optax and
+``torchft_tpu`` raise, and inspect their ``sys.modules``: a one-group
+fault-tolerant step of the port and one DiLoCo sync (``sync_every=1``)
+over CollectivesTcp; and two groups as threads over CollectivesDevice, the
+second joining late and healing over CollectivesTransport. A static check
+covers every module of the package and ``chip_smoke.py``.
 """
 
 import ast
@@ -17,7 +19,20 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "optax", "torchft_tpu")
 
-_STEP = r"""
+# imports of the forbidden packages raise inside the subprocess
+_BLOCK = r"""
+import sys
+
+class _Blocked:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "optax", "torchft_tpu"):
+            raise ImportError(f"{name} is blocked: the port must not import it")
+        return None
+
+sys.meta_path.insert(0, _Blocked())
+"""
+
+_STEP = _BLOCK + r"""
 import json, sys
 from datetime import timedelta
 import numpy as np, torch
@@ -57,24 +72,97 @@ print(json.dumps({"loss": loss, "committed": committed, "synced": synced,
 """
 
 
+_DEVICE_HEAL = _BLOCK + r"""
+import hashlib, json, sys, threading
+from datetime import timedelta
+import numpy as np, torch
+from torchft_tpu_torch.checkpointing import CollectivesTransport
+from torchft_tpu_torch.collectives_device import CollectivesDevice
+from torchft_tpu_torch.coordination import LighthouseServer
+from torchft_tpu_torch.manager import Manager
+from torchft_tpu_torch.models.transformer import TransformerConfig
+from torchft_tpu_torch.parallel.ft import FTTrainer
+from torchft_tpu_torch.parallel.train_step import TrainStep
+from torchft_tpu_torch.store import StoreServer
+from torchft_tpu_torch.utils.tree import tree_leaves
+
+cfg = TransformerConfig(vocab_size=64, d_model=32, n_layers=1, n_heads=2, head_dim=16,
+                        d_ff=64, dtype=torch.float32, attention_impl="flash")
+timeout = timedelta(seconds=20)
+lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
+first_commit, out = threading.Event(), {}
+tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 64, (2, 64)))
+
+def group(gid):
+    if gid == 1:
+        first_commit.wait(60)
+    store = StoreServer()
+    plane = CollectivesDevice(timeout=timeout, device="cpu")
+    manager = Manager(collectives=plane, load_state_dict=None, state_dict=None,
+                      min_replica_size=1, replica_id=f"g{gid}", store_addr=store.address(),
+                      rank=0, world_size=1, lighthouse_addr=lighthouse.address(),
+                      timeout=timeout, checkpoint_transport=CollectivesTransport(plane, timeout))
+    try:
+        trainer = FTTrainer(manager, TrainStep(cfg, device="cpu"))
+        trainer.init(seed=gid)
+        joint = 0
+        while joint < 1:
+            _, committed = trainer.step(tokens)
+            first_commit.set()
+            joint += committed and manager.num_participants() == 2
+        h = hashlib.sha256()
+        for leaf in tree_leaves(trainer.params):
+            h.update(leaf.detach().numpy().tobytes())
+        out[gid] = (manager.current_step(), h.hexdigest())
+    finally:
+        first_commit.set()
+        manager.shutdown(wait=False)
+        store.shutdown()
+
+threads = [threading.Thread(target=group, args=(g,)) for g in (0, 1)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join(120)
+lighthouse.shutdown()
+print(json.dumps({"groups": [out.get(0), out.get(1)], "modules": sorted(sys.modules)}))
+"""
+
+
 def _forbidden(name: str) -> bool:
     return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
 
 
-def test_ft_step_runs_without_jax_or_reference_package():
+def _run_blocked(script: str) -> dict:
+    """Run ``script`` in a fresh interpreter; its last stdout line is JSON
+    with the modules it loaded, none of which may be forbidden."""
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
     env["PYTHONPATH"] = REPO
     proc = subprocess.run(
-        [sys.executable, "-c", _STEP], cwd=REPO, env=env, capture_output=True,
+        [sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True,
         text=True, timeout=240,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["committed"] and out["synced"] and out["step"] == 2
-    assert math.isfinite(out["loss"]) and out["loss"] > 0
     leaked = [m for m in out["modules"] if _forbidden(m)]
     assert not leaked, f"the port pulled in {leaked}"
     assert "torchft_tpu_torch" in out["modules"]
+    return out
+
+
+def test_ft_step_runs_without_jax_or_reference_package():
+    out = _run_blocked(_STEP)
+    assert out["committed"] and out["synced"] and out["step"] == 2
+    assert math.isfinite(out["loss"]) and out["loss"] > 0
+
+
+def test_device_plane_heal_runs_without_jax_or_reference_package():
+    out = _run_blocked(_DEVICE_HEAL)
+    g0, g1 = out["groups"]
+    assert g0 is not None and g1 is not None, "a group did not finish"
+    assert g0 == g1, "the late joiner did not end with the other group's params"
+    assert "torchft_tpu_torch.collectives_device" in out["modules"]
+    assert "torchft_tpu_torch.checkpointing.collectives_transport" in out["modules"]
 
 
 def _port_sources():
@@ -87,6 +175,9 @@ def _port_sources():
 
 
 def test_no_forbidden_imports_in_sources():
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    assert {"torchft_tpu_torch/collectives_device.py",
+            "torchft_tpu_torch/checkpointing/collectives_transport.py"} <= scanned
     bad = []
     for path in _port_sources():
         with open(path, encoding="utf-8") as f:

@@ -1,8 +1,9 @@
 """Reconfigurable collectives across replica groups — the port's copy of
-``torchft_tpu/collectives.py``, trimmed to the host data plane the FT step
-uses: ``CollectivesTcp`` with its pure-Python ring allreduce, store
-rendezvous and the send / recv / broadcast / barrier around it, plus
-``ErrorSwallowingCollectives``.
+``torchft_tpu/collectives.py``, trimmed to its host data plane:
+``CollectivesTcp`` with its pure-Python ring (allreduce, allgather,
+reduce-scatter, alltoall), store rendezvous and the send / recv /
+broadcast / barrier around it, plus ``ErrorSwallowingCollectives``. The
+in-process device plane is ``collectives_device.CollectivesDevice``.
 
 Membership changes every quorum, so these collectives live outside the
 compiled model on host buffers (numpy arrays, averaged in place).
@@ -85,6 +86,12 @@ class Work:
     def completed(value=None) -> "Work":
         return Work(Future.completed(value))
 
+    @staticmethod
+    def failed(exc: BaseException) -> "Work":
+        fut: Future = Future()
+        fut.set_exception(exc)
+        return Work(fut)
+
 
 class Collectives(ABC):
     """Abstract reconfigurable collectives over a replica axis."""
@@ -99,15 +106,35 @@ class Collectives(ABC):
         """In-place allreduce of each array; future resolves to the list."""
 
     @abstractmethod
+    def allgather(self, arr: np.ndarray) -> Work:
+        """Future resolves to a list of ``world_size`` arrays, rank order."""
+
+    @abstractmethod
     def broadcast(self, arr: np.ndarray, root: int = 0) -> Work:
         """In-place broadcast from ``root``; future resolves to the array."""
+
+    @abstractmethod
+    def reduce_scatter(
+        self, arrays: List[np.ndarray], op: ReduceOp = ReduceOp.SUM
+    ) -> Work:
+        """Reduce ``world_size`` per-rank inputs; future resolves to this
+        rank's reduced shard (``arrays[rank]``-shaped)."""
+
+    @abstractmethod
+    def alltoall(self, arrays: List[np.ndarray]) -> Work:
+        """Exchange ``arrays[j]`` to rank j; future resolves to the received
+        list in rank order. Shapes may vary per slot but must be symmetric:
+        this rank's ``arrays[j]`` shape equals rank j's
+        ``arrays[this_rank]`` shape."""
 
     @abstractmethod
     def send(self, arr: np.ndarray, dst: int, tag: int = 0) -> Work: ...
 
     @abstractmethod
     def recv(self, arr: np.ndarray, src: int, tag: int = 0) -> Work:
-        """In-place receive into ``arr``. Frames are matched by ``tag``."""
+        """In-place receive into ``arr``. Frames are matched by ``tag``:
+        several outstanding recvs from one peer are safe with distinct
+        tags (see checkpointing/collectives_transport.py)."""
 
     @abstractmethod
     def barrier(self) -> Work: ...
@@ -117,6 +144,15 @@ class Collectives(ABC):
 
     @abstractmethod
     def rank(self) -> int: ...
+
+    def plane_info(self) -> str:
+        """Transport label; wrappers delegate to the inner backend."""
+        return type(self).__name__
+
+    def wire_codec(self) -> str:
+        """Codec large float32 allreduces ride the wire with (``"f32"`` =
+        exact: the port has no lossy codec yet); wrappers delegate."""
+        return "f32"
 
     def shutdown(self) -> None:  # noqa: B027 — optional hook
         pass
@@ -343,6 +379,9 @@ class CollectivesTcp(Collectives):
     def rank(self) -> int:
         return self._rank
 
+    def plane_info(self) -> str:
+        return "python-ring"
+
     # -- plumbing --
 
     def _peer(self, rank: int) -> _Peer:
@@ -484,15 +523,22 @@ class CollectivesTcp(Collectives):
                     )
 
     def _exchange(
-        self, dst: int, send_data: memoryview, src: int, tag: int, into: memoryview
-    ) -> None:
-        """Send to ``dst`` while receiving from ``src`` into ``into`` (one
-        ring step); the send runs on a persistent helper so large frames
-        cannot deadlock on full socket buffers."""
+        self,
+        dst: int,
+        send_data: memoryview,
+        src: int,
+        tag: int,
+        into: Optional[memoryview] = None,
+    ) -> Optional[bytearray]:
+        """Send to ``dst`` while receiving from ``src`` (one ring step): into
+        ``into`` when given, else the frame's bytes are returned. The send
+        runs on a persistent helper so large frames cannot deadlock on full
+        socket buffers."""
         send_fut = self._ring_send_worker.submit(self._send_to, dst, tag, send_data)
         recv_exc: Optional[BaseException] = None
+        data = None
         try:
-            self._recv_from(src, tag, into=into)
+            data = self._recv_from(src, tag, into=into)
         except BaseException as e:  # noqa: BLE001
             recv_exc = e
             # the epoch is doomed: unwedge a send parked on a full buffer
@@ -512,6 +558,7 @@ class CollectivesTcp(Collectives):
             raise recv_exc
         if send_exc is not None:
             raise send_exc
+        return data
 
     def _next_tag(self) -> int:
         self._op_seq = (self._op_seq + 1) & 0x00FFFFFF
@@ -565,6 +612,24 @@ class CollectivesTcp(Collectives):
             self._exchange(right, _bytes_view(chunks[send_idx]), left, tag, _bytes_view(view))
             chunks[recv_idx][:] = view
 
+    def allgather(self, arr: np.ndarray) -> Work:
+        world, rank = self._world, self._rank
+        tag = self._next_tag() | 0x02000000
+
+        def run() -> List[np.ndarray]:
+            out: List[Optional[np.ndarray]] = [None] * world
+            out[rank] = arr.copy()
+            right, left = (rank + 1) % world, (rank - 1) % world
+            cur, cur_idx = np.ascontiguousarray(arr), rank
+            for _ in range(world - 1):
+                data = self._exchange(right, _bytes_view(cur), left, tag)
+                cur_idx = (cur_idx - 1) % world
+                cur = np.frombuffer(data, dtype=arr.dtype).reshape(arr.shape).copy()
+                out[cur_idx] = cur
+            return out  # type: ignore[return-value]
+
+        return self._submit(run)
+
     def broadcast(self, arr: np.ndarray, root: int = 0) -> Work:
         world, rank = self._world, self._rank
         tag = self._next_tag() | 0x03000000
@@ -579,6 +644,54 @@ class CollectivesTcp(Collectives):
                 else:
                     self._recv_from(root, tag, into=_bytes_view(_flat_view(arr)))
             return arr
+
+        return self._submit(run)
+
+    def reduce_scatter(
+        self, arrays: List[np.ndarray], op: ReduceOp = ReduceOp.SUM
+    ) -> Work:
+        world, rank = self._world, self._rank
+        if len(arrays) != world:
+            raise ValueError(f"reduce_scatter needs {world} inputs, got {len(arrays)}")
+        tag = self._next_tag() | 0x04000000
+        reduce_fn = _REDUCE_FNS[op]
+
+        def run() -> np.ndarray:
+            # the allreduce's reduce-scatter schedule leaves rank r owning
+            # slot (r+1)%world, so slot i holds input (i-1)%world: each rank
+            # ends with the reduction of its own input index
+            right, left = (rank + 1) % world, (rank - 1) % world
+            local = [np.ascontiguousarray(arrays[(i - 1) % world]).copy()
+                     for i in range(world)]
+            for step in range(world - 1):
+                send_idx, recv_idx = (rank - step) % world, (rank - step - 1) % world
+                data = self._exchange(right, _bytes_view(local[send_idx]), left, tag)
+                incoming = np.frombuffer(data, dtype=local[recv_idx].dtype)
+                reduce_fn(local[recv_idx], incoming.reshape(local[recv_idx].shape))
+            acc = local[(rank + 1) % world]
+            if op == ReduceOp.AVG:
+                np.divide(acc, world, out=acc)
+            return acc
+
+        return self._submit(run)
+
+    def alltoall(self, arrays: List[np.ndarray]) -> Work:
+        world, rank = self._world, self._rank
+        if len(arrays) != world:
+            raise ValueError(f"alltoall needs {world} inputs, got {len(arrays)}")
+        tag = self._next_tag() | 0x05000000
+
+        def run() -> List[np.ndarray]:
+            out: List[Optional[np.ndarray]] = [None] * world
+            out[rank] = arrays[rank].copy()
+            # round r sends to rank+r while receiving from rank-r (full
+            # duplex): deadlock-free for any world size
+            for r in range(1, world):
+                dst, src = (rank + r) % world, (rank - r) % world
+                data = self._exchange(dst, _bytes_view(arrays[dst]), src, tag)
+                out[src] = (np.frombuffer(data, dtype=arrays[src].dtype)
+                            .reshape(arrays[src].shape).copy())
+            return out  # type: ignore[return-value]
 
         return self._submit(run)
 
@@ -621,8 +734,18 @@ class ErrorSwallowingCollectives(Collectives):
         self._inner = inner
         self._error: Optional[Exception] = None
 
+    @property
+    def device_arrays(self) -> bool:
+        return bool(getattr(self._inner, "device_arrays", False))
+
     def error(self) -> Optional[Exception]:
         return self._error
+
+    def plane_info(self) -> str:
+        return self._inner.plane_info()
+
+    def wire_codec(self) -> str:
+        return self._inner.wire_codec()
 
     def report_error(self, e: Exception) -> None:
         self._error = e
@@ -653,8 +776,22 @@ class ErrorSwallowingCollectives(Collectives):
     def allreduce(self, arrays, op=ReduceOp.SUM):
         return self._guard(lambda: self._inner.allreduce(arrays, op), arrays)
 
+    def allgather(self, arr):
+        return self._guard(
+            lambda: self._inner.allgather(arr),
+            [arr.copy() for _ in range(max(1, self._inner.size()))],
+        )
+
     def broadcast(self, arr, root=0):
         return self._guard(lambda: self._inner.broadcast(arr, root), arr)
+
+    def reduce_scatter(self, arrays, op=ReduceOp.SUM):
+        return self._guard(
+            lambda: self._inner.reduce_scatter(arrays, op), arrays[0].copy()
+        )
+
+    def alltoall(self, arrays):
+        return self._guard(lambda: self._inner.alltoall(arrays), arrays)
 
     def send(self, arr, dst, tag=0):
         return self._guard(lambda: self._inner.send(arr, dst, tag), None)

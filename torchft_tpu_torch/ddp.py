@@ -1,5 +1,13 @@
 """Cross-replica-group gradient averaging — the port's counterpart of
-``torchft_tpu/ddp.py`` (its host path).
+``torchft_tpu/ddp.py``.
+
+Two paths, chosen by the Manager's configured data plane:
+
+* **device plane** (``CollectivesDevice``, groups in one process): the
+  gradient tensors go straight into ``manager.allreduce_many`` and are
+  averaged on the device into new tensors (one group alone gets its own
+  tensors back, untouched); no bucket, no host copy.
+* **host plane** (``CollectivesTcp``, groups in separate processes): below.
 
 Gradients are packed into ~25 MB same-dtype buckets (``plan_buckets``, a
 copy of the JAX package's planner). Every bucket's device-to-host copies
@@ -53,12 +61,15 @@ def allreduce_gradients(
 ) -> Any:
     """Average a gradient tree (list or dict of tensors, all on one
     device) across replica groups through the Manager; returns a tree of
-    the same shape on the same device."""
+    the same shape on the same device. The caller's tensors are never
+    written."""
     if bucket_bytes is None:
         bucket_bytes = _DEFAULT_BUCKET_BYTES
     leaves, treedef = tree_flatten(grads)
     if not leaves:
         return grads
+    if getattr(manager, "device_data_plane", lambda: False)():
+        return tree_unflatten(treedef, manager.allreduce_many(leaves).wait())
     device = leaves[0].device
     on_cuda = device.type == "cuda"
     plan = plan_buckets(

@@ -8,9 +8,10 @@
   ``recover_dst_ranks`` or receives one when ``quorum.heal``, and stages it
   for the main thread, which applies it at the commit barrier (async
   quorum) or inside ``start_quorum`` (sync quorum);
-* ``allreduce_many`` averages host buffers across replica groups in place;
-  healing replicas contribute zeros and the divisor is the issue-time
-  participant count, not the world size;
+* ``allreduce_many`` averages across replica groups: host buffers in place
+  on the host plane, tensors on the device on the device plane
+  (``device_data_plane()``); healing replicas contribute zeros and the
+  divisor is the issue-time participant count, not the world size;
 * ``should_commit`` is the per-step commit barrier: drain pending work,
   apply staged state, vote; the optimizer steps only on a unanimous True;
 * the pipelined commit (``commit_pipeline=True``): ``should_commit_async``
@@ -26,6 +27,7 @@ reports from the data plane, and ``WorldSizeMode.FIXED_WITH_SPARES``.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import logging
 import os
 import socket
@@ -36,6 +38,7 @@ from datetime import timedelta
 from typing import Any, Callable, Dict, List, Optional, TypeVar, cast
 
 import numpy as np
+import torch
 
 from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
 from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
@@ -294,6 +297,8 @@ class Manager:
             allow_heal=allow_heal,
             shrink_only=shrink_only,
             quorum_timeout=timeout or self._quorum_timeout,
+            # the stream that trains: the heal's device work runs on it
+            stream=torch.cuda.current_stream() if torch.cuda.is_initialized() else None,
         )
         if not self._use_async_quorum:
             self.wait_quorum()
@@ -333,6 +338,7 @@ class Manager:
         allow_heal: bool,
         shrink_only: bool,
         quorum_timeout: timedelta,
+        stream: Optional["torch.cuda.Stream"] = None,
     ) -> None:
         quorum = self._client._quorum(
             rank=self._rank,
@@ -372,6 +378,15 @@ class Manager:
 
         if not allow_heal:
             return
+        # the heal's device work (copying a served state to the host,
+        # placing a transfer on the device plane) runs on the training
+        # stream, after the updates (and a rollback) it has enqueued
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            self._heal(quorum)
+
+    def _heal(self, quorum) -> None:
+        """The quorum thread's share of a heal: serve this group's state to
+        ``recover_dst_ranks``, or receive and stage a state to heal from."""
         if (quorum.recover_dst_ranks or quorum.heal) and not self._await_speculation_settled():
             # a speculative update is still outstanding on the main thread:
             # the state served now would be the snapshot, one update behind
@@ -462,9 +477,17 @@ class Manager:
     # collectives
     # ------------------------------------------------------------------
 
-    def allreduce_many(self, arrays: List[np.ndarray]) -> Future:
-        """Fault-tolerant cross-replica-group allreduce of host buffers
-        (numpy, averaged in place), scaled by ``1 / num_participants()``.
+    def device_data_plane(self) -> bool:
+        """True when the collectives move tensors on the device
+        (:class:`~torchft_tpu_torch.collectives_device.CollectivesDevice`):
+        gradient averaging then skips the host round trip."""
+        return bool(getattr(self._collectives, "device_arrays", False))
+
+    def allreduce_many(self, arrays: List[Any]) -> Future:
+        """Fault-tolerant cross-replica-group allreduce, scaled by
+        ``1 / num_participants()``: of host buffers (numpy, averaged in
+        place), or on the device plane of tensors (averaged on the device
+        into new tensors; the caller's are never written).
 
         On error the future still completes (with the possibly-corrupt
         arrays) and the error is latched — the step fails at the commit
@@ -490,18 +513,29 @@ class Manager:
         # the same snapshot)
         n_at_issue = self._participating_world_size
         self._step_n = n_at_issue
+        # branch on the configured plane, not on the input type: the device
+        # plane turns numpy inputs into tensors
+        device = self.device_data_plane()
         if not self.is_participating():
-            for a in arrays:
-                a[...] = 0  # in place: the buffers are bucket views
+            if device:
+                arrays = [torch.zeros_like(torch.as_tensor(a)) for a in arrays]
+            else:
+                for a in arrays:
+                    a[...] = 0  # in place: the buffers are bucket views
 
         try:
             work = self._collectives.allreduce(arrays, ReduceOp.SUM)
 
-            def normalize(fut: Future) -> List[np.ndarray]:
+            def normalize(fut: Future) -> List[Any]:
                 reduced = fut.value()
                 if n_at_issue > 1:
-                    for a in reduced:
-                        np.divide(a, n_at_issue, out=a)
+                    if device:
+                        # runs with the issuing stream current (see
+                        # collectives_device): one division per tensor
+                        reduced = [(t / n_at_issue).to(t.dtype) for t in reduced]
+                    else:
+                        for a in reduced:
+                            np.divide(a, n_at_issue, out=a)
                 return reduced
 
             return self.wrap_future(work.get_future().then(normalize), arrays)
