@@ -5,15 +5,19 @@ Usage (repo root, one NVIDIA GPU): ``python3 chip_smoke.py``
 Phases, each of which either passes or ends the run with a non-zero exit:
 
 1. the card's name and power limit; TF32 off for float32 matmuls.
-2. kernel parity at the headline attention shapes (B8 S1024 H8 D64, bf16,
-   causal) and at a ragged length (B2 S192 H2): K1 (forward), K2 (dQ) and
-   K3 (dK/dV) each against its plain PyTorch version on the same inputs,
-   elementwise, and bitwise equal across two launches; the autograd op
-   against plain attention evaluated in float32; float32 cases at the JAX
-   test bars.
-3. timing of each kernel: launched eagerly between CUDA events (``ms``),
-   and replayed from a CUDA graph (device time alone) with its inputs warm
-   in the L2 and L2-cold; its host cost per call, its plain version, the
+2. kernel parity at each head dim the kernels take: at the headline
+   attention shapes (B8 S1024 H8 D64, bf16, causal), the Llama-2-7B
+   shapes (B2 S4096 H32 D128) and the train_bytes shapes (B8 S128 H4 D32,
+   bf16 and float32), and at a ragged length (B2 S192 H2) at D 64, 128 and
+   32: K1 (forward), K2 (dQ) and K3 (dK/dV) each against its plain PyTorch
+   version on the same inputs, elementwise, and bitwise equal across two
+   launches; the autograd op against plain attention evaluated in float32
+   at each head dim; float32 cases at the JAX test bars.
+3. timing of each kernel at the shapes its main path gives it (D 64 at
+   the headline's, D 128 at the Llama-2-7B width's, D 32 at train_bytes'):
+   launched eagerly between CUDA events (``ms``), and replayed from a CUDA
+   graph (device time alone) with its inputs warm in the L2 and L2-cold;
+   its host cost per call, its plain version, the
    ``scaled_dot_product_attention`` yardsticks by both methods and the
    roofline bound.
 4. the headline fault-tolerant training loop on one replica group:
@@ -46,11 +50,19 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    the plain ``(g0 + g1) / 2`` of both groups' gradients, bit for bit. The
    reduction's device time for the gradient tree is printed beside its
    bound, and the joint steps and the heal beside phase 5's.
+9. the Llama-2-7B-width FT step (examples/train_hsdp.py's preset: d4096
+   h32 head dim 128 ff11008 vocab 32000, bf16, ``attention_impl="auto"``)
+   at 4 of its 32 layers, batch 2 x seq 4096, one group on the device
+   plane: the first step's loss against the same step's with plain
+   attention, every step committing, 8/4/4 launches per step, steps/s.
+10. phase 8 at examples/train_bytes.py's model (d128 L2 h4 head dim 32
+   ff352 vocab 256, bf16, batch 8 x seq 128): a late joiner heals over
+   CollectivesTransport, one sha256, 4/2/2 launches per step.
 
-Prints the kernels' JSON line and, last, ``{"ok": true, "device": ...}``.
-The native core and the kernels are built from the checkout on first use;
-ptxas must report 0 spill bytes for each bf16 (wgmma) kernel of a fresh
-build.
+Prints the kernels' JSON line (one entry per kernel and head dim) and,
+last, ``{"ok": true, "device": ...}``. The native core and the kernels are
+built from the checkout on first use; ptxas must report 0 spill bytes for
+every kernel of a fresh build.
 """
 
 from __future__ import annotations
@@ -72,6 +84,11 @@ import torch
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 HEADLINE = dict(batch=8, seq=1024, heads=8, head_dim=64)
+# the Llama-2-7B preset (examples/train_hsdp.py:68-75) at Llama 2's context
+LLAMA = dict(batch=2, seq=4096, heads=32, head_dim=128)
+LLAMA_LAYERS = 4  # of the preset's 32: one card holds float32 masters and AdamW state for 4
+# examples/train_bytes.py:62,86,104-112
+BYTES = dict(batch=8, seq=128, heads=4, head_dim=32)
 REPLACES = {
     "flash_fwd": "torchft_tpu/ops/pallas/flash_attention.py:67",
     "flash_dq": "torchft_tpu/ops/pallas/flash_attention.py:145",
@@ -147,21 +164,29 @@ def host_us_per_call(fn, calls: int = 200) -> float:
     return elapsed / calls * 1e6
 
 
-WGMMA_KERNELS = ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma")
+# the library's kernels as their mangled names spell the template
+# arguments: the wgmma kernels at head dims 64 and 128, the FMA kernels in
+# float32 at 32 and 64 and in bf16 at 32
+BUILT = ([f"{n}ILi{d}E" for n in ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma")
+          for d in (64, 128)]
+         + [f"{n}I{t}Li{d}E" for n in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+            for t, d in (("f", 32), ("f", 64), ("13__nv_bfloat16", 32))])
 
 
 def check_no_spills(build_log: str) -> None:
-    """Each wgmma kernel's section of a ptxas -v log reports 0 spill bytes
-    (a spill of a wgmma accumulator serialises the tensor cores). An empty
-    log (a library built earlier) is not checked."""
+    """Each kernel of ``BUILT`` has one section in a ptxas -v log, and every
+    section reports 0 spill bytes (a spill of a wgmma accumulator
+    serialises the tensor cores). An empty log (a library built earlier) is
+    not checked."""
     if not build_log:
         return
     sections = build_log.split("Compiling entry function")[1:]
-    for name in WGMMA_KERNELS:
+    for name in BUILT:
         found = [sec for sec in sections if name in sec.splitlines()[0]]
         check(len(found) == 1, f"ptxas log: no single entry for {name}")
-        check("0 bytes spill stores, 0 bytes spill loads" in found[0],
-              f"{name} spills registers")
+    for sec in sections:
+        check("0 bytes spill stores, 0 bytes spill loads" in sec,
+              f"{sec.splitlines()[0].strip()} spills registers")
 
 
 # ---------------------------------------------------------------------------
@@ -236,6 +261,13 @@ LSE_TOL = 1e-4
 OP_BAR = dict(rtol=2.0 ** -7, atol=2e-2, row_scaled=False)
 
 
+# float32 kernels against their plain versions: the JAX test bars (2e-5 for
+# O and lse, 3e-4 for gradients), float32 summation order only
+F32_O_BAR = dict(rtol=0.0, atol=2e-5, row_scaled=False)
+F32_GRAD_BAR = dict(rtol=0.0, atol=3e-4, row_scaled=False)
+F32_LSE_TOL = 2e-5
+
+
 def _hold(name, got, ref, what, rtol, atol, row_scaled) -> float:
     """Hold ``got`` to ``ref`` elementwise at a bar above; print the error,
     the bar and the typical |ref| beside it. Returns max |err|."""
@@ -246,47 +278,52 @@ def _hold(name, got, ref, what, rtol, atol, row_scaled) -> float:
         scale = scale + ref.pow(2).mean(-1, keepdim=True).sqrt()
     worst = float((err / (rtol * scale + atol)).max())
     rows = "(|ref|+row rms)" if row_scaled else "|ref|"
-    log(f"{name} bf16: max|g-{what}|={float(err.max()):.3e} median|ref|="
+    log(f"{name}: max|g-{what}|={float(err.max()):.3e} median|ref|="
         f"{float(ref.abs().median()):.3e} max|ref|={float(ref.abs().max()):.3e} "
         f"worst err/bar={worst:.3f} (bar {rtol:.4g}*{rows}+{atol:g}, fail >1)")
     check(worst <= 1.0, f"{name} disagrees with {what}")
     return float(err.max())
 
 
-def _hold_lse(name, got, ref) -> float:
+def _hold_lse(name, got, ref, tol=LSE_TOL) -> float:
     err = _max_err(got, ref)
-    log(f"{name}: max|lse-ref|={err:.3e} (tol {LSE_TOL:g})")
-    check(err <= LSE_TOL, f"{name}: lse disagrees with its plain version")
+    log(f"{name}: max|lse-ref|={err:.3e} (tol {tol:g})")
+    check(err <= tol, f"{name}: lse disagrees with its plain version")
     return err
 
 
-def _check_kernels(fa, shape, seed, tag):
-    """K1, K2 and K3 against their plain versions on the same bf16 causal
+def _check_kernels(fa, shape, seed, dtype=torch.bfloat16):
+    """K1, K2 and K3 against their plain versions on the same causal
     inputs, and each launched twice on those inputs with bitwise equal
     results. Returns each kernel's max |err|."""
     b, s, h, d = shape
-    q, k, v, do = _qkv(b, s, h, d, torch.bfloat16, seed=seed)
+    tag = f"b{b} s{s} h{h} d{d} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+    o_bar, grad_bar, lse_tol = ((KERNEL_BAR, KERNEL_BAR, LSE_TOL) if dtype == torch.bfloat16
+                                else (F32_O_BAR, F32_GRAD_BAR, F32_LSE_TOL))
+    q, k, v, do = _qkv(b, s, h, d, dtype, seed=seed)
     pq, pk, pv, pdo = map(_pack, (q, k, v, do))
     plain = "its plain version"
     res = {}
 
-    # K1: O elementwise at the kernel bar, lse at LSE_TOL
+    # K1: O elementwise at the kernel bar, lse at its tolerance
     o, lse = fa.fwd_kernel(pq, pk, pv, True)
     o_ref, lse_ref = fa.fwd_plain(pq, pk, pv, True)
     torch.cuda.synchronize()
-    res["flash_fwd"] = max(_hold(f"K1 flash_fwd O {tag}", o, o_ref, plain, **KERNEL_BAR),
-                           _hold_lse(f"K1 flash_fwd {tag}", lse, lse_ref))
+    res["flash_fwd"] = max(_hold(f"K1 flash_fwd O {tag}", o, o_ref, plain, **o_bar),
+                           _hold_lse(f"K1 flash_fwd {tag}", lse, lse_ref, lse_tol))
+    del o_ref, lse_ref
 
     # K2 / K3 vs their plain versions on the same (kernel) lse and delta
     delta = (pdo.float() * o.float()).sum(-1)
     dq = fa.dq_kernel(pq, pk, pv, pdo, lse, delta, True)
     dk, dv = fa.dkv_kernel(pq, pk, pv, pdo, lse, delta, True)
     dq_ref = fa.dq_plain(pq, pk, pv, pdo, lse, delta, True)
+    res["flash_dq"] = _hold(f"K2 flash_dq {tag}", dq, dq_ref, plain, **grad_bar)
+    del dq_ref
     dk_ref, dv_ref = fa.dkv_plain(pq, pk, pv, pdo, lse, delta, True)
-    torch.cuda.synchronize()
-    res["flash_dq"] = _hold(f"K2 flash_dq {tag}", dq, dq_ref, plain, **KERNEL_BAR)
-    res["flash_dkv"] = max(_hold(f"K3 flash_dk {tag}", dk, dk_ref, plain, **KERNEL_BAR),
-                           _hold(f"K3 flash_dv {tag}", dv, dv_ref, plain, **KERNEL_BAR))
+    res["flash_dkv"] = max(_hold(f"K3 flash_dk {tag}", dk, dk_ref, plain, **grad_bar),
+                           _hold(f"K3 flash_dv {tag}", dv, dv_ref, plain, **grad_bar))
+    del dk_ref, dv_ref
 
     # determinism: the checkpoint recompute must reproduce the forward
     # bit for bit (phase 5's identical checksums rest on it)
@@ -302,36 +339,69 @@ def _check_kernels(fa, shape, seed, tag):
     return res
 
 
-def phase_kernels():
-    """Each kernel against its plain version at the headline shapes and at
-    a ragged length (S=192, not a multiple of 128), the autograd op against
-    plain attention, and float32 cases at the JAX test bars: causal at the
-    headline shapes, non-causal at a small size."""
-    from torchft_tpu_torch.ops import flash_attention as fa
+def _shape(cfg):
+    return tuple(cfg[k] for k in ("batch", "seq", "heads", "head_dim"))
 
-    b, s, h, d = (HEADLINE[k] for k in ("batch", "seq", "heads", "head_dim"))
-    res = _check_kernels(fa, (b, s, h, d), 1, f"b{b} s{s} h{h}")
-    ragged = _check_kernels(fa, (2, 192, 2, d), 4, "b2 s192 h2")
-    res = {n: max(res[n], ragged[n]) for n in res}
 
-    # the autograd op (K1 forward, K2/K3 via backward) vs plain float32 attention
-    q, k, v, do = _qkv(b, s, h, d, torch.bfloat16, seed=1)
+def _hold_op(shape, seed, dtype):
+    """The autograd op (K1 forward, K2/K3 via backward) against plain
+    attention in float32 from the same inputs: OP_BAR for bf16 (the forward
+    within 2e-2), the JAX test bars (2e-5 / 3e-4) for float32."""
+    q, k, v, do = _qkv(*shape, dtype, seed=seed)
     o_op, *g_op = _op_grads(q, k, v, do, True)
     o_pl, *g_pl = _plain_grads(q, k, v, do, True)
+    b, s, h, d = shape
+    tag = f"op {'bf16' if dtype == torch.bfloat16 else 'f32'} causal b{b} s{s} h{h} d{d}"
+    if dtype == torch.bfloat16:
+        err = _max_err(o_op, o_pl)
+        log(f"{tag}: max|O-plain_f32|={err:.3e} (tol 2e-2)")
+        check(err <= 2e-2, f"{tag}: forward disagrees with plain attention")
+        for name, a, r in zip(("dq", "dk", "dv"), g_op, g_pl):
+            _hold(f"{tag} {name}", a, r, "plain float32 attention", **OP_BAR)
+        return
     err = _max_err(o_op, o_pl)
-    log(f"op bf16 causal: max|O-plain_f32|={err:.3e} (tol 2e-2)")
-    check(err <= 2e-2, "flash op forward disagrees with plain attention")
+    log(f"{tag}: max|O-plain|={err:.3e} (tol 2e-5)")
+    check(err <= 2e-5, f"{tag}: forward disagrees with plain attention")
     for name, a, r in zip(("dq", "dk", "dv"), g_op, g_pl):
-        _hold(f"op {name}", a, r, "plain float32 attention", **OP_BAR)
+        err = _max_err(a, r)
+        log(f"{tag}: max|{name}-plain|={err:.3e} (tol 3e-4) max|ref|={float(r.abs().max()):.3e}")
+        check(err <= 3e-4, f"{tag}: {name} disagrees with plain attention")
 
-    # float32: the JAX test bars (2e-5 for O, 3e-4 for grads). Causal at the
-    # headline shapes holds every tile position, the diagonal blocks and the
-    # mask tightly; non-causal at b2 s256 h2 holds the unmasked loops.
-    for shape, causal, seed in (((b, s, h, d), True, 2), ((2, 256, 2, d), False, 3)):
+
+def phase_kernels():
+    """Each kernel against its plain version at each head dim: D 64 at the
+    headline shapes, D 128 at the Llama-2-7B width's, D 32 at train_bytes'
+    (bf16 and float32), and at a ragged length (S=192, not a multiple of
+    128) at all three; the autograd op against plain attention at each head
+    dim; float32 cases at the JAX test bars. Returns {(kernel, head dim):
+    max |err|}."""
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    errs = {}
+    checks = [(_shape(HEADLINE), 1, torch.bfloat16), ((2, 192, 2, 64), 4, torch.bfloat16),
+              (_shape(LLAMA), 5, torch.bfloat16), ((2, 192, 2, 128), 6, torch.bfloat16),
+              (_shape(BYTES), 7, torch.bfloat16), (_shape(BYTES), 8, torch.float32),
+              ((2, 192, 2, 32), 9, torch.bfloat16)]
+    for shape, seed, dtype in checks:
+        for name, err in _check_kernels(fa, shape, seed, dtype).items():
+            key = (name, shape[3])
+            errs[key] = max(errs.get(key, 0.0), err)
+
+    # the op against float32 attention: bf16 at each head dim, float32 at
+    # the JAX test bars (causal at the headline shapes holds every tile
+    # position, the diagonal blocks and the mask tightly) ...
+    for shape, seed, dtype in ((_shape(HEADLINE), 1, torch.bfloat16),
+                               ((2, 1024, 8, 128), 5, torch.bfloat16),
+                               (_shape(BYTES), 7, torch.bfloat16),
+                               (_shape(HEADLINE), 2, torch.float32),
+                               (_shape(BYTES), 8, torch.float32)):
+        _hold_op(shape, seed, dtype)
+    # ... and non-causal float32 at small sizes holds the unmasked loops
+    for shape, seed in (((2, 256, 2, 64), 3), ((2, 256, 2, 32), 3)):
         q, k, v, do = _qkv(*shape, torch.float32, seed=seed)
-        o_op, *g_op = _op_grads(q, k, v, do, causal)
-        o_pl, *g_pl = _plain_grads(q, k, v, do, causal)
-        tag = f"op f32 {'causal' if causal else 'non-causal'} b{shape[0]} s{shape[1]} h{shape[2]}"
+        o_op, *g_op = _op_grads(q, k, v, do, False)
+        o_pl, *g_pl = _plain_grads(q, k, v, do, False)
+        tag = f"op f32 non-causal b{shape[0]} s{shape[1]} h{shape[2]} d{shape[3]}"
         err = _max_err(o_op, o_pl)
         log(f"{tag}: max|O-plain|={err:.3e} (tol 2e-5)")
         check(err <= 2e-5, f"{tag}: forward disagrees with plain attention")
@@ -340,14 +410,15 @@ def phase_kernels():
             log(f"{tag}: max|{name}-plain|={err:.3e} (tol 3e-4) "
                 f"max|ref|={float(r.abs().max()):.3e}")
             check(err <= 3e-4, f"{tag}: {name} disagrees with plain attention")
-    return res
+    return errs
 
 
-def _bounds():
-    """Least time for each kernel's work at the headline shapes: the bytes
-    it must move (inputs read once, outputs written once) over HBM rate,
-    and the causal matmul FLOPs these inputs need over the bf16 peak."""
-    b, s, h, d = (HEADLINE[k] for k in ("batch", "seq", "heads", "head_dim"))
+def _bounds(shape):
+    """Least time for each kernel's work at ``shape`` (B, S, H, D; bf16,
+    causal): the bytes it must move (inputs read once, outputs written
+    once) over HBM rate, and the causal matmul FLOPs these inputs need over
+    the bf16 peak."""
+    b, s, h, d = shape
     bh = b * h
     tensor = bh * s * d * 2  # one bf16 [BH,S,D]
     row = bh * s * 4  # one f32 [BH,S]
@@ -366,21 +437,23 @@ def _bounds():
     return out
 
 
-COLD_SETS = 4  # input sets rotated for L2-cold times: 135-200 MB, over the 50 MB L2
+COLD_SETS = 4  # input sets rotated for L2-cold times: 135-200 MB at D 64, over the 50 MB L2
 
 
-def phase_timing():
-    """Each kernel's time launched eagerly (``ms``, the method of the first
-    slice's records); its device time replayed from a CUDA graph with its
-    inputs warm (one set, called back to back: ``ms_graph``) and L2-cold
-    (``COLD_SETS`` independent sets in turn: ``ms_cold``); its host cost per
+def phase_timing(shape):
+    """Each kernel's time at ``shape`` (bf16, causal), launched eagerly
+    (``ms``, the method of the first slice's records); its device time
+    replayed from a CUDA graph with its inputs warm (one set, called back
+    to back: ``ms_graph``) and L2-cold (``COLD_SETS`` independent sets in
+    turn: ``ms_cold``; at D 32 all sets fit in the L2); its host cost per
     call; its plain version's time; and the ``scaled_dot_product_attention``
-    yardsticks, each by both methods."""
+    yardsticks, each by both methods. Returns (times, bounds, SDPA forward
+    (eager, graph))."""
     import torch.nn.functional as F
 
     from torchft_tpu_torch.ops import flash_attention as fa
 
-    b, s, h, d = (HEADLINE[k] for k in ("batch", "seq", "heads", "head_dim"))
+    b, s, h, d = shape
     sets = []
     for seed in range(3, 3 + COLD_SETS):
         q, k, v, do = _qkv(b, s, h, d, torch.bfloat16, seed=seed)
@@ -404,7 +477,7 @@ def phase_timing():
             host_us=host_us_per_call(lambda: kernel(tiny)),
             plain_ms=gpu_time_ms(lambda: plain(sets[0])),
         )
-    del sets
+    del sets, tiny
 
     # yardsticks only: PyTorch's own fused attention, never called by the port
     q, k, v, do = _qkv(b, s, h, d, torch.bfloat16, seed=3)
@@ -422,10 +495,11 @@ def phase_timing():
         "fwd": (gpu_time_ms(sdpa_fwd), gpu_time_ms(sdpa_fwd, graph=True)),
         "fwd_bwd": (gpu_time_ms(sdpa_fwd_bwd), gpu_time_ms(sdpa_fwd_bwd, graph=True)),
     }
-    bounds = _bounds()
+    bounds = _bounds(shape)
+    tag = f"b{b} s{s} h{h} d{d}"
     for name, r in t.items():
         bound, by, flops, nbytes = bounds[name]
-        log(f"{name}: {r['ms']:.4f} ms eager (host launches included); CUDA graph "
+        log(f"{name} {tag}: {r['ms']:.4f} ms eager (host launches included); CUDA graph "
             f"(device time) {r['ms_graph']:.4f} ms warm, {r['ms_cold']:.4f} ms L2-cold; host "
             f"{r['host_us']:.1f} us/call; plain {r['plain_ms']:.4f} ms; bound {bound:.4f} ms "
             f"by {by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB")
@@ -433,8 +507,8 @@ def phase_timing():
         fwd, both = sdpa["fwd"][i], sdpa["fwd_bwd"][i]
         key = "ms" if i == 0 else "ms_graph"
         ours = {n: t[n][key] for n in t}
-        log(f"sdpa(is_causal), {method}: forward {fwd:.4f} ms, forward+backward {both:.4f} "
-            f"ms vs flash fwd+dq+dkv {sum(ours.values()):.4f} ms; backward alone "
+        log(f"sdpa(is_causal) {tag}, {method}: forward {fwd:.4f} ms, forward+backward "
+            f"{both:.4f} ms vs flash fwd+dq+dkv {sum(ours.values()):.4f} ms; backward alone "
             f"(fwd+bwd - fwd) {both - fwd:.4f} ms vs flash dq+dkv "
             f"{ours['flash_dq'] + ours['flash_dkv']:.4f} ms")
     return t, bounds, sdpa["fwd"]
@@ -451,6 +525,29 @@ def headline_config():
     return TransformerConfig(
         vocab_size=32000, d_model=512, n_layers=8, n_heads=8, head_dim=64,
         d_ff=1408, dtype=torch.bfloat16, attention_impl="flash",
+    )
+
+
+def llama_config(n_layers=LLAMA_LAYERS):
+    """The Llama-2-7B preset's widths (examples/train_hsdp.py:68-75) at
+    ``n_layers`` of its 32, bf16, attention by ``"auto"`` (the kernels at
+    head dim 128)."""
+    from torchft_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(
+        vocab_size=32000, d_model=4096, n_layers=n_layers, n_heads=32, head_dim=128,
+        d_ff=11008, dtype=torch.bfloat16, attention_impl="auto",
+    )
+
+
+def bytes_config():
+    """examples/train_bytes.py's model (:104-112) in bf16, its accelerator
+    dtype, attention by ``"auto"`` (the kernels at head dim 32)."""
+    from torchft_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(
+        vocab_size=256, d_model=128, n_layers=2, n_heads=4, head_dim=32, d_ff=352,
+        dtype=torch.bfloat16, attention_impl="auto",
     )
 
 
@@ -626,24 +723,27 @@ def _time_apply(trainer, heal):
     trainer.load_state_dict = timed
 
 
-def phase_two_groups(plane="tcp", transport="http", own_streams=False, together=3):
+def phase_two_groups(plane="tcp", transport="http", own_streams=False, together=3, cfg=None,
+                     shape=HEADLINE):
     """Two groups as threads on the card; the second joins late and heals
     from the first, then both commit ``together`` steps. With
     ``own_streams`` each group runs on a CUDA stream of its own and keeps
-    one joint step's gradients (``_keep_average``). Returns the heal's and
-    the joint steps' numbers, and the kept gradients."""
+    one joint step's gradients (``_keep_average``). The model is ``cfg``
+    (the headline's by default) at ``shape``'s batch and seq. Returns the
+    heal's and the joint steps' numbers, the kept gradients and the kernel
+    launches."""
     from torchft_tpu_torch.coordination import LighthouseServer
     from torchft_tpu_torch.ops import flash_attention as fa
     from torchft_tpu_torch.parallel.ft import FTTrainer
     from torchft_tpu_torch.parallel.train_step import TrainStep
     from torchft_tpu_torch.store import StoreServer
 
-    cfg = headline_config()
-    batch, seq = HEADLINE["batch"], HEADLINE["seq"]
+    cfg = cfg or headline_config()
+    batch, seq = shape["batch"], shape["seq"]
     lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
     first_commit = threading.Event()
     calls = {0: 0, 1: 0}  # trainer.step calls per group
-    tag = f"{plane}/{transport}"
+    tag = f"{plane}/{transport} hd{cfg.head_dim}"
 
     def group(gid: int):
         try:
@@ -721,6 +821,7 @@ def phase_two_groups(plane="tcp", transport="http", own_streams=False, together=
     expect = {n: c * (calls[0] + calls[1]) for n, c in _launches_per_step(cfg).items()}
     log(f"{tag} two groups: {calls[0]} + {calls[1]} steps, kernel launches {launches}")
     check(launches == expect, f"{tag} two-group launches {launches} != {expect}")
+    out["launches"] = launches
     return out
 
 
@@ -773,6 +874,83 @@ def phase_device_groups(tcp):
         f"2 groups): {eager:.4f} ms eager (host launches included), {graph:.4f} ms device "
         f"time (CUDA graph); bound {bound:.4f} ms (bytes: reads 2 x {nbytes / 1e6:.1f} MB, "
         f"writes 2 x {nbytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12:.2f} TB/s)")
+
+
+def phase_llama(warmup=2, steps=3):
+    """The Llama-2-7B-width FT step (``llama_config``: LLAMA_LAYERS of its
+    32 layers) at batch 2 x seq 4096 through the headline's entry points on
+    the device plane. Holds the first step's loss against the same step's
+    with plain attention from the same params and tokens, every step
+    committing, finite losses and 8/4/4 launches per step (counted over the
+    warm-up and timed steps). Returns the launches."""
+    import dataclasses
+
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.models.transformer import _use_flash, loss_fn
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.parallel.ft import FTTrainer
+    from torchft_tpu_torch.parallel.train_step import TrainStep
+    from torchft_tpu_torch.store import StoreServer
+    from torchft_tpu_torch.utils.tree import tree_leaves
+
+    cfg = llama_config()
+    batch, seq = LLAMA["batch"], LLAMA["seq"]
+    check(_use_flash(cfg, seq, torch.device("cuda")),
+          "attention_impl='auto' does not route the Llama width to the kernels")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
+    store = StoreServer()
+    manager = make_manager(lighthouse.address(), store, "smoke-llama")
+    try:
+        t0 = time.perf_counter()
+        trainer = FTTrainer(manager, TrainStep(cfg, device="cuda"))
+        trainer.init(seed=0)
+        tokens = make_tokens(cfg, 0, batch, seq)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in tree_leaves(trainer.params))
+        log(f"llama width, {cfg.n_layers} of 32 layers (cut for one card's memory): "
+            f"{n_params} params, init {time.perf_counter() - t0:.1f} s")
+        with torch.no_grad():
+            plain = float(loss_fn(trainer.params, tokens,
+                                  dataclasses.replace(cfg, attention_impl="plain")))
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        losses = []
+        for i in range(warmup):
+            loss, committed = trainer.step(tokens)
+            log(f"llama warmup step {i}: loss={loss:.5f} committed={committed}")
+            check(committed, "a llama warm-up step did not commit")
+            losses.append(loss)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            loss, committed = trainer.step(tokens)
+            check(committed, "a llama step did not commit")
+            losses.append(loss)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = dict(fa.LAUNCHES)
+    finally:
+        manager.shutdown(wait=False)
+        store.shutdown()
+        lighthouse.shutdown()
+    log(f"llama steps: losses {', '.join(f'{x:.5f}' for x in losses)}")
+    check(all(np.isfinite(losses)), "llama: non-finite loss")
+    err = abs(losses[0] - plain)
+    log(f"llama first step: loss {losses[0]:.5f} through the kernels, {plain:.5f} with plain "
+        f"attention from the same params and tokens: |diff| {err:.3e} (tol 1e-2)")
+    check(err <= 1e-2, "llama: the flash loss disagrees with plain attention's")
+    per_step = {n: c / (warmup + steps) for n, c in launches.items()}
+    expect = _launches_per_step(cfg)
+    log(f"llama kernel launches per step: {per_step}")
+    check(per_step == expect, f"llama launches per step {per_step} != {expect}")
+    log(f"llama FT step, L{cfg.n_layers} d{cfg.d_model} h{cfg.n_heads} hd{cfg.head_dim} "
+        f"ff{cfg.d_ff} vocab {cfg.vocab_size} bf16, batch {batch} x seq {seq}, device plane: "
+        f"{steps / elapsed:.4f} steps/s, {steps * batch * seq / elapsed:.1f} tokens/s "
+        f"({steps} steps, {elapsed / steps * 1e3:.1f} ms each); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    return launches
 
 
 def _run_threads(target, what, timeout=900):
@@ -1226,25 +1404,33 @@ def main() -> None:
     check_no_spills(build_log)
 
     errs = phase_kernels()
-    t, bounds, sdpa_fwd = phase_timing()
-    launches = phase_ft_loop()
+    timing = {64: phase_timing(_shape(HEADLINE)), 128: phase_timing(_shape(LLAMA)),
+              32: phase_timing(_shape(BYTES))}
+    launches = {64: phase_ft_loop()}
     tcp_groups = phase_two_groups()
     phase_diloco()
     phase_pipeline()
     phase_device_groups(tcp_groups)
+    launches[128] = phase_llama()
+    # phase 10: phase 8 at train_bytes' model (head dim 32)
+    launches[32] = phase_two_groups(plane="device", transport="collectives", own_streams=True,
+                                    cfg=bytes_config(), shape=BYTES)["launches"]
 
-    kernels = [
-        {
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": errs[name], "ms": t[name]["ms"], "ms_graph": t[name]["ms_graph"],
-            "ms_cold": t[name]["ms_cold"], "plain_ms": t[name]["plain_ms"],
-            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-            "library_ms": sdpa_fwd[0] if name == "flash_fwd" else None,
-            "library_ms_graph": sdpa_fwd[1] if name == "flash_fwd" else None,
-        }
-        for name in ("flash_fwd", "flash_dq", "flash_dkv")
-    ]
+    kernels = []
+    for d in (64, 128, 32):
+        t, bounds, sdpa_fwd = timing[d]
+        for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+            kernels.append({
+                # the head dim 64 entries keep the earlier slices' names
+                "name": name if d == 64 else f"{name}_d{d}", "head_dim": d, "route": "cuda",
+                "source": SOURCE, "replaces": REPLACES[name], "launches": launches[d][name],
+                "max_abs_err": errs[(name, d)], "ms": t[name]["ms"],
+                "ms_graph": t[name]["ms_graph"], "ms_cold": t[name]["ms_cold"],
+                "plain_ms": t[name]["plain_ms"], "bound_ms": bounds[name][0],
+                "bound_by": bounds[name][1],
+                "library_ms": sdpa_fwd[0] if name == "flash_fwd" else None,
+                "library_ms_graph": sdpa_fwd[1] if name == "flash_fwd" else None,
+            })
     log(json.dumps({"kernels": kernels}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

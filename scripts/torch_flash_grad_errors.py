@@ -20,8 +20,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import _op_grads, _plain_grads, _qkv  # noqa: E402
 
+# (B, S, H, D), seed: head dim 64 at the headline's shapes and smaller, 128
+# at chip_smoke.py's op shape and the Llama-2-7B width's, 32 at train_bytes'
 CASES = (((8, 1024, 8, 64), 1), ((8, 1024, 8, 64), 7), ((2, 256, 2, 64), 2),
-         ((1, 256, 64, 64), 1))
+         ((1, 256, 64, 64), 1), ((2, 1024, 8, 128), 5), ((2, 1024, 8, 128), 7),
+         ((2, 4096, 32, 128), 5), ((8, 128, 4, 32), 7), ((8, 128, 4, 32), 9))
 RTOL = 2.0 ** -7
 
 
@@ -44,7 +47,7 @@ def main() -> None:
             need = float((err - RTOL * r.abs()).max())
             if name != "O":
                 worst = max(worst, need)
-            print(f"b{shape[0]} s{shape[1]} h{shape[2]} seed {seed} {name}: max err "
+            print(f"b{shape[0]} s{shape[1]} h{shape[2]} d{shape[3]} seed {seed} {name}: max err "
                   f"{float(err.max()):.3e}, least atol at rtol 2^-7 {need:.3e}, "
                   f"median|ref| {float(r.abs().median()):.3e}")
     print(f"largest least atol over the gradients: {worst:.3e}")

@@ -1,11 +1,13 @@
 """Where the time of the port's headline fault-tolerant step goes.
 
 Usage (repo root, one NVIDIA GPU):
-``python3 scripts/torch_step_profile.py [--plane device|tcp]``
+``python3 scripts/torch_step_profile.py [--plane device|tcp] [--config headline|llama]``
 
 Runs the single-group FT loop of ``chip_smoke.py``, with its headline
 configuration and Manager wiring (d512 L8 h8 ff1408 vocab 32000 bf16,
-batch 8 x seq 1024, flash attention) over the data plane ``--plane`` names:
+batch 8 x seq 1024, flash attention) or, with ``--config llama``, its
+Llama-2-7B-width step (d4096 h32 head dim 128 ff11008 vocab 32000 bf16 at
+4 of 32 layers, batch 2 x seq 4096), over the data plane ``--plane`` names:
 ``device`` (CollectivesDevice, the default and the headline's wiring) or
 ``tcp`` (CollectivesTcp, whose average copies the gradients to the host and
 back). It reports:
@@ -35,7 +37,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from chip_smoke import HEADLINE, headline_config, make_manager, make_tokens  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    HEADLINE, LLAMA, headline_config, llama_config, make_manager, make_tokens,
+)
 from torchft_tpu_torch.coordination import LighthouseServer  # noqa: E402
 from torchft_tpu_torch.ddp import allreduce_gradients  # noqa: E402
 from torchft_tpu_torch.parallel.ft import FTTrainer  # noqa: E402
@@ -46,6 +50,7 @@ from torchft_tpu_torch.store import StoreServer  # noqa: E402
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--plane", choices=("device", "tcp"), default="device")
+    parser.add_argument("--config", choices=("headline", "llama"), default="headline")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("CUDA is not available: this script needs an NVIDIA GPU")
@@ -54,16 +59,18 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip())
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = headline_config()
+    cfg, shape = {"headline": (headline_config, HEADLINE),
+                  "llama": (llama_config, LLAMA)}[args.config]
+    cfg = cfg()
     lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
     store = StoreServer()
     manager = make_manager(lighthouse.address(), store, "profile", plane=args.plane)
-    print(f"data plane: {args.plane}")
+    print(f"data plane: {args.plane}, config: {args.config}")
     try:
         ts = TrainStep(cfg, device="cuda")
         trainer = FTTrainer(manager, ts)
         trainer.init(seed=0)
-        tokens = make_tokens(cfg, 0, HEADLINE["batch"], HEADLINE["seq"])
+        tokens = make_tokens(cfg, 0, shape["batch"], shape["seq"])
         for _ in range(3):
             trainer.step(tokens)
         torch.cuda.synchronize()

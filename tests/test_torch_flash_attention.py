@@ -3,9 +3,10 @@
 The same numpy inputs go through ``torchft_tpu.ops.pallas.flash_attention``
 (interpret mode on the CPU, as its own tests run it) and through
 ``torchft_tpu_torch.ops.flash_attention`` (its plain version, since the
-tensors lie on the CPU). The card test holds the CUDA kernels against
-their plain versions and skips without a GPU; it imports no JAX, so on
-the card it runs with ``python -m pytest --noconftest -m cuda
+tensors lie on the CPU), at each head dim the card's kernels take (32, 64
+and 128). The card tests hold the CUDA kernels against their plain
+versions and skip without a GPU; they import no JAX, so on the card they
+run with ``python -m pytest --noconftest -m cuda
 tests/test_torch_flash_attention.py``.
 """
 
@@ -25,6 +26,19 @@ def _qkv(b=2, s=256, h=2, d=64, seed=0):
     return [rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(3)]
 
 
+HEAD_DIMS = (64, 32, 128)  # the head dims the card's kernels take
+
+
+def _at_head_dims(cases):
+    """``cases`` ({id: args}) at every head dim, d first; the head dim 64
+    cases keep the ids they had before the others were added."""
+    return [
+        pytest.param(d, *args, id=case if d == 64 else f"d{d}-{case}")
+        for d in HEAD_DIMS
+        for case, args in cases.items()
+    ]
+
+
 def _jax_flash():
     jax = pytest.importorskip("jax")
     from torchft_tpu.ops.pallas.flash_attention import flash_attention
@@ -32,14 +46,16 @@ def _jax_flash():
     return jax, flash_attention
 
 
-@pytest.mark.parametrize("s", [256, 192], ids=["s256", "s192"])
-@pytest.mark.parametrize("causal", [True, False])
-def test_forward_matches_jax_kernel(causal, s):
-    # f32 at b2 h2 d64, blocks 64: the JAX test's own bar (2e-5) — the two
+@pytest.mark.parametrize(
+    "d,causal,s",
+    _at_head_dims({f"{c}-s{s}": (c, s) for s in (256, 192) for c in (True, False)}),
+)
+def test_forward_matches_jax_kernel(d, causal, s):
+    # f32 at b2 h2, blocks 64: the JAX test's own bar (2e-5) — the two
     # differ only in float32 summation order. S=192 is the ragged length the
     # card checks (not a multiple of the card kernels' 128-row tiles).
     jax, jax_flash = _jax_flash()
-    q, k, v = _qkv(s=s)
+    q, k, v = _qkv(s=s, d=d)
     expect = np.asarray(jax_flash(q, k, v, causal=causal, block_q=64, block_k=64))
     got = fa.flash_attention(
         *map(torch.from_numpy, (q, k, v)), causal=causal, block_q=64, block_k=64
@@ -47,13 +63,13 @@ def test_forward_matches_jax_kernel(causal, s):
     np.testing.assert_allclose(got.numpy(), expect, atol=2e-5)
 
 
-@pytest.mark.parametrize("s", [128, 192], ids=["s128", "s192"])
-def test_grads_match_jax_kernels(s):
+@pytest.mark.parametrize("d,s", _at_head_dims({f"s{s}": (s,) for s in (128, 192)}))
+def test_grads_match_jax_kernels(d, s):
     # gradients through the JAX dQ and dK/dV kernels vs the port's op under
     # autograd: the JAX test's bar (3e-4), f32 accumulation order only; at
     # the ragged S=192 that the card checks too
     jax, jax_flash = _jax_flash()
-    q, k, v = _qkv(s=s)
+    q, k, v = _qkv(s=s, d=d)
 
     def loss(q, k, v):
         return (jax_flash(q, k, v, causal=True, block_q=64, block_k=64) ** 2).sum()
@@ -76,13 +92,15 @@ def _pack(x):
     return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
 
 
-@pytest.mark.parametrize("s", [128, 192], ids=["s128", "s192"])
-@pytest.mark.parametrize("causal", [True, False])
-def test_plain_kernel_versions_match_autograd(causal, s):
+@pytest.mark.parametrize(
+    "d,causal,s",
+    _at_head_dims({f"{c}-s{s}": (c, s) for s in (128, 192) for c in (True, False)}),
+)
+def test_plain_kernel_versions_match_autograd(d, causal, s):
     """fwd_plain / dq_plain / dkv_plain — what the card holds the kernels
     against — equal plain attention and its autograd gradients (f32, same
     math in another order: 1e-5), at the ragged length S=192 too."""
-    q, k, v, do = map(torch.from_numpy, _qkv(s=s) + _qkv(s=s, seed=1)[:1])
+    q, k, v, do = map(torch.from_numpy, _qkv(s=s, d=d) + _qkv(s=s, d=d, seed=1)[:1])
     ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
     o = attention(*ts, causal=causal)
     o.backward(do)
@@ -134,28 +152,70 @@ def test_kernel_wrappers_reject_cpu_tensors(call):
     assert fa.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize(
-    "dtype,causal,bh,s",
-    [
-        (torch.bfloat16, True, 64, 256),
-        # the headline shape (B8 H8 S1024): K2's diagonal-first ring over 8
-        # key tiles per block at most
-        (torch.bfloat16, True, 64, 1024),
-        (torch.float32, False, 64, 256),
-        (torch.float32, True, 64, 256),
-        # ragged: S not a multiple of the 128-row tiles
-        (torch.bfloat16, True, 4, 192),
-        (torch.bfloat16, False, 4, 192),
-    ],
-)
-def test_kernels_match_plain_on_card(dtype, causal, bh, s):
+def test_supported_shapes():
+    """The predicate that routes ``"auto"`` and guards the wrappers: bf16 at
+    head dims 32, 64 and 128, float32 at 32 and 64, S a multiple of 64 of
+    at most 65535 tiles (a grid's y extent)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    for d in (32, 64, 128):
+        assert fa.supported(bf16, d, 4096) and fa.supported(bf16, d, 192)
+    assert fa.supported(f32, 32, 128) and fa.supported(f32, 64, 128)
+    assert not fa.supported(f32, 128, 128)  # float32 tiles at 128 pass shared memory
+    for d in (8, 16, 96, 256):
+        assert not fa.supported(bf16, d, 128)
+    assert not fa.supported(bf16, 64, 100) and not fa.supported(bf16, 64, 0)
+    assert fa.supported(bf16, 64, 65535 * 64) and not fa.supported(bf16, 64, 65536 * 64)
+    assert not fa.supported(torch.float16, 64, 128)
+
+
+def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
+
+
+@pytest.mark.cuda
+def test_c_predicate_agrees_on_card():
+    """csrc/flash_attention.cu's ``supported`` (what the launches accept)
+    and the Python predicate agree on every dtype, head dim and length
+    tried."""
+    _need_card()
+    lib = fa._load()
+    for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+        for d in (8, 16, 32, 48, 64, 96, 128, 256):
+            for s in (0, 64, 100, 128, 192, 4096, 65535 * 64, 65536 * 64):
+                assert bool(lib.tft_flash_supported(code, d, s)) == fa.supported(dtype, d, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "d,dtype,causal,bh,s",
+    [
+        (64, torch.bfloat16, True, 64, 256),
+        # the headline shape (B8 H8 S1024): K2's diagonal-first ring over 8
+        # key tiles per block at most
+        (64, torch.bfloat16, True, 64, 1024),
+        (64, torch.float32, False, 64, 256),
+        (64, torch.float32, True, 64, 256),
+        # ragged: S not a multiple of the 128-row tiles
+        (64, torch.bfloat16, True, 4, 192),
+        (64, torch.bfloat16, False, 4, 192),
+        # head dim 128 (two 64-column blocks a row): wgmma
+        (128, torch.bfloat16, True, 8, 1024),
+        (128, torch.bfloat16, True, 4, 192),
+        (128, torch.bfloat16, False, 4, 192),
+        # head dim 32: the FMA kernels in both dtypes
+        (32, torch.bfloat16, True, 32, 128),
+        (32, torch.bfloat16, False, 4, 192),
+        (32, torch.float32, True, 32, 256),
+        (32, torch.float32, False, 4, 192),
+    ],
+)
+def test_kernels_match_plain_on_card(d, dtype, causal, bh, s):
+    _need_card()
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v, do = (
-        torch.randn(bh, s, 64, device="cuda", generator=g).to(dtype) for _ in range(4)
+        torch.randn(bh, s, d, device="cuda", generator=g).to(dtype) for _ in range(4)
     )
     o, lse = fa.fwd_kernel(q, k, v, causal)
     o_ref, lse_ref = fa.fwd_plain(q, k, v, causal)

@@ -15,11 +15,17 @@ import torch
 
 from torchft_tpu.models import transformer as J
 from torchft_tpu_torch.models import transformer as T
+from torchft_tpu_torch.ops import flash_attention as fa
 from torchft_tpu_torch.utils.tree import tree_leaves
 
 # the small configurations of tests/test_flash_attention.py
 ATTN_BASE = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, head_dim=8, d_ff=64)
 CHUNK_BASE = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=2, head_dim=16, d_ff=64)
+# the head dims the card's flash kernels take beside 64: the Llama-2-7B
+# preset's 128 (examples/train_hsdp.py) at two narrow layers, and
+# examples/train_bytes.py's model (head dim 32) as it is
+HD128_BASE = dict(vocab_size=64, d_model=256, n_layers=2, n_heads=2, head_dim=128, d_ff=256)
+HD32_BASE = dict(vocab_size=256, d_model=128, n_layers=2, n_heads=4, head_dim=32, d_ff=352)
 
 
 def _jax_params(base):
@@ -68,15 +74,22 @@ def test_params_from_jax_round_trip():
     assert [tuple(t.shape) for t in tree_leaves(own)] == [a.shape for a in jleaves]
 
 
-@pytest.mark.parametrize("impl", ["flash", "plain"])
-def test_loss_and_grads_match_jax(impl):
-    np_params = _jax_params(ATTN_BASE)
-    tokens = _tokens((4, 128))
+@pytest.mark.parametrize(
+    "base,impl",
+    [
+        pytest.param(base, impl, id=impl if name == "hd8" else f"{name}-{impl}")
+        for name, base in (("hd8", ATTN_BASE), ("hd128", HD128_BASE), ("hd32", HD32_BASE))
+        for impl in ("flash", "plain")
+    ],
+)
+def test_loss_and_grads_match_jax(base, impl):
+    np_params = _jax_params(base)
+    tokens = _tokens((4, 128), vocab=base["vocab_size"])
     jl, jg = _jax_loss_and_grads(
-        np_params, tokens, J.TransformerConfig(**ATTN_BASE, dtype=jnp.float32, attention_impl=impl)
+        np_params, tokens, J.TransformerConfig(**base, dtype=jnp.float32, attention_impl=impl)
     )
     tl, tg = _port_loss_and_grads(
-        np_params, tokens, T.TransformerConfig(**ATTN_BASE, dtype=torch.float32, attention_impl=impl)
+        np_params, tokens, T.TransformerConfig(**base, dtype=torch.float32, attention_impl=impl)
     )
     np.testing.assert_allclose(tl, jl, rtol=1e-5)
     for a, b in zip(tg, jg):
@@ -123,6 +136,24 @@ def test_attention_routing():
     assert not T._use_flash(auto, 1024, cpu)
     assert T._use_flash(auto, 1024, cuda)
     assert not T._use_flash(auto, 1000, cuda)
+
+    def auto_at(head_dim, dtype=torch.bfloat16):
+        return T.TransformerConfig(head_dim=head_dim, dtype=dtype, attention_impl="auto")
+
+    # "auto" routes to the kernels exactly what they take: the Llama-2-7B
+    # width (head dim 128, S 4096) and train_bytes (head dim 32, S 128)
+    assert T._use_flash(auto_at(128), 4096, cuda)
+    assert T._use_flash(auto_at(32), 128, cuda)
+    # and sends the rest to plain attention instead of to a kernel that raises
+    for head_dim in (8, 16, 96):
+        assert not T._use_flash(auto_at(head_dim), 128, cuda)
+    assert not T._use_flash(auto_at(128, torch.float32), 128, cuda)  # no float32 kernel at 128
+    assert T._use_flash(auto_at(32, torch.float32), 128, cuda)
+    for head_dim in (8, 32, 64, 96, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            for s in (128, 192, 1024, 4096):
+                if T._use_flash(auto_at(head_dim, dtype), s, cuda):
+                    assert fa.supported(dtype, head_dim, s)
     assert T._use_flash(T.TransformerConfig(attention_impl="flash"), 100, cpu)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T._use_flash(T.TransformerConfig(attention_impl="chunked"), 1024, cuda)

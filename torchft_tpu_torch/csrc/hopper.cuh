@@ -5,7 +5,8 @@
 // Shared-memory tiles are [rows x 64] bf16, 128 bytes a row, written by TMA
 // with the 128-byte swizzle: the 16-byte chunk c of row r lives at chunk
 // c ^ (r % 8). Eight rows (1024 bytes) form one swizzle atom, so every tile
-// starts on a 1024-byte boundary.
+// starts on a 1024-byte boundary. A head dim of 128 is two such column
+// blocks (the swizzle caps a box's row at 128 bytes).
 
 #pragma once
 
@@ -78,18 +79,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ---------------------------------------------------------------------------
-// TMA: [BH, S, 64] bf16 tensors as 3-D tensor maps {64, S, BH}, box
-// {64, 64, 1}. Rows past S are out of bounds of the map: loads fill them
-// with zeros and stores drop them, so a tile may run past the end of a
-// head's sequence.
+// TMA: [BH, S, D] bf16 tensors as 3-D tensor maps {D, S, BH}, box
+// {64, 64, 1}: one box is 64 rows of one 64-column block, addressed by its
+// first column and row. Rows past S are out of bounds of the map: loads
+// fill them with zeros and stores drop them, so a tile may run past the
+// end of a head's sequence.
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int row, int bh,
-                                         uint64_t* bar) {
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int col, int row,
+                                         int bh, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(bh), "r"(smem_addr(bar))
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(bh), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -103,12 +105,12 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int row,
-                                          int bh) {
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src, int col,
+                                          int row, int bh) {
   asm volatile(
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
       "[%0, {%1, %2, %3}], [%4];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(0), "r"(row), "r"(bh), "r"(smem_addr(src))
+      "r"(col), "r"(row), "r"(bh), "r"(smem_addr(src))
       : "memory");
 }
 
@@ -155,8 +157,9 @@ __device__ __forceinline__ void regs_alloc() {
 // plus a K offset of 32 bytes per k16 step for a K-major operand). Both
 // byte offsets are one swizzle atom (1024 bytes): the stride from one
 // 8-row group to the next; the other offset is not used by these shapes
-// (a K-major k16 step stays inside one 128-byte row; an MN-major operand
-// here is exactly 64 elements wide, one atom).
+// (a K-major k16 step stays inside one 128-byte row, and a K of 128 takes
+// a descriptor per 64-column block; an MN-major operand here is exactly 64
+// elements wide, one atom, and an N of 128 is two products).
 __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   const uint64_t addr = smem_addr(p);
   return ((addr & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) |
@@ -235,6 +238,35 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t desc_a,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 32] (+)= A[64 x 16] * B[16 x 32], A and B in shared memory
+// (descriptors), both K-major; D float32 in registers.
+__device__ __forceinline__ void wgmma_ss_m64n32(float (&d)[16], uint64_t desc_a,
+                                                uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// The K-major products above by their N (the score tiles' widths).
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  wgmma_ss_m64n128(d, a, b, acc);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  wgmma_ss_m64n64(d, a, b, acc);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  wgmma_ss_m64n32(d, a, b, acc);
 }
 
 // D[64 x 64] (+)= A[64 x 16] * B[16 x 64], A in registers (bf16 pairs in

@@ -12,9 +12,12 @@ come out in float32. Layers run in a Python loop, each wrapped in
 when the logits would pass ``TORCHFT_TPU_LOSS_CHUNK_ELEMS``.
 
 Attention routing: ``"flash"`` -> the flash op (its CUDA kernels on the
-card), ``"plain"`` -> plain attention, ``"auto"`` -> flash on a CUDA
-device when S % 128 == 0, else plain. The JAX package's TPU thresholds are
-not carried over; ``"chunked"`` is not ported yet.
+card, which raise for a shape they do not take), ``"plain"`` -> plain
+attention, ``"auto"`` -> flash on a CUDA device when S % 128 == 0 and the
+kernels take the dtype, head dim and S
+(:func:`~torchft_tpu_torch.ops.flash_attention.supported`), else plain.
+The JAX package's TPU thresholds are not carried over; ``"chunked"`` is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from torchft_tpu_torch.ops.attention import attention
-from torchft_tpu_torch.ops.flash_attention import flash_attention
+from torchft_tpu_torch.ops.flash_attention import flash_attention, supported
 from torchft_tpu_torch.ops.layers import rms_norm, rotary_embed, swiglu
 from torchft_tpu_torch.utils.platform import resolve_device
 from torchft_tpu_torch.utils.tree import tree_map
@@ -126,7 +129,11 @@ def _use_flash(cfg: TransformerConfig, seq_len: int, device: torch.device) -> bo
         raise ValueError(
             f"attention_impl must be 'auto'|'plain'|'flash', got {cfg.attention_impl!r}"
         )
-    return device.type == "cuda" and seq_len % 128 == 0
+    return (
+        device.type == "cuda"
+        and seq_len % 128 == 0
+        and supported(cfg.dtype, cfg.head_dim, seq_len)
+    )
 
 
 def _layer(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: TransformerConfig) -> torch.Tensor:

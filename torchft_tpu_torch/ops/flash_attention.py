@@ -9,6 +9,10 @@ the card. The public op takes the plain route only for tensors on the
 CPU (plain :func:`~torchft_tpu_torch.ops.attention.attention` under
 autograd); a CUDA tensor launches the kernels or raises.
 
+:func:`supported` is the one statement of what the kernels take: bf16 at
+head dims 32, 64 and 128, float32 at 32 and 64, and S a multiple of
+:data:`TILE`. The JAX op takes any head dim; the port's does not.
+
 The kernels are built with ``nvcc`` at first use into
 ``build/torch_kernels/``, keyed by a digest of every file under ``csrc/``,
 and loaded with ctypes (a plain C interface).
@@ -44,15 +48,19 @@ __all__ = [
     "CSRC_DIR",
     "source_digest",
     "build_log",
-    "HEAD_DIM",
+    "supported",
     "TILE",
 ]
 
 CSRC_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
 )
-HEAD_DIM = 64  # the head dim the kernels take
 TILE = 64  # the kernels' tile rows: S must be a multiple on the card
+# head dims the kernels take, by dtype: bf16 at 64 and 128 on wgmma, at 32
+# and in float32 on the FMA kernels (float32 tiles at 128 pass the shared
+# memory); csrc/flash_attention.cu's `supported` says the same
+_HEAD_DIMS = {torch.float32: (32, 64), torch.bfloat16: (32, 64, 128)}
+_MAX_SEQ = 65535 * TILE  # a launch's grid holds at most 65535 tiles of S
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -151,6 +159,8 @@ def _load() -> ctypes.CDLL:
             ]
             for fn in (lib.tft_flash_fwd, lib.tft_flash_dq, lib.tft_flash_dkv):
                 fn.restype = c.c_int
+            lib.tft_flash_supported.argtypes = [i, i, i]
+            lib.tft_flash_supported.restype = i
             lib.tft_cuda_error_string.argtypes = [i]
             lib.tft_cuda_error_string.restype = c.c_char_p
             _lib = lib
@@ -169,6 +179,16 @@ def _check(name: str, *tensors: torch.Tensor, dtype: torch.dtype) -> None:
             raise ValueError(f"{name}: tensors must be 16-byte aligned")
 
 
+def supported(dtype: torch.dtype, head_dim: int, seq_len: int) -> bool:
+    """Whether the kernels take q/k/v of this dtype, head dim and sequence
+    length (the model's ``"auto"`` attention routes by it)."""
+    return (
+        head_dim in _HEAD_DIMS.get(dtype, ())
+        and 0 < seq_len <= _MAX_SEQ
+        and seq_len % TILE == 0
+    )
+
+
 def _check_qkv(name: str, q, k, v) -> Tuple[int, int, int]:
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"{name}: dtype {q.dtype} not supported (float32, bfloat16)")
@@ -176,10 +196,11 @@ def _check_qkv(name: str, q, k, v) -> Tuple[int, int, int]:
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"{name}: q/k/v must share one [BH, S, D] shape")
     bh, s, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"{name}: head dim {d} not supported (kernels take {HEAD_DIM})")
-    if s % TILE:
-        raise ValueError(f"{name}: seq len {s} must be a multiple of {TILE}")
+    if not supported(q.dtype, d, s):
+        raise ValueError(
+            f"{name}: {q.dtype} at head dim {d}, seq len {s} not supported (head dims "
+            f"{_HEAD_DIMS[q.dtype]}, seq len a multiple of {TILE} up to {_MAX_SEQ})"
+        )
     if not (q.device == k.device == v.device):
         raise ValueError(f"{name}: q/k/v on different devices")
     return bh, s, d
@@ -342,8 +363,10 @@ def flash_attention(
 
     Raises ``ValueError`` unless S is a multiple of the block sizes (as the
     JAX op does). The blocks only validate the shape: the CUDA kernels use
-    their own 64-row tiles, so on the card S must also be a multiple of 64
-    and Dh must be 64. Differentiable through the dQ and dK/dV kernels."""
+    their own 64-row tiles, and on the card raise ``ValueError`` for what
+    :func:`supported` refuses (S not a multiple of 64, a head dim other
+    than 32, 64 or 128 in bf16, or 32 or 64 in float32), where the JAX op
+    takes any Dh. Differentiable through the dQ and dK/dV kernels."""
     b, s, h, d = q.shape
     bq, bk = min(block_q, s), min(block_k, s)
     if s % bq or s % bk:
