@@ -8,8 +8,10 @@ Phases, each of which either passes or ends the run with a non-zero exit:
 2. kernel parity at each head dim the kernels take: at the headline
    attention shapes (B8 S1024 H8 D64, bf16, causal), the Llama-2-7B
    shapes (B2 S4096 H32 D128) and the train_bytes shapes (B8 S128 H4 D32,
-   bf16 and float32), and at a ragged length (B2 S192 H2) at D 64, 128 and
-   32: K1 (forward), K2 (dQ) and K3 (dK/dV) each against its plain PyTorch
+   bf16 and float32), at a ragged length (B2 S192 H2) at D 64, 128 and
+   32, and at D 128 at B2 S320 H2 (K3's last block of 128 keys half past
+   S) and non-causal at B2 S1024 H4: K1 (forward), K2 (dQ) and K3 (dK/dV)
+   each against its plain PyTorch
    version on the same inputs, elementwise, and bitwise equal across two
    launches; the autograd op against plain attention evaluated in float32
    at each head dim; float32 cases at the JAX test bars.
@@ -18,8 +20,8 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    launched eagerly between CUDA events (``ms``), and replayed from a CUDA
    graph (device time alone) with its inputs warm in the L2 and L2-cold;
    its host cost per call, its plain version, the
-   ``scaled_dot_product_attention`` yardsticks by both methods and the
-   roofline bound.
+   ``scaled_dot_product_attention`` yardsticks by both methods, the
+   roofline bound and, for K3 at D 128, the earlier design's time.
 4. the headline fault-tolerant training loop on one replica group:
    in-process lighthouse + store, Manager over the device data plane
    (CollectivesDevice, the JAX headline's wiring), TrainStep at d512 L8
@@ -165,12 +167,23 @@ def host_us_per_call(fn, calls: int = 200) -> float:
 
 
 # the library's kernels as their mangled names spell the template
-# arguments: the wgmma kernels at head dims 64 and 128, the FMA kernels in
-# float32 at 32 and 64 and in bf16 at 32
-BUILT = ([f"{n}ILi{d}E" for n in ("flash_fwd_wgmma", "flash_dq_wgmma", "flash_dkv_wgmma")
-          for d in (64, 128)]
-         + [f"{n}I{t}Li{d}E" for n in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
-            for t, d in (("f", 32), ("f", 64), ("13__nv_bfloat16", 32))])
+# arguments, by (kernel, head dim): the wgmma kernels at head dims 64 and
+# 128, the FMA kernels in bf16 at 32 (and in float32 at 32 and 64, off the
+# bf16 paths)
+KERNEL_OF = {
+    ("flash_fwd", 64): "flash_fwd_wgmmaILi64E", ("flash_fwd", 128): "flash_fwd_wgmmaILi128E",
+    ("flash_dq", 64): "flash_dq_wgmmaILi64E", ("flash_dq", 128): "flash_dq_wgmmaILi128E",
+    ("flash_dkv", 64): "flash_dkv_wgmmaILi64E", ("flash_dkv", 128): "flash_dkv_wgmmaILi128E",
+    **{(n, 32): f"{n}_kernelI13__nv_bfloat16Li32E" for n in ("flash_fwd", "flash_dq", "flash_dkv")},
+}
+BUILT = list(KERNEL_OF.values()) + [
+    f"{n}IfLi{d}E" for n in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+    for d in (32, 64)]
+# The earlier design of K3 at head dim 128 (one consumer of 64 keys, 256
+# threads), by CUDA graph at B2 S4096 H32 D128, L2-warm: chip_smoke.py
+# phase 3 on an NVIDIA H100 80GB HBM3 at 700 W; printed beside this run's
+# time, not re-run
+EARLIER_GRAPH_MS = {("flash_dkv", 128): 1.6509}
 
 
 def check_no_spills(build_log: str) -> None:
@@ -292,12 +305,13 @@ def _hold_lse(name, got, ref, tol=LSE_TOL) -> float:
     return err
 
 
-def _check_kernels(fa, shape, seed, dtype=torch.bfloat16):
-    """K1, K2 and K3 against their plain versions on the same causal
-    inputs, and each launched twice on those inputs with bitwise equal
-    results. Returns each kernel's max |err|."""
+def _check_kernels(fa, shape, seed, dtype=torch.bfloat16, causal=True):
+    """K1, K2 and K3 against their plain versions on the same inputs, and
+    each launched twice on those inputs with bitwise equal results.
+    Returns each kernel's max |err|."""
     b, s, h, d = shape
-    tag = f"b{b} s{s} h{h} d{d} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+    tag = (f"b{b} s{s} h{h} d{d} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+           f"{'' if causal else ' non-causal'}")
     o_bar, grad_bar, lse_tol = ((KERNEL_BAR, KERNEL_BAR, LSE_TOL) if dtype == torch.bfloat16
                                 else (F32_O_BAR, F32_GRAD_BAR, F32_LSE_TOL))
     q, k, v, do = _qkv(b, s, h, d, dtype, seed=seed)
@@ -306,8 +320,8 @@ def _check_kernels(fa, shape, seed, dtype=torch.bfloat16):
     res = {}
 
     # K1: O elementwise at the kernel bar, lse at its tolerance
-    o, lse = fa.fwd_kernel(pq, pk, pv, True)
-    o_ref, lse_ref = fa.fwd_plain(pq, pk, pv, True)
+    o, lse = fa.fwd_kernel(pq, pk, pv, causal)
+    o_ref, lse_ref = fa.fwd_plain(pq, pk, pv, causal)
     torch.cuda.synchronize()
     res["flash_fwd"] = max(_hold(f"K1 flash_fwd O {tag}", o, o_ref, plain, **o_bar),
                            _hold_lse(f"K1 flash_fwd {tag}", lse, lse_ref, lse_tol))
@@ -315,21 +329,21 @@ def _check_kernels(fa, shape, seed, dtype=torch.bfloat16):
 
     # K2 / K3 vs their plain versions on the same (kernel) lse and delta
     delta = (pdo.float() * o.float()).sum(-1)
-    dq = fa.dq_kernel(pq, pk, pv, pdo, lse, delta, True)
-    dk, dv = fa.dkv_kernel(pq, pk, pv, pdo, lse, delta, True)
-    dq_ref = fa.dq_plain(pq, pk, pv, pdo, lse, delta, True)
+    dq = fa.dq_kernel(pq, pk, pv, pdo, lse, delta, causal)
+    dk, dv = fa.dkv_kernel(pq, pk, pv, pdo, lse, delta, causal)
+    dq_ref = fa.dq_plain(pq, pk, pv, pdo, lse, delta, causal)
     res["flash_dq"] = _hold(f"K2 flash_dq {tag}", dq, dq_ref, plain, **grad_bar)
     del dq_ref
-    dk_ref, dv_ref = fa.dkv_plain(pq, pk, pv, pdo, lse, delta, True)
+    dk_ref, dv_ref = fa.dkv_plain(pq, pk, pv, pdo, lse, delta, causal)
     res["flash_dkv"] = max(_hold(f"K3 flash_dk {tag}", dk, dk_ref, plain, **grad_bar),
                            _hold(f"K3 flash_dv {tag}", dv, dv_ref, plain, **grad_bar))
     del dk_ref, dv_ref
 
     # determinism: the checkpoint recompute must reproduce the forward
     # bit for bit (phase 5's identical checksums rest on it)
-    o2, lse2 = fa.fwd_kernel(pq, pk, pv, True)
-    dq2 = fa.dq_kernel(pq, pk, pv, pdo, lse, delta, True)
-    dk2, dv2 = fa.dkv_kernel(pq, pk, pv, pdo, lse, delta, True)
+    o2, lse2 = fa.fwd_kernel(pq, pk, pv, causal)
+    dq2 = fa.dq_kernel(pq, pk, pv, pdo, lse, delta, causal)
+    dk2, dv2 = fa.dkv_kernel(pq, pk, pv, pdo, lse, delta, causal)
     torch.cuda.synchronize()
     same = {"flash_fwd": torch.equal(o, o2) and torch.equal(lse, lse2),
             "flash_dq": torch.equal(dq, dq2),
@@ -372,18 +386,23 @@ def phase_kernels():
     """Each kernel against its plain version at each head dim: D 64 at the
     headline shapes, D 128 at the Llama-2-7B width's, D 32 at train_bytes'
     (bf16 and float32), and at a ragged length (S=192, not a multiple of
-    128) at all three; the autograd op against plain attention at each head
+    128) at all three; at D 128 also S=320 (K3's last block of 128 keys
+    half past S) and a non-causal case at S=1024; the autograd op against plain attention at each head
     dim; float32 cases at the JAX test bars. Returns {(kernel, head dim):
     max |err|}."""
     from torchft_tpu_torch.ops import flash_attention as fa
 
     errs = {}
-    checks = [(_shape(HEADLINE), 1, torch.bfloat16), ((2, 192, 2, 64), 4, torch.bfloat16),
-              (_shape(LLAMA), 5, torch.bfloat16), ((2, 192, 2, 128), 6, torch.bfloat16),
-              (_shape(BYTES), 7, torch.bfloat16), (_shape(BYTES), 8, torch.float32),
-              ((2, 192, 2, 32), 9, torch.bfloat16)]
-    for shape, seed, dtype in checks:
-        for name, err in _check_kernels(fa, shape, seed, dtype).items():
+    bf16, f32 = torch.bfloat16, torch.float32
+    checks = [(_shape(HEADLINE), 1, bf16, True), ((2, 192, 2, 64), 4, bf16, True),
+              (_shape(LLAMA), 5, bf16, True), ((2, 192, 2, 128), 6, bf16, True),
+              # K3 at 128: S a multiple of 64, not of its 128 keys a block;
+              # K1 at 128 without the mask
+              ((2, 320, 2, 128), 10, bf16, True), ((2, 1024, 4, 128), 11, bf16, False),
+              (_shape(BYTES), 7, bf16, True), (_shape(BYTES), 8, f32, True),
+              ((2, 192, 2, 32), 9, bf16, True)]
+    for shape, seed, dtype, causal in checks:
+        for name, err in _check_kernels(fa, shape, seed, dtype, causal).items():
             key = (name, shape[3])
             errs[key] = max(errs.get(key, 0.0), err)
 
@@ -499,10 +518,12 @@ def phase_timing(shape):
     tag = f"b{b} s{s} h{h} d{d}"
     for name, r in t.items():
         bound, by, flops, nbytes = bounds[name]
+        earlier = EARLIER_GRAPH_MS.get((name, d))
+        before = "" if earlier is None else f" (earlier design {earlier:.4f} ms)"
         log(f"{name} {tag}: {r['ms']:.4f} ms eager (host launches included); CUDA graph "
-            f"(device time) {r['ms_graph']:.4f} ms warm, {r['ms_cold']:.4f} ms L2-cold; host "
-            f"{r['host_us']:.1f} us/call; plain {r['plain_ms']:.4f} ms; bound {bound:.4f} ms "
-            f"by {by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB")
+            f"(device time) {r['ms_graph']:.4f} ms warm{before}, {r['ms_cold']:.4f} ms "
+            f"L2-cold; host {r['host_us']:.1f} us/call; plain {r['plain_ms']:.4f} ms; bound "
+            f"{bound:.4f} ms by {by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB")
     for i, method in enumerate(("eager", "CUDA graph")):
         fwd, both = sdpa["fwd"][i], sdpa["fwd_bwd"][i]
         key = "ms" if i == 0 else "ms_graph"
@@ -1423,6 +1444,7 @@ def main() -> None:
             kernels.append({
                 # the head dim 64 entries keep the earlier slices' names
                 "name": name if d == 64 else f"{name}_d{d}", "head_dim": d, "route": "cuda",
+                "kernel": KERNEL_OF[(name, d)],
                 "source": SOURCE, "replaces": REPLACES[name], "launches": launches[d][name],
                 "max_abs_err": errs[(name, d)], "ms": t[name]["ms"],
                 "ms_graph": t[name]["ms_graph"], "ms_cold": t[name]["ms_cold"],

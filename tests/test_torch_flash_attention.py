@@ -159,6 +159,9 @@ def test_supported_shapes():
     bf16, f32 = torch.bfloat16, torch.float32
     for d in (32, 64, 128):
         assert fa.supported(bf16, d, 4096) and fa.supported(bf16, d, 192)
+    # S a multiple of 64 but not of 128: K3 at 128 keys a block gets a
+    # half-filled last block, which the predicate does not refuse
+    assert fa.supported(bf16, 128, 320) and fa.supported(bf16, 128, 4096)
     assert fa.supported(f32, 32, 128) and fa.supported(f32, 64, 128)
     assert not fa.supported(f32, 128, 128)  # float32 tiles at 128 pass shared memory
     for d in (8, 16, 96, 256):
@@ -203,6 +206,11 @@ def test_c_predicate_agrees_on_card():
         (128, torch.bfloat16, True, 8, 1024),
         (128, torch.bfloat16, True, 4, 192),
         (128, torch.bfloat16, False, 4, 192),
+        # the Llama-2-7B width (B2 H32 S4096), K3's half-filled last block
+        # of 128 keys (S 320), and the unmasked loops at S 1024
+        (128, torch.bfloat16, True, 64, 4096),
+        (128, torch.bfloat16, True, 4, 320),
+        (128, torch.bfloat16, False, 8, 1024),
         # head dim 32: the FMA kernels in both dtypes
         (32, torch.bfloat16, True, 32, 128),
         (32, torch.bfloat16, False, 4, 192),
@@ -249,3 +257,4 @@ def test_kernels_match_plain_on_card(d, dtype, causal, bh, s):
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
     assert torch.equal(got[0], dq2)
     assert torch.equal(got[1], dk2) and torch.equal(got[2], dv2)
+

@@ -339,14 +339,15 @@ __global__ void __launch_bounds__(kThreads)
 // bf16 K1, K2 and K3 for Hopper: TMA, mbarriers and wgmma, warp-specialised,
 // templated on the head dim D (64 or 128).
 //
-// A block is a producer warpgroup and one or two consumer warpgroups. The
-// producer gives up its registers (setmaxnreg) and one of its threads
-// keeps a ring of kStages tiles in flight with TMA, each stage completed
-// on a "full" mbarrier and handed back on an "empty" one. Each consumer
-// owns 64 rows of the block's tile, runs wgmma on the tiles that have
-// arrived, and keeps its accumulators, running max and sum in registers
-// for the whole loop. Tiles are 128-byte swizzled (see hopper.cuh) and
-// stored as D/64 column blocks of 128-byte rows ([D/64][rows][64]): one
+// A block is two consumer warpgroups and, but for K3 at D 128, a producer
+// warpgroup that gives up its registers (setmaxnreg). One of the
+// producer's threads (in K3 at D 128, whichever consumer warp releases a
+// stage last) keeps a ring of tiles in flight with TMA, each stage
+// completed on a "full" mbarrier and handed back on an "empty" one. Each
+// consumer owns 64 rows of the block's tile, runs wgmma on the tiles that
+// have arrived, and keeps its accumulators, running max and sum in
+// registers for the whole loop. Tiles are 128-byte swizzled (see
+// hopper.cuh) and stored as D/64 column blocks of 128-byte rows ([D/64][rows][64]): one
 // tensor map format (box 64 x 64) serves every tensor. A product over D
 // (Q.K^T, dO.V^T) steps its K through the column blocks, one descriptor
 // each; a product whose N is D (P.V, dS.K, P^T.dO, dS^T.Q) is one m64n64
@@ -361,14 +362,17 @@ __global__ void __launch_bounds__(kThreads)
 // product with this accumulator as its left operand (P.V, dS.K, P^T.dO,
 // dS^T.Q).
 //
-// Registers: ptxas holds a 384-thread block to 168 registers a thread
-// (65536 / 384), setmaxnreg's 232 for the consumers notwithstanding
-// (scripts/torch_regs_probe.py: wider variants spill at 168). At D 128 the
-// accumulators of N = D double (O and dQ: 64 registers; dK and dV: 128),
-// so the score tiles beside them narrow: K1 takes a stage's keys 64 at a
-// time (128 spills), K2 64 at a time as at D 64, K3 its queries 32 at a
-// time and runs one consumer per block (a 256-thread block may use 255
-// registers a thread; two consumers spill 288 bytes).
+// Registers: an SM's 65536 registers are four banks of 16384, one per
+// scheduler, and warp w of a block runs on scheduler w % 4; ptxas holds a
+// thread to what the fullest bank allows: 168 for 384 threads (3 warps a
+// bank) and for 288 (warps 0, 4 and 8 share one), 255 for 256, setmaxnreg's
+// 232 for the consumers notwithstanding (scripts/torch_regs_probe.py:
+// wider variants spill at 168). At D 128 the accumulators of N = D double
+// (O and dQ: 64 registers; dK and dV: 128), so K1 takes a stage's keys 64
+// at a time and K2 64 at a time as at D 64 (384 threads), while K3 is a
+// block of two consumer warpgroups and nothing else (256 threads, 249
+// registers), its consumer warps issuing the TMA loads. A K1 of 256
+// threads taking 128 keys at once was no faster on the card (PERF.md).
 //
 // Determinism: every output element is computed by one block in a fixed
 // order, with no split over keys and no atomics.
@@ -859,11 +863,12 @@ __global__ void __launch_bounds__(kHThreads, 1)
 // (q, k) pair), 0.0174 ms at 989 TFLOP/s, over 50.9 MB (0.0152 ms): bound
 // by operations; at the Llama-2-7B shapes 550 GFLOP (0.556 ms). The
 // design: one block per (bh, key tile of 64 keys per consumer), K and V
-// resident in shared memory; the producer streams 64-row Q and dO tiles
-// and their 64 lse and delta values through a two-stage ring; each
+// resident in shared memory; 64-row Q and dO tiles and their 64 lse and
+// delta values stream through a ring (at D 64 the producer warpgroup
+// loads it, two stages; at D 128 see below); each
 // consumer (64 keys) computes the transposed scores S^T = K.Q^T and
-// dP^T = V.dO^T on wgmma (both operands K-major), a tile's queries at once
-// at D 64 and 32 at a time at D 128, so P^T and dS^T land in registers
+// dP^T = V.dO^T on wgmma (both operands K-major), a tile's 64 queries at
+// once, so P^T and dS^T land in registers
 // with rows = keys, the rows its dK and dV accumulators own; then
 // dV += P^T.dO and dK += dS^T.Q take P^T and dS^T from registers and dO /
 // Q MN-major from shared memory. Neither P nor dS touches shared memory.
@@ -872,33 +877,44 @@ __global__ void __launch_bounds__(kHThreads, 1)
 // folding it in with atomic adds would make the result depend on the
 // order of arrival.
 //
-// At D 128 dK and dV alone are 128 registers a thread, so a block is one
-// consumer and the producer (256 threads, up to 255 registers each, no
-// register split) over 64 keys.
+// At D 128 dK and dV alone are 128 registers a thread (249 in all at 64
+// queries a product), so the block is the two consumers alone (256
+// threads, up to 255 registers each): the last warp to release a stage of
+// the three-stage ring loads its next tile, and P^T is one FFMA and one
+// MUFU an element. A block owns 128
+// keys, and each Q/dO tile streamed serves both consumers; while one
+// consumer computes P^T and dS^T, the other's products keep the tensor
+// cores busy. Where S is a multiple of 64 but not of 128, the last block's
+// second consumer has no keys: TMA zero-fills them and drops its stores.
 // ---------------------------------------------------------------------------
 
-template <int D, int kCons>
+// The block's consumer warpgroups (64 keys each); the queries a consumer
+// takes at once (S^T and dP^T hold kDkvQueries/2 registers each); the
+// threads of the producer warpgroup (0: the consumer warps load); the
+// stages of the Q/dO ring.
+constexpr int kDkvCons = 2;
+constexpr int kDkvQueries = 64;
+template <int D>
+constexpr int kDkvProducer = D == 64 ? kWg : 0;
+template <int D>
+constexpr int kDkvStages = D == 64 ? kStages : 3;
+
+template <int D>
 struct DkvSmem {
-  alignas(1024) bf16 k[kCons * kBox * D];  // keys 64c..64c+63: consumer c
-  alignas(1024) bf16 v[kCons * kBox * D];
-  alignas(1024) bf16 q[kStages][kBox * D];
-  alignas(1024) bf16 dout[kStages][kBox * D];
-  float lse[kStages][kBox];
-  float delta[kStages][kBox];
+  alignas(1024) bf16 k[kDkvCons * kBox * D];  // keys 64c..64c+63: consumer c
+  alignas(1024) bf16 v[kDkvCons * kBox * D];
+  alignas(1024) bf16 q[kDkvStages<D>][kBox * D];
+  alignas(1024) bf16 dout[kDkvStages<D>][kBox * D];
+  float lse[kDkvStages<D>][kBox];
+  float delta[kDkvStages<D>][kBox];
   uint64_t kv_full;
-  uint64_t full[kStages];
-  uint64_t empty[kStages];
+  uint64_t full[kDkvStages<D>];
+  uint64_t empty[kDkvStages<D>];
+  uint32_t released[kDkvStages<D>];  // warps that released the stage, ever (no producer)
 };
 
-// consumer warpgroups of a block, and the queries a consumer takes at once
-// (S^T and dP^T hold NQ/2 registers each)
 template <int D>
-constexpr int kDkvConsumers = D == 64 ? 2 : 1;
-template <int D>
-constexpr int kDkvQueries = D == 64 ? 64 : 32;
-
-template <int D, int kCons = kDkvConsumers<D>, int NQ = kDkvQueries<D>>
-__global__ void __launch_bounds__((kCons + 1) * kWg, 1)
+__global__ void __launch_bounds__(kDkvCons * kWg + kDkvProducer<D>, 1)
     flash_dkv_wgmma(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
@@ -908,9 +924,13 @@ __global__ void __launch_bounds__((kCons + 1) * kWg, 1)
                     const float* __restrict__ lse, const float* __restrict__ delta, int seq,
                     float scale, float scale_log2, int causal) {
   using namespace hopper;
+  constexpr int kCons = kDkvCons, NQ = kDkvQueries, kPT = kDkvProducer<D>, kSt = kDkvStages<D>;
   constexpr int NH = D / kBox, KB = kCons * kBox;  // KB: the block's keys
+  // the "empty" barriers count consumer threads, or warps where the
+  // consumers load
+  constexpr int kWarps = kCons * kWg / 32;
   extern __shared__ unsigned char smem_raw[];
-  DkvSmem<D, kCons>& sm = aligned_smem<DkvSmem<D, kCons>>(smem_raw);
+  DkvSmem<D>& sm = aligned_smem<DkvSmem<D>>(smem_raw);
   const int bh = blockIdx.x;
   const int kj = blockIdx.y;  // under the causal mask the first key tiles are the heaviest
   const int nq = seq / kBox;
@@ -919,38 +939,62 @@ __global__ void __launch_bounds__((kCons + 1) * kWg, 1)
 
   if (threadIdx.x == 0) {
     mbar_init(&sm.kv_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kSt; ++s) {
       mbar_init(&sm.full[s], 1);
-      mbar_init(&sm.empty[s], kCons * kWg);
+      mbar_init(&sm.empty[s], kPT > 0 ? kCons * kWg : kWarps);
+      sm.released[s] = 0;
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (wg == 0) {
-    if constexpr (kCons > 1) regs_dealloc<kProducerRegs>();
-    if (threadIdx.x == 0) {
-      tma_prefetch(&map_q);
-      tma_prefetch(&map_do);
-      mbar_expect_tx(&sm.kv_full, 2 * kRowsBytes<D, KB>);
-      load_rows<D, KB>(sm.k, &map_k, kj * KB, bh, &sm.kv_full);
-      load_rows<D, KB>(sm.v, &map_v, kj * KB, bh, &sm.kv_full);
-      const float* lse_bh = lse + static_cast<size_t>(bh) * seq;
-      const float* delta_bh = delta + static_cast<size_t>(bh) * seq;
-      for (int i = i0; i < nq; ++i) {
-        const int it = i - i0, st = it % kStages;
-        mbar_wait(&sm.empty[st], ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(&sm.full[st], 2 * kRowsBytes<D, kBox> + 2 * kBox * sizeof(float));
-        load_rows<D, kBox>(sm.q[st], &map_q, i * kBox, bh, &sm.full[st]);
-        load_rows<D, kBox>(sm.dout[st], &map_do, i * kBox, bh, &sm.full[st]);
-        bulk_load(sm.lse[st], lse_bh + i * kBox, kBox * sizeof(float), &sm.full[st]);
-        bulk_load(sm.delta[st], delta_bh + i * kBox, kBox * sizeof(float), &sm.full[st]);
-      }
-    }
+  // Q, dO, lse and delta of the n-th q-tile visited into stage n % kSt, once
+  // the consumers have released the tile kSt before it
+  const float* lse_bh = lse + static_cast<size_t>(bh) * seq;
+  const float* delta_bh = delta + static_cast<size_t>(bh) * seq;
+  const auto load_qdo = [&](int n) {
+    const int i = i0 + n, st = n % kSt;
+    mbar_wait(&sm.empty[st], ((n / kSt) & 1) ^ 1);
+    mbar_expect_tx(&sm.full[st], 2 * kRowsBytes<D, kBox> + 2 * kBox * sizeof(float));
+    load_rows<D, kBox>(sm.q[st], &map_q, i * kBox, bh, &sm.full[st]);
+    load_rows<D, kBox>(sm.dout[st], &map_do, i * kBox, bh, &sm.full[st]);
+    bulk_load(sm.lse[st], lse_bh + i * kBox, kBox * sizeof(float), &sm.full[st]);
+    bulk_load(sm.delta[st], delta_bh + i * kBox, kBox * sizeof(float), &sm.full[st]);
+  };
+  // K and V once, then the first `tiles` q-tiles of the ring
+  const auto load_first = [&](int tiles) {
+    tma_prefetch(&map_q);
+    tma_prefetch(&map_do);
+    mbar_expect_tx(&sm.kv_full, 2 * kRowsBytes<D, KB>);
+    load_rows<D, KB>(sm.k, &map_k, kj * KB, bh, &sm.kv_full);
+    load_rows<D, KB>(sm.v, &map_v, kj * KB, bh, &sm.kv_full);
+    for (int n = 0; n < tiles; ++n) load_qdo(n);
+  };
+
+  if (kPT > 0 && wg == 0) {
+    // ---- producer warpgroup: every load from its first thread ----
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == 0) load_first(nq - i0);
   } else {
-    if constexpr (kCons > 1) regs_alloc<kConsumerRegs>();
-    const int cw = wg - 1, tid = threadIdx.x % kWg;
+    if constexpr (kPT > 0) regs_alloc<kConsumerRegs>();
+    const int cw = kPT > 0 ? wg - 1 : wg, tid = threadIdx.x % kWg;
     const int warp = tid / 32, lane = tid % 32, t = lane % 4;
+    // without a producer, the first thread loads K, V and the ring's first
+    // stages, and each stage is refilled by the last warp to release it
+    if (kPT == 0 && threadIdx.x == 0) load_first(nq - i0 < kSt ? nq - i0 : kSt);
+    const auto release = [&](int st, int it) {
+      if constexpr (kPT > 0) {
+        mbar_arrive(&sm.empty[st]);
+      } else {
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(&sm.empty[st]);
+          if (atomicAdd(&sm.released[st], 1u) % kWarps == kWarps - 1 && it + kSt < nq - i0)
+            load_qdo(it + kSt);
+        }
+        __syncwarp();
+      }
+    };
     const int r0 = warp * 16 + lane / 4;           // key rows r0 and r0 + 8 of the 64
     bf16* k_rows = sm.k + cw * kBoxElems;
     bf16* v_rows = sm.v + cw * kBoxElems;
@@ -964,10 +1008,10 @@ __global__ void __launch_bounds__((kCons + 1) * kWg, 1)
 
     mbar_wait(&sm.kv_full, 0);
     for (int i = i0; i < nq; ++i) {
-      const int it = i - i0, st = it % kStages;
-      mbar_wait(&sm.full[st], (it / kStages) & 1);
+      const int it = i - i0, st = it % kSt;
+      mbar_wait(&sm.full[st], (it / kSt) & 1);
       if (causal && i < diag) {  // every key here comes after every query
-        mbar_arrive(&sm.empty[st]);
+        release(st, it);
         continue;
       }
       const bool mask = causal && i == diag;
@@ -1007,9 +1051,15 @@ __global__ void __launch_bounds__((kCons + 1) * kWg, 1)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int idx = 4 * cc + 2 * h + e;
-              float a = s[idx] * scale_log2;
-              if (mask && r0 + 8 * h > qcol) a = kNegInf;
-              p[2 * h + e] = exp2f(a - lse2);
+              if constexpr (D == 128) {  // one FFMA and one MUFU; masked: 0
+                p[2 * h + e] = mask && r0 + 8 * h > qcol
+                                   ? 0.0f
+                                   : exp2_ftz(fmaf(s[idx], scale_log2, -lse2));
+              } else {
+                float a = s[idx] * scale_log2;
+                if (mask && r0 + 8 * h > qcol) a = kNegInf;
+                p[2 * h + e] = exp2f(a - lse2);
+              }
               d[2 * h + e] = p[2 * h + e] * (dp[idx] - dl) * scale;
             }
           }
@@ -1047,7 +1097,7 @@ __global__ void __launch_bounds__((kCons + 1) * kWg, 1)
           fence_regs(dv[h]);
         }
       }
-      mbar_arrive(&sm.empty[st]);
+      release(st, it);
     }
 
     // ---- epilogue: dK, dV through this warpgroup's K/V rows and TMA stores
@@ -1179,9 +1229,9 @@ template <int D>
 int dkv_hopper(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dkp, void* dvp, int bh, int seq,
                float scale, int causal, cudaStream_t stream) {
-  constexpr int kCons = kDkvConsumers<D>, kKeys = kCons * kBox;
+  constexpr int kKeys = kDkvCons * kBox;
   static bool ready = false;
-  const size_t smem = sizeof(DkvSmem<D, kCons>) + 1024;
+  const size_t smem = sizeof(DkvSmem<D>) + 1024;
   cudaError_t err = allow_smem(flash_dkv_wgmma<D>, smem, &ready);
   if (err != cudaSuccess) return err;
   CUtensorMap mq, mk, mv, mdo, mdk, mdv;
@@ -1192,8 +1242,8 @@ int dkv_hopper(const void* q, const void* k, const void* v, const void* dout,
       (err = tensor_map(&mdk, dkp, bh, seq, D)) != cudaSuccess ||
       (err = tensor_map(&mdv, dvp, bh, seq, D)) != cudaSuccess)
     return err;
-  flash_dkv_wgmma<D><<<dim3(bh, (seq + kKeys - 1) / kKeys), (kCons + 1) * kWg, smem,
-                       stream>>>(mq, mk, mv, mdo, mdk, mdv, lse, delta, seq, scale,
+  flash_dkv_wgmma<D><<<dim3(bh, (seq + kKeys - 1) / kKeys), kDkvCons * kWg + kDkvProducer<D>,
+                       smem, stream>>>(mq, mk, mv, mdo, mdk, mdv, lse, delta, seq, scale,
                                  scale * kLog2eHost, causal);
   return cudaGetLastError();
 }

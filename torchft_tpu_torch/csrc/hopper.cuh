@@ -293,6 +293,14 @@ __device__ __forceinline__ void wgmma_rs_m64n64_tb(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// 2^x in one MUFU instruction, results below 2^-126 flushed to zero
+// (exp2f adds a range fix-up of three more for those)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Two float32 accumulator values of one row, rounded to bf16 and packed
 // as one wgmma A register (the lower column in the low half).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
