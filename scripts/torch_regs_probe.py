@@ -76,8 +76,8 @@ extern "C" void* tft_probe_variant(int i) { return kProbeVariants[i]; }
 
 NQ32 = {"constexpr int kDkvQueries = 64;": "constexpr int kDkvQueries = 32;"}
 PRODUCER = {
-    "constexpr int kDkvProducer = D == 64 ? kWg : 0;": "constexpr int kDkvProducer = kWg;",
-    "constexpr int kDkvStages = D == 64 ? kStages : 3;": "constexpr int kDkvStages = kStages;",
+    "constexpr int kDkvProducer = D == 128 ? 0 : kWg;": "constexpr int kDkvProducer = kWg;",
+    "constexpr int kDkvStages = D == 128 ? 3 : kStages;": "constexpr int kDkvStages = kStages;",
 }
 # build name: (text appended to the source, replacements in it, entries printed)
 BUILDS = {

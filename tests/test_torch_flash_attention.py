@@ -211,9 +211,14 @@ def test_c_predicate_agrees_on_card():
         (128, torch.bfloat16, True, 64, 4096),
         (128, torch.bfloat16, True, 4, 320),
         (128, torch.bfloat16, False, 8, 1024),
-        # head dim 32: the FMA kernels in both dtypes
+        # head dim 32: bf16 K1 on FMA, K2 and K3 on wgmma (64-byte rows);
+        # float32 all FMA. S 1024 wraps K2's and K3's rings, S 320 gives
+        # K3 a half-filled last block of 128 keys
         (32, torch.bfloat16, True, 32, 128),
         (32, torch.bfloat16, False, 4, 192),
+        (32, torch.bfloat16, True, 8, 1024),
+        (32, torch.bfloat16, False, 8, 1024),
+        (32, torch.bfloat16, True, 4, 320),
         (32, torch.float32, True, 32, 256),
         (32, torch.float32, False, 4, 192),
     ],

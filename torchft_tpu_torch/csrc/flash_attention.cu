@@ -6,15 +6,14 @@
 //   K2 dQ       <- _dq_kernel   (lines 145-174, pallas_call at 219)
 //   K3 dK/dV    <- _dkv_kernel  (lines 177-210, pallas_call at 238)
 // The Pallas kernels take any head dim D; these take D in {32, 64, 128}
-// (tft_flash_supported says which dtype takes which D). bf16 at D 64 and
-// 128 is all wgmma: flash_fwd_wgmma, flash_dq_wgmma and flash_dkv_wgmma
-// (TMA, mbarriers, wgmma; their notes below), templated on D. float32 (D
-// 32 and 64) and bf16 at D 32 take the FMA path, flash_fwd_kernel,
-// flash_dq_kernel and flash_dkv_kernel, templated on the element type and
-// D: its float32 products hold the parity tests at the JAX bars, and at D
-// 32 (d_model 128 models) the attention is too small to pay for a tensor-
-// core design. float32 at D 128 is refused: the FMA tiles would pass the
-// 227 KB of shared memory.
+// (tft_flash_supported says which dtype takes which D). bf16 runs on
+// wgmma: flash_fwd_wgmma at D 64 and 128, flash_dq_wgmma and
+// flash_dkv_wgmma at D 32, 64 and 128 (TMA, mbarriers, wgmma; their notes
+// below), templated on D. The FMA path, flash_fwd_kernel, flash_dq_kernel
+// and flash_dkv_kernel, templated on the element type and D, takes float32
+// (D 32 and 64), whose float32 products hold the parity tests at the JAX
+// bars, and bf16 K1 at D 32 (flash_fwd_kernel<bf16, 32>). float32 at D 128
+// is refused: the FMA tiles would pass the 227 KB of shared memory.
 //
 // Layout: q, k, v, o, dO, dQ, dK, dV are [BH, S, D] row-major; lse and
 // delta are [BH, S] float32 (the TPU's 8-sublane broadcast and 128-lane
@@ -28,12 +27,13 @@
 // q-tiles. Nothing crosses blocks, so there are no atomics and every
 // result is deterministic.
 //
-// FMA kernels: a block has 4 warps; warp w owns rows [16w, 16w+16) of a
-// 64-row tile, for the matrix products and for the row-wise softmax, so
-// most steps need only a warp barrier. Tiles are converted to float32 as
-// they are loaded; tiles, score tiles and accumulators live in shared
-// memory; they pass 48 KB, so shared memory is dynamic
-// (cudaFuncSetAttribute). They do not try to reach either bound.
+// FMA kernels (float32; bf16 K1 at D 32): a block has 4 warps; warp w
+// owns rows [16w, 16w+16) of a 64-row tile, for the matrix products and
+// for the row-wise softmax, so most steps need only a warp barrier. Tiles
+// are converted to float32 as they are loaded; tiles, score tiles and
+// accumulators live in shared memory; they pass 48 KB, so shared memory is
+// dynamic (cudaFuncSetAttribute). Every product is a chain of serial FMAs
+// from shared memory: the kernels do not try to reach either bound.
 //
 // Numerics kept from the TPU kernels: mask value -1e30 where
 // k_pos > q_pos; blocks above the causal diagonal skipped
@@ -337,21 +337,26 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---------------------------------------------------------------------------
 // bf16 K1, K2 and K3 for Hopper: TMA, mbarriers and wgmma, warp-specialised,
-// templated on the head dim D (64 or 128).
+// templated on the head dim D (K1 at 64 and 128; K2 and K3 at 32, 64 and
+// 128).
 //
 // A block is two consumer warpgroups and, but for K3 at D 128, a producer
 // warpgroup that gives up its registers (setmaxnreg). One of the
 // producer's threads (in K3 at D 128, whichever consumer warp releases a
-// stage last) keeps a ring of tiles in flight with TMA, each stage
-// completed on a "full" mbarrier and handed back on an "empty" one. Each
-// consumer owns 64 rows of the block's tile, runs wgmma on the tiles that
-// have arrived, and keeps its accumulators, running max and sum in
-// registers for the whole loop. Tiles are 128-byte swizzled (see
-// hopper.cuh) and stored as D/64 column blocks of 128-byte rows ([D/64][rows][64]): one
-// tensor map format (box 64 x 64) serves every tensor. A product over D
-// (Q.K^T, dO.V^T) steps its K through the column blocks, one descriptor
-// each; a product whose N is D (P.V, dS.K, P^T.dO, dS^T.Q) is one m64n64
-// product per column block, each with an accumulator of its own.
+// stage last) keeps a ring of tiles in flight with TMA, each
+// stage completed on a "full" mbarrier and handed back on an "empty" one.
+// Each consumer owns 64 rows of the block's tile, runs wgmma on the tiles
+// that have arrived, and keeps its accumulators, running max and sum in
+// registers for the whole loop. Tiles are stored as D/C column blocks of
+// C columns ([D/C][rows][C], C = kCol<D>): C = 64 (128-byte rows, the
+// 128-byte swizzle) at D 64 and 128, C = 32 (64-byte rows, the 64-byte
+// swizzle) at D 32, where a row is 64 bytes (see hopper.cuh); one tensor
+// map format per head dim (box C x 64) serves every tensor. A product
+// over D (Q.K^T, dO.V^T) steps its K through the column blocks, one
+// descriptor each, C/16 k16 steps of 32 bytes inside a row; a product
+// whose N is D (P.V, dS.K, P^T.dO, dS^T.Q) is one m64nC product per
+// column block (B MN-major, the transpose bit), each with an accumulator
+// of its own.
 //
 // Fragments: the wgmma accumulator of a 64 x N product gives thread
 // (warp w, lane l) rows 16w + l/4 and 16w + l/4 + 8 of its warpgroup's 64;
@@ -372,7 +377,14 @@ __global__ void __launch_bounds__(kThreads)
 // at a time and K2 64 at a time as at D 64 (384 threads), while K3 is a
 // block of two consumer warpgroups and nothing else (256 threads, 249
 // registers), its consumer warps issuing the TMA loads. A K1 of 256
-// threads taking 128 keys at once was no faster on the card (PERF.md).
+// threads taking 128 keys at once was no faster on the card (PERF.md). At
+// D 32 registers are no limit (dQ 16, dK and dV 32) and the path's S of
+// 128 gives a block one or two tiles to visit, so the ring never fills and
+// a block's time is its chain of latencies: K2 and K3 keep D 64's layout
+// (384 threads), whose producer issues every load of such a block before
+// the consumers' first wgmma. K3 in D 128's 256 threads (the first
+// consumer thread loading) and K2 taking 128 keys at once (spills at 168
+// registers) were both slower on the card (PERF.md).
 //
 // Determinism: every output element is computed by one block in a fixed
 // order, with no split over keys and no atomics.
@@ -380,8 +392,7 @@ __global__ void __launch_bounds__(kThreads)
 
 constexpr int kWg = 128;           // threads of a warpgroup
 constexpr int kHThreads = 3 * kWg;  // producer + two consumers
-constexpr int kBox = 64;           // rows (and bf16 columns) of one TMA box
-constexpr int kBoxElems = kBox * kBox;
+constexpr int kBox = 64;           // rows of one TMA box
 constexpr int kStages = 2;
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
@@ -393,10 +404,29 @@ __device__ __forceinline__ Smem& aligned_smem(unsigned char* raw) {
   return *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t(1023));
 }
 
-// Column block h of a tile of R rows: R rows of 64 bf16 (128 bytes).
-template <int R>
+// Columns of one column block (and of one TMA box): 64 bf16, 128-byte rows
+// under the 128-byte swizzle, at head dims 64 and 128; 32 bf16, 64-byte
+// rows under the 64-byte swizzle, at 32 (see hopper.cuh).
+template <int D>
+constexpr int kCol = D == 32 ? 32 : 64;
+// k16 steps of a K-major product over one column block
+template <int D>
+constexpr int kKSteps = kCol<D> / 16;
+// descriptor advance (16-byte units) of an MN-major operand per k16 step:
+// 16 rows of one column block
+template <int D>
+constexpr int kMnStep = 16 * kCol<D> * static_cast<int>(sizeof(bf16)) / 16;
+
+// Column block h of a tile of R rows: R rows of kCol<D> bf16.
+template <int D, int R>
 __device__ __forceinline__ bf16* col_block(bf16* tile, int h) {
-  return tile + h * R * kBox;
+  return tile + h * R * kCol<D>;
+}
+
+// wgmma descriptor of a tile in head dim D's swizzle
+template <int D>
+__device__ __forceinline__ uint64_t desc(const void* p) {
+  return D == 32 ? hopper::desc_sw64(p) : hopper::desc_sw128(p);
 }
 
 // Bytes of R rows of a [BH, S, D] bf16 tensor.
@@ -409,11 +439,11 @@ template <int D, int R>
 __device__ __forceinline__ void load_rows(bf16* tile, const CUtensorMap* map, int row0, int bh,
                                           uint64_t* bar) {
 #pragma unroll
-  for (int h = 0; h < D / kBox; ++h)
+  for (int h = 0; h < D / kCol<D>; ++h)
 #pragma unroll
     for (int b = 0; b < R / kBox; ++b)
-      hopper::tma_load(col_block<R>(tile, h) + b * kBoxElems, map, h * kBox, row0 + b * kBox,
-                       bh, bar);
+      hopper::tma_load(col_block<D, R>(tile, h) + b * kBox * kCol<D>, map, h * kCol<D>,
+                       row0 + b * kBox, bh, bar);
 }
 
 // TMA-store 64 rows (`rows`: their place in column block 0 of an R-row
@@ -422,22 +452,29 @@ template <int D, int R>
 __device__ __forceinline__ void store_rows(const CUtensorMap* map, bf16* rows, int row0,
                                            int bh) {
 #pragma unroll
-  for (int h = 0; h < D / kBox; ++h)
-    hopper::tma_store(map, col_block<R>(rows, h), h * kBox, row0, bh);
+  for (int h = 0; h < D / kCol<D>; ++h)
+    hopper::tma_store(map, col_block<D, R>(rows, h), h * kCol<D>, row0, bh);
 }
 
-// Round a warpgroup's 64 x 64 float32 accumulator to bf16 and write it to
-// `tile` in the 128-byte swizzled layout that a TMA store reads.
-__device__ __forceinline__ void stage_tile(bf16* tile, const float (&acc)[32], float s0,
+// Round a warpgroup's 64 x C float32 accumulator (N = C/2 registers; C 64
+// or 32, a column block) to bf16 and write it to `tile` in the swizzled
+// layout that a TMA store reads: 16-byte chunk c of row r at c ^ (r % 8)
+// in 128-byte rows, at c ^ ((r / 2) % 4) in 64-byte rows (rows r0 and
+// r0 + 8 share it in both).
+template <int N>
+__device__ __forceinline__ void stage_tile(bf16* tile, const float (&acc)[N], float s0,
                                            float s1, int r0) {
+  constexpr int kRowBytes = 2 * N * static_cast<int>(sizeof(bf16));
+  static_assert(kRowBytes == 128 || kRowBytes == 64, "a column block is 64 or 32 bf16");
   unsigned char* base = reinterpret_cast<unsigned char*>(tile);
   const int t = threadIdx.x % 4;
+  const int sw = kRowBytes == 128 ? (r0 & 7) : ((r0 >> 1) & 3);
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const int off = ((c ^ (r0 & 7)) << 4) + (t << 2);
-    *reinterpret_cast<uint32_t*>(base + r0 * 128 + off) =
+  for (int c = 0; c < N / 4; ++c) {
+    const int off = ((c ^ sw) << 4) + (t << 2);
+    *reinterpret_cast<uint32_t*>(base + r0 * kRowBytes + off) =
         hopper::pack_bf16(acc[4 * c] * s0, acc[4 * c + 1] * s0);
-    *reinterpret_cast<uint32_t*>(base + (r0 + 8) * 128 + off) =
+    *reinterpret_cast<uint32_t*>(base + (r0 + 8) * kRowBytes + off) =
         hopper::pack_bf16(acc[4 * c + 2] * s1, acc[4 * c + 3] * s1);
   }
 }
@@ -485,7 +522,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
                     const __grid_constant__ CUtensorMap map_o, float* __restrict__ lse,
                     int seq, float scale_log2, int causal) {
   using namespace hopper;
-  constexpr int NH = D / kBox;
+  constexpr int NH = D / kCol<D>;
   extern __shared__ unsigned char smem_raw[];
   FwdSmem<D>& sm = aligned_smem<FwdSmem<D>>(smem_raw);
   const int bh = blockIdx.x;
@@ -528,13 +565,13 @@ __global__ void __launch_bounds__(kHThreads, 1)
     const int warp = tid / 32, lane = tid % 32, t = lane % 4;
     const int r0 = warp * 16 + lane / 4;          // rows r0 and r0 + 8 of the 64
     const int qrow = qi * 128 + cw * kBox + r0;   // sequence position of row r0
-    bf16* q_rows = sm.q + cw * kBoxElems;
+    bf16* q_rows = sm.q + cw * kBox * kCol<D>;
 
-    float o[NH][32];
+    float o[NH][kCol<D> / 2];
 #pragma unroll
     for (int h = 0; h < NH; ++h)
 #pragma unroll
-      for (int i = 0; i < 32; ++i) o[h][i] = 0.0f;
+      for (int i = 0; i < kCol<D> / 2; ++i) o[h][i] = 0.0f;
     float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;  // l: this thread's part
 
     mbar_wait(&sm.q_full, 0);
@@ -554,10 +591,11 @@ __global__ void __launch_bounds__(kHThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
-          const uint64_t q_desc = desc_sw128(col_block<128>(q_rows, h));
-          const uint64_t k_desc = desc_sw128(col_block<128>(sm.k[st], h) + c * KC * kBox);
+          const uint64_t q_desc = desc<D>(col_block<D, 128>(q_rows, h));
+          const uint64_t k_desc = desc<D>(col_block<D, 128>(sm.k[st], h) + c * KC * kCol<D>);
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) wgmma_ss(s, q_desc + 2 * kk, k_desc + 2 * kk, h + kk);
+          for (int kk = 0; kk < kKSteps<D>; ++kk)
+            wgmma_ss(s, q_desc + 2 * kk, k_desc + 2 * kk, h + kk);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -606,7 +644,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
 #pragma unroll
-          for (int c8 = 0; c8 < 8; ++c8) {
+          for (int c8 = 0; c8 < kCol<D> / 8; ++c8) {
             o[h][4 * c8] *= corr0;
             o[h][4 * c8 + 1] *= corr0;
             o[h][4 * c8 + 2] *= corr1;
@@ -618,10 +656,10 @@ __global__ void __launch_bounds__(kHThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
-          const uint64_t v_desc = desc_sw128(col_block<128>(sm.v[st], h) + c * KC * kBox);
+          const uint64_t v_desc = desc<D>(col_block<D, 128>(sm.v[st], h) + c * KC * kCol<D>);
 #pragma unroll
           for (int kk = 0; kk < KC / 16; ++kk)
-            wgmma_rs_m64n64_tb(o[h], pa[kk], v_desc + 128 * kk, 1);
+            wgmma_rs_tb(o[h], pa[kk], v_desc + kMnStep<D> * kk, 1);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -641,7 +679,8 @@ __global__ void __launch_bounds__(kHThreads, 1)
     l1 = fmaxf(l1, 1e-30f);
     warpgroup_sync(1 + cw);
 #pragma unroll
-    for (int h = 0; h < NH; ++h) stage_tile(col_block<128>(q_rows, h), o[h], 1.0f / l0, 1.0f / l1, r0);
+    for (int h = 0; h < NH; ++h)
+      stage_tile(col_block<D, 128>(q_rows, h), o[h], 1.0f / l0, 1.0f / l1, r0);
     fence_async_smem();
     warpgroup_sync(1 + cw);
     if (tid == 0) {
@@ -663,7 +702,10 @@ __global__ void __launch_bounds__(kHThreads, 1)
 // Bound at the headline shapes: 12.9 GFLOP of causal products (three per
 // (q, k) pair), 0.0130 ms at 989 TFLOP/s, over 42.5 MB (0.0127 ms): the
 // two are close; at the Llama-2-7B shapes 412 GFLOP (0.417 ms), bound by
-// operations. The design is K1's: one block per (bh, 128-row q-tile), the
+// operations; at train_bytes' (B8 S128 H4 D32) 1.34 MB (0.0004 ms) over 0.05
+// GFLOP: bound by bytes, and so small that a block's chain of latencies
+// (TMA round trips, barrier handoffs, a few wgmmas, the store) sets the
+// time. The design is K1's: one block per (bh, 128-row q-tile), the
 // heaviest first; Q and dO loaded once; K and V streamed by TMA through a
 // two-stage ring from the diagonal down (tiles above it are never loaded).
 // Each consumer (64 query rows) takes a stage's 128 keys in two halves of
@@ -704,7 +746,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
                    const float* __restrict__ lse, const float* __restrict__ delta, int seq,
                    float scale, float scale_log2, int causal) {
   using namespace hopper;
-  constexpr int NH = D / kBox;
+  constexpr int NH = D / kCol<D>;
   extern __shared__ unsigned char smem_raw[];
   DqSmem<D>& sm = aligned_smem<DqSmem<D>>(smem_raw);
   const int bh = blockIdx.x;
@@ -749,8 +791,8 @@ __global__ void __launch_bounds__(kHThreads, 1)
     const int warp = tid / 32, lane = tid % 32, t = lane % 4;
     const int r0 = warp * 16 + lane / 4;          // rows r0 and r0 + 8 of the 64
     const int qrow = qi * 128 + cw * kBox + r0;   // sequence position of row r0
-    bf16* q_rows = sm.q + cw * kBoxElems;
-    bf16* do_rows = sm.dout + cw * kBoxElems;
+    bf16* q_rows = sm.q + cw * kBox * kCol<D>;
+    bf16* do_rows = sm.dout + cw * kBox * kCol<D>;
 
     // lse (log2 domain) and delta of the thread's two rows; rows past seq
     // are not read (their Q and dO rows are zero-filled and their dQ rows
@@ -762,11 +804,11 @@ __global__ void __launch_bounds__(kHThreads, 1)
     const float dl0 = qrow < seq ? delta_bh[qrow] : 0.0f;
     const float dl1 = qrow + 8 < seq ? delta_bh[qrow + 8] : 0.0f;
 
-    float dq[NH][32];
+    float dq[NH][kCol<D> / 2];
 #pragma unroll
     for (int h = 0; h < NH; ++h)
 #pragma unroll
-      for (int i = 0; i < 32; ++i) dq[h][i] = 0.0f;
+      for (int i = 0; i < kCol<D> / 2; ++i) dq[h][i] = 0.0f;
 
     mbar_wait(&sm.qdo_full, 0);
     for (int it = 0; it < nk; ++it) {
@@ -783,17 +825,19 @@ __global__ void __launch_bounds__(kHThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
-          const uint64_t q_desc = desc_sw128(col_block<128>(q_rows, h));
-          const uint64_t k_desc = desc_sw128(col_block<128>(sm.k[st], h) + c * KC * kBox);
+          const uint64_t q_desc = desc<D>(col_block<D, 128>(q_rows, h));
+          const uint64_t k_desc = desc<D>(col_block<D, 128>(sm.k[st], h) + c * KC * kCol<D>);
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) wgmma_ss(s, q_desc + 2 * kk, k_desc + 2 * kk, h + kk);
+          for (int kk = 0; kk < kKSteps<D>; ++kk)
+            wgmma_ss(s, q_desc + 2 * kk, k_desc + 2 * kk, h + kk);
         }
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
-          const uint64_t do_desc = desc_sw128(col_block<128>(do_rows, h));
-          const uint64_t v_desc = desc_sw128(col_block<128>(sm.v[st], h) + c * KC * kBox);
+          const uint64_t do_desc = desc<D>(col_block<D, 128>(do_rows, h));
+          const uint64_t v_desc = desc<D>(col_block<D, 128>(sm.v[st], h) + c * KC * kCol<D>);
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, do_desc + 2 * kk, v_desc + 2 * kk, h + kk);
+          for (int kk = 0; kk < kKSteps<D>; ++kk)
+            wgmma_ss(dp, do_desc + 2 * kk, v_desc + 2 * kk, h + kk);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -828,10 +872,10 @@ __global__ void __launch_bounds__(kHThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
-          const uint64_t k_desc = desc_sw128(col_block<128>(sm.k[st], h) + c * KC * kBox);
+          const uint64_t k_desc = desc<D>(col_block<D, 128>(sm.k[st], h) + c * KC * kCol<D>);
 #pragma unroll
           for (int kk = 0; kk < KC / 16; ++kk)
-            wgmma_rs_m64n64_tb(dq[h], da[kk], k_desc + 128 * kk, 1);
+            wgmma_rs_tb(dq[h], da[kk], k_desc + kMnStep<D> * kk, 1);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -845,7 +889,8 @@ __global__ void __launch_bounds__(kHThreads, 1)
     // and TMA stores, which drop rows past seq ----
     warpgroup_sync(1 + cw);
 #pragma unroll
-    for (int h = 0; h < NH; ++h) stage_tile(col_block<128>(q_rows, h), dq[h], 1.0f, 1.0f, r0);
+    for (int h = 0; h < NH; ++h)
+      stage_tile(col_block<D, 128>(q_rows, h), dq[h], 1.0f, 1.0f, r0);
     fence_async_smem();
     warpgroup_sync(1 + cw);
     if (tid == 0) {
@@ -861,11 +906,13 @@ __global__ void __launch_bounds__(kHThreads, 1)
 //
 // Bound at the headline shapes: 17.2 GFLOP of causal products (four per
 // (q, k) pair), 0.0174 ms at 989 TFLOP/s, over 50.9 MB (0.0152 ms): bound
-// by operations; at the Llama-2-7B shapes 550 GFLOP (0.556 ms). The
+// by operations; at the Llama-2-7B shapes 550 GFLOP (0.556 ms); at
+// train_bytes' (B8 S128 H4 D32) 1.61 MB (0.0005 ms) over 0.07 GFLOP: bound
+// by bytes, and as for K2 a block's chain of latencies sets the time. The
 // design: one block per (bh, key tile of 64 keys per consumer), K and V
 // resident in shared memory; 64-row Q and dO tiles and their 64 lse and
-// delta values stream through a ring (at D 64 the producer warpgroup
-// loads it, two stages; at D 128 see below); each
+// delta values stream through a ring (at D 32 and 64 the producer
+// warpgroup loads it, two stages; at D 128 see below); each
 // consumer (64 keys) computes the transposed scores S^T = K.Q^T and
 // dP^T = V.dO^T on wgmma (both operands K-major), a tile's 64 queries at
 // once, so P^T and dS^T land in registers
@@ -881,7 +928,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
 // queries a product), so the block is the two consumers alone (256
 // threads, up to 255 registers each): the last warp to release a stage of
 // the three-stage ring loads its next tile, and P^T is one FFMA and one
-// MUFU an element. A block owns 128
+// MUFU an element (at D 32 too). A block owns 128
 // keys, and each Q/dO tile streamed serves both consumers; while one
 // consumer computes P^T and dS^T, the other's products keep the tensor
 // cores busy. Where S is a multiple of 64 but not of 128, the last block's
@@ -895,9 +942,9 @@ __global__ void __launch_bounds__(kHThreads, 1)
 constexpr int kDkvCons = 2;
 constexpr int kDkvQueries = 64;
 template <int D>
-constexpr int kDkvProducer = D == 64 ? kWg : 0;
+constexpr int kDkvProducer = D == 128 ? 0 : kWg;
 template <int D>
-constexpr int kDkvStages = D == 64 ? kStages : 3;
+constexpr int kDkvStages = D == 128 ? 3 : kStages;
 
 template <int D>
 struct DkvSmem {
@@ -925,7 +972,7 @@ __global__ void __launch_bounds__(kDkvCons * kWg + kDkvProducer<D>, 1)
                     float scale, float scale_log2, int causal) {
   using namespace hopper;
   constexpr int kCons = kDkvCons, NQ = kDkvQueries, kPT = kDkvProducer<D>, kSt = kDkvStages<D>;
-  constexpr int NH = D / kBox, KB = kCons * kBox;  // KB: the block's keys
+  constexpr int NH = D / kCol<D>, KB = kCons * kBox;  // KB: the block's keys
   // the "empty" barriers count consumer threads, or warps where the
   // consumers load
   constexpr int kWarps = kCons * kWg / 32;
@@ -996,15 +1043,15 @@ __global__ void __launch_bounds__(kDkvCons * kWg + kDkvProducer<D>, 1)
       }
     };
     const int r0 = warp * 16 + lane / 4;           // key rows r0 and r0 + 8 of the 64
-    bf16* k_rows = sm.k + cw * kBoxElems;
-    bf16* v_rows = sm.v + cw * kBoxElems;
+    bf16* k_rows = sm.k + cw * kBox * kCol<D>;
+    bf16* v_rows = sm.v + cw * kBox * kCol<D>;
     const int diag = kCons * kj + cw;  // the q-tile holding the same positions as these keys
 
-    float dk[NH][32], dv[NH][32];
+    float dk[NH][kCol<D> / 2], dv[NH][kCol<D> / 2];
 #pragma unroll
     for (int h = 0; h < NH; ++h)
 #pragma unroll
-      for (int i = 0; i < 32; ++i) dk[h][i] = dv[h][i] = 0.0f;
+      for (int i = 0; i < kCol<D> / 2; ++i) dk[h][i] = dv[h][i] = 0.0f;
 
     mbar_wait(&sm.kv_full, 0);
     for (int i = i0; i < nq; ++i) {
@@ -1021,17 +1068,19 @@ __global__ void __launch_bounds__(kDkvCons * kWg + kDkvProducer<D>, 1)
         wgmma_fence();
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
-          const uint64_t k_desc = desc_sw128(col_block<KB>(k_rows, h));
-          const uint64_t q_desc = desc_sw128(col_block<kBox>(sm.q[st], h) + qc * NQ * kBox);
+          const uint64_t k_desc = desc<D>(col_block<D, KB>(k_rows, h));
+          const uint64_t q_desc = desc<D>(col_block<D, kBox>(sm.q[st], h) + qc * NQ * kCol<D>);
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) wgmma_ss(s, k_desc + 2 * kk, q_desc + 2 * kk, h + kk);
+          for (int kk = 0; kk < kKSteps<D>; ++kk)
+            wgmma_ss(s, k_desc + 2 * kk, q_desc + 2 * kk, h + kk);
         }
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
-          const uint64_t v_desc = desc_sw128(col_block<KB>(v_rows, h));
-          const uint64_t do_desc = desc_sw128(col_block<kBox>(sm.dout[st], h) + qc * NQ * kBox);
+          const uint64_t v_desc = desc<D>(col_block<D, KB>(v_rows, h));
+          const uint64_t do_desc = desc<D>(col_block<D, kBox>(sm.dout[st], h) + qc * NQ * kCol<D>);
 #pragma unroll
-          for (int kk = 0; kk < 4; ++kk) wgmma_ss(dp, v_desc + 2 * kk, do_desc + 2 * kk, h + kk);
+          for (int kk = 0; kk < kKSteps<D>; ++kk)
+            wgmma_ss(dp, v_desc + 2 * kk, do_desc + 2 * kk, h + kk);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -1051,7 +1100,7 @@ __global__ void __launch_bounds__(kDkvCons * kWg + kDkvProducer<D>, 1)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
               const int idx = 4 * cc + 2 * h + e;
-              if constexpr (D == 128) {  // one FFMA and one MUFU; masked: 0
+              if constexpr (D != 64) {  // one FFMA and one MUFU; masked: 0
                 p[2 * h + e] = mask && r0 + 8 * h > qcol
                                    ? 0.0f
                                    : exp2_ftz(fmaf(s[idx], scale_log2, -lse2));
@@ -1077,17 +1126,17 @@ __global__ void __launch_bounds__(kDkvCons * kWg + kDkvProducer<D>, 1)
         wgmma_fence();
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
-          const uint64_t do_desc = desc_sw128(col_block<kBox>(sm.dout[st], h) + qc * NQ * kBox);
+          const uint64_t do_desc = desc<D>(col_block<D, kBox>(sm.dout[st], h) + qc * NQ * kCol<D>);
 #pragma unroll
           for (int kk = 0; kk < NQ / 16; ++kk)
-            wgmma_rs_m64n64_tb(dv[h], pa[kk], do_desc + 128 * kk, 1);
+            wgmma_rs_tb(dv[h], pa[kk], do_desc + kMnStep<D> * kk, 1);
         }
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
-          const uint64_t q_desc = desc_sw128(col_block<kBox>(sm.q[st], h) + qc * NQ * kBox);
+          const uint64_t q_desc = desc<D>(col_block<D, kBox>(sm.q[st], h) + qc * NQ * kCol<D>);
 #pragma unroll
           for (int kk = 0; kk < NQ / 16; ++kk)
-            wgmma_rs_m64n64_tb(dk[h], da[kk], q_desc + 128 * kk, 1);
+            wgmma_rs_tb(dk[h], da[kk], q_desc + kMnStep<D> * kk, 1);
         }
         wgmma_commit();
         wgmma_wait<0>();
@@ -1105,8 +1154,8 @@ __global__ void __launch_bounds__(kDkvCons * kWg + kDkvProducer<D>, 1)
     warpgroup_sync(1 + cw);
 #pragma unroll
     for (int h = 0; h < NH; ++h) {
-      stage_tile(col_block<KB>(k_rows, h), dk[h], 1.0f, 1.0f, r0);
-      stage_tile(col_block<KB>(v_rows, h), dv[h], 1.0f, 1.0f, r0);
+      stage_tile(col_block<D, KB>(k_rows, h), dk[h], 1.0f, 1.0f, r0);
+      stage_tile(col_block<D, KB>(v_rows, h), dv[h], 1.0f, 1.0f, r0);
     }
     fence_async_smem();
     warpgroup_sync(1 + cw);
@@ -1166,21 +1215,25 @@ EncodeTiled tensor_map_encoder() {
   return fn;
 }
 
-// A [BH, S, D] bf16 tensor as the 3-D map {D, S, BH} with box {64, 64, 1}
-// and the 128-byte swizzle. The map holds the base pointer, so it is made
+// A [BH, S, D] bf16 tensor as the 3-D map {D, S, BH} with box
+// {kCol<D>, 64, 1} and the swizzle of that row width (128 bytes at head
+// dims 64 and 128, 64 at 32). The map holds the base pointer, so it is made
 // per launch and passed by value (__grid_constant__).
-cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int bh, int seq, int d) {
+template <int D>
+cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int bh, int seq) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(seq),
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(seq),
                               static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {d * sizeof(bf16),
-                                 static_cast<cuuint64_t>(seq) * d * sizeof(bf16)};
-  const cuuint32_t box[3] = {kBox, kBox, 1};
+  const cuuint64_t strides[2] = {D * sizeof(bf16),
+                                 static_cast<cuuint64_t>(seq) * D * sizeof(bf16)};
+  const cuuint32_t box[3] = {kCol<D>, kBox, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      kCol<D> == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
   const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
                              dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
@@ -1195,10 +1248,10 @@ int fwd_hopper(const void* q, const void* k, const void* v, void* o, float* lse,
   cudaError_t err = allow_smem(flash_fwd_wgmma<D>, smem, &ready);
   if (err != cudaSuccess) return err;
   CUtensorMap mq, mk, mv, mo;
-  if ((err = tensor_map(&mq, q, bh, seq, D)) != cudaSuccess ||
-      (err = tensor_map(&mk, k, bh, seq, D)) != cudaSuccess ||
-      (err = tensor_map(&mv, v, bh, seq, D)) != cudaSuccess ||
-      (err = tensor_map(&mo, o, bh, seq, D)) != cudaSuccess)
+  if ((err = tensor_map<D>(&mq, q, bh, seq)) != cudaSuccess ||
+      (err = tensor_map<D>(&mk, k, bh, seq)) != cudaSuccess ||
+      (err = tensor_map<D>(&mv, v, bh, seq)) != cudaSuccess ||
+      (err = tensor_map<D>(&mo, o, bh, seq)) != cudaSuccess)
     return err;
   flash_fwd_wgmma<D><<<dim3(bh, (seq + 127) / 128), kHThreads, smem, stream>>>(
       mq, mk, mv, mo, lse, seq, scale * kLog2eHost, causal);
@@ -1214,11 +1267,11 @@ int dq_hopper(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t err = allow_smem(flash_dq_wgmma<D>, smem, &ready);
   if (err != cudaSuccess) return err;
   CUtensorMap mq, mk, mv, mdo, mdq;
-  if ((err = tensor_map(&mq, q, bh, seq, D)) != cudaSuccess ||
-      (err = tensor_map(&mk, k, bh, seq, D)) != cudaSuccess ||
-      (err = tensor_map(&mv, v, bh, seq, D)) != cudaSuccess ||
-      (err = tensor_map(&mdo, dout, bh, seq, D)) != cudaSuccess ||
-      (err = tensor_map(&mdq, dqp, bh, seq, D)) != cudaSuccess)
+  if ((err = tensor_map<D>(&mq, q, bh, seq)) != cudaSuccess ||
+      (err = tensor_map<D>(&mk, k, bh, seq)) != cudaSuccess ||
+      (err = tensor_map<D>(&mv, v, bh, seq)) != cudaSuccess ||
+      (err = tensor_map<D>(&mdo, dout, bh, seq)) != cudaSuccess ||
+      (err = tensor_map<D>(&mdq, dqp, bh, seq)) != cudaSuccess)
     return err;
   flash_dq_wgmma<D><<<dim3(bh, (seq + 127) / 128), kHThreads, smem, stream>>>(
       mq, mk, mv, mdo, mdq, lse, delta, seq, scale, scale * kLog2eHost, causal);
@@ -1235,12 +1288,12 @@ int dkv_hopper(const void* q, const void* k, const void* v, const void* dout,
   cudaError_t err = allow_smem(flash_dkv_wgmma<D>, smem, &ready);
   if (err != cudaSuccess) return err;
   CUtensorMap mq, mk, mv, mdo, mdk, mdv;
-  if ((err = tensor_map(&mq, q, bh, seq, D)) != cudaSuccess ||
-      (err = tensor_map(&mk, k, bh, seq, D)) != cudaSuccess ||
-      (err = tensor_map(&mv, v, bh, seq, D)) != cudaSuccess ||
-      (err = tensor_map(&mdo, dout, bh, seq, D)) != cudaSuccess ||
-      (err = tensor_map(&mdk, dkp, bh, seq, D)) != cudaSuccess ||
-      (err = tensor_map(&mdv, dvp, bh, seq, D)) != cudaSuccess)
+  if ((err = tensor_map<D>(&mq, q, bh, seq)) != cudaSuccess ||
+      (err = tensor_map<D>(&mk, k, bh, seq)) != cudaSuccess ||
+      (err = tensor_map<D>(&mv, v, bh, seq)) != cudaSuccess ||
+      (err = tensor_map<D>(&mdo, dout, bh, seq)) != cudaSuccess ||
+      (err = tensor_map<D>(&mdk, dkp, bh, seq)) != cudaSuccess ||
+      (err = tensor_map<D>(&mdv, dvp, bh, seq)) != cudaSuccess)
     return err;
   flash_dkv_wgmma<D><<<dim3(bh, (seq + kKeys - 1) / kKeys), kDkvCons * kWg + kDkvProducer<D>,
                        smem, stream>>>(mq, mk, mv, mdo, mdk, mdv, lse, delta, seq, scale,
@@ -1323,7 +1376,7 @@ int tft_flash_dq(int dtype, const void* q, const void* k, const void* v,
     return dq_fma<float, 64>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
   }
   if (d == 32)
-    return dq_fma<bf16, 32>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
+    return dq_hopper<32>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
   if (d == 64)
     return dq_hopper<64>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
   return dq_hopper<128>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
@@ -1343,7 +1396,7 @@ int tft_flash_dkv(int dtype, const void* q, const void* k, const void* v,
                               st);
   }
   if (d == 32)
-    return dkv_fma<bf16, 32>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
+    return dkv_hopper<32>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
   if (d == 64)
     return dkv_hopper<64>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
   return dkv_hopper<128>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);

@@ -2,11 +2,15 @@
 // TMA tile loads and stores, wgmma with shared-memory descriptors, and the
 // warpgroup register split. Inline PTX only; no library.
 //
-// Shared-memory tiles are [rows x 64] bf16, 128 bytes a row, written by TMA
-// with the 128-byte swizzle: the 16-byte chunk c of row r lives at chunk
-// c ^ (r % 8). Eight rows (1024 bytes) form one swizzle atom, so every tile
-// starts on a 1024-byte boundary. A head dim of 128 is two such column
-// blocks (the swizzle caps a box's row at 128 bytes).
+// Shared-memory tiles are column blocks of bf16 rows written by TMA with a
+// swizzle that matches the row's width. At head dims 64 and 128 a block is
+// [rows x 64], 128 bytes a row, with the 128-byte swizzle: the 16-byte chunk
+// c of row r lives at chunk c ^ (r % 8), and eight rows (1024 bytes) form
+// one swizzle atom. A head dim of 128 is two such column blocks (the
+// swizzle caps a box's row at 128 bytes). At head dim 32 the one block is
+// [rows x 32], 64 bytes a row, with the 64-byte swizzle: chunk c of row r
+// at c ^ ((r / 2) % 4), eight rows (512 bytes) an atom. Every tile starts
+// on a 1024-byte boundary.
 
 #pragma once
 
@@ -80,10 +84,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 
 // ---------------------------------------------------------------------------
 // TMA: [BH, S, D] bf16 tensors as 3-D tensor maps {D, S, BH}, box
-// {64, 64, 1}: one box is 64 rows of one 64-column block, addressed by its
-// first column and row. Rows past S are out of bounds of the map: loads
-// fill them with zeros and stores drop them, so a tile may run past the
-// end of a head's sequence.
+// {C, 64, 1} (C = 64 columns, or 32 at head dim 32): one box is 64 rows of
+// one column block, addressed by its first column and row. Rows past S are
+// out of bounds of the map: loads fill them with zeros and stores drop
+// them, so a tile may run past the end of a head's sequence.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int col, int row,
@@ -164,6 +168,18 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
   const uint64_t addr = smem_addr(p);
   return ((addr & 0x3FFFF) >> 4) | (uint64_t(1024 >> 4) << 16) |
          (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// Descriptor of a 64-byte-swizzled operand (layout type 2), rows of 32
+// bf16: the 8-row group, and so both byte offsets, is 512 bytes. K-major,
+// a K of 32 is two k16 steps of 32 bytes inside one row; MN-major, an N of
+// 32 is exactly one atom wide, so only the stride from one 8-row group of K
+// to the next is read (CUTLASS's make_gmma_desc: SBO, the K groups'
+// stride; LBO, the stride between MN atoms, has no second atom here).
+__device__ __forceinline__ uint64_t desc_sw64(const void* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(512 >> 4) << 16) |
+         (uint64_t(512 >> 4) << 32) | (uint64_t(2) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -291,6 +307,33 @@ __device__ __forceinline__ void wgmma_rs_m64n64_tb(float (&d)[32], const uint32_
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64 x 32] (+)= A[64 x 16] * B[16 x 32], as wgmma_rs_m64n64_tb.
+__device__ __forceinline__ void wgmma_rs_m64n32_tb(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// The MN-major products above by their N (a column block's width).
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t b, int acc) {
+  wgmma_rs_m64n64_tb(d, a, b, acc);
+}
+__device__ __forceinline__ void wgmma_rs_tb(float (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t b, int acc) {
+  wgmma_rs_m64n32_tb(d, a, b, acc);
 }
 
 // 2^x in one MUFU instruction, results below 2^-126 flushed to zero

@@ -56,9 +56,10 @@ CSRC_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
 )
 TILE = 64  # the kernels' tile rows: S must be a multiple on the card
-# head dims the kernels take, by dtype: bf16 at 64 and 128 on wgmma, at 32
-# and in float32 on the FMA kernels (float32 tiles at 128 pass the shared
-# memory); csrc/flash_attention.cu's `supported` says the same
+# head dims the kernels take, by dtype: bf16 on wgmma (but the forward at
+# 32), float32 and the bf16 forward at 32 on the FMA kernels (float32 tiles
+# at 128 pass the shared memory); csrc/flash_attention.cu's `supported`
+# says the same
 _HEAD_DIMS = {torch.float32: (32, 64), torch.bfloat16: (32, 64, 128)}
 _MAX_SEQ = 65535 * TILE  # a launch's grid holds at most 65535 tiles of S
 _NEG_INF = -1e30
