@@ -10,7 +10,8 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    shapes (B2 S4096 H32 D128) and the train_bytes shapes (B8 S128 H4 D32,
    bf16 and float32), at a ragged length (B2 S192 H2) at D 64, 128 and
    32, and at D 128 and 32 at B2 S320 H2 (K3's last block of 128 keys half
-   past S) and at B2 S1024 H4, causal and non-causal (the rings wrap their
+   past S; at D 128 also non-causal, K2's last q-tile half past S without
+   the mask) and at B2 S1024 H4, causal and non-causal (the rings wrap their
    phase parity): K1 (forward), K2 (dQ) and K3 (dK/dV)
    each against its plain PyTorch
    version on the same inputs, elementwise, and bitwise equal across two
@@ -22,8 +23,8 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    graph (device time alone) with its inputs warm in the L2 and L2-cold;
    its host cost per call, its plain version, the
    ``scaled_dot_product_attention`` yardsticks by both methods, the
-   roofline bound and, for K3 at D 128 and K2 and K3 at D 32, the earlier
-   design's time.
+   roofline bound and, for K2 and K3 at D 128 and K1-K3 at D 32, the
+   earlier design's time.
 4. the headline fault-tolerant training loop on one replica group:
    in-process lighthouse + store, Manager over the device data plane
    (CollectivesDevice, the JAX headline's wiring), TrainStep at d512 L8
@@ -169,23 +170,22 @@ def host_us_per_call(fn, calls: int = 200) -> float:
 
 
 # the library's kernels as their mangled names spell the template
-# arguments, by (kernel, head dim): the wgmma kernels (K1 at head dims 64
-# and 128, K2 and K3 at 32, 64 and 128), the FMA K1 in bf16 at 32 (and the
-# FMA kernels in float32 at 32 and 64, off the bf16 paths)
-KERNEL_OF = {
-    ("flash_fwd", 64): "flash_fwd_wgmmaILi64E", ("flash_fwd", 128): "flash_fwd_wgmmaILi128E",
-    ("flash_fwd", 32): "flash_fwd_kernelI13__nv_bfloat16Li32E",
-    **{(n, d): f"{n}_wgmmaILi{d}E" for n in ("flash_dq", "flash_dkv") for d in (64, 128, 32)},
-}
+# arguments, by (kernel, head dim): the wgmma kernels of the bf16 paths
+# (K1-K3 at head dims 32, 64 and 128), and the FMA kernels in float32 at 32
+# and 64, off the bf16 paths
+KERNEL_OF = {(n, d): f"{n}_wgmmaILi{d}E" for n in ("flash_fwd", "flash_dq", "flash_dkv")
+             for d in (64, 128, 32)}
 BUILT = list(KERNEL_OF.values()) + [
     f"{n}IfLi{d}E" for n in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
     for d in (32, 64)]
 # Earlier designs, by CUDA graph, L2-warm, at the shapes of their head
 # dim's path (chip_smoke.py phase 3 on an NVIDIA H100 80GB HBM3 at 700 W):
-# K3 at head dim 128 with one consumer of 64 keys (256 threads, B2 S4096
-# H32 D128), and K2 and K3 at head dim 32 on the FMA kernels (B8 S128 H4
-# D32); printed beside this run's times, not re-run
-EARLIER_GRAPH_MS = {("flash_dkv", 128): 1.6509, ("flash_dq", 32): 0.1053,
+# K2 at head dim 128 with a producer warpgroup, 64 keys at once (384
+# threads) and K3 there with one consumer of 64 keys (256 threads),
+# B2 S4096 H32 D128; K1-K3 at head dim 32 on the FMA kernels, B8 S128 H4
+# D32; printed beside this run's times, not re-run
+EARLIER_GRAPH_MS = {("flash_dq", 128): 0.8810, ("flash_dkv", 128): 1.6509,
+                    ("flash_fwd", 32): 0.0325, ("flash_dq", 32): 0.1053,
                     ("flash_dkv", 32): 0.0505}
 
 
@@ -392,8 +392,9 @@ def phase_kernels():
     headline shapes, D 128 at the Llama-2-7B width's, D 32 at train_bytes'
     (bf16 and float32), and at a ragged length (S=192, not a multiple of
     128) at all three; at D 128 and 32 also S=320 (K3's last block of 128
-    keys half past S) and S=1024 (K2's and K3's rings wrap), non-causal at
-    both head dims and causal at 32; the autograd op against plain
+    keys half past S; at D 128 non-causal too) and S=1024 (K2's and K3's
+    rings wrap), non-causal at both head dims and causal at 32; the
+    autograd op against plain
     attention at each head dim; float32 cases at the JAX test bars.
     Returns {(kernel, head dim): max |err|}."""
     from torchft_tpu_torch.ops import flash_attention as fa
@@ -403,8 +404,10 @@ def phase_kernels():
     checks = [(_shape(HEADLINE), 1, bf16, True), ((2, 192, 2, 64), 4, bf16, True),
               (_shape(LLAMA), 5, bf16, True), ((2, 192, 2, 128), 6, bf16, True),
               # K3 at 128: S a multiple of 64, not of its 128 keys a block;
-              # K1 at 128 without the mask
+              # K1 at 128 without the mask; K2's last 128-row q-tile half
+              # past S without the mask
               ((2, 320, 2, 128), 10, bf16, True), ((2, 1024, 4, 128), 11, bf16, False),
+              ((2, 320, 2, 128), 15, bf16, False),
               (_shape(BYTES), 7, bf16, True), (_shape(BYTES), 8, f32, True),
               ((2, 192, 2, 32), 9, bf16, True),
               # K2 and K3 at 32: their rings wrap (S 1024), K3's half-filled

@@ -15,11 +15,13 @@ budget):
 
 - ``shipped``: the library's kernels (``flash_dkv_wgmma<128>`` is K3 at
   head dim 128, two consumers of 64 keys at 64 queries a product in 256
-  threads), plus, at 384 threads (a producer warpgroup and two
-  consumers), K1 taking 128 keys at once (S 64 + O 64 + P 32 registers)
-  and K2 taking 128 keys at once (S 64 + dP 64 + dQ 64 + dS 32), and
-  ``probe_live<256>`` and ``probe_live<288>``: one loop that keeps 192
-  float32 values live, alone in its kernel, at 256 and at 288 threads;
+  threads; ``flash_dq_wgmma<128>`` K2 there, two consumers with two
+  64-key chunks in flight each, 256 threads), plus, at 384 threads (a
+  producer warpgroup and two consumers), K1 taking 128 keys at once (S 64
+  + O 64 + P 32 registers), and ``probe_live<256>`` and
+  ``probe_live<288>``: one loop that keeps 192 float32 values live, alone
+  in its kernel, at 256 and at 288 threads (K2's layouts at head dim 128
+  are built and timed by ``scripts/torch_flash_variants.py``);
 - ``k3_nq32_256``: the source with K3's ``kDkvQueries`` at 32 (dK 64 +
   dV 64 + S^T 16 + dP^T 16 + P^T, dS^T 8 each), 256 threads;
 - ``k3_nq32_384``: the same with a producer warpgroup and its two-stage
@@ -62,10 +64,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   out[threadIdx.x] = sum;
 }
 
-// K1 and K2 taking 128 keys at once, instantiated by taking their addresses
+// K1 taking 128 keys at once, instantiated by taking its address
 void* const kProbeVariants[] = {
     reinterpret_cast<void*>(&flash_fwd_wgmma<128, 128>),
-    reinterpret_cast<void*>(&flash_dq_wgmma<128, 128>),
     reinterpret_cast<void*>(&probe_live<256>),
     reinterpret_cast<void*>(&probe_live<288>),
 };

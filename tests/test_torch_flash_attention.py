@@ -207,13 +207,15 @@ def test_c_predicate_agrees_on_card():
         (128, torch.bfloat16, True, 4, 192),
         (128, torch.bfloat16, False, 4, 192),
         # the Llama-2-7B width (B2 H32 S4096), K3's half-filled last block
-        # of 128 keys (S 320), and the unmasked loops at S 1024
+        # of 128 keys (S 320; non-causal, K2's half-filled last q-tile
+        # without the mask), and the unmasked loops at S 1024
         (128, torch.bfloat16, True, 64, 4096),
         (128, torch.bfloat16, True, 4, 320),
+        (128, torch.bfloat16, False, 4, 320),
         (128, torch.bfloat16, False, 8, 1024),
-        # head dim 32: bf16 K1 on FMA, K2 and K3 on wgmma (64-byte rows);
-        # float32 all FMA. S 1024 wraps K2's and K3's rings, S 320 gives
-        # K3 a half-filled last block of 128 keys
+        # head dim 32: bf16 on wgmma (64-byte rows); float32 on FMA. S 1024
+        # wraps the rings, S 320 gives K3 a half-filled last block of 128
+        # keys
         (32, torch.bfloat16, True, 32, 128),
         (32, torch.bfloat16, False, 4, 192),
         (32, torch.bfloat16, True, 8, 1024),

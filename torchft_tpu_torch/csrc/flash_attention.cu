@@ -7,12 +7,11 @@
 //   K3 dK/dV    <- _dkv_kernel  (lines 177-210, pallas_call at 238)
 // The Pallas kernels take any head dim D; these take D in {32, 64, 128}
 // (tft_flash_supported says which dtype takes which D). bf16 runs on
-// wgmma: flash_fwd_wgmma at D 64 and 128, flash_dq_wgmma and
-// flash_dkv_wgmma at D 32, 64 and 128 (TMA, mbarriers, wgmma; their notes
-// below), templated on D. The FMA path, flash_fwd_kernel, flash_dq_kernel
-// and flash_dkv_kernel, templated on the element type and D, takes float32
-// (D 32 and 64), whose float32 products hold the parity tests at the JAX
-// bars, and bf16 K1 at D 32 (flash_fwd_kernel<bf16, 32>). float32 at D 128
+// wgmma at every D: flash_fwd_wgmma, flash_dq_wgmma and flash_dkv_wgmma
+// (TMA, mbarriers, wgmma; their notes below), templated on D. The FMA
+// path, flash_fwd_kernel, flash_dq_kernel and flash_dkv_kernel, templated
+// on the element type and D, takes float32 alone (D 32 and 64), whose
+// float32 products hold the parity tests at the JAX bars. float32 at D 128
 // is refused: the FMA tiles would pass the 227 KB of shared memory.
 //
 // Layout: q, k, v, o, dO, dQ, dK, dV are [BH, S, D] row-major; lse and
@@ -27,7 +26,7 @@
 // q-tiles. Nothing crosses blocks, so there are no atomics and every
 // result is deterministic.
 //
-// FMA kernels (float32; bf16 K1 at D 32): a block has 4 warps; warp w
+// FMA kernels (float32): a block has 4 warps; warp w
 // owns rows [16w, 16w+16) of a 64-row tile, for the matrix products and
 // for the row-wise softmax, so most steps need only a warp barrier. Tiles
 // are converted to float32 as they are loaded; tiles, score tiles and
@@ -39,7 +38,7 @@
 // k_pos > q_pos; blocks above the causal diagonal skipped
 // (j*bk <= i*bq+bq-1); l clamped at 1e-30; in the wgmma kernels P cast to
 // V's dtype before P.V and dS cast to K's / Q's dtype before its products
-// (the FMA kernels keep them in float32).
+// (the float32 FMA kernels keep them in float32).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -63,13 +62,10 @@ constexpr int kLd = 65;
 constexpr size_t kTileBytes = sizeof(float) * kTile * kLd;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -337,13 +333,13 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---------------------------------------------------------------------------
 // bf16 K1, K2 and K3 for Hopper: TMA, mbarriers and wgmma, warp-specialised,
-// templated on the head dim D (K1 at 64 and 128; K2 and K3 at 32, 64 and
-// 128).
+// templated on the head dim D (32, 64 and 128).
 //
-// A block is two consumer warpgroups and, but for K3 at D 128, a producer
-// warpgroup that gives up its registers (setmaxnreg). One of the
-// producer's threads (in K3 at D 128, whichever consumer warp releases a
-// stage last) keeps a ring of tiles in flight with TMA, each
+// A block is consumer warpgroups (two, but one for K1 at D 32) and, but
+// for K2 and K3 at D 128, a producer warpgroup that gives up its
+// registers (setmaxnreg). One of the producer's threads (in K2 and K3 at
+// D 128, whichever consumer warp releases a stage last: release_stage)
+// keeps a ring of tiles in flight with TMA, each
 // stage completed on a "full" mbarrier and handed back on an "empty" one.
 // Each consumer owns 64 rows of the block's tile, runs wgmma on the tiles
 // that have arrived, and keeps its accumulators, running max and sum in
@@ -374,24 +370,25 @@ __global__ void __launch_bounds__(kThreads)
 // 232 for the consumers notwithstanding (scripts/torch_regs_probe.py:
 // wider variants spill at 168). At D 128 the accumulators of N = D double
 // (O and dQ: 64 registers; dK and dV: 128), so K1 takes a stage's keys 64
-// at a time and K2 64 at a time as at D 64 (384 threads), while K3 is a
-// block of two consumer warpgroups and nothing else (256 threads, 249
-// registers), its consumer warps issuing the TMA loads. A K1 of 256
-// threads taking 128 keys at once was no faster on the card (PERF.md). At
-// D 32 registers are no limit (dQ 16, dK and dV 32) and the path's S of
-// 128 gives a block one or two tiles to visit, so the ring never fills and
-// a block's time is its chain of latencies: K2 and K3 keep D 64's layout
-// (384 threads), whose producer issues every load of such a block before
-// the consumers' first wgmma. K3 in D 128's 256 threads (the first
-// consumer thread loading) and K2 taking 128 keys at once (spills at 168
-// registers) were both slower on the card (PERF.md).
+// at a time (384 threads), while K2 and K3 are blocks of two consumer
+// warpgroups and nothing else (256 threads), their consumer warps issuing
+// the TMA loads: K3 at 250 registers, K2 taking a stage's 128 keys at once
+// (S 64 + dP 64 + dQ 64 + dS 32 registers). A K1 of 256 threads taking 128
+// keys at once was no faster on the card (PERF.md). At D 32 registers are
+// no limit (O and dQ 16, dK and dV 32) and the path's S of 128 gives a
+// block one or two tiles to visit, so the ring never fills and a block's
+// time is its chain of latencies: K2 and K3 keep D 64's layout (384
+// threads), whose producer issues every load of such a block before the
+// consumers' first wgmma, and K1 is one consumer of 64 query rows. K3 in
+// D 128's 256 threads (the first consumer thread loading) and K2 taking
+// 128 keys at once (spills at 168 registers) were both slower at D 32 on
+// the card (PERF.md).
 //
 // Determinism: every output element is computed by one block in a fixed
 // order, with no split over keys and no atomics.
 // ---------------------------------------------------------------------------
 
 constexpr int kWg = 128;           // threads of a warpgroup
-constexpr int kHThreads = 3 * kWg;  // producer + two consumers
 constexpr int kBox = 64;           // rows of one TMA box
 constexpr int kStages = 2;
 constexpr int kProducerRegs = 40;
@@ -479,6 +476,21 @@ __device__ __forceinline__ void stage_tile(bf16* tile, const float (&acc)[N], fl
   }
 }
 
+// Hand a ring stage back where the consumer warps load the ring themselves
+// (no producer warpgroup): each warp arrives once on the stage's "empty"
+// barrier, and the last of the block's kWarps warps to do so (a shared
+// count of the stage's releases, ever) issues its next load, `refill`.
+template <int kWarps, typename Refill>
+__device__ __forceinline__ void release_stage(uint64_t* empty, uint32_t* released,
+                                              Refill&& refill) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) {
+    hopper::mbar_arrive(empty);
+    if (atomicAdd(released, 1u) % kWarps == kWarps - 1) refill();
+  }
+  __syncwarp();
+}
+
 // ---------------------------------------------------------------------------
 // K1 forward, bf16. Replaces _fwd_kernel, torchft_tpu/ops/pallas/
 // flash_attention.py:67 (pallas_call at :115).
@@ -487,22 +499,29 @@ __device__ __forceinline__ void stage_tile(bf16* tile, const float (&acc)[N], fl
 // 0.010 ms at 3.35 TB/s; 8.6 GFLOP of causal products, 0.0087 ms at
 // 989 TFLOP/s: the two are close. At the Llama-2-7B shapes (B2 S4096 H32
 // D128) the products are 275 GFLOP (0.278 ms) over 134 MB: bound by
-// operations. The design: one block per (bh, 128-row q-tile); Q loaded
-// once; K/V streamed by TMA through a two-stage ring, so the next tile
-// loads while this one is computed; S = Q.K^T (K-major operands in shared
-// memory; m64n128 at D 64, two m64n64 key halves at D 128) and O += P.V
+// operations. At train_bytes' (B8 S128 H4 D32) 1.07 MB (0.0003 ms) over
+// 0.03 GFLOP: bound by bytes, and so small that a block's chain of
+// latencies sets the time. The design: one block per (bh, q-tile of 64
+// rows per consumer warpgroup); Q loaded once; K/V streamed by TMA
+// through a two-stage ring of 128-key tiles, so the next tile loads while
+// this one is computed; S = Q.K^T (K-major operands in shared memory;
+// m64n128 at D 32 and 64, two m64n64 key halves at D 128) and O += P.V
 // (P from registers, V MN-major) on wgmma, with S, P, O, the running max
 // and sum all in registers (no score tile in shared memory); exp2 with
 // scale.log2(e) folded into one multiply; only the first tile visited (the
 // diagonal, or the ragged last one) pays for the mask, tiles above the
 // diagonal are never loaded and key halves above a consumer's rows are
 // skipped; the heaviest q-tiles (most key tiles) are scheduled first; O
-// leaves through shared memory and a TMA store.
+// leaves through shared memory and a TMA store. Two consumers (128-row
+// q-tiles) at D 64 and 128; one at D 32, where S 128 leaves a block one
+// K/V tile: 64-row blocks (twice the blocks, 256 threads) each run one
+// Q load, one K/V load, one S, one softmax, one P.V and the store, and
+// were 15% faster than 128-row ones on the card (PERF.md).
 // ---------------------------------------------------------------------------
 
-template <int D>
+template <int D, int QR>
 struct FwdSmem {
-  alignas(1024) bf16 q[128 * D];  // rows 0-63: consumer 0, 64-127: consumer 1
+  alignas(1024) bf16 q[QR * D];  // rows 64c..64c+63: consumer c
   alignas(1024) bf16 k[kStages][128 * D];
   alignas(1024) bf16 v[kStages][128 * D];
   uint64_t q_full;
@@ -510,32 +529,35 @@ struct FwdSmem {
   uint64_t kv_empty[kStages];
 };
 
-// keys a consumer takes at once (S holds KC/2 registers)
+// keys a consumer takes at once (S holds KC/2 registers), and the
+// consumer warpgroups of a block (64 query rows each)
 template <int D>
-constexpr int kFwdKeys = D == 64 ? 128 : 64;
+constexpr int kFwdKeys = D == 128 ? 64 : 128;
+template <int D>
+constexpr int kFwdCons = D == 32 ? 1 : 2;
 
-template <int D, int KC = kFwdKeys<D>>
-__global__ void __launch_bounds__(kHThreads, 1)
+template <int D, int KC = kFwdKeys<D>, int NC = kFwdCons<D>>
+__global__ void __launch_bounds__((NC + 1) * kWg, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
                     const __grid_constant__ CUtensorMap map_o, float* __restrict__ lse,
                     int seq, float scale_log2, int causal) {
   using namespace hopper;
-  constexpr int NH = D / kCol<D>;
+  constexpr int NH = D / kCol<D>, QR = NC * kBox;  // QR: the block's query rows
   extern __shared__ unsigned char smem_raw[];
-  FwdSmem<D>& sm = aligned_smem<FwdSmem<D>>(smem_raw);
+  FwdSmem<D, QR>& sm = aligned_smem<FwdSmem<D, QR>>(smem_raw);
   const int bh = blockIdx.x;
-  const int ntiles = (seq + 127) / 128;
-  const int qi = ntiles - 1 - static_cast<int>(blockIdx.y);  // heaviest first
-  const int nk = causal ? qi + 1 : ntiles;                   // key tiles to visit
+  const int qi = (seq + QR - 1) / QR - 1 - static_cast<int>(blockIdx.y);  // heaviest first
+  // key tiles (128 keys) to visit: up to the one holding the last query row
+  const int nk = causal ? (qi * QR + QR - 1) / 128 + 1 : (seq + 127) / 128;
   const int wg = threadIdx.x / kWg;
 
   if (threadIdx.x == 0) {
     mbar_init(&sm.q_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&sm.kv_full[s], 1);
-      mbar_init(&sm.kv_empty[s], 2 * kWg);
+      mbar_init(&sm.kv_empty[s], NC * kWg);
     }
     mbar_fence_init();
   }
@@ -548,8 +570,8 @@ __global__ void __launch_bounds__(kHThreads, 1)
       tma_prefetch(&map_q);
       tma_prefetch(&map_k);
       tma_prefetch(&map_v);
-      mbar_expect_tx(&sm.q_full, kRowsBytes<D, 128>);
-      load_rows<D, 128>(sm.q, &map_q, qi * 128, bh, &sm.q_full);
+      mbar_expect_tx(&sm.q_full, kRowsBytes<D, QR>);
+      load_rows<D, QR>(sm.q, &map_q, qi * QR, bh, &sm.q_full);
       for (int it = 0; it < nk; ++it) {
         const int j = nk - 1 - it, st = it % kStages;
         mbar_wait(&sm.kv_empty[st], ((it / kStages) & 1) ^ 1);
@@ -564,7 +586,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
     const int cw = wg - 1, tid = threadIdx.x % kWg;
     const int warp = tid / 32, lane = tid % 32, t = lane % 4;
     const int r0 = warp * 16 + lane / 4;          // rows r0 and r0 + 8 of the 64
-    const int qrow = qi * 128 + cw * kBox + r0;   // sequence position of row r0
+    const int qrow = qi * QR + cw * kBox + r0;    // sequence position of row r0
     bf16* q_rows = sm.q + cw * kBox * kCol<D>;
 
     float o[NH][kCol<D> / 2];
@@ -586,12 +608,12 @@ __global__ void __launch_bounds__(kHThreads, 1)
         const int key0 = j * 128 + c * KC;  // first key of the chunk
         // every key past seq, or past every query row of this consumer; the
         // first chunk taken always holds a key each row may see
-        if (key0 >= seq || (causal && key0 > qi * 128 + cw * kBox + kBox - 1)) continue;
+        if (key0 >= seq || (causal && key0 > qi * QR + cw * kBox + kBox - 1)) continue;
         float s[KC / 2];
         wgmma_fence();
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
-          const uint64_t q_desc = desc<D>(col_block<D, 128>(q_rows, h));
+          const uint64_t q_desc = desc<D>(col_block<D, QR>(q_rows, h));
           const uint64_t k_desc = desc<D>(col_block<D, 128>(sm.k[st], h) + c * KC * kCol<D>);
 #pragma unroll
           for (int kk = 0; kk < kKSteps<D>; ++kk)
@@ -680,11 +702,11 @@ __global__ void __launch_bounds__(kHThreads, 1)
     warpgroup_sync(1 + cw);
 #pragma unroll
     for (int h = 0; h < NH; ++h)
-      stage_tile(col_block<D, 128>(q_rows, h), o[h], 1.0f / l0, 1.0f / l1, r0);
+      stage_tile(col_block<D, QR>(q_rows, h), o[h], 1.0f / l0, 1.0f / l1, r0);
     fence_async_smem();
     warpgroup_sync(1 + cw);
     if (tid == 0) {
-      store_rows<D, 128>(&map_o, q_rows, qi * 128 + cw * kBox, bh);
+      store_rows<D, QR>(&map_o, q_rows, qi * QR + cw * kBox, bh);
       tma_store_wait();
     }
     if (t == 0) {
@@ -708,21 +730,46 @@ __global__ void __launch_bounds__(kHThreads, 1)
 // time. The design is K1's: one block per (bh, 128-row q-tile), the
 // heaviest first; Q and dO loaded once; K and V streamed by TMA through a
 // two-stage ring from the diagonal down (tiles above it are never loaded).
-// Each consumer (64 query rows) takes a stage's 128 keys in two halves of
-// 64 (the registers of a whole stage's S, dP and dQ spill; at D 128 dQ
-// alone is 64 registers, and a half still fits) and skips a half that
-// lies past seq or, under the causal mask, past all of its rows. Per half
-// it computes
-// S = Q.K^T and dP = dO.V^T on wgmma (both operands K-major), then
-// P = exp2(S.scale.log2(e) - lse.log2(e)) and dS = P (dP - delta) scale in
-// registers, with lse and delta of its two rows held for the whole loop;
-// dS is rounded to bf16 and packed straight into the A fragments of
-// dQ += dS.K, which reads K MN-major from the same stage (the layout K1
-// uses for V). Neither S, dP, dS nor dQ touches shared memory until dQ
-// leaves through the warpgroup's own Q rows and TMA stores. Only the
-// first tile visited (the diagonal, or the ragged last one) is masked.
-// No split over keys and no atomics: dQ is bitwise reproducible.
+// Each consumer (64 query rows) takes a stage's keys KC at a time and
+// skips a chunk that lies past seq or, under the causal mask, past all of
+// its rows. Per chunk it computes S = Q.K^T and dP = dO.V^T on wgmma (both
+// operands K-major), then P = exp2(S.scale.log2(e) - lse.log2(e)) and
+// dS = P (dP - delta) scale in registers, with lse and delta of its two
+// rows held for the whole loop; dS is rounded to bf16 and packed straight
+// into the A fragments of dQ += dS.K, which reads K MN-major from the same
+// stage (the layout K1 uses for V). Neither S, dP, dS nor dQ touches
+// shared memory until dQ leaves through the warpgroup's own Q rows and TMA
+// stores. Only the first tile visited (the diagonal, or the ragged last
+// one) is masked. No split over keys and no atomics: dQ is bitwise
+// reproducible.
+//
+// At D 32 and 64 a block is a producer warpgroup and two consumers (384
+// threads, 168 registers), and a consumer takes 64 keys at once. At D 128,
+// where dQ alone is 64 registers, a block is the two consumers alone (256
+// threads, the last warp to release a stage loading its next tile), each
+// taking a stage's 128 keys at once (m64n128 products for S and dP: half
+// the tensor-core drains of 64-key halves), and P.scale is one FFMA and
+// one MUFU. On the card (PERF.md, scripts/torch_flash_variants.py) its
+// time sits well above the products alone and the elementwise work
+// alone, each near a "loads alone" floor of the TMA ring, barriers and
+// stores; Q and dO as register operands, three consumers, 64-key stages,
+// clusters sharing K/V by multicast, turns between the consumers, one
+// commit group for a chunk's products and the previous chunk's dQ, and
+// dS computed under a wgmma in flight (which ptxas serialised) were each
+// no faster.
 // ---------------------------------------------------------------------------
+
+// K2's layout, by head dim: the threads of the producer warpgroup (0: the
+// consumer warps load the K/V ring), the keys a consumer takes at once (S
+// and dP hold KC/2 registers each), and whether P.scale is one FFMA and
+// one MUFU an element (the scale folded into the exponent, results below
+// 2^-126 flushed to zero; D 32 and 64 keep exp2f and their numerics).
+template <int D>
+constexpr int kDqProducer = D == 128 ? 0 : kWg;
+template <int D>
+constexpr int kDqKeys = D == 128 ? 128 : 64;
+template <int D>
+constexpr bool kDqOneMufu = D == 128;
 
 template <int D>
 struct DqSmem {
@@ -733,11 +780,11 @@ struct DqSmem {
   uint64_t qdo_full;
   uint64_t kv_full[kStages];
   uint64_t kv_empty[kStages];
+  uint32_t released[kStages];  // warps that released the stage, ever (no producer)
 };
 
-// keys a consumer takes at once (S and dP hold KC/2 registers each)
-template <int D, int KC = 64>
-__global__ void __launch_bounds__(kHThreads, 1)
+template <int D, int KC = kDqKeys<D>>
+__global__ void __launch_bounds__(2 * kWg + kDqProducer<D>, 1)
     flash_dq_wgmma(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
                    const __grid_constant__ CUtensorMap map_v,
@@ -746,7 +793,10 @@ __global__ void __launch_bounds__(kHThreads, 1)
                    const float* __restrict__ lse, const float* __restrict__ delta, int seq,
                    float scale, float scale_log2, int causal) {
   using namespace hopper;
-  constexpr int NH = D / kCol<D>;
+  constexpr int NH = D / kCol<D>, kPT = kDqProducer<D>;
+  // the "empty" barriers count consumer threads, or warps where the
+  // consumers load
+  constexpr int kWarps = 2 * kWg / 32;
   extern __shared__ unsigned char smem_raw[];
   DqSmem<D>& sm = aligned_smem<DqSmem<D>>(smem_raw);
   const int bh = blockIdx.x;
@@ -759,40 +809,65 @@ __global__ void __launch_bounds__(kHThreads, 1)
     mbar_init(&sm.qdo_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&sm.kv_full[s], 1);
-      mbar_init(&sm.kv_empty[s], 2 * kWg);
+      mbar_init(&sm.kv_empty[s], kPT > 0 ? 2 * kWg : kWarps);
+      sm.released[s] = 0;
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (wg == 0) {
-    // ---- producer: Q and dO once, then K/V tiles from the diagonal down ----
+  // Q and dO once; the it-th K/V tile visited (tile nk - 1 - it, from the
+  // diagonal down) into stage it % kStages, once the consumers have
+  // released the tile kStages before it
+  const auto load_qdo = [&] {
+    tma_prefetch(&map_q);
+    tma_prefetch(&map_do);
+    tma_prefetch(&map_k);
+    tma_prefetch(&map_v);
+    mbar_expect_tx(&sm.qdo_full, 2 * kRowsBytes<D, 128>);
+    load_rows<D, 128>(sm.q, &map_q, qi * 128, bh, &sm.qdo_full);
+    load_rows<D, 128>(sm.dout, &map_do, qi * 128, bh, &sm.qdo_full);
+  };
+  const auto load_kv = [&](int it) {
+    const int j = nk - 1 - it, st = it % kStages;
+    mbar_wait(&sm.kv_empty[st], ((it / kStages) & 1) ^ 1);
+    mbar_expect_tx(&sm.kv_full[st], 2 * kRowsBytes<D, 128>);
+    load_rows<D, 128>(sm.k[st], &map_k, j * 128, bh, &sm.kv_full[st]);
+    load_rows<D, 128>(sm.v[st], &map_v, j * 128, bh, &sm.kv_full[st]);
+  };
+
+  if (kPT > 0 && wg == 0) {
+    // ---- producer warpgroup: every load from its first thread ----
     regs_dealloc<kProducerRegs>();
     if (threadIdx.x == 0) {
-      tma_prefetch(&map_q);
-      tma_prefetch(&map_do);
-      tma_prefetch(&map_k);
-      tma_prefetch(&map_v);
-      mbar_expect_tx(&sm.qdo_full, 2 * kRowsBytes<D, 128>);
-      load_rows<D, 128>(sm.q, &map_q, qi * 128, bh, &sm.qdo_full);
-      load_rows<D, 128>(sm.dout, &map_do, qi * 128, bh, &sm.qdo_full);
-      for (int it = 0; it < nk; ++it) {
-        const int j = nk - 1 - it, st = it % kStages;
-        mbar_wait(&sm.kv_empty[st], ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(&sm.kv_full[st], 2 * kRowsBytes<D, 128>);
-        load_rows<D, 128>(sm.k[st], &map_k, j * 128, bh, &sm.kv_full[st]);
-        load_rows<D, 128>(sm.v[st], &map_v, j * 128, bh, &sm.kv_full[st]);
-      }
+      load_qdo();
+      for (int it = 0; it < nk; ++it) load_kv(it);
     }
   } else {
     // ---- consumers: 64 query rows each ----
-    regs_alloc<kConsumerRegs>();
-    const int cw = wg - 1, tid = threadIdx.x % kWg;
+    if constexpr (kPT > 0) regs_alloc<kConsumerRegs>();
+    const int cw = kPT > 0 ? wg - 1 : wg, tid = threadIdx.x % kWg;
     const int warp = tid / 32, lane = tid % 32, t = lane % 4;
     const int r0 = warp * 16 + lane / 4;          // rows r0 and r0 + 8 of the 64
     const int qrow = qi * 128 + cw * kBox + r0;   // sequence position of row r0
     bf16* q_rows = sm.q + cw * kBox * kCol<D>;
     bf16* do_rows = sm.dout + cw * kBox * kCol<D>;
+    // without a producer, the first thread loads Q, dO and the ring's first
+    // stages, and each stage is refilled by the last warp to release it
+    if (kPT == 0 && threadIdx.x == 0) {
+      load_qdo();
+      for (int it = 0; it < min(nk, kStages); ++it) load_kv(it);
+    }
+    const auto release = [&](int it) {
+      const int st = it % kStages;
+      if constexpr (kPT > 0) {
+        mbar_arrive(&sm.kv_empty[st]);
+      } else {
+        release_stage<kWarps>(&sm.kv_empty[st], &sm.released[st], [&] {
+          if (it + kStages < nk) load_kv(it + kStages);
+        });
+      }
+    };
 
     // lse (log2 domain) and delta of the thread's two rows; rows past seq
     // are not read (their Q and dO rows are zero-filled and their dQ rows
@@ -803,6 +878,8 @@ __global__ void __launch_bounds__(kHThreads, 1)
     const float lse1 = qrow + 8 < seq ? lse_bh[qrow + 8] * kLog2e : 0.0f;
     const float dl0 = qrow < seq ? delta_bh[qrow] : 0.0f;
     const float dl1 = qrow + 8 < seq ? delta_bh[qrow + 8] : 0.0f;
+    // the one-MUFU form's exponent offsets: lse.log2(e) - log2(scale)
+    const float lsc0 = lse0 - log2f(scale), lsc1 = lse1 - log2f(scale);
 
     float dq[NH][kCol<D> / 2];
 #pragma unroll
@@ -854,14 +931,26 @@ __global__ void __launch_bounds__(kHThreads, 1)
           float d[4];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            float a = s[4 * cc + e] * scale_log2, b = s[4 * cc + 2 + e] * scale_log2;
-            if (mask) {
-              const int col = key0 + 8 * cc + 2 * t + e;
-              if (col >= seq || (causal && col > qrow)) a = kNegInf;
-              if (col >= seq || (causal && col > qrow + 8)) b = kNegInf;
+            if constexpr (kDqOneMufu<D>) {
+              float a = fmaf(s[4 * cc + e], scale_log2, -lsc0);
+              float b = fmaf(s[4 * cc + 2 + e], scale_log2, -lsc1);
+              if (mask) {
+                const int col = key0 + 8 * cc + 2 * t + e;
+                if (col >= seq || (causal && col > qrow)) a = kNegInf;
+                if (col >= seq || (causal && col > qrow + 8)) b = kNegInf;
+              }
+              d[e] = exp2_ftz(a) * (dp[4 * cc + e] - dl0);
+              d[2 + e] = exp2_ftz(b) * (dp[4 * cc + 2 + e] - dl1);
+            } else {
+              float a = s[4 * cc + e] * scale_log2, b = s[4 * cc + 2 + e] * scale_log2;
+              if (mask) {
+                const int col = key0 + 8 * cc + 2 * t + e;
+                if (col >= seq || (causal && col > qrow)) a = kNegInf;
+                if (col >= seq || (causal && col > qrow + 8)) b = kNegInf;
+              }
+              d[e] = exp2f(a - lse0) * (dp[4 * cc + e] - dl0) * scale;
+              d[2 + e] = exp2f(b - lse1) * (dp[4 * cc + 2 + e] - dl1) * scale;
             }
-            d[e] = exp2f(a - lse0) * (dp[4 * cc + e] - dl0) * scale;
-            d[2 + e] = exp2f(b - lse1) * (dp[4 * cc + 2 + e] - dl1) * scale;
           }
           da[cc / 2][(cc % 2) * 2] = pack_bf16(d[0], d[1]);
           da[cc / 2][(cc % 2) * 2 + 1] = pack_bf16(d[2], d[3]);
@@ -882,7 +971,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
 #pragma unroll
         for (int h = 0; h < NH; ++h) fence_regs(dq[h]);
       }
-      mbar_arrive(&sm.kv_empty[st]);
+      release(it);
     }
 
     // ---- epilogue: dQ through this warpgroup's Q rows (no longer read)
@@ -924,7 +1013,7 @@ __global__ void __launch_bounds__(kHThreads, 1)
 // folding it in with atomic adds would make the result depend on the
 // order of arrival.
 //
-// At D 128 dK and dV alone are 128 registers a thread (249 in all at 64
+// At D 128 dK and dV alone are 128 registers a thread (250 in all at 64
 // queries a product), so the block is the two consumers alone (256
 // threads, up to 255 registers each): the last warp to release a stage of
 // the three-stage ring loads its next tile, and P^T is one FFMA and one
@@ -1033,13 +1122,9 @@ __global__ void __launch_bounds__(kDkvCons * kWg + kDkvProducer<D>, 1)
       if constexpr (kPT > 0) {
         mbar_arrive(&sm.empty[st]);
       } else {
-        __syncwarp();
-        if (lane == 0) {
-          mbar_arrive(&sm.empty[st]);
-          if (atomicAdd(&sm.released[st], 1u) % kWarps == kWarps - 1 && it + kSt < nq - i0)
-            load_qdo(it + kSt);
-        }
-        __syncwarp();
+        release_stage<kWarps>(&sm.empty[st], &sm.released[st], [&] {
+          if (it + kSt < nq - i0) load_qdo(it + kSt);
+        });
       }
     };
     const int r0 = warp * 16 + lane / 4;           // key rows r0 and r0 + 8 of the 64
@@ -1243,8 +1328,9 @@ constexpr float kLog2eHost = 1.4426950408889634f;
 template <int D>
 int fwd_hopper(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
                int seq, float scale, int causal, cudaStream_t stream) {
+  constexpr int kRows = kFwdCons<D> * kBox;  // query rows of a block
   static bool ready = false;
-  const size_t smem = sizeof(FwdSmem<D>) + 1024;  // + room to align the base to 1024
+  const size_t smem = sizeof(FwdSmem<D, kRows>) + 1024;  // + room to align the base to 1024
   cudaError_t err = allow_smem(flash_fwd_wgmma<D>, smem, &ready);
   if (err != cudaSuccess) return err;
   CUtensorMap mq, mk, mv, mo;
@@ -1253,8 +1339,8 @@ int fwd_hopper(const void* q, const void* k, const void* v, void* o, float* lse,
       (err = tensor_map<D>(&mv, v, bh, seq)) != cudaSuccess ||
       (err = tensor_map<D>(&mo, o, bh, seq)) != cudaSuccess)
     return err;
-  flash_fwd_wgmma<D><<<dim3(bh, (seq + 127) / 128), kHThreads, smem, stream>>>(
-      mq, mk, mv, mo, lse, seq, scale * kLog2eHost, causal);
+  flash_fwd_wgmma<D><<<dim3(bh, (seq + kRows - 1) / kRows), (kFwdCons<D> + 1) * kWg, smem,
+                       stream>>>(mq, mk, mv, mo, lse, seq, scale * kLog2eHost, causal);
   return cudaGetLastError();
 }
 
@@ -1273,7 +1359,7 @@ int dq_hopper(const void* q, const void* k, const void* v, const void* dout,
       (err = tensor_map<D>(&mdo, dout, bh, seq)) != cudaSuccess ||
       (err = tensor_map<D>(&mdq, dqp, bh, seq)) != cudaSuccess)
     return err;
-  flash_dq_wgmma<D><<<dim3(bh, (seq + 127) / 128), kHThreads, smem, stream>>>(
+  flash_dq_wgmma<D><<<dim3(bh, (seq + 127) / 128), 2 * kWg + kDqProducer<D>, smem, stream>>>(
       mq, mk, mv, mdo, mdq, lse, delta, seq, scale, scale * kLog2eHost, causal);
   return cudaGetLastError();
 }
@@ -1360,7 +1446,7 @@ int tft_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* 
     if (d == 32) return fwd_fma<float, 32>(q, k, v, o, lse, bh, seq, scale, causal, st);
     return fwd_fma<float, 64>(q, k, v, o, lse, bh, seq, scale, causal, st);
   }
-  if (d == 32) return fwd_fma<bf16, 32>(q, k, v, o, lse, bh, seq, scale, causal, st);
+  if (d == 32) return fwd_hopper<32>(q, k, v, o, lse, bh, seq, scale, causal, st);
   if (d == 64) return fwd_hopper<64>(q, k, v, o, lse, bh, seq, scale, causal, st);
   return fwd_hopper<128>(q, k, v, o, lse, bh, seq, scale, causal, st);
 }

@@ -38,6 +38,7 @@ __all__ = [
     "LAUNCHES",
     "reset_launches",
     "build",
+    "bind",
     "nvcc_command",
     "fwd_kernel",
     "dq_kernel",
@@ -56,10 +57,9 @@ CSRC_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
 )
 TILE = 64  # the kernels' tile rows: S must be a multiple on the card
-# head dims the kernels take, by dtype: bf16 on wgmma (but the forward at
-# 32), float32 and the bf16 forward at 32 on the FMA kernels (float32 tiles
-# at 128 pass the shared memory); csrc/flash_attention.cu's `supported`
-# says the same
+# head dims the kernels take, by dtype: bf16 on wgmma, float32 on the FMA
+# kernels (float32 tiles at 128 pass the shared memory);
+# csrc/flash_attention.cu's `supported` says the same
 _HEAD_DIMS = {torch.float32: (32, 64), torch.bfloat16: (32, 64, 128)}
 _MAX_SEQ = 65535 * TILE  # a launch's grid holds at most 65535 tiles of S
 _NEG_INF = -1e30
@@ -117,12 +117,10 @@ def _library_path() -> str:
     return os.path.join(build_dir("torch_kernels"), f"libtft_flash_{source_digest()}.so")
 
 
-def nvcc_command(out: str):
-    """One ``nvcc`` call over every ``.cu`` file under ``csrc/``; ``-Xptxas -v``
+def nvcc_command(out: str, csrc: str = CSRC_DIR):
+    """One ``nvcc`` call over every ``.cu`` file under ``csrc``; ``-Xptxas -v``
     reports each kernel's registers and spills into the build log."""
-    sources = [
-        os.path.join(CSRC_DIR, rel) for rel in _csrc_files(CSRC_DIR) if rel.endswith(".cu")
-    ]
+    sources = [os.path.join(csrc, rel) for rel in _csrc_files(csrc) if rel.endswith(".cu")]
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", out, *sources,
@@ -146,25 +144,29 @@ def build_log() -> str:
         return f.read()
 
 
+def bind(path: str) -> ctypes.CDLL:
+    """Load a kernel library built from ``csrc/`` (or from a variant of it)
+    and declare its C interface."""
+    lib = ctypes.CDLL(path)
+    c = ctypes
+    vp, i, f = c.c_void_p, c.c_int, c.c_float
+    lib.tft_flash_fwd.argtypes = [i, vp, vp, vp, vp, vp, i, i, i, f, i, vp]
+    lib.tft_flash_dq.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, i, i, i, f, i, vp]
+    lib.tft_flash_dkv.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, f, i, vp]
+    for fn in (lib.tft_flash_fwd, lib.tft_flash_dq, lib.tft_flash_dkv):
+        fn.restype = c.c_int
+    lib.tft_flash_supported.argtypes = [i, i, i]
+    lib.tft_flash_supported.restype = i
+    lib.tft_cuda_error_string.argtypes = [i]
+    lib.tft_cuda_error_string.restype = c.c_char_p
+    return lib
+
+
 def _load() -> ctypes.CDLL:
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            c = ctypes
-            vp, i, f = c.c_void_p, c.c_int, c.c_float
-            lib.tft_flash_fwd.argtypes = [i, vp, vp, vp, vp, vp, i, i, i, f, i, vp]
-            lib.tft_flash_dq.argtypes = [i, vp, vp, vp, vp, vp, vp, vp, i, i, i, f, i, vp]
-            lib.tft_flash_dkv.argtypes = [
-                i, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, f, i, vp,
-            ]
-            for fn in (lib.tft_flash_fwd, lib.tft_flash_dq, lib.tft_flash_dkv):
-                fn.restype = c.c_int
-            lib.tft_flash_supported.argtypes = [i, i, i]
-            lib.tft_flash_supported.restype = i
-            lib.tft_cuda_error_string.argtypes = [i]
-            lib.tft_cuda_error_string.restype = c.c_char_p
-            _lib = lib
+            _lib = bind(build())
         return _lib
 
 
