@@ -29,10 +29,15 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    in-process lighthouse + store, Manager over the device data plane
    (CollectivesDevice, the JAX headline's wiring), TrainStep at d512 L8
    h8 ff1408 vocab 32000 bf16, batch 8 x seq 1024; 2 warm-up and 5 timed
-   steps, run on the device plane and on the TCP plane in turns (device,
-   tcp, tcp, device); on the device plane ``allreduce_gradients`` hands
+   steps, the step replayed from CUDA graphs on the device plane and on
+   the TCP plane, and run eagerly on the device plane (the same AdamW), in
+   turns; the graphed arm's 7 losses and final params equal the eager
+   arm's bit for bit; on the device plane ``allreduce_gradients`` hands
    back the very gradient tensors it was given; kernel launch counts
-   checked per step on both planes.
+   checked per step (a replay counts the launches its graph recorded),
+   once against ``torch.profiler``'s kernel names. Then the graphed step
+   under each ``remat`` policy: launches per step, bitwise equal losses,
+   and the activation bytes a layer holds after the forward.
 5. two replica groups as threads on the card over CollectivesTcp: the
    second joins late, heals from the first over HTTP, both commit 3 steps
    together and end with bit-identical parameters; the heal's bytes,
@@ -63,9 +68,21 @@ Phases, each of which either passes or ends the run with a non-zero exit:
 10. phase 8 at examples/train_bytes.py's model (d128 L2 h4 head dim 32
    ff352 vocab 256, bf16, batch 8 x seq 128): a late joiner heals over
    CollectivesTransport, one sha256, 4/2/2 launches per step.
+11. ResNet-18 on CIFAR (``torchft_tpu_torch/examples/train_cifar.py``:
+   bf16, batch 32 of 32x32x3, the stand-in dataset): the graphed step
+   against the eager one on one batch (bitwise), then two groups on the
+   device plane, each on its own stream, the second joining late and
+   healing over CollectivesTransport to the sha256 of the params, momentum
+   and BN stats served; one sha256 of params and momentum at the end (BN
+   running stats stay each group's own, as in the JAX example); the
+   groups' sample ids disjoint within an epoch; the loss falling.
 
-Prints the kernels' JSON line (one entry per kernel and head dim) and,
-last, ``{"ok": true, "device": ...}``. The native core and the kernels are
+Phases 4-11 replay each train step from CUDA graphs (phase 4's and phase
+9's eager arms aside); every group's graphs are captured once, so a heal
+or a rollback that swapped a captured tensor would show as a recapture.
+
+Prints the kernels' JSON line (one entry per kernel and head dim), the
+script's seconds and, last, ``{"ok": true, "device": ...}``. The native core and the kernels are
 built from the checkout on first use; ptxas must report 0 spill bytes for
 every kernel of a fresh build.
 """
@@ -73,13 +90,17 @@ every kernel of a fresh build.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import gc
 import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
 
@@ -622,9 +643,12 @@ def make_manager(lighthouse_addr, store, replica_id, plane="device", transport="
     )
 
 
-def _headline_run(plane, warmup=2, steps=5):
-    """The headline loop on one plane: returns (steps/s, launches over the
-    timed steps)."""
+def _headline_run(plane, graph=True, warmup=2, steps=5, profile=False):
+    """The headline loop on one plane, its step replayed from CUDA graphs
+    or (``graph=False``) run eagerly: returns (steps/s, launches over the
+    timed steps, the losses of every step, a copy of the final params).
+    With ``profile``, one more step runs under ``torch.profiler`` and the
+    flash kernels it names are held to the launches counted."""
     from torchft_tpu_torch.coordination import LighthouseServer
     from torchft_tpu_torch.ops import flash_attention as fa
     from torchft_tpu_torch.parallel import ft
@@ -634,6 +658,7 @@ def _headline_run(plane, warmup=2, steps=5):
 
     cfg = headline_config()
     batch, seq = HEADLINE["batch"], HEADLINE["seq"]
+    arm = f"{plane} plane, {'graphed' if graph else 'eager'}"
     lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
     store = StoreServer()
     manager = make_manager(lighthouse.address(), store, f"smoke-{plane}", plane=plane)
@@ -649,64 +674,181 @@ def _headline_run(plane, warmup=2, steps=5):
     try:
         check(manager.device_data_plane() == (plane == "device"),
               f"the {plane} plane's Manager reports device_data_plane() wrongly")
-        trainer = ft.FTTrainer(manager, TrainStep(cfg, device="cuda"))
+        ts = TrainStep(cfg, device="cuda", graph=graph)
+        trainer = ft.FTTrainer(manager, ts)
         trainer.init(seed=0)
         tokens = make_tokens(cfg, 0, batch, seq)
+        losses = []
         for i in range(warmup):
             loss, committed = trainer.step(tokens)
-            log(f"{plane} plane warmup step {i}: loss={loss:.5f} committed={committed}")
-            check(committed, f"a {plane}-plane warm-up step did not commit")
+            log(f"{arm} warmup step {i}: loss={loss:.5f} committed={committed}")
+            check(committed, f"a warm-up step did not commit ({arm})")
+            losses.append(loss)
         torch.cuda.synchronize()
         fa.reset_launches()
         t0 = time.perf_counter()
-        losses = []
         for _ in range(steps):
             loss, committed = trainer.step(tokens)
-            check(committed, f"a headline step did not commit ({plane} plane)")
+            check(committed, f"a headline step did not commit ({arm})")
             losses.append(loss)
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = dict(fa.LAUNCHES)
+        final = [p.detach().clone() for p in tree_leaves(trainer.params)]
+        if graph:
+            check(ts.graphs.captures == {"grads": 1, "apply": 1},
+                  f"{arm}: graphs captured {ts.graphs.captures}, expected one of each")
+        if profile:
+            _profile_step(trainer, tokens, cfg)
     finally:
         ft.allreduce_gradients = average
         manager.shutdown(wait=False)
         store.shutdown()
         lighthouse.shutdown()
-    log(f"{plane} plane steps: losses {', '.join(f'{x:.5f}' for x in losses)}")
+    log(f"{arm} steps: losses {', '.join(f'{x:.5f}' for x in losses)}")
     check(all(np.isfinite(losses)), "non-finite loss")
     # one group: the device plane's average is the identity, the TCP one
     # copies down to the host and back
-    check(len(handed_back) == warmup + steps and all(handed_back) == (plane == "device"),
-          f"{plane} plane: allreduce_gradients handed back {handed_back} (the very "
+    check(len(handed_back) >= warmup + steps and all(handed_back) == (plane == "device"),
+          f"{arm}: allreduce_gradients handed back {handed_back} (the very "
           "gradient tensors: True)")
     per_step = {n: c / steps for n, c in launches.items()}
     expect = _launches_per_step(cfg)
-    log(f"{plane} plane kernel launches per step: {per_step}")
-    check(per_step == expect, f"{plane} plane launches per step {per_step} != {expect}")
-    return steps / elapsed, launches
+    log(f"{arm} kernel launches per step: {per_step}")
+    check(per_step == expect, f"{arm} launches per step {per_step} != {expect}")
+    return steps / elapsed, launches, losses, final
+
+
+def _profile_step(trainer, tokens, cfg):
+    """One more step under ``torch.profiler``: the flash kernels it saw on
+    the device, by name, against the launches counted for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.step(tokens)
+        torch.cuda.synchronize()
+    counted = dict(fa.LAUNCHES)
+    names = [e.name for e in prof.events()
+             if e.device_type.name == "CUDA" and not e.is_user_annotation]
+    seen = {n: sum(f"{n}_wgmma" in name for name in names) for n in counted}
+    log(f"profiled graphed step: {len(names)} device events; flash kernels by name {seen}, "
+        f"launches counted {counted}")
+    check(seen == counted == _launches_per_step(cfg),
+          f"the profiler saw {seen} flash kernels, the counts say {counted}")
 
 
 def phase_ft_loop():
-    """The headline loop on the device plane and on the TCP plane, each
-    from 2 warm-up + 5 timed steps, in turns over 2 rounds (device, tcp,
-    tcp, device) so that neither plane always runs first. Returns the
-    launches of the first device-plane run (the main path's)."""
+    """The headline loop: graphed on the device plane and on the TCP plane,
+    eager on the device plane, each from 2 warm-up + 5 timed steps, in turns
+    over 2 rounds (device graphed, device eager, tcp graphed; then the
+    reverse) so that no arm always runs first. The first device-plane
+    graphed run's losses and final params equal the first eager run's bit
+    for bit, and it profiles one more step. Returns the launches of the
+    first device-plane graphed run (the main path's)."""
     batch, seq = HEADLINE["batch"], HEADLINE["seq"]
-    sps = {"device": [], "tcp": []}
+    arms = [("device", True), ("device", False), ("tcp", True)]
+    sps = {arm: [] for arm in arms}
+    first = {}
     main_launches = None
-    for order in (("device", "tcp"), ("tcp", "device")):
-        for plane in order:
-            rate, launches = _headline_run(plane)
-            sps[plane].append(rate)
-            if plane == "device" and main_launches is None:
+    for order in (arms, arms[::-1]):
+        for plane, graph in order:
+            main = plane == "device" and graph and main_launches is None
+            rate, launches, losses, final = _headline_run(plane, graph, profile=main)
+            gc.collect()  # the run's graphs and their pool
+            sps[(plane, graph)].append(rate)
+            if main:
                 main_launches = launches
-            log(f"headline FT loop, {plane} plane: {rate:.4f} steps/s, "
-                f"{rate * batch * seq:.1f} tokens/s (5 steps, batch {batch} x seq {seq})")
+            if plane == "device" and graph not in first:
+                first[graph] = (losses, final)
+            log(f"headline FT loop, {plane} plane, {'graphed' if graph else 'eager'}: "
+                f"{rate:.4f} steps/s, {rate * batch * seq:.1f} tokens/s (5 steps, batch "
+                f"{batch} x seq {seq})")
+    (l_graph, p_graph), (l_eager, p_eager) = first[True], first[False]
+    same_params = all(torch.equal(a, b) for a, b in zip(p_graph, p_eager))
+    worst = max(float((a - b).abs().max()) for a, b in zip(p_graph, p_eager))
+    log(f"graphed vs eager step, device plane: 7 losses equal bitwise {l_graph == l_eager}, "
+        f"final params equal bitwise {same_params} (max |diff| {worst:.3e})")
+    check(l_graph == l_eager and same_params,
+          "the graphed step disagrees with the eager step (bar: bit for bit, the same "
+          "kernels on the same inputs)")
     names = {"device": "CollectivesDevice", "tcp": "CollectivesTcp"}
-    for plane, rates in sps.items():
-        log(f"headline steps/s, {plane} plane ({names[plane]}), rounds 1 and 2: "
+    for (plane, graph), rates in sps.items():
+        log(f"headline steps/s, {plane} plane ({names[plane]}), "
+            f"{'graphed' if graph else 'eager'}, rounds 1 and 2: "
             f"{', '.join(f'{r:.4f}' for r in rates)}")
     return main_launches
+
+
+REMAT = {"all": (True, "all"), "dots": (True, "dots"), "none": (False, "all")}
+
+
+def _held_bytes_per_layer(remat, policy):
+    """Device memory that one layer's forward leaves held for its backward
+    at the headline's widths and shapes: what the forward of 2 layers holds
+    less what the forward of 1 holds (the loss kept alive, no backward)."""
+    from torchft_tpu_torch.models.transformer import loss_fn
+    from torchft_tpu_torch.parallel.train_step import TrainStep
+
+    held = []
+    for layers in (1, 2):
+        cfg = dataclasses.replace(headline_config(), n_layers=layers, remat=remat,
+                                  remat_policy=policy)
+        ts = TrainStep(cfg, device="cuda", graph=False)
+        params = ts.init_params(0)
+        for p in params["layers"].values():
+            p.requires_grad_(True)
+        tokens = make_tokens(cfg, 0, HEADLINE["batch"], HEADLINE["seq"])
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        loss = loss_fn(params, tokens, cfg)
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated() - before)
+        del loss, params, ts
+    return held[1] - held[0]
+
+
+def phase_remat(steps=3):
+    """The graphed headline step (``TrainStep.step``, one group, no
+    Manager) under each ``remat`` policy: flash launches per replayed step
+    (2L/L/L under "all" and "dots", L/L/L without remat), the losses of
+    1 + ``steps`` steps bitwise equal across policies (a recompute changes
+    no value), and the bytes a layer's forward holds for the backward."""
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.parallel.train_step import TrainStep
+
+    losses = {}
+    for name, (remat, policy) in REMAT.items():
+        cfg = dataclasses.replace(headline_config(), remat=remat, remat_policy=policy)
+        ts = TrainStep(cfg, device="cuda")
+        params = ts.init_params(0)
+        opt = ts.init_opt(params)
+        tokens = make_tokens(cfg, 0, HEADLINE["batch"], HEADLINE["seq"])
+        out = [float(ts.step(params, opt, tokens)[0])]  # eager, then captured
+        torch.cuda.synchronize()
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            out.append(float(ts.step(params, opt, tokens)[0]))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        per_step = {n: c / steps for n, c in fa.LAUNCHES.items()}
+        n = cfg.n_layers
+        expect = {"flash_fwd": (2 if remat else 1) * n, "flash_dq": n, "flash_dkv": n}
+        held = _held_bytes_per_layer(remat, policy)
+        log(f"remat {name}: launches per step {per_step}; {ms:.3f} ms per graphed step "
+            f"(host clock, no Manager); a layer's forward holds {held / 1e6:.1f} MB for the "
+            f"backward; losses {', '.join(f'{x:.5f}' for x in out)}")
+        check(per_step == expect, f"remat {name}: launches per step {per_step} != {expect}")
+        losses[name] = out
+        del ts, params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(losses["all"] == losses["dots"] == losses["none"],
+          f"the remat policies' losses differ: {losses}")
 
 
 def _launches_per_step(cfg):
@@ -769,7 +911,7 @@ def phase_two_groups(plane="tcp", transport="http", own_streams=False, together=
     from torchft_tpu_torch.coordination import LighthouseServer
     from torchft_tpu_torch.ops import flash_attention as fa
     from torchft_tpu_torch.parallel.ft import FTTrainer
-    from torchft_tpu_torch.parallel.train_step import TrainStep
+    from torchft_tpu_torch.parallel.train_step import TrainStep, synchronize
     from torchft_tpu_torch.store import StoreServer
 
     cfg = cfg or headline_config()
@@ -798,7 +940,8 @@ def phase_two_groups(plane="tcp", transport="http", own_streams=False, together=
         if own_streams:
             _keep_average(manager, kept)
         try:
-            trainer = FTTrainer(manager, TrainStep(cfg, device="cuda"))
+            ts = TrainStep(cfg, device="cuda")
+            trainer = FTTrainer(manager, ts)
             _time_apply(trainer, heal)
             trainer.init(seed=100 + gid)  # different inits: the heal must matter
             tokens = make_tokens(cfg, 10 + gid, batch, seq)
@@ -820,9 +963,10 @@ def phase_two_groups(plane="tcp", transport="http", own_streams=False, together=
                 log(f"{tag} group{gid}: step={manager.current_step()} loss={loss:.5f} "
                     f"committed={committed} participants={manager.num_participants()} "
                     f"{ms:.3f} ms")
-            torch.cuda.synchronize()
+            synchronize()
             return dict(step=manager.current_step(), digest=_param_digest(trainer.params),
-                        healed_at=healed_at, heal=heal, kept=kept, joint_ms=joint_ms)
+                        healed_at=healed_at, heal=heal, kept=kept, joint_ms=joint_ms,
+                        captures=dict(ts.graphs.captures))
         finally:
             manager.shutdown(wait=False)
             store.shutdown()
@@ -838,6 +982,11 @@ def phase_two_groups(plane="tcp", transport="http", own_streams=False, together=
         log(f"{tag} group{gid} step={r['step']} checksum={r['digest']}"
             + (f" (healed to step {r['healed_at']})" if gid == 1 else ""))
     check(res[1]["healed_at"] > 0, f"{tag}: group 1 never healed from group 0")
+    # group 1 captured its graphs on its own init at its first step, before
+    # the heal landed: one capture each means the heal kept every tensor
+    log(f"{tag} graphs captured: group0 {res[0]['captures']}, group1 {res[1]['captures']}")
+    check(all(res[g]["captures"] == {"grads": 1, "apply": 1} for g in (0, 1)),
+          f"{tag}: a group captured its graphs again (a heal swapped a captured tensor?)")
     check(res[0]["step"] == res[1]["step"] and res[0]["digest"] == res[1]["digest"],
           f"{tag}: groups ended with different parameters")
     heal = dict(res[1]["heal"], serve_ms=res[0]["heal"].get("serve_ms"))
@@ -910,50 +1059,47 @@ def phase_device_groups(tcp):
         f"writes 2 x {nbytes / 1e6:.1f} MB at {PEAK_BYTES / 1e12:.2f} TB/s)")
 
 
-def phase_llama(warmup=2, steps=3):
-    """The Llama-2-7B-width FT step (``llama_config``: LLAMA_LAYERS of its
-    32 layers) at batch 2 x seq 4096 through the headline's entry points on
-    the device plane. Holds the first step's loss against the same step's
-    with plain attention from the same params and tokens, every step
-    committing, finite losses and 8/4/4 launches per step (counted over the
-    warm-up and timed steps). Returns the launches."""
-    import dataclasses
-
+def _llama_run(cfg, graph, warmup, steps, plain_loss=False):
+    """One arm of phase 9 (graphed or eager), from a fresh trainer: returns
+    (losses, seconds of the timed steps, launches, peak memory in bytes,
+    plain attention's loss of the first step or None)."""
     from torchft_tpu_torch.coordination import LighthouseServer
-    from torchft_tpu_torch.models.transformer import _use_flash, loss_fn
+    from torchft_tpu_torch.models.transformer import loss_fn
     from torchft_tpu_torch.ops import flash_attention as fa
     from torchft_tpu_torch.parallel.ft import FTTrainer
     from torchft_tpu_torch.parallel.train_step import TrainStep
     from torchft_tpu_torch.store import StoreServer
     from torchft_tpu_torch.utils.tree import tree_leaves
 
-    cfg = llama_config()
+    arm = "graphed" if graph else "eager"
     batch, seq = LLAMA["batch"], LLAMA["seq"]
-    check(_use_flash(cfg, seq, torch.device("cuda")),
-          "attention_impl='auto' does not route the Llama width to the kernels")
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
     store = StoreServer()
-    manager = make_manager(lighthouse.address(), store, "smoke-llama")
+    manager = make_manager(lighthouse.address(), store, f"smoke-llama-{arm}")
+    plain = None
     try:
         t0 = time.perf_counter()
-        trainer = FTTrainer(manager, TrainStep(cfg, device="cuda"))
+        trainer = FTTrainer(manager, TrainStep(cfg, device="cuda", graph=graph))
         trainer.init(seed=0)
         tokens = make_tokens(cfg, 0, batch, seq)
         torch.cuda.synchronize()
         n_params = sum(p.numel() for p in tree_leaves(trainer.params))
-        log(f"llama width, {cfg.n_layers} of 32 layers (cut for one card's memory): "
+        log(f"llama width ({arm}), {cfg.n_layers} of 32 layers (cut for one card's memory): "
             f"{n_params} params, init {time.perf_counter() - t0:.1f} s")
-        with torch.no_grad():
-            plain = float(loss_fn(trainer.params, tokens,
-                                  dataclasses.replace(cfg, attention_impl="plain")))
+        if plain_loss:
+            with torch.no_grad():
+                plain = float(loss_fn(trainer.params, tokens,
+                                      dataclasses.replace(cfg, attention_impl="plain")))
         torch.cuda.synchronize()
         fa.reset_launches()
         losses = []
         for i in range(warmup):
             loss, committed = trainer.step(tokens)
-            log(f"llama warmup step {i}: loss={loss:.5f} committed={committed}")
+            log(f"llama {arm} warmup step {i}: loss={loss:.5f} committed={committed}")
             check(committed, "a llama warm-up step did not commit")
             losses.append(loss)
         torch.cuda.synchronize()
@@ -965,25 +1111,54 @@ def phase_llama(warmup=2, steps=3):
         torch.cuda.synchronize()
         elapsed = time.perf_counter() - t0
         launches = dict(fa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
     finally:
         manager.shutdown(wait=False)
         store.shutdown()
         lighthouse.shutdown()
-    log(f"llama steps: losses {', '.join(f'{x:.5f}' for x in losses)}")
-    check(all(np.isfinite(losses)), "llama: non-finite loss")
+    return losses, elapsed, launches, peak, plain
+
+
+def phase_llama(warmup=2, steps=3):
+    """The Llama-2-7B-width FT step (``llama_config``: LLAMA_LAYERS of its
+    32 layers) at batch 2 x seq 4096 through the headline's entry points on
+    the device plane, graphed, then eagerly from a fresh trainer. Holds the
+    graphed arm's first-step loss against the same step's with plain
+    attention from the same params and tokens, every step committing,
+    finite losses and 8/4/4 launches per step (counted over the warm-up and
+    timed steps); prints each arm's step time and peak memory. Returns the
+    graphed arm's launches."""
+    from torchft_tpu_torch.models.transformer import _use_flash
+
+    cfg = llama_config()
+    batch, seq = LLAMA["batch"], LLAMA["seq"]
+    check(_use_flash(cfg, seq, torch.device("cuda")),
+          "attention_impl='auto' does not route the Llama width to the kernels")
+    arms = {}
+    for graph in (True, False):
+        arms[graph] = _llama_run(cfg, graph, warmup, steps, plain_loss=graph)
+        gc.collect()
+    losses, elapsed, launches, peak, plain = arms[True]
+    log(f"llama steps (graphed): losses {', '.join(f'{x:.5f}' for x in losses)}")
+    log(f"llama steps (eager): losses {', '.join(f'{x:.5f}' for x in arms[False][0])}; equal "
+        f"to the graphed arm's bitwise: {arms[False][0] == losses}")
+    check(all(np.isfinite(losses)) and all(np.isfinite(arms[False][0])),
+          "llama: non-finite loss")
     err = abs(losses[0] - plain)
     log(f"llama first step: loss {losses[0]:.5f} through the kernels, {plain:.5f} with plain "
         f"attention from the same params and tokens: |diff| {err:.3e} (tol 1e-2)")
     check(err <= 1e-2, "llama: the flash loss disagrees with plain attention's")
-    per_step = {n: c / (warmup + steps) for n, c in launches.items()}
-    expect = _launches_per_step(cfg)
-    log(f"llama kernel launches per step: {per_step}")
-    check(per_step == expect, f"llama launches per step {per_step} != {expect}")
-    log(f"llama FT step, L{cfg.n_layers} d{cfg.d_model} h{cfg.n_heads} hd{cfg.head_dim} "
-        f"ff{cfg.d_ff} vocab {cfg.vocab_size} bf16, batch {batch} x seq {seq}, device plane: "
-        f"{steps / elapsed:.4f} steps/s, {steps * batch * seq / elapsed:.1f} tokens/s "
-        f"({steps} steps, {elapsed / steps * 1e3:.1f} ms each); peak memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    for graph, (_, _, arm_launches, _, _) in arms.items():
+        per_step = {n: c / (warmup + steps) for n, c in arm_launches.items()}
+        expect = _launches_per_step(cfg)
+        log(f"llama kernel launches per step ({'graphed' if graph else 'eager'}): {per_step}")
+        check(per_step == expect, f"llama launches per step {per_step} != {expect}")
+    for graph, (_, secs, _, mem, _) in arms.items():
+        log(f"llama FT step, {'graphed' if graph else 'eager'}, L{cfg.n_layers} d{cfg.d_model} "
+            f"h{cfg.n_heads} hd{cfg.head_dim} ff{cfg.d_ff} vocab {cfg.vocab_size} bf16, batch "
+            f"{batch} x seq {seq}, device plane: {steps / secs:.4f} steps/s, "
+            f"{steps * batch * seq / secs:.1f} tokens/s ({steps} steps, "
+            f"{secs / steps * 1e3:.1f} ms each); peak memory {mem / 1e9:.2f} GB")
     return launches
 
 
@@ -997,6 +1172,8 @@ def _run_threads(target, what, timeout=900):
             results[gid] = target(gid)
         except Exception as e:  # noqa: BLE001 — reported by the main thread
             errors.append(f"group{gid}: {e!r}")
+            print(f"{what}, group{gid}, raised:\n{traceback.format_exc()}", file=sys.stderr,
+                  flush=True)
 
     threads = [threading.Thread(target=wrap, args=(g,)) for g in (0, 1)]
     for th in threads:
@@ -1159,7 +1336,7 @@ def phase_diloco(joint_syncs: int = 2):
     from torchft_tpu_torch.coordination import LighthouseServer
     from torchft_tpu_torch.local_sgd import DiLoCo
     from torchft_tpu_torch.ops import flash_attention as fa
-    from torchft_tpu_torch.parallel.train_step import TrainStep
+    from torchft_tpu_torch.parallel.train_step import TrainStep, synchronize
     from torchft_tpu_torch.store import StoreServer
     from torchft_tpu_torch.utils.tree import tree_leaves
 
@@ -1203,7 +1380,7 @@ def phase_diloco(joint_syncs: int = 2):
                         dst.copy_(src)
                 diloco.load_state_dict(s["diloco"])
                 state["opt"] = ts.init_opt(params)
-                torch.cuda.synchronize()
+                synchronize()
                 heal["apply_ms"] = (time.perf_counter() - t0) * 1e3
 
             manager.set_state_dict_fns(
@@ -1222,7 +1399,7 @@ def phase_diloco(joint_syncs: int = 2):
                 t0 = time.perf_counter()
                 if not diloco.step(params):
                     continue
-                torch.cuda.synchronize()
+                synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
                 committed = manager.current_step() > before
                 healed = "apply_ms" in heal and not any(x.get("healed") for x in syncs)
@@ -1236,7 +1413,7 @@ def phase_diloco(joint_syncs: int = 2):
                     joint += 1
                 if committed:
                     first_sync.set()
-            torch.cuda.synchronize()
+            synchronize()
             return dict(step=manager.current_step(), params=_param_digest(params),
                         momentum=_tensor_digest(_outer_tensors(diloco)[1]), step_ms=step_ms,
                         syncs=syncs, heal=heal, kept=kept)
@@ -1323,7 +1500,7 @@ def _pipeline_run(pipelined, steps):
     from torchft_tpu_torch.ops import flash_attention as fa
     from torchft_tpu_torch.optim import ManagedOptimizer
     from torchft_tpu_torch.parallel.ft import FTTrainer
-    from torchft_tpu_torch.parallel.train_step import TrainStep
+    from torchft_tpu_torch.parallel.train_step import TrainStep, synchronize
     from torchft_tpu_torch.store import StoreServer
     from torchft_tpu_torch.utils.tree import tree_leaves
 
@@ -1355,18 +1532,18 @@ def _pipeline_run(pipelined, steps):
                     loop.begin_step()
                     _, grads = ts.grads(loop.params, tok)
                     loop.step(grads, grad_fn=lambda p: ts.grads(p, tok)[1])
-            torch.cuda.synchronize()
+            synchronize()
             ready.wait(timeout=600)
             t0 = time.perf_counter()
             for tok in tokens:
                 step(tok)
             loop.finish()
-            torch.cuda.synchronize()
+            synchronize()
             elapsed = time.perf_counter() - t0
             replays[gid] = loop.rollbacks
             return dict(step=manager.current_step(), rollbacks=loop.rollbacks,
                         params=_param_digest(loop.params), elapsed=elapsed,
-                        loop=loop)
+                        loop=loop, captures=dict(ts.graphs.captures))
         finally:
             manager.shutdown(wait=False)
             store.shutdown()
@@ -1383,8 +1560,14 @@ def _pipeline_run(pipelined, steps):
     calls = 2 * steps + replays[0] + replays[1]
     expect = {n: c * calls for n, c in _launches_per_step(cfg).items()}
     log(f"pipelined={pipelined}: {calls} forward+backward passes "
-        f"({replays[0]} + {replays[1]} replays), kernel launches {launches}")
+        f"({replays[0]} + {replays[1]} replays), kernel launches {launches}; graphs captured "
+        f"{res[0]['captures']} (FTTrainer), {res[1]['captures']} (ManagedOptimizer, its "
+        "AdamW eager)")
     check(launches == expect, f"pipeline launches {launches} != {expect}")
+    # a rollback copies into the captured tensors: no capture after it
+    check(res[0]["captures"] == {"grads": 1, "apply": 1}
+          and res[1]["captures"] == {"grads": 1, "apply": 0},
+          f"pipelined={pipelined}: graphs captured again (a rollback swapped a tensor?)")
     if pipelined:
         # the clone that one speculative step of FTTrainer takes, timed alone
         trainer = res[0]["loop"]
@@ -1399,9 +1582,198 @@ def _pipeline_run(pipelined, steps):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: ResNet-18 on CIFAR
+# ---------------------------------------------------------------------------
+
+CIFAR_BATCH = 32  # examples/train_cifar.py's BATCH
+
+
+def _cifar_data():
+    from torchft_tpu_torch.examples.train_cifar import ensure_dataset
+    from torchft_tpu_torch.utils.platform import build_dir
+
+    return ensure_dataset(os.path.join(build_dir("cifar"), "cifar10_standin.npz"))
+
+
+def _hold_cifar_graph(cfg, images, labels):
+    """The graphed ResNet step against the eager one on one batch: the
+    capturing call (eager on the capture stream) and a replay give the
+    eager step's loss, gradients and new BN stats bit for bit."""
+    from torchft_tpu_torch.examples.train_cifar import CifarStep
+    from torchft_tpu_torch.utils.tree import tree_leaves
+
+    eager, graphed = CifarStep(cfg, "cuda", graph=False), CifarStep(cfg, "cuda")
+    params, stats = eager.init(0)
+    x = torch.from_numpy(images[:CIFAR_BATCH].astype(np.float32) / 255.0)
+    y = torch.from_numpy(labels[:CIFAR_BATCH].astype(np.int64))
+    ref = eager.grads(params, stats, x, y)
+    runs = [graphed.grads(params, stats, x, y) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = [float(r[0]) == float(ref[0])
+            and all(torch.equal(a, b) for a, b in zip(tree_leaves(r[1:]), tree_leaves(ref[1:])))
+            for r in runs]
+    ms = {}
+    for name, step in (("eager", eager), ("graphed", graphed)):
+        ms[name] = gpu_time_ms(lambda st=step: st.grads(params, stats, x, y), reps=10, inner=3)
+    log(f"resnet18 cifar step (loss, gradients, new BN stats; bf16, batch {CIFAR_BATCH}): "
+        f"loss eager {float(ref[0]):.6f}, graphed capture and replay {float(runs[0][0]):.6f}, "
+        f"{float(runs[1][0]):.6f}; all equal bitwise {same}; {ms['eager']:.3f} ms eager, "
+        f"{ms['graphed']:.3f} ms graphed (between CUDA events, host launches included)")
+    check(all(same), "resnet: the graphed step disagrees with the eager one (bar: bitwise)")
+
+
+def _cifar_digest(params, opt_state, stats) -> str:
+    """One sha256 over a CIFAR trainer's heal state: params, SGD momentum
+    (from an ``Optimizer.state_dict()``), BN stats."""
+    from torchft_tpu_torch.utils.tree import tree_leaves
+
+    params = tree_leaves(params)
+    momentum = [opt_state["state"][i]["momentum_buffer"] for i in range(len(params))]
+    return _tensor_digest(params + momentum + tree_leaves(stats))
+
+
+def phase_resnet(alone=3, together=6):
+    """The CIFAR example on the card (``examples/train_cifar.py``'s sizes,
+    bf16): the graphed step against the eager one, then two groups on the
+    device plane, each on its own stream; group 0 commits ``alone`` steps,
+    group 1 joins, heals over CollectivesTransport, and both commit
+    ``together`` steps. Holds the heal (the params, SGD momentum and BN
+    stats group 1 holds after it have the sha256 of what group 0 served),
+    one sha256 of params and momentum over both groups at the end (the BN
+    running stats stay each group's own after the heal, as in torch DDP and
+    the JAX example), the groups' sample ids disjoint within an epoch,
+    group 0's loss falling, and one capture of each graph per group."""
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.examples.train_cifar import CifarStep, CifarTrainer
+    from torchft_tpu_torch.models.resnet import ResNetConfig
+    from torchft_tpu_torch.parallel.train_step import synchronize
+    from torchft_tpu_torch.store import StoreServer
+    from torchft_tpu_torch.utils.tree import tree_leaves
+
+    cfg = ResNetConfig(dtype=torch.bfloat16)
+    images, labels = _cifar_data()
+    _hold_cifar_graph(cfg, images, labels)
+    lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
+    group0_ready = threading.Event()
+
+    def group(gid):
+        try:
+            if gid == 1 and not group0_ready.wait(timeout=600):
+                raise TimeoutError("group 0 never committed its first steps")
+            with torch.cuda.stream(torch.cuda.Stream()):
+                return member(gid)
+        finally:
+            group0_ready.set()
+
+    def member(gid):
+        store = StoreServer()
+        manager = make_manager(lighthouse.address(), store, f"cifar{gid}", plane="device",
+                               transport="collectives")
+        heal, digests = {}, []
+        _time_heal(manager, heal)
+        stream = torch.cuda.current_stream()
+        try:
+            ts = CifarStep(cfg, "cuda")
+            trainer = CifarTrainer(manager, ts, images, labels, replica_group=gid,
+                                   num_groups=2, batch=CIFAR_BATCH, seed=100 + gid)
+
+            def served():  # on the quorum thread: this group's stream first
+                state = trainer.state_dict()
+                stream.synchronize()
+                digests.append(_cifar_digest(state["params"], state["opt_state"], state["bn"]))
+                return state
+
+            def loaded(state):
+                trainer.load_state_dict(state)
+                stream.synchronize()
+                digests.append(_cifar_digest(trainer.params, trainer.opt.state_dict(),
+                                             trainer.stats))
+
+            manager.set_state_dict_fns(loaded, served)
+            losses, joint_ids, joint_ms = [], [], []
+            joint = committed_alone = 0
+            while joint < together:
+                before = manager.current_step()
+                t0 = time.perf_counter()
+                loss, ids, committed = trainer.step()
+                stream.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                n = manager.num_participants()
+                if committed and manager.is_participating():
+                    losses.append(loss)
+                if committed and n == 2 and manager.is_participating():
+                    joint += 1
+                    joint_ids.append((before, ids))
+                    joint_ms.append(ms)
+                elif committed and gid == 0:
+                    committed_alone += 1
+                    if committed_alone >= alone:
+                        group0_ready.set()
+                log(f"resnet group{gid}: step={manager.current_step()} loss={loss:.5f} "
+                    f"committed={committed} participants={n} {ms:.3f} ms")
+            synchronize()
+            params = tree_leaves(trainer.params)
+            momentum = [trainer.opt.state[p]["momentum_buffer"] for p in params]
+            return dict(step=manager.current_step(), losses=losses, joint_ids=joint_ids,
+                        joint_ms=joint_ms, heal=heal, captures=dict(ts.graphs.captures),
+                        heal_digests=digests, digest=_tensor_digest(params + momentum),
+                        stats=_tensor_digest(tree_leaves(trainer.stats)),
+                        epoch_steps=len(trainer.sampler) // CIFAR_BATCH)
+        finally:
+            manager.shutdown(wait=False)
+            store.shutdown()
+
+    torch.cuda.synchronize()
+    try:
+        res = _run_threads(group, "resnet phase")
+    finally:
+        lighthouse.shutdown()
+    for gid in (0, 1):
+        r = res[gid]
+        log(f"resnet group{gid}: step={r['step']} params+momentum sha256={r['digest']} BN stats "
+            f"sha256={r['stats']} graphs captured {r['captures']}; losses of its committed "
+            f"steps {', '.join(f'{x:.4f}' for x in r['losses'])}")
+    served, received = res[0]["heal_digests"], res[1]["heal_digests"]
+    log(f"resnet heal: params+momentum+BN stats sha256 served by group 0 {served}, held by "
+        f"group 1 after loading {received}")
+    check("get_ms" not in res[0]["heal"] and "get_ms" in res[1]["heal"]
+          and len(received) == 1 and received[0] in served,
+          "resnet: group 1 did not heal to the state group 0 served")
+    check(res[0]["step"] == res[1]["step"] and res[0]["digest"] == res[1]["digest"],
+          "resnet: the groups ended with different params or momentum")
+    check(all(res[g]["captures"] == {"grads": 1, "apply": 1} for g in (0, 1)),
+          "resnet: a group captured its graphs again (a heal swapped a captured tensor?)")
+    # the joint steps' batches come from the two groups' disjoint partitions
+    # of each epoch: no id is shared within an epoch, and none repeats in a
+    # group
+    check([s for s, _ in res[0]["joint_ids"]] == [s for s, _ in res[1]["joint_ids"]],
+          "resnet: the groups' joint steps differ")
+    per_epoch = {}
+    for gid in (0, 1):
+        for step, ids in res[gid]["joint_ids"]:
+            per_epoch.setdefault(step // res[gid]["epoch_steps"], ([], []))[gid].extend(ids)
+    for epoch, (ids0, ids1) in sorted(per_epoch.items()):
+        shared = set(ids0) & set(ids1)
+        log(f"resnet sampler, epoch {epoch}: {len(ids0)} and {len(ids1)} sample ids over the "
+            f"joint steps, {len(set(ids0))} and {len(set(ids1))} distinct, {len(shared)} shared")
+        check(not shared and len(set(ids0)) == len(ids0) and len(set(ids1)) == len(ids1),
+              f"resnet: sample ids overlap within epoch {epoch}")
+    first, last = res[0]["losses"][:3], res[0]["losses"][-3:]
+    log(f"resnet loss, group 0: first 3 steps mean {np.mean(first):.4f}, last 3 steps mean "
+        f"{np.mean(last):.4f} over {len(res[0]['losses'])} committed steps")
+    check(np.mean(last) < np.mean(first), "resnet: the loss did not fall")
+    heal = res[1]["heal"]
+    joint_ms = res[0]["joint_ms"] + res[1]["joint_ms"]
+    log(f"resnet heal over CollectivesTransport: {heal['bytes']} bytes, transfer "
+        f"{heal['get_ms']:.3f} ms; joint steps {statistics.median(joint_ms):.3f} ms median wall "
+        f"(both groups, {len(joint_ms)} steps, host clock, each group's stream synchronised)")
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> None:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         fail("CUDA is not available: this script needs an NVIDIA GPU")
     smi = subprocess.run(
@@ -1441,6 +1813,7 @@ def main() -> None:
     timing = {64: phase_timing(_shape(HEADLINE)), 128: phase_timing(_shape(LLAMA)),
               32: phase_timing(_shape(BYTES))}
     launches = {64: phase_ft_loop()}
+    phase_remat()
     tcp_groups = phase_two_groups()
     phase_diloco()
     phase_pipeline()
@@ -1449,6 +1822,7 @@ def main() -> None:
     # phase 10: phase 8 at train_bytes' model (head dim 32)
     launches[32] = phase_two_groups(plane="device", transport="collectives", own_streams=True,
                                     cfg=bytes_config(), shape=BYTES)["launches"]
+    phase_resnet()
 
     kernels = []
     for d in (64, 128, 32):
@@ -1467,6 +1841,7 @@ def main() -> None:
                 "library_ms_graph": sdpa_fwd[1] if name == "flash_fwd" else None,
             })
     log(json.dumps({"kernels": kernels}))
+    log(f"chip_smoke.py: {time.perf_counter() - started:.1f} s")
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,7 @@
 """Where the time of the port's headline fault-tolerant step goes.
 
 Usage (repo root, one NVIDIA GPU):
-``python3 scripts/torch_step_profile.py [--plane device|tcp] [--config headline|llama]``
+``python3 scripts/torch_step_profile.py [--plane device|tcp] [--config headline|llama] [--graph]``
 
 Runs the single-group FT loop of ``chip_smoke.py``, with its headline
 configuration and Manager wiring (d512 L8 h8 ff1408 vocab 32000 bf16,
@@ -10,7 +10,8 @@ Llama-2-7B-width step (d4096 h32 head dim 128 ff11008 vocab 32000 bf16 at
 4 of 32 layers, batch 2 x seq 4096), over the data plane ``--plane`` names:
 ``device`` (CollectivesDevice, the default and the headline's wiring) or
 ``tcp`` (CollectivesTcp, whose average copies the gradients to the host and
-back). It reports:
+back), with the step run eagerly or, with ``--graph``, replayed from its
+CUDA graphs (``TrainStep(graph=True)``). It reports:
 
 * host-clock phases per step, with a device synchronise at each boundary:
   quorum start, forward+backward, gradient averaging, commit vote,
@@ -51,6 +52,8 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--plane", choices=("device", "tcp"), default="device")
     parser.add_argument("--config", choices=("headline", "llama"), default="headline")
+    parser.add_argument("--graph", action="store_true",
+                        help="replay the step from CUDA graphs (default: eager)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         sys.exit("CUDA is not available: this script needs an NVIDIA GPU")
@@ -65,9 +68,10 @@ def main() -> None:
     lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
     store = StoreServer()
     manager = make_manager(lighthouse.address(), store, "profile", plane=args.plane)
-    print(f"data plane: {args.plane}, config: {args.config}")
+    print(f"data plane: {args.plane}, config: {args.config}, "
+          f"step: {'CUDA graphs' if args.graph else 'eager'}")
     try:
-        ts = TrainStep(cfg, device="cuda")
+        ts = TrainStep(cfg, device="cuda", graph=args.graph)
         trainer = FTTrainer(manager, ts)
         trainer.init(seed=0)
         tokens = make_tokens(cfg, 0, shape["batch"], shape["seq"])

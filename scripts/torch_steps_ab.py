@@ -27,8 +27,9 @@ LOOP = ("import torch, chip_smoke; "
         "torch.backends.cuda.matmul.allow_tf32 = False; "
         "chip_smoke.phase_ft_loop()")
 # a tree whose phase 4 runs both data planes reports the device plane's
-# first run (the headline's wiring); an older tree reports its one run
-RATE = re.compile(r"headline FT loop(?:, device plane)?: ([0-9.]+) steps/s")
+# first run (the headline's wiring; graphed, where the tree has graphed and
+# eager arms); an older tree reports its one run
+RATE = re.compile(r"headline FT loop(?:, device plane)?(?:, graphed)?: ([0-9.]+) steps/s")
 
 
 def _run(tree: str, code: str, timeout: float) -> str:

@@ -4,9 +4,11 @@
 checks run in fresh subprocesses whose imports of jax, jaxlib, optax and
 ``torchft_tpu`` raise, and inspect their ``sys.modules``: a one-group
 fault-tolerant step of the port and one DiLoCo sync (``sync_every=1``)
-over CollectivesTcp; and two groups as threads over CollectivesDevice, the
-second joining late and healing over CollectivesTransport. A static check
-covers every module of the package and ``chip_smoke.py``.
+over CollectivesTcp, then a step of the CIFAR example's narrow ResNet and
+the sampler; and two groups as threads over CollectivesDevice, the second
+joining late and healing over CollectivesTransport. A static check covers
+every module of the package (the examples and the lighthouse CLI
+included) and ``chip_smoke.py``.
 """
 
 import ast
@@ -66,9 +68,20 @@ diloco.save(trainer.params)
 ts.step(trainer.params, trainer.opt, tokens)
 synced = diloco.step(trainer.params)
 assert ManagedOptimizer.__name__ == "ManagedOptimizer"
+from torchft_tpu_torch.data import DistributedSampler, step_indices
+from torchft_tpu_torch.examples.train_cifar import CifarStep
+from torchft_tpu_torch.models.resnet import ResNetConfig
+import torchft_tpu_torch.lighthouse
+ids = step_indices(DistributedSampler(64, replica_group=0, num_replica_groups=2), 0, 4)
+cifar = CifarStep(ResNetConfig(channels=(4, 8, 16, 32), dtype=torch.float32), device="cpu")
+cparams, cstats = cifar.init(0)
+closs, cgrads, _ = cifar.grads(cparams, cstats, torch.rand(4, 32, 32, 3),
+                               torch.from_numpy(ids % 10))
+cifar.apply(cparams, cifar.init_opt(cparams), cgrads)
 manager.shutdown(wait=False); store.shutdown(); lighthouse.shutdown()
 print(json.dumps({"loss": loss, "committed": committed, "synced": synced,
-                  "step": manager.current_step(), "modules": sorted(sys.modules)}))
+                  "step": manager.current_step(), "cifar_loss": float(closs),
+                  "modules": sorted(sys.modules)}))
 """
 
 
@@ -154,6 +167,9 @@ def test_ft_step_runs_without_jax_or_reference_package():
     out = _run_blocked(_STEP)
     assert out["committed"] and out["synced"] and out["step"] == 2
     assert math.isfinite(out["loss"]) and out["loss"] > 0
+    assert math.isfinite(out["cifar_loss"]) and out["cifar_loss"] > 0
+    for module in ("data", "models.resnet", "lighthouse", "examples.train_cifar"):
+        assert f"torchft_tpu_torch.{module}" in out["modules"]
 
 
 def test_device_plane_heal_runs_without_jax_or_reference_package():
@@ -177,7 +193,10 @@ def _port_sources():
 def test_no_forbidden_imports_in_sources():
     scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
     assert {"torchft_tpu_torch/collectives_device.py",
-            "torchft_tpu_torch/checkpointing/collectives_transport.py"} <= scanned
+            "torchft_tpu_torch/checkpointing/collectives_transport.py",
+            "torchft_tpu_torch/data.py", "torchft_tpu_torch/models/resnet.py",
+            "torchft_tpu_torch/lighthouse.py",
+            "torchft_tpu_torch/examples/train_cifar.py"} <= scanned
     bad = []
     for path in _port_sources():
         with open(path, encoding="utf-8") as f:

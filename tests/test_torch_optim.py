@@ -270,3 +270,104 @@ def test_shrink_only_reaches_the_rpc(store_server):
             assert h.client._quorum.call_args.kwargs["shrink_only"] is value
     finally:
         h.shutdown()
+
+
+# -- optimizer state identity: a heal and a rollback copy in place --------
+
+
+def _stepped_trainer(seed, steps):
+    from torchft_tpu_torch.parallel.ft import FTTrainer
+
+    trainer = FTTrainer(MagicMock(), TrainStep(TCFG, device="cpu"))
+    trainer.init(seed=seed)
+    ts = trainer._ts
+    for i in range(steps):
+        _, grads = ts.grads(trainer.params, torch.from_numpy(_tokens(seed, i)))
+        ts.apply(trainer.params, trainer.opt, grads)
+    return trainer
+
+
+def _tensors(trainer):
+    """Every param and optimizer state tensor, in a fixed order."""
+    from torchft_tpu_torch.utils.tree import tree_leaves
+
+    params = tree_leaves(trainer.params)
+    return params + [t for p in params for _, t in sorted(trainer.opt.state[p].items())]
+
+
+def _host_copy(state):
+    from torchft_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda x: x.detach().clone() if isinstance(x, torch.Tensor) else x, state)
+
+
+@pytest.mark.parametrize("receiver_steps", [1, 0], ids=["stepped", "fresh"])
+def test_load_state_dict_keeps_every_tensor(receiver_steps):
+    """A heal into a trainer whose optimizer holds state copies into those
+    very tensors (same objects, same storage) and leaves the sender's
+    values; into an optimizer that never stepped, it creates the state (no
+    graph can hold it yet). The step count stays where the receiver keeps
+    it (the host, for this non-capturable optimizer)."""
+    sender = _stepped_trainer(seed=7, steps=3)
+    receiver = _stepped_trainer(seed=8, steps=receiver_steps)
+    before = _tensors(receiver)
+    ptrs = [t.data_ptr() for t in before]
+    receiver.load_state_dict(_host_copy(sender.state_dict()))
+    after = _tensors(receiver)
+    if receiver_steps:
+        assert all(a is b for a, b in zip(after, before))
+        assert [t.data_ptr() for t in after] == ptrs
+    for got, want in zip(after, _tensors(sender)):
+        assert torch.equal(got, want)
+    assert all(receiver.opt.state[p]["step"].device.type == "cpu"
+               for p in receiver.opt.state)
+
+
+def test_vetoed_step_rolls_back_in_place():
+    """The pipelined commit's rollback: after a speculative update and a
+    veto, every param and moment tensor is the same object as before and
+    holds the snapshot's values."""
+    trainer = _stepped_trainer(seed=9, steps=2)
+    before = _tensors(trainer)
+    ptrs = [t.data_ptr() for t in before]
+    committed = [t.detach().clone() for t in before]
+    trainer._take_snapshot()
+    ts = trainer._ts
+    _, grads = ts.grads(trainer.params, torch.from_numpy(_tokens(9, 5)))
+    ts.apply(trainer.params, trainer.opt, grads)
+    assert not all(torch.equal(a, b) for a, b in zip(_tensors(trainer), committed))
+    trainer._on_vote_resolved(False)
+    after = _tensors(trainer)
+    assert all(a is b for a, b in zip(after, before))
+    assert [t.data_ptr() for t in after] == ptrs
+    for got, want in zip(after, committed):
+        assert torch.equal(got, want)
+    assert trainer.rollbacks == 1 and trainer._consume_replay()
+
+
+def test_load_optimizer_state_sgd_and_unstepped_sender():
+    """SGD's momentum buffers (the CIFAR example's state) are copied into
+    in place; a sender whose optimizer never stepped zeroes the receiver's
+    state, the state a first step starts from."""
+    from torchft_tpu_torch.optim import load_optimizer_state
+
+    params = [torch.zeros(3), torch.zeros(2, 2)]
+    opt = torch.optim.SGD(params, lr=0.05, momentum=0.9, dampening=0)
+    for p in params:
+        p.grad = torch.ones_like(p)
+    opt.step()
+    bufs = [opt.state[p]["momentum_buffer"] for p in params]
+    other = [torch.zeros(3), torch.zeros(2, 2)]
+    sender = torch.optim.SGD(other, lr=0.05, momentum=0.9, dampening=0)
+    for p in other:
+        p.grad = torch.full_like(p, 2.0)
+    sender.step()
+    load_optimizer_state(opt, _host_copy(sender.state_dict()))
+    assert all(opt.state[p]["momentum_buffer"] is b for p, b in zip(params, bufs))
+    assert all(torch.equal(b, torch.full_like(b, 2.0)) for b in bufs)
+    load_optimizer_state(opt, torch.optim.SGD([torch.zeros(3), torch.zeros(2, 2)],
+                                              lr=0.05, momentum=0.9).state_dict())
+    assert all(opt.state[p]["momentum_buffer"] is b and not b.any()
+               for p, b in zip(params, bufs))
+    with pytest.raises(ValueError, match="params"):
+        load_optimizer_state(opt, torch.optim.SGD([torch.zeros(1)], lr=0.1).state_dict())

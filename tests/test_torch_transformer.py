@@ -190,3 +190,78 @@ def test_fused_train_step_matches_optax_adamw():
                             jax.tree_util.tree_leaves(np_params)):
         assert not np.array_equal(t.detach().numpy(), before)  # the step moved it
         np.testing.assert_allclose(t.detach().numpy(), np.asarray(j), atol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "remat,policy", [(False, "all"), (True, "all"), (True, "dots")],
+    ids=["no-remat", "all", "dots"],
+)
+def test_remat_policies_match_jax(remat, policy):
+    """Loss and gradients under each ``remat`` setting against the JAX
+    package's same config (the recompute changes no value: same tolerances
+    as above)."""
+    np_params = _jax_params(ATTN_BASE)
+    tokens = _tokens((4, 128))
+    kw = dict(attention_impl="flash", remat=remat, remat_policy=policy)
+    jl, jg = _jax_loss_and_grads(np_params, tokens,
+                                 J.TransformerConfig(**ATTN_BASE, dtype=jnp.float32, **kw))
+    tl, tg = _port_loss_and_grads(np_params, tokens,
+                                  T.TransformerConfig(**ATTN_BASE, dtype=torch.float32, **kw))
+    np.testing.assert_allclose(tl, jl, rtol=1e-5)
+    for a, b in zip(tg, jg):
+        np.testing.assert_allclose(a, b, atol=2e-5)
+
+
+def test_unknown_remat_policy_raises_as_jax_does():
+    np_params = _jax_params(ATTN_BASE)
+    tokens = _tokens((2, 16))
+    with pytest.raises(ValueError, match="remat_policy"):
+        _jax_loss_and_grads(np_params, tokens,
+                            J.TransformerConfig(**ATTN_BASE, dtype=jnp.float32, remat_policy="dot"))
+    with pytest.raises(ValueError, match="remat_policy"):
+        _port_loss_and_grads(np_params, tokens,
+                             T.TransformerConfig(**ATTN_BASE, dtype=torch.float32,
+                                                 remat_policy="dot"))
+    # without remat the policy is not read, in both packages
+    cfg = T.TransformerConfig(**ATTN_BASE, dtype=torch.float32, remat=False, remat_policy="dot")
+    _port_loss_and_grads(np_params, tokens, cfg)
+
+
+def test_dots_policy_recomputes_no_projection():
+    """What the backward runs, counted by ATen op: without remat it runs the
+    7 projections' 14 gradient products per layer (plus 2 for the unembed);
+    ``"all"`` also recomputes the forward, its projections included (but
+    ``w_out``, whose output no backward needs: the recompute stops early);
+    ``"dots"`` recomputes the attention's batched products (``bmm``) and no
+    projection, as JAX's ``dots_with_no_batch_dims_saveable`` does."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops[func] = self.ops.get(func, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    np_params = _jax_params(ATTN_BASE)
+    tokens = torch.from_numpy(_tokens((2, 16)))
+    layers = ATTN_BASE["n_layers"]
+    counts = {}
+    for name, remat, policy in (("none", False, "all"), ("all", True, "all"),
+                                ("dots", True, "dots")):
+        cfg = T.TransformerConfig(**ATTN_BASE, dtype=torch.float32, attention_impl="plain",
+                                  remat=remat, remat_policy=policy)
+        params = T.params_from_jax(np_params, device="cpu")
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = T.loss_fn(params, tokens, cfg)
+        with Count() as c:
+            torch.autograd.grad(loss, leaves)
+        counts[name] = (c.ops.get(torch.ops.aten.mm.default, 0),
+                        c.ops.get(torch.ops.aten.bmm.default, 0))
+    assert counts["none"] == (14 * layers + 2, 4 * layers)
+    assert counts["all"] == (20 * layers + 2, 6 * layers)
+    assert counts["dots"] == (14 * layers + 2, 6 * layers)

@@ -6,10 +6,16 @@ Parameters are a plain tree of float32 master tensors with exactly the JAX
 package's structure, leading ``[pp, Lp]`` axes included, so weights carry
 across with :func:`params_from_jax`. Each forward casts them to
 ``cfg.dtype``; the embedding gather runs after the cast and the logits
-come out in float32. Layers run in a Python loop, each wrapped in
-``torch.utils.checkpoint`` (the JAX package's ``remat=True`` with policy
-``"all"``: the backward recomputes the whole layer); the loss head chunks the sequence through the unembed
-when the logits would pass ``TORCHFT_TPU_LOSS_CHUNK_ELEMS``.
+come out in float32. Layers run in a Python loop, under the JAX package's
+``remat`` / ``remat_policy``: ``remat=False`` keeps every activation;
+``"all"`` wraps each layer in ``torch.utils.checkpoint`` (the backward
+recomputes the whole layer); ``"dots"`` is a selective checkpoint that
+saves the outputs of matrix products without batch dims (the projections,
+``aten.mm``/``aten.addmm``) and recomputes the rest, batched products and
+the flash op included (``jax.checkpoint_policies.
+dots_with_no_batch_dims_saveable``). The loss head chunks the sequence
+through the unembed when the logits would pass
+``TORCHFT_TPU_LOSS_CHUNK_ELEMS``.
 
 Attention routing: ``"flash"`` -> the flash op (its CUDA kernels on the
 card, which raise for a shape they do not take), ``"plain"`` -> plain
@@ -23,13 +29,18 @@ not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
-from typing import Any, Dict
+from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from torchft_tpu_torch.ops.attention import attention
 from torchft_tpu_torch.ops.flash_attention import flash_attention, supported
@@ -59,6 +70,11 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16  # compute dtype
+    remat: bool = True
+    # checkpoint policy under remat: "all" recomputes the whole layer in
+    # the backward; "dots" saves the projections' outputs and recomputes
+    # the rest
+    remat_policy: str = "all"
     attention_impl: str = "auto"  # "auto" | "plain" | "flash"
 
     @property
@@ -154,16 +170,45 @@ def _layer(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: TransformerConfig)
     return x + swiglu(h, lp["w_gate"], lp["w_in"], lp["w_out"])
 
 
+# matrix products without batch dims: what "dots" saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _layer_fn(cfg: TransformerConfig) -> Callable[..., torch.Tensor]:
+    """One layer under the config's remat policy (JAX's ``_make_stage_fn``)."""
+    if not cfg.remat:
+        return _layer
+    # a layer draws no random numbers: no RNG state to keep (reading the
+    # CUDA generator's state is also refused inside a graph capture)
+    if cfg.remat_policy == "all":
+        return functools.partial(checkpoint, _layer, use_reentrant=False,
+                                 preserve_rng_state=False)
+    if cfg.remat_policy == "dots":
+        return functools.partial(
+            checkpoint, _layer, use_reentrant=False, preserve_rng_state=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots),
+        )
+    raise ValueError(
+        f"remat_policy={cfg.remat_policy!r}: expected 'all' or 'dots' (a typo "
+        "here would silently pay full recompute)"
+    )
+
+
 def _hidden_states(
     params: Dict[str, Any], tokens: torch.Tensor, cfg: TransformerConfig
 ) -> torch.Tensor:
     """tokens [B, S] -> final-norm hidden states [B, S, D] in cfg.dtype."""
+    layer = _layer_fn(cfg)
     dt = cfg.dtype
     x = params["embed"].to(dt)[tokens.long()]
     layers = {k: v.to(dt) for k, v in params["layers"].items()}
     for i in range(layers["wq"].shape[1]):
         lp = {k: v[0, i] for k, v in layers.items()}
-        x = checkpoint(_layer, x, lp, cfg, use_reentrant=False)
+        x = layer(x, lp, cfg)
     return rms_norm(x, params["final_norm"].to(dt), cfg.norm_eps)
 
 
@@ -231,7 +276,7 @@ def _chunked_loss(
         sl = slice(start, start + chunk)
         nll_sum = nll_sum + checkpoint(
             _chunk_nll, h[:, sl], out_w, targets[:, sl], mask[:, sl],
-            use_reentrant=False,
+            use_reentrant=False, preserve_rng_state=False,
         )
     return nll_sum / torch.sum(mask)
 

@@ -16,7 +16,10 @@ head dims 32, 64 and 128, float32 at 32 and 64, and S a multiple of
 The kernels are built with ``nvcc`` at first use into
 ``build/torch_kernels/``, keyed by a digest of every file under ``csrc/``,
 and loaded with ctypes (a plain C interface).
-Every launch adds one to :data:`LAUNCHES`, keyed by kernel name.
+Every launch adds one to :data:`LAUNCHES`, keyed by kernel name. A call
+made while its stream is being captured into a CUDA graph launches
+nothing: inside :func:`recorded_launches` it is counted for the graph, and
+the graph's owner adds those counts once per replay (:func:`add_launches`).
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import hashlib
 import os
 import shutil
 import threading
-from typing import Dict, Optional, Tuple
+from contextlib import contextmanager
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -37,6 +41,8 @@ __all__ = [
     "flash_attention",
     "LAUNCHES",
     "reset_launches",
+    "recorded_launches",
+    "add_launches",
     "build",
     "bind",
     "nvcc_command",
@@ -69,6 +75,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES: Dict[str, int] = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 # replica groups may run as threads of one process: the counts stay exact
 _launches_lock = threading.Lock()
+# launches recorded into a CUDA graph, by the handle of the capturing stream
+_recorders: Dict[int, Dict[str, int]] = {}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -80,9 +88,31 @@ def reset_launches() -> None:
             LAUNCHES[name] = 0
 
 
-def _count_launch(name: str) -> None:
+def _count_launch(name: str, stream: int) -> None:
     with _launches_lock:
-        LAUNCHES[name] += 1
+        _recorders.get(stream, LAUNCHES)[name] += 1
+
+
+@contextmanager
+def recorded_launches(stream: "torch.cuda.Stream") -> Iterator[Dict[str, int]]:
+    """While ``stream`` is captured into a CUDA graph: count the calls made
+    on it (from any thread: autograd runs the backward on its own) into the
+    yielded dict instead of :data:`LAUNCHES`."""
+    counts = {name: 0 for name in LAUNCHES}
+    with _launches_lock:
+        _recorders[stream.cuda_stream] = counts
+    try:
+        yield counts
+    finally:
+        with _launches_lock:
+            del _recorders[stream.cuda_stream]
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add a graph's recorded launches (one replay) to :data:`LAUNCHES`."""
+    with _launches_lock:
+        for name, n in counts.items():
+            LAUNCHES[name] += n
 
 
 def _nvcc() -> str:
@@ -228,14 +258,15 @@ def fwd_kernel(
     lib = _load()
     o = torch.empty_like(q)
     lse = torch.empty((bh, s), dtype=torch.float32, device=q.device)
+    stream = _stream(q)
     with torch.cuda.device(q.device):
         rc = lib.tft_flash_fwd(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             o.data_ptr(), lse.data_ptr(), bh, s, d, d ** -0.5, int(causal),
-            _stream(q),
+            stream,
         )
     _raise_if_failed("flash_fwd", lib, rc)
-    _count_launch("flash_fwd")
+    _count_launch("flash_fwd", stream)
     return o, lse
 
 
@@ -253,14 +284,15 @@ def dq_kernel(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
     bh, s, d = _check_bwd("flash_dq", q, k, v, do, lse, delta)
     lib = _load()
     dq = torch.empty_like(q)
+    stream = _stream(q)
     with torch.cuda.device(q.device):
         rc = lib.tft_flash_dq(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            bh, s, d, d ** -0.5, int(causal), _stream(q),
+            bh, s, d, d ** -0.5, int(causal), stream,
         )
     _raise_if_failed("flash_dq", lib, rc)
-    _count_launch("flash_dq")
+    _count_launch("flash_dq", stream)
     return dq
 
 
@@ -269,14 +301,15 @@ def dkv_kernel(q, k, v, do, lse, delta, causal: bool) -> Tuple[torch.Tensor, tor
     bh, s, d = _check_bwd("flash_dkv", q, k, v, do, lse, delta)
     lib = _load()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    stream = _stream(q)
     with torch.cuda.device(q.device):
         rc = lib.tft_flash_dkv(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), bh, s, d, d ** -0.5, int(causal), _stream(q),
+            dv.data_ptr(), bh, s, d, d ** -0.5, int(causal), stream,
         )
     _raise_if_failed("flash_dkv", lib, rc)
-    _count_launch("flash_dkv")
+    _count_launch("flash_dkv", stream)
     return dk, dv
 
 

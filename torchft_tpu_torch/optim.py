@@ -23,7 +23,10 @@ in ``begin_step`` instead, before the gradients). On a veto the pre-update
 state is restored; pass ``grad_fn`` (``params -> grads``) so the in-flight
 batch is replayed on it (without it the in-flight batch is dropped too).
 Torch updates in place, so the rollback snapshot is a copy: a clone of
-every parameter and of every optimizer state tensor.
+every parameter and of every optimizer state tensor. A heal and a rollback
+copy their state into the live tensors in place
+(:func:`load_optimizer_state`), so a CUDA graph that captured them (the
+graphed ``TrainStep``) goes on reading the right values.
 """
 
 from __future__ import annotations
@@ -36,7 +39,12 @@ from torchft_tpu_torch.ddp import allreduce_gradients
 from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.utils.tree import tree_leaves, tree_map
 
-__all__ = ["ManagedOptimizer", "SpeculativeCommitMixin", "check_exact_wire"]
+__all__ = [
+    "ManagedOptimizer",
+    "SpeculativeCommitMixin",
+    "check_exact_wire",
+    "load_optimizer_state",
+]
 
 
 def check_exact_wire(error_feedback: Any) -> None:
@@ -48,6 +56,49 @@ def check_exact_wire(error_feedback: Any) -> None:
             "error_feedback compensates the lossy wire codecs, which are not "
             "ported yet (ROADMAP queue 1: the wire codecs)"
         )
+
+
+def load_optimizer_state(opt: torch.optim.Optimizer, state: Dict[str, Any]) -> None:
+    """Load ``state`` (an ``Optimizer.state_dict()``, e.g. received by a
+    heal or kept as a rollback snapshot) into ``opt`` by copying into the
+    state tensors it already holds, where ``Optimizer.load_state_dict``
+    would replace them (and a captured optimizer step would go on reading
+    the old ones). Each tensor keeps its device, so a capturable
+    optimizer's step count stays on the card. A param whose state ``opt``
+    lacks gets new tensors (an optimizer that has not stepped yet; no graph
+    can hold them); a param whose state ``state`` lacks (a sender that has
+    not stepped) gets its tensors zeroed, the state a first step starts
+    from. The hyperparameters stay ``opt``'s own, as optax's stay its
+    transform's."""
+    params = [p for group in opt.param_groups for p in group["params"]]
+    ids = [i for group in state["param_groups"] for i in group["params"]]
+    if len(ids) != len(params):
+        raise ValueError(f"optimizer state for {len(ids)} params, this optimizer has {len(params)}")
+    on_device = any(g.get("capturable") or g.get("fused") for g in opt.param_groups)
+    with torch.no_grad():
+        for i, p in zip(ids, params):
+            src, dst = state["state"].get(i), opt.state.get(p)
+            if not src:
+                for t in (dst or {}).values():
+                    if isinstance(t, torch.Tensor):
+                        t.zero_()
+                continue
+            if dst is None or set(dst) != set(src):
+                # torch.optim keeps AdamW's step count on the host unless
+                # the optimizer is capturable or fused
+                opt.state[p] = {
+                    k: (v.to(p.device if k != "step" or on_device else "cpu",
+                             p.dtype if v.is_floating_point() and k != "step" else v.dtype,
+                             copy=True)
+                        if isinstance(v, torch.Tensor) else v)
+                    for k, v in src.items()
+                }
+                continue
+            for k, v in src.items():
+                if isinstance(v, torch.Tensor):
+                    dst[k].copy_(v)
+                else:
+                    dst[k] = v
 
 
 def _clone(tree: Any) -> Any:
@@ -82,24 +133,20 @@ class SpeculativeCommitMixin:
         return {"params": self._params, "opt_state": self._opt.state_dict()}
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        # a received state lies on the host; copy_ puts the params on this
-        # owner's device in place (the optimizer holds these very tensors),
-        # and Optimizer.load_state_dict casts the moments onto each param's
-        # device
-        with torch.no_grad():
-            for dst, src in zip(tree_leaves(self._params), tree_leaves(state["params"])):
-                dst.copy_(src)
-        opt_state = state["opt_state"]
-        for per_param in opt_state["state"].values():
-            # torch.optim keeps AdamW's step count on the host unless the
-            # optimizer is capturable or fused
-            if isinstance(per_param.get("step"), torch.Tensor):
-                per_param["step"] = per_param["step"].cpu()
-        self._opt.load_state_dict(opt_state)
+        # a received state lies on the host; copy_ puts the params and the
+        # optimizer state on this owner's device in place (the optimizer,
+        # and any graph that captured a step, hold these very tensors)
+        self._restore(state["params"], state["opt_state"])
         # a heal supersedes any speculative lineage, a pending replay
         # included: the next step's gradients are taken on this state
         self._snapshot = None
         self._replay_needed = False
+
+    def _restore(self, params: Any, opt_state: Dict[str, Any]) -> None:
+        with torch.no_grad():
+            for dst, src in zip(tree_leaves(self._params), tree_leaves(params)):
+                dst.copy_(src)
+        load_optimizer_state(self._opt, opt_state)
 
     # -- snapshot and rollback --
 
@@ -114,11 +161,7 @@ class SpeculativeCommitMixin:
         the speculation fence lifts, so the quorum thread never serves a
         half-rolled-back state."""
         if not committed and self._snapshot is not None:
-            params, opt_state = self._snapshot
-            with torch.no_grad():
-                for dst, src in zip(tree_leaves(self._params), tree_leaves(params)):
-                    dst.copy_(src)
-            self._opt.load_state_dict(opt_state)
+            self._restore(*self._snapshot)
             self.rollbacks += 1
             self._replay_needed = True
         self._snapshot = None

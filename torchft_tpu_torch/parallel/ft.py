@@ -5,7 +5,12 @@ update.
 
 ``init`` registers the trainer's ``state_dict`` / ``load_state_dict``
 with the Manager, so a healing group receives the params and the
-optimizer state of a group at the max step.
+optimizer state of a group at the max step; both are copied into the
+trainer's own tensors in place, which the train step's CUDA graphs read.
+
+On the card the step's halves replay from CUDA graphs (``TrainStep``):
+the gradients ``grads`` returns are the graph's static tensors, consumed
+by the cross-group average and the update before the next ``grads``.
 
 Pipelined commit (``Manager(commit_pipeline=True)``): ``step`` applies the
 update at once, keeping a copy of the pre-update state as the rollback
