@@ -76,8 +76,19 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    and BN stats served; one sha256 of params and momentum at the end (BN
    running stats stay each group's own, as in the JAX example); the
    groups' sample ids disjoint within an epoch; the loss falling.
+12. kill and rejoin (``torchft_tpu_torch.benchmarks.recovery``): two
+   groups as worker processes on the card, each training the headline at
+   full width (graphed, ``"flash"``) over CollectivesTcp with the HTTP
+   heal, one lighthouse at its default 5 s lease; group 1 takes SIGKILL
+   at step 8 and is respawned. Every worker exits 0; the survivor's
+   eviction report is accepted and its blackout stays below the lease; the
+   survivor commits after the kill, the respawned group heals and
+   commits; both end with one sha256 of params and AdamW state, one
+   capture of each graph and 16/8/8 flash launches per step. Prints the
+   blackout, the rejoin time and its parts, the steady step, the heal and
+   the survivor's log of the death path.
 
-Phases 4-11 replay each train step from CUDA graphs (phase 4's and phase
+Phases 4-12 replay each train step from CUDA graphs (phase 4's and phase
 9's eager arms aside); every group's graphs are captured once, so a heal
 or a rollback that swapped a captured tensor would show as a recapture.
 
@@ -575,12 +586,10 @@ def phase_timing(shape):
 
 
 def headline_config():
-    from torchft_tpu_torch.models.transformer import TransformerConfig
+    # one definition, shared with phase 12's worker processes
+    from torchft_tpu_torch.models.transformer import headline_config
 
-    return TransformerConfig(
-        vocab_size=32000, d_model=512, n_layers=8, n_heads=8, head_dim=64,
-        d_ff=1408, dtype=torch.bfloat16, attention_impl="flash",
-    )
+    return headline_config()
 
 
 def llama_config(n_layers=LLAMA_LAYERS):
@@ -1770,6 +1779,100 @@ def phase_resnet(alone=3, together=6):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: kill and rejoin
+# ---------------------------------------------------------------------------
+
+KILL_AT_STEP = 8
+RECOVERY_STEPS = 20
+LEASE_MS = 5000  # the lighthouse's default heartbeat lease
+RECOVERY_OP_TIMEOUT = 30.0  # s: far above a joint step over TCP (phase 5)
+
+
+def _survivor_log(path):
+    """The survivor Manager's lines of the death path, from its stderr."""
+    keep = ("death watch", "reported dead peer", "reconfiguring", "should_commit=False")
+    with open(path + ".stderr", errors="replace") as f:
+        return [line.rstrip() for line in f if any(k in line for k in keep)]
+
+
+def phase_recovery(joint_ms):
+    """Two groups as worker processes on the card, each training the
+    headline at full width (graphed, ``"flash"``) through FTTrainer on
+    CollectivesTcp with the HTTP heal; group 1 takes SIGKILL once it has
+    committed ``KILL_AT_STEP`` and is respawned
+    (``torchft_tpu_torch.benchmarks.recovery.measure_recovery``). ``joint_ms``
+    is phase 5's joint step, beside which the op timeout is printed."""
+    from torchft_tpu_torch.benchmarks.recovery import measure_recovery
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the workers need the card's memory, not this cache
+    saved = os.environ.get("DEVICE")
+    os.environ["DEVICE"] = "cuda"  # the workers' device: the card, at the headline
+    t0 = time.perf_counter()
+    try:
+        r = measure_recovery(total_steps=RECOVERY_STEPS, kill_at_step=KILL_AT_STEP,
+                             step_sleep=0.0, op_timeout=RECOVERY_OP_TIMEOUT,
+                             heartbeat_timeout_ms=LEASE_MS, timeout_s=600.0, num_groups=2)
+    finally:
+        if saved is None:
+            os.environ.pop("DEVICE")
+        else:
+            os.environ["DEVICE"] = saved
+    wall = time.perf_counter() - t0
+    out = r.as_dict()
+    log(f"kill and rejoin: lease {LEASE_MS / 1000:.1f} s, op timeout {RECOVERY_OP_TIMEOUT:.1f} s "
+        f"(phase 5's joint step {joint_ms:.3f} ms, this run's steady step "
+        f"{r.steady_step_s * 1e3:.3f} ms), killed at step {KILL_AT_STEP}")
+    log(f"kill and rejoin: survivor_blackout_s {r.survivor_blackout_s:.6f}, blackout_steps "
+        f"{out['blackout_steps']}, survivor_steps_lost {r.survivor_steps_lost}, steady_step_s "
+        f"{r.steady_step_s:.6f}, rejoin_to_commit_s {r.rejoin_to_commit_s:.6f}")
+    log("kill and rejoin: rejoin_to_commit_s parts: " + ", ".join(
+        f"{k} {v:.6f}" for k, v in r.rejoin_parts_s.items()))
+    for line in _survivor_log(r.log_paths[0]):
+        log(f"kill and rejoin, survivor log | {line}")
+    finals = r.finals
+    for g in sorted(finals):
+        f = finals[g]
+        log(f"kill and rejoin group{g}: step={f['step']} params+AdamW sha256={f['digest']} "
+            f"graphs captured {f['captures']}, {f['steps']} steps, flash launches per step "
+            f"{f['launches_per_step']}" + (f", heal {f['heal']}" if f["heal"] else ""))
+    log(f"kill and rejoin: eviction reports {r.evictions}; survivor commits after the kill "
+        f"{r.survivor_commits_after_kill}, rejoiner commits {r.rejoiner_commits}; deadlines "
+        f"hit, by group: steps retried {r.timeout_retries}, steps aborted {r.deadline_aborts}; "
+        f"phase wall {wall:.1f} s")
+    check(sorted(finals) == [0, 1], f"kill and rejoin: final events of groups {sorted(finals)}")
+    # the workers retry a step that raised on a deadline, and abort one whose
+    # op or heal latched one; on the card no deadline may be hit, in the
+    # heal, the rejoin or a steady step
+    check(not any(r.timeout_retries.values()) and not any(r.deadline_aborts.values()),
+          f"kill and rejoin: deadlines hit, by group: steps retried {r.timeout_retries}, "
+          f"steps aborted {r.deadline_aborts}")
+    check(r.survivor_commits_after_kill > 0, "kill and rejoin: the survivor never committed again")
+    heal = finals[1]["heal"]
+    check(r.rejoiner_commits > 0 and heal and heal["bytes"] > 0,
+          "kill and rejoin: the respawned group did not heal and commit")
+    check(finals[0]["digest"] == finals[1]["digest"] and finals[0]["step"] == finals[1]["step"],
+          "kill and rejoin: the groups ended with different params or optimizer state")
+    for g in (0, 1):
+        check(finals[g]["captures"] == {"grads": 1, "apply": 1},
+              f"kill and rejoin: group {g} captured its graphs {finals[g]['captures']} "
+              "(serving or taking a heal must not recapture)")
+        expect = _launches_per_step(headline_config())
+        check(finals[g]["launches_per_step"] == [expect],
+              f"kill and rejoin: group {g} launched {finals[g]['launches_per_step']} per step, "
+              f"expected {expect}")
+    check(any(evicted for gid, _, evicted in r.evictions if gid == 0),
+          f"kill and rejoin: the survivor's eviction report was not accepted: {r.evictions}")
+    check(r.survivor_blackout_s < LEASE_MS / 1000,
+          f"kill and rejoin: blackout {r.survivor_blackout_s:.3f} s is not below the "
+          f"{LEASE_MS / 1000:.1f} s lease")
+    check(RECOVERY_OP_TIMEOUT >= 10 * r.steady_step_s,
+          f"kill and rejoin: op timeout {RECOVERY_OP_TIMEOUT} s under 10 steady steps")
+    return {n: finals[0]["launches"][n] + finals[1]["launches"][n]
+            for n in finals[0]["launches"]}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> None:
@@ -1823,6 +1926,7 @@ def main() -> None:
     launches[32] = phase_two_groups(plane="device", transport="collectives", own_streams=True,
                                     cfg=bytes_config(), shape=BYTES)["launches"]
     phase_resnet()
+    recovery_launches = phase_recovery(tcp_groups["joint_ms"])
 
     kernels = []
     for d in (64, 128, 32):
@@ -1840,6 +1944,9 @@ def main() -> None:
                 "library_ms": sdpa_fwd[0] if name == "flash_fwd" else None,
                 "library_ms_graph": sdpa_fwd[1] if name == "flash_fwd" else None,
             })
+            if d == 64:
+                # phase 12's two worker processes (the survivor, the rejoiner)
+                kernels[-1]["launches_kill_rejoin"] = recovery_launches[name]
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke.py: {time.perf_counter() - started:.1f} s")
     log(smi)

@@ -5,10 +5,10 @@ checks run in fresh subprocesses whose imports of jax, jaxlib, optax and
 ``torchft_tpu`` raise, and inspect their ``sys.modules``: a one-group
 fault-tolerant step of the port and one DiLoCo sync (``sync_every=1``)
 over CollectivesTcp, then a step of the CIFAR example's narrow ResNet and
-the sampler; and two groups as threads over CollectivesDevice, the second
+the sampler, and the recovery harness's import; and two groups as threads over CollectivesDevice, the second
 joining late and healing over CollectivesTransport. A static check covers
-every module of the package (the examples and the lighthouse CLI
-included) and ``chip_smoke.py``.
+every module of the package (the examples, the lighthouse CLI and the
+recovery harness included) and ``chip_smoke.py``.
 """
 
 import ast
@@ -72,6 +72,7 @@ from torchft_tpu_torch.data import DistributedSampler, step_indices
 from torchft_tpu_torch.examples.train_cifar import CifarStep
 from torchft_tpu_torch.models.resnet import ResNetConfig
 import torchft_tpu_torch.lighthouse
+import torchft_tpu_torch.benchmarks.recovery
 ids = step_indices(DistributedSampler(64, replica_group=0, num_replica_groups=2), 0, 4)
 cifar = CifarStep(ResNetConfig(channels=(4, 8, 16, 32), dtype=torch.float32), device="cpu")
 cparams, cstats = cifar.init(0)
@@ -168,7 +169,8 @@ def test_ft_step_runs_without_jax_or_reference_package():
     assert out["committed"] and out["synced"] and out["step"] == 2
     assert math.isfinite(out["loss"]) and out["loss"] > 0
     assert math.isfinite(out["cifar_loss"]) and out["cifar_loss"] > 0
-    for module in ("data", "models.resnet", "lighthouse", "examples.train_cifar"):
+    for module in ("data", "models.resnet", "lighthouse", "examples.train_cifar",
+                   "benchmarks.recovery"):
         assert f"torchft_tpu_torch.{module}" in out["modules"]
 
 
@@ -196,7 +198,8 @@ def test_no_forbidden_imports_in_sources():
             "torchft_tpu_torch/checkpointing/collectives_transport.py",
             "torchft_tpu_torch/data.py", "torchft_tpu_torch/models/resnet.py",
             "torchft_tpu_torch/lighthouse.py",
-            "torchft_tpu_torch/examples/train_cifar.py"} <= scanned
+            "torchft_tpu_torch/examples/train_cifar.py",
+            "torchft_tpu_torch/benchmarks/recovery.py"} <= scanned
     bad = []
     for path in _port_sources():
         with open(path, encoding="utf-8") as f:

@@ -1,0 +1,529 @@
+"""Recovery wall clock: SIGKILL one replica group, time the survivor's
+blackout and the rejoiner's time to its first commit — the port's copy of
+``torchft_tpu/benchmarks/recovery.py``.
+
+The groups are worker processes (``python -m
+torchft_tpu_torch.benchmarks.recovery`` with ``TORCHFT_EVENT_LOG`` set),
+each training the transformer through the port's entry points: a
+``Manager`` on ``CollectivesTcp`` with the ``HTTPTransport`` heal, and
+``FTTrainer`` over ``TrainStep`` (replayed from CUDA graphs on the card).
+One lighthouse (``min_replicas=1``, ``join_timeout_ms=100``) and one
+``StoreServer`` per group live in the orchestrator. Once the last group
+has committed ``kill_at_step`` it takes SIGKILL (no cleanup, no goodbye:
+its manager server and heartbeats die with it) and is respawned by hand,
+so the respawn time is known exactly; it heals from a survivor.
+
+The device comes from the environment, as in ``examples/train_cifar.py``:
+``DEVICE`` is ``cuda`` (the default) or ``cpu``, and a worker asked for
+the card where there is none raises. On the card the workers train the
+headline (d512 L8 h8 ff1408 vocab 32000 bf16, batch 8 x seq 1024,
+``attention_impl="flash"``), on the CPU a tiny float32 model (the tests).
+
+Each worker appends JSON lines to its event log (a SIGKILL may leave a
+torn last line, which the reader skips): ``start`` (imports done),
+``ready`` (CUDA, the kernel library and the model on the device),
+``manager`` (the Manager up), ``trainer`` (the optimizer made and the
+trainer registered), ``configured`` (a quorum delivered and the plane
+rebuilt), ``heal_begin`` / ``heal_end`` (bytes, seconds),
+``eviction`` (victim, evicted), ``commit`` / ``abort`` (step, loss,
+participants, the latched error and whether a deadline caused it),
+``timeout_retry`` (a step that hit a deadline, retried) and
+``final`` (a sha256 of params and optimizer state, the
+graph captures, the flash launches per step, the heal).
+
+Reported (seconds, host wall clock):
+
+* ``survivor_blackout_s``: the survivor's last commit before the kill to
+  its first after it: death detection, the eviction report, the
+  re-quorum and the plane's rebuild, and the doomed step;
+* ``rejoin_to_commit_s``: the respawn to the rejoiner's first commit,
+  split in ``rejoin_parts_s`` by the events above: process start and
+  ``import torch``; CUDA, kernels and model; Manager up; optimizer and
+  trainer; the first quorum; the heal; the rest of the first step (its forward and backward
+  overlap the quorum and the heal, so they show in the parts they
+  overlap);
+* ``steady_step_s``: the median interval between the survivor's commits
+  before the kill, and ``survivor_steps_lost``;
+* ``timeout_retries`` and ``deadline_aborts``: per group, the steps that
+  hit a deadline (the worker retries them; phase 12 of ``chip_smoke.py``
+  fails on any).
+
+Usage: ``python -m torchft_tpu_torch.benchmarks.recovery`` (the card) or
+``DEVICE=cpu python -m torchft_tpu_torch.benchmarks.recovery``; prints
+the result as one JSON line.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import signal
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+__all__ = ["measure_recovery", "RecoveryResult"]
+
+
+def _model_config(device_type: str):
+    """The model and (batch, seq) a worker trains: the headline on the
+    card, two narrow float32 layers on the CPU."""
+    import torch
+
+    from torchft_tpu_torch.models.transformer import TransformerConfig, headline_config
+
+    if device_type == "cuda":
+        return headline_config(), (8, 1024)
+    return TransformerConfig(
+        vocab_size=64, d_model=32, n_layers=2, n_heads=4, head_dim=8, d_ff=64,
+        dtype=torch.float32, attention_impl="flash",
+    ), (2, 128)
+
+
+# ---------------------------------------------------------------------------
+# worker (subprocess entry: python -m torchft_tpu_torch.benchmarks.recovery)
+# ---------------------------------------------------------------------------
+
+
+class _EventLog:
+    """Appends one JSON object per line; any thread may write."""
+
+    def __init__(self, path: str) -> None:
+        self._f = open(path, "a")
+        self._lock = threading.Lock()
+
+    def emit(self, **event: Any) -> None:
+        event["t"] = time.time()
+        with self._lock:
+            self._f.write(json.dumps(event) + "\n")
+            self._f.flush()
+
+    def close(self) -> None:
+        self._f.close()
+
+
+def _state_digest(trainer) -> str:
+    """sha256 over the params and the optimizer's per-param state."""
+    import hashlib
+
+    import torch
+
+    from torchft_tpu_torch.utils.tree import tree_leaves
+
+    h = hashlib.sha256()
+    leaves = list(tree_leaves(trainer.params))
+    state = trainer.opt.state_dict()["state"]
+    for i in sorted(state):
+        leaves += [state[i][k] for k in sorted(state[i])]
+    for leaf in leaves:
+        h.update(leaf.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _instrument(manager, log: _EventLog, heal: Dict[str, Any]) -> None:
+    """Wrap the Manager's plane, heal transport and eviction report so each
+    writes its event (the port has no telemetry trail)."""
+    import torch
+
+    from torchft_tpu_torch.utils.tree import tree_leaves
+
+    configure = manager._collectives.configure
+
+    def configured(store_addr, rank, world_size):
+        configure(store_addr, rank, world_size)
+        log.emit(event="configured", rank=rank, world_size=world_size)
+
+    manager._collectives.configure = configured
+    transport = manager._checkpoint_transport
+    recv = transport.recv_checkpoint
+
+    def timed_recv(*args, **kwargs):
+        log.emit(event="heal_begin")
+        t0 = time.perf_counter()
+        state = recv(*args, **kwargs)
+        heal["seconds"] = time.perf_counter() - t0
+        heal["bytes"] = sum(x.nbytes for x in tree_leaves(state) if isinstance(x, torch.Tensor))
+        log.emit(event="heal_end", bytes=heal["bytes"], seconds=heal["seconds"])
+        return state
+
+    transport.recv_checkpoint = timed_recv
+    report = manager._report_eviction
+
+    def reported(victim):
+        evicted = report(victim)
+        log.emit(event="eviction", victim=victim, evicted=evicted)
+        return evicted
+
+    manager._report_eviction = reported
+
+
+def _hit_deadline(err: Optional[BaseException]) -> bool:
+    """Whether a step's latched error is, or was caused by, a deadline."""
+    seen = 0
+    while err is not None and seen < 8:
+        if isinstance(err, TimeoutError):
+            return True
+        err = err.__cause__ or err.__context__
+        seen += 1
+    return False
+
+
+def _worker() -> None:
+    import logging
+
+    import numpy as np
+    import torch
+
+    from datetime import timedelta
+
+    from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
+    from torchft_tpu_torch.collectives import CollectivesTcp
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.parallel.ft import FTTrainer
+    from torchft_tpu_torch.parallel.train_step import TrainStep, synchronize
+    from torchft_tpu_torch.utils.platform import resolve_device
+
+    # the Manager's log (quorums, heals, eviction reports) goes to the
+    # worker's stderr file beside its event log
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    gid = int(os.environ["REPLICA_GROUP_ID"])
+    num_groups = int(os.environ["NUM_REPLICA_GROUPS"])
+    total_steps = int(os.environ["TORCHFT_BENCH_STEPS"])
+    step_sleep = float(os.environ.get("TORCHFT_BENCH_STEP_SLEEP", "0"))
+    op_timeout = timedelta(seconds=float(os.environ["TORCHFT_BENCH_OP_TIMEOUT"]))
+    log = _EventLog(os.environ["TORCHFT_EVENT_LOG"])
+    log.emit(event="start", gid=gid, pid=os.getpid())
+
+    device = resolve_device(os.environ.get("DEVICE", "cuda"))
+    if device.type == "cpu":
+        # the groups share the host's cores: intra-op thread pools in every
+        # process spin against each other (a tiny step takes 40x longer)
+        torch.set_num_threads(1)
+    cfg, (batch, seq) = _model_config(device.type)
+    if device.type == "cuda":
+        fa.build()  # built by the orchestrator: a lookup here
+    ts = TrainStep(cfg, device=device)
+    params = ts.init_params(seed=0)
+    synchronize(device)
+    log.emit(event="ready", device=str(device))
+
+    manager = Manager(
+        collectives=CollectivesTcp(timeout=op_timeout),
+        load_state_dict=None,
+        state_dict=None,
+        min_replica_size=1,
+        replica_id=f"group{gid}_",
+        rank=0,
+        world_size=1,
+        timeout=op_timeout,
+        quorum_timeout=timedelta(seconds=60),
+        connect_timeout=timedelta(seconds=30),
+        checkpoint_transport=HTTPTransport(timeout=op_timeout),
+    )
+    heal: Dict[str, Any] = {}
+    _instrument(manager, log, heal)
+    log.emit(event="manager", replica_id=manager._replica_id)
+    if step_sleep:
+        # paced as the JAX worker's toy step: the sleep comes between the
+        # quorum request and the allreduce, so every group's request leaves
+        # right after its previous commit, and a sleep that overruns on a
+        # loaded host does not make its group a straggler at the quorum
+        start_quorum = manager.start_quorum
+
+        def paced(*args, **kwargs):
+            start_quorum(*args, **kwargs)
+            time.sleep(step_sleep)
+
+        manager.start_quorum = paced
+    trainer = FTTrainer(manager, ts)
+    trainer.init(params=params)
+    del params
+    log.emit(event="trainer")
+    launches_per_step: List[Dict[str, int]] = []
+    try:
+        while True:
+            step = manager.current_step()
+            tokens = torch.from_numpy(
+                np.random.default_rng([gid, step]).integers(0, cfg.vocab_size, (batch, seq))
+            ).to(device)
+            before = dict(fa.LAUNCHES)
+            try:
+                loss, committed = trainer.step(tokens)
+            except TimeoutError as e:
+                # a real trainer retries the step; the orchestrator's own
+                # deadline still bounds a wedge, and the result counts the
+                # retries (``RecoveryResult.timeout_retries``)
+                log.emit(event="timeout_retry", gid=gid, err=str(e)[:200])
+                continue
+            launches_per_step.append({k: fa.LAUNCHES[k] - before[k] for k in before})
+            participants = manager.num_participants()
+            err = manager.errored()
+            log.emit(event="commit" if committed else "abort", gid=gid,
+                     step=manager.current_step(), loss=loss, participants=participants,
+                     pid=os.getpid(), err=None if err is None else str(err)[:200],
+                     deadline=_hit_deadline(err))
+            # every group leaves after the same joint step, so each ends
+            # with the state the others hold
+            if committed and manager.current_step() >= total_steps and participants == num_groups:
+                break
+        synchronize(device)
+        log.emit(
+            event="final", gid=gid, step=manager.current_step(), digest=_state_digest(trainer),
+            captures=dict(ts.graphs.captures) if ts.graphs is not None else None,
+            launches=dict(fa.LAUNCHES), steps=len(launches_per_step),
+            # the distinct per-step counts: one entry when every step ran
+            # the same kernels
+            launches_per_step=[x for i, x in enumerate(launches_per_step)
+                               if x not in launches_per_step[:i]],
+            heal=heal or None,
+        )
+    finally:
+        manager.shutdown(wait=False)
+        log.emit(event="exit", gid=gid, pid=os.getpid())
+        log.close()
+
+
+# ---------------------------------------------------------------------------
+# orchestrator
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class RecoveryResult:
+    survivor_blackout_s: float
+    rejoin_to_commit_s: float
+    steady_step_s: float
+    survivor_steps_lost: int
+    total_steps: int
+    # the rejoiner's start-up, split by its events (see the module doc)
+    rejoin_parts_s: Dict[str, float] = field(default_factory=dict)
+    # each group's last incarnation's ``final`` event, by group id
+    finals: Dict[int, Dict[str, Any]] = field(default_factory=dict)
+    # the survivors' eviction reports after the kill: (group, victim, evicted)
+    evictions: List[tuple] = field(default_factory=list)
+    survivor_commits_after_kill: int = 0
+    rejoiner_commits: int = 0
+    # deadlines hit during the run, by group id (every incarnation): steps
+    # that raised TimeoutError and were retried, and steps that voted False
+    # on a latched error caused by a deadline (an op's, a heal's)
+    timeout_retries: Dict[int, int] = field(default_factory=dict)
+    deadline_aborts: Dict[int, int] = field(default_factory=dict)
+    log_paths: List[str] = field(default_factory=list)
+
+    def as_dict(self) -> Dict[str, object]:
+        return {
+            "survivor_blackout_s": round(self.survivor_blackout_s, 3),
+            "rejoin_to_commit_s": round(self.rejoin_to_commit_s, 3),
+            "rejoin_parts_s": {k: round(v, 3) for k, v in self.rejoin_parts_s.items()},
+            "steady_step_s": round(self.steady_step_s, 4),
+            "blackout_steps": round(
+                self.survivor_blackout_s / max(self.steady_step_s, 1e-9), 1
+            ),
+            "survivor_steps_lost": self.survivor_steps_lost,
+            "timeout_retries": dict(self.timeout_retries),
+            "deadline_aborts": dict(self.deadline_aborts),
+        }
+
+
+def _read_events(path: str) -> List[Dict[str, Any]]:
+    """Parse a JSONL event log, skipping the torn last line a SIGKILLed
+    writer may leave."""
+    records: List[Dict[str, Any]] = []
+    try:
+        with open(path, encoding="utf-8") as f:
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                try:
+                    records.append(json.loads(line))
+                except ValueError:
+                    continue
+    except FileNotFoundError:
+        pass
+    return records
+
+
+def _spawn(gid: int, env_extra: Dict[str, str], num_groups: int) -> subprocess.Popen:
+    from torchft_tpu_torch.store import StoreServer
+
+    store = StoreServer()
+    env = dict(os.environ)
+    env.update(env_extra)
+    # a checkout need not be installed: make the package importable in the
+    # child whatever the parent's working directory
+    pkg_parent = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (pkg_parent, env.get("PYTHONPATH")) if p)
+    env.update(
+        TORCHFT_STORE_ADDR=store.address(),
+        REPLICA_GROUP_ID=str(gid),
+        NUM_REPLICA_GROUPS=str(num_groups),
+        RANK="0",
+        WORLD_SIZE="1",
+    )
+    with open(env["TORCHFT_EVENT_LOG"] + ".stderr", "ab") as stderr_f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torchft_tpu_torch.benchmarks.recovery"],
+            env=env, stdout=subprocess.DEVNULL, stderr=stderr_f,
+        )
+    proc._torchft_store = store  # the store lives as long as the process
+    return proc
+
+
+def _stderr_tail(log: str, n: int = 3000) -> str:
+    try:
+        with open(log + ".stderr", errors="replace") as f:
+            return f.read()[-n:]
+    except FileNotFoundError:
+        return ""
+
+
+def _wait_for(logs: List[str], gid: int, pred, timeout_s: float, procs) -> Dict:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        for e in _read_events(logs[gid]):
+            if pred(e):
+                return e
+        for g, p in enumerate(procs):
+            if p is not None and p.poll() not in (None, 0):
+                raise RuntimeError(
+                    f"group {g} died early (rc={p.poll()}):\n{_stderr_tail(logs[g])}"
+                )
+        time.sleep(0.02)
+    raise TimeoutError("recovery bench: an expected event never arrived")
+
+
+def measure_recovery(
+    total_steps: int = 20,
+    kill_at_step: int = 6,
+    step_sleep: float = 0.0,
+    op_timeout: float = 30.0,
+    heartbeat_timeout_ms: int = 5000,
+    timeout_s: float = 300.0,
+    num_groups: int = 2,
+) -> RecoveryResult:
+    """Kill group ``num_groups - 1`` of ``num_groups`` once it has committed
+    ``kill_at_step``, respawn it, and measure the envelope. Every group
+    must exit 0. The defaults are the card's: the lighthouse's own 5 s
+    lease, and an op timeout far above a joint step of the headline over
+    TCP, so that the timeout never paces a slow step (detection by FIN does
+    not depend on it)."""
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.utils.platform import resolve_device
+
+    device = resolve_device(os.environ.get("DEVICE", "cuda"))
+    if device.type == "cuda":
+        from torchft_tpu_torch.ops import flash_attention as fa
+
+        fa.build()  # once, here: no worker's timings include a build
+    victim_gid = num_groups - 1
+    tmp = tempfile.mkdtemp(prefix="tft_torch_recovery_")
+    logs = [os.path.join(tmp, f"g{g}.jsonl") for g in range(num_groups)]
+    # the lighthouse loads (or builds) the native core before any spawn
+    lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1, join_timeout_ms=100,
+                                  heartbeat_timeout_ms=heartbeat_timeout_ms)
+    common = {
+        "TORCHFT_LIGHTHOUSE": lighthouse.address().split("//", 1)[-1],
+        "TORCHFT_BENCH_STEPS": str(total_steps),
+        "TORCHFT_BENCH_STEP_SLEEP": str(step_sleep),
+        "TORCHFT_BENCH_OP_TIMEOUT": str(op_timeout),
+    }
+    procs: List[Optional[subprocess.Popen]] = [None] * num_groups
+    try:
+        for g in range(num_groups):
+            procs[g] = _spawn(g, {**common, "TORCHFT_EVENT_LOG": logs[g]}, num_groups)
+        _wait_for(logs, victim_gid,
+                  lambda e: e["event"] == "commit" and e["step"] >= kill_at_step,
+                  timeout_s, procs)
+        t_kill = time.time()
+        procs[victim_gid].send_signal(signal.SIGKILL)
+        procs[victim_gid].wait()
+        procs[victim_gid]._torchft_store.shutdown()
+        t_respawn = time.time()
+        procs[victim_gid] = _spawn(victim_gid, {**common, "TORCHFT_EVENT_LOG": logs[victim_gid]},
+                                   num_groups)
+        post = _wait_for(logs, 0, lambda e: e["event"] == "commit" and e["t"] > t_kill,
+                         timeout_s, procs)
+        rejoin = _wait_for(logs, victim_gid,
+                           lambda e: e["event"] == "commit" and e["t"] > t_respawn,
+                           timeout_s, procs)
+        deadline = time.monotonic() + timeout_s
+        for g, p in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise TimeoutError(f"group {g} did not finish:\n{_stderr_tail(logs[g])}")
+            if rc != 0:
+                # a crash after the measured commits would otherwise pass
+                raise RuntimeError(f"group {g} exited rc={rc}:\n{_stderr_tail(logs[g])}")
+
+        events = [_read_events(path) for path in logs]
+        g0 = [e for e in events[0] if e["event"] == "commit"]
+        pre = [e for e in g0 if e["t"] <= t_kill]
+        steady = sorted(b["t"] - a["t"] for a, b in zip(pre, pre[1:]))
+        steady_step = steady[len(steady) // 2] if steady else step_sleep
+        last_pre = pre[-1] if pre else {"t": t_kill, "step": kill_at_step}
+        blackout = post["t"] - last_pre["t"]
+        # committed steps the survivor would have made in the blackout, less
+        # the ones it made: the envelope in steps
+        lost = max(0, int(blackout / max(steady_step, 1e-9)) - (post["step"] - last_pre["step"]))
+        # the respawned incarnation's events follow its respawn
+        mine = [e for e in events[victim_gid] if e["t"] > t_respawn]
+        first = {}
+        for e in mine:
+            first.setdefault(e["event"], e["t"])
+        marks = [("start", "process start and import torch"),
+                 ("ready", "CUDA, kernels and model"), ("manager", "Manager up"),
+                 ("trainer", "optimizer and trainer"), ("configured", "first quorum"),
+                 ("heal_end", "heal")]
+        parts, prev = {}, t_respawn
+        for name, label in marks:
+            if name in first:
+                parts[label] = first[name] - prev
+                prev = first[name]
+        parts["rest of the first step"] = rejoin["t"] - prev
+        finals = {}
+        for g in range(num_groups):
+            last = [e for e in events[g] if e["event"] == "final"]
+            if last:
+                finals[g] = last[-1]
+        evictions = [(g, e["victim"], e["evicted"]) for g in range(num_groups)
+                     if g != victim_gid for e in events[g]
+                     if e["event"] == "eviction" and t_kill < e["t"] <= post["t"] + 10]
+        return RecoveryResult(
+            survivor_blackout_s=blackout,
+            rejoin_to_commit_s=rejoin["t"] - t_respawn,
+            steady_step_s=steady_step,
+            survivor_steps_lost=lost,
+            total_steps=total_steps,
+            rejoin_parts_s=parts,
+            finals=finals,
+            evictions=evictions,
+            survivor_commits_after_kill=len([e for e in g0 if e["t"] > t_kill]),
+            rejoiner_commits=len([e for e in mine if e["event"] == "commit"]),
+            timeout_retries={g: sum(e["event"] == "timeout_retry" for e in events[g])
+                             for g in range(num_groups)},
+            deadline_aborts={g: sum(e["event"] == "abort" and bool(e.get("deadline"))
+                                    for e in events[g]) for g in range(num_groups)},
+            log_paths=logs,
+        )
+    finally:
+        for p in procs:
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+            if p is not None:
+                p._torchft_store.shutdown()
+        lighthouse.shutdown()
+
+
+if __name__ == "__main__":
+    if "TORCHFT_EVENT_LOG" in os.environ:
+        _worker()
+    else:
+        print(json.dumps(measure_recovery().as_dict()))

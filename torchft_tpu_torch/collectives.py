@@ -11,13 +11,18 @@ compiled model on host buffers (numpy arrays, averaged in place).
 sockets and re-rendezvouses through the epoch-prefixed store namespace
 ``{store}/torchft/{quorum_id}/{rank}``.
 
-Left out (ROADMAP): the native striped plane, CMA, wire codecs, the death
-watch, fault points and the flight recorder.
+The death watch (``set_death_watch``) polls the epoch's peer sockets and
+reports a peer whose socket closed, so the Manager can evict it and
+re-quorum while the doomed step still runs.
+
+Left out (ROADMAP): the native striped plane, CMA, wire codecs, fault
+points and the flight recorder.
 """
 
 from __future__ import annotations
 
 import logging
+import select
 import socket
 import struct
 import threading
@@ -166,6 +171,9 @@ _HELLO_MAGIC = 0x7F7A0001
 _FRAME_HDR = struct.Struct("<II")  # (tag, length) — tag catches desync bugs
 _P2P_WORKERS = 8  # concurrent point-to-point ops
 _STASH_LIMIT = 1 << 30  # bytes parked for unclaimed tags: the desync tripwire
+# the death watch's poll interval bounds detection latency, and so a
+# survivor's blackout; 40 wake-ups a second per plane cost nothing measurable
+_DEATH_WATCH_POLL_MS = 25
 
 
 def _send_frame(sock: socket.socket, tag: int, payload: memoryview) -> None:
@@ -235,6 +243,7 @@ class CollectivesTcp(Collectives):
     ) -> None:
         self._timeout = timeout
         self._hostname = hostname or socket.gethostname()
+        self._death_watch_cb: Optional[Callable[[int, int], None]] = None
         self._scratch: Dict[str, np.ndarray] = {}
         self._rank = -1
         self._world = 0
@@ -287,6 +296,78 @@ class CollectivesTcp(Collectives):
         for peer in range(rank):
             self._dial(peer, self._timeout)
         self._wait_for_peers(set(range(rank + 1, world_size)))
+        if self._death_watch_cb is not None:
+            threading.Thread(
+                target=self._death_watch_loop, args=(gen,), daemon=True,
+                name="tft_death_watch",
+            ).start()
+
+    def set_death_watch(self, cb: Callable[[int, int], None]) -> None:
+        """Register a peer-death callback, called ``cb(ring_rank, gen)``
+        with the ring rank whose socket hit EOF or an error and the plane
+        generation that rank belongs to (pair it with
+        :meth:`plane_generation` to drop a callback that raced a
+        reconfigure: one ring rank is another replica in another epoch).
+        Armed at the next ``configure()``. A SIGKILLed peer's FIN reaches
+        every survivor within milliseconds, long before their next op
+        touches the socket. A false report (a peer tearing down an old
+        epoch early) is safe: the lighthouse probes the victim before it
+        evicts."""
+        self._death_watch_cb = cb
+
+    def plane_generation(self) -> int:
+        """Epoch counter, bumped by every ``configure()`` and teardown;
+        death-watch callbacks carry the generation they were armed for."""
+        with self._peers_lock:
+            return self._generation
+
+    def _death_watch_loop(self, gen: int) -> None:
+        poll_rdhup = getattr(select, "POLLRDHUP", 0x2000)
+        poller = select.poll()
+        with self._peers_lock:
+            if gen != self._generation:
+                return
+            fds = {}
+            for r, p in self._peers.items():
+                try:
+                    fds[p.sock.fileno()] = r
+                except OSError:
+                    continue
+        for fd in fds:
+            poller.register(fd, select.POLLERR | select.POLLHUP | poll_rdhup)
+        reported: set = set()
+        while True:
+            with self._peers_lock:
+                if gen != self._generation:
+                    return
+            try:
+                events = poller.poll(_DEATH_WATCH_POLL_MS)
+            except OSError:
+                return
+            for fd, ev in events:
+                if ev & select.POLLNVAL:
+                    try:
+                        poller.unregister(fd)
+                    except (KeyError, OSError):
+                        pass
+                    continue
+                rank = fds.get(fd)
+                if rank is None or rank in reported:
+                    continue
+                reported.add(rank)
+                try:
+                    poller.unregister(fd)
+                except (KeyError, OSError):
+                    pass
+                with self._peers_lock:
+                    if gen != self._generation:
+                        return
+                cb = self._death_watch_cb
+                if cb is not None:
+                    try:
+                        cb(rank, gen)
+                    except Exception:  # noqa: BLE001 — the watch keeps running
+                        logger.exception("death-watch callback failed")
 
     def _wait_for_peers(self, expected: set) -> None:
         import time
@@ -344,6 +425,13 @@ class CollectivesTcp(Collectives):
         with self._peers_lock:
             self._generation += 1
         if self._listener is not None:
+            # shutdown() wakes the acceptor blocked in accept(); close()
+            # alone leaves it parked for the life of the process, holding
+            # this plane (and, through the death watch, the Manager)
+            try:
+                self._listener.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
             try:
                 self._listener.close()
             except OSError:

@@ -14,7 +14,13 @@ from typing import Any, Dict, List, Optional
 
 from torchft_tpu_torch import _native
 
-__all__ = ["LighthouseServer", "ManagerServer", "ManagerClient", "QuorumResult"]
+__all__ = [
+    "LighthouseServer",
+    "LighthouseClient",
+    "ManagerServer",
+    "ManagerClient",
+    "QuorumResult",
+]
 
 
 def _ms(t: timedelta) -> int:
@@ -68,8 +74,10 @@ class QuorumResult:
 class LighthouseServer:
     """Global quorum coordinator across replica groups (C++ server,
     native/coord.cc): heartbeat health, fast quorum, split-brain guard,
-    join-timeout straggler wait. Defaults: join=100ms, tick=100ms,
-    heartbeat timeout=5s."""
+    join-timeout straggler wait, and eviction reports (``lh.evict``: the
+    victim's manager address is probed for 100 ms before its heartbeat
+    lease is expired). Defaults: join=100ms, tick=100ms, heartbeat
+    timeout=5s."""
 
     def __init__(
         self,
@@ -186,6 +194,38 @@ class ManagerClient:
         req = {"rank": rank, "step": step, "should_commit": should_commit}
         resp = self._client.call("mgr.should_commit", req, _ms(timeout))
         return resp["should_commit"]
+
+    def evict(self, victim: str, timeout: timedelta = timedelta(seconds=5)) -> bool:
+        """Report ``victim`` (a replica_id seen dead on the data plane) for
+        immediate eviction. The manager forwards it to the lighthouse, which
+        probes the victim's manager address before expiring its heartbeat:
+        a false report about a live peer is a no-op. Returns whether the
+        victim was evicted."""
+        resp = self._client.call("mgr.evict", {"victim": victim}, _ms(timeout))
+        return bool(resp.get("evicted", False))
+
+    def close(self) -> None:
+        self._client.close()
+
+
+class LighthouseClient:
+    """Direct lighthouse client: heartbeats and eviction reports. The
+    manager server normally sends both; exposed for tests and tooling."""
+
+    def __init__(self, addr: str, connect_timeout: timedelta) -> None:
+        self._client = _native.NativeClient(addr, _ms(connect_timeout))
+
+    def heartbeat(self, replica_id: str, timeout: timedelta = timedelta(seconds=5)) -> None:
+        self._client.call("lh.heartbeat", {"replica_id": replica_id}, _ms(timeout))
+
+    def evict(
+        self, reporter: str, victim: str, timeout: timedelta = timedelta(seconds=5)
+    ) -> bool:
+        """Direct eviction report (see :meth:`ManagerClient.evict`)."""
+        resp = self._client.call(
+            "lh.evict", {"reporter": reporter, "victim": victim}, _ms(timeout)
+        )
+        return bool(resp.get("evicted", False))
 
     def close(self) -> None:
         self._client.close()

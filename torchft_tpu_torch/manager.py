@@ -17,11 +17,18 @@
 * the pipelined commit (``commit_pipeline=True``): ``should_commit_async``
   issues the vote on its own thread and socket while the trainer runs the
   next step, ``resolve_pending_commit`` lands it, and a speculation fence
-  keeps the quorum thread's heal traffic off speculative state.
+  keeps the quorum thread's heal traffic off speculative state;
+* the death path: a peer that dies on the data plane (the collectives'
+  death watch, or an op failing with ``PeerGoneError``) is reported to the
+  lighthouse for eviction at once, so the next quorum need not wait out
+  its heartbeat lease; the death watch also starts an early re-quorum
+  (no heal) under the doomed step, whose quorum the retried step then
+  takes (with its heal), and a step whose ops spanned two quorum epochs
+  votes False.
 
-Left out (ROADMAP): telemetry, tracing, the step watchdog and the death
-watch, the divergence sentinel, striped / differential heal, eviction
-reports from the data plane, and ``WorldSizeMode.FIXED_WITH_SPARES``.
+Left out (ROADMAP): telemetry, tracing, the step watchdog, the divergence
+sentinel, striped / differential heal and
+``WorldSizeMode.FIXED_WITH_SPARES``.
 """
 
 from __future__ import annotations
@@ -35,14 +42,14 @@ import threading
 import uuid
 from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
-from typing import Any, Callable, Dict, List, Optional, TypeVar, cast
+from typing import Any, Callable, Dict, List, Optional, Tuple, TypeVar, cast
 
 import numpy as np
 import torch
 
 from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
 from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
-from torchft_tpu_torch.collectives import Collectives, ReduceOp
+from torchft_tpu_torch.collectives import Collectives, PeerGoneError, ReduceOp
 from torchft_tpu_torch.coordination import ManagerClient, ManagerServer
 from torchft_tpu_torch.futures import Future, future_timeout, run_in_executor
 from torchft_tpu_torch.store import StoreClient
@@ -65,7 +72,7 @@ class _PendingCommit:
     already describe the next step."""
 
     __slots__ = ("future", "step", "n_step", "local_vote", "enough_replicas",
-                 "errored", "on_resolved")
+                 "mixed_epochs", "errored", "on_resolved")
 
     def __init__(self) -> None:
         self.future: Optional[Future] = None
@@ -73,6 +80,7 @@ class _PendingCommit:
         self.n_step = 0
         self.local_vote = False
         self.enough_replicas = False
+        self.mixed_epochs = False
         self.errored: Optional[Exception] = None
         self.on_resolved: Optional[Callable[[bool], None]] = None
 
@@ -174,8 +182,15 @@ class Manager:
             checkpoint_transport
         )
         self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="async_quorum")
-        self._quorum_future: Optional[concurrent.futures.Future] = None
+        self._quorum_future: Optional[concurrent.futures.Future] = None  # guarded-by: _qf_lock
+        # guards _quorum_future replacement: the death watch may submit an
+        # early re-quorum from its monitor thread (see _on_peer_death)
+        self._qf_lock = threading.Lock()
         self._shutting_down = False
+        self._last_quorum_args: tuple = (True, False, None)
+        # the death watch's last early re-quorum: the next start_quorum
+        # takes its result for the retried step instead of asking again
+        self._early_future: Optional[concurrent.futures.Future] = None  # guarded-by: _qf_lock
 
         self._store = StoreClient(store_addr, connect_timeout=connect_timeout)
         self._collectives = collectives
@@ -202,19 +217,44 @@ class Manager:
         self._replica_id = self._store.get(REPLICA_ID_KEY).decode()
         self._logger = _ManagerLogger(self, self._replica_id, self._rank)
 
-        # written by the quorum thread during a heal; wait_quorum() orders
-        # those writes before main-thread reads
+        # unguarded-ok: quorum-thread handoff — wait_quorum() orders the
+        #   quorum thread's heal write of _step before main-thread reads
         self._step = 0
         self._quorum_id = -1
+        # _participant_ids/_evicted cross three threads: the quorum thread
+        # replaces membership each epoch, while the death-watch monitor and
+        # the main thread's error paths report evictions. The lock makes
+        # check-then-add one step (a victim reported twice costs a second
+        # liveness probe) and keeps attribution reading a consistent pair.
+        self._evict_lock = threading.Lock()
+        self._participant_ids: List[str] = []  # guarded-by: _evict_lock
+        self._evicted: set = set()  # guarded-by: _evict_lock
+        # (plane_generation, participant_ids) armed for the death watch
+        self._death_watch_snapshot: Optional[Tuple[int, List[str]]] = None
+        # unguarded-ok: issue-time latch — read at the commit barrier after
+        #   the pending-work drain (last write wins is the latch contract)
         self._commit_failures = 0  # pending data-plane flush request
-        # error latch: any thread may latch, the commit barrier reads it
-        # after draining pending work
+        # unguarded-ok: error latch — any thread may latch, the commit
+        #   barrier reads it after draining pending work; a racing latch
+        #   changes which error aborts the step, never whether it aborts
         self._errored: Optional[Exception] = None
         self._errored_epoch = -1  # quorum_id whose plane produced _errored
+        self._step_epochs: set = set()  # quorum_ids this step's ops ran on
         self._step_n: Optional[int] = None  # issue-time participant count
+
+        # The data plane's sockets learn of a dead peer (FIN/RST) within
+        # milliseconds, long before the next op would trip over them: the
+        # eviction and the re-quorum then overlap the doomed step.
+        if hasattr(collectives, "set_death_watch"):
+            collectives.set_death_watch(self._on_peer_death)
+        # unguarded-ok: quorum-thread handoff — wait_quorum() (async) or the
+        #   synchronous start_quorum path orders the quorum thread's writes
         self._healing = False
+        # unguarded-ok: quorum-thread handoff — same barrier as _healing
         self._group_healing = False
         self._pending_work: List[Future] = []
+        # unguarded-ok: quorum-thread handoff — the heal restores it on the
+        #   quorum thread, the main thread increments it after the drain
         self._batches_committed = 0
         self._participating_rank: Optional[int] = None
         self._participating_world_size: int = 0
@@ -282,24 +322,62 @@ class Manager:
         self._errored = None
         self._healing = False
         self._group_healing = False
+        self._step_epochs = set()
         self._step_n = None
-        prev = self._quorum_future
-        if prev is not None:
+        # the stream that trains: the heal's device work runs on it
+        stream = torch.cuda.current_stream() if torch.cuda.is_initialized() else None
+        # Replace under the lock, wait outside it. A future is replaced only
+        # once it is seen done under the lock, so a death-watch submission
+        # is never overwritten unobserved; and the wait must not hold the
+        # lock, or an early re-quorum's long-poll would block the death
+        # watch's eviction reports for up to the quorum timeout.
+        while True:
+            with self._qf_lock:
+                prev = self._quorum_future
+                if prev is None or prev.done():
+                    try:
+                        exc = prev.exception() if prev is not None else None
+                    except concurrent.futures.CancelledError as e:
+                        exc = e
+                    if exc is not None:
+                        # the failure already reached the caller through
+                        # wait_quorum/allreduce/should_commit; this call IS
+                        # the retry
+                        self._logger.warn(f"previous quorum attempt failed ({exc}); retrying")
+                    self._last_quorum_args = (allow_heal, shrink_only, timeout)
+                    early = self._reusable_early_quorum(prev, exc)
+                    self._early_future = None
+                    if early is not None:
+                        # the death watch's re-quorum delivered this epoch under
+                        # the doomed step; members that were between steps took
+                        # the same epoch as their next quorum and now wait in
+                        # its first op, so asking again would leave them there
+                        # until the op timeout (and the quorum formed without
+                        # them then repeats the pattern)
+                        self._logger.info(
+                            f"taking the early re-quorum's quorum_id={early.quorum_id} "
+                            f"for this step"
+                        )
+                        self._quorum_future = self._executor.submit(
+                            self._apply_quorum, early, allow_heal, stream
+                        )
+                    else:
+                        self._quorum_future = self._executor.submit(
+                            self._async_quorum,
+                            pending=self._pending_commit,
+                            allow_heal=allow_heal,
+                            shrink_only=shrink_only,
+                            quorum_timeout=timeout or self._quorum_timeout,
+                            stream=stream,
+                        )
+                    break
+            # a previous attempt is in flight: wait it out with the lock
+            # released, then look again (a death-watch submission landing
+            # in between is seen, not overwritten, on the next pass)
             try:
                 prev.result()
-            except Exception as e:  # noqa: BLE001 — surfaced on its own step
-                # the failure already reached the caller through
-                # wait_quorum/allreduce/should_commit; this call IS the retry
-                self._logger.warn(f"previous quorum attempt failed ({e}); retrying")
-        self._quorum_future = self._executor.submit(
-            self._async_quorum,
-            pending=self._pending_commit,
-            allow_heal=allow_heal,
-            shrink_only=shrink_only,
-            quorum_timeout=timeout or self._quorum_timeout,
-            # the stream that trains: the heal's device work runs on it
-            stream=torch.cuda.current_stream() if torch.cuda.is_initialized() else None,
-        )
+            except Exception:  # noqa: BLE001 — reported on the next pass
+                pass
         if not self._use_async_quorum:
             self.wait_quorum()
             if self._healing:
@@ -309,6 +387,24 @@ class Manager:
             # every rank healed before the forward pass: the whole group
             # contributes real gradients
             self._group_healing = False
+
+    def _reusable_early_quorum(self, prev, exc) -> Optional[Any]:
+        """The quorum an early re-quorum delivered, when the step about to
+        start may take it as its own (call under ``_qf_lock``): the doomed
+        step it ran under did not commit (this group retries the step it
+        reported), no flush is requested, no vote is in flight, and the
+        plane is still on that epoch."""
+        if prev is None or prev is not self._early_future or exc is not None:
+            return None
+        quorum, step = prev.result()
+        if (
+            self._pending_commit is not None
+            or step != self._step
+            or self._commit_failures
+            or quorum.quorum_id != self._quorum_id
+        ):
+            return None
+        return quorum
 
     def wait_quorum(self) -> None:
         """Block until the in-flight quorum completes; the data plane is
@@ -339,10 +435,13 @@ class Manager:
         shrink_only: bool,
         quorum_timeout: timedelta,
         stream: Optional["torch.cuda.Stream"] = None,
-    ) -> None:
+    ) -> Tuple[Any, int]:
+        """One quorum RPC and its application; returns the quorum and the
+        step this group reported in it."""
+        step = self._reported_step(pending)
         quorum = self._client._quorum(
             rank=self._rank,
-            step=self._reported_step(pending),
+            step=step,
             checkpoint_metadata=self._checkpoint_transport.metadata(),
             shrink_only=shrink_only,
             timeout=quorum_timeout,
@@ -350,6 +449,14 @@ class Manager:
             # every group (healthy ones too) re-rendezvouses
             commit_failures=self._commit_failures,
         )
+        self._apply_quorum(quorum, allow_heal, stream)
+        return quorum, step
+
+    def _apply_quorum(
+        self, quorum, allow_heal: bool, stream: Optional["torch.cuda.Stream"] = None
+    ) -> None:
+        """The quorum thread's use of a delivered quorum: the participant
+        ranks, the plane's reconfiguration on a new epoch, and the heal."""
         # async quorum overlaps the forward pass, so a healing replica can't
         # contribute this step (its state is in flight): the max-step cohort
         # participates. Sync quorum heals first, so every group does.
@@ -360,6 +467,9 @@ class Manager:
         )
         # if ANY local rank of this group heals, every rank contributes zeros
         self._group_healing = allow_heal and quorum.group_heal
+        with self._evict_lock:
+            self._participant_ids = quorum.participant_ids
+            self._evicted.clear()
 
         if quorum.quorum_id != self._quorum_id:
             store_prefixed_addr = (
@@ -371,6 +481,14 @@ class Manager:
             self._collectives.configure(
                 store_prefixed_addr, quorum.replica_rank, quorum.replica_world_size
             )
+            if hasattr(self._collectives, "plane_generation"):
+                # published after configure: a callback from the new ring
+                # that races this store is dropped as stale, which is safe
+                # (the lease still lapses on its own)
+                self._death_watch_snapshot = (
+                    self._collectives.plane_generation(),
+                    list(quorum.participant_ids),
+                )
             self._quorum_id = quorum.quorum_id
             self._commit_failures = 0  # the flush request has been honored
             if self._rank == 0:
@@ -509,8 +627,12 @@ class Manager:
             # the wait: the step is doomed, don't park in a ring whose peers
             # aborted
             return Future.completed(arrays)
+        # the plane epoch this op rides: a death-watch re-quorum can land
+        # mid-step, and a step whose ops span two epochs mixes divisors
+        self._step_epochs.add(self._quorum_id)
         # the participant count at issue time (the commit accounting uses
-        # the same snapshot)
+        # the same snapshot): an op never spans epochs (configure tears its
+        # executor down), so the membership it reduces over is today's
         n_at_issue = self._participating_world_size
         self._step_n = n_at_issue
         # branch on the configured plane, not on the input type: the device
@@ -522,12 +644,23 @@ class Manager:
             else:
                 for a in arrays:
                     a[...] = 0  # in place: the buffers are bucket views
+        # this epoch's rank -> replica map: an op can fail after the next
+        # quorum renumbered the ranks, and a PeerGoneError mapped through
+        # the new list would accuse an innocent replica
+        with self._evict_lock:
+            ids_snapshot = list(self._participant_ids)
+        epoch = self._quorum_id
 
         try:
             work = self._collectives.allreduce(arrays, ReduceOp.SUM)
 
             def normalize(fut: Future) -> List[Any]:
-                reduced = fut.value()
+                try:
+                    reduced = fut.value()
+                except BaseException as e:  # noqa: BLE001 — annotated, re-raised
+                    e._tft_participants = ids_snapshot
+                    e._tft_epoch = epoch
+                    raise
                 if n_at_issue > 1:
                     if device:
                         # runs with the issuing stream current (see
@@ -538,7 +671,11 @@ class Manager:
                             np.divide(a, n_at_issue, out=a)
                 return reduced
 
-            return self.wrap_future(work.get_future().then(normalize), arrays)
+            fut = self.wrap_future(work.get_future().then(normalize), arrays)
+            # a death-watch reconfigure that slid in between the epoch read
+            # above and the submission shows as a second epoch: vetoed
+            self._step_epochs.add(self._quorum_id)
+            return fut
         except Exception as e:  # noqa: BLE001 — latch and continue
             self._logger.exception(f"exception in allreduce, skipping remaining: {e}")
             self.report_error(e)
@@ -546,9 +683,127 @@ class Manager:
 
     def report_error(self, e: Exception) -> None:
         """Latch an error: the current step will not commit and the data
-        plane reconfigures on the next quorum."""
+        plane reconfigures on the next quorum. If the error names a dead
+        peer (:class:`~torchft_tpu_torch.collectives.PeerGoneError`), its
+        replica is reported to the lighthouse for eviction, so the
+        re-quorum does not wait out the heartbeat lease."""
         self._errored = e
-        self._errored_epoch = self._quorum_id
+        # the epoch of the plane that failed: a failed op names the one it
+        # was issued on, which a death-watch re-quorum may already have
+        # replaced (then the current plane is not suspect, and no flush)
+        self._errored_epoch = getattr(e, "_tft_epoch", self._quorum_id)
+        self._maybe_evict(e)
+
+    def _on_peer_death(self, ring_rank: int, plane_gen: Optional[int] = None) -> None:
+        """Death-watch callback (the collectives' monitor thread): a peer's
+        socket closed mid-epoch. Report the eviction now (the lighthouse
+        probes the victim first, so a false report is harmless) and, if no
+        quorum RPC is in flight, start one: by the time the trainer ends
+        the doomed step, the smaller quorum is usually delivered and the
+        plane reconfigured.
+
+        ``plane_gen`` tags the ring the rank belongs to: a late POLLHUP
+        delivered while ``_async_quorum`` replaces membership would
+        otherwise map an old ring rank through the new participant list
+        and accuse a live replica."""
+        if self._shutting_down:
+            return
+        snap = self._death_watch_snapshot
+        if plane_gen is not None and snap is not None:
+            snap_gen, snap_ids = snap
+            if plane_gen != snap_gen:
+                self._logger.info(
+                    f"dropping stale death-watch callback for ring rank "
+                    f"{ring_rank} (plane gen {plane_gen} != armed {snap_gen})"
+                )
+                return
+        else:
+            snap_ids = None
+        err = PeerGoneError(ring_rank, f"death watch: peer {ring_rank} socket closed")
+        if snap_ids is not None:
+            # map the ring rank through this generation's snapshot, never
+            # through whatever _participant_ids holds now
+            err._tft_participants = list(snap_ids)
+        self._maybe_evict(err)
+        with self._qf_lock:
+            if self._shutting_down:
+                return
+            fut = self._quorum_future
+            if fut is None or not fut.done():
+                # a quorum RPC is in flight; it sees the eviction when the
+                # lighthouse forms the quorum
+                return
+            # re-quorum early only when the surviving members can form a
+            # quorum without a restart: otherwise the long-poll would park
+            # the trainer's wait_quorum on a quorum that cannot form yet
+            with self._evict_lock:
+                alive = len([p for p in self._participant_ids if p not in self._evicted])
+            if alive < max(1, self._min_replica_size):
+                return
+            _, shrink_only, timeout = self._last_quorum_args
+            self._logger.info(f"death watch: peer {ring_rank} gone; starting early re-quorum")
+            # allow_heal=False, and no stream: this quorum only shrinks the
+            # membership and rebuilds the plane under the doomed step. A
+            # heal here would read the trainer's state on a thread it does
+            # not synchronise with; a rejoiner heals at the next
+            # start_quorum instead.
+            self._quorum_future = self._executor.submit(
+                self._async_quorum,
+                pending=self._pending_commit,
+                allow_heal=False,
+                shrink_only=shrink_only,
+                quorum_timeout=timeout or self._quorum_timeout,
+            )
+            self._early_future = self._quorum_future
+
+    def _maybe_evict(self, e: BaseException) -> None:
+        """Fire-and-forget eviction report for a PeerGoneError's peer, on a
+        daemon thread: the report only saves the lease's wait, so it must
+        never block or fail the caller."""
+        peer: Optional[int] = None
+        participants = None
+        seen = 0
+        cause: Optional[BaseException] = e
+        while cause is not None and seen < 8:  # unwrap chained causes
+            if participants is None:
+                participants = getattr(cause, "_tft_participants", None)
+            peer = getattr(cause, "peer_rank", None)
+            if peer is not None:
+                break
+            cause = cause.__cause__ or cause.__context__
+            seen += 1
+        with self._evict_lock:
+            if participants is None:
+                participants = list(self._participant_ids)
+            if peer is None or not (0 <= peer < len(participants)):
+                return
+            victim = participants[peer]
+            if victim in self._evicted:
+                # reported already this epoch: report_error and the death
+                # watch race here for the same victim
+                return
+            self._evicted.add(victim)
+        threading.Thread(
+            target=self._report_eviction, args=(victim,), daemon=True, name="tft_evict"
+        ).start()
+
+    def _report_eviction(self, victim: str) -> Optional[bool]:
+        """Send one eviction report; returns whether the lighthouse evicted
+        ``victim`` (None when the report failed). A fresh client: the
+        shared one serialises calls on one socket, so the report would
+        otherwise queue behind an in-flight quorum long-poll, the very
+        wait eviction exists to skip."""
+        try:
+            client = ManagerClient(self._manager_addr, connect_timeout=timedelta(seconds=5))
+            try:
+                evicted = client.evict(victim, timeout=timedelta(seconds=5))
+            finally:
+                client.close()
+        except Exception as ex:  # noqa: BLE001 — best effort
+            self._logger.warn(f"evict report for {victim} failed: {ex}")
+            return None
+        self._logger.info(f"reported dead peer {victim}: evicted={evicted}")
+        return evicted
 
     def errored(self) -> Optional[Exception]:
         return self._errored
@@ -598,6 +853,8 @@ class Manager:
         self.wait_quorum()
         if self._healing or self._group_healing or self._errored is not None:
             return False
+        if len(self._step_epochs) > 1:
+            return False  # a mixed-epoch step is vetoed: do not speculate on it
         n = self._step_n if self._step_n is not None else self._participating_world_size
         return n >= self._min_replica_size
 
@@ -639,8 +896,15 @@ class Manager:
         # membership as of the step's ops (issue-time snapshot)
         rec.n_step = self._step_n if self._step_n is not None else self.num_participants()
         rec.enough_replicas = rec.n_step >= self._min_replica_size
+        # a step whose ops spanned two plane epochs (a death-watch re-quorum
+        # mid-step) mixed divisors. The span is a local observation, but
+        # the vote is a global conjunction: one rank's veto aborts the step
+        # everywhere
+        rec.mixed_epochs = len(self._step_epochs) > 1
         rec.errored = self._errored
-        rec.local_vote = rec.enough_replicas and self._errored is None
+        rec.local_vote = (
+            rec.enough_replicas and self._errored is None and not rec.mixed_epochs
+        )
         if self._errored is not None and self._errored_epoch == self._quorum_id:
             # the data plane is suspect: request a flush so the next quorum
             # moves every group to a fresh rendezvous epoch
@@ -653,7 +917,7 @@ class Manager:
         """The post-vote half (main thread only): the step counters."""
         self._logger.info(
             f"should_commit={should_commit} enough_replicas={rec.enough_replicas} "
-            f"errored={rec.errored}"
+            f"mixed_epochs={rec.mixed_epochs} errored={rec.errored}"
         )
         if disallow:
             # close the checkpoint-serving window: after the commit the

@@ -50,6 +50,7 @@ from torchft_tpu_torch.utils.tree import tree_map
 
 __all__ = [
     "TransformerConfig",
+    "headline_config",
     "init_params",
     "params_from_jax",
     "forward",
@@ -80,6 +81,15 @@ class TransformerConfig:
     @property
     def qkv_dim(self) -> int:
         return self.n_heads * self.head_dim
+
+
+def headline_config() -> TransformerConfig:
+    """The headline transformer of ``bench.py:341-357`` in bf16 on the flash
+    kernels, trained at batch 8 x seq 1024 (``bench.py:366``)."""
+    return TransformerConfig(
+        vocab_size=32000, d_model=512, n_layers=8, n_heads=8, head_dim=64, d_ff=1408,
+        dtype=torch.bfloat16, attention_impl="flash",
+    )
 
 
 def init_params(
