@@ -78,7 +78,8 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    groups' sample ids disjoint within an epoch; the loss falling.
 12. kill and rejoin (``torchft_tpu_torch.benchmarks.recovery``): two
    groups as worker processes on the card, each training the headline at
-   full width (graphed, ``"flash"``) over CollectivesTcp with the HTTP
+   full width (graphed, ``"flash"``) over CollectivesTcp on its Python
+   ring (phases 5 and 12 keep the plane they were written on) with the HTTP
    heal, one lighthouse at its default 5 s lease; group 1 takes SIGKILL
    at step 8 and is respawned. Every worker exits 0; the survivor's
    eviction report is accepted and its blackout stays below the lease; the
@@ -87,8 +88,31 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    capture of each graph and 16/8/8 flash launches per step. Prints the
    blackout, the rejoin time and its parts, the steady step, the heal and
    the survivor's log of the death path.
+13. the wire plane (``torchft_tpu_torch.benchmarks.crossgroup.run_pair``):
+   two worker processes on the card, each holding the headline at full
+   width with its gradients graphed. Worker 1 pulls worker 0's page-locked
+   staging memory with ``process_vm_readv`` (a refusal is printed with its
+   errno, and the CMA jobs are then not run). Five arms in turn, each a
+   fresh lighthouse, Manager (sync quorum) and CollectivesTcp with
+   ManagedOptimizer over TrainStep, 2 warm-up and 5 timed joint steps from
+   the same seeded params: the Python ring, the striped TCP plane, CMA,
+   and the striped plane with the bfloat16 and the int8 wire (error
+   feedback on). Every step commits; each arm reports the plane and codec
+   it asked for; the first step's averaged gradients have one sha256 in
+   both workers and the same in the three exact arms; in the lossy arms
+   it differs from the exact arms' and lies within WIRE_ERR_LIMIT of it,
+   on a measure in the exact average's own units (2^-8 of each leaf's
+   norm for bfloat16, 2/127 of the tree's largest element for int8),
+   which the worker's own gradients and zeros in its place both fail;
+   error feedback holds residuals at every vote and none after the
+   commit; the final params have one sha256 in both workers; 16/8/8
+   launches per step, the gradient graph captured once per worker. Then
+   the raw allreduce of the gradient tree's bytes on each plane (GB/s),
+   a 701.6 MB heal over CollectivesTransport with CMA and over TCP (one
+   sha256 on both sides), and phase 12's SIGKILL on the default plane
+   with phase 12's checks.
 
-Phases 4-12 replay each train step from CUDA graphs (phase 4's and phase
+Phases 4-13 replay each train step from CUDA graphs (phase 4's and phase
 9's eager arms aside); every group's graphs are captured once, so a heal
 or a rollback that swapped a captured tensor would show as a recapture.
 
@@ -621,9 +645,10 @@ def make_tokens(cfg, seed, batch, seq):
 
 
 def make_manager(lighthouse_addr, store, replica_id, plane="device", transport="http",
-                 **kwargs):
+                 native_plane=None, **kwargs):
     """The headline loop's Manager. ``plane``: ``"device"`` (CollectivesDevice
-    on the card, the headline's wiring) or ``"tcp"`` (CollectivesTcp);
+    on the card, the headline's wiring) or ``"tcp"`` (CollectivesTcp, on
+    its native plane unless ``native_plane=False``: the Python ring);
     ``transport``: the heal over ``"http"`` or over the data plane
     (``"collectives"``); ``kwargs`` go to the Manager (``use_async_quorum``,
     ``commit_pipeline``)."""
@@ -633,7 +658,10 @@ def make_manager(lighthouse_addr, store, replica_id, plane="device", transport="
     from torchft_tpu_torch.manager import Manager
 
     timeout = timedelta(seconds=120)
-    collectives = {"device": CollectivesDevice, "tcp": CollectivesTcp}[plane](timeout=timeout)
+    if plane == "tcp":
+        collectives = CollectivesTcp(timeout=timeout, native_plane=native_plane)
+    else:
+        collectives = CollectivesDevice(timeout=timeout)
     heal = {"http": lambda: HTTPTransport(timeout=timeout),
             "collectives": lambda: CollectivesTransport(collectives, timeout=timeout)}
     return Manager(
@@ -911,7 +939,9 @@ def _time_apply(trainer, heal):
 def phase_two_groups(plane="tcp", transport="http", own_streams=False, together=3, cfg=None,
                      shape=HEADLINE):
     """Two groups as threads on the card; the second joins late and heals
-    from the first, then both commit ``together`` steps. With
+    from the first, then both commit ``together`` steps. The TCP plane is
+    the Python ring (``native_plane=False``), so that its joint step
+    compares with phase 12's and with earlier runs of this phase. With
     ``own_streams`` each group runs on a CUDA stream of its own and keeps
     one joint step's gradients (``_keep_average``). The model is ``cfg``
     (the headline's by default) at ``shape``'s batch and seq. Returns the
@@ -943,7 +973,7 @@ def phase_two_groups(plane="tcp", transport="http", own_streams=False, together=
     def member(gid: int):
         store = StoreServer()
         manager = make_manager(lighthouse.address(), store, f"{plane}-group{gid}",
-                               plane=plane, transport=transport)
+                               plane=plane, transport=transport, native_plane=False)
         heal, kept, joint_ms = {}, {}, []
         _time_heal(manager, heal)
         if own_streams:
@@ -975,7 +1005,8 @@ def phase_two_groups(plane="tcp", transport="http", own_streams=False, together=
             synchronize()
             return dict(step=manager.current_step(), digest=_param_digest(trainer.params),
                         healed_at=healed_at, heal=heal, kept=kept, joint_ms=joint_ms,
-                        captures=dict(ts.graphs.captures))
+                        captures=dict(ts.graphs.captures),
+                        plane=manager._collectives.plane_info())
         finally:
             manager.shutdown(wait=False)
             store.shutdown()
@@ -989,7 +1020,8 @@ def phase_two_groups(plane="tcp", transport="http", own_streams=False, together=
     for gid in (0, 1):
         r = res[gid]
         log(f"{tag} group{gid} step={r['step']} checksum={r['digest']}"
-            + (f" (healed to step {r['healed_at']})" if gid == 1 else ""))
+            + (f" (healed to step {r['healed_at']})" if gid == 1 else "")
+            + f"; plane {r['plane']}")
     check(res[1]["healed_at"] > 0, f"{tag}: group 1 never healed from group 0")
     # group 1 captured its graphs on its own init at its first step, before
     # the heal landed: one capture each means the heal kept every tensor
@@ -1416,7 +1448,8 @@ def phase_diloco(joint_syncs: int = 2):
                     raise RuntimeError("a heal's flag outlived its sync")
                 n = manager.num_participants()
                 syncs.append(dict(ms=ms, quorum_ms=quorum_ms[-1], committed=committed,
-                                  participants=n, healed=healed, loss=loss))
+                                  participants=n, healed=healed, loss=loss,
+                                  plane=manager._collectives.plane_info()))
                 state["opt"] = ts.init_opt(params)  # fresh inner state per outer step
                 if committed and n == 2:
                     joint += 1
@@ -1448,7 +1481,7 @@ def phase_diloco(joint_syncs: int = 2):
                 f"participants={x['participants']} healed={x['healed']} "
                 f"total {x['ms']:.3f} ms = quorum {x['quorum_ms']:.3f} ms + pseudogradient "
                 f"average and outer step {x['ms'] - x['quorum_ms']:.3f} ms; "
-                f"inner loss {x['loss']:.5f}")
+                f"inner loss {x['loss']:.5f}; plane {x['plane']}")
         log(f"diloco group{gid}: step={r['step']} params sha256={r['params']} "
             f"outer momentum sha256={r['momentum']}")
     heal = res[1]["heal"]
@@ -1546,13 +1579,14 @@ def _pipeline_run(pipelined, steps):
             t0 = time.perf_counter()
             for tok in tokens:
                 step(tok)
+            plane = manager._collectives.plane_info()
             loop.finish()
             synchronize()
             elapsed = time.perf_counter() - t0
             replays[gid] = loop.rollbacks
             return dict(step=manager.current_step(), rollbacks=loop.rollbacks,
                         params=_param_digest(loop.params), elapsed=elapsed,
-                        loop=loop, captures=dict(ts.graphs.captures))
+                        loop=loop, captures=dict(ts.graphs.captures), plane=plane)
         finally:
             manager.shutdown(wait=False)
             store.shutdown()
@@ -1569,7 +1603,8 @@ def _pipeline_run(pipelined, steps):
     calls = 2 * steps + replays[0] + replays[1]
     expect = {n: c * calls for n, c in _launches_per_step(cfg).items()}
     log(f"pipelined={pipelined}: {calls} forward+backward passes "
-        f"({replays[0]} + {replays[1]} replays), kernel launches {launches}; graphs captured "
+        f"({replays[0]} + {replays[1]} replays) on the {res[0]['plane']} plane, kernel "
+        f"launches {launches}; graphs captured "
         f"{res[0]['captures']} (FTTrainer), {res[1]['captures']} (ManagedOptimizer, its "
         "AdamW eager)")
     check(launches == expect, f"pipeline launches {launches} != {expect}")
@@ -1795,13 +1830,15 @@ def _survivor_log(path):
         return [line.rstrip() for line in f if any(k in line for k in keep)]
 
 
-def phase_recovery(joint_ms):
+def phase_recovery(joint_ms, env_extra, name="kill and rejoin", plane=None):
     """Two groups as worker processes on the card, each training the
     headline at full width (graphed, ``"flash"``) through FTTrainer on
     CollectivesTcp with the HTTP heal; group 1 takes SIGKILL once it has
     committed ``KILL_AT_STEP`` and is respawned
     (``torchft_tpu_torch.benchmarks.recovery.measure_recovery``). ``joint_ms``
-    is phase 5's joint step, beside which the op timeout is printed."""
+    is a joint step over TCP, beside which the op timeout is printed;
+    ``env_extra`` selects the workers' plane, and ``plane`` (when given) is
+    the one every two-group epoch must report."""
     from torchft_tpu_torch.benchmarks.recovery import measure_recovery
 
     gc.collect()
@@ -1812,7 +1849,8 @@ def phase_recovery(joint_ms):
     try:
         r = measure_recovery(total_steps=RECOVERY_STEPS, kill_at_step=KILL_AT_STEP,
                              step_sleep=0.0, op_timeout=RECOVERY_OP_TIMEOUT,
-                             heartbeat_timeout_ms=LEASE_MS, timeout_s=600.0, num_groups=2)
+                             heartbeat_timeout_ms=LEASE_MS, timeout_s=600.0, num_groups=2,
+                             env_extra=env_extra)
     finally:
         if saved is None:
             os.environ.pop("DEVICE")
@@ -1820,56 +1858,226 @@ def phase_recovery(joint_ms):
             os.environ["DEVICE"] = saved
     wall = time.perf_counter() - t0
     out = r.as_dict()
-    log(f"kill and rejoin: lease {LEASE_MS / 1000:.1f} s, op timeout {RECOVERY_OP_TIMEOUT:.1f} s "
-        f"(phase 5's joint step {joint_ms:.3f} ms, this run's steady step "
-        f"{r.steady_step_s * 1e3:.3f} ms), killed at step {KILL_AT_STEP}")
-    log(f"kill and rejoin: survivor_blackout_s {r.survivor_blackout_s:.6f}, blackout_steps "
+    log(f"{name}: {env_extra}, planes of the two-group epochs by group {r.planes}; lease "
+        f"{LEASE_MS / 1000:.1f} s, op timeout {RECOVERY_OP_TIMEOUT:.1f} s (a joint step over TCP "
+        f"{joint_ms:.3f} ms, this run's steady step {r.steady_step_s * 1e3:.3f} ms), killed at "
+        f"step {KILL_AT_STEP}")
+    log(f"{name}: survivor_blackout_s {r.survivor_blackout_s:.6f}, blackout_steps "
         f"{out['blackout_steps']}, survivor_steps_lost {r.survivor_steps_lost}, steady_step_s "
         f"{r.steady_step_s:.6f}, rejoin_to_commit_s {r.rejoin_to_commit_s:.6f}")
-    log("kill and rejoin: rejoin_to_commit_s parts: " + ", ".join(
+    log(f"{name}: rejoin_to_commit_s parts: " + ", ".join(
         f"{k} {v:.6f}" for k, v in r.rejoin_parts_s.items()))
     for line in _survivor_log(r.log_paths[0]):
-        log(f"kill and rejoin, survivor log | {line}")
+        log(f"{name}, survivor log | {line}")
     finals = r.finals
     for g in sorted(finals):
         f = finals[g]
-        log(f"kill and rejoin group{g}: step={f['step']} params+AdamW sha256={f['digest']} "
+        log(f"{name} group{g}: step={f['step']} params+AdamW sha256={f['digest']} "
             f"graphs captured {f['captures']}, {f['steps']} steps, flash launches per step "
             f"{f['launches_per_step']}" + (f", heal {f['heal']}" if f["heal"] else ""))
-    log(f"kill and rejoin: eviction reports {r.evictions}; survivor commits after the kill "
+    log(f"{name}: eviction reports {r.evictions}; survivor commits after the kill "
         f"{r.survivor_commits_after_kill}, rejoiner commits {r.rejoiner_commits}; deadlines "
         f"hit, by group: steps retried {r.timeout_retries}, steps aborted {r.deadline_aborts}; "
         f"phase wall {wall:.1f} s")
-    check(sorted(finals) == [0, 1], f"kill and rejoin: final events of groups {sorted(finals)}")
+    check(sorted(finals) == [0, 1], f"{name}: final events of groups {sorted(finals)}")
+    if plane is not None:
+        check(all(r.planes[g] == [plane] for g in (0, 1)),
+              f"{name}: the groups ran on {r.planes}, expected {plane}")
     # the workers retry a step that raised on a deadline, and abort one whose
     # op or heal latched one; on the card no deadline may be hit, in the
     # heal, the rejoin or a steady step
     check(not any(r.timeout_retries.values()) and not any(r.deadline_aborts.values()),
-          f"kill and rejoin: deadlines hit, by group: steps retried {r.timeout_retries}, "
+          f"{name}: deadlines hit, by group: steps retried {r.timeout_retries}, "
           f"steps aborted {r.deadline_aborts}")
-    check(r.survivor_commits_after_kill > 0, "kill and rejoin: the survivor never committed again")
+    check(r.survivor_commits_after_kill > 0, f"{name}: the survivor never committed again")
     heal = finals[1]["heal"]
     check(r.rejoiner_commits > 0 and heal and heal["bytes"] > 0,
-          "kill and rejoin: the respawned group did not heal and commit")
+          f"{name}: the respawned group did not heal and commit")
     check(finals[0]["digest"] == finals[1]["digest"] and finals[0]["step"] == finals[1]["step"],
-          "kill and rejoin: the groups ended with different params or optimizer state")
+          f"{name}: the groups ended with different params or optimizer state")
     for g in (0, 1):
         check(finals[g]["captures"] == {"grads": 1, "apply": 1},
-              f"kill and rejoin: group {g} captured its graphs {finals[g]['captures']} "
+              f"{name}: group {g} captured its graphs {finals[g]['captures']} "
               "(serving or taking a heal must not recapture)")
         expect = _launches_per_step(headline_config())
         check(finals[g]["launches_per_step"] == [expect],
-              f"kill and rejoin: group {g} launched {finals[g]['launches_per_step']} per step, "
+              f"{name}: group {g} launched {finals[g]['launches_per_step']} per step, "
               f"expected {expect}")
     check(any(evicted for gid, _, evicted in r.evictions if gid == 0),
-          f"kill and rejoin: the survivor's eviction report was not accepted: {r.evictions}")
+          f"{name}: the survivor's eviction report was not accepted: {r.evictions}")
     check(r.survivor_blackout_s < LEASE_MS / 1000,
-          f"kill and rejoin: blackout {r.survivor_blackout_s:.3f} s is not below the "
+          f"{name}: blackout {r.survivor_blackout_s:.3f} s is not below the "
           f"{LEASE_MS / 1000:.1f} s lease")
     check(RECOVERY_OP_TIMEOUT >= 10 * r.steady_step_s,
-          f"kill and rejoin: op timeout {RECOVERY_OP_TIMEOUT} s under 10 steady steps")
+          f"{name}: op timeout {RECOVERY_OP_TIMEOUT} s under 10 steady steps")
     return {n: finals[0]["launches"][n] + finals[1]["launches"][n]
             for n in finals[0]["launches"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the wire plane
+# ---------------------------------------------------------------------------
+
+# arm: (plane, wire codec)
+WIRE_ARMS = {
+    "python-ring": ("python-ring", None),
+    "tcp-striped": ("tcp-striped", None),
+    "cma": ("cma", None),
+    "tcp-striped-bf16": ("tcp-striped", "bfloat16"),
+    "tcp-striped-int8": ("tcp-striped", "int8"),
+}
+# A lossy arm's first average against the exact arms', on the measure its
+# codec's error scales with (benchmarks.crossgroup.wire_error), and its
+# limit. bfloat16 rounds each element within u = 2^-8 of itself: the two
+# workers' projections and the owner's encode of the average give about
+# 0.5u of a leaf's norm (the headline's worst leaf reads 0.00206 on an
+# H100 80GB HBM3 at 700 W); the limit is u.
+# int8 rounds within half a step of its chunk's max / 127: the two
+# projections and the encode of the sum give at most
+# (max|a| + max|b|) / 508 + max|avg| / 254, 1/127 of the average's largest
+# element when the workers' peaks match it (the headline reads 0.00821 on
+# that card, just over 1/127); the limit 2/127 holds while the workers'
+# peaks sum to under 6x the average's. Zeros read 1 on both measures, a
+# worker's own gradients 1.016 (leaf) and 0.429 (peak).
+WIRE_ERR_LIMIT = {"bfloat16": ("leaf", 2.0 ** -8), "int8": ("peak", 2.0 / 127)}
+WIRE_WARMUP, WIRE_STEPS = 2, 5
+RAW_PLANES = {"raw python-ring": ("python-ring", None), "raw tcp-striped": ("tcp-striped", None),
+              "raw tcp-striped-bf16": ("tcp-striped", "bfloat16"), "raw cma": ("cma", None)}
+RAW_ROUNDS = 3
+HEAL_BYTES = 701_601_840  # the headline's params and AdamW state (phase 12's heal)
+
+
+def phase_wire_plane(joint_ms):
+    """Two worker processes on the card (``benchmarks.crossgroup.run_pair``),
+    each holding the headline at full width, its gradients graphed: a CMA
+    probe between them; the five arms of WIRE_ARMS in turn, each with a
+    fresh lighthouse, Manager (sync quorum) and CollectivesTcp and
+    ManagedOptimizer over TrainStep, 2 warm-up and 5 timed joint steps from
+    the same seeded params; the raw allreduce of the gradient tree's bytes
+    on each plane; a 701.6 MB heal over CollectivesTransport with and
+    without CMA. Then one SIGKILL of worker 1 on the default plane (phase
+    12's harness and checks). Returns the flash launches of both parts."""
+    from torchft_tpu_torch.benchmarks.crossgroup import run_pair
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    jobs = [{"kind": "probe", "name": "probe"}]
+    for name, (plane, codec) in WIRE_ARMS.items():
+        jobs.append({"kind": "e2e", "name": name, "plane": plane, "codec": codec,
+                     "warmup": WIRE_WARMUP, "steps": WIRE_STEPS, "exact": codec is None})
+    for name, (plane, codec) in RAW_PLANES.items():
+        jobs.append({"kind": "raw", "name": name, "plane": plane, "codec": codec,
+                     "nbytes": None, "rounds": RAW_ROUNDS})
+    for name, plane in (("heal cma", "cma"), ("heal tcp", "tcp-striped")):
+        jobs.append({"kind": "heal", "name": name, "plane": plane, "nbytes": HEAL_BYTES})
+    t0 = time.perf_counter()
+    res = run_pair(jobs, "cuda", timeout_s=900)
+    wall = time.perf_counter() - t0
+    probe = res["probe"][1]["result"]
+    log(f"wire plane: process_vm_readv of worker 0's page-locked staging memory from worker "
+        f"1: {probe}")
+    cma_ok = probe == "ok"
+    for name, rs in res.items():
+        if name != "probe" and any("skipped" in r for r in rs):
+            check(not cma_ok and all(r["skipped"] == probe for r in rs),
+                  f"wire plane: {name} was skipped: {rs}")
+            log(f"wire plane: {name} not run (the kernel refused CMA: {probe})")
+    expect = _launches_per_step(headline_config())
+    exact_digests = set()
+    launches = {n: 0 for n in expect}
+    lossy_digests = {}
+    for name, (plane, codec) in WIRE_ARMS.items():
+        rs = res[name]
+        if "skipped" in rs[0]:
+            continue
+        want = (plane, codec or "f32")
+        got = [(r["plane"], r["wire_codec"]) for r in rs]
+        check(got == [want, want], f"wire plane {name}: plane and codec {got}, expected {want}")
+        check(all(r["committed"] == [True] * (WIRE_WARMUP + WIRE_STEPS) for r in rs),
+              f"wire plane {name}: a step did not commit: {[r['committed'] for r in rs]}")
+        digests = {r["first_avg_digest"] for r in rs}
+        check(len(digests) == 1, f"wire plane {name}: the first averaged gradients differ "
+              f"between the workers: {digests}")
+        check(rs[0]["final_digest"] == rs[1]["final_digest"],
+              f"wire plane {name}: the workers ended with different params")
+        ef = [r["error_feedback"] for r in rs]
+        if codec is None:
+            exact_digests |= digests
+            check(ef == [False, False], f"wire plane {name}: error feedback on an exact wire")
+        else:
+            lossy_digests[name] = digests
+            measure, limit = WIRE_ERR_LIMIT[codec]
+            for r in rs:
+                err, ctl = r["first_avg_wire_err"], r["first_avg_controls"]
+                check(err is not None and err[measure] <= limit,
+                      f"wire plane {name}: worker {r['gid']}'s first average is off the "
+                      f"exact arms' by {measure} {err}, over the limit {limit:.6g}")
+                # the same check has teeth: what a broken wire would return fails it
+                check(all(c[measure] > limit for c in ctl.values()),
+                      f"wire plane {name}: a control passes the {measure} limit "
+                      f"{limit:.6g}: {ctl}")
+            log(f"wire plane {name}: first average against the exact arms', "
+                f"||err|| / ||exact|| over the tree {rs[0]['first_avg_wire_err']['tree']:.6e}, "
+                f"worst leaf {rs[0]['first_avg_wire_err']['leaf']:.6e}, peak |err| / peak "
+                f"|exact| {rs[0]['first_avg_wire_err']['peak']:.6e}; held by {measure} <= "
+                f"{limit:.6g}; controls (tree, leaf, peak): own gradients "
+                + ", ".join(f"{rs[0]['first_avg_controls']['own'][k]:.6e}"
+                            for k in ("tree", "leaf", "peak"))
+                + ", zeros " + ", ".join(f"{rs[0]['first_avg_controls']['zeros'][k]:.6e}"
+                                         for k in ("tree", "leaf", "peak")))
+            check(ef == [True, True]
+                  and all(all(n > 0 for n in r["pending_at_vote"]) for r in rs)
+                  and all(r["pending_after"] == [0] * r["steps"] for r in rs),
+                  f"wire plane {name}: error feedback residuals at the vote "
+                  f"{[r['pending_at_vote'] for r in rs]}, after the commit "
+                  f"{[r['pending_after'] for r in rs]}")
+        for r in rs:
+            check(r["launches_per_step"] == [expect],
+                  f"wire plane {name}: worker {r['gid']} launched {r['launches_per_step']} "
+                  f"per step, expected {expect}")
+            for n in expect:
+                launches[n] += expect[n] * r["steps"]
+        steps = [s * 1e3 for r in rs for s in r["step_s"]]
+        avg = [a for r in rs for a in r["avg_ms"][WIRE_WARMUP:]]
+        log(f"wire plane {name}: {plane}, codec {codec or 'f32'}, error feedback "
+            f"{ef[0]}; gradients {rs[0]['grad_dtypes']}; steady joint step median "
+            f"{statistics.median(steps):.3f} ms, spread {min(steps):.3f}-{max(steps):.3f} ms "
+            f"(both workers, {len(steps)} steps); allreduce_gradients host "
+            f"{statistics.median(avg):.3f} ms median per step; first average sha256 "
+            f"{rs[0]['first_avg_digest'][:16]}; final params sha256 "
+            f"{rs[0]['final_digest'][:16]}")
+    check(len(exact_digests) == 1,
+          f"wire plane: the exact arms' first averages differ: {exact_digests}")
+    for name, digests in lossy_digests.items():
+        check(not digests & exact_digests,
+              f"wire plane {name}: the lossy wire returned the exact average bit for bit")
+    captures = [r["captures"] for r in res["captures"]]
+    log(f"wire plane: gradient graphs captured per worker {captures} (across all arms)")
+    check(captures == [{"grads": 1, "apply": 0}] * 2,
+          f"wire plane: the workers captured {captures}, expected the gradient graph once")
+    for name in RAW_PLANES:
+        rs = res[name]
+        if "skipped" in rs[0]:
+            continue
+        check(all(r["correct"] for r in rs), f"wire plane {name}: a wrong average")
+        secs = max(r["seconds_per_round"] for r in rs)
+        log(f"wire plane {name}: {rs[0]['total_bytes']} bytes float32, plane "
+            f"{rs[0]['plane']} codec {rs[0]['wire_codec']}: {secs * 1e3:.3f} ms per allreduce, "
+            f"{rs[0]['total_bytes'] / secs / 1e9:.3f} GB/s (slower worker, {RAW_ROUNDS} rounds)")
+    for name in ("heal cma", "heal tcp"):
+        rs = res[name]
+        if "skipped" in rs[0]:
+            continue
+        sent, got = rs
+        check(sent["digest"] == got["digest"],
+              f"wire plane {name}: sha256 sent {sent['digest']}, received {got['digest']}")
+        log(f"wire plane {name}: {got['total_bytes']} bytes over CollectivesTransport on "
+            f"{got['plane']}: {got['seconds']:.3f} s, {got['total_bytes'] / got['seconds'] / 1e9:.3f} "
+            f"GB/s; sha256 {got['digest'][:16]} on both sides")
+    log(f"wire plane: the pair's phase wall {wall:.1f} s")
+    kill = phase_recovery(joint_ms, {"TORCHFT_NATIVE_PLANE": "1"}, name="wire plane kill",
+                          plane="cma" if cma_ok else "tcp-striped")
+    return {n: launches[n] + kill[n] for n in launches}
 
 
 # ---------------------------------------------------------------------------
@@ -1926,7 +2134,9 @@ def main() -> None:
     launches[32] = phase_two_groups(plane="device", transport="collectives", own_streams=True,
                                     cfg=bytes_config(), shape=BYTES)["launches"]
     phase_resnet()
-    recovery_launches = phase_recovery(tcp_groups["joint_ms"])
+    # phase 12 on the Python ring, so its numbers compare with earlier runs
+    recovery_launches = phase_recovery(tcp_groups["joint_ms"], {"TORCHFT_NATIVE_PLANE": "0"})
+    wire_launches = phase_wire_plane(tcp_groups["joint_ms"])
 
     kernels = []
     for d in (64, 128, 32):
@@ -1947,6 +2157,8 @@ def main() -> None:
             if d == 64:
                 # phase 12's two worker processes (the survivor, the rejoiner)
                 kernels[-1]["launches_kill_rejoin"] = recovery_launches[name]
+                # phase 13's two worker processes: the arms, then the kill
+                kernels[-1]["launches_wire_plane"] = wire_launches[name]
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke.py: {time.perf_counter() - started:.1f} s")
     log(smi)

@@ -25,7 +25,8 @@ def _on_ranks(fn, prefix):
     """Configure WORLD CollectivesTcp on one store, run ``fn(coll, rank)``
     on a thread per rank, return the results in rank order."""
     store = StoreServer()
-    colls = [CollectivesTcp(timeout=timedelta(seconds=10), hostname="localhost")
+    colls = [CollectivesTcp(timeout=timedelta(seconds=10), hostname="localhost",
+                            native_plane=False)
              for _ in range(WORLD)]
     results, errors = [None] * WORLD, []
 

@@ -554,12 +554,26 @@ def test_heal_supersedes_pending_replay(harness):
 
 
 def test_error_feedback_is_refused():
+    """No ``error_feedback`` value is refused any more (the wire codecs are
+    ported): it resolves as the JAX package's does. Auto mode makes an
+    accumulator only on a lossy wire, False never, and an instance is used
+    as given."""
+    from torchft_tpu.optim import ManagedOptimizer as JManagedOptimizer
     from torchft_tpu_torch.optim import ManagedOptimizer
+    from torchft_tpu_torch.wire_codec import ErrorFeedback, get_codec
 
-    for ok in (None, False):
-        ManagedOptimizer(MagicMock(), torch.optim.SGD, error_feedback=ok)
-    with pytest.raises(NotImplementedError, match="wire codecs"):
-        ManagedOptimizer(MagicMock(), torch.optim.SGD, error_feedback=True)
+    shared = ErrorFeedback(get_codec("int8"))
+    for codec in ("f32", "bfloat16", "int8"):
+        m = MagicMock()
+        m.wire_codec.return_value = codec
+        for ef in (None, False, shared):
+            port = ManagedOptimizer(m, torch.optim.SGD, error_feedback=ef).error_feedback
+            ref = JManagedOptimizer(m, None, error_feedback=ef).error_feedback
+            assert (port is None) == (ref is None), (codec, ef)
+            if ef is shared:
+                assert port is shared
+            elif port is not None:
+                assert port.codec.name == ref.codec.name == codec
 
 
 # ---------------------------------------------------------------------------

@@ -106,7 +106,8 @@ def _attribution(pkg):
     rank 1 returns at once (its shutdown closes its sockets) while rank 0
     runs a 4 MB allreduce."""
     server = pkg.StoreServer()
-    colls = [pkg.CollectivesTcp(timeout=timedelta(seconds=10), hostname="localhost")
+    colls = [pkg.CollectivesTcp(timeout=timedelta(seconds=10), hostname="localhost",
+                                native_plane=True)
              for _ in range(2)]
 
     def fn(rank):
@@ -155,7 +156,8 @@ def _death_watch_script(pkg):
     generation. Then rank 0 leaves that epoch (a reconfigure alone) before
     the peer shuts down: no callback."""
     server = pkg.StoreServer()
-    make = lambda: pkg.CollectivesTcp(timeout=timedelta(seconds=10), hostname="localhost")
+    make = lambda: pkg.CollectivesTcp(timeout=timedelta(seconds=10), hostname="localhost",
+                                native_plane=True)
     got: List[tuple] = []
     c0, c1 = make(), make()
     c0.set_death_watch(lambda rank, gen: got.append((rank, gen)))
@@ -197,7 +199,8 @@ def _teardown_script(pkg):
             pass
 
     server = pkg.StoreServer()
-    colls = [pkg.CollectivesTcp(timeout=timedelta(seconds=10), hostname="localhost")
+    colls = [pkg.CollectivesTcp(timeout=timedelta(seconds=10), hostname="localhost",
+                                native_plane=True)
              for _ in range(2)]
     owner = Owner()
     ref = weakref.ref(owner)
@@ -502,7 +505,7 @@ def _straggler_script(pkg):
             kwargs["checkpoint_transport"] = HTTPTransport(timeout=STRAGGLER_TIMEOUT,
                                                            hostname="localhost")
         m = pkg.Manager(
-            collectives=pkg.CollectivesTcp(timeout=STRAGGLER_TIMEOUT), load_state_dict=None,
+            collectives=pkg.CollectivesTcp(timeout=STRAGGLER_TIMEOUT, native_plane=True), load_state_dict=None,
             state_dict=None, min_replica_size=1, replica_id=f"g{gid}",
             store_addr=store.address(), rank=0, world_size=1,
             lighthouse_addr=lighthouse.address(), timeout=STRAGGLER_TIMEOUT, **kwargs,
@@ -746,7 +749,7 @@ class _PortSide:
         from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
 
         return Manager(
-            collectives=CollectivesTcp(timeout=TIMEOUT), load_state_dict=None,
+            collectives=CollectivesTcp(timeout=TIMEOUT, native_plane=True), load_state_dict=None,
             state_dict=None, min_replica_size=1, replica_id=f"g{gid}",
             store_addr=store.address(), rank=0, world_size=1,
             lighthouse_addr=lighthouse.address(), timeout=TIMEOUT,

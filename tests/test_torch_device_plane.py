@@ -61,7 +61,7 @@ def device_manager(gid, lighthouse, store, min_replica_size, plane="device", **k
         collectives = CollectivesDevice(timeout=TIMEOUT, device="cpu")
         transport = CollectivesTransport(collectives, timeout=TIMEOUT)
     else:
-        collectives = CollectivesTcp(timeout=TIMEOUT)
+        collectives = CollectivesTcp(timeout=TIMEOUT, native_plane=True)
         transport = HTTPTransport(timeout=TIMEOUT, hostname="localhost")
     return Manager(
         collectives=collectives, load_state_dict=None, state_dict=None,

@@ -75,7 +75,7 @@ def _port_manager(gid, lighthouse, store, min_replica_size):
     from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
 
     return Manager(
-        collectives=CollectivesTcp(timeout=TIMEOUT),
+        collectives=CollectivesTcp(timeout=TIMEOUT, native_plane=True),
         load_state_dict=None,
         state_dict=None,
         min_replica_size=min_replica_size,

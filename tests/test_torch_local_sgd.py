@@ -367,15 +367,26 @@ def test_diloco_rejects_async_and_pipelined_managers(store_server):
 
 
 def test_wire_codec_options_are_refused(monkeypatch):
+    """The wire-codec options are no longer refused (the codecs are
+    ported): they resolve as the JAX package's do, ``outer_rank`` from the
+    argument or ``TORCHFT_WIRE_OUTER_RANK``, with a low-rank carry in the
+    state only when it is on."""
+    from torchft_tpu.local_sgd import DiLoCo as JDiLoCo
+    from torchft_tpu_torch.wire_codec import ErrorFeedback, get_codec
+
     stub = _StubManager([])
-    with pytest.raises(NotImplementedError, match="wire codecs"):
-        LocalSGD(stub, sync_every=2, error_feedback=True)
-    with pytest.raises(NotImplementedError, match="wire codecs"):
-        DiLoCo(stub, nesterov_sgd, sync_every=2, outer_rank=4)
-    monkeypatch.setenv("TORCHFT_WIRE_OUTER_RANK", "2")
-    with pytest.raises(NotImplementedError, match="wire codecs"):
-        DiLoCo(stub, nesterov_sgd, sync_every=2)
-    DiLoCo(stub, nesterov_sgd, sync_every=2, outer_rank=0, error_feedback=False)
+    shared = ErrorFeedback(get_codec("bfloat16"))
+    assert LocalSGD(stub, sync_every=2, error_feedback=shared).error_feedback is shared
+    assert LocalSGD(stub, sync_every=2).error_feedback is None  # exact wire
+    for kwargs, env in (({"outer_rank": 4}, None), ({}, "2"), ({"outer_rank": 0}, None)):
+        if env is not None:
+            monkeypatch.setenv("TORCHFT_WIRE_OUTER_RANK", env)
+        d = DiLoCo(stub, nesterov_sgd, sync_every=2, error_feedback=False, **kwargs)
+        j = JDiLoCo(_jax_stub([]), optax.sgd(0.7), sync_every=2, error_feedback=False, **kwargs)
+        assert d._outer_rank == j._outer_rank
+        d.save([torch.zeros(2, 2)])
+        assert ("lr_ef" in d.state_dict()) == (j._lr_ef is not None)
+        monkeypatch.delenv("TORCHFT_WIRE_OUTER_RANK", raising=False)
 
 
 @pytest.fixture

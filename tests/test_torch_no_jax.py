@@ -5,10 +5,12 @@ checks run in fresh subprocesses whose imports of jax, jaxlib, optax and
 ``torchft_tpu`` raise, and inspect their ``sys.modules``: a one-group
 fault-tolerant step of the port and one DiLoCo sync (``sync_every=1``)
 over CollectivesTcp, then a step of the CIFAR example's narrow ResNet and
-the sampler, and the recovery harness's import; and two groups as threads over CollectivesDevice, the second
+the sampler, and the imports of the recovery and crossgroup harnesses (the
+step's CollectivesTcp loads the wire codecs); and two groups as threads over CollectivesDevice, the second
 joining late and healing over CollectivesTransport. A static check covers
 every module of the package (the examples, the lighthouse CLI and the
-recovery harness included) and ``chip_smoke.py``.
+recovery and crossgroup harnesses and the wire codecs included) and
+``chip_smoke.py``.
 """
 
 import ast
@@ -52,7 +54,7 @@ cfg = TransformerConfig(vocab_size=64, d_model=32, n_layers=1, n_heads=2, head_d
                         d_ff=64, dtype=torch.float32, attention_impl="flash")
 lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
 store = StoreServer()
-manager = Manager(collectives=CollectivesTcp(timeout=timedelta(seconds=20)),
+manager = Manager(collectives=CollectivesTcp(timeout=timedelta(seconds=20), native_plane=True),
                   load_state_dict=None, state_dict=None, min_replica_size=1,
                   replica_id="solo", store_addr=store.address(), rank=0, world_size=1,
                   lighthouse_addr=lighthouse.address(), timeout=timedelta(seconds=20),
@@ -73,6 +75,7 @@ from torchft_tpu_torch.examples.train_cifar import CifarStep
 from torchft_tpu_torch.models.resnet import ResNetConfig
 import torchft_tpu_torch.lighthouse
 import torchft_tpu_torch.benchmarks.recovery
+import torchft_tpu_torch.benchmarks.crossgroup
 ids = step_indices(DistributedSampler(64, replica_group=0, num_replica_groups=2), 0, 4)
 cifar = CifarStep(ResNetConfig(channels=(4, 8, 16, 32), dtype=torch.float32), device="cpu")
 cparams, cstats = cifar.init(0)
@@ -170,7 +173,7 @@ def test_ft_step_runs_without_jax_or_reference_package():
     assert math.isfinite(out["loss"]) and out["loss"] > 0
     assert math.isfinite(out["cifar_loss"]) and out["cifar_loss"] > 0
     for module in ("data", "models.resnet", "lighthouse", "examples.train_cifar",
-                   "benchmarks.recovery"):
+                   "benchmarks.recovery", "benchmarks.crossgroup", "wire_codec"):
         assert f"torchft_tpu_torch.{module}" in out["modules"]
 
 
@@ -199,7 +202,9 @@ def test_no_forbidden_imports_in_sources():
             "torchft_tpu_torch/data.py", "torchft_tpu_torch/models/resnet.py",
             "torchft_tpu_torch/lighthouse.py",
             "torchft_tpu_torch/examples/train_cifar.py",
-            "torchft_tpu_torch/benchmarks/recovery.py"} <= scanned
+            "torchft_tpu_torch/benchmarks/recovery.py",
+            "torchft_tpu_torch/benchmarks/crossgroup.py",
+            "torchft_tpu_torch/wire_codec.py"} <= scanned
     bad = []
     for path in _port_sources():
         with open(path, encoding="utf-8") as f:

@@ -57,7 +57,7 @@ def port_manager(gid, lighthouse, store, min_replica_size, **kwargs):
     from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
 
     return Manager(
-        collectives=CollectivesTcp(timeout=TIMEOUT),
+        collectives=CollectivesTcp(timeout=TIMEOUT, native_plane=True),
         load_state_dict=None,
         state_dict=None,
         min_replica_size=min_replica_size,

@@ -99,7 +99,7 @@ def test_example_two_steps_match_jax(tmp_path, cli_lighthouse):
     # the port: the example's trainer, one group, from the JAX init
     store = StoreServer()
     manager = Manager(
-        collectives=CollectivesTcp(timeout=timedelta(seconds=30)), load_state_dict=None,
+        collectives=CollectivesTcp(timeout=timedelta(seconds=30), native_plane=True), load_state_dict=None,
         state_dict=None, min_replica_size=1, replica_id="cifar0", store_addr=store.address(),
         rank=0, world_size=1, lighthouse_addr=cli_lighthouse, timeout=timedelta(seconds=30))
     try:

@@ -1,7 +1,9 @@
 """ctypes loader for the C++ coordination core (``native/``) — the port's
 copy of ``torchft_tpu/_native/__init__.py``, trimmed to what the FT
-training step uses: the RPC client, the lighthouse, the manager server
-and the key-value store.
+training step uses: the RPC client, the lighthouse, the manager server,
+the key-value store, the striped gradient data plane
+(``NativeDataPlane``) and the cross-memory-attach pulls (``cma_read``,
+``cma_read_into``).
 
 The library is built from the repo's ``native/`` sources at first use into
 ``build/torch_native/<sources digest>/`` (``make -C native OUTDIR=...``;
@@ -15,7 +17,7 @@ import ctypes
 import hashlib
 import os
 import threading
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 from torchft_tpu_torch.utils import wire
 from torchft_tpu_torch.utils.platform import build_dir, run_locked_build
@@ -129,6 +131,28 @@ def _load() -> ctypes.CDLL:
         lib.tft_client_call.restype = c.c_int64
         lib.tft_client_free.argtypes = [c.c_int64]
         lib.tft_client_free.restype = None
+        # striped cross-process gradient data plane (native/dataplane.cc)
+        lib.tft_dp_create.argtypes = [c.c_int, c.c_int, c.c_int, c.c_char_p, c.c_int]
+        lib.tft_dp_create.restype = c.c_int64
+        lib.tft_dp_port.argtypes = [c.c_int64]
+        lib.tft_dp_port.restype = c.c_int
+        lib.tft_dp_connect.argtypes = [
+            c.c_int64, c.c_int, c.c_char_p, c.c_int, c.c_int64, c.c_char_p, c.c_int,
+        ]
+        lib.tft_dp_connect.restype = c.c_int
+        lib.tft_dp_wait_ready.argtypes = [c.c_int64, c.c_int64, c.c_char_p, c.c_int]
+        lib.tft_dp_wait_ready.restype = c.c_int
+        lib.tft_dp_enable_cma.argtypes = [
+            c.c_int64, c.POINTER(c.c_int64), c.c_int, c.c_char_p, c.c_int,
+        ]
+        lib.tft_dp_enable_cma.restype = c.c_int
+        lib.tft_dp_allreduce.argtypes = [
+            c.c_int64, c.c_void_p, c.c_int64, c.c_int, c.c_int, c.c_int,
+            c.c_uint32, c.c_int64, c.POINTER(c.c_int), c.c_char_p, c.c_int,
+        ]
+        lib.tft_dp_allreduce.restype = c.c_int
+        lib.tft_dp_free.argtypes = [c.c_int64]
+        lib.tft_dp_free.restype = None
         _lib = lib
         return lib
 
@@ -255,3 +279,163 @@ def store_create(bind: str) -> Tuple[int, str]:
 
 def store_shutdown(h: int) -> None:
     _load().tft_store_shutdown(h)
+
+
+# ---------------------------------------------------------------------------
+# cross-memory attach (process_vm_readv) and the striped data plane
+# ---------------------------------------------------------------------------
+
+
+class _iovec(ctypes.Structure):
+    _fields_ = [("iov_base", ctypes.c_void_p), ("iov_len", ctypes.c_size_t)]
+
+
+_libc_handle: Optional[ctypes.CDLL] = None
+
+
+def _libc() -> ctypes.CDLL:
+    global _libc_handle
+    with _lib_lock:
+        if _libc_handle is None:
+            libc = ctypes.CDLL("libc.so.6", use_errno=True)
+            # ssize_t return: the default c_int would truncate a pull of
+            # 2 GiB or more into a spurious error or a wrong offset
+            libc.process_vm_readv.restype = ctypes.c_ssize_t
+            libc.process_vm_readv.argtypes = [
+                ctypes.c_int, ctypes.POINTER(_iovec), ctypes.c_ulong,
+                ctypes.POINTER(_iovec), ctypes.c_ulong, ctypes.c_ulong,
+            ]
+            _libc_handle = libc
+        return _libc_handle
+
+
+def cma_read_into(pid: int, addr: int, view: memoryview) -> None:
+    """process_vm_readv ``len(view)`` bytes from ``pid``'s address space
+    straight into the writable buffer ``view`` (one copy: the pull of the
+    point-to-point CMA path). Raises OSError when the kernel refuses."""
+    libc = _libc()
+    n = len(view)
+    buf = (ctypes.c_char * n).from_buffer(view)
+    off = 0
+    while off < n:
+        local = _iovec(ctypes.addressof(buf) + off, n - off)
+        remote = _iovec(addr + off, n - off)
+        got = libc.process_vm_readv(pid, ctypes.byref(local), 1, ctypes.byref(remote), 1, 0)
+        if got <= 0:
+            raise OSError(ctypes.get_errno(), "process_vm_readv failed")
+        off += got
+
+
+def cma_read(pid: int, addr: int, n: int) -> bytes:
+    """One process_vm_readv of ``n`` bytes from ``pid``'s address space:
+    the rendezvous probe of the CMA transport (a token read proves the
+    published pid is addressable from this pid namespace and that the
+    ptrace policy allows the attach). Raises OSError when the kernel
+    refuses."""
+    libc = _libc()
+    buf = ctypes.create_string_buffer(n)
+    local = _iovec(ctypes.addressof(buf), n)
+    remote = _iovec(addr, n)
+    got = libc.process_vm_readv(pid, ctypes.byref(local), 1, ctypes.byref(remote), 1, 0)
+    if got != n:
+        raise OSError(ctypes.get_errno(), "process_vm_readv failed")
+    return buf.raw
+
+
+class DataPlaneError(ConnectionError):
+    """A native data-plane op failed; ``peer_rank`` is the ring rank whose
+    socket broke (-1 when no peer can be named), for the eviction
+    report."""
+
+    def __init__(self, peer_rank: int, msg: str) -> None:
+        super().__init__(msg)
+        self.peer_rank = peer_rank
+
+
+class NativeDataPlane:
+    """The striped C++ gradient plane (``native/dataplane.cc``), one per
+    collectives epoch: the rendezvous (store addresses, who dials whom)
+    stays in Python; the allreduce's bytes never touch the interpreter
+    (ctypes drops the GIL for the call)."""
+
+    DTYPE_F32 = 0
+    OP = {"sum": 0, "avg": 1, "max": 2, "min": 3}
+    # wire codecs (native/dataplane.h DpCodec; the formats are
+    # wire_codec.py's byte for byte)
+    CODEC = {"f32": 0, "bfloat16": 1, "int8": 2}
+
+    def __init__(self, rank: int, world: int, nstripes: int = 4) -> None:
+        self._lib = _load()
+        err = _errbuf()
+        self._h = self._lib.tft_dp_create(rank, world, nstripes, err, _ERRLEN)
+        if self._h == 0:
+            raise RuntimeError(f"dataplane create: {err.value.decode()}")
+        self.rank = rank
+        self.world = world
+        self.nstripes = nstripes
+        self.port = int(self._lib.tft_dp_port(self._h))
+
+    def connect(self, peer: int, host: str, port: int, timeout_ms: int) -> None:
+        err = _errbuf()
+        rc = self._lib.tft_dp_connect(
+            self._h, peer, host.encode(), port, timeout_ms, err, _ERRLEN
+        )
+        if rc != 0:
+            raise DataPlaneError(peer, f"dataplane dial {peer}: {err.value.decode()}")
+
+    def wait_ready(self, timeout_ms: int) -> None:
+        err = _errbuf()
+        rc = self._lib.tft_dp_wait_ready(self._h, timeout_ms, err, _ERRLEN)
+        if rc != 0:
+            raise TimeoutError(f"dataplane rendezvous: {err.value.decode()}")
+
+    def enable_cma(self, pids: List[int]) -> None:
+        """Switch ring payloads to cross-memory attach (one-copy pulls from
+        the left neighbour's address space). The caller has proven every
+        rank same-host and CMA-capable; ``pids`` is indexed by rank."""
+        arr = (ctypes.c_int64 * len(pids))(*pids)
+        err = _errbuf()
+        rc = self._lib.tft_dp_enable_cma(self._h, arr, len(pids), err, _ERRLEN)
+        if rc != 0:
+            raise RuntimeError(f"enable_cma: {err.value.decode()}")
+
+    def allreduce(
+        self,
+        ptr: int,
+        nelems: int,
+        op: str,
+        codec: Union[int, str] = 0,
+        tag: int = 0,
+        timeout_ms: int = 60000,
+    ) -> None:
+        """In-place float32 ring allreduce of the buffer at ``ptr``.
+        Blocking, with the GIL released: the caller keeps the buffer alive
+        until it returns. A lossy ``codec`` quantizes the wire while the
+        accumulation stays float32, and the decoded result is bitwise
+        identical on every rank."""
+        err = _errbuf()
+        bad_peer = ctypes.c_int(-1)
+        codec_i = self.CODEC[codec] if isinstance(codec, str) else int(codec)
+        rc = self._lib.tft_dp_allreduce(
+            self._h, ptr, nelems, self.DTYPE_F32, self.OP[op], codec_i, tag,
+            timeout_ms, ctypes.byref(bad_peer), err, _ERRLEN,
+        )
+        if rc == -2:
+            # a deadline names no peer: slow-but-alive stays retryable,
+            # never an accusation that evicts
+            raise TimeoutError(f"dataplane allreduce: {err.value.decode()}")
+        if rc != 0:
+            raise DataPlaneError(
+                int(bad_peer.value), f"dataplane allreduce: {err.value.decode()}"
+            )
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.tft_dp_free(self._h)
+            self._h = 0
+
+    def __del__(self) -> None:
+        try:
+            self.close()
+        except Exception:
+            pass

@@ -5,7 +5,9 @@ blackout and the rejoiner's time to its first commit — the port's copy of
 The groups are worker processes (``python -m
 torchft_tpu_torch.benchmarks.recovery`` with ``TORCHFT_EVENT_LOG`` set),
 each training the transformer through the port's entry points: a
-``Manager`` on ``CollectivesTcp`` with the ``HTTPTransport`` heal, and
+``Manager`` on ``CollectivesTcp`` (the plane the environment selects:
+the native one by default, CMA on one host) with the ``HTTPTransport``
+heal, and
 ``FTTrainer`` over ``TrainStep`` (replayed from CUDA graphs on the card).
 One lighthouse (``min_replicas=1``, ``join_timeout_ms=100``) and one
 ``StoreServer`` per group live in the orchestrator. Once the last group
@@ -24,7 +26,7 @@ torn last line, which the reader skips): ``start`` (imports done),
 ``ready`` (CUDA, the kernel library and the model on the device),
 ``manager`` (the Manager up), ``trainer`` (the optimizer made and the
 trainer registered), ``configured`` (a quorum delivered and the plane
-rebuilt), ``heal_begin`` / ``heal_end`` (bytes, seconds),
+rebuilt; which plane), ``heal_begin`` / ``heal_end`` (bytes, seconds),
 ``eviction`` (victim, evicted), ``commit`` / ``abort`` (step, loss,
 participants, the latched error and whether a deadline caused it),
 ``timeout_retry`` (a step that hit a deadline, retried) and
@@ -135,7 +137,8 @@ def _instrument(manager, log: _EventLog, heal: Dict[str, Any]) -> None:
 
     def configured(store_addr, rank, world_size):
         configure(store_addr, rank, world_size)
-        log.emit(event="configured", rank=rank, world_size=world_size)
+        log.emit(event="configured", rank=rank, world_size=world_size,
+                 plane=manager._collectives.plane_info())
 
     manager._collectives.configure = configured
     transport = manager._checkpoint_transport
@@ -313,6 +316,8 @@ class RecoveryResult:
     # on a latched error caused by a deadline (an op's, a heal's)
     timeout_retries: Dict[int, int] = field(default_factory=dict)
     deadline_aborts: Dict[int, int] = field(default_factory=dict)
+    # the planes each group's epochs of more than one group ran on
+    planes: Dict[int, List[str]] = field(default_factory=dict)
     log_paths: List[str] = field(default_factory=list)
 
     def as_dict(self) -> Dict[str, object]:
@@ -406,13 +411,15 @@ def measure_recovery(
     heartbeat_timeout_ms: int = 5000,
     timeout_s: float = 300.0,
     num_groups: int = 2,
+    env_extra: Optional[Dict[str, str]] = None,
 ) -> RecoveryResult:
     """Kill group ``num_groups - 1`` of ``num_groups`` once it has committed
     ``kill_at_step``, respawn it, and measure the envelope. Every group
     must exit 0. The defaults are the card's: the lighthouse's own 5 s
     lease, and an op timeout far above a joint step of the headline over
     TCP, so that the timeout never paces a slow step (detection by FIN does
-    not depend on it)."""
+    not depend on it). ``env_extra`` goes into every worker's environment
+    (the data plane: ``TORCHFT_NATIVE_PLANE``, ``TORCHFT_DP_CMA``)."""
     from torchft_tpu_torch.coordination import LighthouseServer
     from torchft_tpu_torch.utils.platform import resolve_device
 
@@ -428,6 +435,7 @@ def measure_recovery(
     lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1, join_timeout_ms=100,
                                   heartbeat_timeout_ms=heartbeat_timeout_ms)
     common = {
+        **(env_extra or {}),
         "TORCHFT_LIGHTHOUSE": lighthouse.address().split("//", 1)[-1],
         "TORCHFT_BENCH_STEPS": str(total_steps),
         "TORCHFT_BENCH_STEP_SLEEP": str(step_sleep),
@@ -510,6 +518,9 @@ def measure_recovery(
                              for g in range(num_groups)},
             deadline_aborts={g: sum(e["event"] == "abort" and bool(e.get("deadline"))
                                     for e in events[g]) for g in range(num_groups)},
+            planes={g: sorted({e["plane"] for e in events[g]
+                               if e["event"] == "configured" and e["world_size"] > 1})
+                    for g in range(num_groups)},
             log_paths=logs,
         )
     finally:

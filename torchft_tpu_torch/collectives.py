@@ -1,9 +1,22 @@
 """Reconfigurable collectives across replica groups — the port's copy of
 ``torchft_tpu/collectives.py``, trimmed to its host data plane:
-``CollectivesTcp`` with its pure-Python ring (allreduce, allgather,
+``CollectivesTcp`` with its Python ring (allreduce, allgather,
 reduce-scatter, alltoall), store rendezvous and the send / recv /
 broadcast / barrier around it, plus ``ErrorSwallowingCollectives``. The
 in-process device plane is ``collectives_device.CollectivesDevice``.
+
+Large float32 allreduces ride the striped C++ plane
+(``native/dataplane.cc`` through ``_native.NativeDataPlane``: GIL-free,
+``DP_STRIPES`` sockets a peer, the wire codec in C++) unless
+``native_plane=False`` or ``TORCHFT_NATIVE_PLANE=0``. On one host, when
+every rank proves it can read its left neighbour's memory, the plane
+switches to cross-memory attach (CMA: one-copy ``process_vm_readv``
+pulls), and so do point-to-point frames of ``CMA_P2P_MIN`` bytes or more,
+such as heals (``TORCHFT_DP_CMA=0`` opts out). ``wire_dtype`` quantizes
+the wire to bfloat16 or int8 (``wire_codec.py``); CMA moves exact float32 and bypasses
+it. ``plane_info()`` says which transport carries the average
+(``python-ring``, ``tcp-striped`` or ``cma``) and ``wire_codec()`` which
+codec.
 
 Membership changes every quorum, so these collectives live outside the
 compiled model on host buffers (numpy arrays, averaged in place).
@@ -15,17 +28,18 @@ The death watch (``set_death_watch``) polls the epoch's peer sockets and
 reports a peer whose socket closed, so the Manager can evict it and
 re-quorum while the doomed step still runs.
 
-Left out (ROADMAP): the native striped plane, CMA, wire codecs, fault
-points and the flight recorder.
+Left out (ROADMAP): the fault points, telemetry and the flight recorder.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import select
 import socket
 import struct
 import threading
+import time
 from abc import ABC, abstractmethod
 from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
@@ -36,6 +50,7 @@ import numpy as np
 
 from torchft_tpu_torch.futures import Future
 from torchft_tpu_torch.store import create_store_client
+from torchft_tpu_torch.wire_codec import WireCodec, get_codec
 
 logger = logging.getLogger(__name__)
 
@@ -156,7 +171,9 @@ class Collectives(ABC):
 
     def wire_codec(self) -> str:
         """Codec large float32 allreduces ride the wire with (``"f32"`` =
-        exact: the port has no lossy codec yet); wrappers delegate."""
+        exact; ``"bfloat16"`` and ``"int8"`` are what
+        :class:`~torchft_tpu_torch.wire_codec.ErrorFeedback` compensates);
+        wrappers delegate."""
         return "f32"
 
     def shutdown(self) -> None:  # noqa: B027 — optional hook
@@ -174,6 +191,58 @@ _STASH_LIMIT = 1 << 30  # bytes parked for unclaimed tags: the desync tripwire
 # the death watch's poll interval bounds detection latency, and so a
 # survivor's blackout; 40 wake-ups a second per plane cost nothing measurable
 _DEATH_WATCH_POLL_MS = 25
+
+# CMA for large point-to-point frames once the data plane's probe proved
+# the peers same-host: the sender ships a 16-byte {addr, nbytes}
+# descriptor (tag | _CMA_FLAG), the receiver pulls the bytes out of the
+# sender's address space (process_vm_readv) and acks (tag | _ACK_FLAG) so
+# the sender may reuse the buffer. The top two tag bits belong to this
+# protocol: user tags are masked to 24 bits and every internal tag space
+# tops out below 0x0E000000.
+_CMA_FLAG = 0x80000000
+_ACK_FLAG = 0x40000000
+_CMA_DESC = struct.Struct("<QQ")  # (addr, nbytes)
+# point-to-point frames this large go by CMA once the plane proved it
+CMA_P2P_MIN = 1 << 20
+# sockets a peer on the native plane
+DP_STRIPES = 4
+
+
+# Buffers whose pull-ack never arrived, process-wide and never dropped:
+# the pull needs no socket, so a peer that already holds the descriptor
+# can pull after this epoch's sockets closed; the memory stays alive for
+# the life of the process.
+_CMA_QUARANTINE: List[np.ndarray] = []
+
+# Process-wide latch: the probe proves a read of the left neighbour only,
+# but a passing vote arms pulls between any two ranks. Where permission
+# is asymmetric between pairs (differing uids, YAMA ptrace_scope) a pull
+# fails at op time while every epoch's probe passes again; a pull refused
+# for permission sets this flag, and the next negotiation votes no, so the
+# group settles on TCP.
+_CMA_BROKEN = False
+
+
+def _cma_pull(pid: int, addr: int, view: memoryview) -> None:
+    """process_vm_readv the peer's [addr, addr + len) into ``view``."""
+    global _CMA_BROKEN
+    import errno
+
+    from torchft_tpu_torch._native import cma_read_into
+
+    try:
+        cma_read_into(pid, addr, view)
+    except OSError as e:
+        # permission only: ESRCH or EFAULT from a peer that just died is
+        # the normal fault-tolerance case, and CMA stays for the next
+        # cohort
+        if e.errno in (errno.EPERM, errno.EACCES):
+            _CMA_BROKEN = True
+            logger.warning(
+                "CMA pull from pid %d denied (%s); latching CMA off: the "
+                "next reconfigure settles the group on TCP", pid, e,
+            )
+        raise
 
 
 def _send_frame(sock: socket.socket, tag: int, payload: memoryview) -> None:
@@ -240,7 +309,30 @@ class CollectivesTcp(Collectives):
         self,
         timeout: timedelta = timedelta(seconds=60),
         hostname: Optional[str] = None,
+        wire_dtype: Optional[str] = None,
+        native_plane: Optional[bool] = None,
     ) -> None:
+        """
+        Args:
+            wire_dtype: the wire codec of float32 allreduces, a name from
+                :mod:`torchft_tpu_torch.wire_codec` (``"bfloat16"`` halves
+                the bytes, ``"int8"`` quarters them); partial sums
+                re-quantize each hop, accumulation stays float32, and the
+                decoded average is bitwise identical on every rank.
+                Defaults to exact float32. Pair a lossy codec with error feedback.
+            native_plane: route large float32 allreduces through the
+                striped C++ plane (default on; ``TORCHFT_NATIVE_PLANE=0``
+                turns it off). It must agree across ranks, so a failed
+                set-up raises rather than falling back.
+        """
+        if native_plane is None:
+            native_plane = os.environ.get("TORCHFT_NATIVE_PLANE", "1") != "0"
+        self._native_plane = native_plane
+        self._dp = None  # NativeDataPlane of the current epoch
+        self._dp_cma = False
+        self._dp_cma_pids: Optional[List[int]] = None  # arms p2p CMA
+        self._dp_probe_buf = None  # the CMA probe's token, read by peers
+        self._codec: WireCodec = get_codec(wire_dtype)
         self._timeout = timeout
         self._hostname = hostname or socket.gethostname()
         self._death_watch_cb: Optional[Callable[[int, int], None]] = None
@@ -296,6 +388,8 @@ class CollectivesTcp(Collectives):
         for peer in range(rank):
             self._dial(peer, self._timeout)
         self._wait_for_peers(set(range(rank + 1, world_size)))
+        if self._native_plane:
+            self._configure_dp(rank, world_size)
         if self._death_watch_cb is not None:
             threading.Thread(
                 target=self._death_watch_loop, args=(gen,), daemon=True,
@@ -369,9 +463,101 @@ class CollectivesTcp(Collectives):
                     except Exception:  # noqa: BLE001 — the watch keeps running
                         logger.exception("death-watch callback failed")
 
-    def _wait_for_peers(self, expected: set) -> None:
-        import time
+    def _configure_dp(self, rank: int, world_size: int) -> None:
+        """Stand up the striped C++ plane for this epoch: the Python mesh's
+        rendezvous (store-published listeners, higher ranks dial lower)
+        under one deadline for all of it. Failures raise: every rank must
+        land on the same plane, or the group waits on different sockets."""
+        from torchft_tpu_torch._native import NativeDataPlane
 
+        deadline = time.monotonic() + self._timeout.total_seconds()
+
+        def left() -> timedelta:
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                raise TimeoutError("data-plane rendezvous deadline exceeded")
+            return timedelta(seconds=remaining)
+
+        dp = NativeDataPlane(rank, world_size, DP_STRIPES)
+        self._dp_cma = False
+        try:
+            self._store.set(f"coll/dpaddr/{rank}", f"{self._hostname}:{dp.port}")
+            for peer in range(rank):
+                addr = self._store.get(f"coll/dpaddr/{peer}", timeout=left()).decode()
+                host, port = addr.rsplit(":", 1)
+                dp.connect(peer, host, int(port), int(left().total_seconds() * 1000))
+            dp.wait_ready(int(left().total_seconds() * 1000))
+            self._maybe_enable_cma(dp, rank, world_size, left)
+        except BaseException:
+            dp.close()
+            raise
+        self._dp = dp
+
+    def _maybe_enable_cma(self, dp, rank: int, world_size: int, remaining) -> None:
+        """Negotiate the one-copy CMA transport: every rank reads a token
+        from its left ring neighbour (proving the same pid namespace and a
+        ptrace policy that allows it, not just the same hostname) and
+        publishes the result; CMA turns on only when all ranks succeeded,
+        so the ring stays homogeneous. ``TORCHFT_DP_CMA=0`` opts out."""
+        import ctypes
+        import secrets
+
+        from torchft_tpu_torch._native import cma_read
+
+        # an opted-out rank (or one whose CMA latched broken) still
+        # publishes its keys, voting no: peers would otherwise wait out
+        # their deadline on keys that never appear
+        opt_out = os.environ.get("TORCHFT_DP_CMA", "1") == "0" or _CMA_BROKEN
+        if _CMA_BROKEN:
+            logger.info("CMA disabled this epoch: a pull failed earlier in this process")
+        token = secrets.token_bytes(16)
+        # the probe's target lives for the epoch (peers read it remotely)
+        self._dp_probe_buf = ctypes.create_string_buffer(token, 16)
+        self._store.set(
+            f"coll/dpcma/{rank}",
+            f"{self._hostname}|{os.getpid()}|{token.hex()}"
+            f"|{ctypes.addressof(self._dp_probe_buf)}",
+        )
+        left = (rank - 1) % world_size
+        ok = False
+        if not opt_out:
+            try:
+                ent = self._store.get(f"coll/dpcma/{left}", timeout=remaining()).decode()
+                lhost, lpid, ltok, laddr = ent.split("|")
+                if lhost == self._hostname:
+                    ok = cma_read(int(lpid), int(laddr), 16) == bytes.fromhex(ltok)
+            except (OSError, ValueError, RuntimeError) as e:  # any failure: TCP
+                logger.info("CMA probe of rank %d failed (%s); staying on TCP", left, e)
+        self._store.set(f"coll/dpcmaok/{rank}", "1" if ok else "0")
+        pids = []
+        all_ok = True
+        for p in range(world_size):
+            flag = self._store.get(f"coll/dpcmaok/{p}", timeout=remaining()).decode()
+            ent = self._store.get(f"coll/dpcma/{p}", timeout=remaining()).decode()
+            pids.append(int(ent.split("|")[1]))
+            all_ok = all_ok and flag == "1"
+        if all_ok:
+            dp.enable_cma(pids)
+            self._dp_cma = True
+            self._dp_cma_pids = pids  # arms the point-to-point CMA path too
+            logger.info("data plane: CMA transport enabled (%d ranks, one host)", world_size)
+
+    def plane_info(self) -> str:
+        """Which transport carries large float32 allreduces this epoch:
+        ``"cma"`` (one-copy pulls), ``"tcp-striped"`` (the C++ ring over
+        ``DP_STRIPES`` sockets a peer) or ``"python-ring"``."""
+        if self._dp is None:
+            return "python-ring"
+        return "cma" if self._dp_cma else "tcp-striped"
+
+    def wire_codec(self) -> str:
+        # CMA pulls exact float32 out of the peer's memory: a configured
+        # lossy codec is bypassed there
+        if self._dp is not None and self._dp_cma:
+            return "f32"
+        return self._codec.name
+
+    def _wait_for_peers(self, expected: set) -> None:
         deadline = time.monotonic() + self._timeout.total_seconds()
         while True:
             with self._peers_lock:
@@ -448,12 +634,22 @@ class CollectivesTcp(Collectives):
                 except OSError:
                     pass
             self._peers.clear()
+        if self._dp is not None:
+            # before joining the executors: closing the plane's sockets
+            # wakes an op thread parked inside the native allreduce
+            self._dp.close()
+            self._dp = None
+        self._dp_cma = False
+        self._dp_cma_pids = None
         for name in ("_executor", "_ring_send_worker", "_p2p"):
             ex = getattr(self, name)
             if ex is not None:
                 ex.shutdown(wait=True, cancel_futures=True)
                 setattr(self, name, None)
+        # after the executors drained: no op thread still writes through
+        # these views (nor reads the probe token's epoch)
         self._scratch.clear()
+        self._dp_probe_buf = None
         if self._store is not None:
             self._store.close()
             self._store = None
@@ -466,9 +662,6 @@ class CollectivesTcp(Collectives):
 
     def rank(self) -> int:
         return self._rank
-
-    def plane_info(self) -> str:
-        return "python-ring"
 
     # -- plumbing --
 
@@ -505,6 +698,13 @@ class CollectivesTcp(Collectives):
         return Work(out)
 
     def _send_to(self, rank: int, tag: int, data: memoryview) -> None:
+        if (
+            self._dp_cma_pids is not None
+            and len(data) >= CMA_P2P_MIN
+            and not (tag & (_CMA_FLAG | _ACK_FLAG))
+        ):
+            self._send_cma(rank, tag, data)
+            return
         p = self._peer(rank)
         try:
             with p.send_lock:
@@ -514,6 +714,49 @@ class CollectivesTcp(Collectives):
                 raise  # slow-but-alive peer: latch the error, don't accuse
             raise PeerGoneError(rank, f"send to peer {rank} failed: {e}") from e
 
+    def _send_cma(self, rank: int, tag: int, data: memoryview) -> None:
+        """Ship a pull descriptor instead of the payload, then wait for the
+        peer's ack: the buffer stays untouched until the pull is done."""
+        arr = np.frombuffer(data, dtype=np.uint8)
+        desc = _CMA_DESC.pack(arr.ctypes.data, len(data))
+        p = self._peer(rank)
+        try:
+            with p.send_lock:
+                _send_frame(p.sock, tag | _CMA_FLAG, memoryview(desc))
+        except (ConnectionError, OSError) as e:
+            if isinstance(e, (socket.timeout, TimeoutError)):
+                raise
+            raise PeerGoneError(rank, f"send to peer {rank} failed: {e}") from e
+        # the ack rides the tag-matched receive (it interleaves safely with
+        # any other traffic on this socket)
+        try:
+            self._recv_from(rank, tag | _ACK_FLAG)
+        except BaseException as e:
+            # without the ack the descriptor dangles: the peer may still
+            # pull that address (it needs no socket for it). Keep the
+            # buffer alive for the life of the process and poison the
+            # stream, so both sides reconfigure.
+            _CMA_QUARANTINE.append(arr)
+            logger.warning(
+                "CMA pull-ack from peer %d failed (%s); buffer quarantined "
+                "(%d buffers, %.1f MB kept process-wide)", rank, e,
+                len(_CMA_QUARANTINE), sum(a.nbytes for a in _CMA_QUARANTINE) / 1e6,
+            )
+            with p.cond:
+                p.recv_error = e
+                p.cond.notify_all()
+            try:
+                p.sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            if isinstance(e, TimeoutError):
+                raise ConnectionError(
+                    f"CMA pull-ack from peer {rank} timed out; epoch poisoned "
+                    f"(descriptor quarantined)"
+                ) from e
+            raise
+        del arr  # the source buffer stays referenced until the ack
+
     def _recv_from(
         self, rank: int, tag: int, into: Optional[memoryview] = None
     ) -> Optional[bytearray]:
@@ -522,19 +765,18 @@ class CollectivesTcp(Collectives):
         returned; otherwise the frame bytes are returned."""
         p = self._peer(rank)
         try:
-            return self._recv_matched(p, tag, into)
+            return self._recv_matched(p, rank, tag, into)
         except (ConnectionError, OSError) as e:
             if isinstance(e, (socket.timeout, TimeoutError)):
                 raise
             raise PeerGoneError(rank, f"recv from peer {rank} failed: {e}") from e
 
     def _recv_matched(
-        self, p: _Peer, tag: int, into: Optional[memoryview]
+        self, p: _Peer, rank: int, tag: int, into: Optional[memoryview]
     ) -> Optional[bytearray]:
         """One thread at a time reads the socket; frames for other tags are
-        stashed for their waiters. A stash cap keeps a real desync loud."""
-        import time
-
+        stashed for their waiters. A stash cap keeps a real desync loud. A
+        CMA descriptor is pulled from the sender's memory and acked."""
         deadline = time.monotonic() + self._timeout.total_seconds()
         while True:
             with p.cond:
@@ -574,7 +816,22 @@ class CollectivesTcp(Collectives):
             data = None
             try:
                 got_tag, length = _FRAME_HDR.unpack(bytes(_recv_exact(p.sock, _FRAME_HDR.size)))
-                if got_tag == tag and into is not None and len(into) == length:
+                if got_tag & _CMA_FLAG:
+                    # a pull descriptor: fetch the payload from the sender's
+                    # address space, then ack so it may reuse the buffer
+                    got_tag &= ~_CMA_FLAG
+                    addr, nbytes = _CMA_DESC.unpack(bytes(_recv_exact(p.sock, length)))
+                    pids = self._dp_cma_pids  # teardown may clear the field
+                    if pids is None:
+                        raise ConnectionError("CMA descriptor arrived during teardown")
+                    if got_tag == tag and into is not None and len(into) == nbytes:
+                        _cma_pull(pids[rank], addr, into)
+                        filled = True
+                    else:
+                        data = bytearray(nbytes)
+                        _cma_pull(pids[rank], addr, memoryview(data))
+                    self._send_to(rank, got_tag | _ACK_FLAG, memoryview(b""))
+                elif got_tag == tag and into is not None and len(into) == length:
                     _recv_exact_into(p.sock, into)
                     filled = True
                 else:
@@ -652,9 +909,10 @@ class CollectivesTcp(Collectives):
         self._op_seq = (self._op_seq + 1) & 0x00FFFFFF
         return self._op_seq
 
-    def _scratch_for(self, dtype: np.dtype, nelems: int) -> np.ndarray:
-        """Per-epoch reusable receive buffer, grown monotonically."""
-        key = np.dtype(dtype).str
+    def _epoch_scratch(self, dtype: np.dtype, nelems: int, slot: str = "") -> np.ndarray:
+        """Per-epoch reusable buffer, grown monotonically and dropped with
+        the epoch: the ring never allocates per chunk per round."""
+        key = f"{slot}:{np.dtype(dtype).str}"
         buf = self._scratch.get(key)
         if buf is None or buf.size < nelems:
             buf = np.empty(max(nelems, 1), dtype=dtype)
@@ -669,13 +927,51 @@ class CollectivesTcp(Collectives):
 
         def run() -> List[np.ndarray]:
             if world > 1:
+                # the op thread serializes ops, so the arrays of one
+                # allreduce may share the tag (a desync check, not a
+                # demultiplexer; the native plane offsets it per stripe)
                 for arr in arrays:
-                    self._ring_allreduce(arr, op, tag)
-                    if op == ReduceOp.AVG:
-                        np.divide(arr, world, out=arr)
+                    if self._dp_eligible(arr):
+                        self._dp_allreduce(arr, op, tag)
+                    else:
+                        self._ring_allreduce(arr, op, tag)
+                        if op == ReduceOp.AVG:
+                            np.divide(arr, world, out=arr)
             return arrays
 
         return self._submit(run)
+
+    def _dp_eligible(self, arr: np.ndarray) -> bool:
+        from torchft_tpu_torch._native import NativeDataPlane
+
+        return (
+            self._dp is not None
+            and arr.dtype == np.float32
+            and arr.flags["C_CONTIGUOUS"]
+            and self._codec.name in NativeDataPlane.CODEC
+        )
+
+    def _dp_allreduce(self, arr: np.ndarray, op: ReduceOp, tag: int) -> None:
+        """The striped C++ ring: AVG divides natively, the codec runs in
+        C++, and the allgather forwards the owner's bytes verbatim, so the
+        result is bitwise identical on every rank. A failure naming a peer
+        becomes :class:`PeerGoneError`, for the eviction report."""
+        from torchft_tpu_torch._native import DataPlaneError
+
+        dp = self._dp  # teardown may clear the field mid-op
+        if dp is None:
+            raise RuntimeError("data plane torn down")
+        try:
+            # ``arr`` stays referenced by this frame until the GIL-free
+            # call returns
+            dp.allreduce(
+                arr.ctypes.data, arr.size, op.value, self._codec.name, tag,
+                int(self._timeout.total_seconds() * 1000),
+            )
+        except DataPlaneError as e:
+            if e.peer_rank >= 0:
+                raise PeerGoneError(e.peer_rank, str(e)) from e
+            raise
 
     def _ring_allreduce(self, arr: np.ndarray, op: ReduceOp, tag: int) -> None:
         world, rank = self._world, self._rank
@@ -684,7 +980,11 @@ class CollectivesTcp(Collectives):
         flat = _flat_view(arr)
         bounds = np.linspace(0, flat.size, world + 1).astype(np.int64)
         chunks = [flat[bounds[i] : bounds[i + 1]] for i in range(world)]
-        scratch = self._scratch_for(arr.dtype, max(int(c.size) for c in chunks))
+        max_elems = max(int(c.size) for c in chunks)
+        if self._codec.lossy and arr.dtype == np.float32 and flat.size > 0:
+            self._ring_allreduce_codec(op, tag, chunks, max_elems, reduce_fn)
+            return
+        scratch = self._epoch_scratch(arr.dtype, max_elems)
 
         # reduce-scatter
         for step in range(world - 1):
@@ -699,6 +999,51 @@ class CollectivesTcp(Collectives):
             view = scratch[: chunks[recv_idx].size]
             self._exchange(right, _bytes_view(chunks[send_idx]), left, tag, _bytes_view(view))
             chunks[recv_idx][:] = view
+
+    def _ring_allreduce_codec(
+        self, op: ReduceOp, tag: int, chunks: List[np.ndarray], max_elems: int,
+        reduce_fn,
+    ) -> None:
+        """The lossy-codec ring. The reduce-scatter ships freshly encoded
+        partial sums a hop (re-quantized at each hop's own magnitude); then
+        the owner of each reduced chunk encodes it once, keeps the decode
+        of its own bytes, and the allgather forwards those bytes verbatim,
+        so every rank decodes identical bytes."""
+        world, rank = self._world, self._rank
+        right, left = (rank + 1) % world, (rank - 1) % world
+        codec = self._codec
+        codec.ensure_capacity(max_elems)
+        max_wire = codec.wire_nbytes(max_elems)
+        # double buffer: at each allgather hop one holds the bytes being
+        # forwarded while the other receives the next chunk's
+        buf_a = self._epoch_scratch(np.uint8, max_wire, slot="wireA")
+        buf_b = self._epoch_scratch(np.uint8, max_wire, slot="wireB")
+
+        # reduce-scatter
+        for step in range(world - 1):
+            send_idx, recv_idx = (rank - step) % world, (rank - step - 1) % world
+            n = int(chunks[recv_idx].size)
+            sv = codec.encode_into(chunks[send_idx])
+            rv = buf_a[: codec.wire_nbytes(n)]
+            self._exchange(right, sv, left, tag, _bytes_view(rv))
+            reduce_fn(chunks[recv_idx], codec.decode_tmp(rv, n))
+
+        owned = chunks[(rank + 1) % world]
+        ow = codec.encode_into(owned)
+        cur = buf_b[: len(ow)]
+        cur[:] = np.frombuffer(ow, dtype=np.uint8)
+        codec.decode_into(cur, owned)
+
+        # allgather: forward the received wire bytes untouched
+        bufs = (buf_a, buf_b)
+        cur_i = 1  # cur lives in buf_b; buf_a is free to receive into
+        for step in range(world - 1):
+            recv_idx = (rank - step) % world
+            n = int(chunks[recv_idx].size)
+            rv = bufs[1 - cur_i][: codec.wire_nbytes(n)]
+            self._exchange(right, _bytes_view(cur), left, tag, _bytes_view(rv))
+            codec.decode_into(rv, chunks[recv_idx])
+            cur, cur_i = rv, 1 - cur_i  # rv is the next hop's outgoing frame
 
     def allgather(self, arr: np.ndarray) -> Work:
         world, rank = self._world, self._rank

@@ -19,11 +19,27 @@ are still copying. Averaged pieces go back host-to-device.
 
 The bucket buffers own their memory: the ring reduces (and a healing
 replica zeroes) in place, which must never write through to the caller's
-gradients.
+gradients. They are page-locked (``pin_memory``) and kept here, one set a
+manager (``_STAGING``), so a step reuses the last one's instead of
+allocating the gradient tree's size again; a new bucket plan replaces the
+set. Before a buffer is
+overwritten the call waits on the event recorded after the previous
+step's host-to-device copies out of it. A set whose step failed is
+dropped, not reused: a timed-out op may still be writing into it. On the
+native CMA plane the neighbouring worker pulls these buckets with
+``process_vm_readv``, which the kernel grants for ``cudaHostAlloc`` pages
+as for any other (``scripts/torch_cma_pinned_probe.py``).
+
+``error_feedback`` (a :class:`~torchft_tpu_torch.wire_codec.ErrorFeedback`,
+host path only): each staged bucket is compensated with the committed
+residual and projected onto the wire codec's grid in place before it
+enters the ring; its fresh residual stays pending until the caller commits
+or rolls it back with the step (``ManagedOptimizer`` does).
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
@@ -56,13 +72,27 @@ def plan_buckets(
     return plan
 
 
+class _Staging:
+    """The host buckets of one bucket plan, and the event recorded after
+    the last step's host-to-device copies out of them."""
+
+    def __init__(self, key: Any, bufs: List[torch.Tensor]) -> None:
+        self.key = key
+        self.bufs = bufs
+        self.copies_done: Optional[Any] = None
+
+
+# each manager's staging set, dropped with the manager
+_STAGING: "weakref.WeakKeyDictionary[Any, _Staging]" = weakref.WeakKeyDictionary()
+
+
 def allreduce_gradients(
-    manager, grads: Any, bucket_bytes: Optional[int] = None
+    manager, grads: Any, bucket_bytes: Optional[int] = None, error_feedback: Any = None
 ) -> Any:
     """Average a gradient tree (list or dict of tensors, all on one
     device) across replica groups through the Manager; returns a tree of
     the same shape on the same device. The caller's tensors are never
-    written."""
+    written. ``error_feedback``: see the module docstring."""
     if bucket_bytes is None:
         bucket_bytes = _DEFAULT_BUCKET_BYTES
     leaves, treedef = tree_flatten(grads)
@@ -77,11 +107,19 @@ def allreduce_gradients(
         bucket_bytes,
     )
 
+    sizes = [(leaves[idxs[0]].dtype, sum(leaves[i].numel() for i in idxs)) for idxs in plan]
+    key = (device.type, tuple(sizes))
+    # taken out while in use: a step that fails does not put it back
+    st = _STAGING.pop(manager, None)
+    if st is None or st.key != key:
+        st = _Staging(key, [torch.empty(n, dtype=dt, pin_memory=on_cuda) for dt, n in sizes])
+    elif st.copies_done is not None:
+        # the last step's host-to-device copies read these buffers
+        st.copies_done.synchronize()
+
     # stage 1: every bucket's D2H copies, issued before anything blocks
     staged = []
-    for idxs in plan:
-        n = sum(leaves[i].numel() for i in idxs)
-        buf = torch.empty(n, dtype=leaves[idxs[0]].dtype, pin_memory=on_cuda)
+    for idxs, buf in zip(plan, st.bufs):
         off = 0
         for i in idxs:
             k = leaves[i].numel()
@@ -95,10 +133,15 @@ def allreduce_gradients(
 
     # stage 2: each bucket enters the ring as soon as its own copies land
     futs = []
-    for idxs, buf, event in staged:
+    for ordinal, (idxs, buf, event) in enumerate(staged):
         if event is not None:
             event.synchronize()
-        futs.append((idxs, buf, manager.allreduce_many([buf.numpy()])))
+        host = buf.numpy()
+        if error_feedback is not None:
+            # compensate and project before the ring; the key is stable
+            # across steps while the bucket plan is
+            error_feedback.apply(f"b{ordinal}_{host.size}", host)
+        futs.append((idxs, buf, manager.allreduce_many([host])))
 
     # stage 3: averaged pieces back to the device
     out: List[Any] = [None] * len(leaves)
@@ -109,5 +152,11 @@ def allreduce_gradients(
             k = leaves[i].numel()
             piece = buf[off : off + k].view(leaves[i].shape)
             off += k
-            out[i] = piece.to(device, non_blocking=True) if on_cuda else piece
+            # the buffers are reused next step: the CPU result is a copy
+            out[i] = piece.to(device, non_blocking=True) if on_cuda else piece.clone()
+    if on_cuda:
+        st.copies_done = torch.cuda.Event()
+        st.copies_done.record()
+    if getattr(manager, "errored", lambda: None)() is None:
+        _STAGING[manager] = st
     return tree_unflatten(treedef, out)

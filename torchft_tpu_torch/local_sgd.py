@@ -24,6 +24,15 @@ DiLoCo keeps the JAX package's (and the paper's) pseudogradient sign
 ``backup − local``, so the outer optimizer descends toward the inner
 progress.
 
+Error feedback (``error_feedback``, on by default when the Manager's wire
+codec is lossy) compensates the averaged trees as ``ManagedOptimizer``
+does, committed or dropped with the sync. DiLoCo's ``outer_rank`` (or
+``TORCHFT_WIRE_OUTER_RANK``) ships each eligible 2-D pseudogradient leaf
+as its rank-r projection ``P = M Q``: ``Q`` is built on the host from a
+generator seeded by (leaf, committed outer syncs), so every group holds
+the same basis without shipping it, and the products run on the backup's
+device; a residual carry feeds the projection error into the next sync.
+
 A pipelined manager: LocalSGD resolves a vote that a pipelined per-step
 trainer left in flight before its own quorum and collectives, then takes the
 synchronous commit. DiLoCo rejects a pipelined manager, and an async-quorum
@@ -40,8 +49,14 @@ import torch
 
 from torchft_tpu_torch.ddp import allreduce_gradients
 from torchft_tpu_torch.manager import Manager
-from torchft_tpu_torch.optim import check_exact_wire
 from torchft_tpu_torch.utils.tree import tree_leaves, tree_map
+from torchft_tpu_torch.wire_codec import (
+    ErrorFeedback,
+    ErrorFeedbackBinding,
+    LowRankErrorFeedback,
+    lowrank_basis,
+    lowrank_eligible,
+)
 
 __all__ = ["LocalSGD", "DiLoCo"]
 
@@ -62,12 +77,16 @@ class LocalSGD:
     ) -> None:
         if sync_every < 1:
             raise ValueError("sync_every must be >= 1")
-        check_exact_wire(error_feedback)
         self._manager = manager
         self._sync_every = sync_every
         self._local_step = 0
         self._backup: Optional[Any] = None
         self._just_healed = False
+        self._efb = ErrorFeedbackBinding(manager, error_feedback)
+
+    @property
+    def error_feedback(self) -> Optional[ErrorFeedback]:
+        return self._efb.instance
 
     def save(self, params: Any) -> None:
         """Copy ``params`` as the restore point (a copy, never an alias:
@@ -115,7 +134,10 @@ class LocalSGD:
     # live-recovery state: register it with the Manager beside the
     # caller's params and inner optimizer state
     def state_dict(self) -> Dict[str, Any]:
-        return {"backup": self._backup, "local_step": self._local_step}
+        out = {"backup": self._backup, "local_step": self._local_step}
+        if self._efb.instance is not None:
+            out["ef"] = self._efb.instance.state_dict()
+        return out
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         if self._backup is None:
@@ -123,13 +145,29 @@ class LocalSGD:
         # a received backup lies on the host: copy it onto the device
         _copy_into(self._backup, state["backup"])
         self._local_step = int(state["local_step"])
+        ef = self._efb.instance
+        if ef is None and "ef" in state:
+            # auto mode may not have made the instance yet: adopt the
+            # healed accumulators
+            ef = self._efb.ensure_for_state(state["ef"])
+        if ef is not None:
+            ef.load_state_dict(state.get("ef") or {"acc": {}})
         # the caller's local params are stale beside this state; the next
         # sync starts from the backup (see sync())
         self._just_healed = True
 
     def _perform_sync(self, params: Any) -> bool:
-        averaged = allreduce_gradients(self._manager, list(tree_leaves(params)))
-        if self._manager.should_commit():
+        ef = self._efb.live()
+        averaged = allreduce_gradients(
+            self._manager, list(tree_leaves(params)), error_feedback=ef
+        )
+        committed = self._manager.should_commit()
+        if ef is not None:
+            if committed:
+                ef.commit()
+            else:
+                ef.rollback()
+        if committed:
             _copy_into(params, averaged)
             _copy_into(self._backup, averaged)
             return True
@@ -171,16 +209,15 @@ class DiLoCo(LocalSGD):
                 outer_rank = int(os.environ.get(OUTER_RANK_ENV, "0"))
             except ValueError:
                 outer_rank = 0
-        if outer_rank > 0:
-            raise NotImplementedError(
-                "outer_rank ships a low-rank projection of the pseudogradient "
-                "over the wire codecs, which are not ported yet (ROADMAP "
-                "queue 1: the wire codecs)"
-            )
         super().__init__(manager, sync_every, error_feedback=error_feedback)
         self._make_outer = outer_optimizer
         self._outer: Optional[torch.optim.Optimizer] = None
-        self._outer_syncs = 0  # committed outer steps
+        self._outer_rank = max(0, outer_rank)
+        self._lr_ef = LowRankErrorFeedback() if self._outer_rank else None
+        # committed outer steps: the seed of each sync's projection basis,
+        # the same in every group (it advances only on a commit and rides
+        # state_dict through heals)
+        self._outer_syncs = 0
 
     def save(self, params: Any) -> None:
         super().save(params)
@@ -191,14 +228,50 @@ class DiLoCo(LocalSGD):
     def outer_optimizer(self) -> Optional[torch.optim.Optimizer]:
         return self._outer
 
+    def _compress_pseudograd(
+        self, leaves: List[torch.Tensor]
+    ) -> "tuple[List[torch.Tensor], Dict[int, torch.Tensor]]":
+        """Swap each eligible 2-D leaf for its rank-r projection; returns
+        the wire leaves and {leaf index: basis}."""
+        bases: Dict[int, torch.Tensor] = {}
+        out = list(leaves)
+        for li, leaf in enumerate(leaves):
+            if leaf.dtype != torch.float32 or not lowrank_eligible(
+                tuple(leaf.shape), self._outer_rank
+            ):
+                continue
+            m = self._lr_ef.compensate(f"l{li}", leaf)
+            q = torch.from_numpy(lowrank_basis(
+                tuple(m.shape), self._outer_rank,
+                seed=(li * 1_000_003 + self._outer_syncs) & 0x7FFFFFFF,
+            )).to(m.device)
+            p = m @ q
+            self._lr_ef.stage(f"l{li}", m, p @ q.T)
+            bases[li] = q
+            out[li] = p
+        return out, bases
+
     def _perform_sync(self, params: Any) -> bool:
         backup = list(tree_leaves(self._backup))
-        # paper-sign pseudogradient: descend from the backup toward the
-        # averaged inner progress
+        ef = self._efb.live()
         with torch.no_grad():
+            # paper-sign pseudogradient: descend from the backup toward the
+            # averaged inner progress
             pseudograd = [b - p for b, p in zip(backup, tree_leaves(params))]
-        pseudograd = allreduce_gradients(self._manager, pseudograd)
-        if not self._manager.should_commit():
+            bases: Dict[int, torch.Tensor] = {}
+            if self._outer_rank:
+                pseudograd, bases = self._compress_pseudograd(pseudograd)
+            pseudograd = allreduce_gradients(self._manager, pseudograd, error_feedback=ef)
+            for li, q in bases.items():
+                pseudograd[li] = pseudograd[li] @ q.T
+        committed = self._manager.should_commit()
+        for carry in (ef, self._lr_ef):
+            if carry is not None:
+                if committed:
+                    carry.commit()
+                else:
+                    carry.rollback()
+        if not committed:
             _copy_into(params, self._backup)
             return False
         self._outer_syncs += 1
@@ -213,6 +286,8 @@ class DiLoCo(LocalSGD):
         d = super().state_dict()
         d["outer_state"] = self._outer.state_dict()
         d["outer_syncs"] = self._outer_syncs
+        if self._lr_ef is not None:
+            d["lr_ef"] = self._lr_ef.state_dict()
         return d
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
@@ -221,3 +296,10 @@ class DiLoCo(LocalSGD):
         # backup's device
         self._outer.load_state_dict(state["outer_state"])
         self._outer_syncs = int(state.get("outer_syncs", 0))
+        if self._lr_ef is not None:
+            # a received carry lies on the host: onto the backup's device
+            device = next(iter(tree_leaves(self._backup))).device
+            acc = (state.get("lr_ef") or {"acc": {}})["acc"]
+            self._lr_ef.load_state_dict(
+                {"acc": {k: torch.as_tensor(v).to(device) for k, v in acc.items()}}
+            )

@@ -601,6 +601,14 @@ class Manager:
         gradient averaging then skips the host round trip."""
         return bool(getattr(self._collectives, "device_arrays", False))
 
+    def wire_codec(self) -> str:
+        """The codec the configured data plane ships large float32
+        allreduces with (``"f32"`` = exact). Error feedback turns on
+        automatically from it: a lossy wire without residual compensation
+        drifts."""
+        fn = getattr(self._collectives, "wire_codec", None)
+        return fn() if callable(fn) else "f32"
+
     def allreduce_many(self, arrays: List[Any]) -> Future:
         """Fault-tolerant cross-replica-group allreduce, scaled by
         ``1 / num_participants()``: of host buffers (numpy, averaged in

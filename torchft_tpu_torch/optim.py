@@ -27,6 +27,12 @@ every parameter and of every optimizer state tensor. A heal and a rollback
 copy their state into the live tensors in place
 (:func:`load_optimizer_state`), so a CUDA graph that captured them (the
 graphed ``TrainStep``) goes on reading the right values.
+
+Error feedback (``error_feedback``, on by default when the Manager's wire
+codec is lossy): each step's quantization residuals follow the step's
+fate, committed with a committed vote and dropped on a veto or an abort
+(the pipelined commit's late veto included), and the committed ones ride
+``state_dict()["ef"]`` through heals.
 """
 
 from __future__ import annotations
@@ -38,24 +44,13 @@ import torch
 from torchft_tpu_torch.ddp import allreduce_gradients
 from torchft_tpu_torch.manager import Manager
 from torchft_tpu_torch.utils.tree import tree_leaves, tree_map
+from torchft_tpu_torch.wire_codec import ErrorFeedback, ErrorFeedbackBinding
 
 __all__ = [
     "ManagedOptimizer",
     "SpeculativeCommitMixin",
-    "check_exact_wire",
     "load_optimizer_state",
 ]
-
-
-def check_exact_wire(error_feedback: Any) -> None:
-    """The port's data plane is exact (float32), so there is nothing for
-    error feedback to compensate: ``None`` (the JAX package's auto mode,
-    which resolves to off on an exact plane) and ``False`` are accepted."""
-    if error_feedback is not None and error_feedback is not False:
-        raise NotImplementedError(
-            "error_feedback compensates the lossy wire codecs, which are not "
-            "ported yet (ROADMAP queue 1: the wire codecs)"
-        )
 
 
 def load_optimizer_state(opt: torch.optim.Optimizer, state: Dict[str, Any]) -> None:
@@ -122,15 +117,27 @@ class SpeculativeCommitMixin:
     _opt: Optional[torch.optim.Optimizer] = None
     _snapshot: Optional[Tuple[Any, Dict[str, Any]]] = None
     _replay_needed = False
+    _efb: Optional[ErrorFeedbackBinding] = None  # wire-plane error feedback
     rollbacks = 0  # speculative steps undone by a veto
+
+    @property
+    def error_feedback(self) -> Optional[ErrorFeedback]:
+        return self._efb.instance if self._efb is not None else None
 
     # -- state (registered with the Manager for live recovery) --
 
     def state_dict(self) -> Dict[str, Any]:
         if self._snapshot is not None:
             # mid-speculation a peer must heal from the committed state
-            return {"params": self._snapshot[0], "opt_state": self._snapshot[1]}
-        return {"params": self._params, "opt_state": self._opt.state_dict()}
+            out = {"params": self._snapshot[0], "opt_state": self._snapshot[1]}
+        else:
+            out = {"params": self._params, "opt_state": self._opt.state_dict()}
+        ef = self.error_feedback
+        if ef is not None:
+            # committed residuals only: a healed group resumes the
+            # compensation instead of restarting it from zero
+            out["ef"] = ef.state_dict()
+        return out
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         # a received state lies on the host; copy_ puts the params and the
@@ -141,6 +148,15 @@ class SpeculativeCommitMixin:
         # included: the next step's gradients are taken on this state
         self._snapshot = None
         self._replay_needed = False
+        ef = self.error_feedback
+        if ef is None and "ef" in state and self._efb is not None:
+            # auto mode may not have made the instance yet: adopt the
+            # healed accumulators rather than drop them
+            ef = self._efb.ensure_for_state(state["ef"])
+        if ef is not None:
+            # healed from a peer without EF state: start clean rather than
+            # compensate with residuals of a dead lineage
+            ef.load_state_dict(state.get("ef") or {"codec": None, "acc": {}})
 
     def _restore(self, params: Any, opt_state: Dict[str, Any]) -> None:
         with torch.no_grad():
@@ -165,6 +181,17 @@ class SpeculativeCommitMixin:
             self.rollbacks += 1
             self._replay_needed = True
         self._snapshot = None
+        self._resolve_error_feedback(committed)
+
+    def _resolve_error_feedback(self, committed: bool) -> None:
+        """The step's residuals share its lineage: a vetoed or aborted
+        step's must never compensate the next step."""
+        ef = self.error_feedback
+        if ef is not None:
+            if committed:
+                ef.commit()
+            else:
+                ef.rollback()
 
     def _consume_replay(self) -> bool:
         """True once per rollback: the in-flight gradients were computed on
@@ -204,11 +231,13 @@ class SpeculativeCommitMixin:
             m.should_commit_async(on_resolved=self._on_vote_resolved)
             return True
         # should_commit may heal: the params then hold the received state,
-        # and the average applied to them is the participants'
-        if m.should_commit():
+        # and the average applied to them is the participants' (a heal
+        # also restored the residuals, so the pending set is empty)
+        committed = m.should_commit()
+        self._resolve_error_feedback(committed)
+        if committed:
             apply(grads)
-            return True
-        return False
+        return committed
 
     def finish(self) -> Optional[bool]:
         """Resolve the trailing speculative vote; call after the last
@@ -231,10 +260,13 @@ class ManagedOptimizer(SpeculativeCommitMixin):
         ``load_state_dict`` with the manager, so a healing group receives
         params and optimizer state; a caller whose state covers more calls
         ``manager.set_state_dict_fns`` after ``init`` (and includes
-        ``state_dict()`` in it). ``error_feedback``: see
-        :func:`check_exact_wire`."""
-        check_exact_wire(error_feedback)
+        ``state_dict()`` in it). ``error_feedback``: residual compensation
+        for a lossy wire codec; None (the default) turns it on when the
+        manager's plane reports a lossy codec; False turns it off; an
+        :class:`~torchft_tpu_torch.wire_codec.ErrorFeedback` is used as
+        given."""
         self._manager = manager
+        self._efb = ErrorFeedbackBinding(manager, error_feedback)
         self._make_opt = optimizer
         self._params = None
         self._opt = None
@@ -273,15 +305,17 @@ class ManagedOptimizer(SpeculativeCommitMixin):
         the manager. ``grad_fn`` (``params -> grads``) recomputes the
         gradients after a rollback so the in-flight batch is replayed."""
         m = self._manager
-        if self._resolve_speculation():
+        replay = self._resolve_speculation()
+        ef = self._efb.live()
+        if replay:
             # ``grads`` were computed on the rolled-back params
             if grad_fn is None:
                 return self._params  # cannot replay: drop this batch too
             # replayed gradients always take the managed average: any
             # averaging the caller did belongs to the vetoed lineage
-            grads = allreduce_gradients(m, grad_fn(self._params))
+            grads = allreduce_gradients(m, grad_fn(self._params), error_feedback=ef)
         elif average:
-            grads = allreduce_gradients(m, grads)
+            grads = allreduce_gradients(m, grads, error_feedback=ef)
         self._commit(grads, self._apply_update)
         return self._params
 
