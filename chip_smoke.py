@@ -16,9 +16,15 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    each against its plain PyTorch
    version on the same inputs, elementwise, and bitwise equal across two
    launches; the autograd op against plain attention evaluated in float32
-   at each head dim; float32 cases at the JAX test bars.
+   at each head dim; float32 cases at the JAX test bars. At the
+   long-context bench's lengths (D 64): K1-K3 whole at B2 S4096 H8 and
+   B1 S8192 H8, and at B1 S16384 and S32768 H8 over chunks of 4096 query
+   rows (dO random on every row: O, lse and dQ chunk by chunk, dK and dV
+   against the chunks' float32 sum).
 3. timing of each kernel at the shapes its main path gives it (D 64 at
-   the headline's, D 128 at the Llama-2-7B width's, D 32 at train_bytes'):
+   the headline's and at B1 S8192 and S32768 H8, where phase 14's
+   long-context rows run it; D 128 at the Llama-2-7B width's, D 32 at
+   train_bytes'; at S 32768 the plain versions run on query chunks):
    launched eagerly between CUDA events (``ms``), and replayed from a CUDA
    graph (device time alone) with its inputs warm in the L2 and L2-cold;
    its host cost per call, its plain version, the
@@ -111,12 +117,25 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    a 701.6 MB heal over CollectivesTransport with CMA and over TCP (one
    sha256 on both sides), and phase 12's SIGKILL on the default plane
    with phase 12's checks.
+14. the port's bench (``torchft_tpu_torch.bench``), shortened: the
+   headline ``train_bench`` as one interleaved pair (2 warm-up + 10 timed
+   steps each), ``benchmarks.long_context`` whole (the headline at S
+   32768, 16384, 8192 and 4096, and the 647M model), ``resnet_ft`` (2
+   reps), ``quorum_overlap`` and ``commit_pipeline`` (2 pairs each),
+   ``diloco`` (4 worker processes, 2 outer steps), ``crossgroup
+   --compressed`` (128 MB, 1 round) and the 1-of-4 kill (four headline
+   workers) under phase 12's checks. Every row printed; no row errs; every
+   transformer step commits with one capture of each graph, 2L/L/L flash
+   launches a step (L/L/L for the 647M model, without remat) and 0 <
+   mfu_pct < 100; every DiLoCo sync hands the collectives the MLP's float32
+   bytes.
 
-Phases 4-13 replay each train step from CUDA graphs (phase 4's and phase
+Phases 4-14 replay each train step from CUDA graphs (phase 4's and phase
 9's eager arms aside); every group's graphs are captured once, so a heal
 or a rollback that swapped a captured tensor would show as a recapture.
 
-Prints the kernels' JSON line (one entry per kernel and head dim), the
+Prints the kernels' JSON line (one entry per kernel and head dim, and at
+head dim 64 per long-context length), the
 script's seconds and, last, ``{"ok": true, "device": ...}``. The native core and the kernels are
 built from the checkout on first use; ptxas must report 0 spill bytes for
 every kernel of a fresh build.
@@ -150,6 +169,17 @@ LLAMA = dict(batch=2, seq=4096, heads=32, head_dim=128)
 LLAMA_LAYERS = 4  # of the preset's 32: one card holds float32 masters and AdamW state for 4
 # examples/train_bytes.py:62,86,104-112
 BYTES = dict(batch=8, seq=128, heads=4, head_dim=32)
+# the headline's attention at the long-context bench's lengths
+# (benchmarks/long_context.py), timed at S 8192 and 32768
+LONG_WHOLE = dict(batch=1, seq=8192, heads=8, head_dim=64)
+LONG = dict(batch=1, seq=32768, heads=8, head_dim=64)
+# (B, S, H, D) held whole against the plain versions, and over query chunks
+# (the [S, S] scores would take 8.6 GB at S 16384, 34 GB at S 32768)
+LONG_HELD_WHOLE = ((2, 4096, 8, 64), (1, 8192, 8, 64))
+LONG_HELD_CHUNKED = ((1, 16384, 8, 64), (1, 32768, 8, 64))
+# the plain versions at S 16384 and 32768 run on query chunks of this many
+# rows (a chunk's scores: 4.3 GB in float32 at S 32768)
+LONG_PLAIN_CHUNK = 4096
 REPLACES = {
     "flash_fwd": "torchft_tpu/ops/pallas/flash_attention.py:67",
     "flash_dq": "torchft_tpu/ops/pallas/flash_attention.py:145",
@@ -342,25 +372,32 @@ F32_GRAD_BAR = dict(rtol=0.0, atol=3e-4, row_scaled=False)
 F32_LSE_TOL = 2e-5
 
 
-def _hold(name, got, ref, what, rtol, atol, row_scaled) -> float:
-    """Hold ``got`` to ``ref`` elementwise at a bar above; print the error,
-    the bar and the typical |ref| beside it. Returns max |err|."""
+def _errs(got, ref, rtol, atol, row_scaled):
+    """(max |err|, worst err/bar, median |ref|, max |ref|) of ``got``
+    against ``ref`` at a bar above."""
     got, ref = got.float(), ref.float()
     err = (got - ref).abs()
     scale = ref.abs()
     if row_scaled:
         scale = scale + ref.pow(2).mean(-1, keepdim=True).sqrt()
-    worst = float((err / (rtol * scale + atol)).max())
+    return (float(err.max()), float((err / (rtol * scale + atol)).max()),
+            float(ref.abs().median()), float(ref.abs().max()))
+
+
+def _hold(name, got, ref, what, rtol, atol, row_scaled, errs=None) -> float:
+    """Hold ``got`` to ``ref`` elementwise at a bar above (or take ``errs``,
+    what ``_errs`` gave over chunks); print the error, the bar and the
+    typical |ref| beside it. Returns max |err|."""
+    err, worst, med, top = errs or _errs(got, ref, rtol, atol, row_scaled)
     rows = "(|ref|+row rms)" if row_scaled else "|ref|"
-    log(f"{name}: max|g-{what}|={float(err.max()):.3e} median|ref|="
-        f"{float(ref.abs().median()):.3e} max|ref|={float(ref.abs().max()):.3e} "
+    log(f"{name}: max|g-{what}|={err:.3e} median|ref|={med:.3e} max|ref|={top:.3e} "
         f"worst err/bar={worst:.3f} (bar {rtol:.4g}*{rows}+{atol:g}, fail >1)")
     check(worst <= 1.0, f"{name} disagrees with {what}")
-    return float(err.max())
+    return err
 
 
-def _hold_lse(name, got, ref, tol=LSE_TOL) -> float:
-    err = _max_err(got, ref)
+def _hold_lse(name, got, ref, tol=LSE_TOL, err=None) -> float:
+    err = _max_err(got, ref) if err is None else err
     log(f"{name}: max|lse-ref|={err:.3e} (tol {tol:g})")
     check(err <= tol, f"{name}: lse disagrees with its plain version")
     return err
@@ -501,6 +538,90 @@ def phase_kernels():
     return errs
 
 
+def _check_kernels_chunked(fa, shape, seed, chunk):
+    """K1-K3 at a length whose [S, S] scores do not fit, with dO random on
+    every row, held over query chunks of ``chunk`` rows: O, lse and dQ
+    against the plain versions chunk by chunk (``rows=``), dK and dV
+    against the chunks' float32 sum, at the kernel bars (the median |ref|
+    printed for O, lse and dQ is the largest chunk's). Each kernel launched
+    twice is bitwise equal. Returns each kernel's max |err|."""
+    b, s, h, d = shape
+    tag = f"b{b} s{s} h{h} d{d} bf16, {s // chunk} chunks of {chunk} query rows"
+    q, k, v, do = _qkv(b, s, h, d, torch.bfloat16, seed=seed)
+    pq, pk, pv, pdo = map(_pack, (q, k, v, do))
+    del q, k, v, do
+    plain = "its plain version by chunk"
+    o, lse = fa.fwd_kernel(pq, pk, pv, True)
+    delta = (pdo.float() * o.float()).sum(-1)
+    dq = fa.dq_kernel(pq, pk, pv, pdo, lse, delta, True)
+    dk, dv = fa.dkv_kernel(pq, pk, pv, pdo, lse, delta, True)
+    worst = {}  # what: (max |err|, worst err/bar, median |ref|, max |ref|)
+    lse_err = 0.0
+    dk_ref = dv_ref = 0
+    for r0 in range(0, s, chunk):
+        rows = (r0, min(s, r0 + chunk))
+        o_ref, lse_ref = fa.fwd_plain(pq, pk, pv, True, rows=rows)
+        lse_err = max(lse_err, _max_err(lse[:, rows[0]:rows[1]], lse_ref))
+        parts = {"o": _errs(o[:, rows[0]:rows[1]], o_ref, **KERNEL_BAR)}
+        del o_ref, lse_ref
+        parts["dq"] = _errs(dq[:, rows[0]:rows[1]],
+                            fa.dq_plain(pq, pk, pv, pdo, lse, delta, True, rows=rows),
+                            **KERNEL_BAR)
+        for what, e in parts.items():
+            worst[what] = tuple(max(x, y) for x, y in zip(worst.get(what, e), e))
+        dk_r, dv_r = fa.dkv_plain(pq, pk, pv, pdo, lse, delta, True, rows=rows,
+                                  out_dtype=torch.float32)
+        dk_ref, dv_ref = dk_ref + dk_r, dv_ref + dv_r
+        del dk_r, dv_r
+    res = {"flash_fwd": max(_hold(f"K1 flash_fwd O {tag}", None, None, plain, **KERNEL_BAR,
+                                  errs=worst["o"]),
+                            _hold_lse(f"K1 flash_fwd {tag}", None, None, err=lse_err)),
+           "flash_dq": _hold(f"K2 flash_dq {tag}", None, None, plain, **KERNEL_BAR,
+                             errs=worst["dq"])}
+    res["flash_dkv"] = max(_hold(f"K3 flash_dk {tag}", dk, dk_ref, "the chunks' sum", **KERNEL_BAR),
+                           _hold(f"K3 flash_dv {tag}", dv, dv_ref, "the chunks' sum", **KERNEL_BAR))
+    del dk_ref, dv_ref
+    o2, lse2 = fa.fwd_kernel(pq, pk, pv, True)
+    dq2 = fa.dq_kernel(pq, pk, pv, pdo, lse, delta, True)
+    dk2, dv2 = fa.dkv_kernel(pq, pk, pv, pdo, lse, delta, True)
+    torch.cuda.synchronize()
+    same = {"flash_fwd": torch.equal(o, o2) and torch.equal(lse, lse2),
+            "flash_dq": torch.equal(dq, dq2),
+            "flash_dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2)}
+    log(f"bitwise equal across two launches {tag}: {same}")
+    check(all(same.values()), f"a kernel is not deterministic {tag}: {same}")
+    return res
+
+
+def phase_long_kernels():
+    """Phase 2 at the long-context bench's lengths, head dim 64: K1-K3 whole
+    against their plain versions at ``LONG_HELD_WHOLE``, and over query
+    chunks of ``LONG_PLAIN_CHUNK`` rows at ``LONG_HELD_CHUNKED``. Returns
+    {(kernel, S): max |err|}."""
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    errs = {}
+    for seed, shape in enumerate(LONG_HELD_WHOLE + LONG_HELD_CHUNKED, start=16):
+        held = (_check_kernels(fa, shape, seed) if shape in LONG_HELD_WHOLE
+                else _check_kernels_chunked(fa, shape, seed, LONG_PLAIN_CHUNK))
+        for name, err in held.items():
+            errs[(name, shape[1])] = err
+        gc.collect()
+        torch.cuda.empty_cache()
+    return errs
+
+
+def _plain_chunked(plain, x, chunk, summed):
+    """A kernel's plain version over query chunks of ``chunk`` rows, with
+    dK and dV (``summed``) added up over the chunks: the same work where the
+    [S, S] scores do not fit at once."""
+    s = x[0].shape[1]
+    parts = [plain(x, (r0, min(s, r0 + chunk))) for r0 in range(0, s, chunk)]
+    if summed:
+        return tuple(sum(p[i].float() for p in parts) for i in range(2))
+    return parts
+
+
 def _bounds(shape):
     """Least time for each kernel's work at ``shape`` (B, S, H, D; bf16,
     causal): the bytes it must move (inputs read once, outputs written
@@ -528,15 +649,16 @@ def _bounds(shape):
 COLD_SETS = 4  # input sets rotated for L2-cold times: 135-200 MB at D 64, over the 50 MB L2
 
 
-def phase_timing(shape):
+def phase_timing(shape, plain_chunk=None, plain_reps=25):
     """Each kernel's time at ``shape`` (bf16, causal), launched eagerly
     (``ms``, the method of the first slice's records); its device time
     replayed from a CUDA graph with its inputs warm (one set, called back
     to back: ``ms_graph``) and L2-cold (``COLD_SETS`` independent sets in
     turn: ``ms_cold``; at D 32 all sets fit in the L2); its host cost per
-    call; its plain version's time; and the ``scaled_dot_product_attention``
-    yardsticks, each by both methods. Returns (times, bounds, SDPA forward
-    (eager, graph))."""
+    call; its plain version's time (median of ``plain_reps``; over query
+    chunks of ``plain_chunk`` rows when given); and the
+    ``scaled_dot_product_attention`` yardsticks, each by both methods.
+    Returns (times, bounds, SDPA forward (eager, graph))."""
     import torch.nn.functional as F
 
     from torchft_tpu_torch.ops import flash_attention as fa
@@ -552,18 +674,23 @@ def phase_timing(shape):
     tiny = [x[:, :128].contiguous() for x in sets[0]]  # device keeps up: host cost
     calls = {
         "flash_fwd": (lambda x: fa.fwd_kernel(*x[:3], True),
-                      lambda x: fa.fwd_plain(*x[:3], True)),
-        "flash_dq": (lambda x: fa.dq_kernel(*x, True), lambda x: fa.dq_plain(*x, True)),
-        "flash_dkv": (lambda x: fa.dkv_kernel(*x, True), lambda x: fa.dkv_plain(*x, True)),
+                      lambda x, rows=None: fa.fwd_plain(*x[:3], True, rows=rows)),
+        "flash_dq": (lambda x: fa.dq_kernel(*x, True),
+                     lambda x, rows=None: fa.dq_plain(*x, True, rows=rows)),
+        "flash_dkv": (lambda x: fa.dkv_kernel(*x, True),
+                      lambda x, rows=None: fa.dkv_plain(*x, True, rows=rows)),
     }
     t = {}
     for name, (kernel, plain) in calls.items():
+        whole = ((lambda: plain(sets[0])) if plain_chunk is None
+                 else (lambda: _plain_chunked(plain, sets[0], plain_chunk,
+                                              summed=name == "flash_dkv")))
         t[name] = dict(
             ms=gpu_time_ms(lambda: kernel(sets[0])),
             ms_graph=gpu_time_ms(lambda: kernel(sets[0]), graph=True),
             ms_cold=gpu_time_ms([lambda x=x: kernel(x) for x in sets], graph=True),
             host_us=host_us_per_call(lambda: kernel(tiny)),
-            plain_ms=gpu_time_ms(lambda: plain(sets[0])),
+            plain_ms=gpu_time_ms(whole, reps=plain_reps, inner=1 if plain_chunk else 5),
         )
     del sets, tiny
 
@@ -589,9 +716,11 @@ def phase_timing(shape):
         bound, by, flops, nbytes = bounds[name]
         earlier = EARLIER_GRAPH_MS.get((name, d))
         before = "" if earlier is None else f" (earlier design {earlier:.4f} ms)"
+        chunks = "" if plain_chunk is None else f" (query chunks of {plain_chunk} rows)"
         log(f"{name} {tag}: {r['ms']:.4f} ms eager (host launches included); CUDA graph "
             f"(device time) {r['ms_graph']:.4f} ms warm{before}, {r['ms_cold']:.4f} ms "
-            f"L2-cold; host {r['host_us']:.1f} us/call; plain {r['plain_ms']:.4f} ms; bound "
+            f"L2-cold; host {r['host_us']:.1f} us/call; plain {r['plain_ms']:.4f} ms{chunks}; "
+            f"bound "
             f"{bound:.4f} ms by {by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB")
     for i, method in enumerate(("eager", "CUDA graph")):
         fwd, both = sdpa["fwd"][i], sdpa["fwd_bwd"][i]
@@ -889,8 +1018,9 @@ def phase_remat(steps=3):
 
 
 def _launches_per_step(cfg):
-    # forward + checkpoint recompute per layer; one backward per layer
-    return {"flash_fwd": 2 * cfg.n_layers, "flash_dq": cfg.n_layers,
+    # forward (+ its checkpoint recompute under remat) per layer; one
+    # backward per layer
+    return {"flash_fwd": (2 if cfg.remat else 1) * cfg.n_layers, "flash_dq": cfg.n_layers,
             "flash_dkv": cfg.n_layers}
 
 
@@ -1830,15 +1960,17 @@ def _survivor_log(path):
         return [line.rstrip() for line in f if any(k in line for k in keep)]
 
 
-def phase_recovery(joint_ms, env_extra, name="kill and rejoin", plane=None):
-    """Two groups as worker processes on the card, each training the
-    headline at full width (graphed, ``"flash"``) through FTTrainer on
-    CollectivesTcp with the HTTP heal; group 1 takes SIGKILL once it has
-    committed ``KILL_AT_STEP`` and is respawned
+def phase_recovery(joint_ms, env_extra, name="kill and rejoin", plane=None, num_groups=2,
+                   join_timeout_ms=100):
+    """``num_groups`` groups as worker processes on the card, each training
+    the headline at full width (graphed, ``"flash"``) through FTTrainer on
+    CollectivesTcp with the HTTP heal; the last group takes SIGKILL once it
+    has committed ``KILL_AT_STEP`` and is respawned
     (``torchft_tpu_torch.benchmarks.recovery.measure_recovery``). ``joint_ms``
     is a joint step over TCP, beside which the op timeout is printed;
     ``env_extra`` selects the workers' plane, and ``plane`` (when given) is
-    the one every two-group epoch must report."""
+    the one every epoch of more than one group must report;
+    ``join_timeout_ms`` is the lighthouse's."""
     from torchft_tpu_torch.benchmarks.recovery import measure_recovery
 
     gc.collect()
@@ -1849,8 +1981,9 @@ def phase_recovery(joint_ms, env_extra, name="kill and rejoin", plane=None):
     try:
         r = measure_recovery(total_steps=RECOVERY_STEPS, kill_at_step=KILL_AT_STEP,
                              step_sleep=0.0, op_timeout=RECOVERY_OP_TIMEOUT,
-                             heartbeat_timeout_ms=LEASE_MS, timeout_s=600.0, num_groups=2,
-                             env_extra=env_extra)
+                             heartbeat_timeout_ms=LEASE_MS, timeout_s=600.0,
+                             num_groups=num_groups, env_extra=env_extra,
+                             join_timeout_ms=join_timeout_ms)
     finally:
         if saved is None:
             os.environ.pop("DEVICE")
@@ -1879,9 +2012,11 @@ def phase_recovery(joint_ms, env_extra, name="kill and rejoin", plane=None):
         f"{r.survivor_commits_after_kill}, rejoiner commits {r.rejoiner_commits}; deadlines "
         f"hit, by group: steps retried {r.timeout_retries}, steps aborted {r.deadline_aborts}; "
         f"phase wall {wall:.1f} s")
-    check(sorted(finals) == [0, 1], f"{name}: final events of groups {sorted(finals)}")
+    groups = list(range(num_groups))
+    victim = groups[-1]
+    check(sorted(finals) == groups, f"{name}: final events of groups {sorted(finals)}")
     if plane is not None:
-        check(all(r.planes[g] == [plane] for g in (0, 1)),
+        check(all(r.planes[g] == [plane] for g in groups),
               f"{name}: the groups ran on {r.planes}, expected {plane}")
     # the workers retry a step that raised on a deadline, and abort one whose
     # op or heal latched one; on the card no deadline may be hit, in the
@@ -1890,12 +2025,12 @@ def phase_recovery(joint_ms, env_extra, name="kill and rejoin", plane=None):
           f"{name}: deadlines hit, by group: steps retried {r.timeout_retries}, "
           f"steps aborted {r.deadline_aborts}")
     check(r.survivor_commits_after_kill > 0, f"{name}: the survivor never committed again")
-    heal = finals[1]["heal"]
+    heal = finals[victim]["heal"]
     check(r.rejoiner_commits > 0 and heal and heal["bytes"] > 0,
           f"{name}: the respawned group did not heal and commit")
-    check(finals[0]["digest"] == finals[1]["digest"] and finals[0]["step"] == finals[1]["step"],
+    check(len({(finals[g]["digest"], finals[g]["step"]) for g in groups}) == 1,
           f"{name}: the groups ended with different params or optimizer state")
-    for g in (0, 1):
+    for g in groups:
         check(finals[g]["captures"] == {"grads": 1, "apply": 1},
               f"{name}: group {g} captured its graphs {finals[g]['captures']} "
               "(serving or taking a heal must not recapture)")
@@ -1903,15 +2038,14 @@ def phase_recovery(joint_ms, env_extra, name="kill and rejoin", plane=None):
         check(finals[g]["launches_per_step"] == [expect],
               f"{name}: group {g} launched {finals[g]['launches_per_step']} per step, "
               f"expected {expect}")
-    check(any(evicted for gid, _, evicted in r.evictions if gid == 0),
-          f"{name}: the survivor's eviction report was not accepted: {r.evictions}")
+    check(any(evicted for gid, _, evicted in r.evictions if gid != victim),
+          f"{name}: no survivor's eviction report was accepted: {r.evictions}")
     check(r.survivor_blackout_s < LEASE_MS / 1000,
           f"{name}: blackout {r.survivor_blackout_s:.3f} s is not below the "
           f"{LEASE_MS / 1000:.1f} s lease")
     check(RECOVERY_OP_TIMEOUT >= 10 * r.steady_step_s,
           f"{name}: op timeout {RECOVERY_OP_TIMEOUT} s under 10 steady steps")
-    return {n: finals[0]["launches"][n] + finals[1]["launches"][n]
-            for n in finals[0]["launches"]}
+    return {n: sum(finals[g]["launches"][n] for g in groups) for n in finals[0]["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2083,6 +2217,130 @@ def phase_wire_plane(joint_ms):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the port's bench
+# ---------------------------------------------------------------------------
+
+BENCH_WARMUP, BENCH_STEPS = 2, 10  # the headline pair's steps (bench.py: 3 + 20)
+
+
+def phase_bench(joint_ms):
+    """The port's bench (``torchft_tpu_torch.bench``) in a shortened form,
+    each row through the function ``bench.main`` runs it with, in a process
+    of its own where ``bench.main`` runs it in one: the headline
+    ``train_bench`` as one interleaved pair (averaging, then not), 2 warm-up
+    and 10 timed steps each; ``long_context.run()`` whole (S 32768, 16384,
+    8192, 4096 and the 647M model); ``resnet_ft`` with 2 reps;
+    ``quorum_overlap`` and ``commit_pipeline`` with 2 pairs; ``diloco``
+    with 2 outer steps; ``crossgroup --compressed`` at 128 MB, 1 round (the
+    subprocess rows in lanes beside each other); and the 1-of-4 kill
+    (``recovery_1of4``) under phase 12's checks. Prints
+    every row on its line and holds: no row errs; every transformer step
+    commits, its graphs are captured once and its flash launches per step
+    are 2L/L/L under remat (L/L/L without); 0 < mfu_pct < 100; the ResNet
+    graphs are captured once a rep; no rollback in the pipelined runs;
+    every DiLoCo sync hands the collectives the MLP's float32 bytes; the
+    int8 first averages lie within WIRE_ERR_LIMIT. Returns the long-context
+    rows (the kernels' launches at S 8192 and 32768 come from them)."""
+    from torchft_tpu_torch import bench
+    from torchft_tpu_torch.benchmarks import diloco
+    from torchft_tpu_torch.benchmarks.long_context import LENGTHS, scale_config
+    from torchft_tpu_torch.models.transformer import headline_config as headline
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = headline()
+    batch, seq = HEADLINE["batch"], HEADLINE["seq"]
+    peak = bench._peak_flops(torch.cuda.get_device_name(0))
+    rows = {}
+    for averaging in (True, False):
+        rec = {}
+        sps, n_params = bench.train_bench(cfg, batch, seq, BENCH_STEPS, BENCH_WARMUP,
+                                          averaging=averaging, record=rec)
+        flops = bench._model_flops_per_step(cfg, n_params, batch, seq)
+        rows[f"headline_{'avg' if averaging else 'noavg'}"] = dict(
+            steps_per_sec=sps, tokens_per_sec=sps * batch * seq,
+            mfu_pct=bench.mfu_pct(sps, flops, peak), n_params=n_params, **rec)
+    # three lanes at once, to keep the script's wall near 420 s: the rows
+    # that load the card (long context, ResNet) in this thread; the two
+    # host-only rows (threads that sleep for the forward) in one process
+    # each; the small device rows (DiLoCo's MLP, the int8 wire) in turn in
+    # a third. Their times contend for the host's cores: the bench proper
+    # runs each alone, and nothing here holds a time
+    lanes = [
+        [("long_context", bench._module("long_context"), 900),
+         ("resnet18_cifar", bench._module("resnet_ft", "--reps", "2"), 600)],
+        [("quorum_overlap", bench._module("quorum_overlap", "--runs", "2"), 300)],
+        [("commit_pipeline", bench._module("commit_pipeline", "--runs", "2"), 300)],
+        [("diloco_4group", bench._module("diloco", "--outer-steps", "2"), 300),
+         ("crossgroup_compressed", bench._module("crossgroup", "--compressed", "--total-mb",
+                                                 "128", "--rounds", "1"), 600)],
+    ]
+
+    def run_lane(lane):
+        out = {}
+        for name, cmd, timeout_s in lane:
+            t1 = time.perf_counter()
+            out[name] = bench._run_json_subprocess(cmd, timeout_s, env_extra={"DEVICE": "cuda"})
+            log(f"bench {name}: {time.perf_counter() - t1:.1f} s in its own process")
+        return out
+
+    with ThreadPoolExecutor(max_workers=len(lanes) - 1) as pool:
+        beside = [pool.submit(run_lane, lane) for lane in lanes[1:]]
+        done = run_lane(lanes[0])
+        for fut in beside:
+            done.update(fut.result())
+    rows.update(done.pop("long_context"))
+    rows.update(done)
+    for name, row in rows.items():
+        log(f"bench row {name}: {json.dumps(row)}")
+    bad = [name for name, row in rows.items() if bench.has_error(row)]
+    check(not bad, f"bench rows raised: {bad}")
+
+    transformer = {f"headline_{v}": cfg for v in ("avg", "noavg")}
+    transformer.update({f"long_context_s{s}": cfg for s, *_ in LENGTHS})
+    transformer["scale_647M"] = scale_config()
+    for name, c in transformer.items():
+        row = rows[name]
+        check(row["committed"] == row["steps"],
+              f"bench {name}: {row['committed']} of {row['steps']} steps committed")
+        check(row["mfu_pct"] is not None and 0 < row["mfu_pct"] < 100,
+              f"bench {name}: mfu_pct {row['mfu_pct']}")
+        check(row["launches_per_step"] == [_launches_per_step(c)],
+              f"bench {name}: flash launches per step {row['launches_per_step']}, expected "
+              f"{_launches_per_step(c)}")
+        check(row["captures"] == {"grads": 1, "apply": 1},
+              f"bench {name}: graphs captured {row['captures']}")
+    resnet = rows["resnet18_cifar"]
+    check(all(c == {"grads": 1, "apply": 1} for c in resnet["captures"])
+          and all(n == resnet["steps"] for n in resnet["committed"]),
+          f"bench resnet18_cifar: captures {resnet['captures']}, committed "
+          f"{resnet['committed']} of {resnet['steps']}")
+    check(rows["commit_pipeline"]["rollbacks"] == 0,
+          f"bench commit_pipeline: {rows['commit_pipeline']['rollbacks']} rollbacks")
+    mlp_bytes = sum(a.nbytes for a in diloco._init_params().values())
+    check(rows["diloco_4group"]["payload_bytes"] == mlp_bytes,
+          f"bench diloco_4group: each sync handed the collectives "
+          f"{rows['diloco_4group']['payload_bytes']} bytes, the MLP's float32 bytes are "
+          f"{mlp_bytes}")
+    measure, limit = WIRE_ERR_LIMIT["int8"]
+    for sched in ("serial", "streamed"):
+        r = rows["crossgroup_compressed"][sched]
+        err = r["first_avg_wire_err"][measure]
+        log(f"bench crossgroup_compressed {sched}: {r['plane']}, codec {r['wire_codec']}; "
+            f"first average's {measure} error {err:.6e} (limit {limit:.6f})")
+        check(r["plane"] == "tcp-striped" and r["wire_codec"] == "int8" and err <= limit,
+              f"bench crossgroup_compressed {sched}: {r['plane']} {r['wire_codec']}, "
+              f"{measure} error {err}")
+    log(f"bench: rows before the 1-of-4 kill {time.perf_counter() - t0:.1f} s")
+    # the 1-of-4 kill: four headline workers on the card, the default plane
+    phase_recovery(joint_ms, {}, name="recovery_1of4", num_groups=4,
+                   join_timeout_ms=bench.JOIN_TIMEOUT_1OF4_MS)
+    log(f"bench: phase wall {time.perf_counter() - t0:.1f} s")
+    return {s: rows[f"long_context_s{s}"] for s, *_ in LENGTHS}
+
+
 def main() -> None:
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2121,8 +2379,12 @@ def main() -> None:
     check_no_spills(build_log)
 
     errs = phase_kernels()
+    errs.update(phase_long_kernels())
     timing = {64: phase_timing(_shape(HEADLINE)), 128: phase_timing(_shape(LLAMA)),
-              32: phase_timing(_shape(BYTES))}
+              32: phase_timing(_shape(BYTES)),
+              LONG_WHOLE["seq"]: phase_timing(_shape(LONG_WHOLE), plain_reps=5),
+              LONG["seq"]: phase_timing(_shape(LONG), plain_chunk=LONG_PLAIN_CHUNK,
+                                        plain_reps=3)}
     launches = {64: phase_ft_loop()}
     phase_remat()
     tcp_groups = phase_two_groups()
@@ -2137,6 +2399,7 @@ def main() -> None:
     # phase 12 on the Python ring, so its numbers compare with earlier runs
     recovery_launches = phase_recovery(tcp_groups["joint_ms"], {"TORCHFT_NATIVE_PLANE": "0"})
     wire_launches = phase_wire_plane(tcp_groups["joint_ms"])
+    long_rows = phase_bench(tcp_groups["joint_ms"])
 
     kernels = []
     for d in (64, 128, 32):
@@ -2159,6 +2422,22 @@ def main() -> None:
                 kernels[-1]["launches_kill_rejoin"] = recovery_launches[name]
                 # phase 13's two worker processes: the arms, then the kill
                 kernels[-1]["launches_wire_plane"] = wire_launches[name]
+    # head dim 64 at the long-context bench's lengths: launched by phase 14's
+    # long_context rows
+    for seq in (LONG_WHOLE["seq"], LONG["seq"]):
+        t, bounds, sdpa_fwd = timing[seq]
+        for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+            kernels.append({
+                "name": f"{name}_s{seq}", "head_dim": 64, "seq": seq, "route": "cuda",
+                "kernel": KERNEL_OF[(name, 64)], "source": SOURCE, "replaces": REPLACES[name],
+                "launches": long_rows[seq]["launches"][name],
+                "max_abs_err": errs[(name, seq)], "ms": t[name]["ms"],
+                "ms_graph": t[name]["ms_graph"], "ms_cold": t[name]["ms_cold"],
+                "plain_ms": t[name]["plain_ms"], "bound_ms": bounds[name][0],
+                "bound_by": bounds[name][1],
+                "library_ms": sdpa_fwd[0] if name == "flash_fwd" else None,
+                "library_ms_graph": sdpa_fwd[1] if name == "flash_fwd" else None,
+            })
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke.py: {time.perf_counter() - started:.1f} s")
     log(smi)

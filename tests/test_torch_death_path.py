@@ -228,6 +228,53 @@ def test_teardown_wakes_the_acceptor_and_frees_the_watcher():
     assert _teardown_script(_package("port")) == (False, 0)
 
 
+def _never_joined_script(pkg):
+    """Ranks 0 and 1 of a three-rank epoch configure their plane with a
+    death watch; rank 2, counted in the quorum but dead before it joined,
+    never does. Returns each survivor's error, the death watch's calls, and
+    whether the survivors waited out the 1 s op timeout."""
+    server = pkg.StoreServer()
+    colls = [pkg.CollectivesTcp(timeout=timedelta(seconds=1), hostname="localhost",
+                                native_plane=True)
+             for _ in range(2)]
+    got: List[tuple] = []
+    for c in colls:
+        c.set_death_watch(lambda rank, gen: got.append((rank, gen)))
+
+    def join(rank):
+        try:
+            colls[rank].configure(f"{server.address()}/nj", rank, 3)
+        except Exception as e:  # noqa: BLE001 - the error is the answer
+            return f"{type(e).__name__}: {e}"
+        return None
+
+    t0 = time.monotonic()
+    try:
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            errors = list(ex.map(join, range(2)))
+        waited = time.monotonic() - t0
+        time.sleep(0.3)  # a late death-watch call would land here
+        return errors, list(got), waited >= 1.0
+    finally:
+        for c in colls:
+            c.shutdown()
+        server.shutdown()
+
+
+def test_member_dead_before_the_plane_joins_waits_out_the_op_timeout():
+    """An open fault of both packages (ROADMAP queue 3), held as it stands:
+    a member that dies after the lighthouse counted it in a new epoch (its
+    quorum request in, its lease still running) but before it joined that
+    epoch's plane leaves no socket to close, so the death watch never
+    fires, no eviction is reported, and the survivors wait for it until
+    the op timeout. The recovery harness's kill waits for a step of every
+    group so that its rows do not land here. When it is repaired, this
+    test changes with it."""
+    port, ref = _never_joined_script(_package("port")), _never_joined_script(_package("jax"))
+    assert port == (["TimeoutError: peers never connected: [2]"] * 2, [], True), port
+    assert port == ref
+
+
 # ---------------------------------------------------------------------------
 # the Manager, with a patched ManagerClient
 # ---------------------------------------------------------------------------

@@ -114,6 +114,33 @@ def test_plain_kernel_versions_match_autograd(d, causal, s):
         np.testing.assert_allclose(got, _pack(t.grad), atol=1e-5)
 
 
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non-causal"])
+def test_plain_versions_on_rows_equal_whole(causal):
+    """The plain versions over chunks of query rows (``rows=``, how the
+    card holds the kernels at S 16384 and 32768) equal the whole ones: O,
+    lse and dQ chunk by chunk, and dK and dV summed over the chunks in
+    float32 (``out_dtype``), with dO random on every row (float32: 1e-6,
+    and for the sums 1e-6 of |ref| more: the chunks' summation order)."""
+    q, k, v, do = map(torch.from_numpy, _qkv(s=256, d=64) + _qkv(s=256, d=64, seed=1)[:1])
+    pq, pk, pv, pdo = map(_pack, (q, k, v, do))
+    o, lse = fa.fwd_plain(pq, pk, pv, causal)
+    delta = (pdo * o).sum(-1)
+    dq = fa.dq_plain(pq, pk, pv, pdo, lse, delta, causal)
+    dk_sum = dv_sum = 0
+    for r0 in range(0, 256, 64):
+        rows = (r0, r0 + 64)
+        o_r, lse_r = fa.fwd_plain(pq, pk, pv, causal, rows=rows)
+        np.testing.assert_allclose(o_r, o[:, r0:r0 + 64], atol=1e-6)
+        np.testing.assert_allclose(lse_r, lse[:, r0:r0 + 64], atol=1e-6)
+        np.testing.assert_allclose(fa.dq_plain(pq, pk, pv, pdo, lse, delta, causal, rows=rows),
+                                   dq[:, r0:r0 + 64], atol=1e-6)
+        dk_r, dv_r = fa.dkv_plain(pq, pk, pv, pdo, lse, delta, causal, rows=rows,
+                                  out_dtype=torch.float32)
+        dk_sum, dv_sum = dk_sum + dk_r, dv_sum + dv_r
+    for got, ref in zip((dk_sum, dv_sum), fa.dkv_plain(pq, pk, pv, pdo, lse, delta, causal)):
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("name", sorted(os.listdir(fa.CSRC_DIR)))
 def test_build_digest_covers_every_source(tmp_path, name):
     """The kernel library is keyed by every file under csrc/: an edit of any
@@ -210,6 +237,10 @@ def test_c_predicate_agrees_on_card():
         # of 128 keys (S 320; non-causal, K2's half-filled last q-tile
         # without the mask), and the unmasked loops at S 1024
         (128, torch.bfloat16, True, 64, 4096),
+        # the long-context bench's S 4096 (B2 H8) and S 8192 (B1 H8) at
+        # head dim 64
+        (64, torch.bfloat16, True, 16, 4096),
+        (64, torch.bfloat16, True, 8, 8192),
         (128, torch.bfloat16, True, 4, 320),
         (128, torch.bfloat16, False, 4, 320),
         (128, torch.bfloat16, False, 8, 1024),
@@ -265,3 +296,47 @@ def test_kernels_match_plain_on_card(d, dtype, causal, bh, s):
     assert torch.equal(got[0], dq2)
     assert torch.equal(got[1], dk2) and torch.equal(got[2], dv2)
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [16384, 32768])
+def test_kernels_match_plain_by_chunks_on_card(s):
+    """K1-K3 at the long-context bench's longest lengths (B1 H8 D64, bf16,
+    causal), where the plain versions' [S, S] scores (34 GB in float32 at
+    S 32768) do not fit, held over chunks of 4096 query rows with dO
+    random on every row: O, lse and dQ chunk by chunk, dK and dV against
+    the chunks' float32 sum, at the bars of
+    ``test_kernels_match_plain_on_card``; a second launch is bitwise
+    equal."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bh, d, chunk = 8, 64, 4096
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = fa.fwd_kernel(q, k, v, True)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = fa.dq_kernel(q, k, v, do, lse, delta, True)
+    dk, dv = fa.dkv_kernel(q, k, v, do, lse, delta, True)
+
+    def held(a, r):
+        a, r = a.float(), r.float()
+        bar = 2.0 ** -6 * (r.abs() + r.pow(2).mean(-1, keepdim=True).sqrt()) + 1e-5
+        return bool(((a - r).abs() <= bar).all())
+
+    dk_ref = dv_ref = 0
+    for r0 in range(0, s, chunk):
+        rows = (r0, r0 + chunk)
+        o_ref, lse_ref = fa.fwd_plain(q, k, v, True, rows=rows)
+        assert held(o[:, r0:r0 + chunk], o_ref)
+        assert float((lse[:, r0:r0 + chunk] - lse_ref).abs().max()) <= 1e-4
+        assert held(dq[:, r0:r0 + chunk], fa.dq_plain(q, k, v, do, lse, delta, True, rows=rows))
+        dk_r, dv_r = fa.dkv_plain(q, k, v, do, lse, delta, True, rows=rows,
+                                  out_dtype=torch.float32)
+        dk_ref, dv_ref = dk_ref + dk_r, dv_ref + dv_r
+        del o_ref, lse_ref, dk_r, dv_r
+    assert held(dk, dk_ref) and held(dv, dv_ref)
+    o2, lse2 = fa.fwd_kernel(q, k, v, True)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert torch.equal(dq, fa.dq_kernel(q, k, v, do, lse, delta, True))
+    dk2, dv2 = fa.dkv_kernel(q, k, v, do, lse, delta, True)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)

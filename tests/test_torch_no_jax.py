@@ -5,12 +5,12 @@ checks run in fresh subprocesses whose imports of jax, jaxlib, optax and
 ``torchft_tpu`` raise, and inspect their ``sys.modules``: a one-group
 fault-tolerant step of the port and one DiLoCo sync (``sync_every=1``)
 over CollectivesTcp, then a step of the CIFAR example's narrow ResNet and
-the sampler, and the imports of the recovery and crossgroup harnesses (the
-step's CollectivesTcp loads the wire codecs); and two groups as threads over CollectivesDevice, the second
+the sampler, and the imports of the recovery and crossgroup harnesses, the bench and its
+other harnesses (the step's CollectivesTcp loads the wire codecs); and two groups as threads over CollectivesDevice, the second
 joining late and healing over CollectivesTransport. A static check covers
-every module of the package (the examples, the lighthouse CLI and the
-recovery and crossgroup harnesses and the wire codecs included) and
-``chip_smoke.py``.
+every module of the package (the examples, the lighthouse CLI, the bench
+and its harnesses and the wire codecs included) and ``chip_smoke.py``;
+neither may import the JAX package's root ``bench.py`` either.
 """
 
 import ast
@@ -21,7 +21,9 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "optax", "torchft_tpu")
+# ``bench`` is the JAX package's root bench.py: the port keeps its own
+# copies of its numpy-only helpers
+FORBIDDEN = ("jax", "jaxlib", "optax", "torchft_tpu", "bench")
 
 # imports of the forbidden packages raise inside the subprocess
 _BLOCK = r"""
@@ -29,7 +31,7 @@ import sys
 
 class _Blocked:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "optax", "torchft_tpu"):
+        if name.split(".")[0] in ("jax", "jaxlib", "optax", "torchft_tpu", "bench"):
             raise ImportError(f"{name} is blocked: the port must not import it")
         return None
 
@@ -76,6 +78,12 @@ from torchft_tpu_torch.models.resnet import ResNetConfig
 import torchft_tpu_torch.lighthouse
 import torchft_tpu_torch.benchmarks.recovery
 import torchft_tpu_torch.benchmarks.crossgroup
+import torchft_tpu_torch.bench
+import torchft_tpu_torch.benchmarks.long_context
+import torchft_tpu_torch.benchmarks.resnet_ft
+import torchft_tpu_torch.benchmarks.quorum_overlap
+import torchft_tpu_torch.benchmarks.commit_pipeline
+import torchft_tpu_torch.benchmarks.diloco
 ids = step_indices(DistributedSampler(64, replica_group=0, num_replica_groups=2), 0, 4)
 cifar = CifarStep(ResNetConfig(channels=(4, 8, 16, 32), dtype=torch.float32), device="cpu")
 cparams, cstats = cifar.init(0)
@@ -173,7 +181,10 @@ def test_ft_step_runs_without_jax_or_reference_package():
     assert math.isfinite(out["loss"]) and out["loss"] > 0
     assert math.isfinite(out["cifar_loss"]) and out["cifar_loss"] > 0
     for module in ("data", "models.resnet", "lighthouse", "examples.train_cifar",
-                   "benchmarks.recovery", "benchmarks.crossgroup", "wire_codec"):
+                   "benchmarks.recovery", "benchmarks.crossgroup", "wire_codec", "bench",
+                   "benchmarks.long_context", "benchmarks.resnet_ft",
+                   "benchmarks.quorum_overlap", "benchmarks.commit_pipeline",
+                   "benchmarks.diloco"):
         assert f"torchft_tpu_torch.{module}" in out["modules"]
 
 
@@ -204,7 +215,12 @@ def test_no_forbidden_imports_in_sources():
             "torchft_tpu_torch/examples/train_cifar.py",
             "torchft_tpu_torch/benchmarks/recovery.py",
             "torchft_tpu_torch/benchmarks/crossgroup.py",
-            "torchft_tpu_torch/wire_codec.py"} <= scanned
+            "torchft_tpu_torch/wire_codec.py", "torchft_tpu_torch/bench.py",
+            "torchft_tpu_torch/benchmarks/long_context.py",
+            "torchft_tpu_torch/benchmarks/resnet_ft.py",
+            "torchft_tpu_torch/benchmarks/quorum_overlap.py",
+            "torchft_tpu_torch/benchmarks/commit_pipeline.py",
+            "torchft_tpu_torch/benchmarks/diloco.py"} <= scanned
     bad = []
     for path in _port_sources():
         with open(path, encoding="utf-8") as f:

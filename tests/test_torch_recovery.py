@@ -62,6 +62,89 @@ def test_sigkill_and_rejoin(cpu):
     assert sum(r.rejoin_parts_s.values()) == pytest.approx(r.rejoin_to_commit_s)
 
 
+def test_kill_waits_for_a_late_group(cpu, monkeypatch):
+    """A group that starts 3 s late joins after the first quorums; the
+    victim is killed only once every group has committed a step. A kill
+    during the late group's first join lands in an open fault of both
+    packages (ROADMAP queue 3; held by
+    ``tests/test_torch_death_path.py::test_member_dead_before_the_plane_joins_waits_out_the_op_timeout``):
+    the quorum counts the victim in a plane it never joins, and the
+    survivors wait out the op timeout ("peers never connected")."""
+    from torchft_tpu_torch.benchmarks import recovery
+
+    popen = recovery.subprocess.Popen
+    delayed = []
+
+    def late_group_1(cmd, env=None, **kwargs):
+        if env is not None and env.get("REPLICA_GROUP_ID") == "1" and not delayed:
+            delayed.append(True)
+            cmd = ["/bin/sh", "-c", 'sleep 3; exec "$0" "$@"', *cmd]
+        return popen(cmd, env=env, **kwargs)
+
+    monkeypatch.setattr(recovery.subprocess, "Popen", late_group_1)
+    # the two others take about 75 steps while group 1 starts: the kill
+    # must come well before the last step. The step stays below the
+    # lighthouse's 100 ms join timeout (queue 3 of ROADMAP.md: above it,
+    # three groups may never take part in one quorum again)
+    r = measure_recovery(total_steps=150, kill_at_step=4, step_sleep=0.05, op_timeout=5.0,
+                         heartbeat_timeout_ms=5000, timeout_s=120.0, num_groups=3)
+    assert delayed
+    _held(r, 3)
+    victim = recovery._read_events(r.log_paths[2])
+    respawn = [e for e in victim if e["event"] == "start"][1]
+    late_first = next(e for e in recovery._read_events(r.log_paths[1]) if e["event"] == "commit")
+    assert late_first["t"] < respawn["t"], (late_first, respawn)
+    assert not any(r.timeout_retries.values()) and not any(r.deadline_aborts.values())
+
+
+def test_participants_read_survives_a_quorum_timeout():
+    """The worker reads the step's participants after the step; an early
+    re-quorum whose deadline passes there reads as None instead of ending
+    the worker (a loaded 1-of-4 CPU run lost a survivor to it)."""
+    from torchft_tpu_torch.benchmarks import recovery
+
+    class Stub:
+        def __init__(self, times_out):
+            self.times_out = times_out
+
+        def num_participants(self):
+            if self.times_out:
+                raise TimeoutError("mgr.quorum: mgr.quorum response truncated/timed out")
+            return 3
+
+    assert recovery._participants(Stub(False)) == 3
+    assert recovery._participants(Stub(True)) is None
+
+
+def test_cleanup_ends_when_a_server_shutdown_blocks():
+    """The harness's cleanup waits a bounded time for its servers: one
+    whose shutdown never returns (a store's did once, ROADMAP queue 3)
+    is left behind, and the others still shut down."""
+    import threading
+    import time
+
+    from torchft_tpu_torch.benchmarks import recovery
+
+    release = threading.Event()
+    done = []
+
+    class Blocked:
+        def shutdown(self):
+            release.wait()
+
+    class Quick:
+        def shutdown(self):
+            done.append(True)
+
+    t0 = time.monotonic()
+    try:
+        assert recovery._shutdown_bounded([Blocked(), Quick()], timeout_s=0.5) == 1
+        assert time.monotonic() - t0 < 5.0
+        assert done == [True]
+    finally:
+        release.set()
+
+
 def test_entry_points_refuse_missing_cuda(monkeypatch, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("only meaningful where CUDA is absent")

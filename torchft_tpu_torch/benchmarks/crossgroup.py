@@ -18,7 +18,13 @@ one process per group, run a list of jobs in turn (start-up is paid once):
   ``ManagedOptimizer`` over ``TrainStep`` (error feedback automatic on a
   lossy wire) for warm-up and timed steps from the same seeded params,
   each group on its own tokens; quorum and commit every step, the
-  gradients through ``allreduce_gradients``.
+  gradients through ``allreduce_gradients``;
+* ``tree``: the JAX worker's round: a synthetic float32 gradient tree (4 MB
+  leaves, unit normals from the group's seed) on the device through a
+  fresh lighthouse and ``Manager`` (sync quorum), in the round-2 serial
+  schedule (every leaf to the host, one managed op over all buckets, each
+  bucket back) or ``allreduce_gradients``' per-bucket pipeline (streamed);
+  the first round's average against the exact one (``wire_error``).
 
 The model is the headline transformer on the card (its step replayed from
 a CUDA graph, captured once per worker across all jobs) and a tiny float32
@@ -26,14 +32,18 @@ one on the CPU (``--device cpu``, the tests). A failed job fails the run.
 
 Usage::
 
-    python -m torchft_tpu_torch.benchmarks.crossgroup [--total-mb 256] [--rounds 3] [--device cpu]
+    python -m torchft_tpu_torch.benchmarks.crossgroup [--total-mb 256] [--rounds 3] \
+        [--device cpu] [--compressed]
 
 prints one JSON object: the raw rows (seconds per round, GB/s of float32
 tree bytes, the time the llama2-7b preset's gradient tree would take at
-that rate, derived, not measured), the heal rows and the end-to-end rows.
-``chip_smoke.py`` phase 13 drives :func:`run_pair` with its own jobs.
-Left out (ROADMAP): the striped blob heal (the blob plane is not ported)
-and the JAX harness's serial round-2 schedule.
+that rate, derived, not measured), the heal rows, the end-to-end rows and
+the synthetic tree's serial and streamed rows. ``--compressed`` runs the
+``crossgroup_compressed`` matrix instead (:func:`measure_compressed`: the
+tree on the int8 wire of the forced striped TCP plane, serial and
+streamed). ``chip_smoke.py`` phase 13 drives :func:`run_pair` with its own
+jobs. Left out (ROADMAP): the striped blob heal (the blob plane is not
+ported).
 """
 
 from __future__ import annotations
@@ -50,7 +60,8 @@ import time
 from datetime import timedelta
 from typing import Any, Dict, List, Optional
 
-__all__ = ["run_pair", "measure_crossgroup", "wire_error", "PLANES", "LLAMA2_7B_PARAMS"]
+__all__ = ["run_pair", "measure_crossgroup", "measure_compressed", "wire_error", "PLANES",
+           "LLAMA2_7B_PARAMS"]
 
 # llama2-7b preset (examples/train_hsdp.py) parameter count: embeddings +
 # 32 x (4 d^2 attention + 3 d d_ff MLP + 2 d norms) + final norm + output head
@@ -330,6 +341,101 @@ def _e2e(job: Dict[str, Any], gid: int, model: _Model) -> Dict[str, Any]:
         store.shutdown()
 
 
+def _tree_leaves(gid: int, n_leaves: int, leaf_elems: int) -> List[Any]:
+    """Group ``gid``'s synthetic gradient tree: unit normals from its seed,
+    in ~4 MB float32 leaves (the JAX worker's tree)."""
+    import numpy as np
+
+    rng = np.random.default_rng(gid)
+    return [rng.standard_normal(leaf_elems).astype(np.float32) for _ in range(n_leaves)]
+
+
+def _tree(job: Dict[str, Any], gid: int, device) -> Dict[str, Any]:
+    """The JAX worker's round (``crossgroup.py:324-421``): a synthetic
+    gradient tree of ``total_mb`` on the device, averaged through a Manager
+    (sync quorum) each round, quorum and commit every round. ``serial``:
+    the round-2 schedule, every leaf to the host first, then one managed
+    op over all buckets, then each bucket back; else
+    ``allreduce_gradients``' per-bucket pipeline. The first round's average
+    is held against the exact one (both groups' trees, averaged in float64)
+    by :func:`wire_error`."""
+    import numpy as np
+    import torch
+
+    from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
+    from torchft_tpu_torch.ddp import _DEFAULT_BUCKET_BYTES, allreduce_gradients, plan_buckets
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.parallel.train_step import synchronize
+    from torchft_tpu_torch.store import StoreServer
+
+    leaf_elems = 1 << 20
+    n_leaves = max(1, int(job["total_mb"] * 1024 * 1024 / 4 / leaf_elems))
+    mine = _tree_leaves(gid, n_leaves, leaf_elems)
+    grads = {f"g{i}": torch.from_numpy(a).to(device) for i, a in enumerate(mine)}
+    exact = [torch.from_numpy((a.astype(np.float64) + b) / 2)
+             for a, b in zip(mine, _tree_leaves(1 - gid, n_leaves, leaf_elems))]
+    plan = plan_buckets([(np.float32, leaf_elems * 4)] * n_leaves, _DEFAULT_BUCKET_BYTES)
+
+    store = StoreServer()
+    coll = _collectives(job["plane"], job.get("codec"))
+    manager = Manager(
+        collectives=coll, load_state_dict=lambda s: None, state_dict=lambda: {},
+        min_replica_size=2, replica_id=f"{job['name']}_g{gid}", store_addr=store.address(),
+        rank=0, world_size=1, lighthouse_addr=job["lighthouse"], timeout=_TIMEOUT,
+        quorum_timeout=_TIMEOUT, use_async_quorum=False,
+        checkpoint_transport=HTTPTransport(timeout=_TIMEOUT, hostname="localhost"),
+    )
+
+    stages = {"host_copy": 0.0, "wire": 0.0, "device_copy": 0.0}
+
+    def serial_round() -> List[Any]:
+        t0 = time.perf_counter()
+        host = [v.cpu().numpy() for v in grads.values()]
+        buckets = [np.concatenate([host[i] for i in idxs]) for idxs in plan]
+        t1 = time.perf_counter()
+        manager.allreduce_many(buckets).wait()
+        t2 = time.perf_counter()
+        back = [torch.from_numpy(b).to(device) for b in buckets]
+        synchronize(device)
+        stages["host_copy"] += t1 - t0
+        stages["wire"] += t2 - t1
+        stages["device_copy"] += time.perf_counter() - t2
+        # the averaged leaves, as views of the buckets
+        return [piece for b in back for piece in b.split(leaf_elems)]
+
+    def pipelined_round() -> List[Any]:
+        out = allreduce_gradients(manager, grads)
+        return [out[k] for k in grads]  # in the leaves' order, not the keys' sorted one
+
+    run = serial_round if job["serial"] else pipelined_round
+    try:
+        # warm-up (also forms the quorum); its average is the first one
+        manager.start_quorum()
+        first = run()
+        synchronize(device)
+        err = wire_error([t.cpu() for t in first], exact)
+        committed = [manager.should_commit()]
+        stages.update(dict.fromkeys(stages, 0.0))  # the timed rounds only
+        t0 = time.perf_counter()
+        for _ in range(job["rounds"]):
+            manager.start_quorum()
+            run()
+            synchronize(device)  # the averaged tree is on the device
+            committed.append(manager.should_commit())
+        secs = (time.perf_counter() - t0) / job["rounds"]
+        return {"seconds_per_round": secs, "total_bytes": n_leaves * leaf_elems * 4,
+                "plane": coll.plane_info(), "wire_codec": coll.wire_codec(),
+                "committed": committed, "first_avg_wire_err": err,
+                # the serial schedule's legs, host clock; the streamed one
+                # overlaps them per bucket (the plane's own stage counters
+                # are telemetry, not ported)
+                "stages_per_round_s": ({k: v / job["rounds"] for k, v in stages.items()}
+                                       if job["serial"] else {})}
+    finally:
+        manager.shutdown(wait=False)
+        store.shutdown()
+
+
 def _worker() -> None:
     import logging
 
@@ -364,6 +470,8 @@ def _worker() -> None:
             out = _raw(job, gid, store, model.grad_bytes)
         elif job["kind"] == "heal":
             out = _heal(job, gid, store, device)
+        elif job["kind"] == "tree":
+            out = _tree(job, gid, device)
         else:
             out = _e2e(job, gid, model)
         print(json.dumps({"job": job["name"], "gid": gid, **out}), flush=True)
@@ -382,9 +490,9 @@ def run_pair(jobs: List[Dict[str, Any]], device: str = "cuda",
              timeout_s: float = 900.0) -> Dict[str, List[Dict[str, Any]]]:
     """Run ``jobs`` in two worker processes, in order; returns each job's
     results by name, one per worker in group order (and ``captures``: the
-    gradient graph's captures per worker). ``e2e`` jobs get a lighthouse
-    of their own. A worker that fails, or outlasts ``timeout_s``, raises
-    with its log's tail."""
+    gradient graph's captures per worker). ``e2e`` and ``tree`` jobs get a
+    lighthouse of their own. A worker that fails, or outlasts ``timeout_s``,
+    raises with its log's tail."""
     from torchft_tpu_torch.coordination import LighthouseServer
     from torchft_tpu_torch.store import StoreServer
     from torchft_tpu_torch.utils.platform import resolve_device
@@ -402,7 +510,7 @@ def run_pair(jobs: List[Dict[str, Any]], device: str = "cuda",
     try:
         jobs = [dict(j) for j in jobs]
         for job in jobs:
-            if job["kind"] == "e2e":
+            if job["kind"] in ("e2e", "tree"):
                 lighthouses.append(LighthouseServer(bind="[::]:0", min_replicas=2))
                 job["lighthouse"] = lighthouses[-1].address()
         path = os.path.join(tmp, "jobs.json")
@@ -458,9 +566,10 @@ def _tail(path: str, n: int = 3000) -> str:
 def measure_crossgroup(total_mb: float = 256.0, rounds: int = 3,
                        device: str = "cuda") -> Dict[str, Any]:
     """The JAX harness's matrix on the port: raw rows per plane, the heal
-    with and without CMA, and the end-to-end rows (exact on the default
+    with and without CMA, the end-to-end rows (exact on the default
     plane; bf16 on the forced striped TCP plane, where CMA does not
-    bypass the codec)."""
+    bypass the codec), and the synthetic tree's serial round-2 schedule
+    (``serial_r2``) against its streamed one on the default plane."""
     nbytes = int(total_mb * 1024 * 1024)
     jobs: List[Dict[str, Any]] = []
     raw = {"raw_cma": ("cma", None), "raw_tcp_striped": ("tcp-striped", None),
@@ -475,6 +584,9 @@ def measure_crossgroup(total_mb: float = 256.0, rounds: int = 3,
                                ("pipelined_bf16_wire", "tcp-striped", "bfloat16")):
         jobs.append({"kind": "e2e", "name": name, "plane": plane, "codec": codec,
                      "warmup": 1, "steps": rounds})
+    # the synthetic tree on the default plane: the round-2 serial schedule
+    # against the per-bucket pipeline
+    jobs += _tree_jobs(("serial_r2", "streamed"), total_mb, rounds, "cma", None)
     res = run_pair(jobs, device)
     grad_bytes_7b = LLAMA2_7B_PARAMS * 4
     out: Dict[str, Any] = {
@@ -507,6 +619,54 @@ def measure_crossgroup(total_mb: float = 256.0, rounds: int = 3,
                      "plane": rs[0]["plane"], "wire_codec": rs[0]["wire_codec"],
                      "avg_ms_median": statistics.median(rs[0]["avg_ms"][1:] or rs[0]["avg_ms"]),
                      "derived_llama2_7b_avg_s": grad_bytes_7b * secs / rs[0]["total_bytes"]}
+    for name in ("serial_r2", "streamed"):
+        out[name] = _tree_row(res[name])
+    out["pipeline_speedup"] = (out["serial_r2"]["seconds_per_round"]
+                               / out["streamed"]["seconds_per_round"])
+    return out
+
+
+def _tree_jobs(names, total_mb: float, rounds: int, plane: str,
+               codec: Optional[str]) -> List[Dict[str, Any]]:
+    return [{"kind": "tree", "name": name, "plane": plane, "codec": codec,
+             "total_mb": total_mb, "rounds": rounds, "serial": name.startswith("serial")}
+            for name in names]
+
+
+def _tree_row(rs: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """A ``tree`` job's row: the slower worker's seconds per round, GB/s of
+    float32 tree bytes and the derived llama2-7b time, and the first
+    average's distance from the exact one (the worse worker's)."""
+    if not all(all(r["committed"]) for r in rs):
+        raise RuntimeError(f"{rs[0]['job']}: a round did not commit")
+    slow = max(rs, key=lambda r: r["seconds_per_round"])
+    secs, nbytes = slow["seconds_per_round"], slow["total_bytes"]
+    return {"seconds_per_round": secs, "gb_per_sec": nbytes / secs / 1e9,
+            "plane": slow["plane"], "wire_codec": slow["wire_codec"],
+            # the slower worker's: the rank the row's seconds measure
+            "stages_per_round_s": slow["stages_per_round_s"],
+            "derived_llama2_7b_avg_s": LLAMA2_7B_PARAMS * 4 * secs / nbytes,
+            "first_avg_wire_err": {k: max(r["first_avg_wire_err"][k] for r in rs)
+                                   for k in rs[0]["first_avg_wire_err"]}}
+
+
+def measure_compressed(total_mb: float = 128.0, rounds: int = 2,
+                       device: str = "cuda") -> Dict[str, Any]:
+    """The ``crossgroup_compressed`` row (``crossgroup.py:643-687``): the
+    synthetic tree on the int8 wire of the forced striped TCP plane (no
+    CMA: the cross-host model, where compression is the point), in the
+    serial and the streamed schedule. ``gb_per_sec`` counts the float32
+    tree's bytes, so the row compares with the uncompressed ones."""
+    res = run_pair(_tree_jobs(("serial", "streamed"), total_mb, rounds, "tcp-striped",
+                              "int8"), device)
+    out: Dict[str, Any] = {
+        "topology": "2 replica groups, separate OS processes, int8 wire codec on the forced "
+                    "tcp-striped native plane (TORCHFT_DP_CMA=0, the cross-host model); "
+                    "gb_per_sec counts float32 tree bytes",
+        "tree_mb": total_mb, "codec": "int8", "device": device,
+    }
+    for name in ("serial", "streamed"):
+        out[name] = _tree_row(res[name])
     return out
 
 
@@ -518,8 +678,12 @@ def main() -> None:
     parser.add_argument("--total-mb", type=float, default=256.0)
     parser.add_argument("--rounds", type=int, default=3)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--compressed", action="store_true",
+                        help="run only the crossgroup_compressed matrix (int8 wire, serial "
+                        "and streamed)")
     args = parser.parse_args()
-    print(json.dumps(measure_crossgroup(args.total_mb, args.rounds, args.device)), flush=True)
+    fn = measure_compressed if args.compressed else measure_crossgroup
+    print(json.dumps(fn(args.total_mb, args.rounds, args.device)), flush=True)
 
 
 if __name__ == "__main__":

@@ -318,43 +318,56 @@ def dkv_kernel(q, k, v, do, lse, delta, causal: bool) -> Tuple[torch.Tensor, tor
 # ---------------------------------------------------------------------------
 
 
-def _scores(q, k, causal):
-    s = q.shape[1]
-    scores = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * q.shape[-1] ** -0.5
+def _scores(q, k, causal, rows=None):
+    """Scaled scores of query rows ``rows`` = (r0, r1) (default all) against
+    every key, in float32, masked where a key lies past its query."""
+    r0, r1 = rows if rows is not None else (0, q.shape[1])
+    scores = torch.einsum("bqd,bkd->bqk", q[:, r0:r1].float(), k.float()) * q.shape[-1] ** -0.5
     if causal:
-        pos = torch.arange(s, device=q.device)
-        keep = pos[None, :] <= pos[:, None]
+        qpos = torch.arange(r0, r1, device=q.device)
+        kpos = torch.arange(k.shape[1], device=q.device)
+        keep = kpos[None, :] <= qpos[:, None]
         scores = torch.where(keep, scores, torch.full_like(scores, _NEG_INF))
     return scores
 
 
-def fwd_plain(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+# Each plain version takes ``rows`` = (r0, r1): it then computes its kernel's
+# outputs for query rows [r0, r1) only, against every key: O, lse and dQ of
+# those rows, and those rows' share of the sums that make dK and dV (summed
+# over chunks of rows in float32, ``out_dtype``, they give all of dK and dV).
+# That holds the kernels at lengths whose [S, S] scores do not fit.
+
+
+def fwd_plain(q, k, v, causal: bool, rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """What K1 computes: (o in q's dtype, lse float32)."""
-    scores = _scores(q, k, causal)
+    scores = _scores(q, k, causal, rows)
     lse = torch.logsumexp(scores, dim=-1)
     p = torch.exp(scores - lse[..., None])
     o = torch.einsum("bqk,bkd->bqd", p, v.float())
     return o.to(q.dtype), lse
 
 
-def _dscores(q, k, v, do, lse, delta, causal):
-    p = torch.exp(_scores(q, k, causal) - lse[..., None])
-    dp = torch.einsum("bqd,bkd->bqk", do.float(), v.float())
-    ds = p * (dp - delta[..., None]) * q.shape[-1] ** -0.5
-    return p, ds
+def _dscores(q, k, v, do, lse, delta, causal, rows):
+    r0, r1 = rows if rows is not None else (0, q.shape[1])
+    p = torch.exp(_scores(q, k, causal, rows) - lse[:, r0:r1, None])
+    dp = torch.einsum("bqd,bkd->bqk", do[:, r0:r1].float(), v.float())
+    ds = p * (dp - delta[:, r0:r1, None]) * q.shape[-1] ** -0.5
+    return p, ds, (r0, r1)
 
 
-def dq_plain(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
+def dq_plain(q, k, v, do, lse, delta, causal: bool, rows=None) -> torch.Tensor:
     """What K2 computes: dQ = sum_j dS_ij K_j, P recomputed from lse."""
-    _, ds = _dscores(q, k, v, do, lse, delta, causal)
+    _, ds, _ = _dscores(q, k, v, do, lse, delta, causal, rows)
     return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
 
 
-def dkv_plain(q, k, v, do, lse, delta, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """What K3 computes: dK = sum_i dS_ij^T Q_i, dV = sum_i P_ij^T dO_i."""
-    p, ds = _dscores(q, k, v, do, lse, delta, causal)
-    dk = torch.einsum("bqk,bqd->bkd", ds, q.float()).to(k.dtype)
-    dv = torch.einsum("bqk,bqd->bkd", p, do.float()).to(v.dtype)
+def dkv_plain(q, k, v, do, lse, delta, causal: bool, rows=None,
+              out_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """What K3 computes: dK = sum_i dS_ij^T Q_i, dV = sum_i P_ij^T dO_i, in
+    ``out_dtype`` (default k's and v's)."""
+    p, ds, (r0, r1) = _dscores(q, k, v, do, lse, delta, causal, rows)
+    dk = torch.einsum("bqk,bqd->bkd", ds, q[:, r0:r1].float()).to(out_dtype or k.dtype)
+    dv = torch.einsum("bqk,bqd->bkd", p, do[:, r0:r1].float()).to(out_dtype or v.dtype)
     return dk, dv
 
 
