@@ -129,8 +129,26 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    launches a step (L/L/L for the 647M model, without remat) and 0 <
    mfu_pct < 100; every DiLoCo sync hands the collectives the MLP's float32
    bytes.
+15. the heal plane: (a) ``benchmarks.crossgroup.measure_striped_heal``
+   at the headline's params and AdamW state (701.6 MB) staged on the card
+   by one and by two source processes and pulled striped over the native
+   blob plane, then copied onto the card: GB/s, per-source bytes, ranges
+   and GB/s, the stages, one sha256 across the sources and the healed
+   state; (b) the two-source row with one source SIGKILLed from
+   ``header_cb`` (after the plan, before the bulk bytes): its ranges
+   re-stripe onto the other, the sha256 still one; (c) a kill of 1 of 3
+   headline worker processes under phase 12's checks, the rejoiner
+   striping from both survivors; (d) the differential heal
+   (``TORCHFT_HEAL_DIFF=1``) between two headline trainers on their own
+   streams: the healer rejoins two steps behind and receives the leaves
+   that changed (AdamW changes nearly all: no saving is claimed), the
+   trail's per-step cost printed; with one of its params changed first,
+   the same run falls back to the full striped heal. A heal that should
+   have ridden the blob plane and rode HTTP fails the phase. Phases 5, 12,
+   13 and 14 heal over HTTPTransport's striped receive too: every kill's
+   rejoiner must stripe over all survivors (phase 14's 1-of-4: 3 sources).
 
-Phases 4-14 replay each train step from CUDA graphs (phase 4's and phase
+Phases 4-15 replay each train step from CUDA graphs (phase 4's and phase
 9's eager arms aside); every group's graphs are captured once, so a heal
 or a rollback that swapped a captured tensor would show as a recapture.
 
@@ -1407,7 +1425,7 @@ def _time_heal(manager, heal):
     from torchft_tpu_torch.utils.tree import tree_leaves
 
     transport = manager._checkpoint_transport
-    recv, send = transport.recv_checkpoint, transport.send_checkpoint
+    send = transport.send_checkpoint
 
     def timed_send(*args, **kwargs):
         t0 = time.perf_counter()
@@ -1416,15 +1434,24 @@ def _time_heal(manager, heal):
 
     transport.send_checkpoint = timed_send
 
-    def timed(*args, **kwargs):
-        t0 = time.perf_counter()
-        state = recv(*args, **kwargs)
-        heal["get_ms"] = (time.perf_counter() - t0) * 1e3
-        heal["bytes"] = sum(x.nbytes for x in tree_leaves(state)
-                            if isinstance(x, (torch.Tensor, np.ndarray)))
-        return state
+    def timing(recv):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            state = recv(*args, **kwargs)
+            heal["get_ms"] = (time.perf_counter() - t0) * 1e3
+            heal["bytes"] = sum(x.nbytes for x in tree_leaves(state)
+                                if isinstance(x, (torch.Tensor, np.ndarray)))
+            stats = getattr(transport, "last_heal_stats", None) or {}
+            heal["mode"], heal["nsources"] = stats.get("mode"), stats.get("nsources")
+            return state
 
-    transport.recv_checkpoint = timed
+        return timed
+
+    # HTTPTransport heals through recv_checkpoint_multi, CollectivesTransport
+    # through recv_checkpoint
+    transport.recv_checkpoint = timing(transport.recv_checkpoint)
+    if hasattr(transport, "recv_checkpoint_multi"):
+        transport.recv_checkpoint_multi = timing(transport.recv_checkpoint_multi)
 
 
 def _outer_tensors(diloco):
@@ -1960,8 +1987,7 @@ def _survivor_log(path):
         return [line.rstrip() for line in f if any(k in line for k in keep)]
 
 
-def phase_recovery(joint_ms, env_extra, name="kill and rejoin", plane=None, num_groups=2,
-                   join_timeout_ms=100):
+def phase_recovery(joint_ms, env_extra, name="kill and rejoin", plane=None, num_groups=2):
     """``num_groups`` groups as worker processes on the card, each training
     the headline at full width (graphed, ``"flash"``) through FTTrainer on
     CollectivesTcp with the HTTP heal; the last group takes SIGKILL once it
@@ -1969,8 +1995,9 @@ def phase_recovery(joint_ms, env_extra, name="kill and rejoin", plane=None, num_
     (``torchft_tpu_torch.benchmarks.recovery.measure_recovery``). ``joint_ms``
     is a joint step over TCP, beside which the op timeout is printed;
     ``env_extra`` selects the workers' plane, and ``plane`` (when given) is
-    the one every epoch of more than one group must report;
-    ``join_timeout_ms`` is the lighthouse's."""
+    the one every epoch of more than one group must report. The
+    lighthouse's join timeout is the harness's (1 s with three groups or
+    more)."""
     from torchft_tpu_torch.benchmarks.recovery import measure_recovery
 
     gc.collect()
@@ -1982,8 +2009,7 @@ def phase_recovery(joint_ms, env_extra, name="kill and rejoin", plane=None, num_
         r = measure_recovery(total_steps=RECOVERY_STEPS, kill_at_step=KILL_AT_STEP,
                              step_sleep=0.0, op_timeout=RECOVERY_OP_TIMEOUT,
                              heartbeat_timeout_ms=LEASE_MS, timeout_s=600.0,
-                             num_groups=num_groups, env_extra=env_extra,
-                             join_timeout_ms=join_timeout_ms)
+                             num_groups=num_groups, env_extra=env_extra)
     finally:
         if saved is None:
             os.environ.pop("DEVICE")
@@ -2008,6 +2034,13 @@ def phase_recovery(joint_ms, env_extra, name="kill and rejoin", plane=None, num_
         log(f"{name} group{g}: step={f['step']} params+AdamW sha256={f['digest']} "
             f"graphs captured {f['captures']}, {f['steps']} steps, flash launches per step "
             f"{f['launches_per_step']}" + (f", heal {f['heal']}" if f["heal"] else ""))
+    rh = r.rejoin_heal or {}
+    log(f"{name}: rejoin_heal mode {rh.get('mode')}, nsources {rh.get('nsources')}, "
+        f"{rh.get('bytes')} bytes in {rh.get('seconds', 0.0):.6f} s, per source "
+        + ", ".join(f"{src} {v.get('bytes')} bytes {v.get('ranges')} ranges "
+                    f"{v.get('gb_per_sec')} GB/s over {v.get('route')}"
+                    for src, v in (rh.get("per_source") or {}).items())
+        + f"; stages {rh.get('stages')}; failures {rh.get('failures')}")
     log(f"{name}: eviction reports {r.evictions}; survivor commits after the kill "
         f"{r.survivor_commits_after_kill}, rejoiner commits {r.rejoiner_commits}; deadlines "
         f"hit, by group: steps retried {r.timeout_retries}, steps aborted {r.deadline_aborts}; "
@@ -2028,6 +2061,14 @@ def phase_recovery(joint_ms, env_extra, name="kill and rejoin", plane=None, num_
     heal = finals[victim]["heal"]
     check(r.rejoiner_commits > 0 and heal and heal["bytes"] > 0,
           f"{name}: the respawned group did not heal and commit")
+    # the rejoiner stripes over every survivor (their committed states are
+    # bit-identical), each range over the blob plane
+    served = {src: v for src, v in (rh.get("per_source") or {}).items() if v.get("bytes")}
+    check(rh.get("mode") == "striped" and rh.get("nsources") == num_groups - 1
+          and len(served) == num_groups - 1
+          and all(v.get("route") == "blob" for v in served.values()),
+          f"{name}: the rejoiner's heal was not striped over the {num_groups - 1} survivors "
+          f"on the blob plane: {rh}")
     check(len({(finals[g]["digest"], finals[g]["step"]) for g in groups}) == 1,
           f"{name}: the groups ended with different params or optimizer state")
     for g in groups:
@@ -2335,10 +2376,219 @@ def phase_bench(joint_ms):
               f"{measure} error {err}")
     log(f"bench: rows before the 1-of-4 kill {time.perf_counter() - t0:.1f} s")
     # the 1-of-4 kill: four headline workers on the card, the default plane
-    phase_recovery(joint_ms, {}, name="recovery_1of4", num_groups=4,
-                   join_timeout_ms=bench.JOIN_TIMEOUT_1OF4_MS)
+    phase_recovery(joint_ms, {}, name="recovery_1of4", num_groups=4)
     log(f"bench: phase wall {time.perf_counter() - t0:.1f} s")
     return {s: rows[f"long_context_s{s}"] for s, *_ in LENGTHS}
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the heal plane
+# ---------------------------------------------------------------------------
+
+DIFF_LEAVE_AT, DIFF_AHEAD, DIFF_END = 2, 2, 6  # the differential heal's schedule
+
+
+def _hold_striped_row(name, row, nsources, killed):
+    """Print a ``measure_striped_heal`` row and hold it: one sha256 across
+    the sources and the healed state (on the card), every source on the
+    blob plane, every byte served over it, the expected source count."""
+    served = {u: v for u, v in row["per_source"].items() if v["bytes"]}
+    log(f"heal plane {name}: {row['total_bytes']} bytes from {row['sources_started']} "
+        f"source processes{' (one SIGKILLed after the plan)' if killed else ''}: "
+        f"{row['seconds']:.6f} s, {row['gb_per_sec']:.6f} GB/s, nsources {row['nsources']}; "
+        "per source " + ", ".join(
+            f"{u} {v['bytes']} bytes {v['ranges']} ranges {v['gb_per_sec']} GB/s over "
+            f"{v['route']}" for u, v in row["per_source"].items())
+        + f"; stages {row['stages_s']}; failures {list(row['failures'])}; the sources' "
+        f"staging {[round(x, 6) for x in row['source_stage_s']]} s; copy onto the card "
+        f"{row['load_to_device_s']:.6f} s; sha256 sources "
+        f"{sorted({d[:16] for d in row['sha256_sources']})}, healed {row['sha256_healed'][:16]}")
+    check(set(row["sha256_sources"]) == {row["sha256_healed"]},
+          f"heal plane {name}: sha256 of the sources {row['sha256_sources']}, healed "
+          f"{row['sha256_healed']}")
+    check(all(port is not None for port in row["blob_ports"]),
+          f"heal plane {name}: a source staged without the blob plane: {row['blob_ports']}")
+    check(all(v["route"] == "blob" for v in served.values()),
+          f"heal plane {name}: bytes rode HTTP, not the blob plane: {row['per_source']}")
+    check(sum(v["bytes"] for v in served.values()) == row["total_bytes"],
+          f"heal plane {name}: the sources served {sum(v['bytes'] for v in served.values())} "
+          f"of {row['total_bytes']} bytes")
+    check(row["nsources"] == nsources and len(served) == nsources
+          and len(row["failures"]) == (1 if killed else 0),
+          f"heal plane {name}: nsources {row['nsources']}, served by {len(served)}, failures "
+          f"{row['failures']}; expected {nsources} and {1 if killed else 0} failure")
+
+
+def _diff_heal(perturb: bool):
+    """Two headline trainers as threads on the card, each on its own
+    stream, with ``TORCHFT_HEAL_DIFF=1``: group 1 leaves at step
+    DIFF_LEAVE_AT (its Manager shut down, its trainer and graphs kept),
+    group 0 takes DIFF_AHEAD steps alone and waits; group 1 comes back with
+    a new Manager whose counters say DIFF_LEAVE_AT and heals from group 0's
+    trail (with ``perturb``, one of its params changed first, so its digest
+    no longer matches and the heal must be the full striped one). Both take
+    joint steps to DIFF_END. Returns the healer's heal stats, both groups'
+    sha256 of params and AdamW state, captures, launches per step and the
+    trail's per-step wall."""
+    from torchft_tpu_torch.benchmarks.recovery import _state_digest
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.parallel.ft import FTTrainer
+    from torchft_tpu_torch.parallel.train_step import TrainStep, synchronize
+    from torchft_tpu_torch.store import StoreServer
+
+    cfg = headline_config()
+    batch, seq = HEADLINE["batch"], HEADLINE["seq"]
+    lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1, heartbeat_timeout_ms=1000)
+    left, back, asked = threading.Event(), threading.Event(), threading.Event()
+    calls = {0: 0, 1: 0}
+
+    def timed_trail(manager, trail_s):
+        record = manager._record_commit_trail
+
+        def timed():
+            t0 = time.perf_counter()
+            record()
+            trail_s.append(time.perf_counter() - t0)
+
+        manager._record_commit_trail = timed
+
+    def group(gid):
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            return member(gid)
+
+    def member(gid):
+        store = StoreServer()
+        manager = make_manager(lighthouse.address(), store, f"diff-group{gid}", plane="tcp")
+        trail_s = []
+        timed_trail(manager, trail_s)
+        try:
+            ts = TrainStep(cfg, device="cuda")
+            trainer = FTTrainer(manager, ts)
+            trainer.init(seed=100)
+            while True:
+                step = manager.current_step()
+                if gid == 1 and step == DIFF_LEAVE_AT and not left.is_set():
+                    manager.shutdown(wait=False)
+                    left.set()
+                    if not back.wait(600):
+                        raise TimeoutError("group 0 never took its steps alone")
+                    if perturb:
+                        with torch.no_grad():
+                            next(iter(trainer.params.values())).add_(1.0)
+                    manager = make_manager(lighthouse.address(), store, "diff-group1-back",
+                                           plane="tcp")
+                    timed_trail(manager, trail_s)
+                    manager.load_state_dict({"step": step, "batches_committed": 2 * step})
+                    trainer._manager = manager
+                    manager.set_state_dict_fns(trainer.load_state_dict, trainer.state_dict)
+                    ask = manager.start_quorum
+
+                    def asked_first(*args, **kwargs):
+                        ask(*args, **kwargs)
+                        asked.set()
+
+                    manager.start_quorum = asked_first
+                if gid == 0 and step == DIFF_LEAVE_AT + DIFF_AHEAD and left.is_set() \
+                        and not back.is_set():
+                    back.set()
+                    if not asked.wait(600):
+                        raise TimeoutError("group 1 never came back")
+                    time.sleep(0.5)  # its quorum request reaches the lighthouse first
+                _, committed = trainer.step(make_tokens(cfg, 1000 * gid + step, batch, seq))
+                calls[gid] += 1
+                if committed and manager.current_step() >= DIFF_END \
+                        and manager.num_participants() == 2:
+                    break
+            synchronize()
+            return dict(step=manager.current_step(), digest=_state_digest(trainer),
+                        stats=dict(manager._checkpoint_transport.last_heal_stats),
+                        captures=dict(ts.graphs.captures), trail_s=trail_s)
+        except BaseException:
+            left.set()
+            back.set()
+            asked.set()
+            raise
+        finally:
+            manager.shutdown(wait=False)
+            store.shutdown()
+
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    saved = os.environ.get("TORCHFT_HEAL_DIFF")
+    os.environ["TORCHFT_HEAL_DIFF"] = "1"
+    try:
+        res = _run_threads(group, "differential heal")
+    finally:
+        lighthouse.shutdown()
+        if saved is None:
+            os.environ.pop("TORCHFT_HEAL_DIFF")
+        else:
+            os.environ["TORCHFT_HEAL_DIFF"] = saved
+    launches = dict(fa.LAUNCHES)
+    expect = {n: c * (calls[0] + calls[1]) for n, c in _launches_per_step(cfg).items()}
+    return res, launches, expect
+
+
+def phase_heal_plane(joint_ms):
+    """(a) ``crossgroup.measure_striped_heal`` at the headline's state
+    (HEAL_BYTES) from one and from two source processes (two started,
+    staged at once), over the blob plane; (b) the two sources again, the
+    second SIGKILLed from ``header_cb`` (after the plan, before the bulk
+    bytes): its ranges re-stripe onto the first;
+    (c) a kill of 1 of 3 headline worker processes (phase 12's harness and
+    checks): the rejoiner stripes from both survivors; (d) the
+    differential heal between two headline trainers (``_diff_heal``), and
+    its fallback to the full striped heal on a digest mismatch. Returns the
+    flash launches of (c) and (d)."""
+    from torchft_tpu_torch.benchmarks.crossgroup import measure_striped_heal
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    plans = {"heal_striped_1src": (1, False), "heal_striped_2src": (2, False),
+             "heal_striped_2src_kill": (2, True)}
+    rows = dict(zip(plans, measure_striped_heal(HEAL_BYTES, list(plans.values()), "cuda")))
+    for name, (nsrc, killed) in plans.items():
+        _hold_striped_row(name, rows[name], nsrc - killed, killed)
+    log(f"heal plane: heal_striped_speedup (2 sources' GB/s over 1's) "
+        f"{rows['heal_striped_2src']['gb_per_sec'] / rows['heal_striped_1src']['gb_per_sec']:.6f}; "
+        f"rows {time.perf_counter() - t0:.1f} s")
+    kill = phase_recovery(joint_ms, {}, name="heal plane kill 1 of 3", num_groups=3)
+    launches = dict(kill)
+    for perturb in (False, True):
+        tag = "digest mismatch" if perturb else "delta"
+        t1 = time.perf_counter()
+        res, got, expect = _diff_heal(perturb)
+        st = res[1]["stats"]
+        trail = sorted(res[0]["trail_s"])
+        d = st.get("delta") or {}
+        log(f"heal plane differential ({tag}): the healer's heal mode {st.get('mode')}, "
+            f"{st.get('bytes')} bytes"
+            + (f", {d['changed']} of {d['leaves']} leaves changed since step {d['since_step']} "
+               f"({d['changed'] / d['leaves']:.6f} of the leaves), {d['seconds']:.6f} s"
+               if d else f", nsources {st.get('nsources')}, stages {st.get('stages')}")
+            + f"; the trail's record per step (group 0, {len(trail)} steps): median "
+            f"{statistics.median(trail) * 1e3:.3f} ms, max {trail[-1] * 1e3:.3f} ms; sha256 "
+            f"group0 {res[0]['digest'][:16]} group1 {res[1]['digest'][:16]} at step "
+            f"{res[0]['step']}; graphs captured {[res[g]['captures'] for g in (0, 1)]}; "
+            f"launches {got}; {time.perf_counter() - t1:.1f} s")
+        check(st.get("mode") == ("striped" if perturb else "delta"),
+              f"heal plane differential ({tag}): heal mode {st.get('mode')}")
+        if not perturb:
+            check(d.get("since_step") == DIFF_LEAVE_AT and 0 < d["changed"] <= d["leaves"],
+                  f"heal plane differential: delta {d}")
+        check(res[0]["step"] == res[1]["step"] and res[0]["digest"] == res[1]["digest"],
+              f"heal plane differential ({tag}): the groups ended with different state")
+        check(all(res[g]["captures"] == {"grads": 1, "apply": 1} for g in (0, 1)),
+              f"heal plane differential ({tag}): graphs captured "
+              f"{[res[g]['captures'] for g in (0, 1)]}")
+        check(got == expect, f"heal plane differential ({tag}): launches {got} != {expect}")
+        for n in got:
+            launches[n] += got[n]
+    log(f"heal plane: phase wall {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def main() -> None:
@@ -2400,6 +2650,7 @@ def main() -> None:
     recovery_launches = phase_recovery(tcp_groups["joint_ms"], {"TORCHFT_NATIVE_PLANE": "0"})
     wire_launches = phase_wire_plane(tcp_groups["joint_ms"])
     long_rows = phase_bench(tcp_groups["joint_ms"])
+    heal_launches = phase_heal_plane(tcp_groups["joint_ms"])
 
     kernels = []
     for d in (64, 128, 32):
@@ -2422,6 +2673,8 @@ def main() -> None:
                 kernels[-1]["launches_kill_rejoin"] = recovery_launches[name]
                 # phase 13's two worker processes: the arms, then the kill
                 kernels[-1]["launches_wire_plane"] = wire_launches[name]
+                # phase 15: the 1-of-3 kill's workers and the differential heals
+                kernels[-1]["launches_heal_plane"] = heal_launches[name]
     # head dim 64 at the long-context bench's lengths: launched by phase 14's
     # long_context rows
     for seq in (LONG_WHOLE["seq"], LONG["seq"]):

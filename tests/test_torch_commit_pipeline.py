@@ -145,6 +145,12 @@ class ManagerHarness:
         self.load_state_dict = MagicMock()
         self.transport = MagicMock()
         self.transport.metadata.return_value = "transport_meta"
+        # the Manager heals through recv_checkpoint_multi when the transport
+        # has one (a MagicMock always does): it answers what the tests
+        # script on recv_checkpoint, as the JAX harness's does
+        self.transport.recv_checkpoint_multi.side_effect = (
+            lambda *a, **k: self.transport.recv_checkpoint.return_value
+        )
         kwargs.setdefault("min_replica_size", 2)
         kwargs.setdefault("timeout", timedelta(seconds=10))
         kwargs.setdefault("commit_pipeline", True)

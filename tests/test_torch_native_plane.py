@@ -535,6 +535,11 @@ def test_crossgroup_pair_on_the_cpu():
     assert rows["raw_cma"]["plane"] == "cma" and rows["raw_python_ring"]["plane"] == "python-ring"
     assert rows["pipelined_bf16_wire"]["wire_codec"] == "bfloat16"
     assert rows["heal_tcp"]["plane"] == "tcp-striped"
+    for name, n in (("heal_striped_1src", 1), ("heal_striped_2src", 2)):
+        row = rows[name]
+        assert row["nsources"] == n and set(row["sha256_sources"]) == {row["sha256_healed"]}
+        assert {v["route"] for v in row["per_source"].values()} == {"blob"}
+    assert rows["heal_striped_speedup"] > 0
 
 
 def test_wire_error_measures():

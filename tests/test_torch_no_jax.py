@@ -5,8 +5,9 @@ checks run in fresh subprocesses whose imports of jax, jaxlib, optax and
 ``torchft_tpu`` raise, and inspect their ``sys.modules``: a one-group
 fault-tolerant step of the port and one DiLoCo sync (``sync_every=1``)
 over CollectivesTcp, then a step of the CIFAR example's narrow ResNet and
-the sampler, and the imports of the recovery and crossgroup harnesses, the bench and its
-other harnesses (the step's CollectivesTcp loads the wire codecs); and two groups as threads over CollectivesDevice, the second
+the sampler, the imports of the recovery and crossgroup harnesses, the bench and its
+other harnesses (the step's CollectivesTcp loads the wire codecs), and a striped
+heal of the trainer's state from two HTTP transports over the blob plane; and two groups as threads over CollectivesDevice, the second
 joining late and healing over CollectivesTransport. A static check covers
 every module of the package (the examples, the lighthouse CLI, the bench
 and its harnesses and the wire codecs included) and ``chip_smoke.py``;
@@ -84,6 +85,19 @@ import torchft_tpu_torch.benchmarks.resnet_ft
 import torchft_tpu_torch.benchmarks.quorum_overlap
 import torchft_tpu_torch.benchmarks.commit_pipeline
 import torchft_tpu_torch.benchmarks.diloco
+import torchft_tpu_torch.checkpointing.bench
+from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
+srcs = [HTTPTransport(timeout=timedelta(seconds=20), hostname="localhost") for _ in range(3)]
+for t in srcs[:2]:
+    t.send_checkpoint([1], 1, trainer.state_dict(), timedelta(seconds=20))
+healed = srcs[2].recv_checkpoint_multi([t.metadata() for t in srcs[:2]], 1,
+                                       timedelta(seconds=20))
+from torchft_tpu_torch.utils.tree import tree_leaves
+striped = (srcs[2].last_heal_stats["nsources"] == 2
+           and all(torch.equal(a, b) for a, b in zip(tree_leaves(healed["params"]),
+                                                     tree_leaves(trainer.params))))
+for t in srcs:
+    t.shutdown()
 ids = step_indices(DistributedSampler(64, replica_group=0, num_replica_groups=2), 0, 4)
 cifar = CifarStep(ResNetConfig(channels=(4, 8, 16, 32), dtype=torch.float32), device="cpu")
 cparams, cstats = cifar.init(0)
@@ -91,7 +105,7 @@ closs, cgrads, _ = cifar.grads(cparams, cstats, torch.rand(4, 32, 32, 3),
                                torch.from_numpy(ids % 10))
 cifar.apply(cparams, cifar.init_opt(cparams), cgrads)
 manager.shutdown(wait=False); store.shutdown(); lighthouse.shutdown()
-print(json.dumps({"loss": loss, "committed": committed, "synced": synced,
+print(json.dumps({"loss": loss, "committed": committed, "synced": synced, "striped": striped,
                   "step": manager.current_step(), "cifar_loss": float(closs),
                   "modules": sorted(sys.modules)}))
 """
@@ -177,14 +191,15 @@ def _run_blocked(script: str) -> dict:
 
 def test_ft_step_runs_without_jax_or_reference_package():
     out = _run_blocked(_STEP)
-    assert out["committed"] and out["synced"] and out["step"] == 2
+    assert out["committed"] and out["synced"] and out["striped"] and out["step"] == 2
     assert math.isfinite(out["loss"]) and out["loss"] > 0
     assert math.isfinite(out["cifar_loss"]) and out["cifar_loss"] > 0
     for module in ("data", "models.resnet", "lighthouse", "examples.train_cifar",
                    "benchmarks.recovery", "benchmarks.crossgroup", "wire_codec", "bench",
                    "benchmarks.long_context", "benchmarks.resnet_ft",
                    "benchmarks.quorum_overlap", "benchmarks.commit_pipeline",
-                   "benchmarks.diloco"):
+                   "benchmarks.diloco", "checkpointing.stripes", "checkpointing.delta",
+                   "checkpointing.bench"):
         assert f"torchft_tpu_torch.{module}" in out["modules"]
 
 
@@ -220,7 +235,10 @@ def test_no_forbidden_imports_in_sources():
             "torchft_tpu_torch/benchmarks/resnet_ft.py",
             "torchft_tpu_torch/benchmarks/quorum_overlap.py",
             "torchft_tpu_torch/benchmarks/commit_pipeline.py",
-            "torchft_tpu_torch/benchmarks/diloco.py"} <= scanned
+            "torchft_tpu_torch/benchmarks/diloco.py",
+            "torchft_tpu_torch/checkpointing/stripes.py",
+            "torchft_tpu_torch/checkpointing/delta.py",
+            "torchft_tpu_torch/checkpointing/bench.py"} <= scanned
     bad = []
     for path in _port_sources():
         with open(path, encoding="utf-8") as f:

@@ -233,6 +233,7 @@ def test_sync_quorum_participants(store_server):
         assert m.batches_committed() == 42
 
         h.transport.recv_checkpoint.reset_mock()
+        h.transport.recv_checkpoint_multi.reset_mock()
         h.client._quorum.return_value = quorum_result(
             heal=True, max_step=30, max_rank=None, max_world_size=1,
             recover_src_rank=0, recover_dst_ranks=[0],
@@ -241,6 +242,7 @@ def test_sync_quorum_participants(store_server):
         assert m.participating_rank() is None and m.num_participants() == 1
         assert not m.is_participating() and not m._healing
         h.transport.recv_checkpoint.assert_not_called()
+        h.transport.recv_checkpoint_multi.assert_not_called()
         h.transport.send_checkpoint.assert_not_called()
     finally:
         h.shutdown()

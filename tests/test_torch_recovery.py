@@ -83,9 +83,11 @@ def test_kill_waits_for_a_late_group(cpu, monkeypatch):
 
     monkeypatch.setattr(recovery.subprocess, "Popen", late_group_1)
     # the two others take about 75 steps while group 1 starts: the kill
-    # must come well before the last step. The step stays below the
-    # lighthouse's 100 ms join timeout (queue 3 of ROADMAP.md: above it,
-    # three groups may never take part in one quorum again)
+    # must come well before the last step. The harness's lighthouse waits
+    # 1 s for a straggler with three groups (recovery.JOIN_TIMEOUT_MANY_MS):
+    # a step longer than the join timeout, as on a loaded host, may keep
+    # three groups from ever taking part in one quorum again (queue 3 of
+    # ROADMAP.md)
     r = measure_recovery(total_steps=150, kill_at_step=4, step_sleep=0.05, op_timeout=5.0,
                          heartbeat_timeout_ms=5000, timeout_s=120.0, num_groups=3)
     assert delayed

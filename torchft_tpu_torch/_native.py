@@ -2,8 +2,9 @@
 copy of ``torchft_tpu/_native/__init__.py``, trimmed to what the FT
 training step uses: the RPC client, the lighthouse, the manager server,
 the key-value store, the striped gradient data plane
-(``NativeDataPlane``) and the cross-memory-attach pulls (``cma_read``,
-``cma_read_into``).
+(``NativeDataPlane``), the cross-memory-attach pulls (``cma_read``,
+``cma_read_into``) and the checkpoint blob plane of the striped heal
+(``BlobServer``, ``blob_fetch``).
 
 The library is built from the repo's ``native/`` sources at first use into
 ``build/torch_native/<sources digest>/`` (``make -C native OUTDIR=...``;
@@ -153,6 +154,25 @@ def _load() -> ctypes.CDLL:
         lib.tft_dp_allreduce.restype = c.c_int
         lib.tft_dp_free.argtypes = [c.c_int64]
         lib.tft_dp_free.restype = None
+        # striped checkpoint blob plane (native/blob.cc)
+        lib.tft_blob_serve_create.argtypes = [c.c_char_p, c.c_int]
+        lib.tft_blob_serve_create.restype = c.c_int64
+        lib.tft_blob_serve_port.argtypes = [c.c_int64]
+        lib.tft_blob_serve_port.restype = c.c_int
+        lib.tft_blob_stage.argtypes = [
+            c.c_int64, c.POINTER(c.c_uint64), c.POINTER(c.c_int64), c.c_int,
+            c.c_uint64, c.c_char_p, c.c_int,
+        ]
+        lib.tft_blob_stage.restype = c.c_int
+        lib.tft_blob_unstage.argtypes = [c.c_int64]
+        lib.tft_blob_unstage.restype = c.c_int
+        lib.tft_blob_serve_free.argtypes = [c.c_int64]
+        lib.tft_blob_serve_free.restype = None
+        lib.tft_blob_fetch.argtypes = [
+            c.c_char_p, c.c_int, c.c_uint64, c.c_uint64, c.c_uint64,
+            c.c_void_p, c.c_int64, c.c_char_p, c.c_int,
+        ]
+        lib.tft_blob_fetch.restype = c.c_int
         _lib = lib
         return lib
 
@@ -439,3 +459,83 @@ class NativeDataPlane:
             self.close()
         except Exception:
             pass
+
+
+# ---------------------------------------------------------------------------
+# the checkpoint blob plane (native/blob.cc)
+# ---------------------------------------------------------------------------
+
+
+class BlobServer:
+    """The serving side of the striped heal's blob plane: stages the
+    flattened state's host buffers (scattered, no coalescing copy) and
+    serves any byte range of their logical concatenation to healers, off
+    the GIL. The caller keeps the staged buffers alive, contiguous, until
+    :meth:`unstage` returns."""
+
+    def __init__(self) -> None:
+        self._lib = _load()
+        err = _errbuf()
+        self._h = self._lib.tft_blob_serve_create(err, _ERRLEN)
+        if self._h == 0:
+            raise RuntimeError(f"blob server create: {err.value.decode()}")
+        self.port = int(self._lib.tft_blob_serve_port(self._h))
+
+    def stage(self, ptrs: List[int], lens: List[int], token: int) -> None:
+        """Open the serving window over the buffers at ``ptrs`` / ``lens``
+        (base addresses and byte lengths, in stream order). ``token`` names
+        this staging; a fetch that carries another token gets a stale
+        error, never stale bytes."""
+        n = len(ptrs)
+        arr_p = (ctypes.c_uint64 * n)(*ptrs)
+        arr_l = (ctypes.c_int64 * n)(*lens)
+        err = _errbuf()
+        rc = self._lib.tft_blob_stage(self._h, arr_p, arr_l, n, token, err, _ERRLEN)
+        if rc != 0:
+            raise RuntimeError(f"blob stage: {err.value.decode()}")
+
+    def unstage(self) -> None:
+        """Close the serving window; returns once no serve in flight still
+        reads the staged buffers (they may be freed after this)."""
+        if self._h:
+            self._lib.tft_blob_unstage(self._h)
+
+    def close(self) -> None:
+        if self._h:
+            self._lib.tft_blob_serve_free(self._h)
+            self._h = 0
+
+    def __del__(self) -> None:
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+def blob_fetch(
+    host: str,
+    port: int,
+    token: int,
+    offset: int,
+    length: int,
+    view: memoryview,
+    timeout_ms: int = 60000,
+) -> None:
+    """Pull ``length`` bytes at ``offset`` of a peer's staged blob straight
+    into the writable buffer ``view`` (the healer's range primitive; the
+    GIL is released for the call). Raises TimeoutError on the deadline and
+    ConnectionError on any other failure: a cut connection is a failed
+    range, never short data."""
+    if len(view) != length:
+        raise ValueError(f"blob fetch: a view of {len(view)} bytes for {length}")
+    lib = _load()
+    buf = (ctypes.c_char * length).from_buffer(view)
+    err = _errbuf()
+    rc = lib.tft_blob_fetch(
+        host.encode(), port, token, offset, length,
+        ctypes.addressof(buf), timeout_ms, err, _ERRLEN,
+    )
+    if rc == -2:
+        raise TimeoutError(f"blob fetch: {err.value.decode()}")
+    if rc != 0:
+        raise ConnectionError(f"blob fetch: {err.value.decode()}")

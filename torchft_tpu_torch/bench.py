@@ -232,23 +232,17 @@ def _module(name: str, *args: str) -> List[str]:
     return [sys.executable, "-m", f"torchft_tpu_torch.benchmarks.{name}", *args]
 
 
-# the lighthouse's join timeout for the 1-of-4 row: above the headline's
-# step on the card (0.33-0.38 s between four processes). Below it, three
-# or more groups may never again take part in one quorum after a late
-# join (ROADMAP queue 3); the JAX harness's 100 ms sits above its 50 ms
-# toy step
-JOIN_TIMEOUT_1OF4_MS = 1000
-
-
-def recovery_row(num_groups: int, join_timeout_ms: int = 100) -> Dict[str, Any]:
+def recovery_row(num_groups: int) -> Dict[str, Any]:
     """``measure_recovery`` of ``num_groups`` worker processes (the last
-    one SIGKILLed and respawned) as a bench row, with whether the groups
-    ended with one state and whether a survivor's eviction report held."""
+    one SIGKILLed and respawned; the lighthouse's join timeout is the
+    harness's, 1 s with three groups or more) as a bench row, with whether
+    the groups ended with one state and whether a survivor's eviction
+    report held."""
     from torchft_tpu_torch.benchmarks.recovery import measure_recovery
 
-    r = measure_recovery(num_groups=num_groups, join_timeout_ms=join_timeout_ms)
+    r = measure_recovery(num_groups=num_groups)
     row = r.as_dict()
-    row.update(num_groups=num_groups, join_timeout_ms=join_timeout_ms,
+    row.update(num_groups=num_groups, join_timeout_ms=r.join_timeout_ms,
                one_digest=len({f["digest"] for f in r.finals.values()}) == 1,
                eviction_accepted=any(ok for _, _, ok in r.evictions))
     return row
@@ -353,10 +347,9 @@ def main() -> None:
 
     # the recovery envelope (SIGKILL 1 of N groups, respawn), in this
     # process as bench.py:682-688 runs it; its workers train on DEVICE
-    for key, num_groups, join_ms in (("recovery", 2, 100),
-                                     ("recovery_1of4", 4, JOIN_TIMEOUT_1OF4_MS)):
+    for key, num_groups in (("recovery", 2), ("recovery_1of4", 4)):
         try:
-            extra[key] = recovery_row(num_groups, join_ms)
+            extra[key] = recovery_row(num_groups)
         except Exception:  # noqa: BLE001 — recorded; the run exits 1 below
             extra[key] = {"error": traceback.format_exc()[-1500:]}
     extra["bench_wall_s"] = round(time.perf_counter() - started, 1)

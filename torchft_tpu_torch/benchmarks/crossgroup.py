@@ -11,8 +11,8 @@ one process per group, run a list of jobs in turn (start-up is paid once):
   transport itself moves, on a plane (``python-ring``, ``tcp-striped`` or
   ``cma``) and a wire codec;
 * ``heal``: a state tree of tensors over ``CollectivesTransport`` from
-  group 0 to group 1 (the live-heal path), with point-to-point CMA or over
-  TCP; both groups hash the tree;
+  group 0 to group 1, with point-to-point CMA or over TCP; both groups
+  hash the tree;
 * ``e2e``: the training step: a fresh lighthouse, ``Manager`` (sync
   quorum, HTTP heal) and ``CollectivesTcp`` on the plane and codec, then
   ``ManagedOptimizer`` over ``TrainStep`` (error feedback automatic on a
@@ -37,13 +37,16 @@ Usage::
 
 prints one JSON object: the raw rows (seconds per round, GB/s of float32
 tree bytes, the time the llama2-7b preset's gradient tree would take at
-that rate, derived, not measured), the heal rows, the end-to-end rows and
-the synthetic tree's serial and streamed rows. ``--compressed`` runs the
+that rate, derived, not measured), the heal rows, the end-to-end rows,
+the synthetic tree's serial and streamed rows and the striped heal rows
+(:func:`measure_striped_heal`: ``heal_striped_1src`` and
+``heal_striped_2src``, the state staged by one or two source processes
+and pulled over the blob plane by the orchestrator, and
+``heal_striped_speedup``). ``--compressed`` runs the
 ``crossgroup_compressed`` matrix instead (:func:`measure_compressed`: the
 tree on the int8 wire of the forced striped TCP plane, serial and
 streamed). ``chip_smoke.py`` phase 13 drives :func:`run_pair` with its own
-jobs. Left out (ROADMAP): the striped blob heal (the blob plane is not
-ported).
+jobs, and phase 15 :func:`measure_striped_heal`.
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ import sys
 import tempfile
 import time
 from datetime import timedelta
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = ["run_pair", "measure_crossgroup", "measure_compressed", "wire_error", "PLANES",
            "LLAMA2_7B_PARAMS"]
@@ -76,6 +79,7 @@ LLAMA2_7B_PARAMS = (
 # plane -> (native_plane, TORCHFT_DP_CMA)
 PLANES = {"python-ring": (False, "1"), "tcp-striped": (True, "0"), "cma": (True, "1")}
 _TIMEOUT = timedelta(seconds=120)
+_HEAL_TIMEOUT = timedelta(seconds=600)
 
 
 # ---------------------------------------------------------------------------
@@ -183,6 +187,131 @@ def _heal(job: Dict[str, Any], gid: int, store: str, device) -> Dict[str, Any]:
                 "digest": _digest(got[k] for k in sorted(got))}
     finally:
         c.shutdown()
+
+
+def _striped_heal_server(nbytes: int, device: str) -> None:
+    """A stripe source (``--striped-heal-server``): stage ``heal_state`` on
+    an ``HTTPTransport`` (the blob plane serves its bytes), print one JSON
+    line (metadata URL, pid, sha256, blob port, staging seconds) and serve
+    until stdin closes."""
+    from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
+    from torchft_tpu_torch.utils.platform import resolve_device
+
+    dev = resolve_device(device)
+    state = heal_state(nbytes, dev)
+    t = HTTPTransport(timeout=_HEAL_TIMEOUT, hostname="localhost")
+    try:
+        t0 = time.perf_counter()
+        t.send_checkpoint([1], 0, state, _HEAL_TIMEOUT)
+        stage_s = time.perf_counter() - t0
+        print(json.dumps({"metadata": t.metadata(), "pid": os.getpid(),
+                          "digest": _digest(state[k] for k in sorted(state)),
+                          "blob_port": getattr(t._blob, "port", None), "stage_s": stage_s}),
+              flush=True)
+        sys.stdin.readline()  # the healer closes stdin when it is done
+    finally:
+        t.shutdown()
+
+
+def measure_striped_heal(nbytes: int, plans: List[Tuple[int, bool]], device: str = "cuda",
+                         timeout_s: float = 600.0) -> List[Dict[str, Any]]:
+    """The ``heal_striped_{n}src`` rows, one per plan ``(nsources,
+    kill_one)``: worker processes stage the same state
+    (``heal_state(nbytes)``, made on ``device``), all started at once, and
+    this process pulls it striped over the first ``nsources`` of those
+    still alive (``HTTPTransport.recv_checkpoint_multi``, the bulk bytes
+    over the blob plane), then copies it onto ``device`` as a Manager's
+    ``load_state_dict`` does. With ``kill_one`` the plan's last source
+    takes SIGKILL from ``header_cb``: after the plan, before any bulk
+    byte, so its ranges re-stripe over the others. A row: seconds and GB/s
+    of the receive, the transport's heal stats (``nsources``, per-source
+    bytes, ranges, GB/s and route, the stages, failures), the copy onto
+    the device, and the sha256 of each source's state and of the healed
+    one."""
+    import signal
+
+    import torch
+
+    from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
+    from torchft_tpu_torch.utils.platform import resolve_device
+
+    dev = resolve_device(device)
+    # each plan needs its sources alive: the kills of earlier plans use some up
+    needed = max(n + sum(k for _, k in plans[:i]) for i, (n, _) in enumerate(plans))
+    tmp = tempfile.mkdtemp(prefix="tft_torch_striped_heal_")
+    env = dict(os.environ)
+    pkg_parent = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (pkg_parent, env.get("PYTHONPATH")) if p)
+    procs: List[subprocess.Popen] = []
+    logs = [os.path.join(tmp, f"src{i}.stderr") for i in range(needed)]
+    try:
+        for i in range(needed):
+            with open(logs[i], "wb") as err:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "torchft_tpu_torch.benchmarks.crossgroup",
+                     "--striped-heal-server", "--nbytes", str(nbytes), "--device", dev.type],
+                    env=env, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err,
+                ))
+        sources = []
+        for i, p in enumerate(procs):
+            line = p.stdout.readline().decode().strip()
+            if not line:
+                raise RuntimeError(f"stripe source {i} died:\n{_tail(logs[i])}")
+            sources.append(json.loads(line))
+        alive = list(range(needed))
+        rows = []
+        for nsources, kill_one in plans:
+            use = alive[:nsources]
+
+            def kill_last(header: bytes) -> None:
+                procs[use[-1]].send_signal(signal.SIGKILL)
+                procs[use[-1]].wait()
+
+            rx = HTTPTransport(timeout=timedelta(seconds=timeout_s), hostname="localhost")
+            try:
+                t0 = time.perf_counter()
+                got = rx.recv_checkpoint_multi([sources[i]["metadata"] for i in use], 0,
+                                               timedelta(seconds=timeout_s),
+                                               header_cb=kill_last if kill_one else None)
+                secs = time.perf_counter() - t0
+                stats = dict(rx.last_heal_stats)
+            finally:
+                rx.shutdown()
+            if kill_one:
+                alive.remove(use[-1])
+            t0 = time.perf_counter()
+            on_dev = {k: v.to(dev) for k, v in got.items()}
+            if dev.type == "cuda":
+                torch.cuda.current_stream().synchronize()
+            load_s = time.perf_counter() - t0
+            total = sum(v.nbytes for v in got.values())
+            rows.append({
+                "seconds": secs, "gb_per_sec": total / secs / 1e9, "total_bytes": total,
+                "nsources": stats["nsources"], "sources_started": nsources, "killed": kill_one,
+                "per_source": {url: {k: v[k] for k in ("bytes", "ranges", "seconds",
+                                                       "gb_per_sec", "route")}
+                               for url, v in stats["sources"].items()},
+                "failures": stats["failures"], "stages_s": stats["stages"],
+                "blob_ports": [sources[i]["blob_port"] for i in use],
+                "source_stage_s": [sources[i]["stage_s"] for i in use],
+                "load_to_device_s": load_s, "device": dev.type,
+                "sha256_sources": [sources[i]["digest"] for i in use],
+                "sha256_healed": _digest(on_dev[k] for k in sorted(on_dev)),
+            })
+            del got, on_dev
+        return rows
+    finally:
+        for p in procs:
+            try:
+                p.stdin.close()
+            except OSError:
+                pass
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
 
 
 class _Model:
@@ -623,6 +752,15 @@ def measure_crossgroup(total_mb: float = 256.0, rounds: int = 3,
         out[name] = _tree_row(res[name])
     out["pipeline_speedup"] = (out["serial_r2"]["seconds_per_round"]
                                / out["streamed"]["seconds_per_round"])
+    # the striped heal: the same bytes from one and from two sources over
+    # the blob plane; the speedup is the second's GB/s over the first's
+    striped = measure_striped_heal(nbytes, [(1, False), (2, False)], device)
+    for name, row in zip(("heal_striped_1src", "heal_striped_2src"), striped):
+        if set(row["sha256_sources"]) != {row["sha256_healed"]}:
+            raise RuntimeError(f"{name}: the healed state's sha256 differs from the sources'")
+        out[name] = row
+    out["heal_striped_speedup"] = (out["heal_striped_2src"]["gb_per_sec"]
+                                   / out["heal_striped_1src"]["gb_per_sec"])
     return out
 
 
@@ -681,7 +819,13 @@ def main() -> None:
     parser.add_argument("--compressed", action="store_true",
                         help="run only the crossgroup_compressed matrix (int8 wire, serial "
                         "and streamed)")
+    parser.add_argument("--striped-heal-server", action="store_true",
+                        help="serve as one stripe source of measure_striped_heal (internal)")
+    parser.add_argument("--nbytes", type=int, default=0)
     args = parser.parse_args()
+    if args.striped_heal_server:
+        _striped_heal_server(args.nbytes, args.device)
+        return
     fn = measure_compressed if args.compressed else measure_crossgroup
     print(json.dumps(fn(args.total_mb, args.rounds, args.device)), flush=True)
 

@@ -9,8 +9,8 @@ each training the transformer through the port's entry points: a
 the native one by default, CMA on one host) with the ``HTTPTransport``
 heal, and
 ``FTTrainer`` over ``TrainStep`` (replayed from CUDA graphs on the card).
-One lighthouse (``min_replicas=1``, ``join_timeout_ms``, 100 by
-default; keep it above the steady step with three groups or more) and one
+One lighthouse (``min_replicas=1``; a join timeout of 100 ms for two
+groups, ``JOIN_TIMEOUT_MANY_MS`` for three or more) and one
 ``StoreServer`` per group live in the orchestrator. Once every group has
 committed a step (a group that starts slowly may join after the first
 quorums) and the last group has committed ``kill_at_step``, the last group
@@ -53,7 +53,9 @@ Reported (seconds, host wall clock):
   before the kill, and ``survivor_steps_lost``;
 * ``timeout_retries`` and ``deadline_aborts``: per group, the steps that
   hit a deadline (the worker retries them; phase 12 of ``chip_smoke.py``
-  fails on any).
+  fails on any);
+* ``rejoin_heal``: the rejoiner's heal as the transport saw it (mode,
+  ``nsources``, bytes, per-source bytes, ranges and GB/s, the stages).
 
 Usage: ``python -m torchft_tpu_torch.benchmarks.recovery`` (the card) or
 ``DEVICE=cpu python -m torchft_tpu_torch.benchmarks.recovery``; prints
@@ -73,7 +75,19 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
-__all__ = ["measure_recovery", "RecoveryResult"]
+__all__ = ["measure_recovery", "RecoveryResult", "JOIN_TIMEOUT_MANY_MS"]
+
+# The lighthouse's join timeout with three groups or more. A steady step
+# longer than the join timeout splits three groups into quorums that never
+# again hold all of them (ROADMAP queue 3, shared with the JAX package): a
+# request left out of one quorum waits at the lighthouse, and when the
+# next group asks, that old request has outlived the join timeout, so the
+# quorum forms at once without the third. The headline's step on the card
+# (0.33-0.38 s between four processes) and the tiny CPU step on a loaded
+# host (0.14 s in a whole 6-worker test run) both pass 100 ms. Two groups
+# keep the lighthouse's 100 ms: a quorum there needs both (a strict
+# majority of the heartbeating groups).
+JOIN_TIMEOUT_MANY_MS = 1000
 
 
 def _model_config(device_type: str):
@@ -147,18 +161,27 @@ def _instrument(manager, log: _EventLog, heal: Dict[str, Any]) -> None:
 
     manager._collectives.configure = configured
     transport = manager._checkpoint_transport
-    recv = transport.recv_checkpoint
 
-    def timed_recv(*args, **kwargs):
-        log.emit(event="heal_begin")
-        t0 = time.perf_counter()
-        state = recv(*args, **kwargs)
-        heal["seconds"] = time.perf_counter() - t0
-        heal["bytes"] = sum(x.nbytes for x in tree_leaves(state) if isinstance(x, torch.Tensor))
-        log.emit(event="heal_end", bytes=heal["bytes"], seconds=heal["seconds"])
-        return state
+    def timed(recv):
+        def timed_recv(*args, **kwargs):
+            log.emit(event="heal_begin")
+            t0 = time.perf_counter()
+            state = recv(*args, **kwargs)
+            heal["seconds"] = time.perf_counter() - t0
+            heal["bytes"] = sum(x.nbytes for x in tree_leaves(state)
+                                if isinstance(x, torch.Tensor))
+            # the striped heal's own account: mode, sources, per-source
+            # bytes and rates, the stages
+            heal["stats"] = dict(getattr(transport, "last_heal_stats", None) or {}) or None
+            log.emit(event="heal_end", bytes=heal["bytes"], seconds=heal["seconds"],
+                     stats=heal["stats"])
+            return state
 
-    transport.recv_checkpoint = timed_recv
+        return timed_recv
+
+    transport.recv_checkpoint = timed(transport.recv_checkpoint)
+    if hasattr(transport, "recv_checkpoint_multi"):
+        transport.recv_checkpoint_multi = timed(transport.recv_checkpoint_multi)
     report = manager._report_eviction
 
     def reported(victim):
@@ -350,6 +373,10 @@ class RecoveryResult:
     # the planes each group's epochs of more than one group ran on
     planes: Dict[int, List[str]] = field(default_factory=dict)
     log_paths: List[str] = field(default_factory=list)
+    # the respawned group's first heal: mode, sources, bytes, per-source
+    # rates and the stages (``HTTPTransport.last_heal_stats``), and its wall
+    rejoin_heal: Optional[Dict[str, Any]] = None
+    join_timeout_ms: int = 100  # the lighthouse's
 
     def as_dict(self) -> Dict[str, object]:
         return {
@@ -363,6 +390,7 @@ class RecoveryResult:
             "survivor_steps_lost": self.survivor_steps_lost,
             "timeout_retries": dict(self.timeout_retries),
             "deadline_aborts": dict(self.deadline_aborts),
+            "rejoin_heal": self.rejoin_heal,
         }
 
 
@@ -443,7 +471,6 @@ def measure_recovery(
     timeout_s: float = 300.0,
     num_groups: int = 2,
     env_extra: Optional[Dict[str, str]] = None,
-    join_timeout_ms: int = 100,
 ) -> RecoveryResult:
     """Kill group ``num_groups - 1`` of ``num_groups`` once every group has
     committed a step and it has committed ``kill_at_step``, respawn it, and
@@ -452,8 +479,7 @@ def measure_recovery(
     lease, and an op timeout far above a joint step of the headline over
     TCP, so that the timeout never paces a slow step (detection by FIN does
     not depend on it). ``env_extra`` goes into every worker's environment
-    (the data plane: ``TORCHFT_NATIVE_PLANE``, ``TORCHFT_DP_CMA``);
-    ``join_timeout_ms`` is the lighthouse's."""
+    (the data plane: ``TORCHFT_NATIVE_PLANE``, ``TORCHFT_DP_CMA``)."""
     from torchft_tpu_torch.coordination import LighthouseServer
     from torchft_tpu_torch.utils.platform import resolve_device
 
@@ -462,6 +488,7 @@ def measure_recovery(
         from torchft_tpu_torch.ops import flash_attention as fa
 
         fa.build()  # once, here: no worker's timings include a build
+    join_timeout_ms = 100 if num_groups < 3 else JOIN_TIMEOUT_MANY_MS
     victim_gid = num_groups - 1
     tmp = tempfile.mkdtemp(prefix="tft_torch_recovery_")
     logs = [os.path.join(tmp, f"g{g}.jsonl") for g in range(num_groups)]
@@ -535,6 +562,18 @@ def measure_recovery(
                 parts[label] = first[name] - prev
                 prev = first[name]
         parts["rest of the first step"] = rejoin["t"] - prev
+        healed = [e for e in mine if e["event"] == "heal_end"]
+        rejoin_heal = None
+        if healed:
+            stats = healed[0].get("stats") or {}
+            rejoin_heal = {
+                "mode": stats.get("mode", "single"), "nsources": stats.get("nsources", 1),
+                "bytes": healed[0]["bytes"], "seconds": healed[0]["seconds"],
+                "per_source": {src: {k: v[k] for k in ("bytes", "ranges", "gb_per_sec", "route")
+                                     if k in v}
+                               for src, v in (stats.get("sources") or {}).items()},
+                "stages": stats.get("stages"), "failures": stats.get("failures"),
+            }
         finals = {}
         for g in range(num_groups):
             last = [e for e in events[g] if e["event"] == "final"]
@@ -562,6 +601,8 @@ def measure_recovery(
                                if e["event"] == "configured" and e["world_size"] > 1})
                     for g in range(num_groups)},
             log_paths=logs,
+            rejoin_heal=rejoin_heal,
+            join_timeout_ms=join_timeout_ms,
         )
     finally:
         # every worker dies before any server shuts down, so no server

@@ -1,32 +1,73 @@
-"""HTTP checkpoint transport — the live-recovery path of the port, a
-single-source copy of ``torchft_tpu/checkpointing/http_transport.py``.
+"""HTTP checkpoint transport — the live-recovery path of the port, a copy
+of ``torchft_tpu/checkpointing/http_transport.py``.
 
-An in-process ``ThreadingHTTPServer`` serves the staged state at
-``/checkpoint/{step}/full``; a readers-writer lock gates the serving
+An in-process ``ThreadingHTTPServer`` serves the staged state under
+``/checkpoint/{step}/...``; a readers-writer lock gates the serving
 window, so a healer's GET blocks until ``send_checkpoint`` stages fresh
 state and the commit barrier's ``disallow_checkpoint`` waits for active
-readers. Striped multi-source heal, differential heal and the native blob
-plane are not ported yet (ROADMAP).
+readers. A received state tree is host staging: the receiver's
+``load_state_dict`` copies it into its own tensors, on its own device.
+
+Endpoints (``/checkpoint/{step}/<what>``):
+
+* ``full``: ``u64 header_len | header | buffers``, the single-source heal
+  (:meth:`HTTPTransport.recv_checkpoint`);
+* ``metadata`` and ``chunk_{i}``: the chunked mode (``num_chunks > 0``),
+  the header and a manifest that groups whole buffers into size-balanced
+  chunks fetched in parallel;
+* ``stripemeta``: what a striped healer plans with (the header, the
+  buffer layout, the staged tree digest, the staging token and the blob
+  plane's port);
+* ``range_{off}_{len}``: a byte range of the buffers' concatenation, the
+  HTTP fallback of the blob plane;
+* ``delta_{since}_{digest}``: the differential heal
+  (:mod:`~torchft_tpu_torch.checkpointing.delta`).
+
+The striped multi-source heal (:meth:`HTTPTransport.recv_checkpoint_multi`)
+pulls byte-balanced ranges of the flattened state from every source whose
+staged tree digest equals the primary's, in parallel; a source that dies
+mid-heal hands its pending ranges to the survivors. The bulk bytes ride
+the native blob plane (``native/blob.cc``, off the GIL) and fall back to
+``range_`` when a source advertises no blob port.
+
+Left out (ROADMAP): the ``/metrics`` and ``/critical_path.json``
+endpoints, the trace header, the checkpoint telemetry and the fault points.
 """
 
 from __future__ import annotations
 
 import logging
+import pickle
 import socket
 import struct
 import threading
+import time
+import urllib.parse
 import urllib.request
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Generic, List, Optional, TypeVar
+from typing import Any, Callable, Dict, Generic, List, Optional, Tuple, TypeVar
 
 import numpy as np
 
+from torchft_tpu_torch.checkpointing import delta as delta_mod
 from torchft_tpu_torch.checkpointing._rwlock import RWLock
 from torchft_tpu_torch.checkpointing.serialization import (
     as_bytes,
+    buffer_sizes,
     flatten_state,
     load_state,
+    read_exact,
+    unflatten_state,
+)
+from torchft_tpu_torch.checkpointing.stripes import (
+    assign_chunk_groups,
+    heal_sources_limit,
+    heal_stripes_per_source,
+    slice_buffers,
+    stripe_ranges,
 )
 from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
 
@@ -36,6 +77,20 @@ T = TypeVar("T")
 
 __all__ = ["HTTPTransport"]
 
+# The JAX package reads these from TORCHFT_HEAL_META_TIMEOUT_S and
+# TORCHFT_HEAL_NATIVE; nothing in the port sets other values, so they are
+# constants (a test patches them). Its TORCHFT_HEAL_DIGEST=0, which turns
+# the staging digests and with them the striped and differential heals
+# off, is not ported: every staging digests its leaves.
+#
+# How long a striped endpoint waits for a staging window: long enough for
+# a source mid-staging, short enough that a source that will not stage
+# this round (its quorum ran allow_heal=False) costs seconds, not the
+# transfer timeout.
+META_TIMEOUT_S = 5.0
+# the bulk heal bytes ride the native blob plane (else HTTP ranges)
+HEAL_NATIVE = True
+
 
 class _Server(ThreadingHTTPServer):
     address_family = socket.AF_INET6
@@ -43,22 +98,62 @@ class _Server(ThreadingHTTPServer):
     daemon_threads = True
 
 
+# staging tokens are process-wide, so a transport made anew in the same
+# process never reissues a token an old healer still holds
+_STAGING_TOKEN = iter(range(1, 1 << 62))
+_STAGING_TOKEN_LOCK = threading.Lock()
+
+
+def _next_token() -> int:
+    with _STAGING_TOKEN_LOCK:
+        return next(_STAGING_TOKEN)
+
+
+def _call_header_cb(header_cb: Optional[Callable[[bytes], None]], header: bytes) -> None:
+    if header_cb is None:
+        return
+    try:
+        header_cb(header)
+    except Exception:  # noqa: BLE001 — the callback is best-effort
+        logger.exception("heal header callback failed")
+
+
 class HTTPTransport(CheckpointTransport[T], Generic[T]):
-    """Serves the staged checkpoint over HTTP. A received state tree is
-    host staging: the receiver's ``load_state_dict`` copies it into its
-    own tensors, which puts it on the receiver's device."""
+    """Serves the staged checkpoint over HTTP (and its bytes over the blob
+    plane) from an in-process server."""
 
     def __init__(
         self,
         timeout: timedelta = timedelta(seconds=60),
+        num_chunks: int = 0,
         hostname: Optional[str] = None,
     ) -> None:
         self._timeout = timeout
+        self._num_chunks = num_chunks
         self._hostname = hostname or socket.gethostname()
+        # payload bytes of the last receive
+        self.last_recv_bytes: int = 0
+        # the last multi-source receive: mode, per-source bytes, seconds,
+        # ranges and rate, the stages' seconds
+        self.last_heal_stats: Dict[str, Any] = {}
+        # the differential heal's digest trail; the Manager attaches it
+        # when TORCHFT_HEAL_DIFF is on
+        self.commit_trail: Optional[delta_mod.CommitTrail] = None
+
         self._lock = RWLock(timeout=timeout.total_seconds())
         self._step: Optional[int] = None
         self._header: Optional[bytes] = None
         self._buffers: List[np.ndarray] = []
+        self._sizes: List[int] = []
+        self._total = 0
+        self._digests: List[str] = []
+        self._tree_digest: Optional[str] = None
+        self._groups: List[List[int]] = []
+        self._token = 0
+        # the native blob server, made at the first staging; None when the
+        # native core cannot serve (then the HTTP ranges do)
+        self._blob = None
+        self._blob_failed = False
         # serving starts disallowed: readers block until the first staging.
         # Only the manager's quorum/commit path flips the window.
         self._lock.w_acquire()
@@ -76,30 +171,38 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
                 # bound socket writes so one stalled healer can't hold the
                 # read lock (and with it the next commit) forever
                 self.connection.settimeout(transport._timeout.total_seconds())
+                parts = self.path.strip("/").split("/")
+                # the striped endpoints wait only briefly for a staging
+                # window: a healer probing a source whose quorum round ran
+                # allow_heal=False would otherwise wait the whole transfer
+                # timeout for a window that never opens this round
+                bounded = len(parts) == 3 and (
+                    parts[2] == "stripemeta" or parts[2].startswith(("range_", "delta_"))
+                )
                 try:
-                    transport._lock.r_acquire()
+                    transport._lock.r_acquire(timeout=META_TIMEOUT_S if bounded else None)
                 except TimeoutError:
                     self.send_error(503, "no checkpoint staged within timeout")
                     return
                 try:
-                    parts = self.path.strip("/").split("/")
-                    if len(parts) != 3 or parts[0] != "checkpoint" or parts[2] != "full":
+                    if len(parts) != 3 or parts[0] != "checkpoint":
                         self.send_error(404, f"bad path {self.path}")
                         return
                     step = int(parts[1])
                     if step != transport._step:
-                        self.send_error(
-                            410, f"step {step} not staged (have {transport._step})"
-                        )
+                        self.send_error(410, f"step {step} not staged (have {transport._step})")
                         return
-                    payload = transport._render_full()
+                    payload = transport._render(parts[2])
+                    if payload is None:
+                        self.send_error(404, f"bad path {self.path}")
+                        return
                     self.send_response(200)
                     self.send_header("Content-Type", "application/octet-stream")
                     self.send_header("Content-Length", str(sum(len(p) for p in payload)))
                     self.end_headers()
                     for part in payload:
                         self.wfile.write(part)
-                except (BrokenPipeError, socket.timeout):
+                except (BrokenPipeError, ConnectionResetError, socket.timeout):
                     pass
                 except Exception as e:  # noqa: BLE001 — report to the peer
                     logger.exception("checkpoint GET failed")
@@ -117,11 +220,54 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
         )
         self._thread.start()
 
-    def _render_full(self) -> List[bytes]:
+    # -- render (read lock held) --
+
+    def _render(self, what: str) -> Optional[List[Any]]:
+        """The body parts of one endpoint, or None for an unknown one."""
         assert self._header is not None
-        out = [struct.pack("<Q", len(self._header)), self._header]
-        out.extend(as_bytes(b) for b in self._buffers)
-        return out
+        if what == "full":
+            out: List[Any] = [struct.pack("<Q", len(self._header)), self._header]
+            out.extend(as_bytes(b) for b in self._buffers)
+            return out
+        if what == "metadata":
+            return [pickle.dumps((self._header, self._groups))]
+        if what.startswith("chunk_"):
+            return [as_bytes(self._buffers[j]) for j in self._groups[int(what[len("chunk_"):])]]
+        if what == "stripemeta":
+            return [pickle.dumps({
+                "step": self._step,
+                "header": self._header,
+                "sizes": list(self._sizes),
+                "total": self._total,
+                "tree_digest": self._tree_digest,
+                "token": self._token,
+                "blob_port": getattr(self._blob, "port", None),
+            })]
+        if what.startswith("range_"):
+            _, off_s, len_s = what.split("_")
+            offset, length = int(off_s), int(len_s)
+            if offset < 0 or length <= 0 or offset + length > self._total:
+                raise ValueError(f"bad range [{offset}, {offset + length}) of {self._total}")
+            return list(slice_buffers(self._buffers, self._sizes, offset, length))
+        if what.startswith("delta_"):
+            _, since_s, digest = what.split("_")
+            return self._render_delta(int(since_s), digest)
+        return None
+
+    def _render_delta(self, since_step: int, healer_digest: str) -> List[Any]:
+        """The buffers that changed since the healer's last committed step,
+        or a ``{"mode": "full"}`` refusal whenever a delta is not provably
+        sound (no trail, no trail entry for that step, a digest
+        mismatch)."""
+        trail = self.commit_trail
+        built = None
+        if trail is not None:
+            built = delta_mod.build_delta(
+                self._header, self._buffers, self._digests, trail.get(since_step), healer_digest
+            )
+        if built is None:
+            return delta_mod.pack_delta({"mode": "full"}, [])
+        return delta_mod.pack_delta(*built)
 
     # -- CheckpointTransport --
 
@@ -135,25 +281,332 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
         # aborted before should_commit closed it), so staging never races
         # an active GET
         self.disallow_checkpoint()
-        self._header, self._buffers = flatten_state(state_dict)
+        header, buffers = flatten_state(state_dict)
+        # the blob plane serves raw base pointers: pin contiguity (flatten
+        # already returns contiguous host copies)
+        self._buffers = [np.ascontiguousarray(b) for b in buffers]
+        self._header = header
+        self._sizes = [int(b.nbytes) for b in self._buffers]
+        self._total = sum(self._sizes)
+        trail = self.commit_trail
+        digests = None
+        if trail is not None:
+            # the Manager recorded the trail from the same state at the step
+            # boundary: reuse its digests instead of hashing again
+            ent = trail.get(step)
+            if ent is not None and ent["sizes"] == self._sizes:
+                digests = list(ent["leaves"])
+        if digests is None:
+            digests = delta_mod.leaf_digests(self._buffers)
+            if trail is not None:
+                trail.record(step, self._buffers, digests=digests)
+        self._digests = digests
+        self._tree_digest = delta_mod.tree_digest(digests)
+        nchunks = min(self._num_chunks, len(self._buffers)) if self._num_chunks else 0
+        self._groups = assign_chunk_groups(self._sizes, nchunks) if nchunks else []
         self._step = step
+        self._token = _next_token()
+        self._stage_blob()
         self._lock.w_release()  # open the serving window
         self._allowed = True
+
+    def _stage_blob(self) -> None:
+        """Stage the buffers on the native blob plane. A failure leaves the
+        HTTP ranges serving (the stripemeta then advertises no port) and is
+        logged: phase 15 of ``chip_smoke.py`` fails a heal that should have
+        ridden the blob plane and did not."""
+        if not HEAL_NATIVE or self._blob_failed:
+            return
+        try:
+            if self._blob is None:
+                from torchft_tpu_torch import _native
+
+                self._blob = _native.BlobServer()
+            self._blob.stage([b.ctypes.data for b in self._buffers], self._sizes, self._token)
+        except Exception as e:  # noqa: BLE001 — the HTTP ranges stay correct
+            logger.warning("native blob staging unavailable: %s", e)
+            self._blob = None
+            self._blob_failed = True
 
     def disallow_checkpoint(self) -> None:
         if self._allowed:
             self._lock.w_acquire()
             self._allowed = False
+        if self._blob is not None:
+            # returns once no native serve in flight still reads the staged
+            # buffers, so the next staging may drop them
+            self._blob.unstage()
+
+    # -- single-source receive --
+
+    def _fetch_full(self, base: str, secs: float) -> T:
+        with urllib.request.urlopen(f"{base}/full", timeout=secs) as resp:
+            state = load_state(resp)
+            self.last_recv_bytes = int(resp.headers.get("Content-Length") or 0)
+        return state
 
     def recv_checkpoint(
         self, src_rank: int, metadata: str, step: int, timeout: timedelta
     ) -> T:
-        url = f"{metadata}/checkpoint/{step}/full"
-        with urllib.request.urlopen(url, timeout=timeout.total_seconds()) as resp:
-            return load_state(resp)
+        base = f"{metadata}/checkpoint/{step}"
+        secs = timeout.total_seconds()
+        if self._num_chunks == 0:
+            return self._fetch_full(base, secs)
+        with urllib.request.urlopen(f"{base}/metadata", timeout=secs) as resp:
+            header, groups = pickle.loads(resp.read())
+        if not groups:
+            # the sender staged unchunked (its num_chunks=0 wins over ours)
+            return self._fetch_full(base, secs)
+        _, infos = pickle.loads(header)
+        sizes = buffer_sizes(infos)
+        buffers: List[Optional[bytearray]] = [None] * len(sizes)
+
+        def fetch(ci: int) -> None:
+            with urllib.request.urlopen(f"{base}/chunk_{ci}", timeout=secs) as r:
+                for j in groups[ci]:
+                    buffers[j] = read_exact(r, sizes[j])
+
+        with ThreadPoolExecutor(max_workers=len(groups)) as pool:
+            for f in [pool.submit(fetch, ci) for ci in range(len(groups))]:
+                f.result()
+        self.last_recv_bytes = len(header) + sum(sizes)
+        return unflatten_state(header, buffers)
+
+    # -- striped multi-source receive --
+
+    def recv_checkpoint_multi(
+        self,
+        sources: List[str],
+        step: int,
+        timeout: timedelta,
+        since_step: Optional[int] = None,
+        own: Optional[Tuple[List[np.ndarray], str]] = None,
+        header_cb: Optional[Callable[[bytes], None]] = None,
+    ) -> T:
+        """Fetch ``step``'s state striped across ``sources`` (each a
+        transport metadata URL; ``sources[0]`` is the lighthouse-named
+        primary). With ``since_step`` and ``own`` (this replica's flattened
+        buffers and tree digest at ``since_step``) the differential heal is
+        tried first. ``header_cb`` gets the header as soon as it is known,
+        before any bulk bytes land."""
+        if not sources:
+            raise ValueError("need at least one heal source")
+        secs = timeout.total_seconds()
+        deadline = time.monotonic() + secs
+        t_start = time.perf_counter()
+        stats: Dict[str, Any] = {"mode": "striped", "sources": {}, "stages": {}}
+        self.last_heal_stats = stats
+
+        if since_step is not None and own is not None:
+            state = self._try_delta(sources[0], step, since_step, own, secs, stats, header_cb)
+            if state is not None:
+                self.last_recv_bytes = int(stats["bytes"])
+                return state
+
+        # ---- stripe planning ----
+        t0 = time.perf_counter()
+        sources = sources[: heal_sources_limit()]
+        metas: Dict[str, Dict[str, Any]] = {}
+        meta_errors: Dict[str, str] = {}
+        # the server answers within META_TIMEOUT_S (or 503s): a blackholed
+        # host must not take the whole transfer deadline before a range moves
+        meta_secs = min(secs, META_TIMEOUT_S + 5.0)
+
+        def fetch_meta(src: str) -> None:
+            try:
+                with urllib.request.urlopen(
+                    f"{src}/checkpoint/{step}/stripemeta", timeout=meta_secs
+                ) as r:
+                    metas[src] = pickle.loads(r.read())
+            except Exception as e:  # noqa: BLE001 — a dead source is dropped
+                meta_errors[src] = str(e)
+
+        if len(sources) == 1:
+            fetch_meta(sources[0])
+        else:
+            with ThreadPoolExecutor(
+                max_workers=len(sources), thread_name_prefix="tft_heal_meta"
+            ) as pool:
+                list(pool.map(fetch_meta, sources))
+        alive = [s for s in sources if s in metas]
+        if not alive:
+            raise ConnectionError(f"no heal source reachable for step {step}: {meta_errors}")
+        primary = alive[0]
+        pmeta = metas[primary]
+        if pmeta.get("tree_digest"):
+            # stripe only across sources that provably staged the same
+            # bytes; anything else (a LocalSGD group's own inner state, a
+            # source that restaged another step) takes fewer sources rather
+            # than mixing two states
+            active = []
+            for s in alive:
+                if metas[s].get("tree_digest") == pmeta["tree_digest"]:
+                    active.append(s)
+                else:
+                    logger.warning(
+                        "heal source %s staged another tree than the primary (digest %s vs "
+                        "%s, %s vs %s bytes); left out of the stripes",
+                        s, metas[s].get("tree_digest"), pmeta["tree_digest"],
+                        metas[s].get("total"), pmeta.get("total"),
+                    )
+        else:
+            active = [primary]
+        header: bytes = pmeta["header"]
+        sizes: List[int] = list(pmeta["sizes"])
+        total: int = int(pmeta["total"])
+        stats["stages"]["meta_s"] = round(time.perf_counter() - t0, 4)
+        _call_header_cb(header_cb, header)
+
+        # ---- striped fetch: a work queue, so a dead source's pending
+        # ranges re-stripe onto the survivors ----
+        t0 = time.perf_counter()
+        dest = bytearray(total)
+        mv = memoryview(dest)
+        queue: deque = deque(stripe_ranges(total, len(active) * heal_stripes_per_source()))
+        qlock = threading.Lock()
+        failures: Dict[str, str] = {}
+        done_bytes = [0]
+
+        def fetch_range(src: str, off: int, length: int) -> None:
+            left = max(0.1, deadline - time.monotonic())
+            meta = metas[src]
+            view = mv[off : off + length]
+            if meta.get("blob_port") and HEAL_NATIVE:
+                from torchft_tpu_torch import _native
+
+                host = urllib.parse.urlsplit(src).hostname or "localhost"
+                _native.blob_fetch(host, int(meta["blob_port"]), int(meta["token"]), off,
+                                   length, view, timeout_ms=int(left * 1000))
+                return
+            url = f"{src}/checkpoint/{step}/range_{off}_{length}"
+            with urllib.request.urlopen(url, timeout=left) as r:
+                got = 0
+                while got < length:
+                    k = r.readinto(view[got:])
+                    if not k:
+                        raise EOFError(f"short range read {got}/{length} from {src}")
+                    got += k
+
+        def worker(src: str) -> None:
+            srcstat = stats["sources"].setdefault(
+                src, {"bytes": 0, "seconds": 0.0, "ranges": 0,
+                      "route": "blob" if metas[src].get("blob_port") and HEAL_NATIVE
+                      else "http"}
+            )
+            while True:
+                with qlock:
+                    if not queue:
+                        return
+                    off, length = queue.popleft()
+                ts = time.perf_counter()
+                try:
+                    fetch_range(src, off, length)
+                except Exception as e:  # noqa: BLE001 — re-stripe and retire
+                    with qlock:
+                        queue.append((off, length))
+                        failures[src] = str(e)
+                    logger.warning("heal source %s failed mid-stripe (%s); re-striping its "
+                                   "ranges over the survivors", src, e)
+                    return
+                srcstat["bytes"] += length
+                srcstat["seconds"] += time.perf_counter() - ts
+                srcstat["ranges"] += 1
+                with qlock:
+                    done_bytes[0] += length
+
+        # A worker that saw an empty queue exits, but a failing worker may
+        # put its range back after that: relaunch workers for the surviving
+        # sources until the queue drains or every source has failed (each
+        # pass finishes the queue or retires a source).
+        while queue and len(failures) < len(active):
+            threads = [
+                threading.Thread(target=worker, args=(s,), name=f"tft_heal_stripe{i}")
+                for i, s in enumerate(s for s in active if s not in failures)
+            ]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+        if done_bytes[0] != total:
+            raise ConnectionError(
+                f"striped heal incomplete: {done_bytes[0]}/{total} bytes "
+                f"(source failures: {failures or meta_errors})"
+            )
+        recv_s = time.perf_counter() - t0
+        for st in stats["sources"].values():
+            st["gb_per_sec"] = (
+                round(st["bytes"] / st["seconds"] / 1e9, 3) if st["seconds"] > 0 else 0.0
+            )
+        stats["stages"]["recv_s"] = round(recv_s, 4)
+        stats["nsources"] = len(active) - len(failures)
+        stats["failures"] = failures
+
+        # ---- decode: views into the one receive buffer ----
+        t0 = time.perf_counter()
+        buffers: List[np.ndarray] = []
+        off = 0
+        for s in sizes:
+            buffers.append(np.frombuffer(dest, dtype=np.uint8, count=s, offset=off))
+            off += s
+        state = unflatten_state(header, buffers)
+        stats["stages"]["decode_s"] = round(time.perf_counter() - t0, 4)
+        stats["bytes"] = len(header) + total
+        self.last_recv_bytes = len(header) + total
+        return state
+
+    def _try_delta(
+        self,
+        primary: str,
+        step: int,
+        since_step: int,
+        own: Tuple[List[np.ndarray], str],
+        secs: float,
+        stats: Dict[str, Any],
+        header_cb: Optional[Callable[[bytes], None]] = None,
+    ) -> Optional[T]:
+        """The differential attempt against the primary; None on any
+        refusal or failure (the caller then takes the striped full path)."""
+        own_buffers, own_digest = own
+        t0 = time.perf_counter()
+        try:
+            url = f"{primary}/checkpoint/{step}/delta_{since_step}_{own_digest}"
+            with urllib.request.urlopen(url, timeout=secs) as r:
+                body = read_exact(r, int(r.headers["Content-Length"]))
+            manifest, payload = delta_mod.unpack_delta(body)
+            if manifest.get("mode") != "delta":
+                return None
+            _call_header_cb(header_cb, manifest["header"])
+            header, buffers = delta_mod.apply_delta(manifest, payload, own_buffers)
+            state = unflatten_state(header, buffers)
+        except Exception as e:  # noqa: BLE001 — fall back to the full path
+            logger.warning("differential heal unavailable (%s); falling back to full", e)
+            return None
+        dur = time.perf_counter() - t0
+        stats["mode"] = "delta"
+        stats["bytes"] = len(body)
+        stats["delta"] = {
+            "since_step": since_step,
+            "changed": len(manifest["changed"]),
+            "leaves": len(own_buffers),
+            "bytes": len(body),
+            "seconds": round(dur, 4),
+        }
+        stats["sources"][primary] = {
+            "bytes": len(body),
+            "seconds": round(dur, 4),
+            "ranges": 1,
+            "route": "http",
+            "gb_per_sec": round(len(body) / max(dur, 1e-9) / 1e9, 3),
+        }
+        stats["stages"]["recv_s"] = round(dur, 4)
+        stats["nsources"] = 1
+        stats["failures"] = {}
+        return state
 
     def shutdown(self, wait: bool = True) -> None:
         self._server.shutdown()
         self._server.server_close()
+        if self._blob is not None:
+            self._blob.close()
         if wait:
             self._thread.join(timeout=5)

@@ -18,14 +18,17 @@ where ``leaf_infos[i]`` is
 Leaves are visited in ``jax.tree_util`` order (sorted dict keys), so for a
 tree of numpy leaves the buffers are exactly the JAX package's buffers.
 Unflattened tensors lie on the host; the receiver's ``load_state_dict``
-copies them into its own tensors, on its own device.
+copies them into its own tensors, on its own device. A tensor leaf
+unflattened from a writable buffer (a view into the striped heal's one
+receive buffer) shares its memory; only a read-only or misaligned buffer
+is copied.
 """
 
 from __future__ import annotations
 
 import pickle
 import struct
-from typing import Any, BinaryIO, List, Tuple, Union
+from typing import Any, BinaryIO, List, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,6 +43,9 @@ __all__ = [
     "buffer_sizes",
     "as_bytes",
     "load_state",
+    "read_exact",
+    "TensorSpec",
+    "spec_tree_from_header",
 ]
 
 
@@ -86,6 +92,19 @@ def buffer_sizes(infos: List[Tuple]) -> List[int]:
     return [info[3] for info in infos if info[0] in ("arr", "tensor")]
 
 
+def _tensor_from_buffer(buf: Any, dtype: torch.dtype, shape: Tuple[int, ...]) -> torch.Tensor:
+    """A host tensor over ``buf``'s bytes: a view when the buffer is
+    writable and aligned to the element size, else a copy (torch wants
+    writable memory, and a misaligned element is slow or faulty)."""
+    raw = np.frombuffer(buf, dtype=np.uint8)
+    if not raw.size:
+        return torch.empty(shape, dtype=dtype)
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    if not raw.flags.writeable or raw.ctypes.data % itemsize:
+        raw = raw.copy()
+    return torch.from_numpy(raw).view(dtype).reshape(shape)
+
+
 def unflatten_state(
     header: bytes,
     buffers: List[Union[np.ndarray, bytes, bytearray, memoryview]],
@@ -100,12 +119,33 @@ def unflatten_state(
             leaves.append(np.frombuffer(next(it), dtype=np.dtype(dtype)).reshape(shape))
         elif info[0] == "tensor":
             _, dtype, shape, _ = info
-            raw = np.frombuffer(next(it), dtype=np.uint8)
-            if raw.size:
-                t = torch.from_numpy(raw.copy()).view(_torch_dtype(dtype)).reshape(shape)
-            else:
-                t = torch.empty(shape, dtype=_torch_dtype(dtype))
-            leaves.append(t)
+            leaves.append(_tensor_from_buffer(next(it), _torch_dtype(dtype), shape))
+        else:
+            leaves.append(pickle.loads(info[1]))
+    return tree_unflatten(treedef, leaves)
+
+
+class TensorSpec(NamedTuple):
+    """Shape and torch dtype of a leaf still in transit."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def spec_tree_from_header(header: bytes) -> Any:
+    """The transferred tree's shape from its header alone: a
+    :class:`TensorSpec` for every tensor or array leaf (numpy dtypes
+    mapped to torch's), the objects themselves for the other leaves. The
+    header arrives before the bulk bytes, so a healer can prepare for the
+    incoming state (``header_cb``) while the stripes stream."""
+    treedef, infos = pickle.loads(header)
+    leaves: List[Any] = []
+    for info in infos:
+        if info[0] == "tensor":
+            leaves.append(TensorSpec(tuple(info[2]), _torch_dtype(info[1])))
+        elif info[0] == "arr":
+            np_dtype = np.dtype(info[1])
+            leaves.append(TensorSpec(tuple(info[2]), torch.from_numpy(np.empty(0, np_dtype)).dtype))
         else:
             leaves.append(pickle.loads(info[1]))
     return tree_unflatten(treedef, leaves)
@@ -117,11 +157,23 @@ def load_state(f: BinaryIO) -> Any:
     (header_len,) = _LEN.unpack(f.read(_LEN.size))
     header = f.read(header_len)
     _, infos = pickle.loads(header)
-    buffers: List[bytes] = []
+    buffers: List[bytearray] = []
     for nbytes in buffer_sizes(infos):
-        raw = f.read(nbytes)
-        if len(raw) != nbytes:
-            raise EOFError("truncated checkpoint stream")
-        buffers.append(raw)
+        buffers.append(read_exact(f, nbytes))
     return unflatten_state(header, buffers)
+
+
+def read_exact(f: BinaryIO, nbytes: int) -> bytearray:
+    """``nbytes`` from ``f`` into a fresh writable buffer (the tensors
+    unflattened from it are views, not a second copy); EOFError if the
+    stream ends first."""
+    out = bytearray(nbytes)
+    view = memoryview(out)
+    got = 0
+    while got < nbytes:
+        k = f.readinto(view[got:])
+        if not k:
+            raise EOFError(f"truncated checkpoint stream ({got}/{nbytes} bytes)")
+        got += k
+    return out
 

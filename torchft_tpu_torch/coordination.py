@@ -51,6 +51,12 @@ class QuorumResult:
     group_heal: bool = False
     # quorum members' replica_ids in replica_rank order
     participant_ids: List[str] = field(default_factory=list)
+    # the striped heal: manager addresses of the whole max-step cohort (the
+    # one bootstrap source at max_step 0)
+    recover_src_addresses: List[str] = field(default_factory=list)
+    # someone heals this round: every up-to-date member stages a checkpoint,
+    # so that all of them can serve stripes
+    heal_pending: bool = False
 
     @staticmethod
     def _from_wire(d: Dict[str, Any]) -> "QuorumResult":
@@ -68,6 +74,8 @@ class QuorumResult:
             heal=d.get("heal", False),
             group_heal=d.get("group_heal", d.get("heal", False)),
             participant_ids=_strs(d.get("participant_ids", [])),
+            recover_src_addresses=_strs(d.get("recover_src_addresses", [])),
+            heal_pending=d.get("heal_pending", False),
         )
 
 

@@ -4,10 +4,16 @@
 * ``start_quorum`` runs the quorum RPC on a worker thread so it overlaps
   the forward pass (``use_async_quorum=False`` waits for it, and applies a
   heal before returning); a new ``quorum_id`` reconfigures the collectives;
-* the single-source heal: the quorum thread serves a checkpoint to
+* the heal: the quorum thread serves a checkpoint to
   ``recover_dst_ranks`` or receives one when ``quorum.heal``, and stages it
   for the main thread, which applies it at the commit barrier (async
-  quorum) or inside ``start_quorum`` (sync quorum);
+  quorum) or inside ``start_quorum`` (sync quorum). While anyone heals,
+  every member of the max-step cohort within the source cap stages its
+  state (a stripe source), and the healer pulls byte ranges from all of
+  them at once (``HTTPTransport.recv_checkpoint_multi``); with
+  ``TORCHFT_HEAL_DIFF=1`` each step boundary records a digest trail of the
+  committed state, and a healer that still holds the committed state of
+  a recent step receives only the leaves that changed since;
 * ``allreduce_many`` averages across replica groups: host buffers in place
   on the host plane, tensors on the device on the device plane
   (``device_data_plane()``); healing replicas contribute zeros and the
@@ -27,8 +33,7 @@
   votes False.
 
 Left out (ROADMAP): telemetry, tracing, the step watchdog, the divergence
-sentinel, striped / differential heal and
-``WorldSizeMode.FIXED_WITH_SPARES``.
+sentinel, ``set_heal_warmup`` and ``WorldSizeMode.FIXED_WITH_SPARES``.
 """
 
 from __future__ import annotations
@@ -47,7 +52,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, TypeVar, cast
 import numpy as np
 import torch
 
+from torchft_tpu_torch.checkpointing import delta
 from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
+from torchft_tpu_torch.checkpointing.serialization import flatten_state
+from torchft_tpu_torch.checkpointing.stripes import heal_sources_limit
 from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
 from torchft_tpu_torch.collectives import Collectives, PeerGoneError, ReduceOp
 from torchft_tpu_torch.coordination import ManagerClient, ManagerServer
@@ -270,6 +278,15 @@ class Manager:
         self._commit_executor: Optional[ThreadPoolExecutor] = None
         self._commit_client: Optional[ManagerClient] = None
 
+        # The differential heal (TORCHFT_HEAL_DIFF=1): per-leaf digests of
+        # the committed state at recent steps, recorded on the main thread
+        # at each start_quorum and read by the transport's delta endpoint.
+        # None when off: the record costs a flatten (a device-to-host copy
+        # of the whole state) and a digest every step.
+        self._heal_trail = delta.CommitTrail() if delta.diff_enabled() else None
+        if self._heal_trail is not None and hasattr(checkpoint_transport, "commit_trail"):
+            checkpoint_transport.commit_trail = self._heal_trail
+
     def set_state_dict_fns(
         self, load_state_dict: Callable[[T], None], state_dict: Callable[[], T]
     ) -> None:
@@ -319,6 +336,10 @@ class Manager:
         speculation fence for it."""
         if not self._use_async_quorum and self._pending_commit is not None:
             self.resolve_pending_commit()
+        if self._heal_trail is not None:
+            # with a vote in flight the user's state_dict serves the
+            # rollback snapshot: the committed state at current_step
+            self._record_commit_trail()
         self._errored = None
         self._healing = False
         self._group_healing = False
@@ -504,8 +525,28 @@ class Manager:
 
     def _heal(self, quorum) -> None:
         """The quorum thread's share of a heal: serve this group's state to
-        ``recover_dst_ranks``, or receive and stage a state to heal from."""
-        if (quorum.recover_dst_ranks or quorum.heal) and not self._await_speculation_settled():
+        ``recover_dst_ranks`` or as a stripe source, or receive and stage a
+        state to heal from."""
+        # While anyone heals, every max-step cohort member a healer may
+        # contact stages, not only the assigned sources, so the healer can
+        # pull a stripe from each. Members past the healer's source cap are
+        # never contacted and skip the flatten; a member that cannot find
+        # itself in the cohort list stages anyway (an address that reads
+        # differently must cost a wasted staging, never an unserved healer).
+        limit = heal_sources_limit()
+        stage_for_stripes = (
+            quorum.heal_pending
+            and not quorum.heal
+            and quorum.max_rank is not None
+            and limit > 1
+            and (
+                self._manager_addr in quorum.recover_src_addresses[:limit]
+                or self._manager_addr not in quorum.recover_src_addresses
+            )
+        )
+        if (
+            quorum.recover_dst_ranks or quorum.heal or stage_for_stripes
+        ) and not self._await_speculation_settled():
             # a speculative update is still outstanding on the main thread:
             # the state served now would be the snapshot, one update behind
             # the step this quorum reported, and a received state would race
@@ -515,8 +556,11 @@ class Manager:
                 RuntimeError("speculation fence timed out; heal traffic skipped")
             )
             return
-        if quorum.recover_dst_ranks:
-            self._logger.info(f"peers need recovery from us {quorum.recover_dst_ranks}")
+        if quorum.recover_dst_ranks or stage_for_stripes:
+            self._logger.info(
+                f"peers need recovery from us {quorum.recover_dst_ranks}"
+                + (" (stripe source)" if stage_for_stripes else "")
+            )
             self._checkpoint_transport.send_checkpoint(
                 dst_ranks=quorum.recover_dst_ranks,
                 step=quorum.max_step,
@@ -533,24 +577,28 @@ class Manager:
                 # a protocol invariant, not a retryable transfer failure
                 raise RuntimeError("quorum asked us to heal without naming a source")
             try:
-                client = ManagerClient(
-                    quorum.recover_src_manager_address,
-                    connect_timeout=self._connect_timeout,
-                )
-                try:
-                    metadata = client._checkpoint_metadata(self._rank, timeout=self._timeout)
-                finally:
-                    client.close()
+                sources = self._heal_sources(quorum)
+                if not sources:
+                    raise ConnectionError("no heal source answered the checkpoint-metadata RPC")
+                multi = getattr(self._checkpoint_transport, "recv_checkpoint_multi", None)
                 # the user state is applied on the main thread; stage it here
-                self._pending_state_dict = cast(
-                    Dict[str, object],
-                    self._checkpoint_transport.recv_checkpoint(
-                        src_rank=quorum.recover_src_rank,
-                        metadata=metadata,
+                if multi is not None:
+                    own = self._heal_own_digest()
+                    state = multi(
+                        [m for _, m in sources],
                         step=quorum.max_step,
                         timeout=self._timeout,
-                    ),
-                )
+                        since_step=self._step if own is not None else None,
+                        own=own,
+                    )
+                else:
+                    state = self._checkpoint_transport.recv_checkpoint(
+                        src_rank=quorum.recover_src_rank,
+                        metadata=sources[0][1],
+                        step=quorum.max_step,
+                        timeout=self._timeout,
+                    )
+                self._pending_state_dict = cast(Dict[str, object], state)
             except Exception as e:  # noqa: BLE001 — a heal must be retryable
                 # the quorum and plane are fine, only the state fetch failed:
                 # stay un-healed, latch the error so the step aborts at the
@@ -560,8 +608,82 @@ class Manager:
                 self._logger.exception(f"heal transfer failed; retrying next quorum: {e}")
                 self.report_error(e)
                 return
+            stats = getattr(self._checkpoint_transport, "last_heal_stats", None)
+            if isinstance(stats, dict) and stats:
+                self._logger.info(
+                    f"healed: mode={stats.get('mode')} nsources={stats.get('nsources')} "
+                    f"bytes={stats.get('bytes')} stages={stats.get('stages')}"
+                )
             self.load_state_dict(cast(Dict[str, int], self._pending_state_dict["torchft"]))
             self._step = max(self._step, quorum.max_step)
+
+    def _heal_sources(self, quorum) -> List[Tuple[str, str]]:
+        """The striped heal's sources: the lighthouse-named primary first,
+        then the rest of the max-step cohort, each resolved to its
+        transport's metadata by ``mgr.checkpoint_metadata``, at most
+        ``heal_sources_limit()``. A peer whose RPC fails is dropped (it may
+        be dying; the stripes would route around it anyway). Returns
+        ``[(manager_addr, transport_metadata), ...]``."""
+        addrs = [quorum.recover_src_manager_address]
+        for a in quorum.recover_src_addresses:
+            if a and a not in addrs:
+                addrs.append(a)
+        addrs = addrs[: heal_sources_limit()]
+        found: Dict[str, str] = {}
+        lock = threading.Lock()
+
+        def resolve(addr: str) -> None:
+            try:
+                client = ManagerClient(addr, connect_timeout=self._connect_timeout)
+                try:
+                    meta = client._checkpoint_metadata(self._rank, timeout=self._timeout)
+                finally:
+                    client.close()
+            except Exception as e:  # noqa: BLE001 — drop the source
+                self._logger.warn(f"heal source {addr} metadata fetch failed: {e}")
+                return
+            with lock:
+                found[addr] = meta
+
+        if len(addrs) == 1:
+            resolve(addrs[0])
+        else:
+            threads = [threading.Thread(target=resolve, args=(a,), name="tft_heal_meta")
+                       for a in addrs]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+        # the primary stays first: every healer derives the same plan
+        return [(a, found[a]) for a in addrs if a in found]
+
+    def _record_commit_trail(self) -> None:
+        """Record the committed state's per-leaf digests at the current step
+        (main thread, at the step boundary: the state here is what a heal
+        at this step serves). The flatten copies the state to the host on
+        the current stream, after the work that wrote it; it syncs that
+        stream only, never the device."""
+        assert self._heal_trail is not None
+        if self._user_state_dict is None or self._step in self._heal_trail.steps():
+            return
+        try:
+            _header, buffers = flatten_state(self._manager_state_dict())
+            self._heal_trail.record(self._step, buffers)
+        except Exception:  # noqa: BLE001 — the trail must never fail a step
+            self._logger.exception("commit-trail record failed")
+
+    def _heal_own_digest(self) -> Optional[Tuple[List[np.ndarray], str]]:
+        """This replica's flattened state and tree digest at its last
+        committed step, the differential heal's credentials; None when it
+        cannot apply (the feature off, no state callbacks, step 0)."""
+        if self._heal_trail is None or self._user_state_dict is None or self._step <= 0:
+            return None
+        try:
+            _header, buffers = flatten_state(self._manager_state_dict())
+            return buffers, delta.tree_digest(delta.leaf_digests(buffers))
+        except Exception:  # noqa: BLE001 — degrade to a full heal
+            self._logger.exception("own-state digest failed")
+            return None
 
     def _sweep_stale_epochs(self, current_qid: int) -> None:
         """Delete rendezvous keys of epochs older than the previous one from
