@@ -93,7 +93,13 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    commits; both end with one sha256 of params and AdamW state, one
    capture of each graph and 16/8/8 flash launches per step. Prints the
    blackout, the rejoin time and its parts, the steady step, the heal and
-   the survivor's log of the death path.
+   the survivor's log of the death path. The workers write their FT event
+   trails and span files, and a SIGUSR2 to the survivor after its first
+   commit past the kill dumps its flight recorder: a survivor's trail holds
+   the accepted eviction and the quorum without the victim, the survivors'
+   checkpoint_serve spans join the rejoiner's heal_recv trace (the
+   X-TFT-Trace header), and the dump lists completed allreduces. Every
+   kill of phases 13-15 holds the same.
 13. the wire plane (``torchft_tpu_torch.benchmarks.crossgroup.run_pair``):
    two worker processes on the card, each holding the headline at full
    width with its gradients graphed. Worker 1 pulls worker 0's page-locked
@@ -147,8 +153,25 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    have ridden the blob plane and rode HTTP fails the phase. Phases 5, 12,
    13 and 14 heal over HTTPTransport's striped receive too: every kill's
    rejoiner must stripe over all survivors (phase 14's 1-of-4: 3 sources).
+   Phase 14 also reads the bench's ``step_anatomy`` and ``telemetry`` rows
+   over its headline pair: no error, a row a step, a quorum and a commit
+   counted per step (the p50 composition printed: the bench's loop reads
+   no loss, so its host runs ahead of the card).
+16. the local observability plane: the headline graphed as one group in
+   this process, 20 steps on the device plane with the trail and span
+   file sinks on, then off, then on the TCP plane with them on. Every
+   ledger row sums to its wall clock; the step_anatomy row's p50
+   composition is within 5% of the wall p50; one commit event a step in
+   the trail, one quorum_rpc and one should_commit_rpc span a step; a
+   ``/metrics`` scrape of the group's HTTP transport lists every catalog
+   family with nonzero quorum and allreduce counters; K1-K3 launches per
+   step as phase 4's. Prints the phases' p50/p99 and steps/s with and
+   without the sinks. Then a worker process (``chip_smoke.py
+   --watchdog-probe``) with ``TORCHFT_WATCHDOG_MIN_S`` at 0.5 s holds a
+   step 2 s: the watchdog fires on it (a ``watchdog_stall`` event, a
+   flight dump) and is disarmed at its vote.
 
-Phases 4-15 replay each train step from CUDA graphs (phase 4's and phase
+Phases 4-16 replay each train step from CUDA graphs (phase 4's and phase
 9's eager arms aside); every group's graphs are captured once, so a heal
 or a rollback that swapped a captured tensor would show as a recapture.
 
@@ -2086,7 +2109,36 @@ def phase_recovery(joint_ms, env_extra, name="kill and rejoin", plane=None, num_
           f"{LEASE_MS / 1000:.1f} s lease")
     check(RECOVERY_OP_TIMEOUT >= 10 * r.steady_step_s,
           f"{name}: op timeout {RECOVERY_OP_TIMEOUT} s under 10 steady steps")
+    _hold_kill_telemetry(name, r.observability, victim, num_groups)
     return {n: sum(finals[g]["launches"][n] for g in groups) for n in finals[0]["launches"]}
+
+
+def _hold_kill_telemetry(name, obs, victim, num_groups):
+    """A kill's telemetry, from the workers' own trails, span files and the
+    survivor's SIGUSR2 flight dump (``RecoveryResult.observability``): a
+    survivor's trail holds the accepted eviction of the victim and a quorum
+    without it; the rejoiner's heal_recv span and every survivor's
+    checkpoint_serve span share one trace id (the X-TFT-Trace header), the
+    serve spans parented on the heal's; the flight dump lists completed
+    allreduces."""
+    evictions, quorums = obs["survivor_evictions"], obs["survivor_quorums_after_kill"]
+    log(f"{name}, trails: survivor evictions {evictions}; survivor quorums after the kill "
+        f"{quorums}")
+    log(f"{name}, spans: rejoiner heal_recv trace_id {obs['rejoiner_heal_trace_id']}, "
+        f"checkpoint_serve spans in that trace by survivor {obs['serve_spans_in_that_trace']}, "
+        f"parented on heal_recv {obs['serve_spans_parented']}")
+    fd = obs["flight_dump"]
+    log(f"{name}, SIGUSR2 flight dump of group 0: {fd}")
+    check(any(e["evicted"] and e["victim"].startswith(f"group{victim}_") for e in evictions),
+          f"{name}: no survivor's trail holds an accepted eviction of group {victim}")
+    check(any(not q["victim_in"] and q["num_participants"] == num_groups - 1 for q in quorums),
+          f"{name}: no survivor's trail holds the quorum without group {victim}")
+    served = obs["serve_spans_in_that_trace"]
+    check(obs["rejoiner_heal_trace_id"] is not None and len(served) == num_groups - 1
+          and all(n >= 1 for n in served.values()) and obs["serve_spans_parented"],
+          f"{name}: the survivors' serve spans do not join the rejoiner's heal trace: {obs}")
+    check(fd is not None and fd["reason"] == "signal" and fd["completed_allreduces"] >= 1,
+          f"{name}: SIGUSR2 gave no flight dump listing completed allreduces: {fd}")
 
 
 # ---------------------------------------------------------------------------
@@ -2283,7 +2335,7 @@ def phase_bench(joint_ms):
     every DiLoCo sync hands the collectives the MLP's float32 bytes; the
     int8 first averages lie within WIRE_ERR_LIMIT. Returns the long-context
     rows (the kernels' launches at S 8192 and 32768 come from them)."""
-    from torchft_tpu_torch import bench
+    from torchft_tpu_torch import bench, telemetry
     from torchft_tpu_torch.benchmarks import diloco
     from torchft_tpu_torch.benchmarks.long_context import LENGTHS, scale_config
     from torchft_tpu_torch.models.transformer import headline_config as headline
@@ -2295,6 +2347,9 @@ def phase_bench(joint_ms):
     batch, seq = HEADLINE["batch"], HEADLINE["seq"]
     peak = bench._peak_flops(torch.cuda.get_device_name(0))
     rows = {}
+    # as bench.main does: the ledger and counters then hold the headline
+    # pair's steps alone, which its step_anatomy and telemetry rows read
+    telemetry.reset()
     for averaging in (True, False):
         rec = {}
         sps, n_params = bench.train_bench(cfg, batch, seq, BENCH_STEPS, BENCH_WARMUP,
@@ -2303,6 +2358,8 @@ def phase_bench(joint_ms):
         rows[f"headline_{'avg' if averaging else 'noavg'}"] = dict(
             steps_per_sec=sps, tokens_per_sec=sps * batch * seq,
             mfu_pct=bench.mfu_pct(sps, flops, peak), n_params=n_params, **rec)
+    rows["step_anatomy"] = bench.step_anatomy_row()
+    rows["telemetry"] = telemetry.summary()
     # three lanes at once, to keep the script's wall near 420 s: the rows
     # that load the card (long context, ResNet) in this thread; the two
     # host-only rows (threads that sleep for the forward) in one process
@@ -2353,6 +2410,21 @@ def phase_bench(joint_ms):
               f"{_launches_per_step(c)}")
         check(row["captures"] == {"grads": 1, "apply": 1},
               f"bench {name}: graphs captured {row['captures']}")
+    # the pair's 2 x (BENCH_WARMUP + BENCH_STEPS) steps: every one a quorum
+    # and a commit; the ledger's rows start at the first one's vote. The
+    # bench's loop reads no loss and fences once, at the end: its host runs
+    # ahead of the card, most rows are the enqueue's few ms and a few
+    # absorb the card's back-pressure, so the p50 composition is printed,
+    # not held (phase 16 holds it on FTTrainer's step, which reads the loss)
+    pair = 2 * (BENCH_WARMUP + BENCH_STEPS)
+    an, tm = rows["step_anatomy"], rows["telemetry"]
+    log(f"bench step_anatomy: {an['steps']} rows, wall p50 {an['wall_p50_s'] * 1e3:.3f} ms, "
+        f"p99 {an['wall_p99_s'] * 1e3:.3f} ms, reconciliation_pct {an['reconciliation_pct']}")
+    check(an["steps"] == pair - 1 and an["reconciliation_pct"] is not None
+          and "compute" in an["phases"] and "commit_barrier" in an["phases"],
+          f"bench step_anatomy: {an}")
+    check(tm["quorums"] == pair and tm["commits"].get("committed") == pair,
+          f"bench telemetry: {tm}")
     resnet = rows["resnet18_cifar"]
     check(all(c == {"grads": 1, "apply": 1} for c in resnet["captures"])
           and all(n == resnet["steps"] for n in resnet["committed"]),
@@ -2591,7 +2663,251 @@ def phase_heal_plane(joint_ms):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the local observability plane
+# ---------------------------------------------------------------------------
+
+OBS_WARMUP, OBS_STEPS = 2, 20
+WATCHDOG_MIN_S, WATCHDOG_HOLD_S = 0.5, 2.0  # the probe's floor and its held step
+
+
+def _metrics_scrape(manager):
+    """GET /metrics of the group's HTTP transport: ({series: value}, the
+    families its ``# TYPE`` lines name)."""
+    import urllib.request
+
+    url = manager._checkpoint_transport.metadata() + "/metrics"
+    with urllib.request.urlopen(url, timeout=10) as resp:
+        text = resp.read().decode()
+    series, families = {}, set()
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            families.add(line.split()[2])
+        elif line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            series[key] = float(value)
+    return series, families
+
+
+def _obs_run(plane, sinks, tmp):
+    """The headline graphed as one group in this process on ``plane``,
+    OBS_WARMUP + OBS_STEPS steps; with ``sinks`` the trail and span files
+    are on (``EVENTS.configure`` / ``TRACER.configure``, what
+    TORCHFT_EVENT_TRAIL / TORCHFT_TRACE_PATH do at a process's first
+    record). The ledger, rings and counters are reset after the warm-up,
+    so what is read covers the timed steps: steps/s, the ledger rows, the
+    step_anatomy row, the trail's and spans' counts, a /metrics scrape and
+    the flash launches per step."""
+    from torchft_tpu_torch import bench, telemetry
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.parallel import ft
+    from torchft_tpu_torch.parallel.train_step import TrainStep
+    from torchft_tpu_torch.store import StoreServer
+    from torchft_tpu_torch.telemetry.tracing import read_spans
+
+    cfg = headline_config()
+    arm = f"observability, {plane} plane, sinks {'on' if sinks else 'off'}"
+    trail = os.path.join(tmp, f"trail_{plane}.jsonl")
+    spans = os.path.join(tmp, f"spans_{plane}.jsonl")
+    lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
+    store = StoreServer()
+    manager = make_manager(lighthouse.address(), store, f"obs-{plane}", plane=plane)
+    try:
+        ts = TrainStep(cfg, device="cuda", graph=True)
+        trainer = ft.FTTrainer(manager, ts)
+        trainer.init(seed=0)
+        tokens = make_tokens(cfg, 0, HEADLINE["batch"], HEADLINE["seq"])
+        for _ in range(OBS_WARMUP):
+            check(trainer.step(tokens)[1], f"{arm}: a warm-up step did not commit")
+        torch.cuda.synchronize()
+        telemetry.reset()
+        fa.reset_launches()
+        if sinks:
+            telemetry.EVENTS.configure(trail)
+            telemetry.TRACER.configure(spans)
+        t0 = time.perf_counter()
+        for _ in range(OBS_STEPS):
+            check(trainer.step(tokens)[1], f"{arm}: a step did not commit")
+        torch.cuda.synchronize()
+        rate = OBS_STEPS / (time.perf_counter() - t0)
+        if sinks:
+            telemetry.EVENTS.configure(None)
+            telemetry.TRACER.configure(None)
+        out = {"rate": rate, "launches": {n: c / OBS_STEPS for n, c in fa.LAUNCHES.items()},
+               "rows": telemetry.LEDGER.dump()["rows"], "anatomy": bench.step_anatomy_row(),
+               "metrics": _metrics_scrape(manager), "summary": telemetry.summary(),
+               "captures": dict(ts.graphs.captures)}
+        if sinks:
+            out["trail"] = telemetry.read_trail(trail)
+            out["spans"] = read_spans(spans)
+        return out
+    finally:
+        manager.shutdown(wait=False)
+        store.shutdown()
+        lighthouse.shutdown()
+
+
+def _hold_obs_run(plane, res):
+    """Phase 16's checks of one run with the sinks on (see phase_observability)."""
+    arm = f"observability, {plane} plane"
+    rows, an = res["rows"], res["anatomy"]
+    worst = max(abs(sum(r["phases"].values()) - r["wall_s"]) for r in rows)
+    log(f"{arm}: {len(rows)} ledger rows, worst |sum of phases - wall| {worst:.3e} s (rounded "
+        f"to 1 us a phase); wall p50 {an['wall_p50_s'] * 1e3:.3f} ms, p99 "
+        f"{an['wall_p99_s'] * 1e3:.3f} ms; phase p50 sum {an['phase_sum_p50_s'] * 1e3:.3f} ms, "
+        f"reconciliation_pct {an['reconciliation_pct']}, ft_control_overhead_pct "
+        f"{an['ft_control_overhead_pct']}")
+    log(f"{arm}: phases p50/p99 ms " + ", ".join(
+        f"{k} {v['p50_s'] * 1e3:.3f}/{v['p99_s'] * 1e3:.3f}" for k, v in an["phases"].items())
+        + f"; native latency {an.get('native_latency')}")
+    check(len(rows) == OBS_STEPS - 1 and worst <= 1e-5,
+          f"{arm}: ledger rows {len(rows)}, worst sum-to-wall error {worst}")
+    check(an["reconciliation_pct"] is not None and abs(an["reconciliation_pct"]) <= 5.0,
+          f"{arm}: the p50 composition is {an['reconciliation_pct']}% off the wall p50")
+    commits = sorted(r["step"] for r in res["trail"] if r["event"] == "commit")
+    names = [s["name"] for s in res["spans"]]
+    per_step = {n: names.count(n) for n in ("quorum", "quorum_rpc", "should_commit",
+                                            "should_commit_rpc")}
+    log(f"{arm}: trail {len(res['trail'])} records, commit events at steps {commits}; spans "
+        f"{per_step}")
+    check(len(commits) == OBS_STEPS and len(set(commits)) == OBS_STEPS
+          and commits == list(range(commits[0], commits[0] + OBS_STEPS)),
+          f"{arm}: commit events {commits}, expected one per step")
+    check(per_step["quorum_rpc"] == OBS_STEPS and per_step["should_commit_rpc"] == OBS_STEPS,
+          f"{arm}: spans {per_step}, expected one quorum_rpc and one should_commit_rpc a step")
+    from torchft_tpu_torch import telemetry
+
+    m, families = res["metrics"]
+    tft = sorted(f for f in families if f.startswith("tft_"))
+    catalog = sorted(telemetry.REGISTRY.dump())
+    quorums = m.get("tft_quorums_total", 0.0)
+    ar_ops = sum(v for k, v in m.items()
+                 if k.startswith("tft_collective_ops_total{") and 'op="allreduce"' in k)
+    ar_bytes = sum(v for k, v in m.items() if k.startswith("tft_allreduce_bytes_total{"))
+    log(f"{arm}: /metrics lists {len(tft)} tft_ families; tft_quorums_total {quorums:.0f}, "
+        f"allreduce ops {ar_ops:.0f}, allreduce bytes {ar_bytes:.0f}; summary {res['summary']}")
+    check(tft == catalog and quorums == OBS_STEPS and ar_ops > 0 and ar_bytes > 0,
+          f"{arm}: /metrics: families {tft} (the catalog: {catalog}), quorums {quorums}, "
+          f"allreduce ops {ar_ops}, bytes {ar_bytes}")
+    expect = _launches_per_step(headline_config())
+    log(f"{arm}: flash launches per step {res['launches']}, graphs captured {res['captures']}")
+    check(res["launches"] == expect and res["captures"] == {"grads": 1, "apply": 1},
+          f"{arm}: launches per step {res['launches']} (expected {expect}), captures "
+          f"{res['captures']}")
+
+
+def _watchdog_probe(tmp):
+    """Worker process: the headline graphed on the TCP plane (its
+    allreduces enter the flight recorder at world size 1 too) with
+    TORCHFT_WATCHDOG_MIN_S at WATCHDOG_MIN_S, three steps, then a step held
+    WATCHDOG_HOLD_S in its quorum (a sleep after start_quorum), then one
+    more; prints what the watchdog, the trail and the flight dumps say."""
+    import glob
+
+    from torchft_tpu_torch import telemetry
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.parallel import ft
+    from torchft_tpu_torch.parallel.train_step import TrainStep
+    from torchft_tpu_torch.store import StoreServer
+
+    # the step-0 capture may fire it too; a dump per firing, not one per 5 s
+    telemetry.FLIGHT.min_dump_interval_s = 0.0
+    cfg = headline_config()
+    lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
+    store = StoreServer()
+    manager = make_manager(lighthouse.address(), store, "watchdog-probe", plane="tcp")
+    held = {}
+    try:
+        trainer = ft.FTTrainer(manager, TrainStep(cfg, device="cuda", graph=True))
+        trainer.init(seed=0)
+        tokens = make_tokens(cfg, 0, HEADLINE["batch"], HEADLINE["seq"])
+        start_quorum = manager.start_quorum
+
+        def held_quorum(*args, **kwargs):
+            start_quorum(*args, **kwargs)
+            if manager.current_step() == 3:
+                held["t0"] = time.time()
+                time.sleep(WATCHDOG_HOLD_S)
+
+        manager.start_quorum = held_quorum
+        for _ in range(5):
+            trainer.step(tokens)
+        torch.cuda.synchronize()
+        stalls = telemetry.EVENTS.recent("watchdog_stall")
+        dumps = []
+        for path in sorted(glob.glob(os.path.join(tmp, "tft_flight_*.json"))):
+            with open(path) as f:
+                d = json.load(f)
+            dumps.append({"reason": d["reason"], "ts": d["ts"], "entries": len(d["entries"])})
+        print(json.dumps({"stalls": stalls, "dumps": dumps, "held_t0": held["t0"],
+                          "stalled_after": manager._watchdog.stalled,
+                          "trail": [r["event"] for r in telemetry.read_trail(
+                              os.path.join(tmp, "trail.jsonl"))]}), flush=True)
+    finally:
+        manager.shutdown(wait=False)
+        store.shutdown()
+        lighthouse.shutdown()
+
+
+def phase_observability():
+    """The headline as one group in one process, graphed, OBS_STEPS steps
+    each: on the device plane with the trail and span sinks on, then off,
+    then on the TCP plane with them on. Holds, in each run with the sinks:
+    every ledger row sums to its wall clock; the step_anatomy row's p50
+    composition is within 5% of the wall p50; one commit event a step in
+    the trail and one quorum_rpc and one should_commit_rpc span a step; a
+    /metrics scrape of the group's HTTP transport lists the tft_ families
+    with nonzero quorum and allreduce counters; K1-K3 launched per step as
+    phase 4 counts. Prints steps/s with and without the sinks. Then a
+    worker process whose step is held past TORCHFT_WATCHDOG_MIN_S: the
+    watchdog fires (a watchdog_stall event for that step, a flight dump)
+    and is disarmed again at its vote."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tft_obs_")
+    runs = [("device", True), ("device", False), ("tcp", True)]
+    res = {}
+    for plane, sinks in runs:
+        res[(plane, sinks)] = _obs_run(plane, sinks, tmp)
+        gc.collect()
+        log(f"observability, {plane} plane, sinks {'on' if sinks else 'off'}: "
+            f"{res[(plane, sinks)]['rate']:.4f} steps/s ({OBS_STEPS} steps)")
+    for plane in ("device", "tcp"):
+        _hold_obs_run(plane, res[(plane, True)])
+    on, off = res[("device", True)]["rate"], res[("device", False)]["rate"]
+    log(f"observability: device plane steps/s with the trail and span sinks {on:.4f}, without "
+        f"{off:.4f} ({(off - on) / off * 100:+.2f}% with them; one run each, within the runs' "
+        f"spread is no finding)")
+
+    env = dict(os.environ, TORCHFT_WATCHDOG_MIN_S=str(WATCHDOG_MIN_S), TORCHFT_FLIGHT_DIR=tmp,
+               TORCHFT_EVENT_TRAIL=os.path.join(tmp, "trail.jsonl"))
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--watchdog-probe", tmp],
+                          env=env, capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"watchdog probe exited {proc.returncode}: {proc.stderr[-3000:]}")
+    probe = json.loads(proc.stdout.strip().splitlines()[-1])
+    fired = [s for s in probe["stalls"] if s["step"] == 3]
+    after = [d for d in probe["dumps"] if d["reason"] == "watchdog" and d["ts"] >= probe["held_t0"]]
+    log(f"observability, watchdog probe (TORCHFT_WATCHDOG_MIN_S={WATCHDOG_MIN_S}, step 3 held "
+        f"{WATCHDOG_HOLD_S} s): stalls {probe['stalls']}; flight dumps {probe['dumps']}; "
+        f"stalled after the vote {probe['stalled_after']}; trail events "
+        f"{sorted(set(probe['trail']))}; {time.perf_counter() - t1:.1f} s")
+    check(fired and fired[0]["elapsed_s"] >= WATCHDOG_MIN_S and after
+          and after[0]["entries"] > 0 and not probe["stalled_after"]
+          and "watchdog_stall" in probe["trail"] and "flight_dump" in probe["trail"],
+          f"observability: the watchdog did not fire on the held step: {probe}")
+    log(f"observability: phase wall {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
+    if sys.argv[1:2] == ["--watchdog-probe"]:
+        _watchdog_probe(sys.argv[2])
+        return
     started = time.perf_counter()
     if not torch.cuda.is_available():
         fail("CUDA is not available: this script needs an NVIDIA GPU")
@@ -2651,6 +2967,7 @@ def main() -> None:
     wire_launches = phase_wire_plane(tcp_groups["joint_ms"])
     long_rows = phase_bench(tcp_groups["joint_ms"])
     heal_launches = phase_heal_plane(tcp_groups["joint_ms"])
+    phase_observability()
 
     kernels = []
     for d in (64, 128, 32):

@@ -11,7 +11,9 @@ heal of the trainer's state from two HTTP transports over the blob plane; and tw
 joining late and healing over CollectivesTransport. A static check covers
 every module of the package (the examples, the lighthouse CLI, the bench
 and its harnesses and the wire codecs included) and ``chip_smoke.py``;
-neither may import the JAX package's root ``bench.py`` either.
+neither may import the JAX package's root ``bench.py`` either. The
+telemetry modules (``telemetry/`` and ``profiling.py``) are held to the
+same: the Manager's step loads them, and the scan covers each.
 """
 
 import ast
@@ -199,7 +201,8 @@ def test_ft_step_runs_without_jax_or_reference_package():
                    "benchmarks.long_context", "benchmarks.resnet_ft",
                    "benchmarks.quorum_overlap", "benchmarks.commit_pipeline",
                    "benchmarks.diloco", "checkpointing.stripes", "checkpointing.delta",
-                   "checkpointing.bench"):
+                   "checkpointing.bench", "telemetry", "telemetry.registry", "telemetry.events",
+                   "telemetry.tracing", "telemetry.anatomy", "telemetry.flight", "profiling"):
         assert f"torchft_tpu_torch.{module}" in out["modules"]
 
 
@@ -238,7 +241,15 @@ def test_no_forbidden_imports_in_sources():
             "torchft_tpu_torch/benchmarks/diloco.py",
             "torchft_tpu_torch/checkpointing/stripes.py",
             "torchft_tpu_torch/checkpointing/delta.py",
-            "torchft_tpu_torch/checkpointing/bench.py"} <= scanned
+            "torchft_tpu_torch/checkpointing/bench.py",
+            "torchft_tpu_torch/telemetry/__init__.py",
+            "torchft_tpu_torch/telemetry/registry.py",
+            "torchft_tpu_torch/telemetry/events.py",
+            "torchft_tpu_torch/telemetry/tracing.py",
+            "torchft_tpu_torch/telemetry/anatomy.py",
+            "torchft_tpu_torch/telemetry/flight.py",
+            "torchft_tpu_torch/telemetry/native.py",
+            "torchft_tpu_torch/profiling.py"} <= scanned
     bad = []
     for path in _port_sources():
         with open(path, encoding="utf-8") as f:

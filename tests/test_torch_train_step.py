@@ -224,3 +224,33 @@ def test_device_sync_beside_captures():
     assert not errors
     assert syncs[0] > 0
     assert ts.graphs.captures == {"grads": 6, "apply": 18}
+
+
+@pytest.mark.cuda
+def test_replays_record_compute_and_never_sync_the_device(monkeypatch):
+    """The step-anatomy ``compute`` record wraps each replay (a Python call
+    inside the captured function would run once, at the capture), and
+    neither the replays nor the records sync the device: every replayed
+    step adds its host time to the ledger's row, and
+    ``torch.cuda.synchronize`` is not called."""
+    _need_card()
+    from torchft_tpu_torch import telemetry
+
+    ts = TrainStep(CARD_CFG, device="cuda")
+    params = ts.init_params(0)
+    opt = ts.init_opt(params)
+    tokens = _tokens(CARD_CFG, 0)
+    ts.step(params, opt, tokens)  # the captures
+    torch.cuda.current_stream().synchronize()
+    telemetry.reset()
+    calls = []
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: calls.append(a))
+    telemetry.LEDGER.tick(0)
+    for step in range(1, 4):
+        ts.step(params, opt, tokens)
+        telemetry.LEDGER.tick(step)
+    torch.cuda.current_stream().synchronize()
+    rows = telemetry.LEDGER.dump()["rows"]
+    assert len(rows) == 3 and all(r["phases"].get("compute", 0.0) > 0.0 for r in rows), rows
+    assert not calls
+    assert ts.graphs.captures == {"grads": 1, "apply": 1}

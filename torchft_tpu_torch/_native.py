@@ -3,8 +3,9 @@ copy of ``torchft_tpu/_native/__init__.py``, trimmed to what the FT
 training step uses: the RPC client, the lighthouse, the manager server,
 the key-value store, the striped gradient data plane
 (``NativeDataPlane``), the cross-memory-attach pulls (``cma_read``,
-``cma_read_into``) and the checkpoint blob plane of the striped heal
-(``BlobServer``, ``blob_fetch``).
+``cma_read_into``), the checkpoint blob plane of the striped heal
+(``BlobServer``, ``blob_fetch``) and the native planes' latency histograms
+(``lathist_snapshot``, ``lathist_reset``, ``LATHIST_BOUNDS_S``).
 
 The library is built from the repo's ``native/`` sources at first use into
 ``build/torch_native/<sources digest>/`` (``make -C native OUTDIR=...``;
@@ -98,6 +99,13 @@ def _load() -> ctypes.CDLL:
         c = ctypes
         u8p = c.POINTER(c.c_uint8)
         lib.tft_buf_free.argtypes = [u8p]
+        # native latency histograms (native/lathist.h)
+        lib.tft_lathist_snapshot.argtypes = [
+            c.POINTER(u8p), c.POINTER(c.c_int64), c.c_char_p, c.c_int,
+        ]
+        lib.tft_lathist_snapshot.restype = c.c_int64
+        lib.tft_lathist_reset.argtypes = []
+        lib.tft_lathist_reset.restype = None
         lib.tft_buf_free.restype = None
         lib.tft_lighthouse_create.argtypes = [
             c.c_char_p, c.c_uint64, c.c_uint64, c.c_uint64, c.c_uint64, c.c_uint64,
@@ -228,6 +236,39 @@ class NativeClient:
             self.close()
         except Exception:
             pass
+
+
+# The fixed log2 bucket grid of the native latency histograms, in seconds;
+# it mirrors native/lathist.h (kMinExp=-20, kNumBounds=27): one bucket per
+# binary order of magnitude from about 1 us to 64 s, plus an overflow
+# slot. It equals telemetry.anatomy.LOG2_BUCKETS, so the Python and native
+# distributions share one grid and merges across processes are exact.
+LATHIST_BOUNDS_S = tuple(2.0 ** e for e in range(-20, 7))
+
+
+def lathist_snapshot() -> Dict[str, Dict[str, Any]]:
+    """This process's native latency histograms (dp.hop, dp.stripe,
+    rpc.serve, quorum.fanout) as ``{op: {"counts": [int x 28], "count":
+    int, "sum_ns": int}}``: raw per-bucket tallies on the
+    :data:`LATHIST_BOUNDS_S` grid (the last slot is the overflow), so two
+    processes' snapshots merge by elementwise addition."""
+    lib = _load()
+    outp = ctypes.POINTER(ctypes.c_uint8)()
+    outlen = ctypes.c_int64()
+    err = _errbuf()
+    code = lib.tft_lathist_snapshot(ctypes.byref(outp), ctypes.byref(outlen), err, _ERRLEN)
+    if code != OK:
+        _raise_status(code, err.value.decode())
+    try:
+        out = ctypes.string_at(outp, outlen.value)
+    finally:
+        lib.tft_buf_free(outp)
+    return wire.decode(out)
+
+
+def lathist_reset() -> None:
+    """Zero every native latency histogram of this process."""
+    _load().tft_lathist_reset()
 
 
 def _server_address(getter: Any, h: int) -> str:

@@ -11,6 +11,13 @@ dense bf16 peak. Then the measurement rows of ``torchft_tpu_torch/benchmarks/``
 that one card holds, each in a process of its own as ``bench.py`` runs
 them, and the recovery rows in this process.
 
+The headline runs through the instrumented Manager in this process, so the
+step-anatomy ledger holds a phase decomposition of exactly those steps:
+the ``step_anatomy`` row (per-phase p50/p99, the p50 composition against
+the wall p50, ``ft_control_overhead_pct`` from the ledger and the native
+planes' latency quantiles, as ``bench.py:429-490`` computes it) and the
+``telemetry`` row (``telemetry.summary()``, ``bench.py:690-701``).
+
 Run::
 
     python -m torchft_tpu_torch.bench             # on the card
@@ -39,7 +46,7 @@ from typing import Any, Dict, Iterator, List, Optional
 
 import numpy as np
 
-__all__ = ["train_bench", "main", "mfu_pct", "has_error"]
+__all__ = ["train_bench", "main", "mfu_pct", "has_error", "step_anatomy_row"]
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -189,6 +196,49 @@ def train_bench(cfg, batch: int, seq: int, steps: int, warmup: int, averaging: b
     return steps / elapsed, n_params
 
 
+def step_anatomy_row() -> Dict[str, Any]:
+    """The ``step_anatomy`` row from this process's ledger, as
+    ``bench.py:429-490`` computes it: per-phase p50/p99 over the retained
+    step rows, their p50 sum against the wall p50 (``idle`` is each row's
+    residual, so a row sums to its wall exactly and the p50 composition
+    lands within a few percent), ``ft_control_overhead_pct`` (the
+    quorum_wait and commit_barrier p50s' share of the wall p50) and the
+    native planes' latency quantiles."""
+    from torchft_tpu_torch import telemetry
+    from torchft_tpu_torch.telemetry.anatomy import lathist_quantile
+    from torchft_tpu_torch.telemetry.native import native_latency_snapshot
+
+    anatomy = telemetry.LEDGER.summary()
+    wall_p50 = float(anatomy.get("wall_p50_s") or 0.0)
+    phases = anatomy.get("phases", {})
+    phase_sum_p50 = sum(p["p50_s"] for p in phases.values())
+    ctl_p50 = sum(phases.get(p, {}).get("p50_s", 0.0) for p in ("quorum_wait", "commit_barrier"))
+    row: Dict[str, Any] = {
+        "_gate_presence": True,
+        "steps": anatomy.get("steps"),
+        "phases": {k: {"p50_s": v["p50_s"], "p99_s": v["p99_s"]} for k, v in phases.items()},
+        "wall_p50_s": round(wall_p50, 6),
+        "wall_p99_s": anatomy.get("wall_p99_s"),
+        "local_p50_s": anatomy.get("local_p50_s"),
+        "phase_sum_p50_s": round(phase_sum_p50, 6),
+        "reconciliation_pct": (round((phase_sum_p50 / wall_p50 - 1.0) * 100.0, 2)
+                               if wall_p50 else None),
+        "ft_control_overhead_pct": round(ctl_p50 / wall_p50 * 100.0, 2) if wall_p50 else None,
+        "note": "per-phase p50/p99 over the in-process headline steps (both variants); idle "
+        "is the residual so per-step phase sums equal wall exactly; reconciliation_pct is "
+        "the p50-composition error; ft_control_overhead_pct = (quorum_wait+commit_barrier) "
+        "p50 share of wall p50",
+    }
+    native = native_latency_snapshot()
+    if native:
+        row["native_latency"] = {
+            op: {"count": int(h["count"]), "p50_s": round(lathist_quantile(h, 0.5), 6),
+                 "p99_s": round(lathist_quantile(h, 0.99), 6)}
+            for op, h in sorted(native.items()) if int(h["count"])
+        }
+    return row
+
+
 def _run_json_subprocess(cmd: List[str], timeout_s: float,
                          env_extra: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
     """Run a bench worker; parse the last stdout line as JSON.
@@ -267,6 +317,10 @@ def main() -> None:
     steps, warmup = (20, 3) if on_card else (5, 1)
     n_runs = 3 if on_card else 1
 
+    from torchft_tpu_torch import telemetry
+
+    # the ledger and the counters then hold the headline's steps alone
+    telemetry.reset()
     runs: List[float] = []
     noavg_runs: List[float] = []
     n_params = 0
@@ -318,6 +372,11 @@ def main() -> None:
         },
     }
 
+    try:
+        extra["step_anatomy"] = step_anatomy_row()
+    except Exception as e:  # noqa: BLE001 — recorded; the run exits 1 below
+        extra["step_anatomy"] = {"error": str(e)}
+
     # the measurement rows, each in a process of its own (bench.py:497-688);
     # the card-only rows as bench.py runs its TPU-only rows
     rows = []
@@ -352,6 +411,12 @@ def main() -> None:
             extra[key] = recovery_row(num_groups)
         except Exception:  # noqa: BLE001 — recorded; the run exits 1 below
             extra[key] = {"error": traceback.format_exc()[-1500:]}
+    # what FT control traffic and step-time distribution produced these
+    # numbers: the counters of this process, the headline's Managers'
+    try:
+        extra["telemetry"] = telemetry.summary()
+    except Exception as e:  # noqa: BLE001 — recorded; the run exits 1 below
+        extra["telemetry"] = {"error": str(e)}
     extra["bench_wall_s"] = round(time.perf_counter() - started, 1)
 
     print(json.dumps({"extra": extra}))

@@ -113,7 +113,7 @@ def _train_group(replica_id: int, lighthouse_addr: str, pipelined: bool, steps: 
         if pipelined:
             # the trailing vote belongs to the timed work: both variants
             # count `steps` full votes
-            manager.resolve_pending_commit()
+            manager.resolve_pending_commit(rearm=False)
         return steps / (time.perf_counter() - t0)
     finally:
         manager.shutdown(wait=False)

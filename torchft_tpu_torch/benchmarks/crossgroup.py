@@ -492,6 +492,7 @@ def _tree(job: Dict[str, Any], gid: int, device) -> Dict[str, Any]:
     import torch
 
     from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
+    from torchft_tpu_torch.collectives import wire_stage_snapshot
     from torchft_tpu_torch.ddp import _DEFAULT_BUCKET_BYTES, allreduce_gradients, plan_buckets
     from torchft_tpu_torch.manager import Manager
     from torchft_tpu_torch.parallel.train_step import synchronize
@@ -545,6 +546,7 @@ def _tree(job: Dict[str, Any], gid: int, device) -> Dict[str, Any]:
         err = wire_error([t.cpu() for t in first], exact)
         committed = [manager.should_commit()]
         stages.update(dict.fromkeys(stages, 0.0))  # the timed rounds only
+        wire_stage_snapshot(reset=True)
         t0 = time.perf_counter()
         for _ in range(job["rounds"]):
             manager.start_quorum()
@@ -552,14 +554,17 @@ def _tree(job: Dict[str, Any], gid: int, device) -> Dict[str, Any]:
             synchronize(device)  # the averaged tree is on the device
             committed.append(manager.should_commit())
         secs = (time.perf_counter() - t0) / job["rounds"]
+        if not job["serial"]:
+            # the streamed schedule overlaps its legs per bucket: its stages
+            # are the wire plane's own counters (host_copy and quantize on
+            # the main thread, wire and dequant_reduce on the collectives
+            # thread), as the JAX worker reads them
+            stages = wire_stage_snapshot()
         return {"seconds_per_round": secs, "total_bytes": n_leaves * leaf_elems * 4,
                 "plane": coll.plane_info(), "wire_codec": coll.wire_codec(),
                 "committed": committed, "first_avg_wire_err": err,
-                # the serial schedule's legs, host clock; the streamed one
-                # overlaps them per bucket (the plane's own stage counters
-                # are telemetry, not ported)
-                "stages_per_round_s": ({k: v / job["rounds"] for k, v in stages.items()}
-                                       if job["serial"] else {})}
+                # the serial schedule's legs, host clock
+                "stages_per_round_s": {k: v / job["rounds"] for k, v in stages.items()}}
     finally:
         manager.shutdown(wait=False)
         store.shutdown()

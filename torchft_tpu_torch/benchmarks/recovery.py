@@ -55,7 +55,16 @@ Reported (seconds, host wall clock):
   hit a deadline (the worker retries them; phase 12 of ``chip_smoke.py``
   fails on any);
 * ``rejoin_heal``: the rejoiner's heal as the transport saw it (mode,
-  ``nsources``, bytes, per-source bytes, ranges and GB/s, the stages).
+  ``nsources``, bytes, per-source bytes, ranges and GB/s, the stages);
+* ``observability``: what the workers' own telemetry recorded. Each worker
+  writes its FT event trail (``TORCHFT_EVENT_TRAIL``) and its spans
+  (``TORCHFT_TRACE_PATH``) beside its event log, and dumps its flight
+  recorder under ``TORCHFT_FLIGHT_DIR``. Read back: the survivors'
+  ``eviction`` and ``quorum_ready`` records after the kill, whether the
+  rejoiner's ``heal_recv`` span and the survivors' ``checkpoint_serve``
+  spans share one trace id (the ``X-TFT-Trace`` header), and the flight
+  dump a ``SIGUSR2`` to the first survivor writes after its first commit
+  past the kill (its last allreduces).
 
 Usage: ``python -m torchft_tpu_torch.benchmarks.recovery`` (the card) or
 ``DEVICE=cpu python -m torchft_tpu_torch.benchmarks.recovery``; prints
@@ -377,6 +386,9 @@ class RecoveryResult:
     # rates and the stages (``HTTPTransport.last_heal_stats``), and its wall
     rejoin_heal: Optional[Dict[str, Any]] = None
     join_timeout_ms: int = 100  # the lighthouse's
+    # the workers' trails, spans and the SIGUSR2 flight dump, read back
+    # (see the module doc)
+    observability: Dict[str, Any] = field(default_factory=dict)
 
     def as_dict(self) -> Dict[str, object]:
         return {
@@ -391,6 +403,7 @@ class RecoveryResult:
             "timeout_retries": dict(self.timeout_retries),
             "deadline_aborts": dict(self.deadline_aborts),
             "rejoin_heal": self.rejoin_heal,
+            "observability": self.observability,
         }
 
 
@@ -413,6 +426,79 @@ def _read_events(path: str) -> List[Dict[str, Any]]:
     return records
 
 
+def _signal_flight_dump(proc: subprocess.Popen, flight_dir: str,
+                        timeout_s: float = 20.0) -> Optional[Dict[str, Any]]:
+    """SIGUSR2 ``proc`` and wait for the flight dump it writes under
+    ``flight_dir``; returns the dump (None if none came)."""
+    import glob
+
+    before = set(glob.glob(os.path.join(flight_dir, "tft_flight_*.json")))
+    proc.send_signal(signal.SIGUSR2)
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        for path in sorted(set(glob.glob(os.path.join(flight_dir, "tft_flight_*.json"))) - before):
+            try:
+                with open(path, encoding="utf-8") as f:
+                    dump = json.load(f)
+            except (OSError, ValueError):
+                continue  # still being written
+            if dump.get("reason") == "signal":
+                dump["path"] = path
+                return dump
+        time.sleep(0.05)
+    return None
+
+
+def _observability(logs: List[str], victim_gid: int, t_kill: float, t_respawn: float,
+                   flight: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+    """Read the workers' trails and spans back (see the module doc)."""
+    from torchft_tpu_torch.telemetry import read_trail
+    from torchft_tpu_torch.telemetry.tracing import read_spans
+
+    survivors = [g for g in range(len(logs)) if g != victim_gid]
+    victim_prefix = f"group{victim_gid}_"
+    evictions, quorums = [], []
+    for g in survivors:
+        for r in read_trail(logs[g] + ".trail"):
+            if r["ts"] <= t_kill:
+                continue
+            if r["event"] == "eviction":
+                evictions.append({"group": g, "victim": r["victim"], "evicted": r["evicted"]})
+            elif r["event"] == "quorum_ready":
+                quorums.append({"group": g, "quorum_id": r["quorum_id"], "step": r["step"],
+                                "num_participants": r["num_participants"],
+                                "victim_in": any(p.startswith(victim_prefix)
+                                                 for p in r["participants"])})
+    heals = [s for s in read_spans(logs[victim_gid] + ".spans")
+             if s["name"] == "heal_recv" and s["ts"] > t_respawn]
+    trace_id = heals[0]["trace_id"] if heals else None
+    served = {g: [s for s in read_spans(logs[g] + ".spans")
+                  if s["name"] == "checkpoint_serve" and s["trace_id"] == trace_id]
+              for g in survivors}
+    out: Dict[str, Any] = {
+        "survivor_evictions": evictions,
+        # the first quorums after the kill: the shrunken one, then the rejoin
+        "survivor_quorums_after_kill": quorums[:4],
+        "rejoiner_heal_trace_id": trace_id,
+        "serve_spans_in_that_trace": {g: len(v) for g, v in served.items()},
+        "serve_spans_parented": all(s.get("parent_id") == heals[0]["span_id"]
+                                    for v in served.values() for s in v) if heals else False,
+        "flight_dump": None,
+    }
+    if flight is not None:
+        entries = flight.get("entries", [])
+        allreduces = [e for e in entries if e["op"] == "allreduce"]
+        out["flight_dump"] = {
+            "path": flight["path"], "reason": flight["reason"], "entries": len(entries),
+            "allreduces": len(allreduces),
+            "completed_allreduces": sum(e["status"] == "completed" for e in allreduces),
+            "last_completed": flight.get("last_completed"),
+            "anatomy_rows": len((flight.get("anatomy") or {}).get("rows", [])),
+            "threads": len(flight.get("py_stacks") or []),
+        }
+    return out
+
+
 def _spawn(gid: int, env_extra: Dict[str, str], num_groups: int) -> subprocess.Popen:
     from torchft_tpu_torch.store import StoreServer
 
@@ -423,7 +509,13 @@ def _spawn(gid: int, env_extra: Dict[str, str], num_groups: int) -> subprocess.P
     # child whatever the parent's working directory
     pkg_parent = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env["PYTHONPATH"] = os.pathsep.join(p for p in (pkg_parent, env.get("PYTHONPATH")) if p)
+    log = env["TORCHFT_EVENT_LOG"]
+    os.makedirs(log + ".flight", exist_ok=True)
     env.update(
+        # the worker's own telemetry, beside its event log
+        TORCHFT_EVENT_TRAIL=log + ".trail",
+        TORCHFT_TRACE_PATH=log + ".spans",
+        TORCHFT_FLIGHT_DIR=log + ".flight",
         TORCHFT_STORE_ADDR=store.address(),
         REPLICA_GROUP_ID=str(gid),
         NUM_REPLICA_GROUPS=str(num_groups),
@@ -524,6 +616,9 @@ def measure_recovery(
                                    num_groups)
         post = _wait_for(logs, 0, lambda e: e["event"] == "commit" and e["t"] > t_kill,
                          timeout_s, procs)
+        # the survivor cannot finish before the rejoiner has joined it:
+        # it is alive for the signal
+        flight = _signal_flight_dump(procs[0], logs[0] + ".flight")
         rejoin = _wait_for(logs, victim_gid,
                            lambda e: e["event"] == "commit" and e["t"] > t_respawn,
                            timeout_s, procs)
@@ -603,6 +698,7 @@ def measure_recovery(
             log_paths=logs,
             rejoin_heal=rejoin_heal,
             join_timeout_ms=join_timeout_ms,
+            observability=_observability(logs, victim_gid, t_kill, t_respawn, flight),
         )
     finally:
         # every worker dies before any server shuts down, so no server

@@ -16,13 +16,16 @@ frame of the retry.
 
 The state tree is flattened by ``checkpointing/serialization.py`` (tensors
 copied to the host), so a heal still crosses host memory, as the JAX
-package's does. Left out: its telemetry and ``last_recv_bytes``.
+package's does. Stagings, sends and receives are counted
+(``record_checkpoint``) and emitted to the trail (``checkpoint_send`` /
+``checkpoint_recv``); ``last_recv_bytes`` holds the last receive's bytes.
 """
 
 from __future__ import annotations
 
 import itertools
 import pickle
+import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
@@ -30,6 +33,7 @@ from typing import Deque, Generic, List, TypeVar
 
 import numpy as np
 
+from torchft_tpu_torch import telemetry
 from torchft_tpu_torch.checkpointing.serialization import (
     as_bytes,
     buffer_sizes,
@@ -75,6 +79,8 @@ class CollectivesTransport(CheckpointTransport[T], Generic[T]):
     ) -> None:
         self._collectives = collectives
         self._timeout = timeout
+        # payload bytes of the last receive
+        self.last_recv_bytes: int = 0
         self._window = max(1, window)
 
     def metadata(self) -> str:
@@ -107,29 +113,38 @@ class CollectivesTransport(CheckpointTransport[T], Generic[T]):
     def send_checkpoint(
         self, dst_ranks: List[int], step: int, state_dict: T, timeout: timedelta
     ) -> None:
+        t0 = time.perf_counter()
         header, buffers = flatten_state(state_dict)
+        nbytes = len(header) + sum(int(b.nbytes) for b in buffers)
+        telemetry.record_checkpoint("stage", nbytes, time.perf_counter() - t0, "collectives")
         hdr_arr = np.frombuffer(header, dtype=np.uint8)
         salt = next(_TRANSFER_SALT)
         # the salt rides in the length frame, so the receiver tags its
         # windowed recvs alike without another round trip
         len_arr = np.array([len(header), salt], dtype=np.int64)
+        t0 = time.perf_counter()
         if len(dst_ranks) == 1:
             self._send_one(dst_ranks[0], len_arr, hdr_arr, buffers, timeout, salt)
-            return
-        with ThreadPoolExecutor(
-            max_workers=min(_MAX_DST_PARALLEL, len(dst_ranks)),
-            thread_name_prefix="tft_ckpt_send",
-        ) as pool:
-            futs = [
-                pool.submit(self._send_one, dst, len_arr, hdr_arr, buffers, timeout, salt)
-                for dst in dst_ranks
-            ]
-            for f in futs:
-                f.result()
+        else:
+            with ThreadPoolExecutor(
+                max_workers=min(_MAX_DST_PARALLEL, len(dst_ranks)),
+                thread_name_prefix="tft_ckpt_send",
+            ) as pool:
+                futs = [
+                    pool.submit(self._send_one, dst, len_arr, hdr_arr, buffers, timeout, salt)
+                    for dst in dst_ranks
+                ]
+                for f in futs:
+                    f.result()
+        seconds = time.perf_counter() - t0
+        telemetry.record_checkpoint("send", nbytes * len(dst_ranks), seconds, "collectives")
+        telemetry.emit("checkpoint_send", transport="collectives", dst_ranks=list(dst_ranks),
+                       step=step, bytes=nbytes, duration_s=round(seconds, 4))
 
     def recv_checkpoint(
         self, src_rank: int, metadata: str, step: int, timeout: timedelta
     ) -> T:
+        t0 = time.perf_counter()
         len_arr = np.zeros(2, dtype=np.int64)
         self._collectives.recv(len_arr, src_rank, tag=_META_TAG).wait(timeout)
         salt = int(len_arr[1])
@@ -147,4 +162,10 @@ class CollectivesTransport(CheckpointTransport[T], Generic[T]):
             window.append(self._collectives.recv(buf, src_rank, tag=_data_tag(salt, i)))
         while window:
             window.popleft().wait(timeout)
+        seconds = time.perf_counter() - t0
+        nbytes = len(header) + sum(int(b.nbytes) for b in buffers)
+        self.last_recv_bytes = nbytes
+        telemetry.record_checkpoint("recv", nbytes, seconds, "collectives")
+        telemetry.emit("checkpoint_recv", transport="collectives", step=step, bytes=nbytes,
+                       duration_s=round(seconds, 4))
         return unflatten_state(header, buffers)

@@ -30,8 +30,16 @@ mid-heal hands its pending ranges to the survivors. The bulk bytes ride
 the native blob plane (``native/blob.cc``, off the GIL) and fall back to
 ``range_`` when a source advertises no blob port.
 
-Left out (ROADMAP): the ``/metrics`` and ``/critical_path.json``
-endpoints, the trace header, the checkpoint telemetry and the fault points.
+``GET /metrics`` serves the process's telemetry (Prometheus text, no
+checkpoint state needed). Every request a healer sends carries its trace
+context in the ``X-TFT-Trace`` header, and the serving side records a
+``checkpoint_serve`` span in the healer's trace. Stagings, sends and
+receives are counted (``record_checkpoint``, the ``checkpoint_send`` /
+``checkpoint_recv`` trail events), and the striped receive's stages
+(``meta``, ``recv``, ``decode``) go into the ledger's heal-stage totals.
+
+Left out (ROADMAP): the ``/critical_path.json`` endpoint (the fleet plane)
+and the fault points.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from typing import Any, Callable, Dict, Generic, List, Optional, Tuple, TypeVar
 
 import numpy as np
 
+from torchft_tpu_torch import telemetry
 from torchft_tpu_torch.checkpointing import delta as delta_mod
 from torchft_tpu_torch.checkpointing._rwlock import RWLock
 from torchft_tpu_torch.checkpointing.serialization import (
@@ -90,6 +99,23 @@ __all__ = ["HTTPTransport"]
 META_TIMEOUT_S = 5.0
 # the bulk heal bytes ride the native blob plane (else HTTP ranges)
 HEAL_NATIVE = True
+
+
+TRACE_HEADER = "X-TFT-Trace"
+
+
+def _traced_urlopen(url: str, timeout: float, carrier: Optional[Dict[str, str]] = None):
+    """urlopen with a trace context in the ``X-TFT-Trace`` header, so the
+    serving side records its span in the requester's trace. ``carrier``
+    defaults to this thread's; a fetch on a pool thread is handed the
+    caller's, taken on the thread that holds the heal's span."""
+    req = urllib.request.Request(url)
+    try:
+        req.add_header(TRACE_HEADER, telemetry.TRACER.format_carrier(
+            carrier if carrier is not None else telemetry.TRACER.inject()))
+    except Exception:  # noqa: BLE001 — tracing must never fail a transfer
+        pass
+    return urllib.request.urlopen(req, timeout=timeout)
 
 
 class _Server(ThreadingHTTPServer):
@@ -168,6 +194,19 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
                 pass
 
             def do_GET(self) -> None:
+                # /metrics needs no checkpoint state: served before the
+                # staging lock, so a scrape answers while nothing is staged
+                if self.path.rstrip("/") == "/metrics":
+                    body = telemetry.render_prometheus().encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", "text/plain; version=0.0.4")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    try:
+                        self.wfile.write(body)
+                    except (BrokenPipeError, ConnectionResetError, socket.timeout):
+                        pass
+                    return
                 # bound socket writes so one stalled healer can't hold the
                 # read lock (and with it the next commit) forever
                 self.connection.settimeout(transport._timeout.total_seconds())
@@ -196,12 +235,26 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
                     if payload is None:
                         self.send_error(404, f"bad path {self.path}")
                         return
+                    nbytes = sum(len(p) for p in payload)
                     self.send_response(200)
                     self.send_header("Content-Type", "application/octet-stream")
-                    self.send_header("Content-Length", str(sum(len(p) for p in payload)))
+                    self.send_header("Content-Length", str(nbytes))
                     self.end_headers()
-                    for part in payload:
-                        self.wfile.write(part)
+                    t0 = time.perf_counter()
+                    # the healer's trace context rides the request: this
+                    # span joins its trace (trace_id and parent) but keeps
+                    # this replica's identity, so it renders on the serving
+                    # replica's lane
+                    carrier = telemetry.TRACER.parse_carrier(
+                        self.headers.get(TRACE_HEADER, "") or "")
+                    with telemetry.TRACER.span(
+                        "checkpoint_serve", parent=carrier,
+                        replica_id=telemetry.TRACER.context()["replica_id"] or None,
+                        path=self.path, bytes=nbytes,
+                    ):
+                        for part in payload:
+                            self.wfile.write(part)
+                    telemetry.record_checkpoint("send", nbytes, time.perf_counter() - t0, "http")
                 except (BrokenPipeError, ConnectionResetError, socket.timeout):
                     pass
                 except Exception as e:  # noqa: BLE001 — report to the peer
@@ -281,6 +334,7 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
         # aborted before should_commit closed it), so staging never races
         # an active GET
         self.disallow_checkpoint()
+        t0 = time.perf_counter()
         header, buffers = flatten_state(state_dict)
         # the blob plane serves raw base pointers: pin contiguity (flatten
         # already returns contiguous host copies)
@@ -288,6 +342,10 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
         self._header = header
         self._sizes = [int(b.nbytes) for b in self._buffers]
         self._total = sum(self._sizes)
+        nbytes = len(header) + self._total
+        telemetry.record_checkpoint("stage", nbytes, time.perf_counter() - t0, "http")
+        telemetry.emit("checkpoint_send", transport="http", dst_ranks=list(dst_ranks),
+                       step=step, bytes=nbytes)
         trail = self.commit_trail
         digests = None
         if trail is not None:
@@ -339,10 +397,18 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
 
     # -- single-source receive --
 
-    def _fetch_full(self, base: str, secs: float) -> T:
-        with urllib.request.urlopen(f"{base}/full", timeout=secs) as resp:
+    def _record_recv(self, nbytes: int, seconds: float, step: int) -> None:
+        self.last_recv_bytes = nbytes
+        telemetry.record_checkpoint("recv", nbytes, seconds, "http")
+        telemetry.emit("checkpoint_recv", transport="http", step=step, bytes=nbytes,
+                       duration_s=round(seconds, 4))
+
+    def _fetch_full(self, base: str, secs: float, step: int) -> T:
+        t0 = time.perf_counter()
+        with _traced_urlopen(f"{base}/full", timeout=secs) as resp:
             state = load_state(resp)
-            self.last_recv_bytes = int(resp.headers.get("Content-Length") or 0)
+            nbytes = int(resp.headers.get("Content-Length") or 0)
+        self._record_recv(nbytes, time.perf_counter() - t0, step)
         return state
 
     def recv_checkpoint(
@@ -351,25 +417,27 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
         base = f"{metadata}/checkpoint/{step}"
         secs = timeout.total_seconds()
         if self._num_chunks == 0:
-            return self._fetch_full(base, secs)
-        with urllib.request.urlopen(f"{base}/metadata", timeout=secs) as resp:
+            return self._fetch_full(base, secs, step)
+        t0 = time.perf_counter()
+        with _traced_urlopen(f"{base}/metadata", timeout=secs) as resp:
             header, groups = pickle.loads(resp.read())
         if not groups:
             # the sender staged unchunked (its num_chunks=0 wins over ours)
-            return self._fetch_full(base, secs)
+            return self._fetch_full(base, secs, step)
         _, infos = pickle.loads(header)
         sizes = buffer_sizes(infos)
         buffers: List[Optional[bytearray]] = [None] * len(sizes)
+        carrier = telemetry.TRACER.inject()
 
         def fetch(ci: int) -> None:
-            with urllib.request.urlopen(f"{base}/chunk_{ci}", timeout=secs) as r:
+            with _traced_urlopen(f"{base}/chunk_{ci}", timeout=secs, carrier=carrier) as r:
                 for j in groups[ci]:
                     buffers[j] = read_exact(r, sizes[j])
 
         with ThreadPoolExecutor(max_workers=len(groups)) as pool:
             for f in [pool.submit(fetch, ci) for ci in range(len(groups))]:
                 f.result()
-        self.last_recv_bytes = len(header) + sum(sizes)
+        self._record_recv(len(header) + sum(sizes), time.perf_counter() - t0, step)
         return unflatten_state(header, buffers)
 
     # -- striped multi-source receive --
@@ -396,11 +464,14 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
         t_start = time.perf_counter()
         stats: Dict[str, Any] = {"mode": "striped", "sources": {}, "stages": {}}
         self.last_heal_stats = stats
+        # the heal's span lives on this thread; the fetches on pool threads
+        # carry it in their trace header
+        carrier = telemetry.TRACER.inject()
 
         if since_step is not None and own is not None:
             state = self._try_delta(sources[0], step, since_step, own, secs, stats, header_cb)
             if state is not None:
-                self.last_recv_bytes = int(stats["bytes"])
+                self._record_recv(int(stats["bytes"]), time.perf_counter() - t_start, step)
                 return state
 
         # ---- stripe planning ----
@@ -414,8 +485,8 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
 
         def fetch_meta(src: str) -> None:
             try:
-                with urllib.request.urlopen(
-                    f"{src}/checkpoint/{step}/stripemeta", timeout=meta_secs
+                with _traced_urlopen(
+                    f"{src}/checkpoint/{step}/stripemeta", timeout=meta_secs, carrier=carrier
                 ) as r:
                     metas[src] = pickle.loads(r.read())
             except Exception as e:  # noqa: BLE001 — a dead source is dropped
@@ -454,6 +525,7 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
         header: bytes = pmeta["header"]
         sizes: List[int] = list(pmeta["sizes"])
         total: int = int(pmeta["total"])
+        telemetry.LEDGER.record_heal_stage("meta", time.perf_counter() - t0)
         stats["stages"]["meta_s"] = round(time.perf_counter() - t0, 4)
         _call_header_cb(header_cb, header)
 
@@ -479,7 +551,7 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
                                    length, view, timeout_ms=int(left * 1000))
                 return
             url = f"{src}/checkpoint/{step}/range_{off}_{length}"
-            with urllib.request.urlopen(url, timeout=left) as r:
+            with _traced_urlopen(url, timeout=left, carrier=carrier) as r:
                 got = 0
                 while got < length:
                     k = r.readinto(view[got:])
@@ -533,6 +605,7 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
                 f"(source failures: {failures or meta_errors})"
             )
         recv_s = time.perf_counter() - t0
+        telemetry.LEDGER.record_heal_stage("recv", recv_s)
         for st in stats["sources"].values():
             st["gb_per_sec"] = (
                 round(st["bytes"] / st["seconds"] / 1e9, 3) if st["seconds"] > 0 else 0.0
@@ -549,9 +622,11 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
             buffers.append(np.frombuffer(dest, dtype=np.uint8, count=s, offset=off))
             off += s
         state = unflatten_state(header, buffers)
-        stats["stages"]["decode_s"] = round(time.perf_counter() - t0, 4)
+        decode_s = time.perf_counter() - t0
+        telemetry.LEDGER.record_heal_stage("decode", decode_s)
+        stats["stages"]["decode_s"] = round(decode_s, 4)
         stats["bytes"] = len(header) + total
-        self.last_recv_bytes = len(header) + total
+        self._record_recv(len(header) + total, time.perf_counter() - t_start, step)
         return state
 
     def _try_delta(
@@ -570,7 +645,7 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
         t0 = time.perf_counter()
         try:
             url = f"{primary}/checkpoint/{step}/delta_{since_step}_{own_digest}"
-            with urllib.request.urlopen(url, timeout=secs) as r:
+            with _traced_urlopen(url, timeout=secs) as r:
                 body = read_exact(r, int(r.headers["Content-Length"]))
             manifest, payload = delta_mod.unpack_delta(body)
             if manifest.get("mode") != "delta":
@@ -582,6 +657,7 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
             logger.warning("differential heal unavailable (%s); falling back to full", e)
             return None
         dur = time.perf_counter() - t0
+        telemetry.LEDGER.record_heal_stage("recv", dur)
         stats["mode"] = "delta"
         stats["bytes"] = len(body)
         stats["delta"] = {

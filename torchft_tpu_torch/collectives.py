@@ -28,7 +28,13 @@ The death watch (``set_death_watch``) polls the epoch's peer sockets and
 reports a peer whose socket closed, so the Manager can evict it and
 re-quorum while the doomed step still runs.
 
-Left out (ROADMAP): the fault points, telemetry and the flight recorder.
+Every op is counted when issued (``tft_collective_ops_total``) and recorded
+in the flight recorder (issue and completion); an allreduce's bytes and
+latency are recorded at completion. The wire plane's stage seconds
+(``host_copy`` / ``quantize`` / ``wire`` / ``dequant_reduce``) go into the
+step-anatomy ledger through :func:`record_wire_stage`, and
+:func:`wire_stage_snapshot` reads their totals back. Left out (ROADMAP):
+the fault points.
 """
 
 from __future__ import annotations
@@ -49,6 +55,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from torchft_tpu_torch.futures import Future
+from torchft_tpu_torch.telemetry.anatomy import LEDGER as _ANATOMY_LEDGER
+from torchft_tpu_torch.telemetry.anatomy import WIRE_STAGES
 from torchft_tpu_torch.store import create_store_client
 from torchft_tpu_torch.wire_codec import WireCodec, get_codec
 
@@ -61,7 +69,24 @@ __all__ = [
     "CollectivesTcp",
     "ErrorSwallowingCollectives",
     "PeerGoneError",
+    "WIRE_STAGES",
+    "record_wire_stage",
+    "wire_stage_snapshot",
 ]
+
+
+def record_wire_stage(stage: str, seconds: float) -> None:
+    """Add wall clock to a wire-plane stage: a shim over
+    ``telemetry.anatomy.LEDGER.record(..., wire_total=True)``. Records made
+    on the main thread also join the current step-anatomy row."""
+    _ANATOMY_LEDGER.record(stage, seconds, wire_total=True)
+
+
+def wire_stage_snapshot(reset: bool = False) -> Dict[str, float]:
+    """Process-wide seconds per wire-plane stage since the last
+    ``reset=True``; the reset moves a mark (the ledger's totals and the
+    counters stay monotonic)."""
+    return _ANATOMY_LEDGER.wire_stage_snapshot(reset)
 
 
 class PeerGoneError(ConnectionError):
@@ -692,6 +717,9 @@ class CollectivesTcp(Collectives):
             # teardown cancels queued tasks whose run() never executes; the
             # caller's future must still resolve
             if t.cancelled() and not out.done():
+                from torchft_tpu_torch import telemetry
+
+                telemetry.FUTURE_CANCELS.inc()
                 out.set_exception(RuntimeError("collectives reconfigured before op ran"))
 
         task.add_done_callback(on_done)
@@ -919,13 +947,37 @@ class CollectivesTcp(Collectives):
             self._scratch[key] = buf
         return buf[:nelems]
 
+    def _count_op(self, op_name: str, nbytes: int = 0, tag: int = 0) -> int:
+        """Count the op and record its issue in the flight recorder;
+        returns the flight record's sequence id."""
+        from torchft_tpu_torch import telemetry
+
+        plane = self.plane_info()
+        telemetry.COLLECTIVE_OPS.labels(op=op_name, plane=plane).inc()
+        return telemetry.FLIGHT.record_issue(op_name, plane, nbytes, tag=tag, rank=self._rank)
+
+    def _track_flight(self, work: Work, fid: int) -> Work:
+        """Mark the flight record completed or failed when the op resolves."""
+        from torchft_tpu_torch import telemetry
+
+        work.get_future().then(
+            lambda f: telemetry.FLIGHT.record_complete(fid, error=f.exception())
+        )
+        return work
+
     # -- collectives (all run on the op thread, SPMD-ordered) --
 
     def allreduce(self, arrays: List[np.ndarray], op: ReduceOp = ReduceOp.SUM) -> Work:
         world = self._world
         tag = self._next_tag() | 0x01000000
+        nbytes = sum(int(a.nbytes) for a in arrays)
+        # counted at issue like every op; bytes and latency at completion
+        fid = self._count_op("allreduce", nbytes, tag)
 
         def run() -> List[np.ndarray]:
+            from torchft_tpu_torch import telemetry
+
+            t0 = time.perf_counter()
             if world > 1:
                 # the op thread serializes ops, so the arrays of one
                 # allreduce may share the tag (a desync check, not a
@@ -937,9 +989,11 @@ class CollectivesTcp(Collectives):
                         self._ring_allreduce(arr, op, tag)
                         if op == ReduceOp.AVG:
                             np.divide(arr, world, out=arr)
+            telemetry.record_collective("allreduce", nbytes, time.perf_counter() - t0,
+                                        self.plane_info(), count_op=False)
             return arrays
 
-        return self._submit(run)
+        return self._track_flight(self._submit(run), fid)
 
     def _dp_eligible(self, arr: np.ndarray) -> bool:
         from torchft_tpu_torch._native import NativeDataPlane
@@ -961,6 +1015,7 @@ class CollectivesTcp(Collectives):
         dp = self._dp  # teardown may clear the field mid-op
         if dp is None:
             raise RuntimeError("data plane torn down")
+        t0 = time.perf_counter()
         try:
             # ``arr`` stays referenced by this frame until the GIL-free
             # call returns
@@ -972,6 +1027,10 @@ class CollectivesTcp(Collectives):
             if e.peer_rank >= 0:
                 raise PeerGoneError(e.peer_rank, str(e)) from e
             raise
+        finally:
+            # the codec runs inside the C++ stripe workers, not separable
+            # from here: the whole native op is "wire"
+            record_wire_stage("wire", time.perf_counter() - t0)
 
     def _ring_allreduce(self, arr: np.ndarray, op: ReduceOp, tag: int) -> None:
         world, rank = self._world, self._rank
@@ -985,20 +1044,26 @@ class CollectivesTcp(Collectives):
             self._ring_allreduce_codec(op, tag, chunks, max_elems, reduce_fn)
             return
         scratch = self._epoch_scratch(arr.dtype, max_elems)
+        t_wire = 0.0
 
         # reduce-scatter
         for step in range(world - 1):
             send_idx, recv_idx = (rank - step) % world, (rank - step - 1) % world
             view = scratch[: chunks[recv_idx].size]
+            t0 = time.perf_counter()
             self._exchange(right, _bytes_view(chunks[send_idx]), left, tag, _bytes_view(view))
+            t_wire += time.perf_counter() - t0
             reduce_fn(chunks[recv_idx], view)
         # allgather: every rank forwards the owner's exact bytes, so the
         # result is bitwise identical everywhere by construction
         for step in range(world - 1):
             send_idx, recv_idx = (rank + 1 - step) % world, (rank - step) % world
             view = scratch[: chunks[recv_idx].size]
+            t0 = time.perf_counter()
             self._exchange(right, _bytes_view(chunks[send_idx]), left, tag, _bytes_view(view))
+            t_wire += time.perf_counter() - t0
             chunks[recv_idx][:] = view
+        record_wire_stage("wire", t_wire)
 
     def _ring_allreduce_codec(
         self, op: ReduceOp, tag: int, chunks: List[np.ndarray], max_elems: int,
@@ -1018,21 +1083,30 @@ class CollectivesTcp(Collectives):
         # forwarded while the other receives the next chunk's
         buf_a = self._epoch_scratch(np.uint8, max_wire, slot="wireA")
         buf_b = self._epoch_scratch(np.uint8, max_wire, slot="wireB")
+        t_quant = t_wire = t_dq = 0.0
 
         # reduce-scatter
         for step in range(world - 1):
             send_idx, recv_idx = (rank - step) % world, (rank - step - 1) % world
             n = int(chunks[recv_idx].size)
+            t0 = time.perf_counter()
             sv = codec.encode_into(chunks[send_idx])
+            t1 = time.perf_counter()
             rv = buf_a[: codec.wire_nbytes(n)]
             self._exchange(right, sv, left, tag, _bytes_view(rv))
+            t2 = time.perf_counter()
             reduce_fn(chunks[recv_idx], codec.decode_tmp(rv, n))
+            t_quant += t1 - t0
+            t_wire += t2 - t1
+            t_dq += time.perf_counter() - t2
 
+        t0 = time.perf_counter()
         owned = chunks[(rank + 1) % world]
         ow = codec.encode_into(owned)
         cur = buf_b[: len(ow)]
         cur[:] = np.frombuffer(ow, dtype=np.uint8)
         codec.decode_into(cur, owned)
+        t_quant += time.perf_counter() - t0
 
         # allgather: forward the received wire bytes untouched
         bufs = (buf_a, buf_b)
@@ -1041,13 +1115,21 @@ class CollectivesTcp(Collectives):
             recv_idx = (rank - step) % world
             n = int(chunks[recv_idx].size)
             rv = bufs[1 - cur_i][: codec.wire_nbytes(n)]
+            t0 = time.perf_counter()
             self._exchange(right, _bytes_view(cur), left, tag, _bytes_view(rv))
+            t1 = time.perf_counter()
             codec.decode_into(rv, chunks[recv_idx])
+            t_wire += t1 - t0
+            t_dq += time.perf_counter() - t1
             cur, cur_i = rv, 1 - cur_i  # rv is the next hop's outgoing frame
+        record_wire_stage("quantize", t_quant)
+        record_wire_stage("wire", t_wire)
+        record_wire_stage("dequant_reduce", t_dq)
 
     def allgather(self, arr: np.ndarray) -> Work:
         world, rank = self._world, self._rank
         tag = self._next_tag() | 0x02000000
+        fid = self._count_op("allgather", int(arr.nbytes), tag)
 
         def run() -> List[np.ndarray]:
             out: List[Optional[np.ndarray]] = [None] * world
@@ -1061,11 +1143,12 @@ class CollectivesTcp(Collectives):
                 out[cur_idx] = cur
             return out  # type: ignore[return-value]
 
-        return self._submit(run)
+        return self._track_flight(self._submit(run), fid)
 
     def broadcast(self, arr: np.ndarray, root: int = 0) -> Work:
         world, rank = self._world, self._rank
         tag = self._next_tag() | 0x03000000
+        fid = self._count_op("broadcast", int(arr.nbytes), tag)
 
         def run() -> np.ndarray:
             if world > 1:
@@ -1078,7 +1161,7 @@ class CollectivesTcp(Collectives):
                     self._recv_from(root, tag, into=_bytes_view(_flat_view(arr)))
             return arr
 
-        return self._submit(run)
+        return self._track_flight(self._submit(run), fid)
 
     def reduce_scatter(
         self, arrays: List[np.ndarray], op: ReduceOp = ReduceOp.SUM
@@ -1087,6 +1170,7 @@ class CollectivesTcp(Collectives):
         if len(arrays) != world:
             raise ValueError(f"reduce_scatter needs {world} inputs, got {len(arrays)}")
         tag = self._next_tag() | 0x04000000
+        fid = self._count_op("reduce_scatter", sum(int(a.nbytes) for a in arrays), tag)
         reduce_fn = _REDUCE_FNS[op]
 
         def run() -> np.ndarray:
@@ -1106,13 +1190,14 @@ class CollectivesTcp(Collectives):
                 np.divide(acc, world, out=acc)
             return acc
 
-        return self._submit(run)
+        return self._track_flight(self._submit(run), fid)
 
     def alltoall(self, arrays: List[np.ndarray]) -> Work:
         world, rank = self._world, self._rank
         if len(arrays) != world:
             raise ValueError(f"alltoall needs {world} inputs, got {len(arrays)}")
         tag = self._next_tag() | 0x05000000
+        fid = self._count_op("alltoall", sum(int(a.nbytes) for a in arrays), tag)
 
         def run() -> List[np.ndarray]:
             out: List[Optional[np.ndarray]] = [None] * world
@@ -1126,31 +1211,35 @@ class CollectivesTcp(Collectives):
                             .reshape(arrays[src].shape).copy())
             return out  # type: ignore[return-value]
 
-        return self._submit(run)
+        return self._track_flight(self._submit(run), fid)
 
     def send(self, arr: np.ndarray, dst: int, tag: int = 0) -> Work:
         wire_tag = 0x06000000 | (tag & 0xFFFFFF)
-        return self._submit(lambda: self._send_to(dst, wire_tag, _bytes_view(arr)), p2p=True)
+        fid = self._count_op("send", int(arr.nbytes), wire_tag)
+        return self._track_flight(
+            self._submit(lambda: self._send_to(dst, wire_tag, _bytes_view(arr)), p2p=True), fid)
 
     def recv(self, arr: np.ndarray, src: int, tag: int = 0) -> Work:
         wire_tag = 0x06000000 | (tag & 0xFFFFFF)
+        fid = self._count_op("recv", int(arr.nbytes), wire_tag)
 
         def run() -> np.ndarray:
             self._recv_from(src, wire_tag, into=_bytes_view(_flat_view(arr)))
             return arr
 
-        return self._submit(run, p2p=True)
+        return self._track_flight(self._submit(run, p2p=True), fid)
 
     def barrier(self) -> Work:
         token = np.zeros(1, dtype=np.int32)
         world = self._world
         tag = self._next_tag() | 0x07000000
+        fid = self._count_op("barrier", 0, tag)
 
         def run() -> None:
             if world > 1:
                 self._ring_allreduce(token, ReduceOp.SUM, tag)
 
-        return self._submit(run)
+        return self._track_flight(self._submit(run), fid)
 
 
 # ---------------------------------------------------------------------------

@@ -43,9 +43,15 @@ What changes for torch:
   (the Manager's division) run on that stream. Use a result on the stream
   that issued the op.
 
-Left out (ROADMAP): fault points, telemetry and the flight recorder; the
-sharded-group case, which waits for in-group parallelism; one process per
-group over NCCL (the JAX package's ``CollectivesDeviceDist``).
+Every op is counted (``tft_collective_ops_total{plane="device"}``) and
+recorded in the flight recorder at issue and completion; an allreduce's
+bytes count at issue (``numel() * element_size()``, never a tensor's value)
+and its latency, from issue to the rendezvous' result, at completion. At
+world size 1 the allreduce is counted with its bytes and no latency.
+
+Left out (ROADMAP): fault points; the sharded-group case, which waits for
+in-group parallelism; one process per group over NCCL (the JAX package's
+``CollectivesDeviceDist``).
 """
 
 from __future__ import annotations
@@ -71,6 +77,12 @@ def _epoch_key(store_addr: str) -> str:
     # `{store}/torchft/{quorum_id}/{rank}` → drop the rank: all members of
     # one epoch share the prefix
     return store_addr.rsplit("/", 1)[0]
+
+
+def _nbytes(payload: Any) -> int:
+    """Bytes of the tensors in ``payload`` from their shapes, not their
+    values: nothing here may sync the device or break a capture."""
+    return sum(t.numel() * t.element_size() for t in _tensors(payload))
 
 
 def _tensors(payload: Any) -> List[torch.Tensor]:
@@ -272,8 +284,14 @@ class CollectivesDevice(Collectives):
     def _rendezvous(self, kind: str, payload: Any, meta: Tuple = ()) -> Work:
         """Deposit this group's input for the next SPMD op slot; the last
         group to arrive computes and resolves everyone's future."""
+        from torchft_tpu_torch import telemetry
+
         ep = self._live_epoch()
+        if kind != "allreduce":  # allreduce accounts its bytes and latency itself
+            telemetry.COLLECTIVE_OPS.labels(op=kind, plane="device").inc()
         tag = self._next_tag()
+        fid = telemetry.FLIGHT.record_issue(kind, "device", _nbytes(payload), tag=tag,
+                                            rank=self._rank)
         deposit = _Deposit(payload)
         fut: Future = Future()
         run_op: Optional[_Op] = None
@@ -303,23 +321,45 @@ class CollectivesDevice(Collectives):
                         run_op = op
         if dead is not None:
             fut.set_exception(dead)
+            telemetry.FLIGHT.record_complete(fid, error=dead)
             return Work(future_timeout(fut, self._timeout))
         if desync is not None:
             for f in doomed:
                 f.set_exception(desync)
+            telemetry.FLIGHT.record_complete(fid, error=desync)
             raise desync
         if run_op is not None:
             _run(run_op)
-        return Work(future_timeout(fut, self._timeout))
+        out = future_timeout(fut, self._timeout)
+        out.then(lambda f: telemetry.FLIGHT.record_complete(fid, error=f.exception()))
+        return Work(out)
 
     # -- collectives --
 
     def allreduce(self, arrays: List[Any], op: ReduceOp = ReduceOp.SUM) -> Work:
+        from torchft_tpu_torch import telemetry
+
         arrays = [self._as_tensor(a) for a in arrays]
+        nbytes = _nbytes(arrays)
+        telemetry.COLLECTIVE_OPS.labels(op="allreduce", plane="device").inc()
         if self._world == 1:
-            # the reduction of one input is itself: no copy, no kernel
+            # the reduction of one input is itself: no copy, no kernel. The
+            # bytes count; no latency is observed (a constant 0.0 would
+            # drown the histogram's real cross-group latencies)
+            telemetry.ALLREDUCE_BYTES.labels(plane="device").inc(nbytes)
             return Work.completed(arrays)
-        return self._rendezvous("allreduce", arrays, (op,))
+        t0 = time.perf_counter()
+        work = self._rendezvous("allreduce", arrays, (op,))
+
+        def observe(f: Future) -> None:
+            # the rendezvous and the enqueued reduction, host clock (the
+            # device work is asynchronous; its completion is the stream's)
+            if f.exception() is None:
+                telemetry.record_collective("allreduce", nbytes, time.perf_counter() - t0,
+                                            "device", count_op=False)
+
+        work.get_future().then(observe)
+        return work
 
     def allgather(self, arr: Any) -> Work:
         return self._rendezvous("allgather", self._as_tensor(arr))

@@ -1,6 +1,9 @@
 """Low-level coordination API: Lighthouse / Manager servers and clients —
 the port's copy of ``torchft_tpu/coordination.py``, without the telemetry
-piggyback, tracing and fault points.
+piggyback (the fleet plane) and the fault points. The quorum and vote RPCs
+carry the caller's trace context (``"trace"``), run in ``quorum_rpc`` /
+``should_commit_rpc`` spans, and the quorum's latency and count are
+recorded (``tft_quorum_latency_seconds``, ``tft_quorums_total``).
 
 The servers run in the C++ core (``native/coord.cc``); CANCELLED /
 DEADLINE_EXCEEDED replies become ``TimeoutError``.
@@ -179,16 +182,30 @@ class ManagerClient:
         downscale). ``commit_failures > 0`` requests a data-plane flush:
         the lighthouse bumps quorum_id even without a membership change, so
         every group re-rendezvouses its collectives."""
+        import time
+
+        from torchft_tpu_torch import telemetry
+
         req: Dict[str, Any] = {
             "rank": rank,
             "step": step,
             "checkpoint_metadata": checkpoint_metadata,
             "shrink_only": shrink_only,
             "commit_failures": commit_failures,
+            # the caller's trace context rides the request; the C++ server
+            # keeps no spans, so it is for the wire (a capture names the
+            # caller's span). The live cross-replica link is the heal's
+            # X-TFT-Trace header.
+            "trace": telemetry.TRACER.inject(),
         }
-        return QuorumResult._from_wire(
-            self._client.call("mgr.quorum", req, _ms(timeout))
-        )
+        t0 = time.perf_counter()
+        with telemetry.TRACER.span("quorum_rpc", rank=rank, step=step):
+            resp = self._client.call("mgr.quorum", req, _ms(timeout))
+        # the RPC long-polls until the lighthouse forms the quorum: this is
+        # the quorum's formation latency as this rank saw it
+        telemetry.QUORUM_LATENCY.observe(time.perf_counter() - t0)
+        telemetry.QUORUMS_TOTAL.inc()
+        return QuorumResult._from_wire(resp)
 
     def _checkpoint_metadata(self, rank: int, timeout: timedelta) -> str:
         resp = self._client.call(
@@ -199,8 +216,17 @@ class ManagerClient:
     def should_commit(
         self, rank: int, step: int, should_commit: bool, timeout: timedelta
     ) -> bool:
-        req = {"rank": rank, "step": step, "should_commit": should_commit}
-        resp = self._client.call("mgr.should_commit", req, _ms(timeout))
+        from torchft_tpu_torch import telemetry
+
+        req = {
+            "rank": rank,
+            "step": step,
+            "should_commit": should_commit,
+            "trace": telemetry.TRACER.inject(),
+        }
+        with telemetry.TRACER.span("should_commit_rpc", rank=rank, step=step,
+                                   vote=should_commit):
+            resp = self._client.call("mgr.should_commit", req, _ms(timeout))
         return resp["should_commit"]
 
     def evict(self, victim: str, timeout: timedelta = timedelta(seconds=5)) -> bool:

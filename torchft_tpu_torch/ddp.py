@@ -35,15 +35,27 @@ host path only): each staged bucket is compensated with the committed
 residual and projected onto the wire codec's grid in place before it
 enters the ring; its fresh residual stays pending until the caller commits
 or rolls it back with the step (``ManagedOptimizer`` does).
+
+Step anatomy (``telemetry.anatomy``): on the host plane the main thread's
+issue of the device-to-host copies and its waits on each bucket's event are
+``host_copy``, the error feedback's projection ``quantize``, and its waits
+on the averaged buckets ``wire`` (the ring's own socket time, on the
+collectives thread, goes into the wire-stage totals, not the row). On the
+device plane the wait on the average is ``wire``. The replayed graphs
+return at once, so the device's tail of the backward lands in the first
+wait that blocks on it: the first bucket's event on the host plane.
 """
 
 from __future__ import annotations
 
+import time
 import weakref
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
+from torchft_tpu_torch.collectives import record_wire_stage
+from torchft_tpu_torch.telemetry.anatomy import LEDGER
 from torchft_tpu_torch.utils.tree import tree_flatten, tree_unflatten
 
 __all__ = ["plan_buckets", "allreduce_gradients"]
@@ -99,7 +111,10 @@ def allreduce_gradients(
     if not leaves:
         return grads
     if getattr(manager, "device_data_plane", lambda: False)():
-        return tree_unflatten(treedef, manager.allreduce_many(leaves).wait())
+        t0 = time.perf_counter()
+        averaged = manager.allreduce_many(leaves).wait()
+        LEDGER.record("wire", time.perf_counter() - t0)
+        return tree_unflatten(treedef, averaged)
     device = leaves[0].device
     on_cuda = device.type == "cuda"
     plan = plan_buckets(
@@ -109,6 +124,9 @@ def allreduce_gradients(
 
     sizes = [(leaves[idxs[0]].dtype, sum(leaves[i].numel() for i in idxs)) for idxs in plan]
     key = (device.type, tuple(sizes))
+    # the wait on the last step's copies out of the buffers and the D2H
+    # issue below are host_copy
+    t0 = time.perf_counter()
     # taken out while in use: a step that fails does not put it back
     st = _STAGING.pop(manager, None)
     if st is None or st.key != key:
@@ -130,23 +148,32 @@ def allreduce_gradients(
             event = torch.cuda.Event()
             event.record()
         staged.append((idxs, buf, event))
+    record_wire_stage("host_copy", time.perf_counter() - t0)
 
     # stage 2: each bucket enters the ring as soon as its own copies land
     futs = []
     for ordinal, (idxs, buf, event) in enumerate(staged):
         if event is not None:
+            t0 = time.perf_counter()
             event.synchronize()
+            record_wire_stage("host_copy", time.perf_counter() - t0)
         host = buf.numpy()
         if error_feedback is not None:
             # compensate and project before the ring; the key is stable
             # across steps while the bucket plan is
+            t0 = time.perf_counter()
             error_feedback.apply(f"b{ordinal}_{host.size}", host)
+            record_wire_stage("quantize", time.perf_counter() - t0)
         futs.append((idxs, buf, manager.allreduce_many([host])))
 
-    # stage 3: averaged pieces back to the device
+    # stage 3: averaged pieces back to the device. The main thread's wait
+    # on the buckets is the step's `wire` phase (not record_wire_stage: the
+    # collectives thread already counts its socket time into the totals)
     out: List[Any] = [None] * len(leaves)
     for idxs, buf, fut in futs:
+        t0 = time.perf_counter()
         fut.wait()
+        LEDGER.record("wire", time.perf_counter() - t0)
         off = 0
         for i in idxs:
             k = leaves[i].numel()

@@ -5,7 +5,8 @@ a lazily-started asyncio thread (torchft/futures.py:43-165 upstream).
 The port keeps the JAX package's own chainable ``Future`` (continuations
 via ``then``, error propagation) plus a single daemon timer thread that
 fails futures past their deadline — a copy of ``torchft_tpu/futures.py``
-without its fault-injection point and telemetry.
+without its fault-injection point. A deadline counts in
+``tft_future_timeouts_total`` and dumps the flight recorder.
 """
 
 from __future__ import annotations
@@ -164,6 +165,17 @@ class _TimeoutManager:
                 heapq.heappop(self._heap)
             fut = slot[0]
             if fut is not None and not fut.done():
+                from torchft_tpu_torch import telemetry
+
+                telemetry.FUTURE_TIMEOUTS.inc()
+                # a deadline on the data plane usually means a wedged
+                # collective: capture the op history now, while the last
+                # completed and the first stuck op are fresh (rate-limited
+                # inside dump(); it must never fail the timeout)
+                try:
+                    telemetry.FLIGHT.dump("deadline")
+                except Exception:  # noqa: BLE001
+                    pass
                 fut.set_exception(
                     TimeoutError("future did not complete within deadline")
                 )

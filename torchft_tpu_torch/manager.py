@@ -32,7 +32,21 @@
   takes (with its heal), and a step whose ops spanned two quorum epochs
   votes False.
 
-Left out (ROADMAP): telemetry, tracing, the step watchdog, the divergence
+Telemetry (:mod:`torchft_tpu_torch.telemetry`), at the JAX Manager's
+sites: the trail's lifecycle events (``quorum_start``, ``quorum_ready``,
+``heal_begin`` / ``heal_end`` / ``heal_failed``, ``peer_death``,
+``eviction``, ``commit`` / ``abort`` / ``commit_rollback``,
+``step_outlier``); ``quorum``, ``heal_send``, ``heal_recv`` and
+``should_commit`` spans whose trace id is ``replica_id:step:quorum_id``;
+the step-anatomy ledger's ``quorum_wait``, ``heal`` and ``commit_barrier``
+records and a ``tick`` at each vote; a ``StepTimer`` whose quorum and heal
+steps are tagged outliers; ``SIGUSR2`` dumps the flight recorder (when the
+Manager is made on the main thread); and a ``StepWatchdog`` armed at each
+``start_quorum`` and disarmed at the vote, which emits ``watchdog_stall``
+and dumps the flight recorder when a step runs far past its steady p99.
+
+Left out (ROADMAP): the fleet plane (the telemetry piggyback on the quorum
+RPC and the watchdog's out-of-band push to the lighthouse), the divergence
 sentinel, ``set_heal_warmup`` and ``WorldSizeMode.FIXED_WITH_SPARES``.
 """
 
@@ -44,6 +58,7 @@ import logging
 import os
 import socket
 import threading
+import time
 import uuid
 from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
@@ -52,6 +67,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple, TypeVar, cast
 import numpy as np
 import torch
 
+from torchft_tpu_torch import telemetry
 from torchft_tpu_torch.checkpointing import delta
 from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
 from torchft_tpu_torch.checkpointing.serialization import flatten_state
@@ -60,6 +76,7 @@ from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
 from torchft_tpu_torch.collectives import Collectives, PeerGoneError, ReduceOp
 from torchft_tpu_torch.coordination import ManagerClient, ManagerServer
 from torchft_tpu_torch.futures import Future, future_timeout, run_in_executor
+from torchft_tpu_torch.profiling import StepTimer
 from torchft_tpu_torch.store import StoreClient
 
 T = TypeVar("T")
@@ -80,7 +97,7 @@ class _PendingCommit:
     already describe the next step."""
 
     __slots__ = ("future", "step", "n_step", "local_vote", "enough_replicas",
-                 "mixed_epochs", "errored", "on_resolved")
+                 "mixed_epochs", "errored", "on_resolved", "prepare_s")
 
     def __init__(self) -> None:
         self.future: Optional[Future] = None
@@ -91,6 +108,7 @@ class _PendingCommit:
         self.mixed_epochs = False
         self.errored: Optional[Exception] = None
         self.on_resolved: Optional[Callable[[bool], None]] = None
+        self.prepare_s = 0.0  # the pre-vote drain's wall clock
 
 
 class _ManagerLogger:
@@ -168,8 +186,9 @@ class Manager:
         """
         self._load_state_dict = load_state_dict
         self._user_state_dict = state_dict
-        # staged by the quorum thread during a heal, applied on the main
-        # thread strictly after wait_quorum()
+        # unguarded-ok: quorum-thread handoff — staged by the quorum thread
+        #   during a heal, applied on the main thread strictly after
+        #   wait_quorum() (_apply_pending_state_dict waits for it)
         self._pending_state_dict: Optional[Dict[str, object]] = None
         self._use_async_quorum = use_async_quorum
         self._commit_pipeline = commit_pipeline or (
@@ -287,15 +306,51 @@ class Manager:
         if self._heal_trail is not None and hasattr(checkpoint_transport, "commit_trail"):
             checkpoint_transport.commit_trail = self._heal_trail
 
+        # rolling steps/s with quorum and heal steps tagged as outliers;
+        # the vote ticks it. Attached to the process's step-anatomy ledger,
+        # which the vote ticks too, so summaries and flight dumps carry its
+        # outlier digest.
+        self.step_timer = StepTimer()
+        telemetry.LEDGER.attach_timer(self.step_timer)
+        # hang forensics: SIGUSR2 dumps the flight recorder (installable
+        # from the main thread only; elsewhere this returns False), and the
+        # step watchdog turns a silently wedged step into a watchdog_stall
+        # event and a flight dump. It holds _on_stall weakly: its thread
+        # never keeps this Manager alive.
+        telemetry.install_sigusr2()
+        self._watchdog = telemetry.StepWatchdog(on_stall=self._on_stall)
+        # the step a trail event or span of the step now running names:
+        # with a pipelined vote in flight, _step lags that step by one
+        self._step_label = 0
+        telemetry.TRACER.set_context(replica_id=self._replica_id, step=self._step,
+                                     quorum_epoch=-1)
+
     def set_state_dict_fns(
         self, load_state_dict: Callable[[T], None], state_dict: Callable[[], T]
     ) -> None:
         self._load_state_dict = load_state_dict
         self._user_state_dict = state_dict
 
+    def _on_stall(self, step: int, elapsed_s: float, threshold_s: float) -> None:
+        """Step-watchdog callback (its thread): the watchdog has emitted
+        ``watchdog_stall`` and dumped the flight recorder; this logs it.
+        The JAX Manager also pushes a stuck report to the lighthouse here,
+        which waits for the fleet plane."""
+        self._logger.warn(
+            f"step watchdog: step {step} has run {elapsed_s:.3f} s (threshold "
+            f"{threshold_s:.3f} s); flight recorder dumped to {telemetry.FLIGHT.dump_dir()}"
+        )
+
+    def _trace_id(self) -> str:
+        """Trace identity of the step in flight: replica, step and quorum
+        epoch are agreed values, so spans of different replicas for one
+        step and epoch correlate without clock sync."""
+        return f"{self._replica_id}:{self._step_label}:{self._quorum_id}"
+
     def shutdown(self, wait: bool = True) -> None:
         """Shut down the manager server, checkpoint transport and data plane."""
         self._shutting_down = True
+        self._watchdog.stop()
         # release a quorum thread parked on the speculation fence
         with self._spec_cond:
             self._pending_commit = None
@@ -345,6 +400,14 @@ class Manager:
         self._group_healing = False
         self._step_epochs = set()
         self._step_n = None
+        # the step this physical step's trail events and trace ids name:
+        # with a pipelined vote still in flight _step lags it by one
+        self._step_label = self._step + (1 if self._pending_commit is not None else 0)
+        telemetry.TRACER.set_context(replica_id=self._replica_id, step=self._step_label,
+                                     quorum_epoch=self._quorum_id)
+        self._watchdog.arm(self._step_label)
+        telemetry.emit("quorum_start", step=self._step_label, allow_heal=allow_heal,
+                       shrink_only=shrink_only)
         # the stream that trains: the heal's device work runs on it
         stream = torch.cuda.current_stream() if torch.cuda.is_initialized() else None
         # Replace under the lock, wait outside it. A future is replaced only
@@ -432,7 +495,17 @@ class Manager:
         configured for the new membership after this returns."""
         if self._quorum_future is None:
             raise RuntimeError("must call start_quorum before wait_quorum")
-        self._quorum_future.result()
+        if self._quorum_future.done():
+            self._quorum_future.result()
+            return
+        # step anatomy: the time the main thread blocked on the quorum (the
+        # RPC itself overlaps compute under async quorum; only the tail the
+        # trainer waits out is the step's cost)
+        t0 = time.perf_counter()
+        try:
+            self._quorum_future.result()
+        finally:
+            telemetry.LEDGER.record("quorum_wait", time.perf_counter() - t0)
 
     def _reported_step(self, pending: Optional[_PendingCommit]) -> int:
         """The step this group reports to the quorum. While a pipelined vote
@@ -459,25 +532,30 @@ class Manager:
     ) -> Tuple[Any, int]:
         """One quorum RPC and its application; returns the quorum and the
         step this group reported in it."""
+        t_quorum = time.perf_counter()
         step = self._reported_step(pending)
-        quorum = self._client._quorum(
-            rank=self._rank,
-            step=step,
-            checkpoint_metadata=self._checkpoint_transport.metadata(),
-            shrink_only=shrink_only,
-            timeout=quorum_timeout,
-            # latched data-plane errors request a flush: quorum_id bumps so
-            # every group (healthy ones too) re-rendezvouses
-            commit_failures=self._commit_failures,
-        )
-        self._apply_quorum(quorum, allow_heal, stream)
+        with telemetry.TRACER.span("quorum", trace_id=self._trace_id(), rank=self._rank) as span:
+            quorum = self._client._quorum(
+                rank=self._rank,
+                step=step,
+                checkpoint_metadata=self._checkpoint_transport.metadata(),
+                shrink_only=shrink_only,
+                timeout=quorum_timeout,
+                # latched data-plane errors request a flush: quorum_id bumps
+                # so every group (healthy ones too) re-rendezvouses
+                commit_failures=self._commit_failures,
+            )
+            span.set(quorum_id=quorum.quorum_id, heal=quorum.heal)
+        self._apply_quorum(quorum, allow_heal, stream, t_quorum)
         return quorum, step
 
     def _apply_quorum(
-        self, quorum, allow_heal: bool, stream: Optional["torch.cuda.Stream"] = None
+        self, quorum, allow_heal: bool, stream: Optional["torch.cuda.Stream"] = None,
+        t_quorum: Optional[float] = None,
     ) -> None:
         """The quorum thread's use of a delivered quorum: the participant
-        ranks, the plane's reconfiguration on a new epoch, and the heal."""
+        ranks, the plane's reconfiguration on a new epoch, and the heal.
+        ``t_quorum``: when its RPC started (the trail's duration)."""
         # async quorum overlaps the forward pass, so a healing replica can't
         # contribute this step (its state is in flight): the max-step cohort
         # participates. Sync quorum heals first, so every group does.
@@ -489,8 +567,24 @@ class Manager:
         # if ANY local rank of this group heals, every rank contributes zeros
         self._group_healing = allow_heal and quorum.group_heal
         with self._evict_lock:
+            prev_participants = self._participant_ids
             self._participant_ids = quorum.participant_ids
             self._evicted.clear()
+
+        telemetry.PARTICIPANTS.set(self._participating_world_size)
+        # before the first quorum there is no membership: joining is not churn
+        if prev_participants and set(quorum.participant_ids) != set(prev_participants):
+            telemetry.MEMBERSHIP_CHANGES.inc()
+        telemetry.emit(
+            "quorum_ready",
+            quorum_id=quorum.quorum_id,
+            step=self._step_label,
+            participants=list(quorum.participant_ids),
+            num_participants=self._participating_world_size,
+            heal=quorum.heal,
+            reconfigure=quorum.quorum_id != self._quorum_id,
+            duration_s=round(time.perf_counter() - t_quorum, 4) if t_quorum is not None else 0.0,
+        )
 
         if quorum.quorum_id != self._quorum_id:
             store_prefixed_addr = (
@@ -511,6 +605,9 @@ class Manager:
                     list(quorum.participant_ids),
                 )
             self._quorum_id = quorum.quorum_id
+            telemetry.TRACER.set_context(quorum_epoch=quorum.quorum_id)
+            telemetry.QUORUM_RECONFIGURES.inc()
+            self.step_timer.mark_quorum()
             self._commit_failures = 0  # the flush request has been honored
             if self._rank == 0:
                 self._sweep_stale_epochs(quorum.quorum_id)
@@ -561,14 +658,21 @@ class Manager:
                 f"peers need recovery from us {quorum.recover_dst_ranks}"
                 + (" (stripe source)" if stage_for_stripes else "")
             )
-            self._checkpoint_transport.send_checkpoint(
-                dst_ranks=quorum.recover_dst_ranks,
-                step=quorum.max_step,
-                state_dict=self._manager_state_dict(),
-                timeout=self._timeout,
-            )
+            with telemetry.TRACER.span("heal_send", trace_id=self._trace_id(),
+                                       dst_ranks=list(quorum.recover_dst_ranks),
+                                       step=quorum.max_step):
+                self._checkpoint_transport.send_checkpoint(
+                    dst_ranks=quorum.recover_dst_ranks,
+                    step=quorum.max_step,
+                    state_dict=self._manager_state_dict(),
+                    timeout=self._timeout,
+                )
+            telemetry.HEALS_TOTAL.labels(role="send").inc(len(quorum.recover_dst_ranks))
         if quorum.heal:
             self._healing = True
+            t_heal = time.perf_counter()
+            telemetry.emit("heal_begin", step=quorum.max_step,
+                           src=quorum.recover_src_manager_address)
             self._logger.info(
                 f"healing: fetching checkpoint metadata from "
                 f"{quorum.recover_src_manager_address} at step {quorum.max_step}"
@@ -582,22 +686,25 @@ class Manager:
                     raise ConnectionError("no heal source answered the checkpoint-metadata RPC")
                 multi = getattr(self._checkpoint_transport, "recv_checkpoint_multi", None)
                 # the user state is applied on the main thread; stage it here
-                if multi is not None:
-                    own = self._heal_own_digest()
-                    state = multi(
-                        [m for _, m in sources],
-                        step=quorum.max_step,
-                        timeout=self._timeout,
-                        since_step=self._step if own is not None else None,
-                        own=own,
-                    )
-                else:
-                    state = self._checkpoint_transport.recv_checkpoint(
-                        src_rank=quorum.recover_src_rank,
-                        metadata=sources[0][1],
-                        step=quorum.max_step,
-                        timeout=self._timeout,
-                    )
+                with telemetry.TRACER.span("heal_recv", trace_id=self._trace_id(),
+                                           src=quorum.recover_src_manager_address,
+                                           sources=len(sources), step=quorum.max_step):
+                    if multi is not None:
+                        own = self._heal_own_digest()
+                        state = multi(
+                            [m for _, m in sources],
+                            step=quorum.max_step,
+                            timeout=self._timeout,
+                            since_step=self._step if own is not None else None,
+                            own=own,
+                        )
+                    else:
+                        state = self._checkpoint_transport.recv_checkpoint(
+                            src_rank=quorum.recover_src_rank,
+                            metadata=sources[0][1],
+                            step=quorum.max_step,
+                            timeout=self._timeout,
+                        )
                 self._pending_state_dict = cast(Dict[str, object], state)
             except Exception as e:  # noqa: BLE001 — a heal must be retryable
                 # the quorum and plane are fine, only the state fetch failed:
@@ -606,6 +713,7 @@ class Manager:
                 self._healing = False
                 self._pending_state_dict = None
                 self._logger.exception(f"heal transfer failed; retrying next quorum: {e}")
+                telemetry.emit("heal_failed", step=quorum.max_step, error=str(e))
                 self.report_error(e)
                 return
             stats = getattr(self._checkpoint_transport, "last_heal_stats", None)
@@ -616,6 +724,17 @@ class Manager:
                 )
             self.load_state_dict(cast(Dict[str, int], self._pending_state_dict["torchft"]))
             self._step = max(self._step, quorum.max_step)
+            heal_s = time.perf_counter() - t_heal
+            nbytes = getattr(self._checkpoint_transport, "last_recv_bytes", 0)
+            if not isinstance(nbytes, int):  # a transport that does not count
+                nbytes = 0
+            telemetry.HEALS_TOTAL.labels(role="recv").inc()
+            telemetry.HEAL_DURATION.observe(heal_s)
+            self.step_timer.mark_heal()
+            telemetry.emit(
+                "heal_end", step=quorum.max_step, bytes=nbytes, duration_s=round(heal_s, 4),
+                **({"heal_stats": stats} if isinstance(stats, dict) and stats else {}),
+            )
 
     def _heal_sources(self, quorum) -> List[Tuple[str, str]]:
         """The striped heal's sources: the lighthouse-named primary first,
@@ -710,7 +829,14 @@ class Manager:
         if self._pending_state_dict is None or self._load_state_dict is None:
             raise RuntimeError("healing without a staged checkpoint or load_state_dict")
         self._logger.info("applying pending state dict")
+        t0 = time.perf_counter()
         self._load_state_dict(cast(T, self._pending_state_dict["user"]))
+        dur = time.perf_counter() - t0
+        # step anatomy's `heal`: the main thread's share of a heal (the
+        # apply; the transfer rides the quorum thread and shows as
+        # quorum_wait), also the heal-stage view's `device_put`
+        telemetry.LEDGER.record("heal", dur)
+        telemetry.LEDGER.record_heal_stage("device_put", dur)
         self._pending_state_dict = None
 
     # ------------------------------------------------------------------
@@ -913,6 +1039,10 @@ class Manager:
                 # watch race here for the same victim
                 return
             self._evicted.add(victim)
+        # the trail's record of the death lives here, where the death
+        # watch and a failed op naming the peer converge on one dedup point
+        telemetry.PEER_DEATHS.inc()
+        telemetry.emit("peer_death", ring_rank=peer, replica=victim, step=self._step)
         threading.Thread(
             target=self._report_eviction, args=(victim,), daemon=True, name="tft_evict"
         ).start()
@@ -930,8 +1060,11 @@ class Manager:
             finally:
                 client.close()
         except Exception as ex:  # noqa: BLE001 — best effort
+            telemetry.EVICTIONS_REPORTED.labels(result="failed").inc()
             self._logger.warn(f"evict report for {victim} failed: {ex}")
             return None
+        telemetry.EVICTIONS_REPORTED.labels(result="evicted" if evicted else "rejected").inc()
+        telemetry.emit("eviction", victim=victim, evicted=evicted)
         self._logger.info(f"reported dead peer {victim}: evicted={evicted}")
         return evicted
 
@@ -1010,6 +1143,7 @@ class Manager:
         """The pre-vote half of the commit barrier: drain the step's pending
         work, land a staged heal, and record what the post-vote accounting
         needs."""
+        t0 = time.perf_counter()
         for work in self._pending_work:
             if self._errored is not None:
                 break
@@ -1039,12 +1173,18 @@ class Manager:
             # the data plane is suspect: request a flush so the next quorum
             # moves every group to a fresh rendezvous epoch
             self._commit_failures += 1
+        rec.prepare_s = time.perf_counter() - t0
         return rec
 
     def _finish_commit(
-        self, rec: _PendingCommit, should_commit: bool, disallow: bool = True
+        self, rec: _PendingCommit, should_commit: bool, barrier_s: float,
+        disallow: bool = True,
     ) -> None:
-        """The post-vote half (main thread only): the step counters."""
+        """The post-vote half (main thread only): the step counters, the
+        trail's commit or abort, the step timer and the anatomy row.
+        ``barrier_s``: what the commit cost the main thread."""
+        self._watchdog.disarm()
+        telemetry.COMMIT_BARRIER.observe(barrier_s)
         self._logger.info(
             f"should_commit={should_commit} enough_replicas={rec.enough_replicas} "
             f"mixed_epochs={rec.mixed_epochs} errored={rec.errored}"
@@ -1053,9 +1193,29 @@ class Manager:
             # close the checkpoint-serving window: after the commit the
             # staged state is stale
             self._checkpoint_transport.disallow_checkpoint()
+        # the trail names the step that ran (before the increment), so every
+        # record of one step joins on one value
         if should_commit:
+            telemetry.COMMITS_TOTAL.labels(outcome="committed").inc()
+            telemetry.emit("commit", step=rec.step, participants=rec.n_step)
             self._step += 1
             self._batches_committed += rec.n_step
+            telemetry.CURRENT_STEP.set(self._step)
+        else:
+            telemetry.COMMITS_TOTAL.labels(outcome="aborted").inc()
+            telemetry.emit("abort", step=rec.step, enough_replicas=rec.enough_replicas,
+                           mixed_epochs=rec.mixed_epochs,
+                           errored=str(rec.errored) if rec.errored else None)
+        # quorum and heal steps are tagged outliers: an FT event's cost is
+        # read from the trail instead of denting the rolling rate
+        dur = self.step_timer.tick()
+        if dur is not None and self.step_timer.last_tags:
+            telemetry.emit("step_outlier", step=rec.step, duration_s=round(dur, 4),
+                           tags=list(self.step_timer.last_tags), committed=should_commit)
+        # the barrier joins this step's anatomy row; then the row is closed
+        # (idle is the wall clock's residual)
+        telemetry.LEDGER.record("commit_barrier", barrier_s)
+        telemetry.LEDGER.tick(step=rec.step)
 
     def should_commit(self, timeout: Optional[timedelta] = None) -> bool:
         """Per-step commit barrier: True iff every rank in the quorum had a
@@ -1066,11 +1226,15 @@ class Manager:
             # a stray vote of the previous step (a caller mixing pipelined
             # and sync paths, e.g. a LocalSGD sync): resolve it first
             self.resolve_pending_commit()
+        t_commit = time.perf_counter()
         rec = self._prepare_commit()
-        should_commit = self._client.should_commit(
-            self._rank, rec.step, rec.local_vote, timeout=timeout or self._timeout
-        )
-        self._finish_commit(rec, should_commit)
+        with telemetry.TRACER.span("should_commit", trace_id=self._trace_id(),
+                                   vote=rec.local_vote) as span:
+            should_commit = self._client.should_commit(
+                self._rank, rec.step, rec.local_vote, timeout=timeout or self._timeout
+            )
+            span.set(decision=should_commit)
+        self._finish_commit(rec, should_commit, time.perf_counter() - t_commit)
         return should_commit
 
     def should_commit_async(
@@ -1109,36 +1273,50 @@ class Manager:
             )
         client = self._commit_client
         vote_timeout = timeout or self._timeout
-        rec.future = run_in_executor(
-            self._commit_executor,
-            lambda: client.should_commit(
-                self._rank, rec.step, rec.local_vote, timeout=vote_timeout
-            ),
-        )
+        trace_id = self._trace_id()
+
+        def vote() -> bool:
+            with telemetry.TRACER.span("should_commit", trace_id=trace_id, vote=rec.local_vote,
+                                       pipelined=True) as span:
+                decision = client.should_commit(self._rank, rec.step, rec.local_vote,
+                                                timeout=vote_timeout)
+                span.set(decision=decision)
+            return decision
+
+        rec.future = run_in_executor(self._commit_executor, vote)
         # publish under the fence lock: the quorum thread reads it to decide
         # whether heal traffic must wait
         with self._spec_cond:
             self._pending_commit = rec
         return rec.future
 
-    def resolve_pending_commit(self) -> Optional[bool]:
+    def resolve_pending_commit(self, rearm: bool = True) -> Optional[bool]:
         """Resolve the in-flight pipelined vote (main thread only): wait
         for it, count the step, run ``on_resolved`` (which restores the
         snapshot on a veto) and lift the speculation fence. Returns the
         decision, or None when no vote was outstanding. If the vote RPC
         fails, the snapshot is restored (the step counts as not applied, as
         in the sync path, where the error comes before the update) and the
-        error is raised."""
+        error is raised.
+
+        ``rearm`` re-arms the step watchdog for the step in flight (the
+        vote's accounting disarmed it); pass False after the last step,
+        when no step runs and a re-armed watchdog would fire on an idle
+        process."""
         rec = self._pending_commit
         if rec is None:
             return None
+        t0 = time.perf_counter()
         try:
             decision = rec.future.wait()
         except BaseException as e:  # noqa: BLE001 — restore, then re-raise
             self._rollback(rec, error=e)
             self._lift_fence()
             raise
-        self._finish_commit(rec, decision, disallow=False)
+        # the commit's cost to the main thread: the drain at issue and the
+        # wait here, near zero when the next step's compute hid the RPC
+        self._finish_commit(rec, decision, rec.prepare_s + time.perf_counter() - t0,
+                            disallow=False)
         if not decision:
             self._rollback(rec)
         elif rec.on_resolved is not None:
@@ -1147,6 +1325,8 @@ class Manager:
             except Exception:  # noqa: BLE001
                 self._logger.exception("on_resolved callback failed")
         self._lift_fence()
+        if rearm:
+            self._watchdog.arm(self._step_label)
         return decision
 
     def _lift_fence(self) -> None:
@@ -1156,6 +1336,9 @@ class Manager:
 
     def _rollback(self, rec: _PendingCommit, error: Optional[BaseException] = None) -> None:
         """Run the caller's snapshot restore for a vetoed (or lost) vote."""
+        telemetry.COMMIT_PIPELINE_ROLLBACKS.inc()
+        telemetry.emit("commit_rollback", step=rec.step,
+                       errored=str(error) if error is not None else None)
         why = "vetoed" if error is None else f"lost ({error})"
         self._logger.warn(
             f"pipelined commit {why} at step {rec.step}; rolling back the "

@@ -245,7 +245,8 @@ class SpeculativeCommitMixin:
         was outstanding."""
         if self._manager.pending_commit() is None:
             return None
-        return self._manager.resolve_pending_commit()
+        # no step follows: the watchdog stays disarmed
+        return self._manager.resolve_pending_commit(rearm=False)
 
 
 class ManagedOptimizer(SpeculativeCommitMixin):

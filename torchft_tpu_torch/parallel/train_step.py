@@ -14,18 +14,26 @@ On a CUDA device each half runs as a captured CUDA graph
 static gradient tensors, and ``apply`` copies the (averaged) gradients into
 static ``.grad`` tensors and replays a captured AdamW step. ``graph=False``
 keeps the eager step; on the CPU the step is always eager.
+
+Both halves record their main-thread host time as the step-anatomy
+``compute`` phase. The record wraps the replay (or the eager call), never
+the captured function: a Python call inside a capture runs once, at the
+capture, and never on replay. A replay returns once its work is enqueued,
+so the device's tail lands in whichever phase blocks on it next.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from torchft_tpu_torch.models.transformer import TransformerConfig, init_params, loss_fn
 from torchft_tpu_torch.ops import flash_attention as fa
+from torchft_tpu_torch.telemetry.anatomy import LEDGER
 from torchft_tpu_torch.utils.platform import resolve_device
 from torchft_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
 
@@ -189,22 +197,30 @@ class GraphedStep:
         """``fn(*inputs)``, a tuple led by the loss, eagerly or from a graph
         (``StepGraphs.run``); a graph's loss is cloned, its other outputs
         are its static tensors."""
-        if self.graphs is None:
-            return fn(*(x.to(self.device) for x in inputs))
-        loss, *rest = self.graphs.run(fn, reads, inputs)
-        return (loss.clone(), *rest)
+        t0 = time.perf_counter()
+        try:
+            if self.graphs is None:
+                return fn(*(x.to(self.device) for x in inputs))
+            loss, *rest = self.graphs.run(fn, reads, inputs)
+            return (loss.clone(), *rest)
+        finally:
+            LEDGER.record("compute", time.perf_counter() - t0)
 
     def apply(self, params: Any, opt: torch.optim.Optimizer, grads: Any) -> Tuple[Any, Any]:
         """Apply (possibly cross-group averaged) gradients in place."""
-        leaves = tree_leaves(params)
-        if self.graphs is not None:
-            self.graphs.step(opt, leaves, tree_leaves(grads))
+        t0 = time.perf_counter()
+        try:
+            leaves = tree_leaves(params)
+            if self.graphs is not None:
+                self.graphs.step(opt, leaves, tree_leaves(grads))
+                return params, opt
+            for p, g in zip(leaves, tree_leaves(grads)):
+                p.grad = g
+            opt.step()
+            opt.zero_grad(set_to_none=True)
             return params, opt
-        for p, g in zip(leaves, tree_leaves(grads)):
-            p.grad = g
-        opt.step()
-        opt.zero_grad(set_to_none=True)
-        return params, opt
+        finally:
+            LEDGER.record("compute", time.perf_counter() - t0)
 
 
 class TrainStep(GraphedStep):
