@@ -169,9 +169,34 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    without the sinks. Then a worker process (``chip_smoke.py
    --watchdog-probe``) with ``TORCHFT_WATCHDOG_MIN_S`` at 0.5 s holds a
    step 2 s: the watchdog fires on it (a ``watchdog_stall`` event, a
-   flight dump) and is disarmed at its vote.
+   flight dump) and is disarmed at its vote; its stall push puts ``stuck``
+   on the probe lighthouse's ``/cluster.json`` while the step is held
+   (phase 17's check), and the next report takes it off.
+17. the fleet plane (``benchmarks.recovery.run_fleet``): three headline
+   worker processes (the recovery harness's, graphed, no kill) on
+   CollectivesTcp's default plane with one lighthouse here, 40 steps;
+   group 2 sleeps three of its steady steps in its local time each step
+   from step 10; group 0 hosts the straggler monitor and the history
+   thread (regression sentinel, critical path) polling every 0.25 s; the
+   step SLO lies between the steady and the slowed step. Read while the
+   workers linger after their last step (``recovery.fleet_checks``): one
+   sha256, one capture of each graph and 16/8/8 launches a step in every
+   worker; ``/cluster.json`` lists the three at their last step with
+   summary and anatomy; the lighthouse applied every delta blob with one
+   full blob a chain and no resync; ``/fleet.json`` folds three groups
+   with wall p50/p99; ``/timeseries.json`` holds each one's wall series;
+   group 0's ``/metrics`` shows the straggler and regression latches on
+   group 2 alone; its ``/critical_path.json`` blames group 2 and the
+   series' attribution names it the gating replica of most steps after
+   the onset; group 2's ``slo_breach`` is true; the merged ``/trace`` has
+   a lane per replica with ``quorum_rpc`` spans. Prints each worker's
+   piggyback bytes (the full blob, the steady deltas, the full-JSON
+   payload of its last report) and the ``telemetry`` phase's p50/p99.
+   Then ``benchmarks.quorum_scale`` at 8, 32 and 64 groups (the delta
+   leg's steady bytes below the full-JSON leg's at every N) and
+   ``benchmarks.telemetry_overhead``, one pair (printed).
 
-Phases 4-16 replay each train step from CUDA graphs (phase 4's and phase
+Phases 4-17 replay each train step from CUDA graphs (phase 4's and phase
 9's eager arms aside); every group's graphs are captured once, so a heal
 or a rollback that swapped a captured tensor would show as a recapture.
 
@@ -2824,16 +2849,36 @@ def _watchdog_probe(tmp):
         tokens = make_tokens(cfg, 0, HEADLINE["batch"], HEADLINE["seq"])
         start_quorum = manager.start_quorum
 
+        def watch_stuck():
+            # the lighthouse's view of this replica while its step is held:
+            # the stall push's heartbeat carries stuck: true
+            from torchft_tpu_torch.telemetry.native import poll_cluster
+
+            end = time.monotonic() + WATCHDOG_HOLD_S - 0.1
+            while time.monotonic() < end:
+                rec = ((poll_cluster(lighthouse.address()) or {}).get("replicas") or {}).get(
+                    manager._replica_id, {})
+                held.setdefault("stuck_seen", []).append(
+                    [round(time.time() - held["t0"], 3), rec.get("stuck"), rec.get("step")])
+                time.sleep(0.1)
+
         def held_quorum(*args, **kwargs):
             start_quorum(*args, **kwargs)
             if manager.current_step() == 3:
                 held["t0"] = time.time()
+                watcher = threading.Thread(target=watch_stuck, name="stuck_watch")
+                watcher.start()
                 time.sleep(WATCHDOG_HOLD_S)
+                watcher.join()
 
         manager.start_quorum = held_quorum
         for _ in range(5):
             trainer.step(tokens)
         torch.cuda.synchronize()
+        from torchft_tpu_torch.telemetry.native import poll_cluster
+
+        # after the vote the quorum's report carries stuck: false again
+        after = poll_cluster(lighthouse.address())["replicas"][manager._replica_id]
         stalls = telemetry.EVENTS.recent("watchdog_stall")
         dumps = []
         for path in sorted(glob.glob(os.path.join(tmp, "tft_flight_*.json"))):
@@ -2842,6 +2887,8 @@ def _watchdog_probe(tmp):
             dumps.append({"reason": d["reason"], "ts": d["ts"], "entries": len(d["entries"])})
         print(json.dumps({"stalls": stalls, "dumps": dumps, "held_t0": held["t0"],
                           "stalled_after": manager._watchdog.stalled,
+                          "stuck_seen": held.get("stuck_seen", []),
+                          "cluster_after": {"stuck": after.get("stuck"), "step": after.get("step")},
                           "trail": [r["event"] for r in telemetry.read_trail(
                               os.path.join(tmp, "trail.jsonl"))]}), flush=True)
     finally:
@@ -2901,7 +2948,130 @@ def phase_observability():
           and after[0]["entries"] > 0 and not probe["stalled_after"]
           and "watchdog_stall" in probe["trail"] and "flight_dump" in probe["trail"],
           f"observability: the watchdog did not fire on the held step: {probe}")
+    # phase 17's stall push: while the step is held, the lighthouse's
+    # /cluster.json shows the replica stuck at step 3; after the vote, not
+    stuck = [seen for seen in probe["stuck_seen"] if seen[1] is True and seen[2] == 3]
+    log(f"fleet plane, stall push: /cluster.json during the held step [s into the hold, stuck, "
+        f"step] {probe['stuck_seen']}; after the vote {probe['cluster_after']}")
+    check(stuck and probe["cluster_after"]["stuck"] is False,
+          f"fleet plane: the held step never showed stuck in /cluster.json: {probe}")
     log(f"observability: phase wall {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the fleet plane
+# ---------------------------------------------------------------------------
+
+FLEET_GROUPS, FLEET_STEPS = 3, 40
+FLEET_SLOW_GROUP, FLEET_SLOW_FROM, FLEET_SLOW_STEPS = 2, 10, 3.0
+# between the steady joint step of three headline workers and the slowed
+# one (about four steady steps)
+FLEET_SLO_STEP_S = 0.6
+FLEET_POLL_S = 0.25  # group 0's monitors' periods (the default is 2 s)
+QUORUM_SCALE_GROUPS = "8,32,64"
+
+
+def phase_fleet():
+    """Three headline workers (``benchmarks.recovery.run_fleet``: the
+    recovery harness's workers, no kill) on CollectivesTcp's default plane
+    with one lighthouse here, graphed, FLEET_STEPS steps; group 2 sleeps
+    FLEET_SLOW_STEPS of its steady steps in its local time each step from
+    step FLEET_SLOW_FROM; group 0 hosts the straggler monitor and the
+    history thread (regression sentinel, critical path) at FLEET_POLL_S;
+    every group's step SLO is FLEET_SLO_STEP_S. Read while the workers
+    linger after their last step, and held (``recovery.fleet_checks``):
+    one sha256, one capture of each graph and 16/8/8 launches a step in
+    every worker; /cluster.json, /fleet.json, /timeseries.json and the
+    merged /trace; the delta chains without a resync; the straggler and
+    regression latches and the critical path on group 2 alone; group 2's
+    SLO breach. Prints the piggyback's bytes per step per worker and the
+    ``telemetry`` phase's p50/p99. Then ``benchmarks.quorum_scale`` at N
+    in QUORUM_SCALE_GROUPS (held: the delta leg's steady bytes below the
+    full-JSON leg's at every N) and ``benchmarks.telemetry_overhead``, one
+    pair of 2 + 10 steps (printed). Returns the workers' flash launches."""
+    from torchft_tpu_torch import bench
+    from torchft_tpu_torch.benchmarks.recovery import fleet_checks, run_fleet
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the workers need the card's memory
+    t0 = time.perf_counter()
+    monitors = {"TORCHFT_STRAGGLER_MONITOR": "1", "TORCHFT_REGRESSION_MONITOR": "1",
+                "TORCHFT_STRAGGLER_POLL_S": str(FLEET_POLL_S),
+                "TORCHFT_REGRESSION_POLL_S": str(FLEET_POLL_S)}
+    saved = os.environ.get("DEVICE")
+    os.environ["DEVICE"] = "cuda"
+    try:
+        r = run_fleet(num_groups=FLEET_GROUPS, total_steps=FLEET_STEPS,
+                      slow_group=FLEET_SLOW_GROUP, slow_from=FLEET_SLOW_FROM,
+                      slow_steps=FLEET_SLOW_STEPS, op_timeout=RECOVERY_OP_TIMEOUT,
+                      timeout_s=600.0, env_extra={"TORCHFT_SLO_STEP_S": str(FLEET_SLO_STEP_S)},
+                      group_env={0: monitors})
+    finally:
+        if saved is None:
+            os.environ.pop("DEVICE")
+        else:
+            os.environ["DEVICE"] = saved
+    log(f"fleet plane: {FLEET_GROUPS} headline workers, {FLEET_STEPS} steps, group "
+        f"{FLEET_SLOW_GROUP} slowed from step {FLEET_SLOW_FROM}: {r['slowed']}; "
+        f"TORCHFT_SLO_STEP_S {FLEET_SLO_STEP_S}; {time.perf_counter() - t0:.1f} s")
+    ids = r["replica_ids"]
+    for g, commits in r["commits"].items():
+        gaps = sorted(b["t"] - a["t"] for a, b in zip(commits, commits[1:]))
+        before = sorted(b["t"] - a["t"] for a, b in zip(commits, commits[1:])
+                        if 3 <= a["step"] < FLEET_SLOW_FROM)
+        log(f"fleet plane group{g}: step interval median before the onset "
+            f"{statistics.median(before) * 1e3 if before else float('nan'):.3f} ms, over the "
+            f"run {statistics.median(gaps) * 1e3:.3f} ms")
+    for g, rid in ids.items():
+        f = r["finals"][g]
+        tel = f["telemetry"]
+        blobs = tel["blobs"]
+        steady = sorted(blobs[5:]) or [0]
+        row = r["cluster"]["replicas"].get(rid, {})
+        phase = (row.get("anatomy") or {}).get("phases", {}).get("telemetry", {})
+        log(f"fleet plane group{g}: piggyback bytes per step: first blob (full) {blobs[0]}, "
+            f"steady deltas (blobs 6 on) median {steady[len(steady) // 2]} max {steady[-1]} over "
+            f"{len(blobs)} blobs ({tel['fulls']} full); the last report as one full blob "
+            f"{tel['full_blob_now']}, as the full-JSON payload {tel['json_payload_now']} (spans "
+            f"apart); telemetry phase p50 {phase.get('p50_s', 0.0) * 1e3:.3f} ms, p99 "
+            f"{phase.get('p99_s', 0.0) * 1e3:.3f} ms; /cluster.json step {row.get('step')}, "
+            f"slo_breach {row.get('slo_breach')}, local_step_p50_s {row.get('local_step_p50_s')}")
+        log(f"fleet plane group{g}: params+AdamW sha256={f['digest']} graphs captured "
+            f"{f['captures']}, flash launches per step {f['launches_per_step']}")
+    log(f"fleet plane: /fleet.json {json.dumps({k: v for k, v in r['fleet'].items() if k != 'hist'})}"
+        f"; wall {r['fleet'].get('hist', {}).get('wall')}")
+    log(f"fleet plane: group 0's /critical_path.json {json.dumps(r['critical_path'][0])[:1500]}")
+    for name, held, detail in fleet_checks(r, FLEET_SLOW_GROUP, FLEET_SLOW_FROM, FLEET_STEPS):
+        log(f"fleet plane, {name}: {'held' if held else 'FAILED'}; {detail[:1500]}")
+        check(held, f"fleet plane: {name}: {detail}")
+    expect = _launches_per_step(headline_config())
+    for g, f in r["finals"].items():
+        check(f["captures"] == {"grads": 1, "apply": 1} and f["launches_per_step"] == [expect],
+              f"fleet plane: group {g} captured {f['captures']}, launched "
+              f"{f['launches_per_step']} a step (expected {expect})")
+
+    t1 = time.perf_counter()
+    qs = bench._run_json_subprocess(bench._module("quorum_scale", "--groups",
+                                                  QUORUM_SCALE_GROUPS), 600)["quorum_scale"]
+    for n in QUORUM_SCALE_GROUPS.split(","):
+        row = qs[f"groups_{n}"]
+        log(f"quorum_scale groups {n}: {json.dumps(row)}")
+        tel = row.get("telemetry", {})
+        check("error" not in row and row["errors"] == 0 and "error" not in tel
+              and tel["delta_bytes_per_step_per_replica"] < tel["full_bytes_per_step_per_replica"],
+              f"quorum_scale groups {n}: {row}")
+    log(f"quorum_scale: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    ov = bench._run_json_subprocess(bench._module(
+        "telemetry_overhead", "--runs", "1", "--steps", "10", "--warmup", "2"), 600,
+        env_extra={"DEVICE": "cuda"})["telemetry_overhead"]
+    log(f"telemetry_overhead: {json.dumps(ov)}; {time.perf_counter() - t1:.1f} s (one pair: "
+        f"printed, not held)")
+    check(ov["steps_per_sec"] > 0 and ov["steps_per_sec_disarmed"] > 0 and ov["piggyback_bytes"] > 0,
+          f"telemetry_overhead: {ov}")
+    log(f"fleet plane: phase wall {time.perf_counter() - t0:.1f} s")
+    return {n: sum(f["launches"][n] for f in r["finals"].values())
+            for n in r["finals"][0]["launches"]}
 
 
 def main() -> None:
@@ -2968,6 +3138,7 @@ def main() -> None:
     long_rows = phase_bench(tcp_groups["joint_ms"])
     heal_launches = phase_heal_plane(tcp_groups["joint_ms"])
     phase_observability()
+    fleet_launches = phase_fleet()
 
     kernels = []
     for d in (64, 128, 32):
@@ -2992,6 +3163,8 @@ def main() -> None:
                 kernels[-1]["launches_wire_plane"] = wire_launches[name]
                 # phase 15: the 1-of-3 kill's workers and the differential heals
                 kernels[-1]["launches_heal_plane"] = heal_launches[name]
+                # phase 17's three workers
+                kernels[-1]["launches_fleet_plane"] = fleet_launches[name]
     # head dim 64 at the long-context bench's lengths: launched by phase 14's
     # long_context rows
     for seq in (LONG_WHOLE["seq"], LONG["seq"]):

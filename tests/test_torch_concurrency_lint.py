@@ -39,6 +39,13 @@ RUNTIME = (
     "torchft_tpu_torch/telemetry/anatomy.py",
     "torchft_tpu_torch/telemetry/flight.py",
     "torchft_tpu_torch/telemetry/native.py",
+    "torchft_tpu_torch/telemetry/fleetdelta.py",
+    "torchft_tpu_torch/telemetry/slo.py",
+    "torchft_tpu_torch/telemetry/regression.py",
+    "torchft_tpu_torch/telemetry/critical_path.py",
+    "torchft_tpu_torch/_native.py",
+    "torchft_tpu_torch/checkpointing/delta.py",
+    "torchft_tpu_torch/ops/flash_attention.py",
 )
 
 KEPT = [

@@ -12,8 +12,9 @@ joining late and healing over CollectivesTransport. A static check covers
 every module of the package (the examples, the lighthouse CLI, the bench
 and its harnesses and the wire codecs included) and ``chip_smoke.py``;
 neither may import the JAX package's root ``bench.py`` either. The
-telemetry modules (``telemetry/`` and ``profiling.py``) are held to the
-same: the Manager's step loads them, and the scan covers each.
+telemetry modules (``telemetry/`` and ``profiling.py``, the fleet plane's
+among them: each quorum's report is built and delta-encoded) are held to
+the same: the Manager's step loads them, and the scan covers each.
 """
 
 import ast
@@ -88,6 +89,10 @@ import torchft_tpu_torch.benchmarks.quorum_overlap
 import torchft_tpu_torch.benchmarks.commit_pipeline
 import torchft_tpu_torch.benchmarks.diloco
 import torchft_tpu_torch.checkpointing.bench
+import torchft_tpu_torch.benchmarks.quorum_scale
+import torchft_tpu_torch.benchmarks.telemetry_overhead
+import torchft_tpu_torch.telemetry.critical_path
+import torchft_tpu_torch.telemetry.regression
 from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
 srcs = [HTTPTransport(timeout=timedelta(seconds=20), hostname="localhost") for _ in range(3)]
 for t in srcs[:2]:
@@ -249,6 +254,13 @@ def test_no_forbidden_imports_in_sources():
             "torchft_tpu_torch/telemetry/anatomy.py",
             "torchft_tpu_torch/telemetry/flight.py",
             "torchft_tpu_torch/telemetry/native.py",
+            "torchft_tpu_torch/telemetry/fleetdelta.py",
+            "torchft_tpu_torch/telemetry/timeseries.py",
+            "torchft_tpu_torch/telemetry/slo.py",
+            "torchft_tpu_torch/telemetry/regression.py",
+            "torchft_tpu_torch/telemetry/critical_path.py",
+            "torchft_tpu_torch/benchmarks/quorum_scale.py",
+            "torchft_tpu_torch/benchmarks/telemetry_overhead.py",
             "torchft_tpu_torch/profiling.py"} <= scanned
     bad = []
     for path in _port_sources():

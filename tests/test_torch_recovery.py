@@ -60,6 +60,13 @@ def test_sigkill_and_rejoin(cpu):
                                 "deadline_aborts"}
     assert sorted(r.timeout_retries) == sorted(r.deadline_aborts) == [0, 1]
     assert sum(r.rejoin_parts_s.values()) == pytest.approx(r.rejoin_to_commit_s)
+    # every worker's trail (the victim's holds both incarnations) replayed
+    # through the JAX package's protocol checker: no finding
+    from torchft_tpu.analysis.protocol.conformance import check_trail_file
+
+    for path in r.log_paths:
+        rep = check_trail_file(path + ".trail")
+        assert rep.lifecycle_records > 0 and not rep.findings, rep.render()
 
 
 def test_kill_waits_for_a_late_group(cpu, monkeypatch):

@@ -208,7 +208,11 @@ def _run_groups(target, n=2, timeout=240):
     return results
 
 
-def _port_run(np_params):
+def _port_run(np_params, trails=None):
+    """The port's two threaded groups; with ``trails`` (a dict), each
+    group's trail records land in ``trails[gid]`` in emit order: the trail
+    is process-wide, so a record is charged to the group whose main or
+    quorum thread emitted it."""
     from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
     from torchft_tpu_torch.collectives import CollectivesTcp
     from torchft_tpu_torch.coordination import LighthouseServer
@@ -220,8 +224,20 @@ def _port_run(np_params):
 
     cfg = T.TransformerConfig(**BASE, dtype=torch.float32, attention_impl="flash")
     lighthouse = LighthouseServer(bind="[::]:0", min_replicas=2)
+    mains = {}
+
+    def charge(record):
+        me = threading.current_thread()
+        gid = mains.get(me.ident)
+        if gid is None and me.name.startswith("tft_g") and "_quorum" in me.name:
+            gid = int(me.name[len("tft_g"):].split("_")[0])
+        trails.setdefault(gid, []).append(record)
+
+    if trails is not None:
+        P.EVENTS.subscribe(charge)
 
     def group(gid):
+        mains[threading.current_thread().ident] = gid
         store = StoreServer()
         manager = Manager(
             collectives=CollectivesTcp(timeout=TIMEOUT, native_plane=True),
@@ -229,6 +245,9 @@ def _port_run(np_params):
             store_addr=store.address(), rank=0, world_size=1,
             lighthouse_addr=lighthouse.address(), timeout=TIMEOUT,
             checkpoint_transport=HTTPTransport(timeout=TIMEOUT, hostname="localhost"))
+        # the quorum thread's name says its group (it starts at the first
+        # start_quorum)
+        manager._executor._thread_name_prefix = f"tft_g{gid}_quorum"
         try:
             trainer = FTTrainer(manager, TrainStep(cfg, device="cpu"))
             trainer.init(params=T.params_from_jax(np_params, device="cpu"))
@@ -242,6 +261,8 @@ def _port_run(np_params):
     try:
         _run_groups(group)
     finally:
+        if trails is not None:
+            P.EVENTS.unsubscribe(charge)
         lighthouse.shutdown()
 
 
@@ -318,7 +339,8 @@ def test_two_group_heal_trail_and_spans_match_jax():
     _jax_run(np_params)
     ref = _records(J)
     P.reset()
-    _port_run(np_params)
+    trails = {}
+    _port_run(np_params, trails)
     got = _records(P)
     assert got[0] == ref[0]
     assert got[1] == ref[1]
@@ -333,3 +355,14 @@ def test_two_group_heal_trail_and_spans_match_jax():
     heal = P.TRACER.recent("heal_recv")[-1]
     assert any(s["trace_id"] == heal["trace_id"] and s["parent_id"] == heal["span_id"]
                for s in P.TRACER.recent("checkpoint_serve"))
+    # each group's trail replayed through the JAX package's protocol
+    # checker (epoch and step regressions, commits during a heal): clean
+    from torchft_tpu.analysis.protocol.conformance import check_records
+
+    for gid in (0, 1):
+        rep = check_records(trails[gid], source=f"g{gid}")
+        kinds = [r["event"] for r in trails[gid]]
+        assert kinds.count("commit") == STEPS and kinds.count("quorum_ready") >= STEPS, kinds
+        assert not rep.findings, rep.render()
+    assert not [r for r in trails.get(None, []) if r["event"] in (
+        "quorum_start", "quorum_ready", "heal_begin", "heal_end", "commit", "abort")]

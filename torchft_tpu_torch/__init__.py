@@ -6,6 +6,51 @@ whose attention runs on hand-written Hopper kernels. The layout mirrors
 ``torchft_tpu`` module for module; this package imports neither JAX nor
 ``torchft_tpu`` (it keeps its own copies of what it needs).
 
-Importing the package starts nothing: the native coordination core and
-the CUDA kernels are built at first use.
+The public names are the JAX package's (``torchft_tpu/__init__.py``): the
+Manager, the sampler and the host collectives load with the package, the
+heavier wrappers at first access. Not exported until their modules are
+ported (ROADMAP): ``WorldSizeMode``, ``CollectivesProxy``,
+``CollectivesDeviceDist`` and ``ParameterServer``.
+
+Importing the package starts nothing: no thread runs, and the native
+coordination core and the CUDA kernels are built at first use.
 """
+
+from torchft_tpu_torch.collectives import (  # noqa: E402
+    Collectives,
+    CollectivesDummy,
+    CollectivesTcp,
+    ErrorSwallowingCollectives,
+    ManagedCollectives,
+)
+from torchft_tpu_torch.data import DistributedSampler  # noqa: E402
+from torchft_tpu_torch.manager import Manager  # noqa: E402
+
+__all__ = [
+    "Manager",
+    "DistributedSampler",
+    "Collectives",
+    "CollectivesTcp",
+    "CollectivesDevice",
+    "CollectivesDummy",
+    "ErrorSwallowingCollectives",
+    "ManagedCollectives",
+]
+
+_LAZY = {
+    "ManagedOptimizer": "torchft_tpu_torch.optim",
+    "LocalSGD": "torchft_tpu_torch.local_sgd",
+    "DiLoCo": "torchft_tpu_torch.local_sgd",
+    "CollectivesDevice": "torchft_tpu_torch.collectives_device",
+    "FTTrainer": "torchft_tpu_torch.parallel.ft",
+}
+
+
+def __getattr__(name):
+    import importlib
+
+    if name == "telemetry":
+        return importlib.import_module("torchft_tpu_torch.telemetry")
+    if name in _LAZY:
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module 'torchft_tpu_torch' has no attribute {name!r}")

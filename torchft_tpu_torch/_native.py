@@ -106,6 +106,13 @@ def _load() -> ctypes.CDLL:
         lib.tft_lathist_snapshot.restype = c.c_int64
         lib.tft_lathist_reset.argtypes = []
         lib.tft_lathist_reset.restype = None
+        # the lighthouse's time-series store (native/tsdb.h)
+        lib.tft_tsdb_snapshot.argtypes = [
+            c.POINTER(u8p), c.POINTER(c.c_int64), c.c_char_p, c.c_int,
+        ]
+        lib.tft_tsdb_snapshot.restype = c.c_int64
+        lib.tft_tsdb_reset.argtypes = []
+        lib.tft_tsdb_reset.restype = None
         lib.tft_buf_free.restype = None
         lib.tft_lighthouse_create.argtypes = [
             c.c_char_p, c.c_uint64, c.c_uint64, c.c_uint64, c.c_uint64, c.c_uint64,
@@ -269,6 +276,30 @@ def lathist_snapshot() -> Dict[str, Dict[str, Any]]:
 def lathist_reset() -> None:
     """Zero every native latency histogram of this process."""
     _load().tft_lathist_reset()
+
+
+def tsdb_snapshot() -> Dict[str, Dict[str, Any]]:
+    """This process's time-series store (the in-process lighthouse's sample
+    rings, ``native/tsdb.h``) as ``{replica: {series: {"samples": [[epoch,
+    step, value], ...]}}}``, oldest first: what ``GET /timeseries.json``
+    serves."""
+    lib = _load()
+    outp = ctypes.POINTER(ctypes.c_uint8)()
+    outlen = ctypes.c_int64()
+    err = _errbuf()
+    code = lib.tft_tsdb_snapshot(ctypes.byref(outp), ctypes.byref(outlen), err, _ERRLEN)
+    if code != OK:
+        _raise_status(code, err.value.decode())
+    try:
+        out = ctypes.string_at(outp, outlen.value)
+    finally:
+        lib.tft_buf_free(outp)
+    return wire.decode(out)
+
+
+def tsdb_reset() -> None:
+    """Clear this process's time-series store (tests)."""
+    _load().tft_tsdb_reset()
 
 
 def _server_address(getter: Any, h: int) -> str:

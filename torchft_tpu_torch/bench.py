@@ -379,28 +379,34 @@ def main() -> None:
 
     # the measurement rows, each in a process of its own (bench.py:497-688);
     # the card-only rows as bench.py runs its TPU-only rows
+    # (key, command, timeout, the rows a worker that prints several owes)
     rows = []
     if on_card:
-        rows.append(("resnet18_cifar", _module("resnet_ft"), 900, False))
-        rows.append(("long_context", _module("long_context"), 1500, True))
+        rows.append(("resnet18_cifar", _module("resnet_ft"), 900, None))
+        # one row per length, and scale_647M
+        rows.append(("long_context", _module("long_context"), 1500, ROW_KEYS))
     rows += [
-        ("quorum_overlap", _module("quorum_overlap"), 900, False),
-        ("commit_pipeline", _module("commit_pipeline"), 900, False),
-        ("diloco_4group", _module("diloco"), 600, False),
+        ("quorum_overlap", _module("quorum_overlap"), 900, None),
+        # quorum fan-out and the telemetry legs against the group count, N
+        # in-process manager servers (bench.py:547-563); its own process,
+        # so its N-group latency histograms stay out of the anatomy row
+        ("quorum_scale", _module("quorum_scale"), 1200, ("quorum_scale",)),
+        ("commit_pipeline", _module("commit_pipeline"), 900, None),
+        ("diloco_4group", _module("diloco"), 600, None),
         ("crossgroup_host_plane", _module("crossgroup", "--total-mb", "128", "--rounds", "2",
-                                          "--device", device.type), 900, False),
+                                          "--device", device.type), 900, None),
         ("crossgroup_compressed", _module("crossgroup", "--compressed", "--total-mb", "128",
-                                          "--rounds", "2", "--device", device.type), 900, False),
+                                          "--rounds", "2", "--device", device.type), 900, None),
     ]
-    for key, cmd, timeout_s, merge in rows:
+    for key, cmd, timeout_s, owed in rows:
         try:
             out = _run_json_subprocess(cmd, timeout_s)
         except Exception as e:  # noqa: BLE001 — recorded; the run exits 1 below
             out = {"error": str(e)}
-            if merge:  # mark every row the worker owes
-                out = {k: out for k in ROW_KEYS}
-        if merge:
-            extra.update(out)  # one row per length, and scale_647M
+            if owed:  # mark every row the worker owes
+                out = {k: out for k in owed}
+        if owed:
+            extra.update(out)
         else:
             extra[key] = out
 

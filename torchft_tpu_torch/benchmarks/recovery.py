@@ -66,6 +66,12 @@ Reported (seconds, host wall clock):
   dump a ``SIGUSR2`` to the first survivor writes after its first commit
   past the kill (its last allreduces).
 
+:func:`run_fleet` runs the same workers with no kill, one of them slowed
+by a host sleep in its local time from a given step, and reads the
+fleet plane while they linger after their last step: the lighthouse's
+``/cluster.json``, ``/fleet.json``, ``/timeseries.json`` and ``/trace``,
+and each worker's ``/metrics`` and ``/critical_path.json``.
+
 Usage: ``python -m torchft_tpu_torch.benchmarks.recovery`` (the card) or
 ``DEVICE=cpu python -m torchft_tpu_torch.benchmarks.recovery``; prints
 the result as one JSON line.
@@ -82,9 +88,9 @@ import tempfile
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
-__all__ = ["measure_recovery", "RecoveryResult", "JOIN_TIMEOUT_MANY_MS"]
+__all__ = ["measure_recovery", "RecoveryResult", "run_fleet", "JOIN_TIMEOUT_MANY_MS"]
 
 # The lighthouse's join timeout with three groups or more. A steady step
 # longer than the join timeout splits three groups into quorums that never
@@ -154,9 +160,10 @@ def _state_digest(trainer) -> str:
     return h.hexdigest()
 
 
-def _instrument(manager, log: _EventLog, heal: Dict[str, Any]) -> None:
+def _instrument(manager, log: _EventLog, heal: Dict[str, Any], blobs: List[int]) -> None:
     """Wrap the Manager's plane, heal transport and eviction report so each
-    writes its event (the port has no telemetry trail)."""
+    writes its event, and its telemetry encoder so each blob's size lands
+    in ``blobs``."""
     import torch
 
     from torchft_tpu_torch.utils.tree import tree_leaves
@@ -199,7 +206,31 @@ def _instrument(manager, log: _EventLog, heal: Dict[str, Any]) -> None:
         return evicted
 
     manager._report_eviction = reported
+    encoder = manager._delta_encoder()
+    encode = encoder.encode
 
+    def sized(report):
+        blob = encode(report)
+        blobs.append(len(blob))
+        return blob
+
+    encoder.encode = sized
+
+
+def _piggyback_sizes(manager, blobs: List[int]) -> Dict[str, Any]:
+    """What this worker's telemetry piggyback weighed: every blob's bytes
+    (the first the full state), and for the report as it stands now, its
+    full blob and the full-JSON payload (wire-encoded, spans left out: they
+    ride beside either)."""
+    from torchft_tpu_torch.telemetry.fleetdelta import DeltaEncoder
+    from torchft_tpu_torch.utils import wire
+
+    payload = dict(manager._telemetry_payload_json() or {})
+    payload.pop("spans", None)
+    enc = manager._delta_encoder()
+    return {"blobs": list(blobs), "fulls": enc.fulls_total,
+            "full_blob_now": len(DeltaEncoder().encode(manager._telemetry_report())),
+            "json_payload_now": len(wire.encode(payload))}
 
 def _hit_deadline(err: Optional[BaseException]) -> bool:
     """Whether a step's latched error is, or was caused by, a deadline."""
@@ -261,6 +292,11 @@ def _worker() -> None:
     num_groups = int(os.environ["NUM_REPLICA_GROUPS"])
     total_steps = int(os.environ["TORCHFT_BENCH_STEPS"])
     step_sleep = float(os.environ.get("TORCHFT_BENCH_STEP_SLEEP", "0"))
+    # run_fleet's slowed group: from this step on, a host sleep of this
+    # many of its own steady steps
+    slow_from = int(os.environ.get("TORCHFT_BENCH_SLOW_FROM", "-1"))
+    slow_steps = float(os.environ.get("TORCHFT_BENCH_SLOW_STEPS", "0"))
+    linger = os.environ.get("TORCHFT_BENCH_LINGER")
     op_timeout = timedelta(seconds=float(os.environ["TORCHFT_BENCH_OP_TIMEOUT"]))
     log = _EventLog(os.environ["TORCHFT_EVENT_LOG"])
     log.emit(event="start", gid=gid, pid=os.getpid())
@@ -292,18 +328,34 @@ def _worker() -> None:
         checkpoint_transport=HTTPTransport(timeout=op_timeout),
     )
     heal: Dict[str, Any] = {}
-    _instrument(manager, log, heal)
-    log.emit(event="manager", replica_id=manager._replica_id)
-    if step_sleep:
+    blobs: List[int] = []
+    _instrument(manager, log, heal, blobs)
+    log.emit(event="manager", replica_id=manager._replica_id,
+             http=manager._checkpoint_transport.metadata())
+    commit_times: List[float] = []
+    slow: Dict[str, float] = {}
+    if step_sleep or slow_steps:
         # paced as the JAX worker's toy step: the sleep comes between the
         # quorum request and the allreduce, so every group's request leaves
         # right after its previous commit, and a sleep that overruns on a
-        # loaded host does not make its group a straggler at the quorum
+        # loaded host does not make its group a straggler at the quorum.
+        # The slowed group's sleep sits there too: in its local time (the
+        # ledger's idle), while the others wait for it in their wire phase
         start_quorum = manager.start_quorum
 
         def paced(*args, **kwargs):
             start_quorum(*args, **kwargs)
-            time.sleep(step_sleep)
+            extra = 0.0
+            if slow_steps and 0 <= slow_from <= manager.current_step():
+                if "s" not in slow:
+                    # its steady step: the median interval of the last
+                    # commits before the onset
+                    gaps = sorted(b - a for a, b in zip(commit_times[-6:], commit_times[-5:]))
+                    slow["s"] = slow_steps * (gaps[len(gaps) // 2] if gaps else 0.1)
+                    log.emit(event="slowed", gid=gid, step=manager.current_step(),
+                             sleep_s=slow["s"])
+                extra = slow["s"]
+            time.sleep(step_sleep + extra)
 
         manager.start_quorum = paced
     trainer = FTTrainer(manager, ts)
@@ -327,6 +379,8 @@ def _worker() -> None:
                 log.emit(event="timeout_retry", gid=gid, err=str(e)[:200])
                 continue
             launches_per_step.append({k: fa.LAUNCHES[k] - before[k] for k in before})
+            if committed:
+                commit_times.append(time.monotonic())
             participants = _participants(manager)
             err = manager.errored()
             log.emit(event="commit" if committed else "abort", gid=gid,
@@ -346,8 +400,13 @@ def _worker() -> None:
             # the same kernels
             launches_per_step=[x for i, x in enumerate(launches_per_step)
                                if x not in launches_per_step[:i]],
-            heal=heal or None,
+            heal=heal or None, telemetry=_piggyback_sizes(manager, blobs),
         )
+        if linger:
+            # run_fleet reads the fleet plane while every worker still runs
+            deadline = time.monotonic() + 300
+            while not os.path.exists(linger) and time.monotonic() < deadline:
+                time.sleep(0.05)
     finally:
         manager.shutdown(wait=False)
         log.emit(event="exit", gid=gid, pid=os.getpid())
@@ -712,6 +771,216 @@ def measure_recovery(
         if stuck:
             print(f"recovery bench: {stuck} server shutdown(s) still blocked after 10 s; "
                   "left to the process's exit", file=sys.stderr, flush=True)
+
+
+def _get(url: str, timeout: float = 10.0) -> Any:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as resp:
+        body = resp.read().decode()
+    return body if url.endswith("/metrics") else json.loads(body)
+
+
+def run_fleet(
+    num_groups: int = 3,
+    total_steps: int = 40,
+    slow_group: Optional[int] = None,
+    slow_from: int = 10,
+    slow_steps: float = 3.0,
+    step_sleep: float = 0.0,
+    op_timeout: float = 30.0,
+    timeout_s: float = 300.0,
+    env_extra: Optional[Dict[str, str]] = None,
+    group_env: Optional[Dict[int, Dict[str, str]]] = None,
+) -> Dict[str, Any]:
+    """``num_groups`` workers against one lighthouse, no kill, until every
+    group has committed ``total_steps`` together. ``slow_group`` sleeps, from
+    its step ``slow_from`` on, ``slow_steps`` of its own steady steps in its
+    local time each step. ``env_extra`` goes to every worker, ``group_env[g]``
+    to group g alone (the fleet monitors, their poll periods). Once every
+    worker has written its ``final`` event it lingers, and the fleet plane
+    is read: the lighthouse's ``cluster``, ``fleet``, ``timeseries`` and
+    ``trace``, and each worker's ``metrics`` and ``critical_path``. Every
+    worker must then exit 0. Returns those reads, each group's ``final``
+    event (``finals``), its ``slowed`` event, its replica id and
+    ``log_paths``.
+
+    The lighthouse's time-series store is process-wide in the native core
+    and outlives a lighthouse: it is cleared first, so that rings of
+    earlier lighthouses in this process are not served (and attributed)
+    beside the fleet's."""
+    from torchft_tpu_torch import _native
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.utils.platform import resolve_device
+
+    device = resolve_device(os.environ.get("DEVICE", "cuda"))
+    if device.type == "cuda":
+        from torchft_tpu_torch.ops import flash_attention as fa
+
+        fa.build()
+    join_timeout_ms = 100 if num_groups < 3 else JOIN_TIMEOUT_MANY_MS
+    tmp = tempfile.mkdtemp(prefix="tft_torch_fleet_")
+    logs = [os.path.join(tmp, f"g{g}.jsonl") for g in range(num_groups)]
+    release = os.path.join(tmp, "release")
+    _native.tsdb_reset()
+    lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1, join_timeout_ms=join_timeout_ms)
+    addr = lighthouse.address()
+    common = {
+        **(env_extra or {}),
+        "TORCHFT_LIGHTHOUSE": addr.split("//", 1)[-1],
+        "TORCHFT_BENCH_STEPS": str(total_steps),
+        "TORCHFT_BENCH_STEP_SLEEP": str(step_sleep),
+        "TORCHFT_BENCH_OP_TIMEOUT": str(op_timeout),
+        "TORCHFT_BENCH_LINGER": release,
+    }
+    procs: List[Optional[subprocess.Popen]] = [None] * num_groups
+    try:
+        for g in range(num_groups):
+            env = {**common, **(group_env or {}).get(g, {}), "TORCHFT_EVENT_LOG": logs[g]}
+            if g == slow_group:
+                env.update(TORCHFT_BENCH_SLOW_FROM=str(slow_from),
+                           TORCHFT_BENCH_SLOW_STEPS=str(slow_steps))
+            procs[g] = _spawn(g, env, num_groups)
+        finals = {g: _wait_for(logs, g, lambda e: e["event"] == "final", timeout_s, procs)
+                  for g in range(num_groups)}
+        events = [_read_events(path) for path in logs]
+        http = {g: next(e["http"] for e in events[g] if e["event"] == "manager")
+                for g in range(num_groups)}
+        out: Dict[str, Any] = {
+            "finals": finals, "log_paths": logs, "lighthouse": addr,
+            "replica_ids": {g: next(e["replica_id"] for e in events[g]
+                                    if e["event"] == "manager") for g in range(num_groups)},
+            "slowed": {g: e for g in range(num_groups) for e in events[g]
+                       if e["event"] == "slowed"},
+            "commits": {g: [e for e in events[g] if e["event"] == "commit"]
+                        for g in range(num_groups)},
+            "cluster": _get(addr + "/cluster.json"),
+            "fleet": _get(addr + "/fleet.json"),
+            "timeseries": _get(addr + "/timeseries.json"),
+            "trace": _get(addr + "/trace"),
+            "metrics": {g: _get(http[g] + "/metrics") for g in range(num_groups)},
+            "critical_path": {g: _get(http[g] + "/critical_path.json")
+                              for g in range(num_groups)},
+        }
+        with open(release, "w"):
+            pass
+        deadline = time.monotonic() + timeout_s
+        for g, p in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise TimeoutError(f"group {g} did not finish:\n{_stderr_tail(logs[g])}")
+            if rc != 0:
+                raise RuntimeError(f"group {g} exited rc={rc}:\n{_stderr_tail(logs[g])}")
+        return out
+    finally:
+        for p in procs:
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+        stuck = _shutdown_bounded([p._torchft_store for p in procs if p is not None]
+                                  + [lighthouse])
+        if stuck:
+            print(f"fleet run: {stuck} server shutdown(s) still blocked after 10 s; left to the "
+                  "process's exit", file=sys.stderr, flush=True)
+
+
+def _series_value(metrics: str, family: str) -> Dict[str, float]:
+    """``{labels: value}`` of one family's nonzero series in a Prometheus page."""
+    out = {}
+    for line in metrics.splitlines():
+        if line.startswith(family + "{"):
+            key, _, value = line.rpartition(" ")
+            if float(value):
+                out[key[len(family):]] = float(value)
+    return out
+
+
+def fleet_checks(r: Dict[str, Any], slow_group: int, slow_from: int,
+                 total_steps: int, regression_alone: bool = True
+                 ) -> List[Tuple[str, bool, str]]:
+    """What a :func:`run_fleet` result must show, as ``(name, held,
+    detail)``: one state in every worker; every replica in ``/cluster.json``
+    at the last step with its summary and anatomy; the lighthouse's delta
+    chains applied with one full blob each and no resync; ``/fleet.json``
+    over every group with wall p50/p99; each replica's wall series in
+    ``/timeseries.json``; the straggler and regression latches of group 0's
+    monitors (its ``/metrics``) on the slowed group alone; its
+    ``/critical_path.json`` blaming the fleet's replicas only, the slowed
+    group for most of it, and the attribution of each step's series
+    naming the slowed group the gating replica of most steps after the
+    onset; the slowed group's SLO breach in ``/cluster.json``; and a lane
+    per replica in the merged ``/trace`` with its ``quorum_rpc`` spans.
+    ``regression_alone=False`` asks only that the regression sentinel
+    latch the slowed group's ``local_s``: on a host that other jobs load,
+    another worker's own phases may shift too, which the sentinel is
+    there to see."""
+    from torchft_tpu_torch.telemetry.critical_path import attribute_step
+
+    ids = r["replica_ids"]
+    n = len(ids)
+    slow = ids[slow_group]
+    out: List[Tuple[str, bool, str]] = []
+    digests = {g: f["digest"] for g, f in r["finals"].items()}
+    out.append(("one state", len(set(digests.values())) == 1, f"{digests}"))
+    reps = r["cluster"].get("replicas", {})
+    rows = {g: reps.get(rid, {}) for g, rid in ids.items()}
+    out.append(("cluster.json", all(
+        row.get("step", -1) >= total_steps - 1 and row.get("summary") and row.get("anatomy")
+        for row in rows.values()), f"steps {[row.get('step') for row in rows.values()]}"))
+    tel = r["fleet"].get("telemetry", {})
+    out.append(("delta chains", tel.get("delta_blobs_total", 0) >= n * total_steps
+                and tel.get("delta_fulls_total") == n and tel.get("delta_resyncs_total") == 0,
+                f"{tel}"))
+    wall = r["fleet"].get("hist", {}).get("wall", {})
+    out.append(("fleet.json", r["fleet"].get("groups") == n and wall.get("p50_s", 0) > 0
+                and wall.get("p99_s", 0) >= wall.get("p50_s", 0),
+                f"groups {r['fleet'].get('groups')}, wall {wall}"))
+    series = r["timeseries"].get("replicas", {})
+    walls = {g: [s[1] for s in series.get(rid, {}).get("wall_s", {}).get("samples", [])]
+             for g, rid in ids.items()}
+    out.append(("timeseries.json", all(len(v) >= total_steps - 2 for v in walls.values()),
+                f"wall_s samples {[len(v) for v in walls.values()]}"))
+    m0 = r["metrics"][0]
+    stragglers = _series_value(m0, "tft_straggler_detected_total")
+    out.append(("straggler latch", list(stragglers) == [f'{{group="{slow}"}}'], f"{stragglers}"))
+    regressions = _series_value(m0, "tft_perf_regression_total")
+    mine = f'{{replica="{slow}",series="local_s"}}' in regressions
+    alone = all(k.startswith(f'{{replica="{slow}"') for k in regressions)
+    out.append(("regression latch", mine and (alone or not regression_alone),
+                f"{regressions}"))
+    cp = r["critical_path"][0]
+    share = sum(b["share"] for b in cp.get("blame", []) if b["replica"] == slow)
+    blamed = {b["replica"] for b in cp.get("blame", [])}
+    out.append(("critical_path.json", cp.get("status") == "ok" and share >= 0.8
+                and blamed <= set(ids.values()),
+                f"steps {cp.get('steps')}, {slow_group}'s share {share:.4f}, replicas blamed "
+                f"{sorted(blamed)}, last {cp.get('last')}"))
+    # each step's rows from the series, attributed here too
+    per_step: Dict[int, Dict[str, Dict[str, Any]]] = {}
+    for rid in ids.values():
+        for name, body in series.get(rid, {}).items():
+            if name not in ("wall_s", "local_s") and not name.startswith("phase."):
+                continue
+            for _epoch, step, value in body.get("samples", []):
+                row = per_step.setdefault(int(step), {}).setdefault(rid, {"phases": {}})
+                if name.startswith("phase."):
+                    row["phases"][name[len("phase."):]] = value
+                else:
+                    row[name] = value
+    after = [attribute_step(rows) for step, rows in sorted(per_step.items())
+             if step >= slow_from + 2 and len(rows) == n]
+    gated = sum(1 for a in after if a and a["gating"] == slow)
+    out.append(("gating after the onset", after and gated >= 0.8 * len(after),
+                f"{gated} of {len(after)} steps"))
+    breach = {g: row.get("slo_breach") for g, row in rows.items()}
+    out.append(("slo breach", breach.get(slow_group) is True, f"{breach}"))
+    events = r["trace"].get("traceEvents", []) if isinstance(r["trace"], dict) else r["trace"]
+    lanes = {e["pid"]: e["args"]["name"] for e in events if e.get("name") == "process_name"}
+    rpc = {lanes.get(e["pid"]) for e in events if e.get("name") == "quorum_rpc"}
+    out.append(("merged trace", set(ids.values()) <= rpc and set(ids.values()) <= set(
+        lanes.values()), f"lanes {sorted(lanes.values())}, with quorum_rpc {sorted(rpc - {None})}"))
+    return out
 
 
 if __name__ == "__main__":

@@ -30,16 +30,16 @@ mid-heal hands its pending ranges to the survivors. The bulk bytes ride
 the native blob plane (``native/blob.cc``, off the GIL) and fall back to
 ``range_`` when a source advertises no blob port.
 
-``GET /metrics`` serves the process's telemetry (Prometheus text, no
-checkpoint state needed). Every request a healer sends carries its trace
+``GET /metrics`` serves the process's telemetry (Prometheus text) and
+``GET /critical_path.json`` its critical-path attributor's report, neither
+needing checkpoint state. Every request a healer sends carries its trace
 context in the ``X-TFT-Trace`` header, and the serving side records a
 ``checkpoint_serve`` span in the healer's trace. Stagings, sends and
 receives are counted (``record_checkpoint``, the ``checkpoint_send`` /
 ``checkpoint_recv`` trail events), and the striped receive's stages
 (``meta``, ``recv``, ``decode``) go into the ledger's heal-stage totals.
 
-Left out (ROADMAP): the ``/critical_path.json`` endpoint (the fleet plane)
-and the fault points.
+Left out (ROADMAP): the fault points.
 """
 
 from __future__ import annotations
@@ -194,12 +194,23 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
                 pass
 
             def do_GET(self) -> None:
-                # /metrics needs no checkpoint state: served before the
-                # staging lock, so a scrape answers while nothing is staged
-                if self.path.rstrip("/") == "/metrics":
-                    body = telemetry.render_prometheus().encode()
+                # /metrics and /critical_path.json need no checkpoint state:
+                # served before the staging lock, so a scrape answers while
+                # nothing is staged
+                path = self.path.rstrip("/")
+                if path in ("/metrics", "/critical_path.json"):
+                    if path == "/metrics":
+                        body = telemetry.render_prometheus().encode()
+                        ctype = "text/plain; version=0.0.4"
+                    else:
+                        # the process's critical-path attributor (an empty
+                        # report when no monitor runs here)
+                        from torchft_tpu_torch.telemetry import critical_path
+
+                        body = critical_path.report_json().encode()
+                        ctype = "application/json"
                     self.send_response(200)
-                    self.send_header("Content-Type", "text/plain; version=0.0.4")
+                    self.send_header("Content-Type", ctype)
                     self.send_header("Content-Length", str(len(body)))
                     self.end_headers()
                     try:

@@ -2,8 +2,11 @@
 ``torchft_tpu/collectives.py``, trimmed to its host data plane:
 ``CollectivesTcp`` with its Python ring (allreduce, allgather,
 reduce-scatter, alltoall), store rendezvous and the send / recv /
-broadcast / barrier around it, plus ``ErrorSwallowingCollectives``. The
-in-process device plane is ``collectives_device.CollectivesDevice``.
+broadcast / barrier around it, plus the wrappers ``CollectivesDummy``
+(every op completes at once with its identity result),
+``ErrorSwallowingCollectives`` and ``ManagedCollectives`` (an allreduce
+through a Manager). The in-process device plane is
+``collectives_device.CollectivesDevice``.
 
 Large float32 allreduces ride the striped C++ plane
 (``native/dataplane.cc`` through ``_native.NativeDataPlane``: GIL-free,
@@ -67,7 +70,9 @@ __all__ = [
     "Work",
     "Collectives",
     "CollectivesTcp",
+    "CollectivesDummy",
     "ErrorSwallowingCollectives",
+    "ManagedCollectives",
     "PeerGoneError",
     "WIRE_STAGES",
     "record_wire_stage",
@@ -1247,6 +1252,50 @@ class CollectivesTcp(Collectives):
 # ---------------------------------------------------------------------------
 
 
+class CollectivesDummy(Collectives):
+    """No-op backend: every op completes at once with its identity result
+    (the JAX tests' harness backend)."""
+
+    def __init__(self, rank: int = 0, world_size: int = 1) -> None:
+        self._rank = rank
+        self._world = world_size
+        self.configure_count = 0
+
+    def configure(self, store_addr: str, rank: int, world_size: int) -> None:
+        self._rank, self._world = rank, world_size
+        self.configure_count += 1
+
+    def allreduce(self, arrays, op=ReduceOp.SUM):
+        return Work.completed(arrays)
+
+    def allgather(self, arr):
+        return Work.completed([arr.copy() for _ in range(self._world)])
+
+    def broadcast(self, arr, root=0):
+        return Work.completed(arr)
+
+    def reduce_scatter(self, arrays, op=ReduceOp.SUM):
+        return Work.completed(arrays[self._rank].copy())
+
+    def alltoall(self, arrays):
+        return Work.completed([a.copy() for a in arrays])
+
+    def send(self, arr, dst, tag=0):
+        return Work.completed(None)
+
+    def recv(self, arr, src, tag=0):
+        return Work.completed(arr)
+
+    def barrier(self):
+        return Work.completed(None)
+
+    def size(self) -> int:
+        return self._world
+
+    def rank(self) -> int:
+        return self._rank
+
+
 class ErrorSwallowingCollectives(Collectives):
     """First error latches; later ops are no-ops until the next configure().
     Keeps a failed replica from hanging its group mid-step — the Manager
@@ -1332,3 +1381,52 @@ class ErrorSwallowingCollectives(Collectives):
 
     def shutdown(self) -> None:
         self._inner.shutdown()
+
+
+class ManagedCollectives(Collectives):
+    """Routes an allreduce through a Manager, so its quorum wait, a healing
+    group's zeros and its error latch apply. ``size()`` is the
+    participating world, which keeps dynamic membership out of user code;
+    the ops that are not managed raise."""
+
+    def __init__(self, manager) -> None:
+        self._manager = manager
+
+    def wire_codec(self) -> str:
+        return self._manager.wire_codec()
+
+    def configure(self, store_addr: str, rank: int, world_size: int) -> None:
+        raise RuntimeError("ManagedCollectives is configured by its Manager")
+
+    def allreduce(self, arrays, op=ReduceOp.SUM):
+        if len(arrays) != 1:
+            raise ValueError("ManagedCollectives.allreduce takes a single array")
+        return Work(self._manager.allreduce(arrays[0]))
+
+    def allgather(self, arr):
+        raise NotImplementedError("only allreduce is managed")
+
+    def broadcast(self, arr, root=0):
+        raise NotImplementedError("only allreduce is managed")
+
+    def reduce_scatter(self, arrays, op=ReduceOp.SUM):
+        raise NotImplementedError("only allreduce is managed")
+
+    def alltoall(self, arrays):
+        raise NotImplementedError("only allreduce is managed")
+
+    def send(self, arr, dst, tag=0):
+        raise NotImplementedError("only allreduce is managed")
+
+    def recv(self, arr, src, tag=0):
+        raise NotImplementedError("only allreduce is managed")
+
+    def barrier(self):
+        raise NotImplementedError("only allreduce is managed")
+
+    def size(self) -> int:
+        return self._manager.num_participants()
+
+    def rank(self) -> int:
+        rank = self._manager.participating_rank()
+        return rank if rank is not None else 0

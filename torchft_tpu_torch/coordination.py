@@ -1,9 +1,13 @@
 """Low-level coordination API: Lighthouse / Manager servers and clients —
-the port's copy of ``torchft_tpu/coordination.py``, without the telemetry
-piggyback (the fleet plane) and the fault points. The quorum and vote RPCs
-carry the caller's trace context (``"trace"``), run in ``quorum_rpc`` /
-``should_commit_rpc`` spans, and the quorum's latency and count are
-recorded (``tft_quorum_latency_seconds``, ``tft_quorums_total``).
+the port's copy of ``torchft_tpu/coordination.py``, without the fault
+points. The quorum and vote RPCs carry the caller's trace context
+(``"trace"``), run in ``quorum_rpc`` / ``should_commit_rpc`` spans, and the
+quorum's latency and count are recorded (``tft_quorum_latency_seconds``,
+``tft_quorums_total``). The quorum RPC and a heartbeat carry the replica's
+telemetry report (``"telemetry"``: a delta blob or the full-JSON row),
+which the lighthouse folds into ``/cluster.json``, ``/fleet.json``,
+``/timeseries.json`` and the merged ``/trace``; the quorum reply acks the
+delta chain (``"tack"``, :attr:`QuorumResult.telemetry_ack`).
 
 The servers run in the C++ core (``native/coord.cc``); CANCELLED /
 DEADLINE_EXCEEDED replies become ``TimeoutError``.
@@ -60,6 +64,10 @@ class QuorumResult:
     # someone heals this round: every up-to-date member stages a checkpoint,
     # so that all of them can serve stripes
     heal_pending: bool = False
+    # the telemetry delta chain's ack: the lighthouse's last applied
+    # version per encoder incarnation, {inc_hex: {"ver": int, "resync":
+    # bool}}; None until the lighthouse has acked anything
+    telemetry_ack: Optional[Dict[str, Any]] = None
 
     @staticmethod
     def _from_wire(d: Dict[str, Any]) -> "QuorumResult":
@@ -79,6 +87,7 @@ class QuorumResult:
             participant_ids=_strs(d.get("participant_ids", [])),
             recover_src_addresses=_strs(d.get("recover_src_addresses", [])),
             heal_pending=d.get("heal_pending", False),
+            telemetry_ack=d.get("tack") or None,
         )
 
 
@@ -135,6 +144,7 @@ class ManagerServer:
         store_addr: str,
         world_size: int,
         connect_timeout: timedelta = timedelta(seconds=60),
+        heartbeat_interval: timedelta = timedelta(milliseconds=100),
     ) -> None:
         self._handle, self._address = _native.manager_create(
             replica_id,
@@ -143,7 +153,7 @@ class ManagerServer:
             bind,
             store_addr,
             world_size,
-            100,  # heartbeat interval, ms
+            _ms(heartbeat_interval),
             _ms(connect_timeout),
         )
 
@@ -177,11 +187,14 @@ class ManagerClient:
         shrink_only: bool,
         timeout: timedelta,
         commit_failures: int = 0,
+        telemetry_payload: Optional[Dict[str, Any]] = None,
     ) -> QuorumResult:
         """``shrink_only`` lets the quorum only lose members (a planned
         downscale). ``commit_failures > 0`` requests a data-plane flush:
         the lighthouse bumps quorum_id even without a membership change, so
-        every group re-rendezvouses its collectives."""
+        every group re-rendezvouses its collectives. ``telemetry_payload``
+        is this replica's telemetry report, which the manager server
+        forwards to the lighthouse: no extra round trip."""
         import time
 
         from torchft_tpu_torch import telemetry
@@ -198,6 +211,8 @@ class ManagerClient:
             # X-TFT-Trace header.
             "trace": telemetry.TRACER.inject(),
         }
+        if telemetry_payload:
+            req["telemetry"] = telemetry_payload
         t0 = time.perf_counter()
         with telemetry.TRACER.span("quorum_rpc", rank=rank, step=step):
             resp = self._client.call("mgr.quorum", req, _ms(timeout))
@@ -249,8 +264,18 @@ class LighthouseClient:
     def __init__(self, addr: str, connect_timeout: timedelta) -> None:
         self._client = _native.NativeClient(addr, _ms(connect_timeout))
 
-    def heartbeat(self, replica_id: str, timeout: timedelta = timedelta(seconds=5)) -> None:
-        self._client.call("lh.heartbeat", {"replica_id": replica_id}, _ms(timeout))
+    def heartbeat(
+        self,
+        replica_id: str,
+        timeout: timedelta = timedelta(seconds=5),
+        telemetry_payload: Optional[Dict[str, Any]] = None,
+    ) -> None:
+        """One heartbeat; ``telemetry_payload`` carries a telemetry report
+        (the shape the Manager sends on its quorum RPC) to the lighthouse."""
+        req: Dict[str, Any] = {"replica_id": replica_id}
+        if telemetry_payload:
+            req["telemetry"] = telemetry_payload
+        self._client.call("lh.heartbeat", req, _ms(timeout))
 
     def evict(
         self, reporter: str, victim: str, timeout: timedelta = timedelta(seconds=5)

@@ -19,7 +19,7 @@ from typing import Any, Callable, Generic, List, Optional, Tuple, TypeVar
 T = TypeVar("T")
 S = TypeVar("S")
 
-__all__ = ["Future", "future_timeout", "run_in_executor"]
+__all__ = ["Future", "future_timeout", "future_wait", "run_in_executor"]
 
 
 class Future(Generic[T]):
@@ -118,6 +118,12 @@ class Future(Generic[T]):
         f.set_result(value)
         return f
 
+    @staticmethod
+    def failed(exc: BaseException) -> "Future[Any]":
+        f: Future[Any] = Future()
+        f.set_exception(exc)
+        return f
+
 
 class _TimeoutManager:
     """Single daemon timer thread enforcing future deadlines (the asyncio
@@ -199,6 +205,11 @@ def future_timeout(fut: Future[T], timeout: timedelta) -> Future[T]:
     fut.then(lambda f: copy(f))
     _TIMEOUT_MANAGER.register(out, timeout)
     return out
+
+
+def future_wait(fut: Future[T], timeout: timedelta) -> T:
+    """Block on ``fut`` up to ``timeout``; its error, or TimeoutError."""
+    return fut.wait(timeout)
 
 
 def run_in_executor(executor: Any, fn: Callable[..., T], *args: Any, **kwargs: Any) -> Future[T]:

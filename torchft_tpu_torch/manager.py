@@ -45,9 +45,22 @@ Manager is made on the main thread); and a ``StepWatchdog`` armed at each
 ``start_quorum`` and disarmed at the vote, which emits ``watchdog_stall``
 and dumps the flight recorder when a step runs far past its steady p99.
 
-Left out (ROADMAP): the fleet plane (the telemetry piggyback on the quorum
-RPC and the watchdog's out-of-band push to the lighthouse), the divergence
-sentinel, ``set_heal_warmup`` and ``WorldSizeMode.FIXED_WITH_SPARES``.
+The fleet plane: each quorum RPC carries this replica's telemetry report
+(health scalars, counters digest, anatomy, log2 histograms, the time
+series), delta-encoded against what the lighthouse acked
+(``telemetry/fleetdelta.py``; ``TORCHFT_TELEMETRY_DELTA=0`` sends the
+full-JSON row, ``TORCHFT_TELEMETRY_PIGGYBACK=0`` nothing), its encoding
+recorded as the ledger's ``telemetry`` phase; a stalled step pushes one
+heartbeat with the JSON row, so ``/cluster.json`` shows it stuck; the SLO
+evaluators (``TORCHFT_SLO_STEP_S``) see each step's wall and a rejoin's
+time to its commit; and a rank-0 Manager hosts the straggler monitor
+(``TORCHFT_STRAGGLER_MONITOR=1``) and the history thread feeding the
+regression sentinel and the critical-path attributor
+(``TORCHFT_REGRESSION_MONITOR=1``).
+
+Left out (ROADMAP): the forensics' report keys (``diag_*``), the
+divergence sentinel (its series flag is sent as 0), ``set_heal_warmup``
+and ``WorldSizeMode.FIXED_WITH_SPARES``.
 """
 
 from __future__ import annotations
@@ -78,6 +91,10 @@ from torchft_tpu_torch.coordination import ManagerClient, ManagerServer
 from torchft_tpu_torch.futures import Future, future_timeout, run_in_executor
 from torchft_tpu_torch.profiling import StepTimer
 from torchft_tpu_torch.store import StoreClient
+from torchft_tpu_torch.telemetry import fleetdelta, timeseries
+from torchft_tpu_torch.telemetry.critical_path import CriticalPathMonitor
+from torchft_tpu_torch.telemetry.regression import RegressionMonitor
+from torchft_tpu_torch.telemetry.slo import FleetMonitor, SloManager
 
 T = TypeVar("T")
 
@@ -87,6 +104,12 @@ MANAGER_PORT_ENV: str = "TORCHFT_MANAGER_PORT"
 LIGHTHOUSE_ENV: str = "TORCHFT_LIGHTHOUSE"
 STORE_ADDR_ENV: str = "TORCHFT_STORE_ADDR"
 COMMIT_PIPELINE_ENV: str = "TORCHFT_COMMIT_PIPELINE"
+PIGGYBACK_ENV: str = "TORCHFT_TELEMETRY_PIGGYBACK"
+STRAGGLER_MONITOR_ENV: str = "TORCHFT_STRAGGLER_MONITOR"
+REGRESSION_MONITOR_ENV: str = "TORCHFT_REGRESSION_MONITOR"
+REGRESSION_POLL_ENV: str = "TORCHFT_REGRESSION_POLL_S"
+# the lighthouse refuses an anatomy digest past this (the JSON row's cap)
+ANATOMY_CAP_BYTES = 1 << 16
 
 __all__ = ["Manager"]
 
@@ -222,10 +245,13 @@ class Manager:
         self._store = StoreClient(store_addr, connect_timeout=connect_timeout)
         self._collectives = collectives
         self._manager: Optional[ManagerServer] = None
+        # rank 0's: the fleet monitors and the stall push talk to it
+        self._lighthouse_addr: Optional[str] = None
         if self._rank == 0:
             if port is None:
                 port = int(os.environ.get(MANAGER_PORT_ENV, 0))
             lighthouse_addr = lighthouse_addr or os.environ[LIGHTHOUSE_ENV]
+            self._lighthouse_addr = lighthouse_addr
             replica_id = (replica_id or "") + str(uuid.uuid4())
             self._manager = ManagerServer(
                 replica_id=replica_id,
@@ -312,6 +338,36 @@ class Manager:
         # outlier digest.
         self.step_timer = StepTimer()
         telemetry.LEDGER.attach_timer(self.step_timer)
+        # the burn-rate SLOs (off unless TORCHFT_SLO_STEP_S is set); the
+        # latch rides the telemetry report to the lighthouse
+        self._slo = SloManager()
+        # unguarded-ok: quorum-thread handoff — set at a heal's begin on the
+        #   quorum thread, read and cleared at the next committed vote on
+        #   the main thread (wait_quorum orders them)
+        self._rejoin_t0: Optional[float] = None
+        # unguarded-ok: quorum-thread handoff — written where a heal lands,
+        #   read when a report is made (a float: a stale read is harmless)
+        self._last_heal_ts = 0.0
+        # the delta chain's encoder, made at the first report: its random
+        # incarnation tells the lighthouse a respawn from a continuation,
+        # so it lives as long as the Manager (quorum thread only)
+        self._tdelta_encoder: Optional[fleetdelta.DeltaEncoder] = None
+        # unguarded-ok: a warn-once latch (the quorum thread's JSON row and
+        #   the stall push's); a race can only repeat the warning
+        self._anatomy_oversize_warned = False
+        # rank 0 may host the fleet's monitors (one a fleet is enough)
+        self._fleet_monitor: Optional[FleetMonitor] = None
+        self._regression_monitor: Optional[RegressionMonitor] = None
+        self._critical_path_monitor: Optional[CriticalPathMonitor] = None
+        self._history_stop = threading.Event()
+        self._history_thread: Optional[threading.Thread] = None
+        if self._lighthouse_addr is not None:
+            if os.environ.get(STRAGGLER_MONITOR_ENV, "0") == "1":
+                self._fleet_monitor = FleetMonitor(self._lighthouse_addr).start()
+            if os.environ.get(REGRESSION_MONITOR_ENV, "0") == "1":
+                self._regression_monitor = RegressionMonitor(self._lighthouse_addr)
+                self._critical_path_monitor = CriticalPathMonitor(self._lighthouse_addr)
+                self._start_history_thread()
         # hang forensics: SIGUSR2 dumps the flight recorder (installable
         # from the main thread only; elsewhere this returns False), and the
         # step watchdog turns a silently wedged step into a watchdog_stall
@@ -331,15 +387,174 @@ class Manager:
         self._load_state_dict = load_state_dict
         self._user_state_dict = state_dict
 
+    def _start_history_thread(self) -> None:
+        """The history plane's poll loop (rank 0, ``TORCHFT_REGRESSION_MONITOR=1``):
+        one ``/timeseries.json`` fetch every ``TORCHFT_REGRESSION_POLL_S``
+        feeds the regression sentinel and the critical-path monitor, each
+        past its own cursor. The loop holds the monitors, never the
+        Manager, so a dropped Manager is freed."""
+        addr = self._lighthouse_addr
+        stop = self._history_stop
+        consumers = (self._regression_monitor, self._critical_path_monitor)
+        try:
+            poll_s = float(os.environ.get(REGRESSION_POLL_ENV, "2.0"))
+        except ValueError:
+            poll_s = 2.0
+
+        def run() -> None:
+            while not stop.wait(poll_s):
+                try:
+                    reply = timeseries.poll_timeseries(addr)
+                    if not reply:
+                        continue
+                    for monitor in consumers:
+                        monitor.poll_once(reply=reply)
+                except Exception:  # noqa: BLE001 — monitoring must not die
+                    pass
+
+        self._history_thread = threading.Thread(target=run, daemon=True,
+                                                name="tft_history_monitor")
+        self._history_thread.start()
+
     def _on_stall(self, step: int, elapsed_s: float, threshold_s: float) -> None:
         """Step-watchdog callback (its thread): the watchdog has emitted
-        ``watchdog_stall`` and dumped the flight recorder; this logs it.
-        The JAX Manager also pushes a stuck report to the lighthouse here,
-        which waits for the fleet plane."""
+        ``watchdog_stall`` and dumped the flight recorder. A wedged step
+        sends no quorum RPC, so its stuck flag would never reach the
+        lighthouse: push one heartbeat carrying the full-JSON report
+        (rank 0, which knows the lighthouse), on a thread of its own and
+        bounded in time. Never through the delta encoder: the quorum
+        thread owns it, and a blob out of order would break the chain; the
+        lighthouse takes a JSON row whatever the chain's state."""
         self._logger.warn(
             f"step watchdog: step {step} has run {elapsed_s:.3f} s (threshold "
             f"{threshold_s:.3f} s); flight recorder dumped to {telemetry.FLIGHT.dump_dir()}"
         )
+        if self._lighthouse_addr is None or self._shutting_down:
+            return
+        payload = self._telemetry_payload_json()
+        if not payload:
+            return
+        addr, replica_id = self._lighthouse_addr, self._replica_id
+
+        def push() -> None:
+            from torchft_tpu_torch.coordination import LighthouseClient
+
+            try:
+                client = LighthouseClient(addr, connect_timeout=timedelta(seconds=5))
+                try:
+                    client.heartbeat(replica_id, timeout=timedelta(seconds=5),
+                                     telemetry_payload=payload)
+                finally:
+                    client.close()
+            except Exception:  # noqa: BLE001 — best effort
+                pass
+
+        threading.Thread(target=push, daemon=True, name="tft_stall_push").start()
+
+    def _delta_encoder(self) -> fleetdelta.DeltaEncoder:
+        """The Manager's one delta encoder (quorum thread only)."""
+        if self._tdelta_encoder is None:
+            self._tdelta_encoder = fleetdelta.DeltaEncoder()
+        return self._tdelta_encoder
+
+    def _telemetry_report(self) -> Dict[str, Any]:
+        """The nested report the delta encoder flattens: health scalars,
+        the counters digest, the anatomy, the mergeable log2 histograms
+        and the time-series samples. Its keys are the vocabulary the
+        lighthouse rebuilds ``/cluster.json`` from."""
+        report: Dict[str, Any] = {
+            "step": self._step,
+            "epoch": self._quorum_id,
+            "stuck": bool(self._watchdog.stalled),
+            "slo_breach": bool(self._slo.breached()),
+            "local_step_p50_s": float(telemetry.LEDGER.local_p50() or 0.0),
+            "last_heal_ts": float(self._last_heal_ts),
+            "summary": telemetry.summary(),
+            "anatomy": telemetry.LEDGER.summary(),
+            "hist": fleetdelta.collect_hists(),
+        }
+        series = timeseries.build_series(slo_breach=bool(self._slo.breached()),
+                                         stuck=bool(self._watchdog.stalled), divergence=False)
+        if series:
+            report["series"] = series
+        return report
+
+    def _telemetry_payload_delta(self) -> Optional[Dict[str, Any]]:
+        """The delta piggyback: the report's fields that changed since the
+        lighthouse's last ack. Spans ride outside the blob as the lowest
+        tier: when blob and spans would pass the cap, the spans are
+        requeued for a lighter round."""
+        t0 = time.perf_counter()
+        try:
+            blob = self._delta_encoder().encode(self._telemetry_report())
+            payload: Dict[str, Any] = {"tdelta": blob}
+            telemetry.TELEMETRY_BYTES.labels(channel="piggyback").inc(len(blob))
+            spans = telemetry.TRACER.drain_chrome_fragment()
+            if spans:
+                if len(blob) + len(spans) <= fleetdelta.max_blob_bytes():
+                    payload["spans"] = spans
+                    telemetry.TELEMETRY_BYTES.labels(channel="spans").inc(len(spans))
+                else:
+                    telemetry.TRACER.requeue_last_batch()
+            return payload
+        except Exception:  # noqa: BLE001 — observability must not fail quorum
+            return None
+        finally:
+            # the plane meters itself: the build and encode are a phase
+            telemetry.LEDGER.record("telemetry", time.perf_counter() - t0)
+
+    def _telemetry_payload(self) -> Optional[Dict[str, Any]]:
+        """The report piggybacked on the quorum RPC, delta-encoded unless
+        ``TORCHFT_TELEMETRY_DELTA=0``; None under
+        ``TORCHFT_TELEMETRY_PIGGYBACK=0``. Never fails the quorum."""
+        if os.environ.get(PIGGYBACK_ENV, "1") == "0":
+            return None
+        if fleetdelta.delta_enabled():
+            return self._telemetry_payload_delta()
+        return self._telemetry_payload_json()
+
+    def _telemetry_payload_json(self) -> Optional[Dict[str, Any]]:
+        """The self-contained full-JSON row: the ``TORCHFT_TELEMETRY_DELTA=0``
+        piggyback, and the stall push's payload in either mode (the push
+        runs on its own thread; the lighthouse's ingest takes either
+        format). An anatomy digest past the lighthouse's 64 KiB cap is
+        replaced by a ``{"_oversized_bytes": n}`` marker, with one warning
+        an episode."""
+        import json
+
+        if os.environ.get(PIGGYBACK_ENV, "1") == "0":
+            return None
+        try:
+            anatomy = json.dumps(telemetry.LEDGER.summary(), separators=(",", ":"), default=str)
+            if len(anatomy) > ANATOMY_CAP_BYTES:
+                if not self._anatomy_oversize_warned:
+                    self._anatomy_oversize_warned = True
+                    self._logger.warn(
+                        f"anatomy digest {len(anatomy)} bytes exceeds the 64KiB piggyback "
+                        "cap; sending an oversize marker instead (warned once per episode)"
+                    )
+                anatomy = json.dumps({"_oversized_bytes": len(anatomy)})
+            else:
+                self._anatomy_oversize_warned = False
+            payload: Dict[str, Any] = {
+                "summary": json.dumps(telemetry.summary(), separators=(",", ":"), default=str),
+                "anatomy": anatomy,
+                "local_step_p50_s": float(telemetry.LEDGER.local_p50() or 0.0),
+                "slo_breach": bool(self._slo.breached()),
+                "step": self._step,
+                "epoch": self._quorum_id,
+                "stuck": bool(self._watchdog.stalled),
+                "last_heal_ts": float(self._last_heal_ts),
+                "spans": telemetry.TRACER.drain_chrome_fragment(),
+            }
+            series = timeseries.build_series(slo_breach=bool(self._slo.breached()),
+                                             stuck=bool(self._watchdog.stalled),
+                                             divergence=False)
+            if series:
+                payload["series"] = series
+            return payload
+        except Exception:  # noqa: BLE001 — observability must not fail quorum
+            return None
 
     def _trace_id(self) -> str:
         """Trace identity of the step in flight: replica, step and quorum
@@ -351,6 +566,13 @@ class Manager:
         """Shut down the manager server, checkpoint transport and data plane."""
         self._shutting_down = True
         self._watchdog.stop()
+        for monitor in (self._fleet_monitor, self._regression_monitor):
+            if monitor is not None:
+                monitor.stop()
+        self._history_stop.set()
+        if self._history_thread is not None:
+            self._history_thread.join(timeout=5.0)
+            self._history_thread = None
         # release a quorum thread parked on the speculation fence
         with self._spec_cond:
             self._pending_commit = None
@@ -535,17 +757,32 @@ class Manager:
         t_quorum = time.perf_counter()
         step = self._reported_step(pending)
         with telemetry.TRACER.span("quorum", trace_id=self._trace_id(), rank=self._rank) as span:
-            quorum = self._client._quorum(
-                rank=self._rank,
-                step=step,
-                checkpoint_metadata=self._checkpoint_transport.metadata(),
-                shrink_only=shrink_only,
-                timeout=quorum_timeout,
-                # latched data-plane errors request a flush: quorum_id bumps
-                # so every group (healthy ones too) re-rendezvouses
-                commit_failures=self._commit_failures,
-            )
+            try:
+                quorum = self._client._quorum(
+                    rank=self._rank,
+                    step=step,
+                    checkpoint_metadata=self._checkpoint_transport.metadata(),
+                    shrink_only=shrink_only,
+                    timeout=quorum_timeout,
+                    # latched data-plane errors request a flush: quorum_id
+                    # bumps so every group (healthy ones too) re-rendezvouses
+                    commit_failures=self._commit_failures,
+                    # this replica's telemetry report, for the lighthouse
+                    telemetry_payload=self._telemetry_payload(),
+                )
+            except BaseException:
+                # the drained span batch never reached the lighthouse: keep
+                # it for the next report (an outage is what /trace is for)
+                telemetry.TRACER.requeue_last_batch()
+                raise
             span.set(quorum_id=quorum.quorum_id, heal=quorum.heal)
+        # the lighthouse's ack of the delta chain: the next report sends
+        # only what changed since, or the full state when it lost the chain
+        if quorum.telemetry_ack and self._tdelta_encoder is not None:
+            try:
+                self._tdelta_encoder.on_ack(quorum.telemetry_ack)
+            except Exception:  # noqa: BLE001 — never fail the quorum
+                pass
         self._apply_quorum(quorum, allow_heal, stream, t_quorum)
         return quorum, step
 
@@ -671,6 +908,8 @@ class Manager:
         if quorum.heal:
             self._healing = True
             t_heal = time.perf_counter()
+            # the rejoin-to-commit SLO's clock: the next committed vote reads it
+            self._rejoin_t0 = t_heal
             telemetry.emit("heal_begin", step=quorum.max_step,
                            src=quorum.recover_src_manager_address)
             self._logger.info(
@@ -730,6 +969,7 @@ class Manager:
                 nbytes = 0
             telemetry.HEALS_TOTAL.labels(role="recv").inc()
             telemetry.HEAL_DURATION.observe(heal_s)
+            self._last_heal_ts = time.time()
             self.step_timer.mark_heal()
             telemetry.emit(
                 "heal_end", step=quorum.max_step, bytes=nbytes, duration_s=round(heal_s, 4),
@@ -856,6 +1096,11 @@ class Manager:
         drifts."""
         fn = getattr(self._collectives, "wire_codec", None)
         return fn() if callable(fn) else "f32"
+
+    def allreduce(self, array: Any) -> Future:
+        """Fault-tolerant cross-replica-group allreduce of one buffer, scaled
+        by ``1 / num_participants()``; see :meth:`allreduce_many`."""
+        return self.allreduce_many([array]).then(lambda f: f.value()[0])
 
     def allreduce_many(self, arrays: List[Any]) -> Future:
         """Fault-tolerant cross-replica-group allreduce, scaled by
@@ -1213,9 +1458,15 @@ class Manager:
             telemetry.emit("step_outlier", step=rec.step, duration_s=round(dur, 4),
                            tags=list(self.step_timer.last_tags), committed=should_commit)
         # the barrier joins this step's anatomy row; then the row is closed
-        # (idle is the wall clock's residual)
+        # (idle is the wall clock's residual) and the SLOs see the step's
+        # wall and a rejoin's time to its commit
         telemetry.LEDGER.record("commit_barrier", barrier_s)
-        telemetry.LEDGER.tick(step=rec.step)
+        row = telemetry.LEDGER.tick(step=rec.step)
+        if row is not None:
+            self._slo.observe_step(row["wall_s"])
+        if should_commit and self._rejoin_t0 is not None:
+            self._slo.observe_rejoin(time.perf_counter() - self._rejoin_t0)
+            self._rejoin_t0 = None
 
     def should_commit(self, timeout: Optional[timedelta] = None) -> bool:
         """Per-step commit barrier: True iff every rank in the quorum had a

@@ -20,11 +20,14 @@ transport, event) appear on first observation. Read three ways:
   :mod:`torchft_tpu_torch.telemetry.native` polls them);
 * :func:`dump` / :func:`summary` snapshots for benches and tests.
 
-Families whose writers are not ported yet stay at zero: the fleet plane's
-(``tft_telemetry_bytes_total``, ``tft_critical_path_seconds_total``,
-``tft_critical_path_whatif_steps_per_sec``, ``tft_perf_regression_total``,
+The fleet plane writes its families from its own modules: the delta
+piggyback (:mod:`.fleetdelta`, ``tft_telemetry_bytes_total``), the time
+series (:mod:`.timeseries`), the SLO and straggler detectors (:mod:`.slo`,
 ``tft_slo_breach_total``, ``tft_straggler_detected_total``,
-``tft_stragglers``), the forensics' (``tft_prof_samples_total``,
+``tft_stragglers``), the regression sentinel (:mod:`.regression`,
+``tft_perf_regression_total``) and the critical path
+(:mod:`.critical_path`, ``tft_critical_path_*``). Families whose writers
+are not ported yet stay at zero: the forensics' (``tft_prof_samples_total``,
 ``tft_diagnosis_bundles_total``), the divergence sentinel's
 (``tft_divergence_total``) and fault injection's
 (``tft_faults_injected_total``).

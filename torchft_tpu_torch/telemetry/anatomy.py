@@ -14,7 +14,7 @@ process-cumulative totals. The ledger decomposes each step's wall clock
 into the phases
 
     compute / host_copy / quantize / wire / dequant_reduce /
-    quorum_wait / commit_barrier / heal / idle
+    quorum_wait / commit_barrier / heal / telemetry / idle
 
 assembled from instrumentation that already existed piecemeal —
 ``collectives.record_wire_stage`` (now a thin shim over this ledger),
@@ -26,10 +26,14 @@ reconciles p50 sums to within 5%, which the residual makes structural).
 
 Two accounting views, one mechanism:
 
-* **step rows** decompose the MAIN thread's wall clock: only records made
-  on the main thread (or explicitly step-attributable, like the heal
-  apply) enter the row — an op-thread socket pump overlaps the main
-  thread and cannot be part of a wall-clock decomposition;
+* **step rows** decompose the MAIN thread's wall clock: records made on
+  the main thread enter the row — an op-thread socket pump overlaps the
+  main thread and cannot be part of a wall-clock decomposition. A row
+  phase recorded off the main thread (``telemetry``: the report's build
+  and encode on the quorum thread) overlaps the main thread's own phases
+  (its compute, or the quorum wait that covers it): it takes the row's
+  residual, never more, so the row still sums to its wall (the JAX
+  ledger adds it in full and can pass the wall);
 * **wire-stage totals** keep the wire plane's semantics: every
   ``record_wire_stage`` call (either thread) accumulates into the
   process-cumulative per-stage totals the crossgroup bench reads via
@@ -42,8 +46,7 @@ peer-wait phases (``wire``/``quorum_wait``/``commit_barrier``/``heal``)
 synchronous fleet one slow group stretches *everyone's* wall clock, but
 only the straggler's local time grows (the victims' extra time lands in
 their barrier phases). That p50 is piggybacked to the lighthouse and fed
-to the fleet plane's straggler detector (the JAX package's
-``telemetry/slo.py``; not ported yet).
+to the fleet plane's straggler detector (``telemetry/slo.py``).
 
 Histograms use the fixed log2 bucket grid ``LOG2_BUCKETS`` (2^-20 s ..
 2^6 s), the same bounds as the native plane's latency histograms
@@ -183,6 +186,9 @@ class StepLedger:
         self._lock = threading.Lock()
         self._last: Optional[float] = None
         self._interval: Dict[str, float] = {}
+        # row phases recorded off the main thread: they overlap it, and
+        # take at most the row's residual at the tick
+        self._overlap: Dict[str, float] = {}
         self._totals: Dict[str, float] = {}        # row-eligible cumulative
         self._wire_totals: Dict[str, float] = {}   # record_wire_stage view
         self._wire_marks: Dict[str, float] = {}    # wire_stage_snapshot(reset)
@@ -203,7 +209,9 @@ class StepLedger:
         either thread) and the ``tft_wire_stage_seconds_total`` mirror,
         but joins the current STEP ROW only when made on the main thread
         — an op-thread pump overlaps the main thread's wall clock and
-        would break the row's sum-to-wall invariant."""
+        would break the row's sum-to-wall invariant. Any other record
+        made off the main thread overlaps it too: it joins the row at the
+        tick, within the row's residual."""
         if seconds <= 0.0:
             return
         on_main = threading.current_thread() is threading.main_thread()
@@ -213,7 +221,9 @@ class StepLedger:
                 self._wire_totals[phase] = (
                     self._wire_totals.get(phase, 0.0) + seconds
                 )
-            if row_eligible:
+            if row_eligible and not on_main:
+                self._overlap[phase] = self._overlap.get(phase, 0.0) + seconds
+            elif row_eligible:
                 self._interval[phase] = (
                     self._interval.get(phase, 0.0) + seconds
                 )
@@ -266,15 +276,23 @@ class StepLedger:
         now = time.perf_counter()
         with self._lock:
             interval = self._interval
+            overlap = self._overlap
             self._interval = {}
+            self._overlap = {}
             last = self._last
             self._last = now
             if last is None:
                 return None
             self.steps += 1
         wall = now - last
-        attributed = sum(interval.values())
-        interval["idle"] = max(0.0, wall - attributed)
+        residual = max(0.0, wall - sum(interval.values()))
+        # off-main-thread phases overlapped the main thread's: they fill
+        # the residual (scaled down when they would pass it)
+        extra = sum(overlap.values())
+        scale = min(1.0, residual / extra) if extra > 0.0 else 0.0
+        for phase, seconds in overlap.items():
+            interval[phase] = interval.get(phase, 0.0) + seconds * scale
+        interval["idle"] = max(0.0, residual - extra * scale)
         local = max(
             0.0,
             wall - sum(interval.get(p, 0.0) for p in BARRIER_PHASES),
@@ -286,6 +304,8 @@ class StepLedger:
             "phases": {k: v for k, v in interval.items() if v > 0.0},
         }
         with self._lock:
+            for phase, seconds in overlap.items():
+                self._totals[phase] = self._totals.get(phase, 0.0) + seconds * scale
             self._totals["idle"] = self._totals.get("idle", 0.0) + interval["idle"]
             self._rows.append(row)
         try:
@@ -455,6 +475,7 @@ class StepLedger:
         with self._lock:
             self._last = None
             self._interval = {}
+            self._overlap = {}
             self._totals = {}
             self._wire_totals = {}
             self._wire_marks = {}

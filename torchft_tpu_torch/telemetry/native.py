@@ -1,6 +1,5 @@
 """Bridge to the C++ coordination core's own counters — the port's copy of
-``torchft_tpu/telemetry/native.py``, without the fleet plane's pollers
-(``poll_cluster``, ``fetch_merged_trace``).
+``torchft_tpu/telemetry/native.py``.
 
 The native lighthouse (``native/coord.cc``) serves ``/status.json`` and a
 Prometheus ``/metrics`` page on its dashboard port: quorum_id, participant
@@ -10,7 +9,9 @@ registry cannot own them; this module polls them over that HTTP surface,
 as a dict (:func:`poll_lighthouse`) or as raw exposition text spliced into
 this process's scrape (:func:`scrape_lighthouse_metrics`). The native
 planes' latency histograms of THIS process come from the loaded core
-(:func:`native_latency_snapshot`).
+(:func:`native_latency_snapshot`). The fleet's view, which the replicas'
+telemetry piggyback feeds, is read with :func:`poll_cluster`
+(``/cluster.json``) and :func:`fetch_merged_trace` (``/trace``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ __all__ = [
     "poll_lighthouse",
     "scrape_lighthouse_metrics",
     "native_latency_snapshot",
+    "poll_cluster",
+    "fetch_merged_trace",
 ]
 
 
@@ -69,3 +72,38 @@ def scrape_lighthouse_metrics(addr: str, timeout: float = 2.0) -> str:
             return resp.read().decode()
     except Exception:  # noqa: BLE001
         return ""
+
+
+def poll_cluster(addr: str, timeout: float = 2.0) -> Optional[Dict[str, Any]]:
+    """The lighthouse's ``/cluster.json``: per replica the last report's
+    age, step, stuck and SLO flags, heal recency, counters digest and
+    anatomy (each replica's telemetry piggyback). None when unreachable."""
+    try:
+        with urllib.request.urlopen(f"{_base_url(addr)}/cluster.json", timeout=timeout) as resp:
+            return json.loads(resp.read().decode())
+    except Exception:  # noqa: BLE001 — degrade, don't raise
+        return None
+
+
+def fetch_merged_trace(
+    addr: str, path: Optional[str] = None, timeout: float = 5.0
+) -> Optional[Dict[str, Any]]:
+    """The lighthouse's merged Chrome trace (``GET /trace``): every
+    replica's recent spans on one timeline, a lane per replica. With
+    ``path``, the raw JSON is also written there (Perfetto opens it). None
+    when unreachable."""
+    try:
+        with urllib.request.urlopen(f"{_base_url(addr)}/trace", timeout=timeout) as resp:
+            raw = resp.read()
+    except Exception:  # noqa: BLE001
+        return None
+    if path:
+        try:
+            with open(path, "wb") as f:
+                f.write(raw)
+        except OSError:
+            pass
+    try:
+        return json.loads(raw.decode())
+    except ValueError:
+        return None
