@@ -195,8 +195,27 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    Then ``benchmarks.quorum_scale`` at 8, 32 and 64 groups (the delta
    leg's steady bytes below the full-JSON leg's at every N) and
    ``benchmarks.telemetry_overhead``, one pair (printed).
+18. forensics and the fault plane: two headline worker processes (the
+   recovery harness's, graphed, on CollectivesTcp's striped TCP plane)
+   with the black box and the fault evidence armed; group 1's first
+   incarnation kills itself (a ``collective.issue`` kill at its 74th
+   gradient allreduce, joint step 10), is respawned and heals: one
+   sha256, one evidence record, the victim's Python and native rings
+   with the allreduce issued and never completed, the postmortem naming
+   it the victim with that op in flight, ``injected``, and its CLI
+   exiting 0. Then the JAX package's ``diagnose_straggler`` at full
+   width: both groups host the straggler monitor and a diagnosis engine
+   (1.5 s window, 97 Hz, the torch trace armed); group 1's gradient
+   allreduces are issued 200 ms late and its stripe hops sleep 60 ms:
+   exactly one bundle, group 1's on ``straggler_detected``, the delay
+   frame dominant in its active ``dp.pump`` stacks, ``python.folded`` not
+   empty, the torch trace naming K1-K3, the bundle on the postmortem's
+   timeline and in ``/diagnosis.json``; the control leg writes none; one
+   sha256 and 16/8/8 a step throughout. Printed: ``profiler_overhead``
+   (one pair), steps/s with the black box armed and disarmed, the
+   bundle's size, the samples per plane.
 
-Phases 4-17 replay each train step from CUDA graphs (phase 4's and phase
+Phases 4-18 replay each train step from CUDA graphs (phase 4's and phase
 9's eager arms aside); every group's graphs are captured once, so a heal
 or a rollback that swapped a captured tensor would show as a recapture.
 
@@ -3074,6 +3093,335 @@ def phase_fleet():
             for n in r["finals"][0]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: forensics and the fault plane
+# ---------------------------------------------------------------------------
+
+# the headline's gradients ride 7 buckets (ddp's 25 MB plan over its 12
+# stacked leaves): 7 gradient allreduces a step on CollectivesTcp
+GRAD_BUCKETS = 7
+# (a) the victim dies at the 4th bucket of its joint step 10 (0-based), its
+# 74th "allreduce" at collective.issue; every group has committed 10 steps
+FORENSICS_KILL_NTH = GRAD_BUCKETS * 10 + 4
+FORENSICS_STEPS = 20
+# (b) the diagnose_straggler scenario: the slowed group's every gradient
+# allreduce is issued 200 ms late and every native stripe hop sleeps 60 ms
+DIAG_STEPS = 10
+DIAG_ISSUE_DELAY_MS, DIAG_DP_DELAY_MS = 200, 60
+DIAG_WINDOW_S, DIAG_BURST_HZ = 1.5, 97
+DIAG_STRAGGLER = "2.0,3"  # factor, K
+DIAG_POLL_S = 0.25
+BOX_PAIRS = 1  # (c) headline steps/s with the black box armed and disarmed, pairs
+
+
+def _forensics_kill(tmp):
+    """(a) Two headline workers (``measure_recovery`` with ``victim_env``)
+    on the striped TCP plane with the black box and the fault evidence
+    armed under ``tmp/forensics``; group 1's first incarnation kills itself
+    (SIGKILL) at its FORENSICS_KILL_NTH gradient allreduce at
+    ``collective.issue``, is respawned and heals. Holds the result, the
+    evidence, the victim's rings and the postmortem; returns the workers'
+    launches."""
+    from torchft_tpu_torch.benchmarks.recovery import measure_recovery
+    from torchft_tpu_torch.faultinject.core import read_evidence
+    from torchft_tpu_torch.telemetry import postmortem
+
+    forensics = os.path.join(tmp, "forensics")
+    schedule = {"seed": 7, "rules": [{"site": "collective.issue", "match": "allreduce",
+                                      "nth": FORENSICS_KILL_NTH, "action": "kill", "sig": 9}]}
+    t0 = time.perf_counter()
+    r = measure_recovery(
+        total_steps=FORENSICS_STEPS, op_timeout=RECOVERY_OP_TIMEOUT, heartbeat_timeout_ms=LEASE_MS,
+        timeout_s=600.0,
+        env_extra={"TORCHFT_DP_CMA": "0",
+                   "TORCHFT_BLACKBOX_DIR": os.path.join(forensics, "bb"),
+                   "TORCHFT_FAULT_EVIDENCE_DIR": os.path.join(forensics, "evidence")},
+        victim_env={"TORCHFT_FAULT_SCHEDULE": json.dumps(schedule)})
+    log(f"forensics kill: {json.dumps(schedule)} in group 1's first incarnation; exit code "
+        f"{r.victim_rc}; survivor blackout {r.survivor_blackout_s:.3f} s (the respawn's start-up "
+        f"in it: quorums need both groups), rejoin {r.rejoin_to_commit_s:.3f} s; planes "
+        f"{r.planes}; {time.perf_counter() - t0:.1f} s")
+    check(r.victim_rc == -9, f"forensics kill: the victim exited {r.victim_rc}, not by SIGKILL")
+    expect = _launches_per_step(headline_config())
+    digests = {g: f["digest"] for g, f in r.finals.items()}
+    for g, f in sorted(r.finals.items()):
+        log(f"forensics kill group{g}: params+AdamW sha256={f['digest']} graphs captured "
+            f"{f['captures']}, flash launches per step {f['launches_per_step']}, samples "
+            f"{f.get('prof_samples')}")
+        check(f["captures"] == {"grads": 1, "apply": 1} and f["launches_per_step"] == [expect],
+              f"forensics kill: group {g} captured {f['captures']}, launched "
+              f"{f['launches_per_step']} a step (expected {expect})")
+    check(sorted(r.finals) == [0, 1] and len(set(digests.values())) == 1,
+          f"forensics kill: the groups ended with different states {digests}")
+    check(r.finals[1].get("heal") and r.finals[1]["heal"]["bytes"] > 0,
+          "forensics kill: the respawned group did not heal")
+    evidence = read_evidence(os.path.join(forensics, "evidence"))
+    kills = [e for e in evidence if e.get("action") == "kill"]
+    log(f"forensics kill, evidence: {evidence}")
+    check(len(kills) == 1 and kills[0]["site"] == "collective.issue"
+          and kills[0]["hit"] == FORENSICS_KILL_NTH and kills[0]["match"] == "allreduce",
+          f"forensics kill: expected one kill record at collective.issue hit "
+          f"{FORENSICS_KILL_NTH}, got {evidence}")
+    boxes = postmortem.collect_boxes(forensics)
+    for b in boxes:
+        log(f"forensics kill, box {os.path.basename(b['path'])}: replica {b['replica'] or '-'}, "
+            f"{'native' if b['native'] else 'python'}, {len(b['records'])} records, torn "
+            f"regions skipped {b['torn']}")
+    report = postmortem.analyze(forensics)
+    victim, op = report["victim"], report["victim_inflight_op"]
+    log(f"forensics kill, postmortem: victim {victim}, in flight {op}, first anomaly "
+        f"{report['first_anomaly']}, classification {report['classification']}, survivors in "
+        f"flight {report['survivor_inflight']}")
+    check(bool(victim) and victim.startswith("group1_") and report["classification"] == "injected",
+          f"forensics kill: postmortem victim {victim}, classification "
+          f"{report['classification']}")
+    mine = [b for b in boxes if b["replica"] == victim and not b["native"]]
+    check(len(mine) == 1, f"forensics kill: {len(mine)} Python rings of the victim {victim}")
+    box = mine[0]
+    native = [b for b in boxes if b["native"] and b["pid"] == box["pid"]]
+    check(len(native) == 1 and native[0]["records"],
+          f"forensics kill: no native ring of the victim's pid {box['pid']}")
+    check(op is not None and op.get("k") == "op_issue" and op.get("op") == "allreduce",
+          f"forensics kill: the postmortem's in-flight op is {op}")
+    tail = box["records"][-8:]
+    completed = {rec.get("fseq") for rec in box["records"] if rec.get("k") == "op_complete"}
+    log(f"forensics kill, the victim's last records: {[{k: rec.get(k) for k in ('q', 'ep', 'st', 'k', 'op', 'fseq', 'site')} for rec in tail]}")
+    check(any(rec.get("k") == "op_issue" and rec.get("fseq") == op["fseq"] for rec in tail)
+          and op["fseq"] not in completed,
+          f"forensics kill: the gradient op {op} is not among the victim's last records as "
+          "issued and never completed")
+    cli = subprocess.run([sys.executable, "-m", "torchft_tpu_torch.telemetry.postmortem",
+                          forensics], capture_output=True, text=True, timeout=300,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    for line in cli.stdout.splitlines():
+        log(f"forensics kill, postmortem CLI | {line}")
+    check(cli.returncode == 0, f"forensics kill: the postmortem CLI exited {cli.returncode}: "
+          f"{cli.stderr[-2000:]}")
+    return [f["launches"] for f in r.finals.values()]
+
+
+def _diag_leg(tmp, name, inject):
+    """One leg of (b): two headline workers (``run_fleet``) on the striped
+    TCP plane, both hosting the straggler monitor and a diagnosis engine on
+    one shared directory with the torch trace armed; ``inject`` slows group
+    1 (its gradient allreduces issued DIAG_ISSUE_DELAY_MS late, its stripe
+    hops DIAG_DP_DELAY_MS each). Returns (run_fleet's result, the leg's
+    directories)."""
+    from torchft_tpu_torch.benchmarks.recovery import run_fleet
+
+    leg = os.path.join(tmp, name)
+    dirs = {"diag": os.path.join(leg, "diag"), "evidence": os.path.join(leg, "evidence")}
+    env = {"TORCHFT_DP_CMA": "0", "TORCHFT_DIAG_DIR": dirs["diag"],
+           "TORCHFT_DIAG_WINDOW_S": str(DIAG_WINDOW_S), "TORCHFT_PROF_BURST_HZ": str(DIAG_BURST_HZ),
+           "TORCHFT_DIAG_TORCH": "1", "TORCHFT_STRAGGLER_MONITOR": "1",
+           "TORCHFT_STRAGGLER_POLL_S": str(DIAG_POLL_S), "TORCHFT_BENCH_STRAGGLER": DIAG_STRAGGLER,
+           "TORCHFT_FAULT_EVIDENCE_DIR": dirs["evidence"]}
+    group_env = {}
+    if inject:
+        schedule = {"seed": 7, "rules": [{"site": "collective.issue", "match": "allreduce",
+                                          "every": 1, "action": "delay",
+                                          "ms": DIAG_ISSUE_DELAY_MS}]}
+        group_env[1] = {"TORCHFT_FAULT_SCHEDULE": json.dumps(schedule),
+                        "TORCHFT_FI_DP_DELAY_MS": str(DIAG_DP_DELAY_MS)}
+    t0 = time.perf_counter()
+    r = run_fleet(num_groups=2, total_steps=DIAG_STEPS, op_timeout=RECOVERY_OP_TIMEOUT,
+                  timeout_s=600.0, env_extra=env, group_env=group_env)
+    log(f"diagnosis, {name} leg: 2 headline workers, {DIAG_STEPS} steps, group 1 "
+        f"{'slowed: ' + json.dumps(group_env[1]) if inject else 'not slowed'}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    expect = _launches_per_step(headline_config())
+    digests = {g: f["digest"] for g, f in r["finals"].items()}
+    for g, f in sorted(r["finals"].items()):
+        commits = r["commits"][g]
+        gaps = sorted(b["t"] - a["t"] for a, b in zip(commits, commits[1:]))
+        log(f"diagnosis, {name} leg, group{g}: params+AdamW sha256={f['digest']} graphs "
+            f"captured {f['captures']}, flash launches per step {f['launches_per_step']}, "
+            f"step interval median {statistics.median(gaps) * 1e3:.3f} ms, bundles "
+            f"{f['diag_bundles']}, samples by plane {f['prof_samples']}")
+        check(f["captures"] == {"grads": 1, "apply": 1} and f["launches_per_step"] == [expect],
+              f"diagnosis, {name} leg: group {g} captured {f['captures']}, launched "
+              f"{f['launches_per_step']} a step (expected {expect})")
+    check(len(set(digests.values())) == 1,
+          f"diagnosis, {name} leg: the groups ended with different states {digests}")
+    return r, dirs
+
+
+def _folded_pump_dominance(folded):
+    """(delayed, active, top stack) over the bundle's active dp.pump stacks
+    (those doing stripe work: run_stripe and below; a pump parked in its
+    cond-wait is idle, not hot)."""
+    pump = [(line.rpartition(" ")[0], int(line.rpartition(" ")[2]))
+            for line in folded.splitlines()
+            if line.startswith("dp.pump") and line.rpartition(" ")[2].isdigit()]
+    active = [(stack, n) for stack, n in pump if "run_stripe" in stack]
+    delayed = sum(n for stack, n in active if "sleep_ms" in stack or "nanosleep" in stack)
+    top = max(active, key=lambda sn: sn[1])[0] if active else ""
+    return delayed, sum(n for _, n in active), top
+
+
+def _forensics_diagnosis(tmp):
+    """(b) ``diagnose_straggler`` at full width (see phase_forensics);
+    returns the workers' launches and the bundle's size."""
+    from torchft_tpu_torch.faultinject.core import read_evidence
+    from torchft_tpu_torch.telemetry import postmortem
+    from torchft_tpu_torch.telemetry.diagnosis import read_bundles
+    from torchft_tpu_torch.telemetry.profiler import TRACE_FILE, parse_folded
+
+    r, dirs = _diag_leg(tmp, "injected", inject=True)
+    fired = read_evidence(dirs["evidence"])
+    bundles = read_bundles(dirs["diag"])
+    log(f"diagnosis, injected leg: {len(fired)} injections recorded; bundles "
+        f"{[(b.get('bundle'), b.get('replica_id'), (b.get('trigger') or {}).get('event')) for b in bundles]}")
+    check(fired, "diagnosis: no injection evidence: the delay never fired")
+    check(len(bundles) == 1, f"diagnosis: expected exactly one bundle fleet-wide, got "
+          f"{[b.get('bundle') for b in bundles]}")
+    b = bundles[0]
+    slowed = r["replica_ids"][1]
+    check((b.get("trigger") or {}).get("event") == "straggler_detected"
+          and str(b.get("replica_id")).startswith("group1_") and b["replica_id"] == slowed,
+          f"diagnosis: the bundle is {b.get('trigger')} by {b.get('replica_id')}, not "
+          f"straggler_detected by {slowed}")
+    files = {f: os.path.join(b["_dir"], f) for f in ("native.folded", "python.folded")}
+    texts = {}
+    for f, path in files.items():
+        with open(path, encoding="utf-8") as fh:
+            texts[f] = fh.read()
+    delayed, active, top = _folded_pump_dominance(texts["native.folded"])
+    size = sum(os.path.getsize(os.path.join(root, f))
+               for root, _, fs in os.walk(b["_dir"]) for f in fs)
+    nsamples = {f: sum(parse_folded(t).values()) for f, t in texts.items()}
+    log(f"diagnosis, bundle {b['bundle']}: {size} bytes on disk; window {b['window_s']} s at "
+        f"{b['burst_hz']} Hz; samples in the window {nsamples}; active dp.pump samples "
+        f"{active}, in the delay frame {delayed}; top active stack {top[:400]!r}")
+    check(active and ("sleep_ms" in top or "nanosleep" in top) and delayed * 2 >= active,
+          f"diagnosis: the injected delay is not dominant in the slowed group's native hot "
+          f"stack: {delayed}/{active}, top {top[:400]!r}")
+    check(nsamples["python.folded"] > 0, "diagnosis: python.folded is empty")
+    trace = os.path.join(b["_dir"], "torch_trace", TRACE_FILE)
+    check(b.get("torch_trace") is True and os.path.isfile(trace),
+          f"diagnosis: the bundle carries no torch trace ({b.get('files')})")
+    with open(trace, encoding="utf-8") as fh:
+        events = json.load(fh).get("traceEvents", [])
+    kernels = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+                if f"{name}_wgmma" in e.get("name", ""):
+                    kernels[name] = kernels.get(name, 0) + 1
+    log(f"diagnosis, torch trace: {len(events)} events, {os.path.getsize(trace)} bytes; flash "
+        f"kernels by name {kernels}")
+    check(set(kernels) == {"flash_fwd", "flash_dq", "flash_dkv"},
+          f"diagnosis: the bundle's torch trace names {kernels}, not the three flash kernels")
+    report = postmortem.analyze(os.path.join(tmp, "injected"), bundles_dir=dirs["diag"])
+    caps = [rec for rec in report["timeline"] if rec.get("k") == "diagnosis_captured"]
+    log(f"diagnosis, postmortem --bundles: {[(c.get('bundle'), c.get('ep'), c.get('st'), c.get('trigger')) for c in caps]}")
+    check([c.get("bundle") for c in caps] == [b["bundle"]],
+          f"diagnosis: the postmortem timeline folds {caps}, not the bundle")
+    index = r["diagnosis"]
+    log(f"diagnosis, the lighthouse's /diagnosis.json: {json.dumps(index)[:1500]}")
+    listed = index.get("replicas", {}).get(slowed, {})
+    check(index.get("bundles_total") == 1 and listed.get("last") == b["bundle"],
+          f"diagnosis: /diagnosis.json does not list the bundle: {index}")
+
+    ctl, ctl_dirs = _diag_leg(tmp, "control", inject=False)
+    ctl_bundles = read_bundles(ctl_dirs["diag"])
+    log(f"diagnosis, control leg: bundles {[c.get('bundle') for c in ctl_bundles]}; "
+        f"/diagnosis.json {json.dumps(ctl['diagnosis'])[:500]}")
+    check(not ctl_bundles, f"diagnosis: the control leg wrote {len(ctl_bundles)} bundles")
+    launches = [f["launches"] for f in r["finals"].values()]
+    launches += [f["launches"] for f in ctl["finals"].values()]
+    return launches
+
+
+def _box_rate(armed, tmp):
+    """The headline as one group in this process (``bench.train_bench``,
+    OBS_WARMUP + OBS_STEPS steps, device plane) with this process's black
+    box armed under ``tmp`` or not: steps/s."""
+    from torchft_tpu_torch import bench, telemetry
+
+    telemetry.BLACKBOX.configure(os.path.join(tmp, f"box_{time.time_ns()}.bb") if armed
+                                 else None)
+    try:
+        return bench.train_bench(headline_config(), HEADLINE["batch"], HEADLINE["seq"], OBS_STEPS,
+                                 OBS_WARMUP, averaging=True)[0]
+    finally:
+        telemetry.BLACKBOX.configure(None)
+
+
+def phase_forensics():
+    """Forensics and the fault plane on the card, headline worker processes
+    (the recovery harness's, graphed, on CollectivesTcp's striped TCP
+    plane, one lighthouse here).
+
+    (a) Kill and postmortem: the black box and the fault evidence armed;
+    group 1's first incarnation carries a ``collective.issue`` kill at its
+    FORENSICS_KILL_NTH gradient allreduce, dies, is respawned and heals.
+    Held: one sha256 of params and AdamW state; one evidence record of the
+    kill; the victim's Python and native rings recovered, their last
+    records holding the gradient op issued and never completed;
+    ``postmortem.analyze`` names group 1's replica the victim with that op
+    in flight and calls the incident ``injected``; the CLI exits 0.
+
+    (b) Diagnosis (the JAX package's ``diagnose_straggler``): both groups
+    host the straggler monitor (factor 2.0, K 3, poll 0.25 s) and a
+    diagnosis engine on one directory (1.5 s window, 97 Hz burst, the torch
+    trace armed); group 1's gradient allreduces are issued 200 ms late and
+    its stripe hops sleep 60 ms. Held: one bundle fleet-wide, group 1's,
+    on ``straggler_detected``; the delay frame dominant in its active
+    ``dp.pump`` stacks; ``python.folded`` not empty; the torch trace names
+    the three flash kernels; the postmortem folds it as
+    ``diagnosis_captured``; the lighthouse's ``/diagnosis.json`` lists it;
+    one sha256 and 16/8/8 a step in every worker. The control leg, with no
+    injection, writes no bundle.
+
+    (c) Printed: ``benchmarks.profiler_overhead`` (one pair), the
+    headline's steps/s with this process's black box armed and disarmed
+    (BOX_PAIRS pairs), the bundle's size and the samples per plane.
+    Returns the workers' flash launches."""
+    import tempfile
+
+    from torchft_tpu_torch import bench
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the workers need the card's memory
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tft_torch_forensics_")
+    saved = os.environ.get("DEVICE")
+    os.environ["DEVICE"] = "cuda"
+    try:
+        launches = _forensics_kill(tmp)
+        log(f"forensics: kill and postmortem {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        launches += _forensics_diagnosis(tmp)
+        log(f"forensics: diagnosis legs {time.perf_counter() - t1:.1f} s")
+    finally:
+        if saved is None:
+            os.environ.pop("DEVICE")
+        else:
+            os.environ["DEVICE"] = saved
+
+    t1 = time.perf_counter()
+    ov = bench._run_json_subprocess(bench._module(
+        "profiler_overhead", "--runs", "1", "--steps", "10", "--warmup", "2"), 600,
+        env_extra={"DEVICE": "cuda"})["profiler_overhead"]
+    log(f"profiler_overhead: {json.dumps(ov)}; {time.perf_counter() - t1:.1f} s (one pair: "
+        f"printed, not held)")
+    check(ov["steps_per_sec"] > 0 and ov["steps_per_sec_disarmed"] > 0,
+          f"profiler_overhead: {ov}")
+    t1 = time.perf_counter()
+    rates = {True: [], False: []}
+    for _ in range(BOX_PAIRS):
+        for armed in (True, False):
+            rates[armed].append(_box_rate(armed, tmp))
+            gc.collect()
+    on, off = statistics.median(rates[True]), statistics.median(rates[False])
+    log(f"forensics: headline steps/s with the black box armed {rates[True]}, disarmed "
+        f"{rates[False]}; medians {on:.4f} / {off:.4f} ({(off - on) / off * 100:+.2f}% armed; "
+        f"{BOX_PAIRS} pairs, printed, not held); {time.perf_counter() - t1:.1f} s")
+    log(f"forensics: phase wall {time.perf_counter() - t0:.1f} s")
+    return {n: sum(x[n] for x in launches) for n in launches[0]}
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--watchdog-probe"]:
         _watchdog_probe(sys.argv[2])
@@ -3139,6 +3487,7 @@ def main() -> None:
     heal_launches = phase_heal_plane(tcp_groups["joint_ms"])
     phase_observability()
     fleet_launches = phase_fleet()
+    forensics_launches = phase_forensics()
 
     kernels = []
     for d in (64, 128, 32):
@@ -3165,6 +3514,8 @@ def main() -> None:
                 kernels[-1]["launches_heal_plane"] = heal_launches[name]
                 # phase 17's three workers
                 kernels[-1]["launches_fleet_plane"] = fleet_launches[name]
+                # phase 18's workers: the kill's and both diagnosis legs'
+                kernels[-1]["launches_forensics"] = forensics_launches[name]
     # head dim 64 at the long-context bench's lengths: launched by phase 14's
     # long_context rows
     for seq in (LONG_WHOLE["seq"], LONG["seq"]):

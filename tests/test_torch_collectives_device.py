@@ -351,8 +351,11 @@ def test_port_specifics():
 def test_many_groups_under_thread_switching():
     """8 groups (more than this box's cores), 40 allreduces each, with the
     interpreter switching threads every microsecond: a lost deposit or a
-    result handed to the wrong group breaks the exact sums."""
+    result handed to the wrong group breaks the exact sums. The threads the
+    test leaves behind are bounded by its own growth: a worker may hold
+    threads earlier files left (the JAX package's parked acceptors)."""
     world, rounds = 8, 40
+    threads_at_start = threading.active_count()
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
@@ -368,4 +371,7 @@ def test_many_groups_under_thread_switching():
         sys.setswitchinterval(old)
     want = [float(sum(r * rounds + k for r in range(world))) for k in range(rounds)]
     assert all(r == want for r in results)
-    assert threading.active_count() < 50
+    # 47: the earlier absolute bound of 50 less the 3 threads a fresh
+    # worker holds when this file runs alone (the main thread and the two
+    # packages' deadline timers), so the check is as tight on a clean worker
+    assert threading.active_count() - threads_at_start < 47

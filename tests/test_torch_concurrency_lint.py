@@ -46,6 +46,12 @@ RUNTIME = (
     "torchft_tpu_torch/_native.py",
     "torchft_tpu_torch/checkpointing/delta.py",
     "torchft_tpu_torch/ops/flash_attention.py",
+    "torchft_tpu_torch/faultinject/core.py",
+    "torchft_tpu_torch/telemetry/blackbox.py",
+    "torchft_tpu_torch/telemetry/profiler.py",
+    "torchft_tpu_torch/telemetry/diagnosis.py",
+    "torchft_tpu_torch/telemetry/postmortem.py",
+    "torchft_tpu_torch/benchmarks/profiler_overhead.py",
 )
 
 KEPT = [
@@ -62,6 +68,14 @@ KEPT = [
                "CollectivesTcp._send_cma:_send_frame()",
         "reason": "the same per-socket send_lock as _send_to: the CMA pull descriptor's "
                   "frame must be whole on the wire",
+    },
+    {
+        "key": "blocking-under-lock:torchft_tpu_torch/collectives.py:"
+               "CollectivesTcp._torn_send:*.sock.sendall",
+        "reason": "the fault plane's torn frame (a full header and part of the payload) "
+                  "must be whole against other senders to that peer, which is what the "
+                  "socket's own send_lock is for; the socket is cut right after, so the "
+                  "wait under it is one partial frame's",
     },
     {
         "key": "blocking-under-lock:torchft_tpu_torch/manager.py:"

@@ -13,8 +13,10 @@ every module of the package (the examples, the lighthouse CLI, the bench
 and its harnesses and the wire codecs included) and ``chip_smoke.py``;
 neither may import the JAX package's root ``bench.py`` either. The
 telemetry modules (``telemetry/`` and ``profiling.py``, the fleet plane's
-among them: each quorum's report is built and delta-encoded) are held to
-the same: the Manager's step loads them, and the scan covers each.
+among them: each quorum's report is built and delta-encoded), the
+forensics (black box, samplers, diagnosis, postmortem), the fault plane
+(``faultinject/``) and the samplers' overhead row are held to the same:
+the Manager's step loads them, and the scan covers each.
 """
 
 import ast
@@ -93,6 +95,8 @@ import torchft_tpu_torch.benchmarks.quorum_scale
 import torchft_tpu_torch.benchmarks.telemetry_overhead
 import torchft_tpu_torch.telemetry.critical_path
 import torchft_tpu_torch.telemetry.regression
+import torchft_tpu_torch.telemetry.postmortem
+import torchft_tpu_torch.benchmarks.profiler_overhead
 from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
 srcs = [HTTPTransport(timeout=timedelta(seconds=20), hostname="localhost") for _ in range(3)]
 for t in srcs[:2]:
@@ -207,7 +211,10 @@ def test_ft_step_runs_without_jax_or_reference_package():
                    "benchmarks.quorum_overlap", "benchmarks.commit_pipeline",
                    "benchmarks.diloco", "checkpointing.stripes", "checkpointing.delta",
                    "checkpointing.bench", "telemetry", "telemetry.registry", "telemetry.events",
-                   "telemetry.tracing", "telemetry.anatomy", "telemetry.flight", "profiling"):
+                   "telemetry.tracing", "telemetry.anatomy", "telemetry.flight", "profiling",
+                   "faultinject", "faultinject.core", "telemetry.blackbox",
+                   "telemetry.profiler", "telemetry.diagnosis", "telemetry.postmortem",
+                   "benchmarks.profiler_overhead"):
         assert f"torchft_tpu_torch.{module}" in out["modules"]
 
 
@@ -261,6 +268,13 @@ def test_no_forbidden_imports_in_sources():
             "torchft_tpu_torch/telemetry/critical_path.py",
             "torchft_tpu_torch/benchmarks/quorum_scale.py",
             "torchft_tpu_torch/benchmarks/telemetry_overhead.py",
+            "torchft_tpu_torch/faultinject/__init__.py",
+            "torchft_tpu_torch/faultinject/core.py",
+            "torchft_tpu_torch/telemetry/blackbox.py",
+            "torchft_tpu_torch/telemetry/profiler.py",
+            "torchft_tpu_torch/telemetry/diagnosis.py",
+            "torchft_tpu_torch/telemetry/postmortem.py",
+            "torchft_tpu_torch/benchmarks/profiler_overhead.py",
             "torchft_tpu_torch/profiling.py"} <= scanned
     bad = []
     for path in _port_sources():

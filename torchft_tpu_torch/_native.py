@@ -113,6 +113,17 @@ def _load() -> ctypes.CDLL:
         lib.tft_tsdb_snapshot.restype = c.c_int64
         lib.tft_tsdb_reset.argtypes = []
         lib.tft_tsdb_reset.restype = None
+        # always-on sampling profiler (native/profiler.h)
+        lib.tft_prof_set_hz.argtypes = [c.c_double]
+        lib.tft_prof_set_hz.restype = None
+        lib.tft_prof_hz.argtypes = []
+        lib.tft_prof_hz.restype = c.c_double
+        lib.tft_prof_snapshot.argtypes = [c.POINTER(u8p), c.POINTER(c.c_int64), c.c_char_p, c.c_int]
+        lib.tft_prof_snapshot.restype = c.c_int64
+        lib.tft_prof_samples_total.argtypes = []
+        lib.tft_prof_samples_total.restype = c.c_int64
+        lib.tft_prof_reset.argtypes = []
+        lib.tft_prof_reset.restype = None
         lib.tft_buf_free.restype = None
         lib.tft_lighthouse_create.argtypes = [
             c.c_char_p, c.c_uint64, c.c_uint64, c.c_uint64, c.c_uint64, c.c_uint64,
@@ -300,6 +311,48 @@ def tsdb_snapshot() -> Dict[str, Dict[str, Any]]:
 def tsdb_reset() -> None:
     """Clear this process's time-series store (tests)."""
     _load().tft_tsdb_reset()
+
+
+def prof_set_hz(hz: float) -> None:
+    """Retarget the native sampling profiler's rate live (0 pauses, more
+    arms: the diagnosis engine's burst boost; ``native/profiler.h``)."""
+    _load().tft_prof_set_hz(float(hz))
+
+
+def prof_hz() -> float:
+    """The native profiler's current rate (the ``TORCHFT_PROF_HZ`` default
+    resolved on the first call; 0 is disarmed)."""
+    return float(_load().tft_prof_hz())
+
+
+def prof_snapshot() -> str:
+    """Flamegraph-ready collapsed stacks of every native sample so far:
+    ``"label;root;...;leaf count\\n"`` per (thread label, stack), sorted.
+    Cumulative: two snapshots' difference
+    (``telemetry.profiler.subtract_folded``) is a capture window."""
+    lib = _load()
+    outp = ctypes.POINTER(ctypes.c_uint8)()
+    outlen = ctypes.c_int64()
+    err = _errbuf()
+    code = lib.tft_prof_snapshot(ctypes.byref(outp), ctypes.byref(outlen), err, _ERRLEN)
+    if code != OK:
+        _raise_status(code, err.value.decode())
+    try:
+        out = ctypes.string_at(outp, outlen.value)
+    finally:
+        lib.tft_buf_free(outp)
+    return out.decode(errors="replace")
+
+
+def prof_samples_total() -> int:
+    """Native samples aggregated since the process started (or the last
+    :func:`prof_reset`)."""
+    return int(_load().tft_prof_samples_total())
+
+
+def prof_reset() -> None:
+    """Drop every aggregated native sample."""
+    _load().tft_prof_reset()
 
 
 def _server_address(getter: Any, h: int) -> str:

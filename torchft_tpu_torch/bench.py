@@ -392,6 +392,10 @@ def main() -> None:
         # so its N-group latency histograms stay out of the anatomy row
         ("quorum_scale", _module("quorum_scale"), 1200, ("quorum_scale",)),
         ("commit_pipeline", _module("commit_pipeline"), 900, None),
+        # the always-on samplers armed against disarmed on the headline leg
+        # (bench.py:579-594); its own process, so the toggling and its
+        # samples stay out of this process's rows
+        ("profiler_overhead", _module("profiler_overhead"), 1200, ("profiler_overhead",)),
         ("diloco_4group", _module("diloco"), 600, None),
         ("crossgroup_host_plane", _module("crossgroup", "--total-mb", "128", "--rounds", "2",
                                           "--device", device.type), 900, None),

@@ -66,11 +66,21 @@ Reported (seconds, host wall clock):
   dump a ``SIGUSR2`` to the first survivor writes after its first commit
   past the kill (its last allreduces).
 
+:func:`measure_recovery` with ``victim_env`` lets the victim's first
+incarnation kill itself by a fault schedule (``faultinject``: a ``kill``
+at a site) instead of the harness's SIGKILL, and waits for its death; the
+lighthouse then forms quorums of every group only, so the schedule's hits
+count joint steps from the first.
+
 :func:`run_fleet` runs the same workers with no kill, one of them slowed
 by a host sleep in its local time from a given step, and reads the
 fleet plane while they linger after their last step: the lighthouse's
-``/cluster.json``, ``/fleet.json``, ``/timeseries.json`` and ``/trace``,
-and each worker's ``/metrics`` and ``/critical_path.json``.
+``/cluster.json``, ``/fleet.json``, ``/timeseries.json``, ``/trace`` and
+``/diagnosis.json``, and each worker's ``/metrics`` and
+``/critical_path.json``. A worker's ``final`` event also lists the
+diagnosis bundles its Manager's engine wrote (``TORCHFT_DIAG_DIR``) and
+its samplers' sample counts, and ``TORCHFT_BENCH_STRAGGLER`` ("factor,k")
+sets the straggler detector's factor and K in it.
 
 Usage: ``python -m torchft_tpu_torch.benchmarks.recovery`` (the card) or
 ``DEVICE=cpu python -m torchft_tpu_torch.benchmarks.recovery``; prints
@@ -283,6 +293,7 @@ def _worker() -> None:
     from torchft_tpu_torch.ops import flash_attention as fa
     from torchft_tpu_torch.parallel.ft import FTTrainer
     from torchft_tpu_torch.parallel.train_step import TrainStep, synchronize
+    from torchft_tpu_torch.telemetry.profiler import PROFILER, poll_native_samples
     from torchft_tpu_torch.utils.platform import resolve_device
 
     # the Manager's log (quorums, heals, eviction reports) goes to the
@@ -297,6 +308,14 @@ def _worker() -> None:
     slow_from = int(os.environ.get("TORCHFT_BENCH_SLOW_FROM", "-1"))
     slow_steps = float(os.environ.get("TORCHFT_BENCH_SLOW_STEPS", "0"))
     linger = os.environ.get("TORCHFT_BENCH_LINGER")
+    # the straggler detector's factor and K ("2.0,3"), set before the
+    # Manager makes its monitor (module constants of telemetry.slo)
+    straggler = os.environ.get("TORCHFT_BENCH_STRAGGLER")
+    if straggler:
+        from torchft_tpu_torch.telemetry import slo
+
+        factor, k = straggler.split(",")
+        slo.STRAGGLER_FACTOR, slo.STRAGGLER_K = float(factor), int(k)
     op_timeout = timedelta(seconds=float(os.environ["TORCHFT_BENCH_OP_TIMEOUT"]))
     log = _EventLog(os.environ["TORCHFT_EVENT_LOG"])
     log.emit(event="start", gid=gid, pid=os.getpid())
@@ -392,8 +411,13 @@ def _worker() -> None:
             if committed and manager.current_step() >= total_steps and participants == num_groups:
                 break
         synchronize(device)
+        diagnosis = manager._diagnosis
+        if diagnosis is not None:
+            diagnosis.wait_idle(30.0)  # a bundle being written lands whole
         log.emit(
             event="final", gid=gid, step=manager.current_step(), digest=_state_digest(trainer),
+            diag_bundles=list(diagnosis.bundles) if diagnosis is not None else [],
+            prof_samples={"py": PROFILER.samples_total(), "native": poll_native_samples()},
             captures=dict(ts.graphs.captures) if ts.graphs is not None else None,
             launches=dict(fa.LAUNCHES), steps=len(launches_per_step),
             # the distinct per-step counts: one entry when every step ran
@@ -445,6 +469,9 @@ class RecoveryResult:
     # rates and the stages (``HTTPTransport.last_heal_stats``), and its wall
     rejoin_heal: Optional[Dict[str, Any]] = None
     join_timeout_ms: int = 100  # the lighthouse's
+    # the victim's first incarnation's exit code (-9: SIGKILL, the harness's
+    # or its own fault schedule's)
+    victim_rc: Optional[int] = None
     # the workers' trails, spans and the SIGUSR2 flight dump, read back
     # (see the module doc)
     observability: Dict[str, Any] = field(default_factory=dict)
@@ -622,6 +649,7 @@ def measure_recovery(
     timeout_s: float = 300.0,
     num_groups: int = 2,
     env_extra: Optional[Dict[str, str]] = None,
+    victim_env: Optional[Dict[str, str]] = None,
 ) -> RecoveryResult:
     """Kill group ``num_groups - 1`` of ``num_groups`` once every group has
     committed a step and it has committed ``kill_at_step``, respawn it, and
@@ -630,7 +658,16 @@ def measure_recovery(
     lease, and an op timeout far above a joint step of the headline over
     TCP, so that the timeout never paces a slow step (detection by FIN does
     not depend on it). ``env_extra`` goes into every worker's environment
-    (the data plane: ``TORCHFT_NATIVE_PLANE``, ``TORCHFT_DP_CMA``)."""
+    (the data plane: ``TORCHFT_NATIVE_PLANE``, ``TORCHFT_DP_CMA``).
+
+    ``victim_env`` goes into the victim's first incarnation alone, and
+    holds a fault schedule that kills it (``TORCHFT_FAULT_SCHEDULE``). Its
+    death, not ``kill_at_step``, is then the kill: the harness waits for
+    it (the kill's time is when the harness sees the process gone), and
+    the respawn runs without it. The lighthouse then forms no quorum
+    without every group (``min_replicas=num_groups``): no group steps
+    alone at the start, so the schedule's hits count joint steps from the
+    first, and a survivor waits at its quorum for the respawn."""
     from torchft_tpu_torch.coordination import LighthouseServer
     from torchft_tpu_torch.utils.platform import resolve_device
 
@@ -644,7 +681,9 @@ def measure_recovery(
     tmp = tempfile.mkdtemp(prefix="tft_torch_recovery_")
     logs = [os.path.join(tmp, f"g{g}.jsonl") for g in range(num_groups)]
     # the lighthouse loads (or builds) the native core before any spawn
-    lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1, join_timeout_ms=join_timeout_ms,
+    lighthouse = LighthouseServer(bind="[::]:0",
+                                  min_replicas=1 if victim_env is None else num_groups,
+                                  join_timeout_ms=join_timeout_ms,
                                   heartbeat_timeout_ms=heartbeat_timeout_ms)
     common = {
         **(env_extra or {}),
@@ -656,19 +695,30 @@ def measure_recovery(
     procs: List[Optional[subprocess.Popen]] = [None] * num_groups
     try:
         for g in range(num_groups):
-            procs[g] = _spawn(g, {**common, "TORCHFT_EVENT_LOG": logs[g]}, num_groups)
+            env = {**common, **((victim_env or {}) if g == victim_gid else {}),
+                   "TORCHFT_EVENT_LOG": logs[g]}
+            procs[g] = _spawn(g, env, num_groups)
         # every group has joined: a kill while a group makes its first join
         # can give a quorum that counts the victim in an epoch whose plane
         # it never joins, and the survivors then wait out the op timeout
         # (an open fault, ROADMAP queue 3)
         for g in range(num_groups):
             _wait_for(logs, g, lambda e: e["event"] == "commit", timeout_s, procs)
-        _wait_for(logs, victim_gid,
-                  lambda e: e["event"] == "commit" and e["step"] >= kill_at_step,
-                  timeout_s, procs)
-        t_kill = time.time()
-        procs[victim_gid].send_signal(signal.SIGKILL)
-        procs[victim_gid].wait()
+        if victim_env is None:
+            _wait_for(logs, victim_gid,
+                      lambda e: e["event"] == "commit" and e["step"] >= kill_at_step,
+                      timeout_s, procs)
+            t_kill = time.time()
+            procs[victim_gid].send_signal(signal.SIGKILL)
+            procs[victim_gid].wait()
+        else:
+            try:
+                procs[victim_gid].wait(timeout=timeout_s)
+            except subprocess.TimeoutExpired:
+                raise TimeoutError(f"the victim's schedule never killed it:\n"
+                                   f"{_stderr_tail(logs[victim_gid])}")
+            t_kill = time.time()
+        victim_rc = procs[victim_gid].returncode
         procs[victim_gid]._torchft_store.shutdown()
         t_respawn = time.time()
         procs[victim_gid] = _spawn(victim_gid, {**common, "TORCHFT_EVENT_LOG": logs[victim_gid]},
@@ -757,6 +807,7 @@ def measure_recovery(
             log_paths=logs,
             rejoin_heal=rejoin_heal,
             join_timeout_ms=join_timeout_ms,
+            victim_rc=victim_rc,
             observability=_observability(logs, victim_gid, t_kill, t_respawn, flight),
         )
     finally:
@@ -799,8 +850,9 @@ def run_fleet(
     local time each step. ``env_extra`` goes to every worker, ``group_env[g]``
     to group g alone (the fleet monitors, their poll periods). Once every
     worker has written its ``final`` event it lingers, and the fleet plane
-    is read: the lighthouse's ``cluster``, ``fleet``, ``timeseries`` and
-    ``trace``, and each worker's ``metrics`` and ``critical_path``. Every
+    is read: the lighthouse's ``cluster``, ``fleet``, ``timeseries``,
+    ``trace`` and ``diagnosis``, and each worker's ``metrics`` and
+    ``critical_path``. Every
     worker must then exit 0. Returns those reads, each group's ``final``
     event (``finals``), its ``slowed`` event, its replica id and
     ``log_paths``.
@@ -858,6 +910,7 @@ def run_fleet(
             "fleet": _get(addr + "/fleet.json"),
             "timeseries": _get(addr + "/timeseries.json"),
             "trace": _get(addr + "/trace"),
+            "diagnosis": _get(addr + "/diagnosis.json"),
             "metrics": {g: _get(http[g] + "/metrics") for g in range(num_groups)},
             "critical_path": {g: _get(http[g] + "/critical_path.json")
                               for g in range(num_groups)},

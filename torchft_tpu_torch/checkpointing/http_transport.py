@@ -39,7 +39,10 @@ receives are counted (``record_checkpoint``, the ``checkpoint_send`` /
 ``checkpoint_recv`` trail events), and the striped receive's stages
 (``meta``, ``recv``, ``decode``) go into the ledger's heal-stage totals.
 
-Left out (ROADMAP): the fault points.
+Fault points (``faultinject.core``): ``ckpt.serve`` as a checkpoint GET is
+about to stream (``torn`` / ``drop`` promise the whole Content-Length,
+stream a prefix and cut the connection, as a source dying mid-heal does),
+and ``ckpt.recv`` as a receive starts (both receive paths).
 """
 
 from __future__ import annotations
@@ -79,6 +82,7 @@ from torchft_tpu_torch.checkpointing.stripes import (
     stripe_ranges,
 )
 from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
+from torchft_tpu_torch.faultinject.core import fault_point
 
 logger = logging.getLogger(__name__)
 
@@ -247,6 +251,14 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
                         self.send_error(404, f"bad path {self.path}")
                         return
                     nbytes = sum(len(p) for p in payload)
+                    inj = fault_point("ckpt.serve", match=parts[2], wire=True, step=step,
+                                      nbytes=nbytes)
+                    if inj is not None and inj.action in ("drop", "torn"):
+                        # the healer must fail the transfer on the short
+                        # read, never stage the torn state; it retries at
+                        # its next quorum
+                        self._serve_torn(payload, inj.frac if inj.action == "torn" else 0.0)
+                        return
                     self.send_response(200)
                     self.send_header("Content-Type", "application/octet-stream")
                     self.send_header("Content-Length", str(nbytes))
@@ -276,6 +288,29 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
                         pass
                 finally:
                     transport._lock.r_release()
+
+            def _serve_torn(self, payload: List[Any], frac: float) -> None:
+                nbytes = sum(len(p) for p in payload)
+                self.send_response(200)
+                self.send_header("Content-Type", "application/octet-stream")
+                self.send_header("Content-Length", str(nbytes))
+                self.end_headers()
+                budget = int(nbytes * frac)
+                try:
+                    for part in payload:
+                        if budget <= 0:
+                            break
+                        chunk = part[:budget]
+                        self.wfile.write(chunk)
+                        budget -= len(chunk)
+                    self.wfile.flush()
+                finally:
+                    # a hard cut: the client sees EOF mid-body, as when the
+                    # serving process dies mid-transfer
+                    try:
+                        self.connection.shutdown(socket.SHUT_RDWR)
+                    except OSError:
+                        pass
 
         self._server = _Server(("::", 0), Handler)
         self._port = self._server.server_address[1]
@@ -425,6 +460,7 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
     def recv_checkpoint(
         self, src_rank: int, metadata: str, step: int, timeout: timedelta
     ) -> T:
+        fault_point("ckpt.recv", match=str(step), step=step)
         base = f"{metadata}/checkpoint/{step}"
         secs = timeout.total_seconds()
         if self._num_chunks == 0:
@@ -468,6 +504,7 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
         buffers and tree digest at ``since_step``) the differential heal is
         tried first. ``header_cb`` gets the header as soon as it is known,
         before any bulk bytes land."""
+        fault_point("ckpt.recv", match=str(step), step=step)
         if not sources:
             raise ValueError("need at least one heal source")
         secs = timeout.total_seconds()

@@ -36,8 +36,15 @@ in the flight recorder (issue and completion); an allreduce's bytes and
 latency are recorded at completion. The wire plane's stage seconds
 (``host_copy`` / ``quantize`` / ``wire`` / ``dequant_reduce``) go into the
 step-anatomy ledger through :func:`record_wire_stage`, and
-:func:`wire_stage_snapshot` reads their totals back. Left out (ROADMAP):
-the fault points.
+:func:`wire_stage_snapshot` reads their totals back.
+
+The fault points (``faultinject.core``), at the JAX package's sites:
+``collective.issue`` as an op is issued (after its flight record, so an op
+a kill stops there stays in flight in the black box), ``collective.complete``
+on the op thread once it finished (``corrupt`` perturbs this replica's
+result), ``rpc.send`` (``drop`` leaves a frame unsent, ``torn`` ships a
+full-length header and part of the payload, then cuts the socket),
+``rpc.recv``, and ``cma.pull`` (``torn`` fills a prefix, then fails).
 """
 
 from __future__ import annotations
@@ -53,10 +60,11 @@ from abc import ABC, abstractmethod
 from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
 from enum import Enum
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
+from torchft_tpu_torch.faultinject.core import fault_point
 from torchft_tpu_torch.futures import Future
 from torchft_tpu_torch.telemetry.anatomy import LEDGER as _ANATOMY_LEDGER
 from torchft_tpu_torch.telemetry.anatomy import WIRE_STAGES
@@ -260,6 +268,17 @@ def _cma_pull(pid: int, addr: int, view: memoryview) -> None:
 
     from torchft_tpu_torch._native import cma_read_into
 
+    inj = fault_point("cma.pull", match=f"pid{pid}", wire=True, nbytes=len(view))
+    if inj is not None and inj.action in ("torn", "drop"):
+        # torn read: fill only a prefix of the caller's buffer (what a pull
+        # from a peer dying mid-op leaves), then fail the stream loudly so
+        # the step latches instead of committing the partial bytes
+        k = int(len(view) * inj.frac) if inj.action == "torn" else 0
+        if k:
+            cma_read_into(pid, addr, view[:k])
+        raise ConnectionError(
+            f"fault injection: torn CMA pull ({k}/{len(view)} bytes from pid {pid})"
+        )
     try:
         cma_read_into(pid, addr, view)
     except OSError as e:
@@ -273,6 +292,20 @@ def _cma_pull(pid: int, addr: int, view: memoryview) -> None:
                 "next reconfigure settles the group on TCP", pid, e,
             )
         raise
+
+
+def _corrupt_buffers(result: Any, frac: float) -> None:
+    """``corrupt(frac)`` at ``collective.complete``: +1 on the leading
+    ``frac`` of the first finished buffer's elements, on this replica only.
+    Finite, so nothing downstream errors: the corruption shows only as a
+    divergence between the groups' states."""
+    arrays = result if isinstance(result, (list, tuple)) else [result]
+    for arr in arrays:
+        if isinstance(arr, np.ndarray) and arr.size:
+            n = max(1, int(arr.size * frac))
+            flat = arr.reshape(-1)
+            flat[:n] += flat.dtype.type(1)
+            return
 
 
 def _send_frame(sock: socket.socket, tag: int, payload: memoryview) -> None:
@@ -702,9 +735,10 @@ class CollectivesTcp(Collectives):
             raise RuntimeError(f"no connection to peer {rank}")
         return p
 
-    def _submit(self, fn: Callable, p2p: bool = False) -> Work:
+    def _submit(self, fn: Callable, p2p: bool = False, op: str = "") -> Work:
         """Run ``fn`` async. Collective ops share ONE ordered thread (SPMD
-        tag sequencing); point-to-point ops go to the p2p pool."""
+        tag sequencing); point-to-point ops go to the p2p pool. ``op`` names
+        the op at the ``collective.complete`` fault point."""
         executor = self._p2p if p2p else self._executor
         if executor is None:
             raise RuntimeError("configure() must be called first")
@@ -712,7 +746,22 @@ class CollectivesTcp(Collectives):
 
         def run() -> None:
             try:
-                out.set_result(fn())
+                result = fn()
+                if op:
+                    # completion-side injection: a delay holds the op thread
+                    # (a wedged peer), an error fails the finished op before
+                    # its future resolves, and corrupt perturbs this
+                    # replica's result silently
+                    inj = fault_point("collective.complete", match=op, rank=self._rank,
+                                      wire=True)
+                    if inj is not None:
+                        if inj.action == "corrupt":
+                            _corrupt_buffers(result, inj.frac)
+                        elif inj.action in ("drop", "torn"):
+                            # no wire semantics here: an error, never a
+                            # silent no-op (delay and kill ran inline)
+                            raise inj.make_exception()
+                out.set_result(result)
             except BaseException as e:  # noqa: BLE001 — propagate via future
                 out.set_exception(e)
 
@@ -731,6 +780,13 @@ class CollectivesTcp(Collectives):
         return Work(out)
 
     def _send_to(self, rank: int, tag: int, data: memoryview) -> None:
+        inj = fault_point("rpc.send", match=f"peer{rank}", wire=True, tag=tag,
+                          nbytes=len(data), rank=self._rank)
+        if inj is not None:
+            if inj.action == "drop":
+                return  # silently unsent: the peer's receive hits its deadline
+            if inj.action == "torn":
+                self._torn_send(rank, tag, data, inj.frac)  # raises
         if (
             self._dp_cma_pids is not None
             and len(data) >= CMA_P2P_MIN
@@ -746,6 +802,25 @@ class CollectivesTcp(Collectives):
             if isinstance(e, (socket.timeout, TimeoutError)):
                 raise  # slow-but-alive peer: latch the error, don't accuse
             raise PeerGoneError(rank, f"send to peer {rank} failed: {e}") from e
+
+    def _torn_send(self, rank: int, tag: int, data: memoryview, frac: float) -> None:
+        """The ``torn`` wire primitive: a full-length frame header, ``frac``
+        of the payload, then a hard cut of the socket, as a peer dying
+        mid-send leaves it. The receiver sees a mid-frame EOF (never
+        half-filled data reported as success); this side fails as a send
+        to a dead peer does."""
+        p = self._peer(rank)
+        k = int(len(data) * frac)
+        try:
+            with p.send_lock:
+                p.sock.sendall(_FRAME_HDR.pack(tag, len(data)) + bytes(data[:k]))
+        finally:
+            try:
+                p.sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        raise PeerGoneError(rank, f"fault injection: torn send to peer {rank} "
+                                  f"({k}/{len(data)} bytes)")
 
     def _send_cma(self, rank: int, tag: int, data: memoryview) -> None:
         """Ship a pull descriptor instead of the payload, then wait for the
@@ -798,6 +873,7 @@ class CollectivesTcp(Collectives):
         returned; otherwise the frame bytes are returned."""
         p = self._peer(rank)
         try:
+            fault_point("rpc.recv", match=f"peer{rank}", tag=tag, rank=self._rank)
             return self._recv_matched(p, rank, tag, into)
         except (ConnectionError, OSError) as e:
             if isinstance(e, (socket.timeout, TimeoutError)):
@@ -953,13 +1029,23 @@ class CollectivesTcp(Collectives):
         return buf[:nelems]
 
     def _count_op(self, op_name: str, nbytes: int = 0, tag: int = 0) -> int:
-        """Count the op and record its issue in the flight recorder;
-        returns the flight record's sequence id."""
+        """Count the op, record its issue in the flight recorder and pass
+        the ``collective.issue`` fault point; returns the flight record's
+        sequence id. The point comes after the record (the JAX package
+        passes it first), so an op a ``kill`` stops here is in flight in
+        the black box; an ``error`` completes the record as failed."""
         from torchft_tpu_torch import telemetry
 
         plane = self.plane_info()
         telemetry.COLLECTIVE_OPS.labels(op=op_name, plane=plane).inc()
-        return telemetry.FLIGHT.record_issue(op_name, plane, nbytes, tag=tag, rank=self._rank)
+        fid = telemetry.FLIGHT.record_issue(op_name, plane, nbytes, tag=tag, rank=self._rank)
+        try:
+            fault_point("collective.issue", match=op_name, nbytes=nbytes, tag=tag,
+                        rank=self._rank)
+        except BaseException as e:
+            telemetry.FLIGHT.record_complete(fid, error=e)
+            raise
+        return fid
 
     def _track_flight(self, work: Work, fid: int) -> Work:
         """Mark the flight record completed or failed when the op resolves."""
@@ -998,7 +1084,7 @@ class CollectivesTcp(Collectives):
                                         self.plane_info(), count_op=False)
             return arrays
 
-        return self._track_flight(self._submit(run), fid)
+        return self._track_flight(self._submit(run, op="allreduce"), fid)
 
     def _dp_eligible(self, arr: np.ndarray) -> bool:
         from torchft_tpu_torch._native import NativeDataPlane
@@ -1148,7 +1234,7 @@ class CollectivesTcp(Collectives):
                 out[cur_idx] = cur
             return out  # type: ignore[return-value]
 
-        return self._track_flight(self._submit(run), fid)
+        return self._track_flight(self._submit(run, op="allgather"), fid)
 
     def broadcast(self, arr: np.ndarray, root: int = 0) -> Work:
         world, rank = self._world, self._rank
@@ -1166,7 +1252,7 @@ class CollectivesTcp(Collectives):
                     self._recv_from(root, tag, into=_bytes_view(_flat_view(arr)))
             return arr
 
-        return self._track_flight(self._submit(run), fid)
+        return self._track_flight(self._submit(run, op="broadcast"), fid)
 
     def reduce_scatter(
         self, arrays: List[np.ndarray], op: ReduceOp = ReduceOp.SUM
@@ -1195,7 +1281,7 @@ class CollectivesTcp(Collectives):
                 np.divide(acc, world, out=acc)
             return acc
 
-        return self._track_flight(self._submit(run), fid)
+        return self._track_flight(self._submit(run, op="reduce_scatter"), fid)
 
     def alltoall(self, arrays: List[np.ndarray]) -> Work:
         world, rank = self._world, self._rank
@@ -1216,13 +1302,14 @@ class CollectivesTcp(Collectives):
                             .reshape(arrays[src].shape).copy())
             return out  # type: ignore[return-value]
 
-        return self._track_flight(self._submit(run), fid)
+        return self._track_flight(self._submit(run, op="alltoall"), fid)
 
     def send(self, arr: np.ndarray, dst: int, tag: int = 0) -> Work:
         wire_tag = 0x06000000 | (tag & 0xFFFFFF)
         fid = self._count_op("send", int(arr.nbytes), wire_tag)
         return self._track_flight(
-            self._submit(lambda: self._send_to(dst, wire_tag, _bytes_view(arr)), p2p=True), fid)
+            self._submit(lambda: self._send_to(dst, wire_tag, _bytes_view(arr)), p2p=True,
+                         op="send"), fid)
 
     def recv(self, arr: np.ndarray, src: int, tag: int = 0) -> Work:
         wire_tag = 0x06000000 | (tag & 0xFFFFFF)
@@ -1232,7 +1319,7 @@ class CollectivesTcp(Collectives):
             self._recv_from(src, wire_tag, into=_bytes_view(_flat_view(arr)))
             return arr
 
-        return self._track_flight(self._submit(run, p2p=True), fid)
+        return self._track_flight(self._submit(run, p2p=True, op="recv"), fid)
 
     def barrier(self) -> Work:
         token = np.zeros(1, dtype=np.int32)
@@ -1244,7 +1331,7 @@ class CollectivesTcp(Collectives):
             if world > 1:
                 self._ring_allreduce(token, ReduceOp.SUM, tag)
 
-        return self._track_flight(self._submit(run), fid)
+        return self._track_flight(self._submit(run, op="barrier"), fid)
 
 
 # ---------------------------------------------------------------------------

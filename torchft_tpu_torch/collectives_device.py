@@ -49,7 +49,14 @@ bytes count at issue (``numel() * element_size()``, never a tensor's value)
 and its latency, from issue to the rendezvous' result, at completion. At
 world size 1 the allreduce is counted with its bytes and no latency.
 
-Left out (ROADMAP): fault points; the sharded-group case, which waits for
+The fault points (``faultinject.core``) sit at the JAX plane's sites:
+``collective.issue`` (``match="device.<op>"``) before an op takes its SPMD
+slot, and ``collective.complete`` as this group's
+result resolves, where ``corrupt`` perturbs that result on the device
+(+1 on the leading ``frac`` of its first output's elements: torch ops on
+the result's own device and stream, no host copy).
+
+Left out (ROADMAP): the sharded-group case, which waits for
 in-group parallelism; one process per group over NCCL (the JAX package's
 ``CollectivesDeviceDist``).
 """
@@ -67,6 +74,7 @@ import numpy as np
 import torch
 
 from torchft_tpu_torch.collectives import Collectives, ReduceOp, Work
+from torchft_tpu_torch.faultinject.core import fault_point
 from torchft_tpu_torch.futures import Future, future_timeout
 from torchft_tpu_torch.utils.platform import resolve_device
 
@@ -286,6 +294,9 @@ class CollectivesDevice(Collectives):
         group to arrive computes and resolves everyone's future."""
         from torchft_tpu_torch import telemetry
 
+        # before the op takes its SPMD slot, as in the JAX plane: an error
+        # here leaves the slot to this group's next op
+        fault_point("collective.issue", match=f"device.{kind}", rank=self._rank)
         ep = self._live_epoch()
         if kind != "allreduce":  # allreduce accounts its bytes and latency itself
             telemetry.COLLECTIVE_OPS.labels(op=kind, plane="device").inc()
@@ -331,8 +342,24 @@ class CollectivesDevice(Collectives):
         if run_op is not None:
             _run(run_op)
         out = future_timeout(fut, self._timeout)
-        out.then(lambda f: telemetry.FLIGHT.record_complete(fid, error=f.exception()))
-        return Work(out)
+
+        def complete(f: Future) -> Any:
+            telemetry.FLIGHT.record_complete(fid, error=f.exception())
+            value = f.value()  # re-raises the op's failure, if any
+            # completion-side injection, the host plane's too: corrupt
+            # perturbs this group's finished output silently
+            inj = fault_point("collective.complete", match=f"device.{kind}", rank=self._rank,
+                              wire=True)
+            if inj is not None:
+                if inj.action == "corrupt":
+                    value = _corrupt_device_result(value, inj.frac)
+                elif inj.action in ("drop", "torn"):
+                    # no wire semantics here: an error, never a silent
+                    # no-op (delay and kill ran inline)
+                    raise inj.make_exception()
+            return value
+
+        return Work(out.then(complete))
 
     # -- collectives --
 
@@ -451,6 +478,24 @@ class CollectivesDevice(Collectives):
             return t
 
         return Work(future_timeout(fut, self._timeout).then(place))
+
+
+def _corrupt_device_result(value: Any, frac: float) -> Any:
+    """``corrupt(frac)`` on the device plane: +1 on the leading ``frac`` of
+    the first output's elements, this group only, as a perturbed copy that
+    replaces the result (the inputs and the other groups' results are
+    untouched). Torch ops on the tensor's own device: no host copy."""
+    outs = list(value) if isinstance(value, (list, tuple)) else [value]
+    for i, t in enumerate(outs):
+        if isinstance(t, torch.Tensor) and t.numel():
+            n = max(1, int(t.numel() * frac))
+            bumped = t.clone()
+            bumped.view(-1)[:n] += 1
+            outs[i] = bumped
+            break
+    if isinstance(value, (list, tuple)):
+        return type(value)(outs)
+    return outs[0]
 
 
 def _run(op: _Op) -> None:

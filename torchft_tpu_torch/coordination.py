@@ -1,13 +1,15 @@
 """Low-level coordination API: Lighthouse / Manager servers and clients —
-the port's copy of ``torchft_tpu/coordination.py``, without the fault
-points. The quorum and vote RPCs carry the caller's trace context
+the port's copy of ``torchft_tpu/coordination.py``. The quorum and vote
+RPCs carry the caller's trace context
 (``"trace"``), run in ``quorum_rpc`` / ``should_commit_rpc`` spans, and the
 quorum's latency and count are recorded (``tft_quorum_latency_seconds``,
 ``tft_quorums_total``). The quorum RPC and a heartbeat carry the replica's
 telemetry report (``"telemetry"``: a delta blob or the full-JSON row),
 which the lighthouse folds into ``/cluster.json``, ``/fleet.json``,
 ``/timeseries.json`` and the merged ``/trace``; the quorum reply acks the
-delta chain (``"tack"``, :attr:`QuorumResult.telemetry_ack`).
+delta chain (``"tack"``, :attr:`QuorumResult.telemetry_ack`). Fault
+points (``faultinject.core``): ``quorum.reply`` once the quorum reply
+arrived, ``commit.vote`` (``match="rpc"``) before the vote RPC.
 
 The servers run in the C++ core (``native/coord.cc``); CANCELLED /
 DEADLINE_EXCEEDED replies become ``TimeoutError``.
@@ -20,6 +22,7 @@ from datetime import timedelta
 from typing import Any, Dict, List, Optional
 
 from torchft_tpu_torch import _native
+from torchft_tpu_torch.faultinject.core import fault_point
 
 __all__ = [
     "LighthouseServer",
@@ -220,6 +223,10 @@ class ManagerClient:
         # the quorum's formation latency as this rank saw it
         telemetry.QUORUM_LATENCY.observe(time.perf_counter() - t0)
         telemetry.QUORUMS_TOTAL.inc()
+        # reply-side injection: a delay stretches the window between the
+        # quorum landing and the plane's reconfigure; an error makes this
+        # rank treat a delivered quorum as failed (retried next step)
+        fault_point("quorum.reply", match="", rank=rank, step=step)
         return QuorumResult._from_wire(resp)
 
     def _checkpoint_metadata(self, rank: int, timeout: timedelta) -> str:
@@ -232,7 +239,9 @@ class ManagerClient:
         self, rank: int, step: int, should_commit: bool, timeout: timedelta
     ) -> bool:
         from torchft_tpu_torch import telemetry
-
+            # vote-RPC injection: a delay is a synthetic commit-barrier round
+        # trip (what the pipelined mode hides), an error a lost vote
+        fault_point("commit.vote", match="rpc", rank=rank, step=step)
         req = {
             "rank": rank,
             "step": step,

@@ -4,9 +4,10 @@ The reference wraps ``torch.futures.Future`` with a timeout manager backed by
 a lazily-started asyncio thread (torchft/futures.py:43-165 upstream).
 The port keeps the JAX package's own chainable ``Future`` (continuations
 via ``then``, error propagation) plus a single daemon timer thread that
-fails futures past their deadline — a copy of ``torchft_tpu/futures.py``
-without its fault-injection point. A deadline counts in
-``tft_future_timeouts_total`` and dumps the flight recorder.
+fails futures past their deadline — a copy of ``torchft_tpu/futures.py``.
+A deadline counts in ``tft_future_timeouts_total`` and dumps the flight
+recorder. :func:`future_timeout` is the ``future.deadline`` injection site
+(``faultinject.core``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ import heapq
 import threading
 from datetime import timedelta
 from typing import Any, Callable, Generic, List, Optional, Tuple, TypeVar
+
+from torchft_tpu_torch.faultinject.core import fault_point
 
 T = TypeVar("T")
 S = TypeVar("S")
@@ -193,6 +196,10 @@ _TIMEOUT_MANAGER = _TimeoutManager()
 def future_timeout(fut: Future[T], timeout: timedelta) -> Future[T]:
     """Return a future that mirrors ``fut`` but fails with TimeoutError if it
     is not complete within ``timeout`` (torchft/futures.py:123-135)."""
+    # deadline-machinery injection site: an `error` (exc=TimeoutError)
+    # stands in for an expired deadline without waiting it out; a `delay`
+    # stalls the registering thread like a slow op-issue path
+    fault_point("future.deadline", ms_budget=timeout.total_seconds() * 1000)
     out: Future[T] = Future()
 
     def copy(f: Future[T]) -> None:

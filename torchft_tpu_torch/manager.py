@@ -58,9 +58,17 @@ time to its commit; and a rank-0 Manager hosts the straggler monitor
 regression sentinel and the critical-path attributor
 (``TORCHFT_REGRESSION_MONITOR=1``).
 
-Left out (ROADMAP): the forensics' report keys (``diag_*``), the
-divergence sentinel (its series flag is sent as 0), ``set_heal_warmup``
-and ``WorldSizeMode.FIXED_WITH_SPARES``.
+Forensics and the fault plane: the Python stack sampler runs always-on
+(``TORCHFT_PROF_HZ``); with ``TORCHFT_DIAG_DIR`` set the Manager hosts a
+``DiagnosisEngine`` that turns latch events into diagnosis bundles, and
+the report and payload announce them (``diag_bundles`` / ``diag_last`` /
+``diag_dir``, which the lighthouse's ``/diagnosis.json`` lists); the
+crash-durable black box's (replica, step, epoch) context moves in
+lockstep with the tracer's; and the commit barrier's drain is the
+``commit.vote`` injection site (``match="prepare"``).
+
+Left out (ROADMAP): the divergence sentinel (its series flag is sent as
+0), ``set_heal_warmup`` and ``WorldSizeMode.FIXED_WITH_SPARES``.
 """
 
 from __future__ import annotations
@@ -88,11 +96,14 @@ from torchft_tpu_torch.checkpointing.stripes import heal_sources_limit
 from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
 from torchft_tpu_torch.collectives import Collectives, PeerGoneError, ReduceOp
 from torchft_tpu_torch.coordination import ManagerClient, ManagerServer
+from torchft_tpu_torch.faultinject.core import fault_point
 from torchft_tpu_torch.futures import Future, future_timeout, run_in_executor
 from torchft_tpu_torch.profiling import StepTimer
 from torchft_tpu_torch.store import StoreClient
 from torchft_tpu_torch.telemetry import fleetdelta, timeseries
 from torchft_tpu_torch.telemetry.critical_path import CriticalPathMonitor
+from torchft_tpu_torch.telemetry.diagnosis import DiagnosisEngine, diag_dir
+from torchft_tpu_torch.telemetry.profiler import PROFILER
 from torchft_tpu_torch.telemetry.regression import RegressionMonitor
 from torchft_tpu_torch.telemetry.slo import FleetMonitor, SloManager
 
@@ -132,6 +143,19 @@ class _PendingCommit:
         self.errored: Optional[Exception] = None
         self.on_resolved: Optional[Callable[[bool], None]] = None
         self.prepare_s = 0.0  # the pre-vote drain's wall clock
+
+
+def _diag_fields(manager: Any) -> Dict[str, Any]:
+    """The diagnosis bundles' announcement on a Manager's report and
+    payload (``diag_bundles``, the latest's name, the directory) once its
+    engine wrote one; the lighthouse indexes them at ``/diagnosis.json``.
+    ``getattr``: the report builders also run on partly built Managers."""
+    diagnosis = getattr(manager, "_diagnosis", None)
+    if diagnosis is None or not diagnosis.bundle_count:
+        return {}
+    return {"diag_bundles": diagnosis.bundle_count,
+            "diag_last": diagnosis.last_bundle or "",
+            "diag_dir": diagnosis.directory or ""}
 
 
 class _ManagerLogger:
@@ -375,11 +399,27 @@ class Manager:
         # never keeps this Manager alive.
         telemetry.install_sigusr2()
         self._watchdog = telemetry.StepWatchdog(on_stall=self._on_stall)
+        # the diagnosis plane: the Python stack sampler runs always-on at
+        # TORCHFT_PROF_HZ (0 disarms; the native sampler arms itself when
+        # its threads register), and with TORCHFT_DIAG_DIR set an engine
+        # turns latch events into bounded deep-capture bundles. The engine
+        # subscribes to the process-wide trail and holds no reference to
+        # this Manager; shutdown() unsubscribes it.
+        PROFILER.ensure_started()
+        self._diagnosis: Optional[DiagnosisEngine] = None
+        if diag_dir():
+            self._diagnosis = DiagnosisEngine(
+                replica_id=self._replica_id, lighthouse_addr=self._lighthouse_addr,
+            ).install()
         # the step a trail event or span of the step now running names:
         # with a pipelined vote in flight, _step lags that step by one
         self._step_label = 0
         telemetry.TRACER.set_context(replica_id=self._replica_id, step=self._step,
                                      quorum_epoch=-1)
+        # the crash-durable black box stamps every mirrored record with the
+        # same clock-sync-free coordinates the tracer uses
+        telemetry.BLACKBOX.set_context(replica_id=self._replica_id, step=self._step,
+                                       quorum_epoch=-1)
 
     def set_state_dict_fns(
         self, load_state_dict: Callable[[T], None], state_dict: Callable[[], T]
@@ -473,6 +513,7 @@ class Manager:
             "anatomy": telemetry.LEDGER.summary(),
             "hist": fleetdelta.collect_hists(),
         }
+        report.update(_diag_fields(self))
         series = timeseries.build_series(slo_breach=bool(self._slo.breached()),
                                          stuck=bool(self._watchdog.stalled), divergence=False)
         if series:
@@ -546,6 +587,7 @@ class Manager:
                 "stuck": bool(self._watchdog.stalled),
                 "last_heal_ts": float(self._last_heal_ts),
                 "spans": telemetry.TRACER.drain_chrome_fragment(),
+                **_diag_fields(self),
             }
             series = timeseries.build_series(slo_breach=bool(self._slo.breached()),
                                              stuck=bool(self._watchdog.stalled),
@@ -566,6 +608,8 @@ class Manager:
         """Shut down the manager server, checkpoint transport and data plane."""
         self._shutting_down = True
         self._watchdog.stop()
+        if self._diagnosis is not None:
+            self._diagnosis.remove()  # the process-wide trail holds it otherwise
         for monitor in (self._fleet_monitor, self._regression_monitor):
             if monitor is not None:
                 monitor.stop()
@@ -627,6 +671,8 @@ class Manager:
         self._step_label = self._step + (1 if self._pending_commit is not None else 0)
         telemetry.TRACER.set_context(replica_id=self._replica_id, step=self._step_label,
                                      quorum_epoch=self._quorum_id)
+        telemetry.BLACKBOX.set_context(replica_id=self._replica_id, step=self._step_label,
+                                       quorum_epoch=self._quorum_id)
         self._watchdog.arm(self._step_label)
         telemetry.emit("quorum_start", step=self._step_label, allow_heal=allow_heal,
                        shrink_only=shrink_only)
@@ -843,6 +889,7 @@ class Manager:
                 )
             self._quorum_id = quorum.quorum_id
             telemetry.TRACER.set_context(quorum_epoch=quorum.quorum_id)
+            telemetry.BLACKBOX.set_context(quorum_epoch=quorum.quorum_id)
             telemetry.QUORUM_RECONFIGURES.inc()
             self.step_timer.mark_quorum()
             self._commit_failures = 0  # the flush request has been honored
@@ -1388,6 +1435,9 @@ class Manager:
         """The pre-vote half of the commit barrier: drain the step's pending
         work, land a staged heal, and record what the post-vote accounting
         needs."""
+        # the injection window right after the drain's start: a kill here
+        # dies with the step's work contributed and the vote not cast
+        fault_point("commit.vote", match="prepare", step=self._step)
         t0 = time.perf_counter()
         for work in self._pending_work:
             if self._errored is not None:

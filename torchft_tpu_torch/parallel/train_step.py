@@ -27,7 +27,7 @@ from __future__ import annotations
 import contextlib
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -37,7 +37,7 @@ from torchft_tpu_torch.telemetry.anatomy import LEDGER
 from torchft_tpu_torch.utils.platform import resolve_device
 from torchft_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
 
-__all__ = ["TrainStep", "GraphedStep", "StepGraphs", "synchronize"]
+__all__ = ["TrainStep", "GraphedStep", "StepGraphs", "synchronize", "capture_quiesced"]
 
 # one capture at a time in the process: replica groups run as threads, and
 # a capture's warm-up and recording must not interleave with another's
@@ -55,6 +55,17 @@ def synchronize(device: Optional[Union[str, torch.device]] = None) -> None:
     with _CAPTURE_LOCK:
         if device is None or torch.device(device).type == "cuda":
             torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def capture_quiesced() -> Iterator[None]:
+    """Hold off every CUDA-graph capture in the process for the body, and
+    wait for one in progress first. Work that would break a capture on
+    another thread's stream runs inside: a device-wide sync
+    (:func:`synchronize`), the diagnosis engine's ``torch.profiler``
+    start and stop (``telemetry.profiler.capture_torch_trace``)."""
+    with _CAPTURE_LOCK:
+        yield
 
 
 def _ptrs(tensors: Sequence[torch.Tensor]) -> Tuple[int, ...]:

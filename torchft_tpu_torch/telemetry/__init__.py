@@ -1,7 +1,10 @@
 """Telemetry of the port's fault-tolerance runtime — the port's copy of
 ``torchft_tpu/telemetry/__init__.py``, its per-process plane: metrics,
-the FT event trail, spans, the step-anatomy ledger and the collective
-flight recorder with its step watchdog.
+the FT event trail, spans, the step-anatomy ledger, the collective
+flight recorder with its step watchdog, and the forensics: the
+crash-durable black box they mirror into (:mod:`.blackbox`), the stack
+samplers (:mod:`.profiler`), the latch-triggered diagnosis bundles
+(:mod:`.diagnosis`) and the postmortem (:mod:`.postmortem`).
 
 One process-wide :class:`~torchft_tpu_torch.telemetry.registry.MetricsRegistry`
 (``REGISTRY``) and one process-wide FT event trail (``EVENTS``), fed by the
@@ -26,11 +29,12 @@ series (:mod:`.timeseries`), the SLO and straggler detectors (:mod:`.slo`,
 ``tft_slo_breach_total``, ``tft_straggler_detected_total``,
 ``tft_stragglers``), the regression sentinel (:mod:`.regression`,
 ``tft_perf_regression_total``) and the critical path
-(:mod:`.critical_path`, ``tft_critical_path_*``). Families whose writers
-are not ported yet stay at zero: the forensics' (``tft_prof_samples_total``,
-``tft_diagnosis_bundles_total``), the divergence sentinel's
-(``tft_divergence_total``) and fault injection's
-(``tft_faults_injected_total``).
+(:mod:`.critical_path`, ``tft_critical_path_*``); the forensics theirs
+(``tft_prof_samples_total`` from the samplers, ``tft_diagnosis_bundles_total``
+from the diagnosis engine) and the fault plane
+(``torchft_tpu_torch.faultinject``) ``tft_faults_injected_total``. The
+one family whose writer is not ported yet stays at zero: the divergence
+sentinel's (``tft_divergence_total``).
 
 Stdlib-only, like the JAX package's, and exception-free on the hot path:
 observability must never fail a step. No call here reads a tensor's value.
@@ -46,6 +50,12 @@ from torchft_tpu_torch.telemetry.anatomy import (
     PHASES,
     StepLedger,
     merge_lathist,
+)
+from torchft_tpu_torch.telemetry.blackbox import (
+    BLACKBOX,
+    BlackBox,
+    read_blackbox,
+    read_native_blackbox,
 )
 from torchft_tpu_torch.telemetry.events import (
     CANONICAL_EVENTS,
@@ -73,6 +83,10 @@ __all__ = [
     "EVENTS",
     "TRACER",
     "FLIGHT",
+    "BLACKBOX",
+    "BlackBox",
+    "read_blackbox",
+    "read_native_blackbox",
     "LEDGER",
     "LOG2_BUCKETS",
     "PHASES",

@@ -1,6 +1,7 @@
 """Step-anatomy ledger — per-step wall-clock attribution into named phases;
-the port's copy of ``torchft_tpu/telemetry/anatomy.py`` without the
-black-box mirror.
+the port's copy of ``torchft_tpu/telemetry/anatomy.py``. Every row is
+mirrored into the crash-durable black box (``anatomy_tick``) when it is
+armed.
 
 On the card a train step's halves replay from CUDA graphs and return at
 once: the ``compute`` record is the host time of the replay calls, and the
@@ -308,6 +309,15 @@ class StepLedger:
                 self._totals[phase] = self._totals.get(phase, 0.0) + seconds * scale
             self._totals["idle"] = self._totals.get("idle", 0.0) + interval["idle"]
             self._rows.append(row)
+        # crash-durable mirror: one compact tick per step row, so the
+        # postmortem can place a death between two step boundaries even
+        # with every in-memory surface gone
+        from torchft_tpu_torch.telemetry.blackbox import BLACKBOX
+
+        BLACKBOX.record(
+            "anatomy_tick", step=step, wall_s=round(wall, 6),
+            local_s=round(local, 6),
+        )
         try:
             from torchft_tpu_torch import telemetry
 

@@ -1,6 +1,7 @@
 """Structured FT event trail — the flight recorder for fault-tolerance
-lifecycle events; the port's copy of ``torchft_tpu/telemetry/events.py``
-without the black-box mirror (the forensics slice).
+lifecycle events; the port's copy of ``torchft_tpu/telemetry/events.py``.
+Every record is mirrored into the crash-durable black box
+(:mod:`.blackbox`) when it is armed.
 
 Every quorum formation, heal, peer death, eviction and commit/abort is an
 append-only JSONL record, so a recovery incident can be reconstructed from
@@ -225,6 +226,12 @@ class EventTrail:
                     self._maybe_rotate()
                 except (OSError, ValueError):
                     pass  # a full disk must not fail a step
+        # crash-durable mirror: the black box keeps the trail readable
+        # even when this process is SIGKILLed with the file sink unset
+        # (or mid-line) — see telemetry/blackbox.py
+        from torchft_tpu_torch.telemetry.blackbox import BLACKBOX
+
+        BLACKBOX.record(event, **fields)
         # metric alongside the trail so dashboards can rate() FT events
         # without parsing JSONL (late import avoids a module cycle)
         from torchft_tpu_torch.telemetry import FT_EVENTS_TOTAL

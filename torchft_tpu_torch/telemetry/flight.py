@@ -1,5 +1,7 @@
 """Collective flight recorder + step watchdog — hang forensics; the port's
-copy of ``torchft_tpu/telemetry/flight.py`` without the black-box mirror.
+copy of ``torchft_tpu/telemetry/flight.py``. Every issue and completion
+is mirrored into the crash-durable black box (``op_issue`` /
+``op_complete``) when it is armed.
 The watchdog holds its ``on_stall`` bound method weakly, so its thread never
 keeps a dropped Manager (and the CUDA graphs it reaches) alive, and exits
 once the owner is gone.
@@ -116,6 +118,15 @@ class FlightRecorder:
             rec["seq"] = self._seq
             self._ring[self._seq % self._size] = rec
             seq = self._seq
+        # crash-durable mirror: the in-memory ring dies with the process,
+        # so the black box records every issue and completion — a
+        # SIGKILLed worker's last in-flight op is recoverable from disk
+        from torchft_tpu_torch.telemetry.blackbox import BLACKBOX
+
+        BLACKBOX.record(
+            "op_issue", op=op, plane=plane, fseq=seq,
+            bytes=int(nbytes), tag=tag, rank=rank,
+        )
         return seq
 
     def record_complete(self, seq: int, error: Optional[BaseException] = None) -> None:
@@ -127,6 +138,13 @@ class FlightRecorder:
             rec["status"] = "completed" if error is None else "failed"
             if error is not None:
                 rec["error"] = repr(error)
+        from torchft_tpu_torch.telemetry.blackbox import BLACKBOX
+
+        BLACKBOX.record(
+            "op_complete", fseq=seq,
+            status="completed" if error is None else "failed",
+            **({"error": repr(error)} if error is not None else {}),
+        )
 
     # -- consumer side ---------------------------------------------------
 
