@@ -214,6 +214,21 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    sha256 and 16/8/8 a step throughout. Printed: ``profiler_overhead``
    (one pair), steps/s with the black box armed and disarmed, the
    bundle's size, the samples per plane.
+19. the fault matrix on the card (``torchft_tpu_torch.faultinject.runner``,
+   in this process): the port's ``train_bytes`` example as the workers,
+   bf16 on the card (K1-K3 at head dim 32), two groups per run, on three
+   scenarios at once: ``torn_cma_pull`` (a CMA pull between the two
+   processes torn halfway, the divergence sentinel armed),
+   ``corrupt_divergence`` (all three legs: the sentinel latches within one
+   commit of a corrupted average, the fence vetoes it with identical
+   checksums, the control leg latches nothing) and
+   ``compiled_kill_commit_vote`` (the model checker's schedule: a kill at
+   the commit barrier's drain, a respawn and a heal). Each is held to the
+   runner's own checks (passed, the injection fired, the victim respawned
+   where expected, checksums finite and bit-identical but in the sentinel
+   leg) and every worker that finished launched K1-K3. Prints each
+   scenario's wall, respawns, evidence and the latch step against the
+   corrupt step; the phase's wall must stay within FAULT_WALL_S.
 
 Phases 4-18 replay each train step from CUDA graphs (phase 4's and phase
 9's eager arms aside); every group's graphs are captured once, so a heal
@@ -3109,9 +3124,16 @@ FORENSICS_STEPS = 20
 DIAG_STEPS = 10
 DIAG_ISSUE_DELAY_MS, DIAG_DP_DELAY_MS = 200, 60
 DIAG_WINDOW_S, DIAG_BURST_HZ = 1.5, 97
-DIAG_STRAGGLER = "2.0,3"  # factor, K
+DIAG_STRAGGLER = {"TORCHFT_STRAGGLER_FACTOR": "2.0", "TORCHFT_STRAGGLER_K": "3"}
 DIAG_POLL_S = 0.25
 BOX_PAIRS = 1  # (c) headline steps/s with the black box armed and disarmed, pairs
+# phase 19: the runner's scenarios, run at once, and their bounds
+FAULT_SCENARIOS = ("torn_cma_pull", "corrupt_divergence", "compiled_kill_commit_vote")
+FAULT_STEPS = 10  # the runner's --quick length
+FAULT_TIMEOUT_S = 300.0  # per scenario
+FAULT_WALL_S = 240.0
+FAULT_WORKERS_DONE = {"torn_cma_pull": 2, "corrupt_divergence": 6,
+                      "compiled_kill_commit_vote": 2}  # workers that end with a checksum
 
 
 def _forensics_kill(tmp):
@@ -3214,7 +3236,7 @@ def _diag_leg(tmp, name, inject):
     env = {"TORCHFT_DP_CMA": "0", "TORCHFT_DIAG_DIR": dirs["diag"],
            "TORCHFT_DIAG_WINDOW_S": str(DIAG_WINDOW_S), "TORCHFT_PROF_BURST_HZ": str(DIAG_BURST_HZ),
            "TORCHFT_DIAG_TORCH": "1", "TORCHFT_STRAGGLER_MONITOR": "1",
-           "TORCHFT_STRAGGLER_POLL_S": str(DIAG_POLL_S), "TORCHFT_BENCH_STRAGGLER": DIAG_STRAGGLER,
+           "TORCHFT_STRAGGLER_POLL_S": str(DIAG_POLL_S), **DIAG_STRAGGLER,
            "TORCHFT_FAULT_EVIDENCE_DIR": dirs["evidence"]}
     group_env = {}
     if inject:
@@ -3246,23 +3268,11 @@ def _diag_leg(tmp, name, inject):
     return r, dirs
 
 
-def _folded_pump_dominance(folded):
-    """(delayed, active, top stack) over the bundle's active dp.pump stacks
-    (those doing stripe work: run_stripe and below; a pump parked in its
-    cond-wait is idle, not hot)."""
-    pump = [(line.rpartition(" ")[0], int(line.rpartition(" ")[2]))
-            for line in folded.splitlines()
-            if line.startswith("dp.pump") and line.rpartition(" ")[2].isdigit()]
-    active = [(stack, n) for stack, n in pump if "run_stripe" in stack]
-    delayed = sum(n for stack, n in active if "sleep_ms" in stack or "nanosleep" in stack)
-    top = max(active, key=lambda sn: sn[1])[0] if active else ""
-    return delayed, sum(n for _, n in active), top
-
-
 def _forensics_diagnosis(tmp):
     """(b) ``diagnose_straggler`` at full width (see phase_forensics);
     returns the workers' launches and the bundle's size."""
     from torchft_tpu_torch.faultinject.core import read_evidence
+    from torchft_tpu_torch.faultinject.runner import pump_dominance
     from torchft_tpu_torch.telemetry import postmortem
     from torchft_tpu_torch.telemetry.diagnosis import read_bundles
     from torchft_tpu_torch.telemetry.profiler import TRACE_FILE, parse_folded
@@ -3286,7 +3296,7 @@ def _forensics_diagnosis(tmp):
     for f, path in files.items():
         with open(path, encoding="utf-8") as fh:
             texts[f] = fh.read()
-    delayed, active, top = _folded_pump_dominance(texts["native.folded"])
+    delayed, active, top = pump_dominance(texts["native.folded"])
     size = sum(os.path.getsize(os.path.join(root, f))
                for root, _, fs in os.walk(b["_dir"]) for f in fs)
     nsamples = {f: sum(parse_folded(t).values()) for f, t in texts.items()}
@@ -3422,6 +3432,80 @@ def phase_forensics():
     return {n: sum(x[n] for x in launches) for n in launches[0]}
 
 
+def _worker_launches(workdir):
+    """Each finished worker's flash launches under a scenario's workdir: the
+    ``train_bytes`` example prints them on the card before its last line."""
+    import glob
+    import re
+
+    out = []
+    for path in sorted(glob.glob(os.path.join(workdir, "**", "g*.log"), recursive=True)):
+        with open(path, errors="replace") as f:
+            for line in f:
+                m = re.search(r"flash launches \(head dim 32\): (\{.*\})", line)
+                if m:
+                    out.append(json.loads(m.group(1)))
+    return out
+
+
+def phase_fault_matrix():
+    """The port's fault-injection runner on the card: FAULT_SCENARIOS at
+    once (a thread each, their own lighthouses and workers), the
+    ``train_bytes`` workers in bf16 on the card. Holds each scenario to the
+    runner's checks and to its own (below), and every finished worker's
+    K1-K3 launches. Returns the workers' summed launches."""
+    import re
+    import tempfile
+
+    from torchft_tpu_torch.faultinject import runner
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the workers need the card's memory
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tft_torch_faultmatrix_")
+    scenarios = {s.name: s for s in
+                 runner.SCENARIOS + runner.load_compiled_scenarios(runner.COMPILED_DIR)}
+
+    def run(name):
+        start = time.perf_counter()
+        res, _ = runner.run_one(scenarios[name], os.path.join(tmp, name), FAULT_STEPS,
+                                FAULT_TIMEOUT_S, device="cuda")
+        return res, time.perf_counter() - start
+
+    with ThreadPoolExecutor(max_workers=len(FAULT_SCENARIOS)) as pool:
+        outs = dict(zip(FAULT_SCENARIOS, pool.map(run, FAULT_SCENARIOS)))
+    total = {n: 0 for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+    for name, (res, wall) in outs.items():
+        workers = _worker_launches(os.path.join(tmp, name))
+        for w in workers:
+            for n in total:
+                total[n] += w.get(n, 0)
+        log(f"fault matrix {name}: {res.status} in {wall:.1f} s; respawns {res.respawns}, "
+            f"evidence records {res.fired}, checksums {res.checksums}; flash launches of the "
+            f"{len(workers)} finished workers (head dim 32) {workers}; {res.detail}")
+        check(res.status == "passed", f"fault matrix {name}: {res.status}: {res.detail}")
+        check(res.fired >= 1, f"fault matrix {name}: no injection fired")
+        check(len(workers) == FAULT_WORKERS_DONE[name]
+              and all(all(w.get(n, 0) > 0 for n in total) for w in workers),
+              f"fault matrix {name}: {len(workers)} finished workers printed launches "
+              f"{workers} (expected {FAULT_WORKERS_DONE[name]}, each launching K1-K3)")
+    check(outs["torn_cma_pull"][0].respawns == 0,
+          "fault matrix torn_cma_pull: the victim of a torn pull died")
+    check(outs["compiled_kill_commit_vote"][0].respawns >= 1,
+          "fault matrix compiled_kill_commit_vote: the scheduled kill never respawned the victim")
+    m = re.search(r"sentinel latched at step (\d+) \(corrupt at (\d+|None)\)",
+                  outs["corrupt_divergence"][0].detail)
+    check(m is not None, "fault matrix corrupt_divergence: no latch step in the runner's detail")
+    log(f"fault matrix corrupt_divergence: the sentinel latched at step {m.group(1)}, the "
+        f"average was corrupted at step {m.group(2)}")
+    check(m.group(2) != "None" and int(m.group(1)) <= int(m.group(2)) + 1,
+          "fault matrix corrupt_divergence: the latch is not within one commit of the injection")
+    wall = time.perf_counter() - t0
+    log(f"fault matrix: phase wall {wall:.1f} s (bound {FAULT_WALL_S:.0f} s), workdir {tmp}")
+    check(wall <= FAULT_WALL_S, f"fault matrix: the phase took {wall:.1f} s")
+    return total
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--watchdog-probe"]:
         _watchdog_probe(sys.argv[2])
@@ -3488,6 +3572,8 @@ def main() -> None:
     phase_observability()
     fleet_launches = phase_fleet()
     forensics_launches = phase_forensics()
+    fault_launches = phase_fault_matrix()
+    log(smi)
 
     kernels = []
     for d in (64, 128, 32):
@@ -3516,6 +3602,9 @@ def main() -> None:
                 kernels[-1]["launches_fleet_plane"] = fleet_launches[name]
                 # phase 18's workers: the kill's and both diagnosis legs'
                 kernels[-1]["launches_forensics"] = forensics_launches[name]
+            if d == 32:
+                # phase 19's train_bytes workers, every scenario's
+                kernels[-1]["launches_fault_matrix"] = fault_launches[name]
     # head dim 64 at the long-context bench's lengths: launched by phase 14's
     # long_context rows
     for seq in (LONG_WHOLE["seq"], LONG["seq"]):

@@ -1,9 +1,9 @@
 """The port's public API against the JAX package's.
 
-``torchft_tpu_torch`` exports the JAX package's ``__all__`` less the four
-names whose modules are not ported yet (ROADMAP: ``WorldSizeMode``,
-``CollectivesProxy``, ``CollectivesDeviceDist``, ``ParameterServer``), the
-heavier wrappers at first access; importing it in a fresh process starts
+``torchft_tpu_torch`` exports the JAX package's ``__all__`` less the three
+names whose modules are not ported yet (ROADMAP: ``CollectivesProxy``,
+``CollectivesDeviceDist``, ``ParameterServer``), the heavier wrappers at
+first access; importing it in a fresh process starts
 no thread and imports no JAX. ``CollectivesDummy`` answers every op as the
 JAX one does on the same numpy inputs; ``ManagedCollectives`` over a stub
 Manager behaves as the JAX one, and over two real threaded groups averages
@@ -30,7 +30,7 @@ from torchft_tpu_torch import collectives as PC
 from torchft_tpu_torch import futures as PF
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NOT_YET = {"WorldSizeMode", "CollectivesProxy", "CollectivesDeviceDist", "ParameterServer"}
+NOT_YET = {"CollectivesProxy", "CollectivesDeviceDist", "ParameterServer"}
 
 
 def test_public_names_are_the_jax_packages_less_the_unported():
@@ -46,6 +46,7 @@ def test_public_names_are_the_jax_packages_less_the_unported():
     ("DiLoCo", "torchft_tpu_torch.local_sgd"),
     ("CollectivesDevice", "torchft_tpu_torch.collectives_device"),
     ("FTTrainer", "torchft_tpu_torch.parallel.ft"),
+    ("WorldSizeMode", "torchft_tpu_torch.manager"),
 ])
 def test_lazy_names_resolve_to_their_modules(name, module):
     got = getattr(torchft_tpu_torch, name)

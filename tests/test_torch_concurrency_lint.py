@@ -52,6 +52,9 @@ RUNTIME = (
     "torchft_tpu_torch/telemetry/diagnosis.py",
     "torchft_tpu_torch/telemetry/postmortem.py",
     "torchft_tpu_torch/benchmarks/profiler_overhead.py",
+    "torchft_tpu_torch/faultinject/runner.py",
+    "torchft_tpu_torch/faultinject/_san_worker.py",
+    "torchft_tpu_torch/examples/train_bytes.py",
 )
 
 KEPT = [

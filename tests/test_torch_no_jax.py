@@ -16,7 +16,9 @@ telemetry modules (``telemetry/`` and ``profiling.py``, the fleet plane's
 among them: each quorum's report is built and delta-encoded), the
 forensics (black box, samplers, diagnosis, postmortem), the fault plane
 (``faultinject/``) and the samplers' overhead row are held to the same:
-the Manager's step loads them, and the scan covers each.
+the Manager's step loads them, and the scan covers each. So are the fault
+matrix's runner (its ``--list``), the sanitizer's numpy worker and the
+``train_bytes`` example the runner spawns, imported in a blocked process.
 """
 
 import ast
@@ -227,6 +229,29 @@ def test_device_plane_heal_runs_without_jax_or_reference_package():
     assert "torchft_tpu_torch.checkpointing.collectives_transport" in out["modules"]
 
 
+_RUNNER = _BLOCK + r"""
+import contextlib, io, json, sys
+from torchft_tpu_torch.faultinject import _san_worker, runner
+from torchft_tpu_torch.examples import train_bytes
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc = runner.main(["--list"])
+names = [line.split()[0] for line in buf.getvalue().splitlines() if line.strip()]
+print(json.dumps({"rc": rc, "names": names, "san_worker": callable(_san_worker.main),
+                  "example": callable(train_bytes.main), "modules": sorted(sys.modules)}))
+"""
+
+
+def test_fault_runner_and_workers_import_without_jax_or_reference_package():
+    """The runner's ``--list``, the sanitizer's worker and the example it
+    spawns, in a process where JAX and the JAX package cannot load."""
+    out = _run_blocked(_RUNNER)
+    assert out["rc"] == 0 and out["san_worker"] and out["example"]
+    assert "corrupt_divergence" in out["names"] and len(out["names"]) == 15
+    for module in ("faultinject.runner", "faultinject._san_worker", "examples.train_bytes"):
+        assert f"torchft_tpu_torch.{module}" in out["modules"]
+
+
 def _port_sources():
     pkg = os.path.join(REPO, "torchft_tpu_torch")
     for root, _, files in os.walk(pkg):
@@ -275,6 +300,9 @@ def test_no_forbidden_imports_in_sources():
             "torchft_tpu_torch/telemetry/diagnosis.py",
             "torchft_tpu_torch/telemetry/postmortem.py",
             "torchft_tpu_torch/benchmarks/profiler_overhead.py",
+            "torchft_tpu_torch/faultinject/runner.py",
+            "torchft_tpu_torch/faultinject/_san_worker.py",
+            "torchft_tpu_torch/examples/train_bytes.py",
             "torchft_tpu_torch/profiling.py"} <= scanned
     bad = []
     for path in _port_sources():

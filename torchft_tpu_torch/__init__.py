@@ -9,8 +9,8 @@ whose attention runs on hand-written Hopper kernels. The layout mirrors
 The public names are the JAX package's (``torchft_tpu/__init__.py``): the
 Manager, the sampler and the host collectives load with the package, the
 heavier wrappers at first access. Not exported until their modules are
-ported (ROADMAP): ``WorldSizeMode``, ``CollectivesProxy``,
-``CollectivesDeviceDist`` and ``ParameterServer``.
+ported (ROADMAP): ``CollectivesProxy``, ``CollectivesDeviceDist`` and
+``ParameterServer``.
 
 Importing the package starts nothing: no thread runs, and the native
 coordination core and the CUDA kernels are built at first use.
@@ -24,10 +24,11 @@ from torchft_tpu_torch.collectives import (  # noqa: E402
     ManagedCollectives,
 )
 from torchft_tpu_torch.data import DistributedSampler  # noqa: E402
-from torchft_tpu_torch.manager import Manager  # noqa: E402
+from torchft_tpu_torch.manager import Manager, WorldSizeMode  # noqa: E402
 
 __all__ = [
     "Manager",
+    "WorldSizeMode",
     "DistributedSampler",
     "Collectives",
     "CollectivesTcp",

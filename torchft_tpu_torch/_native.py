@@ -10,7 +10,10 @@ the key-value store, the striped gradient data plane
 The library is built from the repo's ``native/`` sources at first use into
 ``build/torch_native/<sources digest>/`` (``make -C native OUTDIR=...``;
 the Makefile stays as it is), under a file lock so concurrent first users
-build once.
+build once. ``TORCHFT_NATIVE_LIB`` names another build of the core to load
+instead (the sanitizer runs of ``faultinject.runner`` load
+``libtftcore_asan.so`` / ``_tsan.so`` this way, with the sanitizer's runtime
+in ``LD_PRELOAD``); it must exist and report this loader's ABI.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ _TIMEOUT_CODES = (CANCELLED, DEADLINE_EXCEEDED)
 _ABI_VERSION = 7
 
 _ERRLEN = 1024
+LIB_ENV = "TORCHFT_NATIVE_LIB"
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
@@ -88,10 +92,22 @@ def _load() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is not None:
             return _lib
-        path = build()
+        override = os.environ.get(LIB_ENV)
+        if override and not os.path.exists(override):
+            raise RuntimeError(
+                f"{LIB_ENV}={override} does not exist; build it first (for example "
+                "`python -m torchft_tpu_torch.faultinject.runner --sanitize` builds "
+                "libtftcore_asan.so)"
+            )
+        path = override or build()
         lib = ctypes.CDLL(path)
         got = _abi_of(lib)
         if got != _ABI_VERSION:
+            if override:
+                raise RuntimeError(
+                    f"{LIB_ENV}={override} reports ABI {got}, this loader needs "
+                    f"{_ABI_VERSION}; rebuild it from this checkout's native/"
+                )
             raise RuntimeError(
                 f"native ABI mismatch: {path} reports {got}, this loader "
                 f"needs {_ABI_VERSION}; remove {os.path.dirname(path)} and retry"

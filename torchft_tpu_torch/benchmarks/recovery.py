@@ -79,8 +79,8 @@ fleet plane while they linger after their last step: the lighthouse's
 ``/diagnosis.json``, and each worker's ``/metrics`` and
 ``/critical_path.json``. A worker's ``final`` event also lists the
 diagnosis bundles its Manager's engine wrote (``TORCHFT_DIAG_DIR``) and
-its samplers' sample counts, and ``TORCHFT_BENCH_STRAGGLER`` ("factor,k")
-sets the straggler detector's factor and K in it.
+its samplers' sample counts (``TORCHFT_STRAGGLER_FACTOR`` /
+``TORCHFT_STRAGGLER_K`` set its straggler detector's factor and K).
 
 Usage: ``python -m torchft_tpu_torch.benchmarks.recovery`` (the card) or
 ``DEVICE=cpu python -m torchft_tpu_torch.benchmarks.recovery``; prints
@@ -308,14 +308,6 @@ def _worker() -> None:
     slow_from = int(os.environ.get("TORCHFT_BENCH_SLOW_FROM", "-1"))
     slow_steps = float(os.environ.get("TORCHFT_BENCH_SLOW_STEPS", "0"))
     linger = os.environ.get("TORCHFT_BENCH_LINGER")
-    # the straggler detector's factor and K ("2.0,3"), set before the
-    # Manager makes its monitor (module constants of telemetry.slo)
-    straggler = os.environ.get("TORCHFT_BENCH_STRAGGLER")
-    if straggler:
-        from torchft_tpu_torch.telemetry import slo
-
-        factor, k = straggler.split(",")
-        slo.STRAGGLER_FACTOR, slo.STRAGGLER_K = float(factor), int(k)
     op_timeout = timedelta(seconds=float(os.environ["TORCHFT_BENCH_OP_TIMEOUT"]))
     log = _EventLog(os.environ["TORCHFT_EVENT_LOG"])
     log.emit(event="start", gid=gid, pid=os.getpid())

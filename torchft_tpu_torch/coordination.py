@@ -7,7 +7,10 @@ quorum's latency and count are recorded (``tft_quorum_latency_seconds``,
 telemetry report (``"telemetry"``: a delta blob or the full-JSON row),
 which the lighthouse folds into ``/cluster.json``, ``/fleet.json``,
 ``/timeseries.json`` and the merged ``/trace``; the quorum reply acks the
-delta chain (``"tack"``, :attr:`QuorumResult.telemetry_ack`). Fault
+delta chain (``"tack"``, :attr:`QuorumResult.telemetry_ack`). The vote
+carries the divergence sentinel's digest, its epoch and the fence flag,
+and its reply the lighthouse's divergence latch
+(:attr:`ManagerClient.last_divergence`). Fault
 points (``faultinject.core``): ``quorum.reply`` once the quorum reply
 arrived, ``commit.vote`` (``match="rpc"``) before the vote RPC.
 
@@ -179,6 +182,10 @@ class ManagerClient:
     """Client for a ManagerServer. Timeouts travel in-band and are enforced
     server-side."""
 
+    # the divergence flag of the last vote's reply (a class default, so a
+    # spec'd test double has the attribute too)
+    last_divergence = False
+
     def __init__(self, addr: str, connect_timeout: timedelta) -> None:
         self._client = _native.NativeClient(addr, _ms(connect_timeout))
 
@@ -236,21 +243,40 @@ class ManagerClient:
         return resp["checkpoint_metadata"]
 
     def should_commit(
-        self, rank: int, step: int, should_commit: bool, timeout: timedelta
+        self,
+        rank: int,
+        step: int,
+        should_commit: bool,
+        timeout: timedelta,
+        digest: Optional[str] = None,
+        epoch: int = -1,
+        fence: bool = False,
     ) -> bool:
+        """The commit vote. ``digest`` is the divergence sentinel's
+        post-reduce state digest (``"-"`` abstains): the manager server
+        folds its ranks' digests and reports them to the lighthouse's
+        (epoch, step) cohort compare. With ``fence`` the lighthouse decides
+        before the decision is published, and a mismatch vetoes the commit.
+        The reply's divergence flag is kept on :attr:`last_divergence`."""
         from torchft_tpu_torch import telemetry
-            # vote-RPC injection: a delay is a synthetic commit-barrier round
+
+        # vote-RPC injection: a delay is a synthetic commit-barrier round
         # trip (what the pipelined mode hides), an error a lost vote
         fault_point("commit.vote", match="rpc", rank=rank, step=step)
-        req = {
+        req: Dict[str, Any] = {
             "rank": rank,
             "step": step,
             "should_commit": should_commit,
             "trace": telemetry.TRACER.inject(),
         }
+        if digest is not None:
+            req["digest"] = digest
+            req["epoch"] = epoch
+            req["fence"] = fence
         with telemetry.TRACER.span("should_commit_rpc", rank=rank, step=step,
                                    vote=should_commit):
             resp = self._client.call("mgr.should_commit", req, _ms(timeout))
+        self.last_divergence = bool(resp.get("divergence", False))
         return resp["should_commit"]
 
     def evict(self, victim: str, timeout: timedelta = timedelta(seconds=5)) -> bool:
@@ -267,8 +293,9 @@ class ManagerClient:
 
 
 class LighthouseClient:
-    """Direct lighthouse client: heartbeats and eviction reports. The
-    manager server normally sends both; exposed for tests and tooling."""
+    """Direct lighthouse client: heartbeats, eviction reports and the
+    divergence sentinel's digest reports. The manager server normally sends
+    them; exposed for tests and tooling."""
 
     def __init__(self, addr: str, connect_timeout: timedelta) -> None:
         self._client = _native.NativeClient(addr, _ms(connect_timeout))
@@ -294,6 +321,32 @@ class LighthouseClient:
             "lh.evict", {"reporter": reporter, "victim": victim}, _ms(timeout)
         )
         return bool(resp.get("evicted", False))
+
+    def digest(
+        self,
+        replica_id: str,
+        epoch: int,
+        step: int,
+        digest: str,
+        wait: bool = False,
+        cohort: int = 0,
+        timeout: timedelta = timedelta(seconds=10),
+    ) -> Dict[str, Any]:
+        """Report one replica's commit-time state digest to the
+        lighthouse's (epoch, step) cohort compare (``lh.digest``; the
+        manager server normally sends it from the vote). ``wait``
+        long-polls until the whole cohort reported (``cohort`` overrides
+        the quorum's size). Returns ``{"match", "divergence", "reports"}``."""
+        req: Dict[str, Any] = {
+            "replica_id": replica_id,
+            "epoch": epoch,
+            "step": step,
+            "digest": digest,
+            "wait": wait,
+        }
+        if cohort:
+            req["cohort"] = cohort
+        return self._client.call("lh.digest", req, _ms(timeout))
 
     def close(self) -> None:
         self._client.close()

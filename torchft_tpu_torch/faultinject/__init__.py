@@ -6,7 +6,10 @@ port's runtime layers consult it through
 :func:`~torchft_tpu_torch.faultinject.core.fault_point` (the Manager's
 commit drain, the coordination client's quorum reply and vote, the host
 and device collectives, the futures' deadlines and the HTTP checkpoint
-transport). The JAX package's scenario runner is not ported yet.
+transport). ``faultinject.runner`` drives the scenario matrix over worker
+processes of the ``train_bytes`` example (``python -m
+torchft_tpu_torch.faultinject.runner --list``), and ``_san_worker`` is its
+numpy worker under a sanitizer.
 """
 
 from torchft_tpu_torch.faultinject.core import (

@@ -67,8 +67,18 @@ crash-durable black box's (replica, step, epoch) context moves in
 lockstep with the tracer's; and the commit barrier's drain is the
 ``commit.vote`` injection site (``match="prepare"``).
 
-Left out (ROADMAP): the divergence sentinel (its series flag is sent as
-0), ``set_heal_warmup`` and ``WorldSizeMode.FIXED_WITH_SPARES``.
+The divergence sentinel (``TORCHFT_DIVERGENCE_SENTINEL=1``): each op's
+reduced outputs are folded into a digest on the op thread (copied to the
+host first on the device plane), the step's digests into one at the
+commit, and the vote carries it to the lighthouse's (epoch, step) cohort
+compare; a step that will not commit cleanly abstains (``"-"``). A
+mismatch latches ``divergence_detected`` once a process and the series'
+``flag.divergence``; ``TORCHFT_DIVERGENCE_FENCE=1`` (which implies the
+sentinel) also vetoes the commit. ``WorldSizeMode.FIXED_WITH_SPARES``
+pins the divisor at ``min_replica_size`` and demotes the groups past it
+to spares that contribute zeros.
+
+Left out (ROADMAP): ``set_heal_warmup``.
 """
 
 from __future__ import annotations
@@ -83,6 +93,7 @@ import time
 import uuid
 from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
+from enum import Enum
 from typing import Any, Callable, Dict, List, Optional, Tuple, TypeVar, cast
 
 import numpy as np
@@ -91,7 +102,7 @@ import torch
 from torchft_tpu_torch import telemetry
 from torchft_tpu_torch.checkpointing import delta
 from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
-from torchft_tpu_torch.checkpointing.serialization import flatten_state
+from torchft_tpu_torch.checkpointing.serialization import _tensor_to_host, flatten_state
 from torchft_tpu_torch.checkpointing.stripes import heal_sources_limit
 from torchft_tpu_torch.checkpointing.transport import CheckpointTransport
 from torchft_tpu_torch.collectives import Collectives, PeerGoneError, ReduceOp
@@ -119,10 +130,26 @@ PIGGYBACK_ENV: str = "TORCHFT_TELEMETRY_PIGGYBACK"
 STRAGGLER_MONITOR_ENV: str = "TORCHFT_STRAGGLER_MONITOR"
 REGRESSION_MONITOR_ENV: str = "TORCHFT_REGRESSION_MONITOR"
 REGRESSION_POLL_ENV: str = "TORCHFT_REGRESSION_POLL_S"
+DIVERGENCE_SENTINEL_ENV: str = "TORCHFT_DIVERGENCE_SENTINEL"
+DIVERGENCE_FENCE_ENV: str = "TORCHFT_DIVERGENCE_FENCE"
 # the lighthouse refuses an anatomy digest past this (the JSON row's cap)
 ANATOMY_CAP_BYTES = 1 << 16
 
-__all__ = ["Manager"]
+__all__ = ["Manager", "WorldSizeMode"]
+
+
+class WorldSizeMode(Enum):
+    """What the divisor does when replica groups come and go.
+
+    DYNAMIC: the batch scales with the live group count; gradients divide
+    by the current participant count.
+    FIXED_WITH_SPARES: the world size is pinned at ``min_replica_size``;
+    groups past it are hot spares that contribute zeros, so the divisor
+    (and the effective batch) never changes.
+    """
+
+    DYNAMIC = 0
+    FIXED_WITH_SPARES = 1
 
 
 class _PendingCommit:
@@ -131,7 +158,7 @@ class _PendingCommit:
     already describe the next step."""
 
     __slots__ = ("future", "step", "n_step", "local_vote", "enough_replicas",
-                 "mixed_epochs", "errored", "on_resolved", "prepare_s")
+                 "mixed_epochs", "errored", "on_resolved", "prepare_s", "digest", "epoch")
 
     def __init__(self) -> None:
         self.future: Optional[Future] = None
@@ -143,6 +170,10 @@ class _PendingCommit:
         self.errored: Optional[Exception] = None
         self.on_resolved: Optional[Callable[[bool], None]] = None
         self.prepare_s = 0.0  # the pre-vote drain's wall clock
+        # the divergence sentinel's folded step digest (None when off, "-"
+        # to abstain) and the plane epoch the step reduced under
+        self.digest: Optional[str] = None
+        self.epoch = -1
 
 
 def _diag_fields(manager: Any) -> Dict[str, Any]:
@@ -195,6 +226,7 @@ class Manager:
         connect_timeout: timedelta = timedelta(seconds=60),
         rank: Optional[int] = None,
         world_size: Optional[int] = None,
+        world_size_mode: WorldSizeMode = WorldSizeMode.DYNAMIC,
         store_addr: Optional[str] = None,
         lighthouse_addr: Optional[str] = None,
         replica_id: Optional[str] = None,
@@ -216,6 +248,7 @@ class Manager:
             quorum_timeout: deadline for quorum formation
             rank / world_size: this rank within the replica group (env RANK /
                 WORLD_SIZE fallback)
+            world_size_mode: see :class:`WorldSizeMode`
             store_addr: ``host:port`` of the group's KV store
                 (TORCHFT_STORE_ADDR fallback)
             lighthouse_addr: rank 0 only; TORCHFT_LIGHTHOUSE fallback
@@ -245,6 +278,22 @@ class Manager:
         self._quorum_timeout = quorum_timeout
         self._connect_timeout = connect_timeout
         self._min_replica_size = min_replica_size
+        self._world_size_mode = world_size_mode
+        # The divergence sentinel: digest each step's post-reduce state and
+        # let the lighthouse compare it within the (epoch, step) cohort at
+        # the vote. The fence (implies the sentinel) also vetoes the commit
+        # on a mismatch; every group must agree on it, as on the pipelined
+        # commit. Off by default: hashing every reduced buffer is not free.
+        self._divergence_fence = os.environ.get(DIVERGENCE_FENCE_ENV, "0") == "1"
+        self._divergence_sentinel = self._divergence_fence or (
+            os.environ.get(DIVERGENCE_SENTINEL_ENV, "0") == "1"
+        )
+        # unguarded-ok: op-thread handoff — appended by the op thread in
+        #   issue order, read and cleared at the commit barrier after the
+        #   pending-work drain has waited for every op of the step
+        self._step_digests: List[str] = []
+        # unguarded-ok: a once-a-process latch; a racing second set is a no-op
+        self._divergence_latched = False
 
         store_addr = store_addr or os.environ[STORE_ADDR_ENV]
         self._rank: int = rank if rank is not None else int(os.environ["RANK"])
@@ -515,7 +564,8 @@ class Manager:
         }
         report.update(_diag_fields(self))
         series = timeseries.build_series(slo_breach=bool(self._slo.breached()),
-                                         stuck=bool(self._watchdog.stalled), divergence=False)
+                                         stuck=bool(self._watchdog.stalled),
+                                         divergence=bool(self._divergence_latched))
         if series:
             report["series"] = series
         return report
@@ -591,7 +641,7 @@ class Manager:
             }
             series = timeseries.build_series(slo_breach=bool(self._slo.breached()),
                                              stuck=bool(self._watchdog.stalled),
-                                             divergence=False)
+                                             divergence=bool(self._divergence_latched))
             if series:
                 payload["series"] = series
             return payload
@@ -849,6 +899,16 @@ class Manager:
         )
         # if ANY local rank of this group heals, every rank contributes zeros
         self._group_healing = allow_heal and quorum.group_heal
+        if self._world_size_mode == WorldSizeMode.FIXED_WITH_SPARES:
+            # the groups past min_replica_size are spares contributing zeros
+            self._participating_world_size = min(
+                self._participating_world_size, self._min_replica_size
+            )
+            if (
+                self._participating_rank is not None
+                and self._participating_rank >= self._min_replica_size
+            ):
+                self._participating_rank = None
         with self._evict_lock:
             prev_participants = self._participant_ids
             self._participant_ids = quorum.participant_ids
@@ -1217,6 +1277,8 @@ class Manager:
                     else:
                         for a in reduced:
                             np.divide(a, n_at_issue, out=a)
+                if self._divergence_sentinel:
+                    self._digest_reduced(reduced)
                 return reduced
 
             fut = self.wrap_future(work.get_future().then(normalize), arrays)
@@ -1228,6 +1290,35 @@ class Manager:
             self._logger.exception(f"exception in allreduce, skipping remaining: {e}")
             self.report_error(e)
             return Future.completed(arrays)
+
+    def _digest_reduced(self, reduced: List[Any]) -> None:
+        """The divergence sentinel's fold of one op's reduced outputs into
+        this step's ordered digest list (op thread; ops resolve in issue
+        order, so the list is the same in every group that reduced the same
+        bytes). Tensors are copied to the host first (the op's stream is
+        current here). A digest that fails means no digest this step, never
+        a failed op."""
+        try:
+            bufs = [_tensor_to_host(t) if isinstance(t, torch.Tensor) else np.asarray(t)
+                    for t in reduced]
+            self._step_digests.append(delta.tree_digest(delta.leaf_digests(bufs)))
+        except Exception:  # noqa: BLE001 — the sentinel must not fail the op
+            self._logger.exception("divergence digest failed")
+
+    def _note_divergence(self, step: int) -> None:
+        """A vote's reply carried the lighthouse's divergence latch: record
+        it once a process (the lighthouse's latch never clears, so every
+        later vote reports it again)."""
+        if self._divergence_latched:
+            return
+        self._divergence_latched = True
+        telemetry.DIVERGENCE_TOTAL.inc()
+        telemetry.emit("divergence_detected", step=step, fence=self._divergence_fence)
+        self._logger.warn(
+            f"divergence sentinel latched at step {step}: post-reduce state digests "
+            "disagreed across the cohort"
+            + (" (the fence vetoed the commit)" if self._divergence_fence else "")
+        )
 
     def report_error(self, e: Exception) -> None:
         """Latch an error: the current step will not commit and the data
@@ -1464,6 +1555,16 @@ class Manager:
         rec.local_vote = (
             rec.enough_replicas and self._errored is None and not rec.mixed_epochs
         )
+        # the divergence sentinel: fold the step's per-op digests into one
+        # for the vote and clear them for the next step. A step that will
+        # not commit cleanly abstains ("-"): it still completes the cohort,
+        # so no peer's fence waits on it, but its partial digest never
+        # enters the compare (only committing states must agree)
+        rec.epoch = self._quorum_id
+        if self._divergence_sentinel:
+            rec.digest = (delta.tree_digest(self._step_digests)
+                          if rec.local_vote and self._step_digests else "-")
+        self._step_digests = []
         if self._errored is not None and self._errored_epoch == self._quorum_id:
             # the data plane is suspect: request a flush so the next quorum
             # moves every group to a fresh rendezvous epoch
@@ -1532,9 +1633,13 @@ class Manager:
         with telemetry.TRACER.span("should_commit", trace_id=self._trace_id(),
                                    vote=rec.local_vote) as span:
             should_commit = self._client.should_commit(
-                self._rank, rec.step, rec.local_vote, timeout=timeout or self._timeout
+                self._rank, rec.step, rec.local_vote, timeout=timeout or self._timeout,
+                digest=rec.digest, epoch=rec.epoch, fence=self._divergence_fence,
             )
             span.set(decision=should_commit)
+        # getattr: a test double may not carry the flag
+        if getattr(self._client, "last_divergence", False) is True:
+            self._note_divergence(rec.step)
         self._finish_commit(rec, should_commit, time.perf_counter() - t_commit)
         return should_commit
 
@@ -1580,8 +1685,11 @@ class Manager:
             with telemetry.TRACER.span("should_commit", trace_id=trace_id, vote=rec.local_vote,
                                        pipelined=True) as span:
                 decision = client.should_commit(self._rank, rec.step, rec.local_vote,
-                                                timeout=vote_timeout)
+                                                timeout=vote_timeout, digest=rec.digest,
+                                                epoch=rec.epoch, fence=self._divergence_fence)
                 span.set(decision=decision)
+            if getattr(client, "last_divergence", False) is True:
+                self._note_divergence(rec.step)
             return decision
 
         rec.future = run_in_executor(self._commit_executor, vote)

@@ -32,9 +32,9 @@ series (:mod:`.timeseries`), the SLO and straggler detectors (:mod:`.slo`,
 (:mod:`.critical_path`, ``tft_critical_path_*``); the forensics theirs
 (``tft_prof_samples_total`` from the samplers, ``tft_diagnosis_bundles_total``
 from the diagnosis engine) and the fault plane
-(``torchft_tpu_torch.faultinject``) ``tft_faults_injected_total``. The
-one family whose writer is not ported yet stays at zero: the divergence
-sentinel's (``tft_divergence_total``).
+(``torchft_tpu_torch.faultinject``) ``tft_faults_injected_total``; the
+Manager's divergence sentinel ``tft_divergence_total`` (once a process, on
+the vote reply that first carries the lighthouse's latch).
 
 Stdlib-only, like the JAX package's, and exception-free on the hot path:
 observability must never fail a step. No call here reads a tensor's value.

@@ -22,9 +22,12 @@ observations back under the hysteresis threshold clear it
 (``straggler_cleared``).
 
 Knobs read from the environment: ``TORCHFT_SLO_STEP_S`` (0, the default,
-turns the step SLO off) and ``TORCHFT_STRAGGLER_POLL_S`` (the monitor's
-period, 2 s); ``TORCHFT_STRAGGLER_MONITOR=1`` makes a rank-0 Manager host
-a :class:`FleetMonitor`. The rest are module constants that tests patch.
+turns the step SLO off), ``TORCHFT_STRAGGLER_POLL_S`` (the monitor's
+period, 2 s) and ``TORCHFT_STRAGGLER_FACTOR`` / ``TORCHFT_STRAGGLER_K``
+(the detector's factor and K when its constructor names none; the fault
+matrix's ``diagnose_straggler`` workers take 2.0 and 3);
+``TORCHFT_STRAGGLER_MONITOR=1`` makes a rank-0 Manager host a
+:class:`FleetMonitor`. The rest are module constants that tests patch.
 """
 
 from __future__ import annotations
@@ -214,8 +217,9 @@ class StragglerDetector:
         unlatch_factor: Optional[float] = None,
         min_groups: int = 2,
     ) -> None:
-        self.factor = factor if factor is not None else STRAGGLER_FACTOR
-        self.k = int(k if k is not None else STRAGGLER_K)
+        self.factor = (factor if factor is not None
+                       else _env_float("TORCHFT_STRAGGLER_FACTOR", STRAGGLER_FACTOR))
+        self.k = int(k if k is not None else _env_float("TORCHFT_STRAGGLER_K", STRAGGLER_K))
         self.unlatch_factor = (
             unlatch_factor
             if unlatch_factor is not None
