@@ -229,6 +229,32 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    leg) and every worker that finished launched K1-K3. Prints each
    scenario's wall, respawns, evidence and the latch step against the
    corrupt step; the phase's wall must stay within FAULT_WALL_S.
+20. the deployment plane, run at the same time as phase 19, four legs at
+   once in threads, the phase's wall within DEPLOY_WALL_S: (a) ``python -m torchft_tpu_torch.launcher
+   --groups 2 --min-replicas 2 --max-restarts 2`` over the ``train_bytes``
+   example (bf16 on the card, K1-K3 at head dim 32) with CKPT_DIR,
+   CKPT_EVERY=2, STEPS=12 and a trace per group; group 1's worker takes
+   SIGKILL from this script once its trace shows its fifth committed step. The
+   launcher exits 0 after exactly one restart; the respawn restores from
+   disk at step 4 or later before its first quorum and never heals
+   backward; both groups end at step 12 with one checksum; no step is
+   trained twice in a group, each batch is the sampler's, the groups'
+   samples are disjoint; the survivor's blackout is printed. (b) total
+   failure: one ``train_bytes`` group trains 6 steps straight under its
+   own launcher; beside it another trains 3 with a checkpoint each step,
+   and a fresh launcher resumes it to 6: the two checksums are
+   bit-identical. (c) two headline groups as threads here, each a Manager
+   over ``CollectivesProxy`` around CollectivesTcp's Python ring (phase
+   5's plane), graphed, 6 steps; group 0's child is killed before step 3:
+   that step fails on both groups within the op timeout, every later step
+   commits with the same trainers (the children respawn at the next
+   quorum), one sha256 at the end, ``plane_info()`` ``proxy:python-ring``,
+   16/8/8 launches a step; then, once the other legs and phase 19 are
+   done, 3 more joint steps whose median wall is printed beside phase 5's
+   (the steps beside the other worker processes share the host's 8 cores
+   with them, and are printed apart). (d) ``launcher --groups 2 -- train_ddp`` and ``launcher
+   --groups 4 --min-replicas 2 -- train_diloco`` on the card: each exits 0
+   with one checksum across its groups.
 
 Phases 4-18 replay each train step from CUDA graphs (phase 4's and phase
 9's eager arms aside); every group's graphs are captured once, so a heal
@@ -255,6 +281,7 @@ import sys
 import threading
 import time
 import traceback
+import concurrent.futures
 from concurrent.futures import ThreadPoolExecutor
 from datetime import timedelta
 
@@ -3506,6 +3533,469 @@ def phase_fault_matrix():
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the deployment plane
+# ---------------------------------------------------------------------------
+
+DEPLOY_WALL_S = 240.0
+DEPLOY_STEPS = 12  # leg (a)'s train_bytes run
+# group 1 dies once its trace shows this step index committed (its fifth
+# committed step: the newest checkpoint is then step 4's, CKPT_EVERY=2)
+DEPLOY_KILL_AFTER = 4
+RESUME_STEPS = (3, 6)  # leg (b): 3 steps with a checkpoint each, then resumed to 6
+PROXY_STEPS = 6
+PROXY_KILL_AT = 3  # leg (c): group 0's child is killed before this step
+PROXY_TIMED_STEPS = 3  # leg (c): joint steps timed once the other legs are done
+PROXY_OP_TIMEOUT_S = 60.0
+_DONE_LINE = r"done: (?:outer_)?step=(\d+) param_checksum=(-?[\d.]+)"
+_LAUNCHES_LINE = r"flash launches \(head dim 32\): (\{.*\})"
+
+
+def _launcher(argv, env_extra, log_dir, timeout_s):
+    """``python -m torchft_tpu_torch.launcher --log-dir log_dir <argv>`` on
+    the card; returns (the Popen, a function that waits for it and returns
+    (rc, the launcher's output))."""
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    env.pop("DEVICE", None)  # the workers' default: the card
+    env.update(env_extra)
+    os.makedirs(log_dir, exist_ok=True)
+    out_path = os.path.join(log_dir, "launcher.out")
+    with open(out_path, "wb") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torchft_tpu_torch.launcher", "--log-dir", log_dir, *argv],
+            env=env, stdout=out, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def wait():
+        try:
+            rc = proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+        with open(out_path, errors="replace") as f:
+            return rc, f.read()
+
+    return proc, wait
+
+
+def _worker_logs(log_dir):
+    import glob
+
+    return {os.path.basename(p): open(p, errors="replace").read()
+            for p in sorted(glob.glob(os.path.join(log_dir, "g*_r*_i*.log")))}
+
+
+def _done_and_launches(text):
+    """The worker's last ``done:`` (step, checksum) and its flash launches."""
+    import re
+
+    done = re.findall(_DONE_LINE, text)
+    launches = re.findall(_LAUNCHES_LINE, text)
+    return (done[-1] if done else None), (json.loads(launches[-1]) if launches else None)
+
+
+def _children_of(ppid):
+    """Pids whose parent is ``ppid``, from ``/proc/<pid>/stat``."""
+    out = []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # the comm field may hold spaces: the ppid is the second field after ')'
+        if int(stat.rpartition(")")[2].split()[1]) == ppid:
+            out.append(int(name))
+    return out
+
+
+def _group_worker_pid(launcher_pid, gid):
+    for pid in _children_of(launcher_pid):
+        try:
+            with open(f"/proc/{pid}/environ", "rb") as f:
+                env = f.read().split(b"\0")
+        except OSError:
+            continue
+        if f"REPLICA_GROUP_ID={gid}".encode() in env:
+            return pid
+    return None
+
+
+def _log_times(text, pattern):
+    """Wall times (epoch s) of the log lines matching ``pattern`` (the
+    examples' ``%(asctime)s`` prefix)."""
+    import datetime
+    import re
+
+    out = []
+    for line in text.splitlines():
+        m = re.match(r"(\d{4}-\d\d-\d\d \d\d:\d\d:\d\d,\d{3}) ", line)
+        if m and re.search(pattern, line):
+            out.append((datetime.datetime.strptime(m.group(1), "%Y-%m-%d %H:%M:%S,%f")
+                        .timestamp(), line))
+    return out
+
+
+def _deploy_kill_resume(tmp):
+    """(a) kill, respawn and resume under the launcher (see phase_deployment)."""
+    import re
+
+    from torchft_tpu_torch.data import DistributedSampler, step_indices
+    from torchft_tpu_torch.examples.train_bytes import SEQ
+
+    logs = os.path.join(tmp, "a")
+    corpus = os.path.join(tmp, "corpus.bin")
+    trace = os.path.join(logs, "trace{group}.jsonl")
+    proc, wait = _launcher(
+        ["--groups", "2", "--min-replicas", "2", "--max-restarts", "2", "--",
+         sys.executable, "-m", "torchft_tpu_torch.examples.train_bytes"],
+        {"CKPT_DIR": os.path.join(logs, "ckpt"), "CKPT_EVERY": "2", "STEPS": str(DEPLOY_STEPS),
+         "TRACE_PATH": trace, "DATA_PATH": corpus}, logs, DEPLOY_WALL_S)
+    victim_trace = trace.replace("{group}", "1")
+    deadline = time.monotonic() + DEPLOY_WALL_S
+    killed_at = pid = None
+    while killed_at is None and time.monotonic() < deadline and proc.poll() is None:
+        steps = []
+        if os.path.exists(victim_trace):
+            with open(victim_trace) as f:
+                steps = [json.loads(ln)["step"] for ln in f if ln.strip()]
+        if steps and max(steps) >= DEPLOY_KILL_AFTER:
+            pid = _group_worker_pid(proc.pid, 1)
+            if pid is not None:
+                os.kill(pid, 9)
+                killed_at = time.time()
+        time.sleep(0.1)
+    rc, out = wait()
+    texts = _worker_logs(logs)
+    check(killed_at is not None, f"deployment (a): group 1's worker was never killed (rc {rc}); "
+          f"launcher output tail: {out[-1500:]}")
+    restarts = re.findall(r"restarted group (\d+) \(restart (\d+)/(\d+)\)", out)
+    log(f"deployment (a) kill and resume: SIGKILL of group 1's worker (pid {pid}) after its trace "
+        f"showed step {DEPLOY_KILL_AFTER}; launcher exit {rc}, restarts {restarts}; worker logs "
+        f"{sorted(texts)}")
+    check(rc == 0, f"deployment (a): the launcher exited {rc}; tail: {out[-2000:]}")
+    check(restarts == [("1", "1", "2")], f"deployment (a): restarts logged {restarts}, expected "
+          "exactly one of group 1")
+    respawn = texts.get("g1_r0_i1.log", "")
+    survivor = texts.get("g0_r0_i0.log", "")
+    resumed = re.search(r"resumed from (\S+) at step (\d+)", respawn)
+    check(resumed is not None, f"deployment (a): the respawn did not restore from disk; tail: "
+          f"{respawn[-1500:]}")
+    restored = int(resumed.group(2))
+    first_quorum = respawn.find("reconfiguring for quorum_id")
+    check(0 <= resumed.start() < first_quorum, "deployment (a): the respawn restored after its "
+          "first quorum (or never joined one)")
+    heals = [int(x) for x in re.findall(r"healing: fetching checkpoint metadata from \S+ at step "
+                                         r"(\d+)", respawn)]
+    survivor_heals = [int(x) for x in re.findall(r"healing: fetching checkpoint metadata from "
+                                                  r"\S+ at step (\d+)", survivor)]
+    log(f"deployment (a): the respawn restored {os.path.basename(resumed.group(1))} at step "
+        f"{restored} before its first quorum; its heals at steps {heals} (forward from the "
+        f"restored step); the survivor's heals at steps {survivor_heals}")
+    check(restored >= 4, f"deployment (a): restored at step {restored}, expected 4 or later")
+    check(all(h >= restored for h in heals), f"deployment (a): the respawn healed backward "
+          f"({heals} below its restored step {restored})")
+    check(all(h == 0 for h in survivor_heals), f"deployment (a): the survivor healed at "
+          f"{survivor_heals} (from the respawn's older state?)")
+    done = {name: _done_and_launches(texts.get(name, "")) for name in ("g0_r0_i0.log",
+                                                                         "g1_r0_i1.log")}
+    sums = {name: d for name, (d, _) in done.items()}
+    log(f"deployment (a): step and param_checksum by worker {sums}; flash launches (head dim 32) "
+        f"by finished worker { {n: lc for n, (_, lc) in done.items()} }")
+    check(all(d is not None and d[0] == str(DEPLOY_STEPS) for d in sums.values())
+          and len({d[1] for d in sums.values()}) == 1,
+          f"deployment (a): the groups ended at {sums}, not one checksum at step {DEPLOY_STEPS}")
+    # the blackout (the recovery harness's): the survivor's last commit
+    # before the kill to its first after its stall, i.e. the longest gap
+    # between its commits from there on (it cannot commit alone, and the
+    # step in flight at the kill may still commit)
+    commits, prev = [], -1
+    for t, line in _log_times(survivor, r"train_bytes: step=\d+ participants="):
+        step = int(re.search(r"step=(\d+)", line).group(1))
+        if step > prev:
+            commits.append(t)
+        prev = step
+    last_pre = [t for t in commits if t <= killed_at][-1:]
+    tail = last_pre + [t for t in commits if t > killed_at]
+    gaps = [b - a for a, b in zip(tail, tail[1:])]
+    blackout = max(gaps) if gaps else None
+    log(f"deployment (a): survivor blackout (its last commit before the kill to its first "
+        f"after the stall) {blackout if blackout is None else round(blackout, 3)} s")
+    check(blackout is not None, "deployment (a): the survivor never committed after the kill")
+    # the trace invariant: no step (so no sample, within one epoch) trained
+    # twice in a group, each batch the sampler's, the groups disjoint
+    n_windows = (os.path.getsize(corpus) - 1) // SEQ
+    by_step = {}
+    for g in (0, 1):
+        with open(trace.replace("{group}", str(g))) as f:
+            lines = [json.loads(ln) for ln in f if ln.strip()]
+        done_steps = [ln["step"] for ln in lines]
+        check(done_steps == sorted(set(done_steps)), f"deployment (a): group {g} trained steps "
+              f"{done_steps} (one twice?)")
+        ids = [i for ln in lines for i in ln["ids"]]
+        check(len(ids) == len(set(ids)), f"deployment (a): group {g} trained a sample twice")
+        sampler = DistributedSampler(n_windows, replica_group=g, num_replica_groups=2,
+                                     shuffle=True, seed=0)
+        for ln in lines:
+            check(ln["ids"] == step_indices(sampler, ln["step"], 8).tolist(),
+                  f"deployment (a): group {g} step {ln['step']} trained the wrong samples")
+            by_step.setdefault(ln["step"], {})[g] = set(ln["ids"])
+    check(all(not (v[0] & v[1]) for v in by_step.values() if len(v) == 2),
+          "deployment (a): the groups' samples overlap")
+    log(f"deployment (a): traces hold steps {sorted(by_step)}; no step trained twice, groups "
+        "disjoint")
+    return {"blackout_s": blackout, "launches": [lc for _, lc in done.values()]}
+
+
+def _deploy_total_failure(tmp):
+    """(b) total failure: a straight 6-step group beside a 3-step group with
+    a checkpoint every step, which a fresh launcher resumes to 6."""
+    import re
+
+    corpus = os.path.join(tmp, "corpus.bin")
+    ckpt = os.path.join(tmp, "b", "ckpt")
+    base = {"DATA_PATH": corpus, "CKPT_EVERY": "1"}
+    cmd = ["--groups", "1", "--max-restarts", "0", "--",
+           sys.executable, "-m", "torchft_tpu_torch.examples.train_bytes"]
+    _, wait_straight = _launcher(cmd, dict(base, STEPS=str(RESUME_STEPS[1])),
+                                 os.path.join(tmp, "b", "straight"), DEPLOY_WALL_S)
+    _, wait_first = _launcher(cmd, dict(base, STEPS=str(RESUME_STEPS[0]), CKPT_DIR=ckpt),
+                              os.path.join(tmp, "b", "first"), DEPLOY_WALL_S)
+    runs = {"first": wait_first()}
+    _, wait_resumed = _launcher(cmd, dict(base, STEPS=str(RESUME_STEPS[1]), CKPT_DIR=ckpt),
+                                os.path.join(tmp, "b", "resumed"), DEPLOY_WALL_S)
+    runs["resumed"] = wait_resumed()
+    runs["straight"] = wait_straight()
+    res, launches = {}, []
+    for name, (rc, out) in runs.items():
+        text = _worker_logs(os.path.join(tmp, "b", name)).get("g0_r0_i0.log", "")
+        check(rc == 0, f"deployment (b) {name}: exit {rc}; tail: {text[-1500:]}{out[-500:]}")
+        done, lc = _done_and_launches(text)
+        res[name] = (done, re.search(r"resumed from \S+ at step (\d+)", text))
+        launches.append(lc)
+    log(f"deployment (b) total failure: straight {res['straight'][0]}, first "
+        f"{res['first'][0]}, resumed {res['resumed'][0]} (restored at step "
+        f"{res['resumed'][1] and res['resumed'][1].group(1)})")
+    check(res["resumed"][1] is not None and res["resumed"][1].group(1) == str(RESUME_STEPS[0]),
+          "deployment (b): the fresh process did not restore the 3-step checkpoint")
+    check(res["straight"][0] == res["resumed"][0]
+          and res["straight"][0][0] == str(RESUME_STEPS[1]),
+          f"deployment (b): resumed {res['resumed'][0]} is not bit-identical to the straight "
+          f"run's {res['straight'][0]}")
+    log(f"deployment (b): param_checksums bit-identical {res['straight'][0][1]}; flash launches "
+        f"(head dim 32) by run {launches}")
+    return {"launches": launches}
+
+
+def _deploy_proxy(tcp_joint_ms, others_done):
+    """(c) CollectivesProxy at the headline width (see phase_deployment).
+    After the checked steps, once ``others_done`` is set (the other legs'
+    worker processes no longer share the host's cores), PROXY_TIMED_STEPS
+    more joint steps time the proxy's hop against phase 5's plane."""
+    import functools
+
+    from torchft_tpu_torch.checkpointing import HTTPTransport
+    from torchft_tpu_torch.collectives import CollectivesTcp
+    from torchft_tpu_torch.coordination import LighthouseServer
+    from torchft_tpu_torch.manager import Manager
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.parallel.ft import FTTrainer
+    from torchft_tpu_torch.parallel.train_step import TrainStep, synchronize
+    from torchft_tpu_torch.proxy import CollectivesProxy
+    from torchft_tpu_torch.store import StoreServer
+
+    cfg = headline_config()
+    batch, seq = HEADLINE["batch"], HEADLINE["seq"]
+    timeout = timedelta(seconds=PROXY_OP_TIMEOUT_S)
+    # the inner plane is phase 5's Python ring, so the joint step compares
+    # with phase 5's: the difference is the proxy's hop
+    factory = functools.partial(CollectivesTcp, timeout=timeout, native_plane=False)
+    lighthouse = LighthouseServer(bind="[::]:0", min_replicas=2)
+    calls = {0: 0, 1: 0}
+
+    def member(gid):
+        store = StoreServer()
+        proxy = CollectivesProxy(factory, timeout=timeout)
+        manager = Manager(collectives=proxy, load_state_dict=None, state_dict=None,
+                          min_replica_size=2, replica_id=f"proxy-group{gid}",
+                          store_addr=store.address(), rank=0, world_size=1,
+                          lighthouse_addr=lighthouse.address(), timeout=timeout,
+                          checkpoint_transport=HTTPTransport(timeout=timeout))
+        stream = torch.cuda.Stream()
+        rows, planes = [], []
+        try:
+            with torch.cuda.stream(stream):
+                ts = TrainStep(cfg, device="cuda")
+                trainer = FTTrainer(manager, ts)
+                trainer.init(seed=0)
+                tokens = make_tokens(cfg, 30 + gid, batch, seq)
+                while manager.current_step() < PROXY_STEPS + PROXY_TIMED_STEPS:
+                    step = manager.current_step()
+                    if step == PROXY_STEPS:
+                        others_done.wait(timeout=DEPLOY_WALL_S)
+                    killed = gid == 0 and step == PROXY_KILL_AT and not any(r[3] for r in rows)
+                    t0 = time.perf_counter()
+                    if killed:
+                        proxy.kill_child()
+                    loss, committed = trainer.step(tokens)
+                    stream.synchronize()
+                    calls[gid] += 1
+                    rows.append((step, committed, (time.perf_counter() - t0) * 1e3, killed,
+                                 manager.num_participants()))
+                    planes.append(proxy.plane_info())
+                    log(f"proxy group{gid}: step={step} committed={committed} participants="
+                        f"{manager.num_participants()} {rows[-1][2]:.3f} ms"
+                        + (" (child killed before this step)" if killed else "")
+                        + f"; plane {planes[-1]}")
+                synchronize()
+                return dict(rows=rows, planes=planes, digest=_param_digest(trainer.params),
+                            captures=dict(ts.graphs.captures))
+        finally:
+            manager.shutdown(wait=False)
+            store.shutdown()
+
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    try:
+        res = _run_threads(member, "deployment (c) proxy")
+    finally:
+        lighthouse.shutdown()
+    launches = dict(fa.LAUNCHES)
+    for gid in (0, 1):
+        rows = res[gid]["rows"]
+        failed = [r for r in rows if not r[1]]
+        # the killed step fails on both groups; every later step commits
+        check([r[0] for r in failed] == [PROXY_KILL_AT],
+              f"deployment (c) group {gid}: failed steps {[r[0] for r in failed]}, expected "
+              f"only step {PROXY_KILL_AT}")
+        fail_ms = failed[0][2]
+        log(f"deployment (c) group {gid}: the killed step's failure surfaced in "
+            f"{fail_ms / 1e3:.3f} s (op timeout {PROXY_OP_TIMEOUT_S:.0f} s)")
+        check(fail_ms / 1e3 < PROXY_OP_TIMEOUT_S, f"deployment (c) group {gid}: the failure took "
+              f"{fail_ms / 1e3:.3f} s")
+        after = [r for r in rows[rows.index(failed[0]) + 1:] if r[0] < PROXY_STEPS]
+        check(after and all(r[1] for r in after) and after[-1][0] == PROXY_STEPS - 1,
+              f"deployment (c) group {gid}: the steps after the kill {after}")
+        planes = res[gid]["planes"]
+        check(all(p.startswith("proxy:") and len(p) > len("proxy:") for p in planes),
+              f"deployment (c) group {gid}: plane_info() read {sorted(set(planes))}")
+        check(res[gid]["captures"] == {"grads": 1, "apply": 1},
+              f"deployment (c) group {gid}: graphs captured {res[gid]['captures']}")
+    check(res[0]["digest"] == res[1]["digest"], "deployment (c): the groups ended with different "
+          "parameters")
+    # the joint steps but the first (the capture, the bootstrap heal) and the
+    # retried one (the children's respawn): beside the other legs, and alone
+    def joint_ms(lo, hi):
+        ms = [r[2] for g in (0, 1) for r in res[g]["rows"]
+              if r[1] and r[4] == 2 and lo <= r[0] < hi and r[0] not in (0, PROXY_KILL_AT)]
+        return statistics.median(ms) if ms else float("nan"), len(ms)
+
+    beside, n_beside = joint_ms(0, PROXY_STEPS)
+    alone, n_alone = joint_ms(PROXY_STEPS, PROXY_STEPS + PROXY_TIMED_STEPS)
+    log(f"deployment (c) proxy: joint step median wall over the proxy (proxy:python-ring) "
+        f"{alone:.3f} ms once the other legs were done ({n_alone} steps), {beside:.3f} ms "
+        f"beside their worker processes ({n_beside} steps), against phase 5's "
+        f"{tcp_joint_ms:.3f} ms on the Python ring in this process; one sha256 "
+        f"{res[0]['digest']}; planes {sorted(set(res[0]['planes'] + res[1]['planes']))}")
+    expect = {n: c * (calls[0] + calls[1]) for n, c in _launches_per_step(cfg).items()}
+    log(f"deployment (c): {calls[0]} + {calls[1]} steps, kernel launches {launches}")
+    check(launches == expect, f"deployment (c) launches {launches} != {expect}")
+    return {"joint_ms": alone, "joint_ms_beside": beside, "launches": launches}
+
+
+def _deploy_examples(tmp):
+    """(d) train_ddp with 2 groups and train_diloco with 4 under the
+    launcher, at once."""
+    runs = {
+        "train_ddp": _launcher(["--groups", "2", "--", sys.executable, "-m",
+                                "torchft_tpu_torch.examples.train_ddp"], {},
+                               os.path.join(tmp, "d", "ddp"), DEPLOY_WALL_S)[1],
+        "train_diloco": _launcher(["--groups", "4", "--min-replicas", "2", "--", sys.executable,
+                                   "-m", "torchft_tpu_torch.examples.train_diloco"], {},
+                                  os.path.join(tmp, "d", "diloco"), DEPLOY_WALL_S)[1],
+    }
+    groups = {"train_ddp": 2, "train_diloco": 4}
+    out = {}
+    for name, wait in runs.items():
+        rc, text = wait()
+        logs = _worker_logs(os.path.join(tmp, "d", "ddp" if name == "train_ddp" else "diloco"))
+        done = {n: _done_and_launches(t)[0] for n, t in logs.items()}
+        log(f"deployment (d) {name}: launcher exit {rc}; step and param_checksum by worker {done}")
+        check(rc == 0, f"deployment (d) {name}: exit {rc}; tail: {text[-1500:]}")
+        check(len(done) == groups[name] and all(d is not None for d in done.values())
+              and len(set(done.values())) == 1,
+              f"deployment (d) {name}: {done}, expected one checksum across "
+              f"{groups[name]} groups")
+        out[name] = done
+    return out
+
+
+def phase_deployment(tcp_joint_ms, beside=None):
+    """Phase 20: the deployment plane, its legs at once in threads (see
+    the module docstring). ``beside``: an event set once work that runs at
+    the same time (phase 19, in ``main``) is done; leg (c)'s timed steps
+    wait for it too. Returns the K1-K3 launches: at head dim 32 those of
+    legs (a) and (b)'s finished workers, at 64 leg (c)'s."""
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the workers need the card's memory
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tft_torch_deploy_")
+    from torchft_tpu_torch.examples.train_bytes import ensure_corpus
+
+    ensure_corpus(os.path.join(tmp, "corpus.bin"))  # one corpus for legs (a) and (b)
+    others_done = threading.Event()
+    legs = {"a": lambda: _deploy_kill_resume(tmp), "b": lambda: _deploy_total_failure(tmp),
+            "c": lambda: _deploy_proxy(tcp_joint_ms, others_done),
+            "d": lambda: _deploy_examples(tmp)}
+    walls = {}
+
+    def timed(k):
+        start = time.perf_counter()
+        try:
+            return legs[k]()
+        finally:
+            walls[k] = time.perf_counter() - start
+
+    with ThreadPoolExecutor(max_workers=len(legs)) as pool:
+        futs = {k: pool.submit(timed, k) for k in legs}
+        concurrent.futures.wait([f for k, f in futs.items() if k != "c"])
+        if beside is not None:
+            beside.wait(timeout=DEPLOY_WALL_S)
+        others_done.set()
+        res, errors = {}, []
+        for k, f in futs.items():
+            try:
+                res[k] = f.result()
+            except SystemExit:
+                errors.append(k)  # its check() printed the reason
+            except Exception:  # noqa: BLE001 — every leg's failure is printed, then the phase fails
+                errors.append(k)
+                print(f"deployment ({k}) raised:\n{traceback.format_exc()}", file=sys.stderr,
+                      flush=True)
+    check(not errors, f"deployment: legs {errors} failed")
+    deployment = {n: 0 for n in ("flash_fwd", "flash_dq", "flash_dkv")}
+    workers = res["a"]["launches"] + res["b"]["launches"]
+    check(len(workers) == 5 and all(w and all(w.get(n, 0) > 0 for n in deployment)
+                                    for w in workers),
+          f"deployment: legs (a) and (b)'s finished workers printed launches {workers}")
+    for w in workers:
+        for n in deployment:
+            deployment[n] += w[n]
+    wall = time.perf_counter() - t0
+    log(f"deployment: leg walls { {k: round(v, 1) for k, v in sorted(walls.items())} } s")
+    log(f"deployment: phase wall {wall:.1f} s (bound {DEPLOY_WALL_S:.0f} s); blackout (a) "
+        f"{res['a']['blackout_s']:.3f} s; proxy joint step {res['c']['joint_ms']:.3f} ms alone, "
+        f"{res['c']['joint_ms_beside']:.3f} ms beside the other legs; "
+        f"launches at head dim 32 {deployment}, at 64 {res['c']['launches']}; workdir {tmp}")
+    check(wall <= DEPLOY_WALL_S, f"deployment: the phase took {wall:.1f} s")
+    return {"deployment": deployment, "proxy": res["c"]["launches"]}
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--watchdog-probe"]:
         _watchdog_probe(sys.argv[2])
@@ -3572,7 +4062,18 @@ def main() -> None:
     phase_observability()
     fleet_launches = phase_fleet()
     forensics_launches = phase_forensics()
-    fault_launches = phase_fault_matrix()
+    # phases 19 and 20 run at once: each is worker processes that mostly
+    # start up (import torch, CUDA, the first capture) and run tiny steps,
+    # and neither checks a time but its own wall; phase 20's timed proxy
+    # steps wait for phase 19 to end
+    fault_done = threading.Event()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        deploy = pool.submit(phase_deployment, tcp_groups["joint_ms"], fault_done)
+        try:
+            fault_launches = phase_fault_matrix()
+        finally:
+            fault_done.set()
+        deploy_launches = deploy.result()
     log(smi)
 
     kernels = []
@@ -3602,9 +4103,13 @@ def main() -> None:
                 kernels[-1]["launches_fleet_plane"] = fleet_launches[name]
                 # phase 18's workers: the kill's and both diagnosis legs'
                 kernels[-1]["launches_forensics"] = forensics_launches[name]
+                # phase 20's leg (c): two headline groups over CollectivesProxy
+                kernels[-1]["launches_proxy"] = deploy_launches["proxy"][name]
             if d == 32:
                 # phase 19's train_bytes workers, every scenario's
                 kernels[-1]["launches_fault_matrix"] = fault_launches[name]
+                # phase 20's legs (a) and (b): the launcher's train_bytes workers
+                kernels[-1]["launches_deployment"] = deploy_launches["deployment"][name]
     # head dim 64 at the long-context bench's lengths: launched by phase 14's
     # long_context rows
     for seq in (LONG_WHOLE["seq"], LONG["seq"]):

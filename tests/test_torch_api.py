@@ -1,9 +1,9 @@
 """The port's public API against the JAX package's.
 
-``torchft_tpu_torch`` exports the JAX package's ``__all__`` less the three
-names whose modules are not ported yet (ROADMAP: ``CollectivesProxy``,
-``CollectivesDeviceDist``, ``ParameterServer``), the heavier wrappers at
-first access; importing it in a fresh process starts
+``torchft_tpu_torch`` exports the JAX package's ``__all__`` less the one
+name whose module is not ported yet (ROADMAP queue 1 item 6:
+``CollectivesDeviceDist``), the heavier wrappers (``CollectivesProxy`` and
+``ParameterServer`` among them) at first access; importing it in a fresh process starts
 no thread and imports no JAX. ``CollectivesDummy`` answers every op as the
 JAX one does on the same numpy inputs; ``ManagedCollectives`` over a stub
 Manager behaves as the JAX one, and over two real threaded groups averages
@@ -30,7 +30,7 @@ from torchft_tpu_torch import collectives as PC
 from torchft_tpu_torch import futures as PF
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NOT_YET = {"CollectivesProxy", "CollectivesDeviceDist", "ParameterServer"}
+NOT_YET = {"CollectivesDeviceDist"}
 
 
 def test_public_names_are_the_jax_packages_less_the_unported():
@@ -47,6 +47,8 @@ def test_public_names_are_the_jax_packages_less_the_unported():
     ("CollectivesDevice", "torchft_tpu_torch.collectives_device"),
     ("FTTrainer", "torchft_tpu_torch.parallel.ft"),
     ("WorldSizeMode", "torchft_tpu_torch.manager"),
+    ("CollectivesProxy", "torchft_tpu_torch.proxy"),
+    ("ParameterServer", "torchft_tpu_torch.parameter_server"),
 ])
 def test_lazy_names_resolve_to_their_modules(name, module):
     got = getattr(torchft_tpu_torch, name)

@@ -55,6 +55,16 @@ RUNTIME = (
     "torchft_tpu_torch/faultinject/runner.py",
     "torchft_tpu_torch/faultinject/_san_worker.py",
     "torchft_tpu_torch/examples/train_bytes.py",
+    "torchft_tpu_torch/multiprocessing.py",
+    "torchft_tpu_torch/proxy.py",
+    "torchft_tpu_torch/checkpointing/disk.py",
+    "torchft_tpu_torch/parameter_server.py",
+    "torchft_tpu_torch/parallel/multihost.py",
+    "torchft_tpu_torch/launcher.py",
+    "torchft_tpu_torch/k8s.py",
+    "torchft_tpu_torch/examples/train_ddp.py",
+    "torchft_tpu_torch/examples/train_diloco.py",
+    "torchft_tpu_torch/examples/train_cifar.py",
 )
 
 KEPT = [

@@ -240,7 +240,12 @@ def test_blob_round_trip_stale_and_unstage():
 
 
 @pytest.mark.parametrize("make_state", [_state, _torch_state], ids=["numpy", "tensors"])
-def test_two_sources_bit_identical(transports, make_state):
+def test_two_sources_bit_identical(transports, make_state, monkeypatch):
+    # each source's worker fetches one range a round: without it, a worker
+    # thread the host schedules late finds the queue drained by the other
+    # and its source serves 0 bytes (a correct heal, but the per-source
+    # check below would then follow thread timing)
+    _paired_fetch(_native, monkeypatch, 2)
     state = make_state(1)
     s1, s2, rx = transports(), transports(), transports()
     s1.send_checkpoint([1], 3, state, T)

@@ -303,7 +303,16 @@ def test_no_forbidden_imports_in_sources():
             "torchft_tpu_torch/faultinject/runner.py",
             "torchft_tpu_torch/faultinject/_san_worker.py",
             "torchft_tpu_torch/examples/train_bytes.py",
-            "torchft_tpu_torch/profiling.py"} <= scanned
+            "torchft_tpu_torch/profiling.py",
+            "torchft_tpu_torch/multiprocessing.py",
+            "torchft_tpu_torch/proxy.py",
+            "torchft_tpu_torch/checkpointing/disk.py",
+            "torchft_tpu_torch/parameter_server.py",
+            "torchft_tpu_torch/parallel/multihost.py",
+            "torchft_tpu_torch/launcher.py",
+            "torchft_tpu_torch/k8s.py",
+            "torchft_tpu_torch/examples/train_ddp.py",
+            "torchft_tpu_torch/examples/train_diloco.py"} <= scanned
     bad = []
     for path in _port_sources():
         with open(path, encoding="utf-8") as f:
@@ -317,3 +326,68 @@ def test_no_forbidden_imports_in_sources():
                 continue
             bad += [f"{os.path.relpath(path, REPO)}: {n}" for n in names if _forbidden(n)]
     assert not bad, bad
+
+
+_DEPLOYMENT = _BLOCK + r"""
+import json, os, sys, tempfile
+from datetime import timedelta
+import numpy as np, torch
+from torchft_tpu_torch import CollectivesProxy, ParameterServer, k8s, launcher
+from torchft_tpu_torch.checkpointing.disk import DiskCheckpointer
+from torchft_tpu_torch.collectives import CollectivesTcp, ReduceOp
+from torchft_tpu_torch.examples import train_ddp, train_diloco
+from torchft_tpu_torch.parallel import multihost
+from torchft_tpu_torch.store import StoreServer
+import functools, threading
+
+class Mgr:
+    step = 0
+    def current_step(self): return self.step
+    def state_dict(self): return {"step": self.step}
+    def load_state_dict(self, s): self.step = s["step"]
+
+d = tempfile.mkdtemp()
+m = Mgr()
+got = {}
+ck = DiskCheckpointer(d, m, state_dict=lambda: {"w": torch.arange(3.0)},
+                      load_state_dict=got.update, every=1, tag="g0")
+m.step = 1
+ck.maybe_save()
+m2 = Mgr()
+DiskCheckpointer(d, m2, state_dict=dict, load_state_dict=got.update, tag="g0").restore()
+multihost.initialize_group()  # no endpoint: a no-op
+store = StoreServer()
+proxies = [CollectivesProxy(functools.partial(CollectivesTcp, timeout=timedelta(seconds=10)))
+           for _ in range(2)]
+ths = [threading.Thread(target=p.configure, args=(store.address(), i, 2))
+       for i, p in enumerate(proxies)]
+[t.start() for t in ths]; [t.join() for t in ths]
+arrays = [np.full(1 << 15, float(i + 1), np.float32) for i in range(2)]
+works = [p.allreduce([a], ReduceOp.SUM) for p, a in zip(proxies, arrays)]
+[w.wait(timedelta(seconds=20)) for w in works]
+for p in proxies:
+    p.shutdown()
+store.shutdown()
+print(json.dumps({"restored": m2.step, "w": got["w"].tolist(), "sum": float(arrays[0][0]),
+                  "plane": proxies[0].plane_info(),
+                  "k8s": "torchft_tpu_torch.launcher" in k8s.emit_manifests(["x"]),
+                  "ps": issubclass(ParameterServer, object),
+                  "initialized": multihost.is_initialized(),
+                  "examples": callable(train_ddp.main) and callable(train_diloco.main),
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_deployment_plane_runs_without_jax_or_reference_package():
+    """The launcher, k8s, the proxy (an allreduce through two spawned
+    children), the disk checkpointer, the parameter server, multihost and
+    both examples, in a process where JAX and the JAX package cannot
+    load."""
+    out = _run_blocked(_DEPLOYMENT)
+    assert out["restored"] == 1 and out["w"] == [0.0, 1.0, 2.0]
+    assert out["sum"] == 3.0 and out["plane"].startswith("proxy:")
+    assert out["k8s"] and out["ps"] and out["examples"] and not out["initialized"]
+    for module in ("launcher", "k8s", "proxy", "multiprocessing", "parameter_server",
+                   "checkpointing.disk", "parallel.multihost", "examples.train_ddp",
+                   "examples.train_diloco"):
+        assert f"torchft_tpu_torch.{module}" in out["modules"]

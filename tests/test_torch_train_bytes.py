@@ -14,8 +14,11 @@
   group SIGKILLed mid-epoch restarts, heals (disk checkpoints are not
   ported: the live heal alone), and the traces show no sample skipped or
   trained twice.
-* The guards: ``CKPT_DIR`` raises NotImplementedError, and the corpus is
-  built from the port's own sources when DATA_PATH is absent.
+* ``CKPT_DIR``: a group that lost its process resumes from its newest
+  checkpoint (traces with no step trained twice, the checksum of a run
+  that never stopped); a per-process checkpoint set raises (ROADMAP queue
+  1 item 5); and the corpus is built from the port's own sources when
+  DATA_PATH is absent.
 """
 
 from __future__ import annotations
@@ -214,13 +217,72 @@ def test_kill_restart_no_sample_skipped_or_repeated(tmp_path):
 
 
 def test_ckpt_dir_raises_and_corpus_is_the_ports_sources(tmp_path, monkeypatch):
+    """CKPT_DIR is wired (the resume itself: ``test_ckpt_dir_resume_...``);
+    what still raises is a directory whose newest checkpoint is a set of
+    per-process files, whose sharded leaves wait for ROADMAP queue 1 item 5."""
+    from torchft_tpu_torch.checkpointing.serialization import save_state
+    from torchft_tpu_torch.coordination import LighthouseServer
     from torchft_tpu_torch.examples import train_bytes
 
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    for pidx in (0, 1):
+        with open(ckpt / f"group0_step4.proc{pidx}of2.ckpt", "wb") as f:
+            save_state({"torchft": {"step": 4, "batches_committed": 4}, "user": {}}, f)
+    lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
     monkeypatch.setenv("DEVICE", "cpu")
-    monkeypatch.setenv("CKPT_DIR", str(tmp_path / "ckpt"))
-    with pytest.raises(NotImplementedError, match="CKPT_DIR"):
-        train_bytes.main()
+    monkeypatch.setenv("REPLICA_GROUP_ID", "0")
+    monkeypatch.setenv("NUM_REPLICA_GROUPS", "1")
+    monkeypatch.setenv("TORCHFT_LIGHTHOUSE", lighthouse.address().split("//", 1)[-1])
+    monkeypatch.setenv("DATA_PATH", str(tmp_path / "corpus.bin"))
+    monkeypatch.setenv("CKPT_DIR", str(ckpt))
+    try:
+        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+            train_bytes.main()
+    finally:
+        lighthouse.shutdown()
     blob = train_bytes.ensure_corpus(str(tmp_path / "corpus.bin"))
     package = os.path.join(REPO, "torchft_tpu_torch")
     files = sorted(glob.glob(os.path.join(package, "**", "*.py"), recursive=True))
     assert blob == b"".join(open(f, "rb").read() for f in files)
+
+
+def test_ckpt_dir_resume_bit_identical_no_step_twice(tmp_path):
+    """``tests/test_resume.py``'s bar on ``train_bytes``: one group trains 6
+    steps straight; another trains 3 with a checkpoint every step and a
+    fresh process resumes it from the directory alone to step 6. The
+    checksums are bit-identical, and the resumed group's trace (TRACE_PATH
+    with ``{group}``) holds every step once, with the samples of the
+    straight run."""
+    from torchft_tpu_torch.coordination import LighthouseServer
+
+    tmp = str(tmp_path)
+    _corpus(tmp, 4001)
+    lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
+    addr = lighthouse.address().split("//", 1)[-1]
+
+    def run(name, steps, ckpt):
+        env = _env(dict(REPLICA_GROUP_ID="0", NUM_REPLICA_GROUPS="1", STEPS=str(steps),
+                        BATCH="4", DATA_PATH=os.path.join(tmp, "corpus.bin"),
+                        TRACE_PATH=os.path.join(tmp, name + "_trace{group}.jsonl"),
+                        TORCHFT_LIGHTHOUSE=addr, DEVICE="cpu"))
+        if ckpt:
+            env.update(CKPT_DIR=os.path.join(tmp, "ckpt"), CKPT_EVERY="1")
+        proc = subprocess.run([sys.executable, "-m", "torchft_tpu_torch.examples.train_bytes"],
+                              env=env, cwd=REPO, capture_output=True, text=True, timeout=180)
+        assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+        return proc.stdout + proc.stderr
+
+    try:
+        straight = run("straight", 6, ckpt=False)
+        run("resumed", 3, ckpt=True)
+        resumed = run("resumed", 6, ckpt=True)
+    finally:
+        lighthouse.shutdown()
+    assert re.search(r"resumed from .*group0_step3\.ckpt at step 3", resumed), resumed[-2000:]
+    sums = [re.search(r"done: step=6 param_checksum=(-?[\d.]+)", t).group(1)
+            for t in (straight, resumed)]
+    assert sums[0] == sums[1]
+    mine = _trace(os.path.join(tmp, "resumed_trace0.jsonl"))
+    assert [ln["step"] for ln in mine] == list(range(6))
+    assert mine == _trace(os.path.join(tmp, "straight_trace0.jsonl"))

@@ -153,11 +153,30 @@ def test_example_two_steps_match_jax(tmp_path, cli_lighthouse):
             np.testing.assert_allclose(hwio(t), np.asarray(a), atol=1e-5)
 
 
-def test_ckpt_dir_is_not_ported(monkeypatch):
-    monkeypatch.setenv("CKPT_DIR", "unused")
+def test_ckpt_dir_is_not_ported(tmp_path, monkeypatch):
+    """CKPT_DIR is wired; the part that is not ported is a checkpoint
+    written as per-process files (sharded leaves, ROADMAP queue 1 item 5):
+    restoring one raises before the first quorum."""
+    from torchft_tpu_torch.checkpointing.serialization import save_state
+    from torchft_tpu_torch.coordination import LighthouseServer
+
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    for pidx in (0, 1):
+        with open(ckpt / f"group0_step2.proc{pidx}of2.ckpt", "wb") as f:
+            save_state({"torchft": {"step": 2, "batches_committed": 2}, "user": {}}, f)
+    lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
+    monkeypatch.setenv("CKPT_DIR", str(ckpt))
     monkeypatch.setenv("DEVICE", "cpu")
-    with pytest.raises(NotImplementedError, match="disk checkpoints"):
-        C.main()
+    monkeypatch.setenv("REPLICA_GROUP_ID", "0")
+    monkeypatch.setenv("NUM_REPLICA_GROUPS", "1")
+    monkeypatch.setenv("TORCHFT_LIGHTHOUSE", lighthouse.address().split("//", 1)[-1])
+    monkeypatch.setenv("DATA_PATH", str(tmp_path / "cifar.npz"))
+    try:
+        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+            C.main()
+    finally:
+        lighthouse.shutdown()
 
 
 def test_graph_on_cpu_raises():

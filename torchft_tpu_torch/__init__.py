@@ -8,9 +8,9 @@ whose attention runs on hand-written Hopper kernels. The layout mirrors
 
 The public names are the JAX package's (``torchft_tpu/__init__.py``): the
 Manager, the sampler and the host collectives load with the package, the
-heavier wrappers at first access. Not exported until their modules are
-ported (ROADMAP): ``CollectivesProxy``, ``CollectivesDeviceDist`` and
-``ParameterServer``.
+heavier wrappers (``CollectivesProxy`` and ``ParameterServer`` among them)
+at first access. Not exported until its module is ported (ROADMAP queue 1
+item 6): ``CollectivesDeviceDist``.
 
 Importing the package starts nothing: no thread runs, and the native
 coordination core and the CUDA kernels are built at first use.
@@ -44,6 +44,8 @@ _LAZY = {
     "DiLoCo": "torchft_tpu_torch.local_sgd",
     "CollectivesDevice": "torchft_tpu_torch.collectives_device",
     "FTTrainer": "torchft_tpu_torch.parallel.ft",
+    "CollectivesProxy": "torchft_tpu_torch.proxy",
+    "ParameterServer": "torchft_tpu_torch.parameter_server",
 }
 
 

@@ -17,6 +17,12 @@ where ``leaf_infos[i]`` is
 
 Leaves are visited in ``jax.tree_util`` order (sorted dict keys), so for a
 tree of numpy leaves the buffers are exactly the JAX package's buffers.
+:func:`save_state` (a file, e.g. a disk checkpoint) pickles the tree's
+spec as a :class:`TreeSpec`, which has the ``unflatten(leaves)`` method
+that ``jax.tree_util.tree_unflatten`` calls, so the JAX package's
+``load_state`` reads the port's files of numpy leaves; the port's readers
+rebuild a JAX-written file through its ``PyTreeDef``'s own ``unflatten``
+(unpickling that header needs JAX installed; the port never imports it).
 Unflattened tensors lie on the host; the receiver's ``load_state_dict``
 copies them into its own tensors, on its own device. A tensor leaf
 unflattened from a writable buffer (a view into the striped heal's one
@@ -26,6 +32,7 @@ is copied.
 
 from __future__ import annotations
 
+import io
 import pickle
 import struct
 from typing import Any, BinaryIO, List, NamedTuple, Tuple, Union
@@ -42,11 +49,45 @@ __all__ = [
     "unflatten_state",
     "buffer_sizes",
     "as_bytes",
+    "save_state",
     "load_state",
+    "dumps_state",
+    "loads_state",
+    "TreeSpec",
     "read_exact",
     "TensorSpec",
     "spec_tree_from_header",
 ]
+
+
+class TreeSpec(tuple):
+    """A tree's spec (``utils.tree.tree_flatten``'s) as a file header
+    pickles it: ``unflatten(leaves)`` is the ``PyTreeDef`` method that
+    ``jax.tree_util.tree_unflatten`` calls, so a JAX reader rebuilds the
+    port's trees."""
+
+    def unflatten(self, leaves: List[Any]) -> Any:
+        return tree_unflatten(tuple(self), list(leaves))
+
+
+def _unflatten(spec: Any, leaves: List[Any]) -> Any:
+    """Rebuild a tree from either package's spec: the port's tuple (a
+    :class:`TreeSpec` too) or a foreign spec with an ``unflatten`` method
+    (a JAX ``PyTreeDef`` in a header the JAX package wrote)."""
+    if isinstance(spec, tuple):
+        return tree_unflatten(spec, leaves)
+    return spec.unflatten(leaves)
+
+
+def _resolve_dtype(name: str) -> np.dtype:
+    """A numpy dtype by name; ``bfloat16`` and the fp8 names exist only
+    once ``ml_dtypes`` registered them (an array the JAX package wrote)."""
+    try:
+        return np.dtype(name)
+    except TypeError:
+        import ml_dtypes  # noqa: F401 — registers bfloat16/fp8 names
+
+        return np.dtype(name)
 
 
 def _torch_dtype(name: str) -> torch.dtype:
@@ -69,6 +110,11 @@ def as_bytes(arr: np.ndarray) -> memoryview:
 
 def flatten_state(state: Any) -> Tuple[bytes, List[np.ndarray]]:
     """Flatten a state tree into ``(header_bytes, host_buffers)``."""
+    treedef, infos, buffers = _flatten(state)
+    return pickle.dumps((treedef, infos)), buffers
+
+
+def _flatten(state: Any) -> Tuple[Any, List[Tuple], List[np.ndarray]]:
     leaves, treedef = tree_flatten(state)
     infos: List[Tuple] = []
     buffers: List[np.ndarray] = []
@@ -84,7 +130,7 @@ def flatten_state(state: Any) -> Tuple[bytes, List[np.ndarray]]:
             buffers.append(host)
         else:
             infos.append(("obj", pickle.dumps(leaf)))
-    return pickle.dumps((treedef, infos)), buffers
+    return treedef, infos, buffers
 
 
 def buffer_sizes(infos: List[Tuple]) -> List[int]:
@@ -116,13 +162,13 @@ def unflatten_state(
     for info in infos:
         if info[0] == "arr":
             _, dtype, shape, _ = info
-            leaves.append(np.frombuffer(next(it), dtype=np.dtype(dtype)).reshape(shape))
+            leaves.append(np.frombuffer(next(it), dtype=_resolve_dtype(dtype)).reshape(shape))
         elif info[0] == "tensor":
             _, dtype, shape, _ = info
             leaves.append(_tensor_from_buffer(next(it), _torch_dtype(dtype), shape))
         else:
             leaves.append(pickle.loads(info[1]))
-    return tree_unflatten(treedef, leaves)
+    return _unflatten(treedef, leaves)
 
 
 class TensorSpec(NamedTuple):
@@ -144,16 +190,39 @@ def spec_tree_from_header(header: bytes) -> Any:
         if info[0] == "tensor":
             leaves.append(TensorSpec(tuple(info[2]), _torch_dtype(info[1])))
         elif info[0] == "arr":
-            np_dtype = np.dtype(info[1])
+            np_dtype = _resolve_dtype(info[1])
             leaves.append(TensorSpec(tuple(info[2]), torch.from_numpy(np.empty(0, np_dtype)).dtype))
         else:
             leaves.append(pickle.loads(info[1]))
-    return tree_unflatten(treedef, leaves)
+    return _unflatten(treedef, leaves)
+
+
+def save_state(state: Any, f: BinaryIO) -> None:
+    """Stream a state tree to a file object: the layout of
+    :func:`flatten_state`, with the spec a :class:`TreeSpec` (the JAX
+    package's ``load_state`` reads a tree of numpy leaves back)."""
+    treedef, infos, buffers = _flatten(state)
+    header = pickle.dumps((TreeSpec(treedef), infos))
+    f.write(_LEN.pack(len(header)))
+    f.write(header)
+    for buf in buffers:
+        f.write(as_bytes(buf))
+
+
+def dumps_state(state: Any) -> bytes:
+    buf = io.BytesIO()
+    save_state(state, buf)
+    return buf.getvalue()
+
+
+def loads_state(data: bytes) -> Any:
+    return load_state(io.BytesIO(data))
 
 
 def load_state(f: BinaryIO) -> Any:
     """Read one ``u64 header_len | header | buffers`` stream (what the HTTP
-    transport serves) and unflatten it."""
+    transport serves, :func:`save_state` writes, or the JAX package's
+    ``save_state`` wrote) and unflatten it."""
     (header_len,) = _LEN.unpack(f.read(_LEN.size))
     header = f.read(header_len)
     _, infos = pickle.loads(header)

@@ -330,8 +330,10 @@ def _recv_exact(sock: socket.socket, n: int) -> bytearray:
 
 
 def _bytes_view(arr: np.ndarray) -> memoryview:
-    """Byte-level view of an array (frame lengths are in bytes)."""
-    return memoryview(np.ascontiguousarray(arr)).cast("B")
+    """Byte-level view of an array (frame lengths are in bytes), through a
+    uint8 view: ml_dtypes' bfloat16 and fp8 arrays reject the buffer
+    protocol directly."""
+    return memoryview(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
 
 
 def _flat_view(arr: np.ndarray) -> np.ndarray:

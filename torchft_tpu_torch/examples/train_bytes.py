@@ -23,15 +23,18 @@ flash kernels' launches on the line before; on the CPU in float32, eagerly,
 on one intra-op thread (the groups share the host's cores).
 
 Env: TORCHFT_LIGHTHOUSE, REPLICA_GROUP_ID, NUM_REPLICA_GROUPS, STEPS, BATCH,
-DATA_PATH (built from this package's own sources when absent), TRACE_PATH,
-TORCHFT_STORE_ADDR, DEVICE (``cuda``, the default, or ``cpu``),
-TORCHFT_WIRE_CODEC (the data plane's wire codec; exact float32 when
-unset). CKPT_DIR / CKPT_EVERY (disk checkpoints) are not ported yet.
+DATA_PATH (built from this package's own sources when absent), TRACE_PATH
+(``{group}`` in it is replaced by the group's id, so groups under one
+launcher keep their own traces), TORCHFT_STORE_ADDR, DEVICE (``cuda``, the
+default, or ``cpu``), TORCHFT_WIRE_CODEC (the data plane's wire codec;
+exact float32 when unset), CKPT_DIR / CKPT_EVERY (periodic disk
+checkpoints of the manager, params, Adam state and sampler, one writer per
+group, restored before the first quorum: a group that lost every process
+resumes from its newest checkpoint and heals forward from there).
 
-Run, one process per group::
+Run two groups under the launcher::
 
-    python -m torchft_tpu_torch.lighthouse --bind "[::]:29600" --min_replicas 2 &
-    REPLICA_GROUP_ID=0 NUM_REPLICA_GROUPS=2 TORCHFT_LIGHTHOUSE=localhost:29600 \\
+    python -m torchft_tpu_torch.launcher --groups 2 -- \\
         python -m torchft_tpu_torch.examples.train_bytes
 """
 
@@ -119,12 +122,11 @@ def main() -> None:
     data_path = os.environ.get(
         "DATA_PATH", os.path.join(tempfile.gettempdir(), "torchft_tpu_torch_corpus.bin"))
     trace_path = os.environ.get("TRACE_PATH")
+    if trace_path:
+        trace_path = trace_path.replace("{group}", str(replica_group))
+    ckpt_dir = os.environ.get("CKPT_DIR")
+    ckpt_every = int(os.environ.get("CKPT_EVERY", 5))
     device = resolve_device(os.environ.get("DEVICE", "cuda"))
-    if os.environ.get("CKPT_DIR"):
-        raise NotImplementedError(
-            "CKPT_DIR: disk checkpoints are not ported yet (ROADMAP queue 1, "
-            "deployment pieces: checkpointing/disk.py)"
-        )
     on_card = device.type == "cuda"
     if not on_card:
         torch.set_num_threads(1)
@@ -157,6 +159,22 @@ def main() -> None:
         opt.init(train_step.init_params(0))
         sampler = DistributedSampler(len(windows), replica_group=replica_group,
                                      num_replica_groups=num_groups, shuffle=True, seed=0)
+        ckpt = None
+        if ckpt_dir:
+            from torchft_tpu_torch.checkpointing.disk import DiskCheckpointer
+
+            # restored before the first quorum: the group reports its true
+            # step and heals forward, never backward
+            ckpt = DiskCheckpointer(
+                ckpt_dir,
+                manager,
+                state_dict=lambda: {"opt": opt.state_dict(), "sampler": sampler.state_dict()},
+                load_state_dict=lambda s: (opt.load_state_dict(s["opt"]),
+                                           sampler.load_state_dict(s["sampler"])),
+                every=ckpt_every,
+                tag=f"group{replica_group}",
+            )
+            ckpt.restore()
         if on_card:
             from torchft_tpu_torch.ops import flash_attention as fa
 
@@ -179,6 +197,10 @@ def main() -> None:
             prev_step = manager.current_step()
             logger.info("step=%d participants=%d loss=%.4f", manager.current_step(),
                         manager.num_participants(), float(loss))
+            if ckpt is not None:
+                ckpt.maybe_save()
+        if ckpt is not None:
+            ckpt.close()
         checksum = sum(float(p.detach().double().sum()) for p in tree_leaves(opt.params))
         if on_card:
             logger.info("flash launches (head dim 32): %s", json.dumps(dict(fa.LAUNCHES)))

@@ -16,8 +16,10 @@ shapes and dtypes generated once from seed 0 (never downloaded) and shared
 by every group. It runs in bf16 on the card and in float32 on the CPU.
 
 Env: TORCHFT_LIGHTHOUSE, REPLICA_GROUP_ID, NUM_REPLICA_GROUPS, STEPS,
-BATCH, DATA_PATH, TRACE_PATH, DEVICE (``cuda``, the default, or ``cpu``).
-CKPT_DIR / CKPT_EVERY (disk checkpoints) are not ported yet.
+BATCH, DATA_PATH, TRACE_PATH, DEVICE (``cuda``, the default, or ``cpu``),
+CKPT_DIR / CKPT_EVERY (periodic disk checkpoints of the heal state — params,
+momentum, BN stats — with the manager's counters, one writer per group,
+restored before the first quorum).
 
 Run, one process per group::
 
@@ -195,12 +197,9 @@ def main() -> None:
     data_path = os.environ.get(
         "DATA_PATH", os.path.join(tempfile.gettempdir(), "torchft_tpu_cifar.npz"))
     trace_path = os.environ.get("TRACE_PATH")
+    ckpt_dir = os.environ.get("CKPT_DIR")
+    ckpt_every = int(os.environ.get("CKPT_EVERY", 5))
     device = resolve_device(os.environ.get("DEVICE", "cuda"))
-    if os.environ.get("CKPT_DIR"):
-        raise NotImplementedError(
-            "CKPT_DIR: disk checkpoints are not ported yet (ROADMAP queue 1, "
-            "deployment pieces: checkpointing/disk.py)"
-        )
 
     store_addr = os.environ.get("TORCHFT_STORE_ADDR")
     store = None
@@ -228,12 +227,26 @@ def main() -> None:
     try:
         trainer = CifarTrainer(manager, CifarStep(cfg, device), images, labels, replica_group,
                                num_groups, batch, trace=trace)
+        ckpt = None
+        if ckpt_dir:
+            from torchft_tpu_torch.checkpointing.disk import DiskCheckpointer
+
+            # the heal state (batches derive from the committed step, so
+            # the sampler needs none), restored before the first quorum
+            ckpt = DiskCheckpointer(ckpt_dir, manager, state_dict=trainer.state_dict,
+                                    load_state_dict=trainer.load_state_dict,
+                                    every=ckpt_every, tag=f"group{replica_group}")
+            ckpt.restore()
         while manager.current_step() < steps:
             loss, _, committed = trainer.step()
             if not committed:
                 time.sleep(0.2)  # same batch retries: step didn't advance
             logger.info("step=%d participants=%d loss=%.4f", manager.current_step(),
                         manager.num_participants(), loss)
+            if ckpt is not None:
+                ckpt.maybe_save()
+        if ckpt is not None:
+            ckpt.close()
         checksum = sum(float(p.detach().double().sum()) for p in tree_leaves(trainer.params))
         logger.info("done: step=%d param_checksum=%.6f", manager.current_step(), checksum)
     finally:

@@ -595,6 +595,18 @@ def _leg_env(scn: Scenario, gid: int, inject: bool, delay_ms: Optional[int] = No
     return env
 
 
+def _straggler_skew_ms(ctl_p50s: Dict[str, float]) -> int:
+    """The injected skew of the straggler scenarios, from a control leg's
+    local-step p50s: four times the steady p50, at least 400 ms. The
+    detector latches at twice the fleet median; a loaded host can double a
+    step between the control leg and the injected one, and a skew of twice
+    the control p50 then leaves the victim at about twice the survivor,
+    where the latch is a coin toss. Four times keeps the victim near three
+    times the survivor even then."""
+    steady = sorted(v for v in ctl_p50s.values() if v > 0)
+    return max(400, int(4000 * steady[len(steady) // 2])) if steady else 400
+
+
 def run_straggler_scenario(scn: Scenario, workdir: str, steps: int = 16,
                            timeout_s: float = 600.0, device: str = "cuda") -> Result:
     """``straggler_group``: two legs, the runner hosting the fleet detector
@@ -605,8 +617,8 @@ def run_straggler_scenario(scn: Scenario, workdir: str, steps: int = 16,
     its final local-step p50s size the injected leg's skew (the factor is a
     ratio to the fleet median, so the skew follows whatever step time the
     host gives that run). In the injected leg group 1 issues every
-    allreduce twice the steady p50 late (at least 200 ms); the detector must
-    latch ``train_bytes_1`` with exactly one ``straggler_detected``, and the
+    allreduce ``_straggler_skew_ms`` late; the detector must latch
+    ``train_bytes_1`` with exactly one ``straggler_detected``, and the
     checksums stay bit-identical."""
     from torchft_tpu_torch.telemetry.native import poll_cluster
     from torchft_tpu_torch.telemetry.slo import FleetMonitor, StragglerDetector
@@ -648,10 +660,7 @@ def run_straggler_scenario(scn: Scenario, workdir: str, steps: int = 16,
     if ctl_events:
         return Result(scn.name, "failed", f"the control soak emitted detector events (false "
                       f"positives): {ctl_events}")
-    steady = sorted(v for v in ctl_p50s.values() if v > 0)
-    # twice the steady p50 puts the victim near 3x the fleet median, well
-    # past factor 2.0, where two identical groups' jitter never reaches
-    delay_ms = max(200, int(2000 * steady[len(steady) // 2])) if steady else 200
+    delay_ms = _straggler_skew_ms(ctl_p50s)
 
     err, events, fired, _p50s = leg("injected", inject=True, delay_ms=delay_ms)
     if err:
@@ -694,8 +703,9 @@ def run_diagnose_scenario(scn: Scenario, workdir: str, steps: int = 24,
     """``diagnose_straggler``: detection to diagnosis in the victim's own
     process.
 
-    Injected leg: group 1 issues every allreduce 200 ms late and sleeps
-    60 ms in every native stripe hop. Both workers host a ``FleetMonitor``
+    Injected leg: group 1 issues every allreduce late (``_straggler_skew_ms``
+    of the control leg's step p50s) and sleeps 60 ms in every native stripe
+    hop. Both workers host a ``FleetMonitor``
     (``TORCHFT_STRAGGLER_MONITOR=1``, factor 2.0, K 3) and a
     ``DiagnosisEngine`` on one fleet directory. The victim's monitor
     latches ``straggler_detected`` naming itself and its engine captures;
@@ -715,6 +725,7 @@ def run_diagnose_scenario(scn: Scenario, workdir: str, steps: int = 24,
     scheduling skews the sampling)."""
     from torchft_tpu_torch.telemetry import postmortem
     from torchft_tpu_torch.telemetry.diagnosis import read_bundles
+    from torchft_tpu_torch.telemetry.native import poll_cluster
 
     sanitized = worker_argv is not None
     if sanitized:
@@ -723,17 +734,18 @@ def run_diagnose_scenario(scn: Scenario, workdir: str, steps: int = 24,
         steps = max(steps, 20)
     victim_id = "san_worker_1" if sanitized else "train_bytes_1"
 
-    def leg(name: str, inject: bool):
+    def leg(name: str, inject: bool, delay_ms: Optional[int] = None):
         wd = os.path.join(workdir, name)
         os.makedirs(wd, exist_ok=True)
         evidence_dir = _prepare(wd)
         leg_diag = os.path.join(wd, "diag")
         os.makedirs(leg_diag, exist_ok=True)
         lighthouse, addr = _lighthouse()
+        p50s: Dict[str, float] = {}
 
         def env_of(gid: int) -> Dict[str, str]:
             env = dict(extra_env or {})
-            env.update(_worker_env(scn, gid))
+            env.update(_leg_env(scn, gid, True, delay_ms))
             env.update(
                 # one fleet directory: "exactly one bundle" is a fleet claim
                 TORCHFT_DIAG_DIR=leg_diag,
@@ -757,14 +769,32 @@ def run_diagnose_scenario(scn: Scenario, workdir: str, steps: int = 24,
                  for g in (0, 1)}
         try:
             err = _wait_leg(name, procs, wd, timeout_s)
+            try:
+                cluster = poll_cluster(lighthouse.address()) or {}
+                for rid, rec in (cluster.get("replicas") or {}).items():
+                    p50s[rid] = float(rec.get("local_step_p50_s") or 0.0)
+            except Exception:  # noqa: BLE001 — best effort
+                pass
         finally:
             _stop(procs, lighthouse)
         if err is None:
             cs_err, _sums = _checksums(wd)
             err = f"{name}: {cs_err}" if cs_err else None
-        return err, leg_diag, len(read_evidence(evidence_dir))
+        return err, leg_diag, len(read_evidence(evidence_dir)), p50s
 
-    err, diag_inj, fired = leg("injected", inject=True)
+    # the control leg first: no bundle may appear, and its step p50s size
+    # the injected leg's issue delay (the straggler compare is a ratio, so
+    # the skew follows whatever step time the host gives this run; the
+    # SLO-triggered sanitizer legs keep the scenario's 200 ms)
+    ctl_err, diag_ctl, _, ctl_p50s = leg("control", inject=False)
+    if ctl_err:
+        return Result(scn.name, "failed", ctl_err)
+    ctl_bundles = read_bundles(diag_ctl)
+    if ctl_bundles:
+        return Result(scn.name, "failed", f"the control soak captured {len(ctl_bundles)} "
+                      f"bundle(s): {[x.get('bundle') for x in ctl_bundles]}")
+    delay_ms = None if sanitized else _straggler_skew_ms(ctl_p50s)
+    err, diag_inj, fired, _ = leg("injected", inject=True, delay_ms=delay_ms)
     if err:
         return Result(scn.name, "failed", err, fired=fired)
     if fired == 0:
@@ -807,15 +837,9 @@ def run_diagnose_scenario(scn: Scenario, workdir: str, steps: int = 24,
         return Result(scn.name, "failed", "postmortem --bundles did not fold the bundle into "
                       f"the timeline (bundles={report.get('bundles')})", fired=fired)
 
-    ctl_err, diag_ctl, _ = leg("control", inject=False)
-    if ctl_err:
-        return Result(scn.name, "failed", ctl_err, fired=fired)
-    ctl_bundles = read_bundles(diag_ctl)
-    if ctl_bundles:
-        return Result(scn.name, "failed", f"the control soak captured {len(ctl_bundles)} "
-                      f"bundle(s): {[x.get('bundle') for x in ctl_bundles]}", fired=fired)
-    return Result(scn.name, "passed", f"one bundle by {replica} ({dominance}); the postmortem "
-                  "round trip held; the control soak captured none", fired=fired)
+    return Result(scn.name, "passed", f"one bundle by {replica} ({dominance}, "
+                  f"{delay_ms or 200} ms issue delay); the postmortem round trip held; the "
+                  "control soak captured none", fired=fired)
 
 
 def run_perf_regression_scenario(scn: Scenario, workdir: str, steps: int = 16,
@@ -827,7 +851,7 @@ def run_perf_regression_scenario(scn: Scenario, workdir: str, steps: int = 16,
 
     Control leg: no injection; no regression may latch. Injected leg: group
     1 issues every allreduce late from the onset occurrence on (a level
-    shift, sized at the control leg's median step wall, at least 150 ms).
+    shift, twice the control leg's median step wall, at least 300 ms).
     Held: every latch names the victim and each (replica, series) latches
     once; the first latch within K=10 commits of the onset step; >=80% of
     the post-onset blame on the victim; the post-onset what-if rate within
@@ -912,11 +936,13 @@ def run_perf_regression_scenario(scn: Scenario, workdir: str, steps: int = 16,
     if not ctl_atts:
         return Result(scn.name, "failed", "the control leg produced no critical-path "
                       "attributions (no per-step series reached the lighthouse?)")
-    # 1x the median steady wall (past the first 8 steps) doubles the step,
-    # which the relative Page-Hinkley latches at any load
+    # twice the control leg's median steady wall (past the first 8 steps)
+    # triples the step: once would double it, which a host whose load
+    # doubles the step between the legs brings down to a third more, and
+    # the relative Page-Hinkley then latches past K commits or not at all
     ctl_walls = sorted(a["wall_s"] for a in ctl_atts
                        if a.get("wall_s") and a.get("step") is not None and a["step"] >= 8)
-    delay_ms = max(150, int(1000 * ctl_walls[len(ctl_walls) // 2])) if ctl_walls else 150
+    delay_ms = max(300, int(2000 * ctl_walls[len(ctl_walls) // 2])) if ctl_walls else 300
 
     err, events, atts, fired, onset_ts, wd = leg("injected", inject=True, delay_ms=delay_ms)
     if err:
