@@ -20,11 +20,17 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    long-context bench's lengths (D 64): K1-K3 whole at B2 S4096 H8 and
    B1 S8192 H8, and at B1 S16384 and S32768 H8 over chunks of 4096 query
    rows (dO random on every row: O, lse and dQ chunk by chunk, dK and dV
-   against the chunks' float32 sum).
+   against the chunks' float32 sum). At head dims 8 and 16 (the FMA
+   kernels, float32 and bf16): train_hsdp's tiny preset's B8 S16 H2, S 48
+   (one tile, its last rows past S) causal and not, and S 200 (a ragged
+   fourth tile); bf16 at head dims 32 and 64 where S is not a multiple of
+   64; the autograd op at the tiny preset's shape.
 3. timing of each kernel at the shapes its main path gives it (D 64 at
    the headline's and at B1 S8192 and S32768 H8, where phase 14's
    long-context rows run it; D 128 at the Llama-2-7B width's, D 32 at
-   train_bytes'; at S 32768 the plain versions run on query chunks):
+   train_bytes'; D 8 and 16, float32 and bf16, at the tiny preset's B8
+   S16 H2, where phase 21 (a) runs D 8 in float32; at S 32768 the plain
+   versions run on query chunks):
    launched eagerly between CUDA events (``ms``), and replayed from a CUDA
    graph (device time alone) with its inputs warm in the L2 and L2-cold;
    its host cost per call, its plain version, the
@@ -255,10 +261,26 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    with them, and are printed apart). (d) ``launcher --groups 2 -- train_ddp`` and ``launcher
    --groups 4 --min-replicas 2 -- train_diloco`` on the card: each exits 0
    with one checksum across its groups.
+21. the HSDP path (``torchft_tpu_torch/examples/train_hsdp.py``), run at
+   the same time as phases 19 and 20, its two legs at once, the phase's
+   wall within HSDP_WALL_S: ``launcher --groups 2 --min-replicas 2``, one
+   process a group (a one-rank NCCL group and DTensor mesh each). (a) the
+   tiny preset (head dim 8, float32, ``"auto"`` attention on K1-K3) at
+   BATCH 8 x SEQ 16 for 10 steps; group 1's worker takes SIGKILL once it
+   logs its third commit: exactly one restart, the respawn heals live past
+   step 3, both groups end at step 10 with one checksum, every finished
+   worker launched K1-K3 4/2/2 a step it ran, its step replayed from CUDA
+   graphs captured once. (b) the llama2-7b preset at full width (d4096
+   h32 head dim 128 ff11008 vocab 32000, bf16) at ``LLAMA_LAYERS`` of its
+   32 layers, B2 S4096, 3 steps, the step eager (two graphed groups at
+   this width do not fit the card beside each other; the worker is
+   ``chip_smoke.py --hsdp-llama``): one checksum, finite losses, 8/4/4
+   launches a step, each group's peak device memory printed.
 
-Phases 4-18 replay each train step from CUDA graphs (phase 4's and phase
-9's eager arms aside); every group's graphs are captured once, so a heal
-or a rollback that swapped a captured tensor would show as a recapture.
+Phases 4-18 and 21 replay each train step from CUDA graphs (phase 4's and
+phase 9's eager arms and phase 21's leg (b) aside); every group's graphs
+are captured once, so a heal or a rollback that swapped a captured tensor
+would show as a recapture.
 
 Prints the kernels' JSON line (one entry per kernel and head dim, and at
 head dim 64 per long-context length), the
@@ -289,6 +311,7 @@ import numpy as np
 import torch
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 HEADLINE = dict(batch=8, seq=1024, heads=8, head_dim=64)
 # the Llama-2-7B preset (examples/train_hsdp.py:68-75) at Llama 2's context
@@ -296,6 +319,14 @@ LLAMA = dict(batch=2, seq=4096, heads=32, head_dim=128)
 LLAMA_LAYERS = 4  # of the preset's 32: one card holds float32 masters and AdamW state for 4
 # examples/train_bytes.py:62,86,104-112
 BYTES = dict(batch=8, seq=128, heads=4, head_dim=32)
+# train_hsdp's tiny preset (examples/train_hsdp.py:62-66,85) at its BATCH 8
+# x SEQ 16: head dim 8, float32 (phase 21 (a)); head dim 16 and bf16 are
+# timed at the same shape
+TINY = dict(batch=8, seq=16, heads=2, head_dim=8)
+# head dims 8 and 16 held against the plain versions: the tiny preset's
+# shape, S 48 (one tile, its last 16 rows past S) causal and not, and S 200
+# (four tiles, the last ragged)
+SMALL_HELD = ((8, 16, 2), (2, 48, 2), (2, 200, 2))
 # the headline's attention at the long-context bench's lengths
 # (benchmarks/long_context.py), timed at S 8192 and 32768
 LONG_WHOLE = dict(batch=1, seq=8192, heads=8, head_dim=64)
@@ -388,9 +419,15 @@ def host_us_per_call(fn, calls: int = 200) -> float:
 # and 64, off the bf16 paths
 KERNEL_OF = {(n, d): f"{n}_wgmmaILi{d}E" for n in ("flash_fwd", "flash_dq", "flash_dkv")
              for d in (64, 128, 32)}
+# the FMA kernels (float32 and bf16, 13__nv_bfloat16 in the mangled name)
+# at head dims 8 and 16, by (kernel, head dim, dtype)
+for _n in ("flash_fwd", "flash_dq", "flash_dkv"):
+    for _d in (8, 16):
+        KERNEL_OF[(_n, _d, "f32")] = f"{_n}_kernelIfLi{_d}E"
+        KERNEL_OF[(_n, _d, "bf16")] = f"{_n}_kernelI13__nv_bfloat16Li{_d}E"
 BUILT = list(KERNEL_OF.values()) + [
-    f"{n}IfLi{d}E" for n in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
-    for d in (32, 64)]
+    f"{n}I{t}Li{d}E" for n in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+    for t in ("f", "13__nv_bfloat16") for d in (32, 64)]
 # Earlier designs, by CUDA graph, L2-warm, at the shapes of their head
 # dim's path (chip_smoke.py phase 3 on an NVIDIA H100 80GB HBM3 at 700 W):
 # K2 at head dim 128 with a producer warpgroup, 64 keys at once (384
@@ -665,6 +702,32 @@ def phase_kernels():
     return errs
 
 
+def phase_small_kernels():
+    """K1-K3 at head dims 8 and 16 (the FMA kernels), float32 and bf16,
+    against their plain versions at ``SMALL_HELD`` (the tiny preset's
+    shape; S 48 causal and not; S 200), and bf16 at head dims 32 and 64
+    where S is not a multiple of 64 (the FMA kernels too); the autograd op
+    against plain attention at the tiny preset's shape. The bars are the
+    float32 and bf16 rows' above. Returns {(kernel, head dim, dtype): max
+    |err|}."""
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    errs = {}
+    for d in (8, 16):
+        for dtype, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            checks = [((b, s, h, d), True) for b, s, h in SMALL_HELD]
+            checks.append(((2, 48, 2, d), False))
+            for seed, (shape, causal) in enumerate(checks, start=40):
+                for name, err in _check_kernels(fa, shape, seed, dtype, causal).items():
+                    key = (name, d, tag)
+                    errs[key] = max(errs.get(key, 0.0), err)
+            _hold_op((8, 16, 2, d), 50 + d, dtype)
+    for shape, causal in (((2, 48, 2, 32), True), ((2, 200, 2, 64), True),
+                          ((2, 200, 2, 32), False)):
+        _check_kernels(fa, shape, 60, torch.bfloat16, causal)
+    return errs
+
+
 def _check_kernels_chunked(fa, shape, seed, chunk):
     """K1-K3 at a length whose [S, S] scores do not fit, with dO random on
     every row, held over query chunks of ``chunk`` rows: O, lse and dQ
@@ -749,16 +812,18 @@ def _plain_chunked(plain, x, chunk, summed):
     return parts
 
 
-def _bounds(shape):
-    """Least time for each kernel's work at ``shape`` (B, S, H, D; bf16,
-    causal): the bytes it must move (inputs read once, outputs written
+def _bounds(shape, dtype=torch.bfloat16):
+    """Least time for each kernel's work at ``shape`` (B, S, H, D; causal)
+    in ``dtype``: the bytes it must move (inputs read once, outputs written
     once) over HBM rate, and the causal matmul FLOPs these inputs need over
-    the bf16 peak."""
+    the card's peak for the type (bf16 on the tensor cores, float32
+    outside them)."""
     b, s, h, d = shape
     bh = b * h
-    tensor = bh * s * d * 2  # one bf16 [BH,S,D]
+    tensor = bh * s * d * torch.empty(0, dtype=dtype).element_size()  # one [BH,S,D]
     row = bh * s * 4  # one f32 [BH,S]
     pairs = bh * s * (s + 1) // 2  # causal (q, k) pairs
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     work = {  # (matmuls of 2*D flops per pair, bytes)
         "flash_fwd": (2, 4 * tensor + row),  # q,k,v in; o, lse out
         "flash_dq": (3, 5 * tensor + 2 * row),  # q,k,v,dO,lse,delta in; dq out
@@ -767,7 +832,7 @@ def _bounds(shape):
     out = {}
     for name, (mms, nbytes) in work.items():
         flops = mms * 2 * d * pairs
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
         out[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
                      flops, nbytes)
     return out
@@ -776,8 +841,8 @@ def _bounds(shape):
 COLD_SETS = 4  # input sets rotated for L2-cold times: 135-200 MB at D 64, over the 50 MB L2
 
 
-def phase_timing(shape, plain_chunk=None, plain_reps=25):
-    """Each kernel's time at ``shape`` (bf16, causal), launched eagerly
+def phase_timing(shape, plain_chunk=None, plain_reps=25, dtype=torch.bfloat16):
+    """Each kernel's time at ``shape`` (``dtype``, causal), launched eagerly
     (``ms``, the method of the first slice's records); its device time
     replayed from a CUDA graph with its inputs warm (one set, called back
     to back: ``ms_graph``) and L2-cold (``COLD_SETS`` independent sets in
@@ -793,7 +858,7 @@ def phase_timing(shape, plain_chunk=None, plain_reps=25):
     b, s, h, d = shape
     sets = []
     for seed in range(3, 3 + COLD_SETS):
-        q, k, v, do = _qkv(b, s, h, d, torch.bfloat16, seed=seed)
+        q, k, v, do = _qkv(b, s, h, d, dtype, seed=seed)
         pq, pk, pv, pdo = map(_pack, (q, k, v, do))
         o, lse = fa.fwd_kernel(pq, pk, pv, True)
         delta = (pdo.float() * o.float()).sum(-1)
@@ -822,7 +887,7 @@ def phase_timing(shape, plain_chunk=None, plain_reps=25):
     del sets, tiny
 
     # yardsticks only: PyTorch's own fused attention, never called by the port
-    q, k, v, do = _qkv(b, s, h, d, torch.bfloat16, seed=3)
+    q, k, v, do = _qkv(b, s, h, d, dtype, seed=3)
     qh, kh, vh, doh = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
     qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (qh, kh, vh))
 
@@ -837,8 +902,8 @@ def phase_timing(shape, plain_chunk=None, plain_reps=25):
         "fwd": (gpu_time_ms(sdpa_fwd), gpu_time_ms(sdpa_fwd, graph=True)),
         "fwd_bwd": (gpu_time_ms(sdpa_fwd_bwd), gpu_time_ms(sdpa_fwd_bwd, graph=True)),
     }
-    bounds = _bounds(shape)
-    tag = f"b{b} s{s} h{h} d{d}"
+    bounds = _bounds(shape, dtype)
+    tag = f"b{b} s{s} h{h} d{d}" + ("" if dtype == torch.bfloat16 else " f32")
     for name, r in t.items():
         bound, by, flops, nbytes = bounds[name]
         earlier = EARLIER_GRAPH_MS.get((name, d))
@@ -848,7 +913,7 @@ def phase_timing(shape, plain_chunk=None, plain_reps=25):
             f"(device time) {r['ms_graph']:.4f} ms warm{before}, {r['ms_cold']:.4f} ms "
             f"L2-cold; host {r['host_us']:.1f} us/call; plain {r['plain_ms']:.4f} ms{chunks}; "
             f"bound "
-            f"{bound:.4f} ms by {by}: {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB")
+            f"{bound:.3g} ms by {by}: {flops / 1e9:.3g} GFLOP, {nbytes / 1e6:.3g} MB")
     for i, method in enumerate(("eager", "CUDA graph")):
         fwd, both = sdpa["fwd"][i], sdpa["fwd_bwd"][i]
         key = "ms" if i == 0 else "ms_graph"
@@ -3996,9 +4061,188 @@ def phase_deployment(tcp_joint_ms, beside=None):
     return {"deployment": deployment, "proxy": res["c"]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the HSDP path (train_hsdp under the launcher)
+# ---------------------------------------------------------------------------
+
+HSDP_WALL_S = 240.0
+HSDP_TINY_STEPS = 10  # leg (a): the tiny preset at BATCH 8 x SEQ 16
+HSDP_KILL_AFTER = 3  # leg (a): group 1's worker dies once it logs its third commit
+# leg (b): the llama2-7b preset at full width, its depth cut as phase 9's,
+# at Llama 2's context
+HSDP_LLAMA = dict(batch=2, seq=4096, steps=3)
+_HSDP_LAUNCHES_LINE = r"flash launches \(head dim (\d+)\) over (\d+) steps run: (\{.*\})"
+
+
+def _hsdp_llama_worker() -> None:
+    """``chip_smoke.py --hsdp-llama``: one group of leg (b), under the
+    launcher's env contract: ``train_hsdp.train`` on the llama2-7b preset
+    at ``LLAMA_LAYERS`` layers, on a one-rank mesh, its step eager: two
+    graphed groups at this width do not fit one card beside each other
+    (each held 35 GB and the second ran out of memory)."""
+    import logging
+
+    from torchft_tpu_torch.examples import train_hsdp
+    from torchft_tpu_torch.parallel.mesh import MeshConfig
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s: %(message)s")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    train_hsdp.train(train_hsdp.preset_config("llama2-7b", n_layers=LLAMA_LAYERS), MeshConfig(),
+                     steps=HSDP_LLAMA["steps"], batch=HSDP_LLAMA["batch"],
+                     seq=HSDP_LLAMA["seq"], replica_group=int(os.environ["REPLICA_GROUP_ID"]),
+                     num_groups=int(os.environ["NUM_REPLICA_GROUPS"]), graph=False)
+
+
+def _hsdp_done(text):
+    """(step, checksum), (head dim, steps run, launches), peak GB of one
+    worker's log (None where missing)."""
+    import re
+
+    done = re.findall(_DONE_LINE, text)
+    launches = re.findall(_HSDP_LAUNCHES_LINE, text)
+    peak = re.findall(r"peak device memory ([\d.]+) GB", text)
+    return ((done[-1] if done else None),
+            ((int(launches[-1][0]), int(launches[-1][1]), json.loads(launches[-1][2]))
+             if launches else None),
+            (float(peak[-1]) if peak else None))
+
+
+def _hold_hsdp_captures(leg, name, text):
+    """A one-rank group's step replayed from CUDA graphs, each captured once
+    (a heal copies into the captured tensors)."""
+    import re
+
+    got = re.findall(r"graph captures: (\{.*\})", text)
+    captures = json.loads(got[-1]) if got else None
+    log(f"hsdp {leg} {name}: graph captures {captures}")
+    check(captures == {"grads": 1, "apply": 1},
+          f"hsdp {leg} {name}: graph captures {captures}, expected one of each")
+
+
+def _hold_hsdp_launches(leg, name, launches, layers):
+    """K1-K3 launched 2L/L/L a step run (remat "all")."""
+    _, runs, got = launches
+    expect = {"flash_fwd": 2 * layers * runs, "flash_dq": layers * runs,
+              "flash_dkv": layers * runs}
+    check(runs > 0 and got == expect, f"hsdp {leg} {name}: launches {got} over {runs} steps, "
+          f"expected {expect}")
+
+
+def _hsdp_tiny(tmp):
+    """(a) the tiny preset, two groups of one process, group 1 killed and
+    respawned; returns the finished workers' summed launches."""
+    import re
+
+    logs = os.path.join(tmp, "a")
+    proc, wait = _launcher(
+        ["--groups", "2", "--min-replicas", "2", "--max-restarts", "2", "--",
+         sys.executable, "-m", "torchft_tpu_torch.examples.train_hsdp"],
+        {"MODEL": "tiny", "FSDP": "1", "TP": "1", "BATCH": "8", "SEQ": "16",
+         "STEPS": str(HSDP_TINY_STEPS)}, logs, HSDP_WALL_S)
+    victim_log = os.path.join(logs, "g1_r0_i0.log")
+    deadline = time.monotonic() + HSDP_WALL_S
+    pid = None
+    while pid is None and time.monotonic() < deadline and proc.poll() is None:
+        if os.path.exists(victim_log):
+            with open(victim_log, errors="replace") as f:
+                if f"step={HSDP_KILL_AFTER} committed=True" in f.read():
+                    pid = _group_worker_pid(proc.pid, 1)
+                    if pid is not None:
+                        os.kill(pid, 9)
+        time.sleep(0.1)
+    rc, out = wait()
+    texts = _worker_logs(logs)
+    restarts = re.findall(r"restarted group (\d+) \(restart (\d+)/(\d+)\)", out)
+    log(f"hsdp (a) tiny: SIGKILL of group 1's worker (pid {pid}) after its commit of step "
+        f"{HSDP_KILL_AFTER}; launcher exit {rc}, restarts {restarts}; worker logs {sorted(texts)}")
+    check(pid is not None, f"hsdp (a): group 1's worker was never killed; tail {out[-1500:]}")
+    check(rc == 0, f"hsdp (a): the launcher exited {rc}; tail: {out[-2000:]}")
+    check(restarts == [("1", "1", "2")], f"hsdp (a): restarts {restarts}, expected one of "
+          "group 1")
+    respawn = texts.get("g1_r0_i1.log", "")
+    heals = re.findall(r"healing: fetching checkpoint metadata from \S+ at step (\d+)", respawn)
+    healed = re.findall(r"healed: mode=(\S+) nsources=\d+ bytes=(\d+)", respawn)
+    log(f"hsdp (a): the respawn healed at steps {heals} ({healed})")
+    check(any(int(h) >= HSDP_KILL_AFTER for h in heals),
+          f"hsdp (a): the respawn never healed live past step {HSDP_KILL_AFTER}: {heals}")
+    total = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    sums = {}
+    for name in ("g0_r0_i0.log", "g1_r0_i1.log"):
+        done, launches, _ = _hsdp_done(texts.get(name, ""))
+        log(f"hsdp (a) {name}: step and param_checksum {done}; flash launches (head dim, steps "
+            f"run, counts) {launches}")
+        check(done is not None and done[0] == str(HSDP_TINY_STEPS),
+              f"hsdp (a) {name}: ended at {done}; tail {texts.get(name, '')[-1500:]}")
+        check(launches is not None and launches[0] == 8, f"hsdp (a) {name}: no head dim 8 "
+              f"launches logged ({launches})")
+        _hold_hsdp_launches("(a)", name, launches, 2)
+        _hold_hsdp_captures("(a)", name, texts.get(name, ""))
+        sums[name] = done[1]
+        for k in total:
+            total[k] += launches[2][k]
+    check(len(set(sums.values())) == 1, f"hsdp (a): the groups ended on {sums}")
+    return total
+
+
+def _hsdp_llama(tmp):
+    """(b) the llama2-7b preset at full width and LLAMA_LAYERS layers, two
+    groups of one process; returns the workers' summed launches."""
+    import re
+
+    logs = os.path.join(tmp, "b")
+    proc, wait = _launcher(
+        ["--groups", "2", "--min-replicas", "2", "--max-restarts", "0", "--",
+         sys.executable, os.path.abspath(__file__), "--hsdp-llama"], {}, logs, HSDP_WALL_S)
+    rc, out = wait()
+    texts = _worker_logs(logs)
+    check(rc == 0, f"hsdp (b): the launcher exited {rc}; tail {out[-2000:]}; workers "
+          f"{ {n: t[-1500:] for n, t in texts.items()} }")
+    total = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    sums = {}
+    for name in ("g0_r0_i0.log", "g1_r0_i0.log"):
+        done, launches, peak = _hsdp_done(texts.get(name, ""))
+        losses = [float(x) for x in re.findall(r"committed=\S+ participants=\d+ "
+                                               r"loss=([-\d.naif]+)", texts.get(name, ""))]
+        log(f"hsdp (b) llama d4096 h32 D128 ff11008 vocab 32000 bf16, {LLAMA_LAYERS} of 32 layers, "
+            f"b{HSDP_LLAMA['batch']} s{HSDP_LLAMA['seq']}, {name}: step and param_checksum {done}; "
+            f"losses {losses}; peak device memory {peak} GB; flash launches {launches}")
+        check(done is not None and done[0] == str(HSDP_LLAMA["steps"]),
+              f"hsdp (b) {name}: ended at {done}; tail {texts.get(name, '')[-1500:]}")
+        check(losses and all(np.isfinite(losses)), f"hsdp (b) {name}: losses {losses}")
+        check(launches is not None and launches[0] == 128, f"hsdp (b) {name}: launches {launches}")
+        _hold_hsdp_launches("(b)", name, launches, LLAMA_LAYERS)
+        sums[name] = done[1]
+        for k in total:
+            total[k] += launches[2][k]
+    check(len(set(sums.values())) == 1, f"hsdp (b): the groups ended on {sums}")
+    return total
+
+
+def phase_hsdp():
+    """Phase 21: ``train_hsdp`` under the port's launcher, two groups of one
+    process each (a one-rank NCCL group and DTensor mesh each), legs (a)
+    and (b) at once. Returns the K1-K3 launches by head dim (8: leg (a)'s
+    finished workers; 128: leg (b)'s)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tft_torch_hsdp_")
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        tiny = pool.submit(_hsdp_tiny, tmp)
+        llama = pool.submit(_hsdp_llama, tmp)
+        out = {8: tiny.result(), 128: llama.result()}
+    wall = time.perf_counter() - t0
+    log(f"hsdp: phase wall {wall:.1f} s (bound {HSDP_WALL_S:.0f} s), workdir {tmp}")
+    check(wall <= HSDP_WALL_S, f"hsdp: the phase took {wall:.1f} s")
+    return out
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--watchdog-probe"]:
         _watchdog_probe(sys.argv[2])
+        return
+    if sys.argv[1:2] == ["--hsdp-llama"]:
+        _hsdp_llama_worker()
         return
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4037,7 +4281,11 @@ def main() -> None:
     check_no_spills(build_log)
 
     errs = phase_kernels()
+    errs.update(phase_small_kernels())
     errs.update(phase_long_kernels())
+    small_timing = {(d, tag): phase_timing(_shape(dict(TINY, head_dim=d)), dtype=dt)
+                    for d in (8, 16)
+                    for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))}
     timing = {64: phase_timing(_shape(HEADLINE)), 128: phase_timing(_shape(LLAMA)),
               32: phase_timing(_shape(BYTES)),
               LONG_WHOLE["seq"]: phase_timing(_shape(LONG_WHOLE), plain_reps=5),
@@ -4062,15 +4310,17 @@ def main() -> None:
     phase_observability()
     fleet_launches = phase_fleet()
     forensics_launches = phase_forensics()
-    # phases 19 and 20 run at once: each is worker processes that mostly
-    # start up (import torch, CUDA, the first capture) and run tiny steps,
-    # and neither checks a time but its own wall; phase 20's timed proxy
-    # steps wait for phase 19 to end
+    # phases 19, 20 and 21 run at once: each is worker processes that
+    # mostly start up (import torch, CUDA, the first capture) and run tiny
+    # steps (phase 21's Llama width aside), and none checks a time but its
+    # own wall; phase 20's timed proxy steps wait for phases 19 and 21 to end
     fault_done = threading.Event()
-    with ThreadPoolExecutor(max_workers=1) as pool:
+    with ThreadPoolExecutor(max_workers=2) as pool:
         deploy = pool.submit(phase_deployment, tcp_groups["joint_ms"], fault_done)
+        hsdp = pool.submit(phase_hsdp)
         try:
             fault_launches = phase_fault_matrix()
+            hsdp_launches = hsdp.result()
         finally:
             fault_done.set()
         deploy_launches = deploy.result()
@@ -4105,11 +4355,32 @@ def main() -> None:
                 kernels[-1]["launches_forensics"] = forensics_launches[name]
                 # phase 20's leg (c): two headline groups over CollectivesProxy
                 kernels[-1]["launches_proxy"] = deploy_launches["proxy"][name]
+            if d == 128:
+                # phase 21 (b): train_hsdp's llama2-7b preset at 4 layers
+                kernels[-1]["launches_hsdp"] = hsdp_launches[128][name]
             if d == 32:
                 # phase 19's train_bytes workers, every scenario's
                 kernels[-1]["launches_fault_matrix"] = fault_launches[name]
                 # phase 20's legs (a) and (b): the launcher's train_bytes workers
                 kernels[-1]["launches_deployment"] = deploy_launches["deployment"][name]
+    # head dims 8 and 16 on the FMA kernels, float32 and bf16, timed at the
+    # tiny preset's B8 S16 H2: phase 21 (a) runs head dim 8 in float32; no
+    # path runs the other three (launches 0)
+    for (d, tag), (t, bounds, sdpa_fwd) in small_timing.items():
+        for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+            kernels.append({
+                "name": f"{name}_d{d}" + ("" if tag == "f32" else "_bf16"), "head_dim": d,
+                "dtype": "float32" if tag == "f32" else "bfloat16", "seq": TINY["seq"],
+                "route": "cuda", "kernel": KERNEL_OF[(name, d, tag)], "source": SOURCE,
+                "replaces": REPLACES[name],
+                "launches": hsdp_launches[8][name] if (d, tag) == (8, "f32") else 0,
+                "max_abs_err": errs[(name, d, tag)], "ms": t[name]["ms"],
+                "ms_graph": t[name]["ms_graph"], "ms_cold": t[name]["ms_cold"],
+                "plain_ms": t[name]["plain_ms"], "bound_ms": bounds[name][0],
+                "bound_by": bounds[name][1],
+                "library_ms": sdpa_fwd[0] if name == "flash_fwd" else None,
+                "library_ms_graph": sdpa_fwd[1] if name == "flash_fwd" else None,
+            })
     # head dim 64 at the long-context bench's lengths: launched by phase 14's
     # long_context rows
     for seq in (LONG_WHOLE["seq"], LONG["seq"]):

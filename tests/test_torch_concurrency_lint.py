@@ -65,6 +65,8 @@ RUNTIME = (
     "torchft_tpu_torch/examples/train_ddp.py",
     "torchft_tpu_torch/examples/train_diloco.py",
     "torchft_tpu_torch/examples/train_cifar.py",
+    "torchft_tpu_torch/examples/train_hsdp.py",
+    "torchft_tpu_torch/parallel/ft.py",
 )
 
 KEPT = [

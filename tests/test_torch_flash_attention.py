@@ -3,8 +3,8 @@
 The same numpy inputs go through ``torchft_tpu.ops.pallas.flash_attention``
 (interpret mode on the CPU, as its own tests run it) and through
 ``torchft_tpu_torch.ops.flash_attention`` (its plain version, since the
-tensors lie on the CPU), at each head dim the card's kernels take (32, 64
-and 128). The card tests hold the CUDA kernels against their plain
+tensors lie on the CPU), at head dims 32, 64 and 128, and at 8 and 16
+with the short sequences the tiny models run (S 16 and 48). The card tests hold the CUDA kernels against their plain
 versions and skip without a GPU; they import no JAX, so on the card they
 run with ``python -m pytest --noconftest -m cuda
 tests/test_torch_flash_attention.py``.
@@ -79,6 +79,43 @@ def test_grads_match_jax_kernels(d, s):
     (fa.flash_attention(*ts, causal=True, block_q=64, block_k=64) ** 2).sum().backward()
     for t, e in zip(ts, expect):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(e), atol=3e-4)
+
+
+SMALL = [pytest.param(d, s, c, id=f"d{d}-s{s}-{'causal' if c else 'full'}")
+         for d in (8, 16) for s in (16, 48) for c in (True, False)]
+
+
+@pytest.mark.parametrize("d,s,causal", SMALL)
+def test_small_head_dims_match_jax_kernel(d, s, causal):
+    """Head dims 8 and 16 at the short sequences of the tiny models (S 16,
+    the tiny preset's; S 48), each one block (min(128, S)) as the JAX op
+    takes it: the forward and the gradients of the port's op (its plain
+    version on the CPU) against the Pallas kernels in interpret mode, at
+    the JAX test's float32 bar 2e-5."""
+    jax, jax_flash = _jax_flash()
+    q, k, v = _qkv(b=2, s=s, h=2, d=d, seed=d + s)
+
+    def loss(q, k, v):
+        return (jax_flash(q, k, v, causal=causal) ** 2).sum()
+
+    expect_o = np.asarray(jax_flash(q, k, v, causal=causal))
+    expect_g = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    ts = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+    o = fa.flash_attention(*ts, causal=causal)
+    np.testing.assert_allclose(o.detach().numpy(), expect_o, atol=2e-5)
+    (o ** 2).sum().backward()
+    for t, e in zip(ts, expect_g):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(e), atol=2e-5)
+
+
+@pytest.mark.parametrize("d,s,causal", SMALL + [
+    pytest.param(d, 200, c, id=f"d{d}-s200-{'causal' if c else 'full'}")
+    for d in (8, 16) for c in (True, False)])
+def test_small_plain_kernel_versions_match_autograd(d, s, causal):
+    """fwd_plain / dq_plain / dkv_plain at head dims 8 and 16, S 16, 48 and
+    the ragged 200 the card holds the FMA kernels at, against plain
+    attention and its autograd gradients (float32: 1e-5)."""
+    test_plain_kernel_versions_match_autograd(d, causal, s)
 
 
 def test_uneven_blocks_rejected():
@@ -180,9 +217,11 @@ def test_kernel_wrappers_reject_cpu_tensors(call):
 
 
 def test_supported_shapes():
-    """The predicate that routes ``"auto"`` and guards the wrappers: bf16 at
-    head dims 32, 64 and 128, float32 at 32 and 64, S a multiple of 64 of
-    at most 65535 tiles (a grid's y extent)."""
+    """The predicate that routes ``"auto"`` and guards the wrappers: head
+    dims 8, 16, 32 and 64 in float32 and bf16 at any S (the FMA kernels
+    mask the last tile; bf16 at 32 and 64 with S a multiple of 64 runs on
+    wgmma), 128 in bf16 at S a multiple of 64, at most 65535 tiles of 64
+    (a grid's y extent)."""
     bf16, f32 = torch.bfloat16, torch.float32
     for d in (32, 64, 128):
         assert fa.supported(bf16, d, 4096) and fa.supported(bf16, d, 192)
@@ -191,9 +230,17 @@ def test_supported_shapes():
     assert fa.supported(bf16, 128, 320) and fa.supported(bf16, 128, 4096)
     assert fa.supported(f32, 32, 128) and fa.supported(f32, 64, 128)
     assert not fa.supported(f32, 128, 128)  # float32 tiles at 128 pass shared memory
-    for d in (8, 16, 96, 256):
-        assert not fa.supported(bf16, d, 128)
-    assert not fa.supported(bf16, 64, 100) and not fa.supported(bf16, 64, 0)
+    # the tiny models' shapes: head dims 8 and 16, short and ragged S
+    for d in (8, 16):
+        for dtype in (f32, bf16):
+            for s in (1, 16, 48, 100, 128, 200, 4096):
+                assert fa.supported(dtype, d, s)
+    # S not a multiple of 64: the FMA kernels at D <= 64, refused at 128
+    assert fa.supported(bf16, 64, 100) and fa.supported(f32, 32, 48)
+    assert not fa.supported(bf16, 128, 100) and not fa.supported(bf16, 128, 48)
+    for d in (96, 256):
+        assert not fa.supported(bf16, d, 128) and not fa.supported(f32, d, 128)
+    assert not fa.supported(bf16, 64, 0)
     assert fa.supported(bf16, 64, 65535 * 64) and not fa.supported(bf16, 64, 65536 * 64)
     assert not fa.supported(torch.float16, 64, 128)
 
@@ -254,6 +301,14 @@ def test_c_predicate_agrees_on_card():
         (32, torch.bfloat16, True, 4, 320),
         (32, torch.float32, True, 32, 256),
         (32, torch.float32, False, 4, 192),
+        # head dims 8 and 16 on the FMA kernels in both dtypes: the tiny
+        # preset's B8 H2 S16, one tile with its rows past S (S 48), and a
+        # ragged last tile (S 200); bf16 at 32 and 64 where S is not a
+        # multiple of 64 (the FMA kernels too)
+        *[(d, dtype, causal, bh, s) for d in (8, 16) for dtype in (torch.float32, torch.bfloat16)
+          for causal, bh, s in ((True, 16, 16), (True, 4, 48), (False, 4, 48), (True, 4, 200))],
+        (32, torch.bfloat16, True, 4, 48),
+        (64, torch.bfloat16, False, 4, 200),
     ],
 )
 def test_kernels_match_plain_on_card(d, dtype, causal, bh, s):

@@ -596,6 +596,29 @@ def test_stripemeta_waits_only_the_meta_timeout(transports, monkeypatch):
     assert time.perf_counter() - t0 < 10.0
 
 
+def test_stripemeta_waits_out_a_slow_staging(transports, monkeypatch):
+    """A source whose staging outlasts META_TIMEOUT_S (at the Llama-2-7B
+    width the host copy and digests of 4.3 GB take longer) answers the
+    striped endpoint "staging in progress"; the healer asks again until its
+    deadline and heals, instead of dropping the source every round."""
+    monkeypatch.setattr(ht, "META_TIMEOUT_S", 0.2)
+    real = ht.flatten_state
+
+    def slow(state):
+        time.sleep(1.0)
+        return real(state)
+
+    monkeypatch.setattr(ht, "flatten_state", slow)
+    src, rx = transports(), transports()
+    state = _torch_state(3)
+    th = threading.Thread(target=src.send_checkpoint, args=([1], 5, state, T))
+    th.start()
+    time.sleep(0.05)  # the healer asks while the staging is under way
+    out = rx.recv_checkpoint_multi([src.metadata()], 5, T)
+    th.join()
+    _tree_equal(out, state)
+
+
 def test_commit_trail_thread_consistency():
     """Concurrent record (the step boundary) and get (a serve) always see a
     complete entry or none."""

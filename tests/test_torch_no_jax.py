@@ -18,7 +18,9 @@ forensics (black box, samplers, diagnosis, postmortem), the fault plane
 (``faultinject/``) and the samplers' overhead row are held to the same:
 the Manager's step loads them, and the scan covers each. So are the fault
 matrix's runner (its ``--list``), the sanitizer's numpy worker and the
-``train_bytes`` example the runner spawns, imported in a blocked process.
+``train_bytes`` example the runner spawns, imported in a blocked process;
+and the HSDP path: ``train_hsdp``, the mesh, a sharded step on a one-rank
+DTensor mesh and its state's transfer, in a blocked process too.
 """
 
 import ast
@@ -312,7 +314,11 @@ def test_no_forbidden_imports_in_sources():
             "torchft_tpu_torch/launcher.py",
             "torchft_tpu_torch/k8s.py",
             "torchft_tpu_torch/examples/train_ddp.py",
-            "torchft_tpu_torch/examples/train_diloco.py"} <= scanned
+            "torchft_tpu_torch/examples/train_diloco.py",
+            "torchft_tpu_torch/examples/train_hsdp.py",
+            "torchft_tpu_torch/parallel/mesh.py",
+            "torchft_tpu_torch/parallel/ft.py",
+            "torchft_tpu_torch/parallel/train_step.py"} <= scanned
     bad = []
     for path in _port_sources():
         with open(path, encoding="utf-8") as f:
@@ -390,4 +396,37 @@ def test_deployment_plane_runs_without_jax_or_reference_package():
     for module in ("launcher", "k8s", "proxy", "multiprocessing", "parameter_server",
                    "checkpointing.disk", "parallel.multihost", "examples.train_ddp",
                    "examples.train_diloco"):
+        assert f"torchft_tpu_torch.{module}" in out["modules"]
+
+
+_HSDP = _BLOCK + r"""
+import json, sys
+import numpy as np, torch
+from torchft_tpu_torch.checkpointing.serialization import from_transfer_tree, loads_state, dumps_state
+from torchft_tpu_torch.examples import train_hsdp
+from torchft_tpu_torch.parallel import multihost
+from torchft_tpu_torch.parallel.mesh import MeshConfig
+from torchft_tpu_torch.parallel.train_step import TrainStep
+
+torch.set_num_threads(1)
+mesh = multihost.global_mesh(MeshConfig(), "cpu")  # a one-rank group of its own
+ts = TrainStep(train_hsdp.preset_config("tiny"), mesh=mesh)
+params = ts.init_params(0)
+opt = ts.init_opt(params)
+tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 64, (8, 16)).astype(np.int32))
+loss, params, opt = ts.step(params, opt, tokens)
+back = from_transfer_tree(loads_state(dumps_state({"p": params})), mesh)["p"]
+print(json.dumps({"loss": float(loss), "checksum": train_hsdp.param_checksum(params),
+                  "back": train_hsdp.param_checksum(back),
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_hsdp_path_runs_without_jax_or_reference_package():
+    """``train_hsdp``'s preset on a one-rank DTensor mesh (the card's group
+    of one process): a step, and its params through the transfer and back,
+    in a process where JAX and the JAX package cannot load."""
+    out = _run_blocked(_HSDP)
+    assert math.isfinite(out["loss"]) and out["checksum"] == out["back"]
+    for module in ("examples.train_hsdp", "parallel.mesh", "parallel.train_step"):
         assert f"torchft_tpu_torch.{module}" in out["modules"]

@@ -135,30 +135,67 @@ def test_attention_routing():
     auto = T.TransformerConfig(attention_impl="auto")
     assert not T._use_flash(auto, 1024, cpu)
     assert T._use_flash(auto, 1024, cuda)
+    # "auto" asks what the op takes: the kernels' shapes and the op's block
+    # rule (the Pallas op's, S a multiple of min(128, S)); a short S passes,
+    # an S past 128 that is not a multiple of it goes to plain attention
     assert not T._use_flash(auto, 1000, cuda)
+    assert not T._use_flash(auto, 192, cuda)
 
     def auto_at(head_dim, dtype=torch.bfloat16):
         return T.TransformerConfig(head_dim=head_dim, dtype=dtype, attention_impl="auto")
 
-    # "auto" routes to the kernels exactly what they take: the Llama-2-7B
-    # width (head dim 128, S 4096) and train_bytes (head dim 32, S 128)
     assert T._use_flash(auto_at(128), 4096, cuda)
     assert T._use_flash(auto_at(32), 128, cuda)
-    # and sends the rest to plain attention instead of to a kernel that raises
-    for head_dim in (8, 16, 96):
-        assert not T._use_flash(auto_at(head_dim), 128, cuda)
-    assert not T._use_flash(auto_at(128, torch.float32), 128, cuda)  # no float32 kernel at 128
-    assert T._use_flash(auto_at(32, torch.float32), 128, cuda)
-    for head_dim in (8, 32, 64, 96, 128):
+    assert T._use_flash(auto_at(8, torch.float32), 16, cuda)
+    assert not T._use_flash(auto_at(8, torch.float32), 16, cpu)
+    for head_dim in (8, 16):
         for dtype in (torch.float32, torch.bfloat16):
-            for s in (128, 192, 1024, 4096):
-                if T._use_flash(auto_at(head_dim, dtype), s, cuda):
-                    assert fa.supported(dtype, head_dim, s)
+            assert T._use_flash(auto_at(head_dim, dtype), 48, cuda)
+            assert not T._use_flash(auto_at(head_dim, dtype), 200, cuda)
+    # and sends the rest to plain attention instead of to a kernel that raises
+    assert not T._use_flash(auto_at(96), 128, cuda)
+    assert not T._use_flash(auto_at(128, torch.float32), 128, cuda)  # no float32 kernel at 128
+    assert not T._use_flash(auto_at(128), 100, cuda)  # wgmma at 128 takes S a multiple of 64
+    assert T._use_flash(auto_at(32, torch.float32), 128, cuda)
+    for head_dim in (8, 16, 32, 64, 96, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            for s in (16, 48, 100, 128, 192, 200, 320, 1000, 1024, 4096):
+                routed = T._use_flash(auto_at(head_dim, dtype), s, cuda)
+                assert routed == fa.op_supported(dtype, head_dim, s)
+                assert routed == (s % min(128, s) == 0 and fa.supported(dtype, head_dim, s))
+                if routed:
+                    # the op's own shape check passes where "auto" routes to it
+                    q = torch.zeros(1, s, 1, head_dim, dtype=dtype)
+                    fa.flash_attention(q, q, q)
+                elif fa.supported(dtype, head_dim, s):
+                    q = torch.zeros(1, s, 1, head_dim, dtype=dtype)
+                    with pytest.raises(ValueError, match="multiple of block sizes"):
+                        fa.flash_attention(q, q, q)
     assert T._use_flash(T.TransformerConfig(attention_impl="flash"), 100, cpu)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T._use_flash(T.TransformerConfig(attention_impl="chunked"), 1024, cuda)
     with pytest.raises(ValueError, match="attention_impl"):
         T._use_flash(T.TransformerConfig(attention_impl="xla"), 1024, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", [16, 192])
+def test_auto_forward_on_card(seq):
+    """``"auto"`` on the card, head dim 8 in float32: at S 16 the flash
+    kernels run (one forward launch a layer), at S 192 (past 128 and not a
+    multiple of it, which the op refuses) plain attention does. Logits
+    against the plain forward on the CPU at 2e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    np_params = _jax_params(ATTN_BASE)
+    tokens = torch.from_numpy(_tokens((2, seq)))
+    cfg = T.TransformerConfig(**ATTN_BASE, dtype=torch.float32, attention_impl="auto")
+    expect = T.forward(T.params_from_jax(np_params, device="cpu"), tokens, cfg)
+    fa.reset_launches()
+    got = T.forward(T.params_from_jax(np_params, device="cuda"), tokens.cuda(), cfg)
+    assert fa.LAUNCHES["flash_fwd"] == (ATTN_BASE["n_layers"] if seq == 16 else 0)
+    np.testing.assert_allclose(got.cpu().numpy(), expect.numpy(), atol=2e-5)
 
 
 def test_fused_train_step_matches_optax_adamw():

@@ -101,6 +101,11 @@ __all__ = ["HTTPTransport"]
 # this round (its quorum ran allow_heal=False) costs seconds, not the
 # transfer timeout.
 META_TIMEOUT_S = 5.0
+# What a striped endpoint answers (a 503) when the bound passes while its
+# source is still staging (a state whose host copy and digests take longer
+# than META_TIMEOUT_S: the Llama-2-7B width's 4.3 GB): the healer asks
+# again until its transfer deadline instead of dropping the source.
+STAGING_IN_PROGRESS = "checkpoint staging in progress"
 # the bulk heal bytes ride the native blob plane (else HTTP ranges)
 HEAL_NATIVE = True
 
@@ -180,6 +185,10 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
         self._tree_digest: Optional[str] = None
         self._groups: List[List[int]] = []
         self._token = 0
+        # unguarded-ok: set and cleared by send_checkpoint's thread around
+        #   a staging, read by the server's handlers (a hint: at worst a
+        #   healer asks once more, or gives up a round early)
+        self._staging = False
         # the native blob server, made at the first staging; None when the
         # native core cannot serve (then the HTTP ranges do)
         self._blob = None
@@ -236,7 +245,8 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
                 try:
                     transport._lock.r_acquire(timeout=META_TIMEOUT_S if bounded else None)
                 except TimeoutError:
-                    self.send_error(503, "no checkpoint staged within timeout")
+                    self.send_error(503, STAGING_IN_PROGRESS if transport._staging
+                                    else "no checkpoint staged within timeout")
                     return
                 try:
                     if len(parts) != 3 or parts[0] != "checkpoint":
@@ -380,6 +390,13 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
         # aborted before should_commit closed it), so staging never races
         # an active GET
         self.disallow_checkpoint()
+        self._staging = True
+        try:
+            self._stage(step, state_dict, dst_ranks)
+        finally:
+            self._staging = False
+
+    def _stage(self, step: int, state_dict: T, dst_ranks: List[int]) -> None:
         t0 = time.perf_counter()
         header, buffers = flatten_state(state_dict)
         # the blob plane serves raw base pointers: pin contiguity (flatten
@@ -532,13 +549,19 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
         meta_secs = min(secs, META_TIMEOUT_S + 5.0)
 
         def fetch_meta(src: str) -> None:
-            try:
-                with _traced_urlopen(
-                    f"{src}/checkpoint/{step}/stripemeta", timeout=meta_secs, carrier=carrier
-                ) as r:
-                    metas[src] = pickle.loads(r.read())
-            except Exception as e:  # noqa: BLE001 — a dead source is dropped
-                meta_errors[src] = str(e)
+            while True:
+                try:
+                    with _traced_urlopen(
+                        f"{src}/checkpoint/{step}/stripemeta", timeout=meta_secs,
+                        carrier=carrier,
+                    ) as r:
+                        metas[src] = pickle.loads(r.read())
+                    return
+                except Exception as e:  # noqa: BLE001 — a dead source is dropped
+                    if STAGING_IN_PROGRESS in str(e) and time.monotonic() < deadline:
+                        continue  # a source still staging: ask again
+                    meta_errors[src] = str(e)
+                    return
 
         if len(sources) == 1:
             fetch_meta(sources[0])

@@ -13,6 +13,12 @@ where ``leaf_infos[i]`` is
 * ``("tensor", dtype_str, shape, nbytes)`` — a torch tensor leaf, one
   buffer of its raw bytes (bfloat16 ships as its two bytes per element;
   CUDA tensors are copied to the host at flatten time);
+* ``("shards", dtype_str, global_shape, (axis_names, mesh_shape),
+  spec_entries, [(index, nbytes), ...])`` — a DTensor on a mesh of more
+  than one rank: this rank's shard, one buffer, with the JAX package's
+  header tuple (a :class:`ShardedArray` on the receiver; a DTensor on one
+  rank travels as ``"tensor"``, as a single-device ``jax.Array`` travels
+  dense);
 * ``("obj", pickled_bytes)`` — any other leaf (inline, no buffer).
 
 Leaves are visited in ``jax.tree_util`` order (sorted dict keys), so for a
@@ -24,7 +30,8 @@ that ``jax.tree_util.tree_unflatten`` calls, so the JAX package's
 rebuild a JAX-written file through its ``PyTreeDef``'s own ``unflatten``
 (unpickling that header needs JAX installed; the port never imports it).
 Unflattened tensors lie on the host; the receiver's ``load_state_dict``
-copies them into its own tensors, on its own device. A tensor leaf
+copies them into its own tensors, on its own device (a sharded receiver
+first rebuilds its DTensors with :func:`from_transfer_tree`). A tensor leaf
 unflattened from a writable buffer (a view into the striped heal's one
 receive buffer) shares its memory; only a read-only or misaligned buffer
 is copied.
@@ -35,12 +42,20 @@ from __future__ import annotations
 import io
 import pickle
 import struct
-from typing import Any, BinaryIO, List, NamedTuple, Tuple, Union
+from typing import Any, BinaryIO, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from torchft_tpu_torch.utils.tree import tree_flatten, tree_unflatten
+from torchft_tpu_torch.parallel.mesh import (
+    P,
+    from_shard,
+    is_dtensor,
+    local_index,
+    placements,
+    spec_entries,
+)
+from torchft_tpu_torch.utils.tree import tree_flatten, tree_map, tree_unflatten
 
 _LEN = struct.Struct("<Q")
 
@@ -57,6 +72,8 @@ __all__ = [
     "read_exact",
     "TensorSpec",
     "spec_tree_from_header",
+    "ShardedArray",
+    "from_transfer_tree",
 ]
 
 
@@ -108,6 +125,75 @@ def as_bytes(arr: np.ndarray) -> memoryview:
     return memoryview(np.ascontiguousarray(arr).reshape(-1).view(np.uint8))
 
 
+# ---------------------------------------------------------------------------
+# sharded leaves (a DTensor's mesh and placements, as the JAX package's
+# NamedSharding descriptor)
+# ---------------------------------------------------------------------------
+
+
+def _sharding_desc(t: Any) -> Optional[Tuple]:
+    """``(axis_names, mesh_shape, spec_entries)`` of a DTensor on a mesh of
+    more than one rank, else None (the dense path)."""
+    if not is_dtensor(t) or t.device_mesh.size() <= 1:
+        return None
+    mesh = t.device_mesh
+    return (tuple(mesh.mesh_dim_names), tuple(mesh.shape),
+            spec_entries(t.placements, mesh, t.ndim))
+
+
+class ShardedArray:
+    """Host-side carrier of a DTensor in transit: its global shape and
+    dtype, the sender's mesh and spec, and the shards it sent (one a
+    sender rank). Rebuild it on the receiver with :meth:`to_dtensor` on a
+    congruent mesh, or assemble it whole with :meth:`full`."""
+
+    def __init__(self, dtype: torch.dtype, shape: Tuple[int, ...], mesh_desc: Tuple,
+                 spec_entries: Tuple, shards: List[Tuple[Tuple, torch.Tensor]]) -> None:
+        self.dtype = dtype
+        self.shape = tuple(shape)
+        self.mesh_desc = mesh_desc
+        self.spec_entries = spec_entries
+        self.shards = shards  # [(index_desc, host tensor), ...]
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for _, t in self.shards)
+
+    def to_dtensor(self, mesh):
+        """This rank's shard as a DTensor on ``mesh`` with the sender's spec.
+        The mesh must be congruent (the same axis names and sizes for the
+        sharded axes): each rank takes exactly its shard, no gather."""
+        place = placements(P(*self.spec_entries), mesh)
+        idx = local_index(self.shape, mesh, place)
+        data = dict(self.shards).get(idx)
+        if data is None:
+            raise ValueError(
+                f"missing shard {idx} for leaf {self.shape}; sender mesh {self.mesh_desc} "
+                f"is not congruent with the local mesh"
+            )
+        return from_shard(data.to(mesh.device_type), self.shape, mesh, place)
+
+    def full(self) -> torch.Tensor:
+        """The whole array on the host (when no mesh is at hand); the
+        shards must cover it."""
+        out = torch.empty(self.shape, dtype=self.dtype)
+        covered = torch.zeros(self.shape, dtype=torch.bool)
+        for idx, data in self.shards:
+            sl = tuple(slice(a, b) for a, b in idx)
+            out[sl] = data
+            covered[sl] = True
+        if not bool(covered.all()):
+            raise ValueError("shards do not cover the array (a sharded sender); "
+                             "rebuild with to_dtensor(mesh) instead")
+        return out
+
+
+def from_transfer_tree(tree: Any, mesh) -> Any:
+    """Every :class:`ShardedArray` leaf of ``tree`` as a DTensor on
+    ``mesh`` (the receiver's half of the sharded transfer)."""
+    return tree_map(lambda x: x.to_dtensor(mesh) if isinstance(x, ShardedArray) else x, tree)
+
+
 def flatten_state(state: Any) -> Tuple[bytes, List[np.ndarray]]:
     """Flatten a state tree into ``(header_bytes, host_buffers)``."""
     treedef, infos, buffers = _flatten(state)
@@ -120,8 +206,20 @@ def _flatten(state: Any) -> Tuple[Any, List[Tuple], List[np.ndarray]]:
     buffers: List[np.ndarray] = []
     for leaf in leaves:
         if isinstance(leaf, torch.Tensor):
-            host = _tensor_to_host(leaf)
             dtype = str(leaf.dtype).removeprefix("torch.")
+            desc = _sharding_desc(leaf)
+            if desc is not None:
+                # this rank's shard alone: a sharded group never gathers
+                # the model onto one host, and each shard ships once. Its
+                # index is the JAX package's ((start, stop), ...) form
+                axis_names, mesh_shape, entries = desc
+                idx = local_index(leaf.shape, leaf.device_mesh, leaf.placements)
+                host = _tensor_to_host(leaf.to_local())
+                infos.append(("shards", dtype, tuple(leaf.shape), (axis_names, mesh_shape),
+                              entries, [(idx, host.nbytes)]))
+                buffers.append(host)
+                continue
+            host = _tensor_to_host(leaf.to_local() if is_dtensor(leaf) else leaf)
             infos.append(("tensor", dtype, tuple(leaf.shape), host.nbytes))
             buffers.append(host)
         elif isinstance(leaf, np.ndarray):
@@ -135,7 +233,13 @@ def _flatten(state: Any) -> Tuple[Any, List[Tuple], List[np.ndarray]]:
 
 def buffer_sizes(infos: List[Tuple]) -> List[int]:
     """Byte size of every raw buffer after the header, in stream order."""
-    return [info[3] for info in infos if info[0] in ("arr", "tensor")]
+    sizes: List[int] = []
+    for info in infos:
+        if info[0] in ("arr", "tensor"):
+            sizes.append(info[3])
+        elif info[0] == "shards":
+            sizes.extend(n for _, n in info[5])
+    return sizes
 
 
 def _tensor_from_buffer(buf: Any, dtype: torch.dtype, shape: Tuple[int, ...]) -> torch.Tensor:
@@ -166,6 +270,12 @@ def unflatten_state(
         elif info[0] == "tensor":
             _, dtype, shape, _ = info
             leaves.append(_tensor_from_buffer(next(it), _torch_dtype(dtype), shape))
+        elif info[0] == "shards":
+            _, dtype, shape, mesh_desc, entries, shard_meta = info
+            tdtype = _torch_dtype(dtype)
+            shards = [(idx, _tensor_from_buffer(next(it), tdtype, tuple(b - a for a, b in idx)))
+                      for idx, _ in shard_meta]
+            leaves.append(ShardedArray(tdtype, shape, mesh_desc, entries, shards))
         else:
             leaves.append(pickle.loads(info[1]))
     return _unflatten(treedef, leaves)
@@ -187,7 +297,7 @@ def spec_tree_from_header(header: bytes) -> Any:
     treedef, infos = pickle.loads(header)
     leaves: List[Any] = []
     for info in infos:
-        if info[0] == "tensor":
+        if info[0] in ("tensor", "shards"):  # a sharded leaf's global shape
             leaves.append(TensorSpec(tuple(info[2]), _torch_dtype(info[1])))
         elif info[0] == "arr":
             np_dtype = _resolve_dtype(info[1])

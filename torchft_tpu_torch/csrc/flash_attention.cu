@@ -5,14 +5,19 @@
 //   K1 forward  <- _fwd_kernel  (lines 67-109, pallas_call at 115)
 //   K2 dQ       <- _dq_kernel   (lines 145-174, pallas_call at 219)
 //   K3 dK/dV    <- _dkv_kernel  (lines 177-210, pallas_call at 238)
-// The Pallas kernels take any head dim D; these take D in {32, 64, 128}
-// (tft_flash_supported says which dtype takes which D). bf16 runs on
-// wgmma at every D: flash_fwd_wgmma, flash_dq_wgmma and flash_dkv_wgmma
-// (TMA, mbarriers, wgmma; their notes below), templated on D. The FMA
-// path, flash_fwd_kernel, flash_dq_kernel and flash_dkv_kernel, templated
-// on the element type and D, takes float32 alone (D 32 and 64), whose
-// float32 products hold the parity tests at the JAX bars. float32 at D 128
-// is refused: the FMA tiles would pass the 227 KB of shared memory.
+// The Pallas kernels take any head dim D; these take D in {8, 16, 32, 64,
+// 128} (tft_flash_supported says which dtype takes which D and S). bf16 at
+// D 32, 64 and 128 with S a multiple of 64 runs on wgmma:
+// flash_fwd_wgmma, flash_dq_wgmma and flash_dkv_wgmma (TMA, mbarriers,
+// wgmma; their notes below), templated on D. The FMA path,
+// flash_fwd_kernel, flash_dq_kernel and flash_dkv_kernel, templated on the
+// element type and D, takes the rest: float32 at D 8, 16, 32 and 64, and
+// bf16 at D 8 and 16 (wgmma's K of 16 bf16 values does not fit D 8, and
+// these are the tiny models' shapes), and at D 32 and 64 where S is not a
+// multiple of 64. It masks the last tile's rows and columns, so it takes
+// any S; its float32 products hold the parity tests at the JAX bars. float32
+// at D 128 is refused: the FMA tiles would pass the 227 KB of shared
+// memory.
 //
 // Layout: q, k, v, o, dO, dQ, dK, dV are [BH, S, D] row-major; lse and
 // delta are [BH, S] float32 (the TPU's 8-sublane broadcast and 128-lane
@@ -26,13 +31,17 @@
 // q-tiles. Nothing crosses blocks, so there are no atomics and every
 // result is deterministic.
 //
-// FMA kernels (float32): a block has 4 warps; warp w
-// owns rows [16w, 16w+16) of a 64-row tile, for the matrix products and
-// for the row-wise softmax, so most steps need only a warp barrier. Tiles
-// are converted to float32 as they are loaded; tiles, score tiles and
-// accumulators live in shared memory; they pass 48 KB, so shared memory is
-// dynamic (cudaFuncSetAttribute). Every product is a chain of serial FMAs
-// from shared memory: the kernels do not try to reach either bound.
+// FMA kernels (float32, and bf16 loaded into float32): a block has 4
+// warps; warp w owns rows [16w, 16w+16) of a 64-row tile, for the matrix
+// products and for the row-wise softmax, so most steps need only a warp
+// barrier. Tiles are converted to float32 as they are loaded, rows past S
+// as zeros; keys past S are masked like keys past the query, and query
+// rows past S are neither written nor summed into dK and dV. Tiles, score
+// tiles and accumulators live in shared memory; they pass 48 KB, so
+// shared memory is dynamic (cudaFuncSetAttribute). Every product is a
+// chain of serial FMAs from shared memory: the kernels do not try to reach
+// either bound (at D 8 and 16 a product of a 16-row stripe keeps 8 or 16
+// lanes to a row, 4 or 2 rows at once).
 //
 // Numerics kept from the TPU kernels: mask value -1e30 where
 // k_pos > q_pos; blocks above the causal diagonal skipped
@@ -62,10 +71,13 @@ constexpr int kLd = 65;
 constexpr size_t kTileBytes = sizeof(float) * kTile * kLd;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -79,49 +91,62 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Copy one [kTile x D] tile (global row stride D) into shared memory as
-// float32 (row stride kLd). All threads take part.
+// Copy the tile of [kTile x D] rows starting at `row0` (global row stride
+// D, `seq` rows in all) into shared memory as float32 (row stride kLd);
+// rows past `seq` read as zeros. All threads take part.
 template <int D, typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src) {
+__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
+                                          int seq) {
+  const int rows = min(kTile, seq - row0);
+  src += static_cast<size_t>(row0) * D;
   for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    dst[r * kLd + c] = to_f32(src[r * D + c]);
+    dst[r * kLd + c] = r < rows ? to_f32(src[r * D + c]) : 0.0f;
   }
 }
 
 // The calling warp's stripe of a product: C[16 x N] (+)= A[16 x K] B[K x N],
-// N a multiple of 32 (lane l owns columns l, l + 32, ...).
+// N 8, 16 or a multiple of 32: min(N, 32) lanes share a row (lane l owns
+// columns l % N, + 32, ...) and 32 / min(N, 32) rows go at once.
 // A_T: A(m, k) is stored at A[k * lda + m] (a transposed operand);
 // B_T: B(k, n) is stored at B[n * ldb + k]. Row stride of C: ldc.
 template <bool A_T, bool B_T, int N>
 __device__ __forceinline__ void warp_mm(const float* A, int lda, const float* B, int ldb,
                                         float* C, int ldc, int K, bool accumulate) {
-  constexpr int NC = N / 32;
+  constexpr int kLanes = N < 32 ? N : 32;  // lanes on one row
+  constexpr int kRows = 32 / kLanes;       // rows a pass covers
+  constexpr int NC = N < 32 ? 1 : N / 32;
   const int lane = threadIdx.x & 31;
+  const int col = lane % kLanes;
   __syncwarp();
-  for (int r = 0; r < 16; ++r) {
+  for (int r0 = 0; r0 < 16; r0 += kRows) {
+    const int r = r0 + lane / kLanes;
     float c[NC];
 #pragma unroll
-    for (int j = 0; j < NC; ++j) c[j] = accumulate ? C[r * ldc + lane + 32 * j] : 0.0f;
+    for (int j = 0; j < NC; ++j) c[j] = accumulate ? C[r * ldc + col + 32 * j] : 0.0f;
     for (int k = 0; k < K; ++k) {
       const float a = A_T ? A[k * lda + r] : A[r * lda + k];
 #pragma unroll
       for (int j = 0; j < NC; ++j) {
-        const int n = lane + 32 * j;
+        const int n = col + 32 * j;
         c[j] = fmaf(a, B_T ? B[n * ldb + k] : B[k * ldb + n], c[j]);
       }
     }
 #pragma unroll
-    for (int j = 0; j < NC; ++j) C[r * ldc + lane + 32 * j] = c[j];
+    for (int j = 0; j < NC; ++j) C[r * ldc + col + 32 * j] = c[j];
   }
   __syncwarp();
 }
 
-// masked, scaled score of row `row` (q position qp) and column c (k position kp)
-__device__ __forceinline__ float masked(float dot, float scale, int causal, int qp, int kp) {
+// masked, scaled score of q position qp against k position kp: keys past
+// the query (causal) and past the sequence are masked
+__device__ __forceinline__ float masked(float dot, float scale, int causal, int qp, int kp,
+                                        int seq) {
   const float s = dot * scale;
-  return (causal && kp > qp) ? kNegInf : s;
+  return ((causal && kp > qp) || kp >= seq) ? kNegInf : s;
 }
+
+__host__ __device__ __forceinline__ int tiles(int seq) { return (seq + kTile - 1) / kTile; }
 
 // ---------------------------------------------------------------------------
 // K1: forward, FMA. One block per (bh, q-tile); online softmax over k-tiles.
@@ -143,7 +168,7 @@ __global__ void __launch_bounds__(kThreads)
   const int qi = blockIdx.y;
   const size_t base = static_cast<size_t>(blockIdx.x) * seq * D;
 
-  load_tile<D>(sQ, q + base + static_cast<size_t>(qi) * kTile * D);
+  load_tile<D>(sQ, q + base, qi * kTile, seq);
   for (int i = threadIdx.x; i < kTile * kLd; i += kThreads) sO[i] = 0.0f;
   float m[16], l[16];
 #pragma unroll
@@ -152,18 +177,18 @@ __global__ void __launch_bounds__(kThreads)
     l[r] = 0.0f;
   }
 
-  const int nk = causal ? qi + 1 : seq / kTile;
+  const int nk = causal ? qi + 1 : tiles(seq);
   for (int j = 0; j < nk; ++j) {
     __syncthreads();  // every warp is done with the previous K/V tiles
-    load_tile<D>(sK, k + base + static_cast<size_t>(j) * kTile * D);
-    load_tile<D>(sV, v + base + static_cast<size_t>(j) * kTile * D);
+    load_tile<D>(sK, k + base, j * kTile, seq);
+    load_tile<D>(sV, v + base, j * kTile, seq);
     __syncthreads();
     warp_mm<false, true, kTile>(sQ + r0 * kLd, kLd, sK, kLd, sS + r0 * kLd, kLd, D, false);
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
-      const int row = r0 + r, qp = qi * kTile + row;
-      const float s0 = masked(sS[row * kLd + lane], scale, causal, qp, j * kTile + lane);
-      const float s1 = masked(sS[row * kLd + lane + 32], scale, causal, qp, j * kTile + lane + 32);
+      const int row = r0 + r, qp = qi * kTile + row, kp = j * kTile + lane;
+      const float s0 = masked(sS[row * kLd + lane], scale, causal, qp, kp, seq);
+      const float s1 = masked(sS[row * kLd + lane + 32], scale, causal, qp, kp + 32, seq);
       const float m_new = fmaxf(m[r], warp_max(fmaxf(s0, s1)));
       const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
       const float corr = expf(m[r] - m_new);
@@ -171,23 +196,20 @@ __global__ void __launch_bounds__(kThreads)
       m[r] = m_new;
       sP[row * kLd + lane] = p0;
       sP[row * kLd + lane + 32] = p1;
-#pragma unroll
-      for (int c = 0; c < D / 32; ++c) sO[row * kLd + lane + 32 * c] *= corr;
+      for (int c = lane; c < D; c += 32) sO[row * kLd + c] *= corr;
     }
     warp_mm<false, false, D>(sP + r0 * kLd, kLd, sV, kLd, sO + r0 * kLd, kLd, kTile, true);
   }
 
+  __syncwarp();
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
-    const int row = r0 + r;
+    const int row = r0 + r, qp = qi * kTile + row;
+    if (qp >= seq) break;  // rows past S: the rest of the stripe too
     const float lr = fmaxf(l[r], 1e-30f);
-    T* orow = o + base + static_cast<size_t>(qi * kTile + row) * D;
-#pragma unroll
-    for (int j = 0; j < D / 32; ++j) {
-      const int c = lane + 32 * j;
-      orow[c] = from_f32<T>(sO[row * kLd + c] / lr);
-    }
-    if (lane == 0) lse[static_cast<size_t>(blockIdx.x) * seq + qi * kTile + row] = m[r] + logf(lr);
+    T* orow = o + base + static_cast<size_t>(qp) * D;
+    for (int c = lane; c < D; c += 32) orow[c] = from_f32<T>(sO[row * kLd + c] / lr);
+    if (lane == 0) lse[static_cast<size_t>(blockIdx.x) * seq + qp] = m[r] + logf(lr);
   }
 }
 
@@ -213,46 +235,44 @@ __global__ void __launch_bounds__(kThreads)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * 16;
   const int qi = blockIdx.y;
   const size_t base = static_cast<size_t>(blockIdx.x) * seq * D;
-  const size_t rbase = static_cast<size_t>(blockIdx.x) * seq + qi * kTile;
+  const size_t rbase = static_cast<size_t>(blockIdx.x) * seq;
 
-  load_tile<D>(sQ, q + base + static_cast<size_t>(qi) * kTile * D);
-  load_tile<D>(sDO, dout + base + static_cast<size_t>(qi) * kTile * D);
+  load_tile<D>(sQ, q + base, qi * kTile, seq);
+  load_tile<D>(sDO, dout + base, qi * kTile, seq);
   for (int i = threadIdx.x; i < kTile * kLd; i += kThreads) sAcc[i] = 0.0f;
-  float lse_r[16], delta_r[16];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    lse_r[r] = lse[rbase + r0 + r];
-    delta_r[r] = delta[rbase + r0 + r];
-  }
 
-  const int nk = causal ? qi + 1 : seq / kTile;
+  const int nk = causal ? qi + 1 : tiles(seq);
   for (int j = 0; j < nk; ++j) {
     __syncthreads();
-    load_tile<D>(sK, k + base + static_cast<size_t>(j) * kTile * D);
-    load_tile<D>(sV, v + base + static_cast<size_t>(j) * kTile * D);
+    load_tile<D>(sK, k + base, j * kTile, seq);
+    load_tile<D>(sV, v + base, j * kTile, seq);
     __syncthreads();
     warp_mm<false, true, kTile>(sQ + r0 * kLd, kLd, sK, kLd, sS + r0 * kLd, kLd, D, false);
     warp_mm<false, true, kTile>(sDO + r0 * kLd, kLd, sV, kLd, sDP + r0 * kLd, kLd, D, false);
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
       const int row = r0 + r, qp = qi * kTile + row;
+      // rows past S: zero dO, so zero dS (and never written)
+      const float lse_r = qp < seq ? lse[rbase + qp] : 0.0f;
+      const float delta_r = qp < seq ? delta[rbase + qp] : 0.0f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int c = lane + 32 * h;
-        const float s = masked(sS[row * kLd + c], scale, causal, qp, j * kTile + c);
-        const float p = expf(s - lse_r[r]);
-        sDS[row * kLd + c] = p * (sDP[row * kLd + c] - delta_r[r]) * scale;
+        const float s = masked(sS[row * kLd + c], scale, causal, qp, j * kTile + c, seq);
+        const float p = expf(s - lse_r);
+        sDS[row * kLd + c] = p * (sDP[row * kLd + c] - delta_r) * scale;
       }
     }
     warp_mm<false, false, D>(sDS + r0 * kLd, kLd, sK, kLd, sAcc + r0 * kLd, kLd, kTile, true);
   }
 
+  __syncwarp();
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
-    const int row = r0 + r;
-    T* out = dq + base + static_cast<size_t>(qi * kTile + row) * D;
-#pragma unroll
-    for (int j = 0; j < D / 32; ++j) out[lane + 32 * j] = from_f32<T>(sAcc[row * kLd + lane + 32 * j]);
+    const int row = r0 + r, qp = qi * kTile + row;
+    if (qp >= seq) break;
+    T* out = dq + base + static_cast<size_t>(qp) * D;
+    for (int c = lane; c < D; c += 32) out[c] = from_f32<T>(sAcc[row * kLd + c]);
   }
 }
 
@@ -282,32 +302,35 @@ __global__ void __launch_bounds__(kThreads)
   const int kj = blockIdx.y;
   const size_t base = static_cast<size_t>(blockIdx.x) * seq * D;
 
-  load_tile<D>(sK, k + base + static_cast<size_t>(kj) * kTile * D);
-  load_tile<D>(sV, v + base + static_cast<size_t>(kj) * kTile * D);
+  load_tile<D>(sK, k + base, kj * kTile, seq);
+  load_tile<D>(sV, v + base, kj * kTile, seq);
   for (int i = threadIdx.x; i < kTile * kLd; i += kThreads) {
     sDK[i] = 0.0f;
     sDV[i] = 0.0f;
   }
 
-  const int nq = seq / kTile;
+  const int nq = tiles(seq);
   for (int i = causal ? kj : 0; i < nq; ++i) {
     __syncthreads();  // every warp is done with the previous Q/dO/P/dS tiles
-    load_tile<D>(sQ, q + base + static_cast<size_t>(i) * kTile * D);
-    load_tile<D>(sDO, dout + base + static_cast<size_t>(i) * kTile * D);
+    load_tile<D>(sQ, q + base, i * kTile, seq);
+    load_tile<D>(sDO, dout + base, i * kTile, seq);
     __syncthreads();
     // warp w: q rows [r0, r0+16) of this q-tile
     warp_mm<false, true, kTile>(sQ + r0 * kLd, kLd, sK, kLd, sS + r0 * kLd, kLd, D, false);
     warp_mm<false, true, kTile>(sDO + r0 * kLd, kLd, sV, kLd, sDP + r0 * kLd, kLd, D, false);
-    const size_t rbase = static_cast<size_t>(blockIdx.x) * seq + i * kTile + r0;
+    const size_t rbase = static_cast<size_t>(blockIdx.x) * seq;
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
       const int row = r0 + r, qp = i * kTile + row;
-      const float lse_r = lse[rbase + r], delta_r = delta[rbase + r];
+      // a query row past S adds nothing to dK and dV
+      const bool live = qp < seq;
+      const float lse_r = live ? lse[rbase + qp] : 0.0f;
+      const float delta_r = live ? delta[rbase + qp] : 0.0f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int c = lane + 32 * h;
-        const float s = masked(sS[row * kLd + c], scale, causal, qp, kj * kTile + c);
-        const float p = expf(s - lse_r);
+        const float s = masked(sS[row * kLd + c], scale, causal, qp, kj * kTile + c, seq);
+        const float p = live ? expf(s - lse_r) : 0.0f;
         sP[row * kLd + c] = p;
         sDS[row * kLd + c] = p * (sDP[row * kLd + c] - delta_r) * scale;
       }
@@ -318,13 +341,13 @@ __global__ void __launch_bounds__(kThreads)
     warp_mm<true, false, D>(sDS + r0, kLd, sQ, kLd, sDK + r0 * kLd, kLd, kTile, true);
   }
 
+  __syncwarp();
 #pragma unroll
   for (int r = 0; r < 16; ++r) {
-    const int row = r0 + r;
-    const size_t off = base + static_cast<size_t>(kj * kTile + row) * D;
-#pragma unroll
-    for (int j = 0; j < D / 32; ++j) {
-      const int c = lane + 32 * j;
+    const int row = r0 + r, kp = kj * kTile + row;
+    if (kp >= seq) break;
+    const size_t off = base + static_cast<size_t>(kp) * D;
+    for (int c = lane; c < D; c += 32) {
       dk[off + c] = from_f32<T>(sDK[row * kLd + c]);
       dv[off + c] = from_f32<T>(sDV[row * kLd + c]);
     }
@@ -1260,13 +1283,17 @@ __global__ void __launch_bounds__(kDkvCons * kWg + kDkvProducer<D>, 1)
 // What the kernels take (dtype 0 = float32, 1 = bfloat16): the single
 // statement of it, mirrored by torchft_tpu_torch.ops.flash_attention.supported.
 // Every grid is (bh, tiles of S); the tiles' count is the grid's y extent.
+// The FMA kernels take any S; the wgmma kernels S a multiple of 64.
 constexpr int kMaxSeq = 65535 * kTile;
 bool supported(int dtype, int d, int seq) {
-  if (seq <= 0 || seq % kTile || seq > kMaxSeq) return false;
-  if (dtype == 0) return d == 32 || d == 64;
-  if (dtype == 1) return d == 32 || d == 64 || d == 128;
-  return false;
+  if (seq <= 0 || seq > kMaxSeq || (dtype != 0 && dtype != 1)) return false;
+  if (d == 8 || d == 16 || d == 32 || d == 64) return true;
+  return d == 128 && dtype == 1 && seq % kTile == 0;
 }
+
+// bf16 at D 32, 64 and 128 with S a multiple of 64 runs on wgmma; the rest
+// on the FMA kernels
+bool on_wgmma(int dtype, int d, int seq) { return dtype == 1 && d >= 32 && seq % kTile == 0; }
 
 bool shape_ok(int dtype, int bh, int seq, int d) { return bh > 0 && supported(dtype, d, seq); }
 
@@ -1394,7 +1421,7 @@ int fwd_fma(const void* q, const void* k, const void* v, void* o, float* lse, in
   const size_t smem = 6 * kTileBytes;
   cudaError_t err = allow_smem(flash_fwd_kernel<T, D>, smem, &ready);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, D><<<dim3(bh, seq / kTile), kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, D><<<dim3(bh, tiles(seq)), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, seq, scale, causal);
   return cudaGetLastError();
@@ -1408,7 +1435,7 @@ int dq_fma(const void* q, const void* k, const void* v, const void* dout, const 
   const size_t smem = 8 * kTileBytes;
   cudaError_t err = allow_smem(flash_dq_kernel<T, D>, smem, &ready);
   if (err != cudaSuccess) return err;
-  flash_dq_kernel<T, D><<<dim3(bh, seq / kTile), kThreads, smem, stream>>>(
+  flash_dq_kernel<T, D><<<dim3(bh, tiles(seq)), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dqp), seq, scale, causal);
   return cudaGetLastError();
@@ -1422,11 +1449,37 @@ int dkv_fma(const void* q, const void* k, const void* v, const void* dout, const
   const size_t smem = 10 * kTileBytes;
   cudaError_t err = allow_smem(flash_dkv_kernel<T, D>, smem, &ready);
   if (err != cudaSuccess) return err;
-  flash_dkv_kernel<T, D><<<dim3(bh, seq / kTile), kThreads, smem, stream>>>(
+  flash_dkv_kernel<T, D><<<dim3(bh, tiles(seq)), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dkp), static_cast<T*>(dvp),
       seq, scale, causal);
   return cudaGetLastError();
+}
+
+// The FMA launches as functors of (element type, head dim), so that one
+// switch over the head dim serves all three
+struct FwdFma {
+  template <typename T, int D, typename... A>
+  static int run(A... a) { return fwd_fma<T, D>(a...); }
+};
+struct DqFma {
+  template <typename T, int D, typename... A>
+  static int run(A... a) { return dq_fma<T, D>(a...); }
+};
+struct DkvFma {
+  template <typename T, int D, typename... A>
+  static int run(A... a) { return dkv_fma<T, D>(a...); }
+};
+
+template <typename T, typename Launch, typename... A>
+int by_head_dim(int d, A... a) {
+  switch (d) {
+    case 8: return Launch::template run<T, 8>(a...);
+    case 16: return Launch::template run<T, 16>(a...);
+    case 32: return Launch::template run<T, 32>(a...);
+    case 64: return Launch::template run<T, 64>(a...);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1442,13 +1495,13 @@ int tft_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* 
                   void* stream) {
   if (!shape_ok(dtype, bh, seq, d)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (d == 32) return fwd_fma<float, 32>(q, k, v, o, lse, bh, seq, scale, causal, st);
-    return fwd_fma<float, 64>(q, k, v, o, lse, bh, seq, scale, causal, st);
+  if (on_wgmma(dtype, d, seq)) {
+    if (d == 32) return fwd_hopper<32>(q, k, v, o, lse, bh, seq, scale, causal, st);
+    if (d == 64) return fwd_hopper<64>(q, k, v, o, lse, bh, seq, scale, causal, st);
+    return fwd_hopper<128>(q, k, v, o, lse, bh, seq, scale, causal, st);
   }
-  if (d == 32) return fwd_hopper<32>(q, k, v, o, lse, bh, seq, scale, causal, st);
-  if (d == 64) return fwd_hopper<64>(q, k, v, o, lse, bh, seq, scale, causal, st);
-  return fwd_hopper<128>(q, k, v, o, lse, bh, seq, scale, causal, st);
+  if (dtype == 0) return by_head_dim<float, FwdFma>(d, q, k, v, o, lse, bh, seq, scale, causal, st);
+  return by_head_dim<bf16, FwdFma>(d, q, k, v, o, lse, bh, seq, scale, causal, st);
 }
 
 int tft_flash_dq(int dtype, const void* q, const void* k, const void* v,
@@ -1456,16 +1509,18 @@ int tft_flash_dq(int dtype, const void* q, const void* k, const void* v,
                  int bh, int seq, int d, float scale, int causal, void* stream) {
   if (!shape_ok(dtype, bh, seq, d)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
+  if (on_wgmma(dtype, d, seq)) {
     if (d == 32)
-      return dq_fma<float, 32>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
-    return dq_fma<float, 64>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
+      return dq_hopper<32>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
+    if (d == 64)
+      return dq_hopper<64>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
+    return dq_hopper<128>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
   }
-  if (d == 32)
-    return dq_hopper<32>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
-  if (d == 64)
-    return dq_hopper<64>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
-  return dq_hopper<128>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
+  if (dtype == 0)
+    return by_head_dim<float, DqFma>(d, q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal,
+                                     st);
+  return by_head_dim<bf16, DqFma>(d, q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal,
+                                  st);
 }
 
 int tft_flash_dkv(int dtype, const void* q, const void* k, const void* v,
@@ -1474,18 +1529,18 @@ int tft_flash_dkv(int dtype, const void* q, const void* k, const void* v,
                   void* stream) {
   if (!shape_ok(dtype, bh, seq, d)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
+  if (on_wgmma(dtype, d, seq)) {
     if (d == 32)
-      return dkv_fma<float, 32>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal,
-                                st);
-    return dkv_fma<float, 64>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal,
-                              st);
+      return dkv_hopper<32>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
+    if (d == 64)
+      return dkv_hopper<64>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
+    return dkv_hopper<128>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
   }
-  if (d == 32)
-    return dkv_hopper<32>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
-  if (d == 64)
-    return dkv_hopper<64>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
-  return dkv_hopper<128>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
+  if (dtype == 0)
+    return by_head_dim<float, DkvFma>(d, q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale,
+                                      causal, st);
+  return by_head_dim<bf16, DkvFma>(d, q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale,
+                                   causal, st);
 }
 
 const char* tft_cuda_error_string(int err) {

@@ -30,6 +30,13 @@ native CMA plane the neighbouring worker pulls these buckets with
 ``process_vm_readv``, which the kernel grants for ``cudaHostAlloc`` pages
 as for any other (``scripts/torch_cma_pinned_probe.py``).
 
+A DTensor gradient (a sharded group, ``parallel.train_step`` under a mesh)
+is averaged by its local shard: each rank sends what it holds, and
+same-rank peers across groups hold the same shard of every leaf, since
+their meshes are congruent (the JAX package's shard-wise path). A rank
+holds one shard a leaf, so a replicated copy is averaged once a rank; the
+average comes back as a DTensor with the gradient's placements.
+
 ``error_feedback`` (a :class:`~torchft_tpu_torch.wire_codec.ErrorFeedback`,
 host path only): each staged bucket is compensated with the committed
 residual and projected onto the wire codec's grid in place before it
@@ -55,6 +62,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import torch
 
 from torchft_tpu_torch.collectives import record_wire_stage
+from torchft_tpu_torch.parallel.mesh import from_shard, is_dtensor
 from torchft_tpu_torch.telemetry.anatomy import LEDGER
 from torchft_tpu_torch.utils.tree import tree_flatten, tree_unflatten
 
@@ -110,6 +118,14 @@ def allreduce_gradients(
     leaves, treedef = tree_flatten(grads)
     if not leaves:
         return grads
+    sharded = [leaf if is_dtensor(leaf) else None for leaf in leaves]
+    if any(d is not None for d in sharded):
+        # average each rank's own shards, then give them their placements back
+        local = [leaf.to_local() if d is not None else leaf for leaf, d in zip(leaves, sharded)]
+        out = allreduce_gradients(manager, local, bucket_bytes, error_feedback)
+        return tree_unflatten(treedef, [
+            t if d is None else from_shard(t, d.shape, d.device_mesh, d.placements)
+            for t, d in zip(out, sharded)])
     if getattr(manager, "device_data_plane", lambda: False)():
         t0 = time.perf_counter()
         averaged = manager.allreduce_many(leaves).wait()

@@ -78,7 +78,11 @@ sentinel) also vetoes the commit. ``WorldSizeMode.FIXED_WITH_SPARES``
 pins the divisor at ``min_replica_size`` and demotes the groups past it
 to spares that contribute zeros.
 
-Left out (ROADMAP): ``set_heal_warmup``.
+The heal warm-up (``set_heal_warmup``): a callback that gets the incoming
+state's shapes (a tree of ``TensorSpec`` leaves) on a daemon thread as soon
+as the transfer's header lands, while the bulk bytes still stream; a
+trainer builds what its first update needs from them
+(``FTTrainer._heal_warmup``). A failing warm-up never fails the heal.
 """
 
 from __future__ import annotations
@@ -266,6 +270,9 @@ class Manager:
         """
         self._load_state_dict = load_state_dict
         self._user_state_dict = state_dict
+        # the heal warm-up: set on the main thread before the first quorum
+        # (set_heal_warmup), read by the quorum thread's heal
+        self._heal_warmup: Optional[Callable[[Any], None]] = None
         # unguarded-ok: quorum-thread handoff — staged by the quorum thread
         #   during a heal, applied on the main thread strictly after
         #   wait_quorum() (_apply_pending_state_dict waits for it)
@@ -475,6 +482,33 @@ class Manager:
     ) -> None:
         self._load_state_dict = load_state_dict
         self._user_state_dict = state_dict
+
+    def set_heal_warmup(self, fn: Callable[[Any], None]) -> None:
+        """Register the heal warm-up: during a heal, ``fn(spec_tree)`` runs
+        on a daemon thread as soon as the incoming state's header is known,
+        while the bulk bytes still stream. ``spec_tree`` mirrors the state
+        dict with ``serialization.TensorSpec`` leaves (a sharded leaf's
+        global shape). Best-effort: a failing warm-up never fails the
+        heal."""
+        self._heal_warmup = fn
+
+    def _heal_header_cb(self, header: bytes) -> None:
+        """The transport's header hook (on the quorum thread, mid-receive):
+        start the registered warm-up on its own thread, so the receive goes
+        on streaming."""
+        fn = self._heal_warmup
+        if fn is None:
+            return
+
+        def run() -> None:
+            try:
+                from torchft_tpu_torch.checkpointing.serialization import spec_tree_from_header
+
+                fn(spec_tree_from_header(header))
+            except Exception:  # noqa: BLE001 — the warm-up is best-effort
+                self._logger.exception("heal warmup failed")
+
+        threading.Thread(target=run, daemon=True, name="tft_heal_warmup").start()
 
     def _start_history_thread(self) -> None:
         """The history plane's poll loop (rank 0, ``TORCHFT_REGRESSION_MONITOR=1``):
@@ -1043,6 +1077,7 @@ class Manager:
                             timeout=self._timeout,
                             since_step=self._step if own is not None else None,
                             own=own,
+                            header_cb=self._heal_header_cb,
                         )
                     else:
                         state = self._checkpoint_transport.recv_checkpoint(

@@ -9,9 +9,12 @@ the card. The public op takes the plain route only for tensors on the
 CPU (plain :func:`~torchft_tpu_torch.ops.attention.attention` under
 autograd); a CUDA tensor launches the kernels or raises.
 
-:func:`supported` is the one statement of what the kernels take: bf16 at
-head dims 32, 64 and 128, float32 at 32 and 64, and S a multiple of
-:data:`TILE`. The JAX op takes any head dim; the port's does not.
+:func:`supported` is the one statement of what the kernels take: float32
+and bf16 at head dims 8, 16, 32 and 64 at any S, and bf16 at 128 with S a
+multiple of :data:`TILE`. bf16 at 32, 64 and 128 with S a multiple of
+:data:`TILE` runs on the wgmma kernels; every other shape on the FMA
+kernels, which mask the last tile. The JAX op takes any head dim; the
+port's does not.
 
 The kernels are built with ``nvcc`` at first use into
 ``build/torch_kernels/``, keyed by a digest of every file under ``csrc/``,
@@ -56,17 +59,21 @@ __all__ = [
     "source_digest",
     "build_log",
     "supported",
+    "op_supported",
     "TILE",
+    "BLOCK",
 ]
 
 CSRC_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
 )
-TILE = 64  # the kernels' tile rows: S must be a multiple on the card
-# head dims the kernels take, by dtype: bf16 on wgmma, float32 on the FMA
-# kernels (float32 tiles at 128 pass the shared memory);
+TILE = 64  # the kernels' tile rows: the wgmma kernels take S a multiple of it
+# the op's default blocks, the Pallas op's: S must be a multiple of min(BLOCK, S)
+BLOCK = 128
+# head dims the FMA kernels take in both dtypes at any S (float32 tiles at
+# 128 pass the shared memory); bf16 at 128 runs on wgmma alone.
 # csrc/flash_attention.cu's `supported` says the same
-_HEAD_DIMS = {torch.float32: (32, 64), torch.bfloat16: (32, 64, 128)}
+_FMA_HEAD_DIMS = (8, 16, 32, 64)
 _MAX_SEQ = 65535 * TILE  # a launch's grid holds at most 65535 tiles of S
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -215,11 +222,18 @@ def _check(name: str, *tensors: torch.Tensor, dtype: torch.dtype) -> None:
 def supported(dtype: torch.dtype, head_dim: int, seq_len: int) -> bool:
     """Whether the kernels take q/k/v of this dtype, head dim and sequence
     length (the model's ``"auto"`` attention routes by it)."""
-    return (
-        head_dim in _HEAD_DIMS.get(dtype, ())
-        and 0 < seq_len <= _MAX_SEQ
-        and seq_len % TILE == 0
-    )
+    if dtype not in _DTYPE_CODE or not 0 < seq_len <= _MAX_SEQ:
+        return False
+    if head_dim in _FMA_HEAD_DIMS:
+        return True
+    return head_dim == 128 and dtype == torch.bfloat16 and seq_len % TILE == 0
+
+
+def op_supported(dtype: torch.dtype, head_dim: int, seq_len: int) -> bool:
+    """Whether :func:`flash_attention` at its default blocks takes q/k/v of
+    this dtype, head dim and sequence length on the card: the kernels take
+    them (:func:`supported`) and S is a multiple of min(``BLOCK``, S)."""
+    return seq_len % min(BLOCK, max(seq_len, 1)) == 0 and supported(dtype, head_dim, seq_len)
 
 
 def _check_qkv(name: str, q, k, v) -> Tuple[int, int, int]:
@@ -232,7 +246,8 @@ def _check_qkv(name: str, q, k, v) -> Tuple[int, int, int]:
     if not supported(q.dtype, d, s):
         raise ValueError(
             f"{name}: {q.dtype} at head dim {d}, seq len {s} not supported (head dims "
-            f"{_HEAD_DIMS[q.dtype]}, seq len a multiple of {TILE} up to {_MAX_SEQ})"
+            f"{_FMA_HEAD_DIMS} at any seq len up to {_MAX_SEQ}, and 128 in bfloat16 at a "
+            f"multiple of {TILE})"
         )
     if not (q.device == k.device == v.device):
         raise ValueError(f"{name}: q/k/v on different devices")
@@ -405,17 +420,17 @@ def flash_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     causal: bool = True,
-    block_q: int = 128,
-    block_k: int = 128,
+    block_q: int = BLOCK,
+    block_k: int = BLOCK,
 ) -> torch.Tensor:
     """Flash attention. q/k/v: [B, S, H, Dh] -> [B, S, H, Dh], scale Dh^-0.5.
 
     Raises ``ValueError`` unless S is a multiple of the block sizes (as the
     JAX op does). The blocks only validate the shape: the CUDA kernels use
     their own 64-row tiles, and on the card raise ``ValueError`` for what
-    :func:`supported` refuses (S not a multiple of 64, a head dim other
-    than 32, 64 or 128 in bf16, or 32 or 64 in float32), where the JAX op
-    takes any Dh. Differentiable through the dQ and dK/dV kernels."""
+    :func:`supported` refuses (a head dim other than 8, 16, 32, 64 or 128,
+    float32 at 128, or bf16 at 128 with S not a multiple of 64), where the
+    JAX op takes any Dh. Differentiable through the dQ and dK/dV kernels."""
     b, s, h, d = q.shape
     bq, bk = min(block_q, s), min(block_k, s)
     if s % bq or s % bk:

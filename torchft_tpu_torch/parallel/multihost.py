@@ -18,8 +18,8 @@ or by a cluster scheduler):
                                 group and per incarnation)
     RANK / WORLD_SIZE           this process's index / process count in group
 
-The group-wide device mesh (the JAX ``global_mesh``) waits for in-group
-parallelism (ROADMAP queue 1 item 5).
+:func:`global_mesh` is the group-wide device mesh over that process group
+(one rank a process, one device a rank).
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ from typing import Optional
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["initialize_group", "is_initialized", "ENDPOINT_ENV"]
+__all__ = ["initialize_group", "is_initialized", "global_mesh", "ENDPOINT_ENV"]
 
 # the rendezvous endpoint: the counterpart of TORCHFT_JAX_COORDINATOR
 ENDPOINT_ENV = ("MASTER_ADDR", "MASTER_PORT")
@@ -98,3 +98,16 @@ def initialize_group(
     _initialized = True
     logger.info("joined the group's torch.distributed group (%s, rank %d of %d) at %s",
                 backend, process_id, num_processes, endpoint)
+
+
+def global_mesh(config, device: Optional[str] = None):
+    """The group-wide mesh: :func:`~torchft_tpu_torch.parallel.mesh.make_mesh`
+    over the ranks of the group that :func:`initialize_group` joined (a
+    one-rank group of its own when the group is one process). ``device``:
+    ``"cuda"`` or ``"cpu"`` (default ``DEVICE`` from the environment, else
+    the card). All processes must call with the same config."""
+    from torchft_tpu_torch.parallel.mesh import make_mesh
+    from torchft_tpu_torch.utils.platform import resolve_device
+
+    dev = resolve_device(device or os.environ.get("DEVICE", "cuda"))
+    return make_mesh(config, devices=dev.type)

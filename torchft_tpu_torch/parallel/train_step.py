@@ -1,7 +1,7 @@
 """Train step — the port's counterpart of
 ``torchft_tpu/parallel/train_step.py``: the transformer's loss and
 gradients (``grads``), the optimizer update (``apply``) and the two fused
-(``step``), on one device.
+(``step``), on one device or on a group's mesh.
 
 The split pair is what fault-tolerant training drives: gradients cross
 the replica axis through the Manager between ``grads`` and ``apply``. The
@@ -14,6 +14,17 @@ On a CUDA device each half runs as a captured CUDA graph
 static gradient tensors, and ``apply`` copies the (averaged) gradients into
 static ``.grad`` tensors and replays a captured AdamW step. ``graph=False``
 keeps the eager step; on the CPU the step is always eager.
+
+With a ``mesh`` (:func:`~torchft_tpu_torch.parallel.mesh.make_mesh`) the
+params, gradients and optimizer state are DTensors placed by the
+transformer's ``param_specs`` and the batch is sharded over ``("dp",
+"fsdp")`` (:meth:`TrainStep.shard_batch`). On the card's one-rank group
+the same DTensor code runs with every placement ``Replicate()``, and
+replays from CUDA graphs as the unsharded step does (:class:`StepGraphs`
+keys a DTensor by its local shard's address;
+``scripts/torch_mesh_graph_probe.py`` holds the capture bitwise to the
+eager step). A mesh of more than one rank runs eagerly: a capture there
+would hold the mesh's collectives, untried (ROADMAP).
 
 Both halves record their main-thread host time as the step-anatomy
 ``compute`` phase. The record wraps the replay (or the eager call), never
@@ -31,11 +42,18 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 
 import torch
 
-from torchft_tpu_torch.models.transformer import TransformerConfig, init_params, loss_fn
+from torchft_tpu_torch.models.transformer import (
+    TransformerConfig,
+    init_params,
+    loss_fn,
+    param_placements,
+    place_params,
+)
 from torchft_tpu_torch.ops import flash_attention as fa
 from torchft_tpu_torch.telemetry.anatomy import LEDGER
+from torchft_tpu_torch.parallel.mesh import P, from_full, is_dtensor, placements
 from torchft_tpu_torch.utils.platform import resolve_device
-from torchft_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_unflatten
+from torchft_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["TrainStep", "GraphedStep", "StepGraphs", "synchronize", "capture_quiesced"]
 
@@ -68,8 +86,13 @@ def capture_quiesced() -> Iterator[None]:
         yield
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (its storage); any other tensor itself."""
+    return t.to_local() if is_dtensor(t) else t
+
+
 def _ptrs(tensors: Sequence[torch.Tensor]) -> Tuple[int, ...]:
-    return tuple(t.data_ptr() for t in tensors)
+    return tuple(_local(t).data_ptr() for t in tensors)
 
 
 def _state_tensors(opt: torch.optim.Optimizer) -> List[torch.Tensor]:
@@ -156,7 +179,7 @@ class StepGraphs:
         caller.wait_stream(self._stream)
         for t in tree_leaves(eager):
             if isinstance(t, torch.Tensor):
-                t.record_stream(caller)
+                _local(t).record_stream(caller)
         self._fns[key] = _Graph(graph, static, outputs, list(reads), launches)
         self.captures["grads"] += 1
         return eager
@@ -235,21 +258,45 @@ class GraphedStep:
 
 
 class TrainStep(GraphedStep):
+    """The transformer's train step. ``mesh``: the group's mesh (``None``:
+    one device, ``device``); under a mesh the device is the mesh's, and a
+    mesh of more than one rank runs the step eagerly (``graph=True``
+    raises)."""
+
     def __init__(
         self,
         cfg: TransformerConfig,
         device: Union[str, torch.device] = "cuda",
         graph: Optional[bool] = None,
+        mesh: Any = None,
     ) -> None:
+        if mesh is not None:
+            device = mesh.device_type
+            if mesh.size() > 1:
+                if graph:
+                    raise ValueError(
+                        "graph=True on a mesh of more than one rank: the sharded step "
+                        "runs eagerly")
+                graph = False
         super().__init__(device, graph)
         self.cfg = cfg
+        self.mesh = mesh
+        # the params' placements, in leaf order (None without a mesh)
+        self.placements = None if mesh is None else param_placements(mesh)
 
     # -- state --
 
     def init_params(self, seed: int = 0) -> Dict[str, Any]:
-        return init_params(
-            self.cfg, torch.Generator().manual_seed(seed), device=self.device
-        )
+        """Seeded random params (every rank draws the whole tree and keeps
+        its shard of each leaf)."""
+        params = init_params(self.cfg, torch.Generator().manual_seed(seed), device=self.device)
+        return params if self.mesh is None else place_params(params, self.mesh)
+
+    def place(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """``params`` on this step's device, or placed on its mesh."""
+        if self.mesh is None:
+            return tree_map(lambda t: t.detach().to(self.device).clone(), params)
+        return place_params(params, self.mesh)
 
     def init_opt(self, params: Dict[str, Any]) -> torch.optim.AdamW:
         # optax.adamw(3e-4) with its defaults: b1=0.9, b2=0.999, eps=1e-8
@@ -262,19 +309,60 @@ class TrainStep(GraphedStep):
             weight_decay=1e-4, capturable=on_cuda, foreach=True if on_cuda else None,
         )
 
+    def warm_apply(self, opt: torch.optim.Optimizer, opt_state_spec: Dict[str, Any]) -> None:
+        """Build the optimizer's state ahead of its first update from the
+        shapes a heal is transferring (``opt_state_spec``, an
+        ``Optimizer.state_dict()`` with ``TensorSpec`` leaves, from the
+        transfer's header): every param whose state the sender has and
+        ``opt`` lacks gets zeroed tensors of its shape and placement, into
+        which the heal's state is then copied. The counterpart of the JAX
+        ``warm_apply``, which compiles the update from the same shapes."""
+        params = [p for group in opt.param_groups for p in group["params"]]
+        ids = [i for group in opt_state_spec["param_groups"] for i in group["params"]]
+        on_device = any(g.get("capturable") or g.get("fused") for g in opt.param_groups)
+        with torch.no_grad():
+            for i, p in zip(ids, params):
+                spec = opt_state_spec["state"].get(i)
+                if not spec or opt.state.get(p):
+                    continue
+                opt.state[p] = {
+                    k: (torch.zeros((), dtype=v.dtype,
+                                    device=p.device if on_device else "cpu")
+                        if k == "step" else torch.zeros_like(p))
+                    for k, v in spec.items()
+                }
+
+    def shard_batch(self, tokens: torch.Tensor) -> torch.Tensor:
+        """``tokens`` on this step's device; under a mesh a DTensor sharded
+        over ``("dp", "fsdp")``. Every rank of a group holds the group's
+        whole batch (one sampler) and keeps its rows."""
+        tokens = tokens.to(self.device)
+        if self.mesh is None:
+            return tokens
+        return from_full(tokens, self.mesh, placements(P(("dp", "fsdp"), "sp"), self.mesh))
+
     # -- drive --
 
     def grads(self, params: Dict[str, Any], tokens: torch.Tensor) -> Tuple[torch.Tensor, Any]:
-        """Loss and the gradient tree (same structure as ``params``). Graphed,
-        the gradients are the graph's static tensors: the next call
-        overwrites them."""
+        """Loss and the gradient tree (same structure as ``params``; under a
+        mesh DTensors with the params' placements). Graphed, the gradients
+        are the graph's static tensors: the next call overwrites them."""
         leaves, treedef = tree_flatten(params)
         for p in leaves:
             p.requires_grad_(True)
+        mesh = self.mesh
 
         def loss_and_grads(toks):
-            loss = loss_fn(params, toks, self.cfg)
-            return loss.detach(), list(torch.autograd.grad(loss, leaves))
+            if mesh is not None:
+                toks = self.shard_batch(toks)
+            loss = loss_fn(params, toks, self.cfg, mesh)
+            grads = list(torch.autograd.grad(loss, leaves))
+            if mesh is not None:
+                # partial sums over the batch axes reduce here (the dp
+                # all-reduce; fsdp's reduce-scatter ran in the backward)
+                grads = [g if g.placements == p.placements else g.redistribute(mesh, p.placements)
+                         for g, p in zip(grads, leaves)]
+            return loss.detach(), grads
 
         loss, grads = self._compute(loss_and_grads, leaves, [tokens])
         return loss, tree_unflatten(treedef, grads)
