@@ -132,10 +132,11 @@ Phases, each of which either passes or ends the run with a non-zero exit:
 14. the port's bench (``torchft_tpu_torch.bench``), shortened: the
    headline ``train_bench`` as one interleaved pair (2 warm-up + 10 timed
    steps each), ``benchmarks.long_context`` whole (the headline at S
-   32768, 16384, 8192 and 4096, and the 647M model), ``resnet_ft`` (2
-   reps), ``quorum_overlap`` and ``commit_pipeline`` (2 pairs each),
+   32768, 16384, 8192 and 4096, and the 647M model), ``resnet_ft`` (1
+   rep), ``quorum_overlap`` and ``commit_pipeline`` (1 pair each),
    ``diloco`` (4 worker processes, 2 outer steps), ``crossgroup
-   --compressed`` (128 MB, 1 round) and the 1-of-4 kill (four headline
+   --compressed`` (128 MB, 1 round), each in a lane of its own (the two
+   pairs in one), and the 1-of-4 kill (four headline
    workers) under phase 12's checks. Every row printed; no row errs; every
    transformer step commits with one capture of each graph, 2L/L/L flash
    launches a step (L/L/L for the 647M model, without remat) and 0 <
@@ -276,6 +277,27 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    this width do not fit the card beside each other; the worker is
    ``chip_smoke.py --hsdp-llama``): one checksum, finite losses, 8/4/4
    launches a step, each group's peak device memory printed.
+22. pipeline and sequence parallelism and chunked attention. (a), right
+   after phase 4: the headline's ``TrainStep.grads`` with
+   ``attention_impl="chunked"`` (chunk 128, 4 tiers: the JAX package's
+   picks at S 1024), eagerly and replayed from a CUDA graph, against the
+   ``"plain"`` arm from the same params and tokens: the loss within
+   phase 9's 1e-2, each gradient leaf within 2^-5 of plain's in norm, the
+   replay bitwise equal to eager, no flash launch; ``"auto"`` still
+   launching K1-K3 16/8/8 a step; each arm's call timed (chunked, flash
+   and plain, graphed and eager). (b) chunked attention alone at B1
+   S32768 H8 D64 bf16 (16 tiers, chunk 128), forward and backward,
+   against float32 attention from the kernels' plain versions by query
+   chunks (CHUNKED_LONG_BAR) and against the flash op (CHUNKED_OP_BAR);
+   its time and peak memory beside the op's. (c), beside phase 2 (whose
+   checks time nothing):
+   the tiny preset at pp 2 (two microbatches, ``loss_fn`` through
+   ``parallel.pipeline``) and at sp 2 (ring attention), two gloo
+   processes each on the host's CPU (``device="cpu"`` asked for: NCCL
+   refuses two ranks on one card; the workers are ``chip_smoke.py
+   --mesh-worker``): the pp 2 loss equals one stage's to rtol 1e-5, ring
+   attention equals plain attention to 2e-5, the gradients to 2e-5, the
+   wall within MESH_WALL_S.
 
 Phases 4-18 and 21 replay each train step from CUDA graphs (phase 4's and
 phase 9's eager arms and phase 21's leg (b) aside); every group's graphs
@@ -2474,8 +2496,8 @@ def phase_bench(joint_ms):
     of its own where ``bench.main`` runs it in one: the headline
     ``train_bench`` as one interleaved pair (averaging, then not), 2 warm-up
     and 10 timed steps each; ``long_context.run()`` whole (S 32768, 16384,
-    8192, 4096 and the 647M model); ``resnet_ft`` with 2 reps;
-    ``quorum_overlap`` and ``commit_pipeline`` with 2 pairs; ``diloco``
+    8192, 4096 and the 647M model); ``resnet_ft`` with 1 rep;
+    ``quorum_overlap`` and ``commit_pipeline`` with 1 pair; ``diloco``
     with 2 outer steps; ``crossgroup --compressed`` at 128 MB, 1 round (the
     subprocess rows in lanes beside each other); and the 1-of-4 kill
     (``recovery_1of4``) under phase 12's checks. Prints
@@ -2511,19 +2533,18 @@ def phase_bench(joint_ms):
             mfu_pct=bench.mfu_pct(sps, flops, peak), n_params=n_params, **rec)
     rows["step_anatomy"] = bench.step_anatomy_row()
     rows["telemetry"] = telemetry.summary()
-    # three lanes at once, to keep the script's wall near 420 s: the rows
-    # that load the card (long context, ResNet) in this thread; the two
-    # host-only rows (threads that sleep for the forward) in one process
-    # each; the small device rows (DiLoCo's MLP, the int8 wire) in turn in
-    # a third. Their times contend for the host's cores: the bench proper
-    # runs each alone, and nothing here holds a time
+    # the subprocess rows at once, one lane each (the two host-only rows,
+    # threads that sleep for the forward, share one), to keep the script
+    # within its limit; long context, the heaviest on the card, runs in
+    # this thread. Their times contend for the card and the host's cores:
+    # the bench proper runs each alone, and nothing here holds a time
     lanes = [
-        [("long_context", bench._module("long_context"), 900),
-         ("resnet18_cifar", bench._module("resnet_ft", "--reps", "2"), 600)],
-        [("quorum_overlap", bench._module("quorum_overlap", "--runs", "2"), 300)],
-        [("commit_pipeline", bench._module("commit_pipeline", "--runs", "2"), 300)],
-        [("diloco_4group", bench._module("diloco", "--outer-steps", "2"), 300),
-         ("crossgroup_compressed", bench._module("crossgroup", "--compressed", "--total-mb",
+        [("long_context", bench._module("long_context"), 900)],
+        [("resnet18_cifar", bench._module("resnet_ft", "--reps", "1"), 600)],
+        [("quorum_overlap", bench._module("quorum_overlap", "--runs", "1"), 300),
+         ("commit_pipeline", bench._module("commit_pipeline", "--runs", "1"), 300)],
+        [("diloco_4group", bench._module("diloco", "--outer-steps", "2"), 300)],
+        [("crossgroup_compressed", bench._module("crossgroup", "--compressed", "--total-mb",
                                                  "128", "--rounds", "1"), 600)],
     ]
 
@@ -4237,12 +4258,348 @@ def phase_hsdp():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: chunked attention on the card; pp and sp on gloo
+# ---------------------------------------------------------------------------
+
+# (a): the JAX package's picks at S 1024 (``_attn_chunk``, ``chunked_attention``)
+CHUNKED_CHUNK, CHUNKED_TIERS = 128, 4
+# gradients of the chunked arm against the plain arm, each leaf's
+# ||g - ref|| / ||ref||: bf16 products summed in another order (a few ulps,
+# 2^-8 each) compounded through 8 layers, with a 4x margin; a dropped tier
+# or a wrong mask moves a leaf by O(1)
+CHUNKED_GRAD_REL = 2.0 ** -5
+CHUNKED_LOSS_TOL = 1e-2  # phase 9's bar for the kernels' loss against plain attention's
+CHUNKED_TIMED_STEPS = 5
+# (b): attention alone at the long-context bench's longest length, the JAX
+# picks there (16 tiers, chunk 128; the JAX code picks 256 at S 16384 only)
+CHUNKED_LONG = dict(batch=1, seq=32768, heads=8, head_dim=64, chunk=128, tiers=16)
+# K1-K3 at that shape by CUDA graph, warm (phase 3 on an NVIDIA H100 80GB
+# HBM3 at 700 W, PERF.md section 6): printed beside, not re-run
+K123_LONG_MS = (3.6976, 4.1580, 5.3507)
+# (b)'s bars, elementwise as KERNEL_BAR. Chunked attention keeps the JAX
+# reference's numerics: the scores are rounded to bf16 before the float32
+# softmax (the kernels keep them in float32). A logit's rounding, up to
+# 2^-6 at the largest |q.k| scaled, moves P by as much, 4 times the
+# kernels' rounding: 2^-4 of the row scale against float32 attention (the
+# kernels' plain versions in float32, by query chunks). Against the flash
+# op, whose own dQ in the first causal rows is off by its delta from bf16 O
+# (OP_BAR's note), twice that.
+CHUNKED_LONG_BAR = dict(rtol=2.0 ** -4, atol=1e-5, row_scaled=True)
+CHUNKED_OP_BAR = dict(rtol=2.0 ** -3, atol=1e-5, row_scaled=True)
+MESH_WALL_S = 120.0  # (c): both pairs of gloo processes, start-up included
+MESH_TINY = dict(vocab_size=64, d_model=16, n_layers=2, n_heads=2, head_dim=8, d_ff=32)
+
+
+def _grads_of(ts, params, tokens):
+    loss, grads = ts.grads(params, tokens)
+    from torchft_tpu_torch.utils.tree import tree_leaves
+
+    return float(loss), [g.detach().clone() for g in tree_leaves(grads)]
+
+
+def _grad_rel(got, ref):
+    """The worst leaf's ||got - ref|| / ||ref||."""
+    return max(float((a - b).norm() / b.norm().clamp_min(1e-30)) for a, b in zip(got, ref))
+
+
+def _time_grads(ts, params, tokens, steps=CHUNKED_TIMED_STEPS):
+    """ms per ``TrainStep.grads`` call (the host clock around ``steps``
+    calls after a warm one, the card synchronised at both ends)."""
+    ts.grads(params, tokens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        ts.grads(params, tokens)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3
+
+
+def _chunked_headline():
+    """Phase 22 (a): the headline's loss and gradients with
+    ``attention_impl="chunked"`` (chunk 128, 4 tiers), eagerly and from a
+    CUDA graph, against the ``"plain"`` arm from the same params and
+    tokens; ``"auto"`` still launching K1-K3 16/8/8 a step; each arm's
+    step timed."""
+    from torchft_tpu_torch.models import transformer as T
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.parallel.train_step import TrainStep
+
+    base = headline_config()
+    batch, seq = HEADLINE["batch"], HEADLINE["seq"]
+    arm = {impl: dataclasses.replace(base, attention_impl=impl)
+           for impl in ("chunked", "plain", "auto", "flash")}
+    check(T._use_chunked(arm["chunked"], seq) and T._attn_chunk(seq) == CHUNKED_CHUNK
+          and T._attn_tiers() is None,
+          "attention_impl='chunked' does not take chunk 128 and the default tiers at S 1024")
+    check(T._use_flash(arm["auto"], seq, torch.device("cuda")),
+          "attention_impl='auto' no longer routes the headline to the kernels")
+    params = TrainStep(base, device="cuda", graph=False).init_params(seed=0)
+    tokens = make_tokens(base, 0, batch, seq)
+    plain_loss, plain_grads = _grads_of(TrainStep(arm["plain"], graph=False), params, tokens)
+
+    fa.reset_launches()
+    eager = TrainStep(arm["chunked"], graph=False)
+    c_loss, c_grads = _grads_of(eager, params, tokens)
+    check(not any(fa.LAUNCHES.values()), f"the chunked arm launched flash kernels: "
+                                         f"{dict(fa.LAUNCHES)}")
+    graphed = TrainStep(arm["chunked"], graph=True)
+    _grads_of(graphed, params, tokens)  # the warm-up and the capture
+    g_loss, g_grads = _grads_of(graphed, params, tokens)  # a replay
+    same = g_loss == c_loss and all(torch.equal(a, b) for a, b in zip(g_grads, c_grads))
+    fa.reset_launches()
+    a_loss, a_grads = _grads_of(TrainStep(arm["auto"], graph=False), params, tokens)
+    auto_launches = dict(fa.LAUNCHES)
+    rel = {"chunked eager": _grad_rel(c_grads, plain_grads),
+           "chunked graphed": _grad_rel(g_grads, plain_grads),
+           "auto (K1-K3)": _grad_rel(a_grads, plain_grads)}
+    log(f"chunked (a) headline d512 L8 h8 ff1408 vocab 32000 bf16, B{batch} x S{seq}, "
+        f"chunk {CHUNKED_CHUNK}, {CHUNKED_TIERS} tiers: loss eager {c_loss:.6f}, graphed "
+        f"{g_loss:.6f}, plain {plain_loss:.6f}, auto (K1-K3) {a_loss:.6f}; |loss - plain| "
+        f"chunked {abs(c_loss - plain_loss):.3e}, auto {abs(a_loss - plain_loss):.3e} (tol "
+        f"{CHUNKED_LOSS_TOL:g}); worst leaf ||g - plain|| / ||plain||: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+        + f" (bar {CHUNKED_GRAD_REL:.4g} for the chunked arms); graphed replay equal to "
+        f"eager bitwise: {same}; auto's flash launches per step {auto_launches}")
+    check(abs(c_loss - plain_loss) <= CHUNKED_LOSS_TOL, "chunked: the loss disagrees with plain")
+    check(rel["chunked eager"] <= CHUNKED_GRAD_REL and rel["chunked graphed"] <= CHUNKED_GRAD_REL,
+          "chunked: the gradients disagree with plain attention's")
+    check(same, "chunked: the graphed step disagrees with the eager step (bar: bit for bit)")
+    check(auto_launches == _launches_per_step(base),
+          f"auto: flash launches per step {auto_launches} != {_launches_per_step(base)}")
+    del c_grads, g_grads, a_grads, plain_grads
+    ms = {"chunked, graphed": _time_grads(graphed, params, tokens),
+          "chunked, eager": _time_grads(eager, params, tokens)}
+    del graphed
+    for name, impl, graph in (("flash (K1-K3), graphed", "flash", True),
+                              ("flash (K1-K3), eager", "flash", False),
+                              ("plain, graphed", "plain", True)):
+        ts = TrainStep(arm[impl], graph=graph)
+        ms[name] = _time_grads(ts, params, tokens)
+        del ts
+        gc.collect()
+    log("chunked (a) headline forward+backward (TrainStep.grads, host clock over "
+        f"{CHUNKED_TIMED_STEPS} calls): " + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+    return ms
+
+
+def _attention_f32_by_chunks(q, k, v, do, chunk=LONG_PLAIN_CHUNK):
+    """Causal attention's output and gradients in float32 from the kernels'
+    plain versions (``fa.*_plain``, code apart from chunked attention's),
+    over query chunks of ``chunk`` rows: packed [BH, S, D] tensors."""
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    pq, pk, pv, pdo = (_pack(x).float() for x in (q, k, v, do))
+    s = pq.shape[1]
+    rows = [(r0, min(s, r0 + chunk)) for r0 in range(0, s, chunk)]
+    o, lse = (torch.cat(x, dim=1) for x in zip(*(fa.fwd_plain(pq, pk, pv, True, rows=r)
+                                                 for r in rows)))
+    delta = (pdo * o).sum(-1)
+    dq = torch.cat([fa.dq_plain(pq, pk, pv, pdo, lse, delta, True, rows=r) for r in rows], dim=1)
+    dk = dv = 0
+    for r in rows:
+        dk_r, dv_r = fa.dkv_plain(pq, pk, pv, pdo, lse, delta, True, rows=r)
+        dk, dv = dk + dk_r, dv + dv_r
+    return o, dq, dk, dv
+
+
+def _chunked_long():
+    """Phase 22 (b): chunked attention alone at B1 S32768 H8 D64 bf16 (16
+    tiers, chunk 128), forward and backward, held against float32 attention
+    from the kernels' plain versions at ``CHUNKED_LONG_BAR`` and against the
+    flash op at ``CHUNKED_OP_BAR``; its time and peak memory beside the
+    op's."""
+    from torchft_tpu_torch.ops.attention import chunked_attention
+
+    c = CHUNKED_LONG
+    q, k, v, do = _qkv(c["batch"], c["seq"], c["heads"], c["head_dim"], torch.bfloat16,
+                       seed=70)
+
+    def chunked():
+        qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        o = chunked_attention(qs, ks, vs, causal=True, chunk=c["chunk"], tiers=c["tiers"])
+        o.backward(do)
+        return o.detach(), qs.grad, ks.grad, vs.grad
+
+    def flash():
+        return _op_grads(q, k, v, do, True)
+
+    peak, outs = {}, {}
+    for name, fn in (("chunked", chunked), ("flash op", flash)):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        outs[name] = [_pack(x) for x in fn()]
+        torch.cuda.synchronize()
+        peak[name] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    ref = _attention_f32_by_chunks(q, k, v, do)
+    tag = (f"chunked (b) b{c['batch']} s{c['seq']} h{c['heads']} d{c['head_dim']} bf16, "
+           f"{c['tiers']} tiers of chunk {c['chunk']}")
+    for i, what in enumerate(("O", "dq", "dk", "dv")):
+        got, op, exact = outs["chunked"][i], outs["flash op"][i], ref[i]
+        _hold(f"{tag} {what}", got, exact, "float32 attention (the plain versions)",
+              **CHUNKED_LONG_BAR)
+        _hold(f"{tag} {what}", got, op, "the flash op", **CHUNKED_OP_BAR)
+        err, worst, _, _ = _errs(op, exact, **CHUNKED_LONG_BAR)
+        log(f"{tag} {what}, yardstick: the flash op against float32 attention max|err|="
+            f"{err:.3e} worst err/bar={worst:.3f} at the first bar")
+    del outs, ref
+    ms = {"chunked": gpu_time_ms(chunked, reps=3, inner=1),
+          "flash op": gpu_time_ms(flash, reps=3, inner=1)}
+    log(f"{tag}: forward+backward {ms['chunked']:.3f} ms, peak {peak['chunked']:.3f} GB above "
+        f"the inputs; the flash op (K1-K3 and its packing) {ms['flash op']:.3f} ms, peak "
+        f"{peak['flash op']:.3f} GB; K1 / K2 / K3 alone by CUDA graph "
+        f"{' / '.join(f'{x:.4f}' for x in K123_LONG_MS)} ms (PERF.md section 6, not re-run)")
+    return ms, peak
+
+
+def phase_chunked():
+    """Phase 22 (a) and (b) on the card."""
+    t0 = time.perf_counter()
+    out = {"headline_ms": _chunked_headline()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["long_ms"], out["long_peak_gb"] = _chunked_long()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"chunked: phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _mesh_worker(mode, rank, world, port, outdir) -> None:
+    """``chip_smoke.py --mesh-worker MODE RANK WORLD PORT DIR``: one gloo
+    rank of phase 22 (c) on the host's CPU (``device="cpu"`` asked for:
+    NCCL refuses two ranks on one card). ``pp``: the tiny preset at pp 2
+    (two microbatches) through ``loss_fn`` against the same weights as one
+    stage, unsharded, loss and gradients; ``sp``: ``ring_attention`` over
+    sp 2 against plain attention, output and gradients, and the tiny
+    preset's loss at sp 2 against the unsharded loss. Rank 0 writes
+    ``DIR/<mode>.json``."""
+    import torch.distributed as dist
+
+    from torchft_tpu_torch.models import transformer as T
+    from torchft_tpu_torch.ops.attention import attention, ring_attention
+    from torchft_tpu_torch.parallel.mesh import MeshConfig, P, make_mesh, place, placements
+    from torchft_tpu_torch.utils.tree import tree_leaves
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = make_mesh(MeshConfig(**{mode: 2}), "cpu")
+        pp = 2 if mode == "pp" else 1
+        cfg = T.TransformerConfig(**MESH_TINY, dtype=torch.float32, pp=pp)
+        params = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+        one = dict(params, layers={k: v.reshape(1, -1, *v.shape[2:])
+                                   for k, v in params["layers"].items()})
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 64, (8, 16)))
+
+        def loss_and_grads(p, toks, c, m):
+            leaves = tree_leaves(p)
+            for x in leaves:
+                x.requires_grad_(True)
+            loss = T.loss_fn(p, toks, c, m)
+            grads = torch.autograd.grad(loss, leaves)
+            return float(loss), [g.full_tensor() if m is not None else g for g in grads]
+
+        sharded = place(tokens, mesh, placements(P(("dp", "fsdp"), "sp"), mesh))
+        loss, grads = loss_and_grads(T.place_params(params, mesh), sharded, cfg, mesh)
+        ref_loss, ref_grads = loss_and_grads(one, tokens, dataclasses.replace(cfg, pp=1), None)
+        res = {"loss": loss, "ref_loss": ref_loss,
+               "grad_err": max(float((a.reshape(b.shape) - b).abs().max())
+                               for a, b in zip(grads, ref_grads))}
+        if mode == "sp":
+            g = torch.Generator().manual_seed(1)
+            q, k, v, w = (torch.randn(2, 16, 2, 8, generator=g) for _ in range(4))
+            qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            out = ring_attention(*qkv, mesh).full_tensor()
+            (out * w).sum().backward()
+            ring_grads = []
+            for x in qkv:
+                dist.all_reduce(x.grad)
+                ring_grads.append(x.grad)
+            plain_qkv = [x.clone().requires_grad_(True) for x in (q, k, v)]
+            ref = attention(*plain_qkv)
+            (ref * w).sum().backward()
+            res["ring_err"] = float((out - ref).abs().max())
+            res["ring_grad_err"] = max(float((a - b.grad).abs().max())
+                                       for a, b in zip(ring_grads, plain_qkv))
+        if rank == 0:
+            with open(os.path.join(outdir, f"{mode}.json"), "w") as f:
+                json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_mesh():
+    """Phase 22 (c): pp 2 and sp 2 at the tiny preset, two gloo processes
+    each on the host's CPU, both pairs at once. Holds the pp 2 loss to the
+    one-stage loss (rtol 1e-5) and ring attention to plain attention (atol
+    2e-5), their gradients at 2e-5, and the phase's wall to MESH_WALL_S."""
+    import socket
+    import tempfile
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tft_torch_mesh_")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    procs = []
+    for mode in ("pp", "sp"):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        for rank in range(2):
+            err = open(os.path.join(tmp, f"{mode}_r{rank}.stderr"), "wb")
+            procs.append((mode, err, subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-worker", mode, str(rank),
+                 "2", str(port), tmp], env=env, stdout=subprocess.DEVNULL, stderr=err)))
+    try:
+        rcs = [p.wait(timeout=max(1.0, MESH_WALL_S - (time.perf_counter() - t0)))
+               for _, _, p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = None
+    finally:
+        for _, err, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            err.close()
+    wall = time.perf_counter() - t0
+    if rcs is None or any(rcs):
+        tails = [open(e.name, errors="replace").read()[-1500:] for _, e, _ in procs]
+        fail(f"mesh (c): workers exited {rcs} after {wall:.1f} s: " + "\n---\n".join(tails))
+    res = {m: json.load(open(os.path.join(tmp, f"{m}.json"))) for m in ("pp", "sp")}
+    pp, sp = res["pp"], res["sp"]
+    log("mesh (c): pp 2 and sp 2 at the tiny preset in two gloo processes each on the host's "
+        "CPU (device='cpu' asked for: NCCL refuses two ranks on one card)")
+    log(f"mesh (c) pp 2, 2 microbatches: loss {pp['loss']:.7f} against one stage "
+        f"{pp['ref_loss']:.7f} (rtol 1e-5); worst gradient |diff| {pp['grad_err']:.3e} (atol "
+        "2e-5)")
+    log(f"mesh (c) sp 2: ring attention against plain: output |diff| {sp['ring_err']:.3e}, "
+        f"gradients {sp['ring_grad_err']:.3e} (atol 2e-5); the tiny preset's loss "
+        f"{sp['loss']:.7f} against unsharded {sp['ref_loss']:.7f}, worst gradient |diff| "
+        f"{sp['grad_err']:.3e}; phase wall {wall:.1f} s (bound {MESH_WALL_S:.0f} s)")
+    for name, r in res.items():
+        check(abs(r["loss"] - r["ref_loss"]) <= 1e-5 * abs(r["ref_loss"]),
+              f"mesh (c) {name}: the loss disagrees with the unsharded loss")
+        check(r["grad_err"] <= 2e-5, f"mesh (c) {name}: the gradients disagree")
+    check(sp["ring_err"] <= 2e-5 and sp["ring_grad_err"] <= 2e-5,
+          "mesh (c): ring attention disagrees with plain attention")
+    check(wall <= MESH_WALL_S, f"mesh (c): the phase took {wall:.1f} s")
+    return res
+
+
 def main() -> None:
     if sys.argv[1:2] == ["--watchdog-probe"]:
         _watchdog_probe(sys.argv[2])
         return
     if sys.argv[1:2] == ["--hsdp-llama"]:
         _hsdp_llama_worker()
+        return
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        mode, rank, world, port, outdir = sys.argv[2:7]
+        _mesh_worker(mode, int(rank), int(world), int(port), outdir)
         return
     started = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4280,9 +4637,19 @@ def main() -> None:
             log(f"ptxas | {line.strip()}")
     check_no_spills(build_log)
 
-    errs = phase_kernels()
-    errs.update(phase_small_kernels())
-    errs.update(phase_long_kernels())
+    def at(name):
+        log(f"-- {name} at {time.perf_counter() - started:.1f} s")
+
+    # phase 22 (c) (gloo processes on the host's CPU) beside phase 2, whose
+    # checks time nothing and leave the host's cores idle
+    at("phases 2 and 22 (c)")
+    with ThreadPoolExecutor(max_workers=1) as side:
+        mesh = side.submit(phase_mesh)
+        errs = phase_kernels()
+        errs.update(phase_small_kernels())
+        errs.update(phase_long_kernels())
+        mesh.result()
+    at("phase 3")
     small_timing = {(d, tag): phase_timing(_shape(dict(TINY, head_dim=d)), dtype=dt)
                     for d in (8, 16)
                     for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))}
@@ -4291,29 +4658,43 @@ def main() -> None:
               LONG_WHOLE["seq"]: phase_timing(_shape(LONG_WHOLE), plain_reps=5),
               LONG["seq"]: phase_timing(_shape(LONG), plain_chunk=LONG_PLAIN_CHUNK,
                                         plain_reps=3)}
+    at("phase 4")
     launches = {64: phase_ft_loop()}
     phase_remat()
+    at("phase 22 (a) and (b)")
+    phase_chunked()
+    at("phases 5-8")
     tcp_groups = phase_two_groups()
     phase_diloco()
     phase_pipeline()
     phase_device_groups(tcp_groups)
+    at("phase 9")
     launches[128] = phase_llama()
     # phase 10: phase 8 at train_bytes' model (head dim 32)
     launches[32] = phase_two_groups(plane="device", transport="collectives", own_streams=True,
                                     cfg=bytes_config(), shape=BYTES)["launches"]
+    at("phase 11")
     phase_resnet()
+    at("phase 12")
     # phase 12 on the Python ring, so its numbers compare with earlier runs
     recovery_launches = phase_recovery(tcp_groups["joint_ms"], {"TORCHFT_NATIVE_PLANE": "0"})
+    at("phase 13")
     wire_launches = phase_wire_plane(tcp_groups["joint_ms"])
+    at("phase 14")
     long_rows = phase_bench(tcp_groups["joint_ms"])
+    at("phase 15")
     heal_launches = phase_heal_plane(tcp_groups["joint_ms"])
+    at("phase 16")
     phase_observability()
+    at("phase 17")
     fleet_launches = phase_fleet()
+    at("phase 18")
     forensics_launches = phase_forensics()
     # phases 19, 20 and 21 run at once: each is worker processes that
     # mostly start up (import torch, CUDA, the first capture) and run tiny
     # steps (phase 21's Llama width aside), and none checks a time but its
     # own wall; phase 20's timed proxy steps wait for phases 19 and 21 to end
+    at("phases 19-21")
     fault_done = threading.Event()
     with ThreadPoolExecutor(max_workers=2) as pool:
         deploy = pool.submit(phase_deployment, tcp_groups["joint_ms"], fault_done)

@@ -12,9 +12,13 @@
 * The cross-read, both ways: a directory the JAX ``DiskCheckpointer``
   wrote (numpy trees) restores in the port with equal arrays and manager
   state, and the reverse; generations continue across the packages.
-* The port's own: a complete set of more than one per-process file raises
-  (its sharded leaves wait for ROADMAP queue 1 item 5), and tensor trees
-  (params and Adam state) round-trip exactly.
+* Per-process sets (``tests/test_checkpointing.py::test_disk_checkpointer_per_process_merge``):
+  two files as a two-host JAX group writes them, each holding half the
+  shards of one leaf, are merged by either package's restore; a complete set
+  whose files disagree on the tree's structure raises rather than pools;
+  an (fsdp 2) group of two gloo processes writes its own set, restores it
+  bit for bit, and the JAX package restores the same set.
+* The port's own: tensor trees (params and Adam state) round-trip exactly.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from torchft_tpu.checkpointing import disk as JD
 from torchft_tpu.checkpointing import serialization as JSer
 from torchft_tpu_torch.checkpointing import disk as PD
 from torchft_tpu_torch.checkpointing import serialization as PSer
+
+from torch_mesh_worker import spawn
 
 PACKAGES = {"port": (PD, PSer), "jax": (JD, JSer)}
 
@@ -141,15 +147,97 @@ def test_incomplete_proc_set_not_restorable(tmp_path, pkg):
 
 
 def test_complete_multi_file_proc_set_raises(tmp_path):
+    """A complete set of two files restores (a replicated leaf from the
+    first file); a set whose files disagree on the tree's structure raises
+    and restores nothing."""
     for pidx in (0, 1):
         with open(tmp_path / f"g0_step5.proc{pidx}of2.ckpt", "wb") as f:
             PSer.save_state({"torchft": {"step": 5, "batches_committed": 10},
-                             "user": {"w": np.zeros(2, np.float32)}}, f)
-    ck = PD.DiskCheckpointer(str(tmp_path), _ManagerStub(), state_dict=dict,
-                             load_state_dict=lambda s: None, tag="g0")
+                             "user": {"w": np.full(2, pidx, np.float32)}}, f)
+    mgr, got = _ManagerStub(), {}
+    ck = PD.DiskCheckpointer(str(tmp_path), mgr, state_dict=dict,
+                             load_state_dict=lambda s: got.update(s), tag="g0")
     assert ck.latest() == str(tmp_path / "g0_step5.proc0of2.ckpt")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+    assert ck.restore() and mgr.step == 5
+    np.testing.assert_array_equal(got["w"], 0.0)
+    with open(tmp_path / "g0_step7.proc1of2.ckpt", "wb") as f:
+        PSer.save_state({"torchft": {"step": 7, "batches_committed": 14},
+                         "user": {"w": np.zeros(2, np.float32)}}, f)
+    with open(tmp_path / "g0_step7.proc0of2.ckpt", "wb") as f:
+        PSer.save_state({"torchft": {"step": 7, "batches_committed": 14},
+                         "user": {"v": np.zeros(2, np.float32)}}, f)
+    mgr = _ManagerStub()
+    ck = PD.DiskCheckpointer(str(tmp_path), mgr, state_dict=dict,
+                             load_state_dict=lambda s: None, tag="g0")
+    with pytest.raises(ValueError, match="disagree on tree structure"):
         ck.restore()
+    assert mgr.step == 0
+
+
+def _jax_proc_set(tmp_path, full):
+    """The per-process set a two-host JAX group writes for an (8, 4) leaf
+    sharded over ('x',) of 4 devices, two a host: the JAX package's own
+    ``"shards"`` encoding of the leaf (``flatten_state`` on the virtual
+    mesh), each file holding its host's two shards."""
+    import pickle
+
+    import jax
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec
+
+    mesh = Mesh(np.array(jax.devices()[:4]), ("x",))
+    arr = jax.device_put(full, NamedSharding(mesh, PartitionSpec("x")))
+    header, buffers = JSer.flatten_state({"torchft": {"step": 5, "batches_committed": 10},
+                                          "user": {"w": arr}})
+    treedef, infos = pickle.loads(header)
+    (i, info), = [(i, x) for i, x in enumerate(infos) if x[0] == "shards"]
+    meta = info[5]
+    assert [idx[0] for idx, _ in meta] == [(0, 2), (2, 4), (4, 6), (6, 8)]
+    for pidx in (0, 1):
+        mine = slice(2 * pidx, 2 * pidx + 2)
+        own = list(infos)
+        own[i] = info[:5] + (meta[mine],)
+        with open(tmp_path / f"g0_step5.proc{pidx}of2.ckpt", "wb") as f:
+            head = pickle.dumps((treedef, own))
+            f.write(JSer._LEN.pack(len(head)) + head)
+            for buf in buffers[mine]:
+                f.write(JSer.as_bytes(buf))
+
+
+@pytest.mark.parametrize("pkg", sorted(PACKAGES))
+def test_per_process_merge(tmp_path, pkg):
+    """Two hosts' files each hold half the shards of an (8, 4) leaf (the
+    JAX test's layout, as the JAX package writes it); restore pools them,
+    so the whole array is recoverable, in either package."""
+    disk, ser = PACKAGES[pkg]
+    full = np.arange(32, dtype=np.float32).reshape(8, 4)
+    _jax_proc_set(tmp_path, full)
+    assert all(disk._NAME.match(name) for name in _names(tmp_path))
+    mgr, got = _ManagerStub(), {}
+    ck = disk.DiskCheckpointer(str(tmp_path), mgr, state_dict=dict,
+                               load_state_dict=lambda s: got.update(s), tag="g0")
+    assert ck.restore() is True and mgr.step == 5
+    merged = got["w"]
+    assert isinstance(merged, ser.ShardedArray)
+    assert len(merged.shards) == 4  # both halves pooled
+    np.testing.assert_array_equal(np.asarray(merged.full()), full)
+
+
+def test_sharded_group_writes_and_restores_its_set(tmp_path):
+    """An (fsdp 2) group in two gloo processes: each process writes its own
+    ``proc<I>of2`` file, a fresh checkpointer restores the set and the
+    rebuilt DTensors equal the saved ones bit for bit (in the workers);
+    the JAX ``DiskCheckpointer`` restores the same set to the same arrays."""
+    spawn("disk", 2, tmp_path, {"mesh": {"fsdp": 2}}, timeout=60)
+    assert _names(tmp_path) == ["g0_step3.proc0of2.ckpt", "g0_step3.proc1of2.ckpt"]
+    mgr, got = _ManagerStub(), {}
+    assert JD.DiskCheckpointer(str(tmp_path), mgr, state_dict=dict,
+                               load_state_dict=lambda s: got.update(s), tag="g0").restore()
+    assert mgr.step == 3 and mgr.batches == 6
+    with np.load(tmp_path / "full.npz") as want:
+        for key in ("w", "b"):
+            assert isinstance(got[key], JSer.ShardedArray)
+            np.testing.assert_array_equal(got[key].full(), want[key])
+    assert got["lr"] == np.float32(0.5)
 
 
 @pytest.mark.parametrize("pkg", sorted(PACKAGES))

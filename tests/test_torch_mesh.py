@@ -3,7 +3,8 @@ CPU mesh: the same params (the JAX init, carried across with
 ``params_from_jax``) and tokens, through the JAX ``TrainStep`` on a mesh of
 four virtual devices and through the port's ``TrainStep`` on a DTensor mesh
 of four gloo processes (``tests/torch_mesh_worker.py``), with ``CFG`` of
-``tests/test_hsdp.py``. Also the one-rank mesh a group on one card runs.
+``tests/test_hsdp.py``, at pp 2 with two microbatches where the mesh has
+pp 2. Also the one-rank mesh a group on one card runs.
 
 Bars: those of ``tests/test_torch_transformer.py`` (float32 end to end):
 the loss to rtol 1e-5, the gathered gradients to atol 2e-5, and the params
@@ -44,12 +45,18 @@ def _save_tree(path, tree, prefix=""):
     return flat
 
 
+def _cfg(mesh_sizes):
+    """CFG at the mesh's pipeline depth."""
+    return dict(CFG, pp=mesh_sizes.get("pp", 1))
+
+
 def _jax_step(mesh_sizes, tokens):
     """Loss, gradients and params after one optax.adamw(3e-4) step of the
     JAX TrainStep on the virtual mesh; the params it started from."""
     n = int(np.prod(list(mesh_sizes.values()))) if mesh_sizes else 1
     mesh = jmake_mesh(JMeshConfig(**mesh_sizes), devices=jax.devices()[:n])
-    ts = JTrainStep(TransformerConfig(**CFG, dtype=jnp.float32), optax.adamw(3e-4), mesh)
+    ts = JTrainStep(TransformerConfig(**_cfg(mesh_sizes), dtype=jnp.float32), optax.adamw(3e-4),
+                    mesh)
     params = ts.init_params(jax.random.PRNGKey(0))
     np_params = jax.tree_util.tree_map(np.asarray, params)
     toks = ts.shard_batch(jnp.asarray(tokens))
@@ -62,8 +69,12 @@ def _jax_step(mesh_sizes, tokens):
 
 @pytest.mark.parametrize("mesh_sizes,chunk", [(dict(fsdp=2, tp=2), None),
                                               (dict(dp=2, tp=2), None), ({}, None),
-                                              (dict(fsdp=2, tp=2), "64")],
-                         ids=["fsdp2-tp2", "dp2-tp2", "one-rank", "fsdp2-tp2-chunked-loss"])
+                                              (dict(fsdp=2, tp=2), "64"),
+                                              (dict(sp=2, tp=2), None),
+                                              (dict(fsdp=2, pp=2), None),
+                                              (dict(pp=2, sp=2), None)],
+                         ids=["fsdp2-tp2", "dp2-tp2", "one-rank", "fsdp2-tp2-chunked-loss",
+                              "sp2-tp2", "pp2-fsdp2", "pp2-sp2"])
 def test_sharded_step_matches_jax_train_step(tmp_path, monkeypatch, mesh_sizes, chunk):
     """``chunk``: the logit budget of both packages' loss heads
     (``TORCHFT_TPU_LOSS_CHUNK_ELEMS``, read by the workers too), small
@@ -75,7 +86,7 @@ def test_sharded_step_matches_jax_train_step(tmp_path, monkeypatch, mesh_sizes, 
     _save_tree(tmp_path / "params.npz", np_params)
     np.save(tmp_path / "tokens.npy", tokens)
     world = int(np.prod(list(mesh_sizes.values()))) if mesh_sizes else 1
-    spawn("step", world, tmp_path, {"mesh": mesh_sizes, "cfg": CFG}, timeout=60)
+    spawn("step", world, tmp_path, {"mesh": mesh_sizes, "cfg": _cfg(mesh_sizes)}, timeout=60)
     out = np.load(tmp_path / "out.npz")
     np.testing.assert_allclose(float(out["loss"]), jl, rtol=1e-5)
     for i, (g, p) in enumerate(zip(jg, jnew)):
@@ -106,16 +117,25 @@ def test_mesh_config_and_axes_match_jax():
 
 
 def test_unported_axes_raise_naming_roadmap():
-    """pp, sp and ep above 1 raise, naming their ROADMAP items (5, 7, 8);
+    """ep above 1 raises, naming its ROADMAP item (8), and so does an MoE
+    tree; pp and sp above 1 are taken (the config's pipeline depth must be
+    the mesh's), and ``params_from_jax`` takes a tree of leading size pp;
     a mesh of more than one rank needs the group's process group."""
-    for axis, item in (("pp", "item 5"), ("sp", "item 7"), ("ep", "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            T.check_mesh(_FakeMesh({axis: 2}))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        T.check_mesh(_FakeMesh({"ep": 2}))
+    for sizes in ({"pp": 2}, {"sp": 2}, {"pp": 2, "sp": 2, "tp": 2}):
+        T.check_mesh(_FakeMesh(sizes))
+    T.check_mesh(_FakeMesh({"pp": 2, "sp": 2}), T.TransformerConfig(n_layers=2, pp=2))
+    with pytest.raises(ValueError, match="pp"):
+        T.check_mesh(_FakeMesh({"pp": 2}), T.TransformerConfig())
     with pytest.raises(RuntimeError, match="initialize_group"):
         M.make_mesh(M.MeshConfig(fsdp=2), "cpu")
-    np_params = {"layers": {"wq": np.zeros((2, 1, 4, 4))}}
-    with pytest.raises(NotImplementedError, match="item 5"):
-        T.params_from_jax(np_params, device="cpu")
+    layers = {k: np.zeros((2, 1, 4, 4), np.float32) for k in T._LAYER_KEYS}
+    got = T.params_from_jax({"layers": layers}, device="cpu")
+    assert got["layers"]["wq"].shape == (2, 1, 4, 4)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        T.params_from_jax({"layers": dict(layers, router=np.zeros((2, 1, 4, 2)))},
+                          device="cpu")
 
 
 def test_place_and_the_graph_key_on_a_two_rank_mesh(tmp_path):

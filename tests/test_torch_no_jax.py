@@ -318,7 +318,10 @@ def test_no_forbidden_imports_in_sources():
             "torchft_tpu_torch/examples/train_hsdp.py",
             "torchft_tpu_torch/parallel/mesh.py",
             "torchft_tpu_torch/parallel/ft.py",
-            "torchft_tpu_torch/parallel/train_step.py"} <= scanned
+            "torchft_tpu_torch/parallel/train_step.py",
+            "torchft_tpu_torch/parallel/pipeline.py",
+            "torchft_tpu_torch/ops/attention.py",
+            "torchft_tpu_torch/models/transformer.py"} <= scanned
     bad = []
     for path in _port_sources():
         with open(path, encoding="utf-8") as f:
@@ -406,7 +409,9 @@ from torchft_tpu_torch.checkpointing.serialization import from_transfer_tree, lo
 from torchft_tpu_torch.examples import train_hsdp
 from torchft_tpu_torch.parallel import multihost
 from torchft_tpu_torch.parallel.mesh import MeshConfig
+from torchft_tpu_torch.parallel.pipeline import pipeline_forward
 from torchft_tpu_torch.parallel.train_step import TrainStep
+from torchft_tpu_torch.ops.attention import attention, chunked_attention
 
 torch.set_num_threads(1)
 mesh = multihost.global_mesh(MeshConfig(), "cpu")  # a one-rank group of its own
@@ -416,17 +421,23 @@ opt = ts.init_opt(params)
 tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 64, (8, 16)).astype(np.int32))
 loss, params, opt = ts.step(params, opt, tokens)
 back = from_transfer_tree(loads_state(dumps_state({"p": params})), mesh)["p"]
+q = torch.randn(1, 256, 2, 8)
+chunked = chunked_attention(q, q, q, chunk=64)
 print(json.dumps({"loss": float(loss), "checksum": train_hsdp.param_checksum(params),
                   "back": train_hsdp.param_checksum(back),
+                  "chunked": float((chunked - attention(q, q, q)).abs().max()),
                   "modules": sorted(sys.modules)}))
 """
 
 
 def test_hsdp_path_runs_without_jax_or_reference_package():
     """``train_hsdp``'s preset on a one-rank DTensor mesh (the card's group
-    of one process): a step, and its params through the transfer and back,
-    in a process where JAX and the JAX package cannot load."""
+    of one process): a step, and its params through the transfer and back;
+    chunked attention against plain; the pipeline imported; in a process
+    where JAX and the JAX package cannot load."""
     out = _run_blocked(_HSDP)
     assert math.isfinite(out["loss"]) and out["checksum"] == out["back"]
-    for module in ("examples.train_hsdp", "parallel.mesh", "parallel.train_step"):
+    assert out["chunked"] < 2e-5
+    for module in ("examples.train_hsdp", "parallel.mesh", "parallel.train_step",
+                   "parallel.pipeline", "ops.attention"):
         assert f"torchft_tpu_torch.{module}" in out["modules"]

@@ -16,8 +16,8 @@
   trained twice.
 * ``CKPT_DIR``: a group that lost its process resumes from its newest
   checkpoint (traces with no step trained twice, the checksum of a run
-  that never stopped); a per-process checkpoint set raises (ROADMAP queue
-  1 item 5); and the corpus is built from the port's own sources when
+  that never stopped); a per-process set whose files disagree raises;
+  and the corpus is built from the port's own sources when
   DATA_PATH is absent.
 """
 
@@ -218,8 +218,9 @@ def test_kill_restart_no_sample_skipped_or_repeated(tmp_path):
 
 def test_ckpt_dir_raises_and_corpus_is_the_ports_sources(tmp_path, monkeypatch):
     """CKPT_DIR is wired (the resume itself: ``test_ckpt_dir_resume_...``);
-    what still raises is a directory whose newest checkpoint is a set of
-    per-process files, whose sharded leaves wait for ROADMAP queue 1 item 5."""
+    what raises is a directory whose newest checkpoint is a complete set of
+    per-process files that disagree on the tree's structure: restore
+    refuses to pool them, before the first quorum."""
     from torchft_tpu_torch.checkpointing.serialization import save_state
     from torchft_tpu_torch.coordination import LighthouseServer
     from torchft_tpu_torch.examples import train_bytes
@@ -228,7 +229,8 @@ def test_ckpt_dir_raises_and_corpus_is_the_ports_sources(tmp_path, monkeypatch):
     ckpt.mkdir()
     for pidx in (0, 1):
         with open(ckpt / f"group0_step4.proc{pidx}of2.ckpt", "wb") as f:
-            save_state({"torchft": {"step": 4, "batches_committed": 4}, "user": {}}, f)
+            save_state({"torchft": {"step": 4, "batches_committed": 4},
+                        "user": {f"leaf{pidx}": pidx}}, f)
     lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
     monkeypatch.setenv("DEVICE", "cpu")
     monkeypatch.setenv("REPLICA_GROUP_ID", "0")
@@ -237,7 +239,7 @@ def test_ckpt_dir_raises_and_corpus_is_the_ports_sources(tmp_path, monkeypatch):
     monkeypatch.setenv("DATA_PATH", str(tmp_path / "corpus.bin"))
     monkeypatch.setenv("CKPT_DIR", str(ckpt))
     try:
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        with pytest.raises(ValueError, match="disagree on tree structure"):
             train_bytes.main()
     finally:
         lighthouse.shutdown()

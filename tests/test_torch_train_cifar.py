@@ -154,9 +154,9 @@ def test_example_two_steps_match_jax(tmp_path, cli_lighthouse):
 
 
 def test_ckpt_dir_is_not_ported(tmp_path, monkeypatch):
-    """CKPT_DIR is wired; the part that is not ported is a checkpoint
-    written as per-process files (sharded leaves, ROADMAP queue 1 item 5):
-    restoring one raises before the first quorum."""
+    """CKPT_DIR is wired; a checkpoint written as a complete set of
+    per-process files that disagree on the tree's structure is refused
+    (restore will not pool their leaves), before the first quorum."""
     from torchft_tpu_torch.checkpointing.serialization import save_state
     from torchft_tpu_torch.coordination import LighthouseServer
 
@@ -164,7 +164,8 @@ def test_ckpt_dir_is_not_ported(tmp_path, monkeypatch):
     ckpt.mkdir()
     for pidx in (0, 1):
         with open(ckpt / f"group0_step2.proc{pidx}of2.ckpt", "wb") as f:
-            save_state({"torchft": {"step": 2, "batches_committed": 2}, "user": {}}, f)
+            save_state({"torchft": {"step": 2, "batches_committed": 2},
+                        "user": {f"leaf{pidx}": pidx}}, f)
     lighthouse = LighthouseServer(bind="[::]:0", min_replicas=1)
     monkeypatch.setenv("CKPT_DIR", str(ckpt))
     monkeypatch.setenv("DEVICE", "cpu")
@@ -173,7 +174,7 @@ def test_ckpt_dir_is_not_ported(tmp_path, monkeypatch):
     monkeypatch.setenv("TORCHFT_LIGHTHOUSE", lighthouse.address().split("//", 1)[-1])
     monkeypatch.setenv("DATA_PATH", str(tmp_path / "cifar.npz"))
     try:
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        with pytest.raises(ValueError, match="disagree on tree structure"):
             C.main()
     finally:
         lighthouse.shutdown()

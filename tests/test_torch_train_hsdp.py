@@ -11,6 +11,10 @@ across groups.
   ranks heal from their same-rank peers with the sharded transfer (each
   receives its own shards: fewer bytes than the dense state) and end on
   the survivors' checksum.
+* The same kill on two inner meshes of four processes: JAX's ``sp_ring``
+  variant (``tests/test_hsdp.py:52``, sp 2 x tp 2, ring attention) and
+  pp 2 x tp 2 (the GPipe ring): every rank of both groups ends on one
+  checksum, each respawned rank healing its own shards.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import signal
 import subprocess
 import sys
 import time
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -88,9 +94,23 @@ def test_hsdp_example_two_groups(tmp_path):
 
 
 def test_hsdp_kill_respawn_sharded_heal(tmp_path):
-    launcher = _launcher(tmp_path, 2, _env(STEPS="12", FSDP="2", TP="1"))
+    _kill_respawn_heal(tmp_path, 2, _env(STEPS="12", FSDP="2", TP="1"), budget_s=50)
+
+
+@pytest.mark.parametrize("axes", [dict(SP="2", TP="2"), dict(PP="2", TP="2")],
+                         ids=["sp_ring", "pp2-tp2"])
+def test_hsdp_inner_mesh_kill_respawn_heal(tmp_path, axes):
+    # eight processes start slower than four on a loaded host
+    _kill_respawn_heal(tmp_path, 4, _env(STEPS="10", FSDP="1", **axes), budget_s=120)
+
+
+def _kill_respawn_heal(tmp_path, nproc, env, budget_s):
+    """Group 1's rank 0 takes SIGKILL at step 4 (within ``budget_s``); the
+    launcher respawns the group, whose ranks heal their shards and end on
+    the survivors' checksum (within ``budget_s`` more)."""
+    launcher = _launcher(tmp_path, nproc, env)
     try:
-        deadline = time.monotonic() + 50
+        deadline = time.monotonic() + budget_s
         victim = None
         while victim is None:
             assert time.monotonic() < deadline, "group 1 never reached step 4"
@@ -101,17 +121,17 @@ def test_hsdp_kill_respawn_sharded_heal(tmp_path):
             time.sleep(0.2)
         assert "done:" not in victim.read_text(), "the run outpaced the kill"
         os.kill(int(victim.name.split(".")[1]), signal.SIGKILL)
-        assert launcher.wait(timeout=55) == 0
+        assert launcher.wait(timeout=budget_s + 5) == 0
     finally:
         _stop(launcher)
 
     sums = _checksums(tmp_path)
-    # both ranks of group 0, and of group 1's respawn (the killed pair's
+    # every rank of group 0, and of group 1's respawn (the killed ranks'
     # logs end without a checksum)
-    assert len(sums) == 4, sums
+    assert len(sums) == 2 * nproc, sums
     assert len(set(sums)) == 1, sums
     respawned = [p for p in tmp_path.glob("g1_r*.log") if "param_checksum" in p.read_text()]
-    assert len(respawned) == 2
+    assert len(respawned) == nproc
     for p in respawned:
         text = p.read_text()
         assert "healing: fetching checkpoint metadata" in text

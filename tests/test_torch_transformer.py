@@ -172,8 +172,12 @@ def test_attention_routing():
                     with pytest.raises(ValueError, match="multiple of block sizes"):
                         fa.flash_attention(q, q, q)
     assert T._use_flash(T.TransformerConfig(attention_impl="flash"), 100, cpu)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T._use_flash(T.TransformerConfig(attention_impl="chunked"), 1024, cuda)
+    # "chunked" never goes to the flash op; it runs chunked attention
+    # (tests/test_torch_chunked_attention.py), and "auto" takes it on the
+    # CPU from S 1024, as the JAX package does there
+    chunked = T.TransformerConfig(attention_impl="chunked")
+    assert not T._use_flash(chunked, 1024, cuda) and T._use_chunked(chunked, 1024)
+    assert T._use_chunked(auto, 1024) and not T._use_chunked(auto, 512)
     with pytest.raises(ValueError, match="attention_impl"):
         T._use_flash(T.TransformerConfig(attention_impl="xla"), 1024, cuda)
 

@@ -225,7 +225,128 @@ def mode_place(rank, world, tmp, args):
         raise AssertionError("graph=True on a mesh of two ranks did not raise")
 
 
-MODES = {"step": mode_step, "flatten": mode_flatten, "rebuild": mode_rebuild,
+def _full_grads(tensors):
+    """Each rank's gradients of ``tensors`` (nonzero on its own slices
+    only) summed over the world: the whole gradients."""
+    import torch.distributed as dist
+
+    out = []
+    for t in tensors:
+        g = t.grad.clone()
+        dist.all_reduce(g)
+        out.append(g.numpy())
+    return out
+
+
+def mode_ring(rank, world, tmp, args):
+    """``ring_attention`` on the mesh from the q, k, v and output weights
+    in ``tmp``: its output and the gradients of ``sum(out * w)``."""
+    import numpy as np
+    import torch
+
+    from torchft_tpu_torch.ops.attention import ring_attention
+    from torchft_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    mesh = make_mesh(MeshConfig(**args["mesh"]), "cpu")
+    with np.load(os.path.join(tmp, "qkv.npz")) as f:
+        q, k, v, w = (torch.from_numpy(f[n]).requires_grad_(n != "w") for n in "qkvw")
+    out = ring_attention(q, k, v, mesh, causal=args.get("causal", True)).full_tensor()
+    (out * w).sum().backward()
+    grads = _full_grads([q, k, v])
+    if rank == 0:
+        np.savez(os.path.join(tmp, "out.npz"), out=out.detach().numpy(),
+                 **{f"d{n}": g for n, g in zip("qkv", grads)})
+
+
+def mode_pipeline(rank, world, tmp, args):
+    """The transformer's loss and gradients at pp 2 (``loss_fn`` through
+    ``pipeline_forward``) on the mesh, from the JAX params of the pipelined
+    config; rank 0 also runs the same weights as one stage, unsharded."""
+    import numpy as np
+    import torch
+
+    from torchft_tpu_torch.models import transformer as T
+    from torchft_tpu_torch.parallel.mesh import MeshConfig, P, make_mesh, place, placements
+    from torchft_tpu_torch.utils.tree import tree_leaves
+
+    mesh = make_mesh(MeshConfig(**args["mesh"]), "cpu")
+    cfg = T.TransformerConfig(**args["cfg"], dtype=torch.float32)
+    tree = _tree_from_npz(os.path.join(tmp, "params.npz"))
+    tokens = torch.from_numpy(np.load(os.path.join(tmp, "tokens.npy")))
+    params = T.params_from_jax(tree, mesh=mesh)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    sharded = place(tokens, mesh, placements(P(("dp", "fsdp"), "sp"), mesh))
+    loss = T.loss_fn(params, sharded, cfg, mesh)
+    grads = torch.autograd.grad(loss, leaves)
+    full = [g.full_tensor().numpy() for g in grads]
+    if rank == 0:
+        seq = T.TransformerConfig(**dict(args["cfg"], pp=1, microbatches=0),
+                                  dtype=torch.float32)
+        one_stage = dict(tree, layers={k: v.reshape(1, -1, *v.shape[2:])
+                                       for k, v in tree["layers"].items()})
+        seq_loss = T.loss_fn(T.params_from_jax(one_stage, device="cpu"), tokens, seq)
+        np.savez(os.path.join(tmp, "out.npz"), loss=np.float32(float(loss)),
+                 seq_loss=np.float32(float(seq_loss)),
+                 **{f"g{i}": g for i, g in enumerate(full)})
+
+
+def mode_disk(rank, world, tmp, args):
+    """An (fsdp 2) group's ``DiskCheckpointer``: every process writes its
+    own file of the set, then a fresh checkpointer restores the set and
+    the rebuilt DTensors equal the saved ones bit for bit."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from torchft_tpu_torch.checkpointing.disk import DiskCheckpointer
+    from torchft_tpu_torch.checkpointing.serialization import from_transfer_tree
+    from torchft_tpu_torch.parallel.mesh import MeshConfig, P, from_full, make_mesh, placements
+
+    class Mgr:
+        def __init__(self):
+            self.step = 0
+
+        def current_step(self):
+            return self.step
+
+        def state_dict(self):
+            return {"step": self.step, "batches_committed": 2 * self.step}
+
+        def load_state_dict(self, s):
+            self.step = s["step"]
+
+    mesh = make_mesh(MeshConfig(**args["mesh"]), "cpu")
+    gen = torch.Generator().manual_seed(5)
+    full = {"w": torch.randn(8, 6, generator=gen), "b": torch.randn(6, generator=gen)}
+    state = {"w": from_full(full["w"], mesh, placements(P("fsdp", None), mesh)),
+             "b": from_full(full["b"], mesh, placements(P(None), mesh)),
+             "lr": np.float32(0.5)}
+    mgr = Mgr()
+    ck = DiskCheckpointer(tmp, mgr, state_dict=lambda: dict(state),
+                          load_state_dict=lambda s: None, every=1, tag="g0")
+    # every process claims its write generation before any of them saves
+    dist.barrier()
+    mgr.step = 3
+    path = ck.maybe_save()
+    assert path.endswith(f"g0_step3.proc{rank}of{world}.ckpt"), path
+    dist.barrier()
+    got, mgr2 = {}, Mgr()
+    ck2 = DiskCheckpointer(tmp, mgr2, state_dict=dict,
+                           load_state_dict=lambda s: got.update(from_transfer_tree(s, mesh)),
+                           tag="g0")
+    assert ck2.restore() and mgr2.step == 3
+    for key in ("w", "b"):
+        assert got[key].placements == state[key].placements
+        assert torch.equal(got[key].to_local(), state[key].to_local())
+        assert torch.equal(got[key].full_tensor(), full[key])
+    assert got["lr"] == np.float32(0.5)
+    if rank == 0:
+        np.savez(os.path.join(tmp, "full.npz"), **{k: v.numpy() for k, v in full.items()})
+
+
+MODES = {"step": mode_step, "ring": mode_ring, "pipeline": mode_pipeline, "disk": mode_disk, "flatten": mode_flatten, "rebuild": mode_rebuild,
          "full": mode_full, "dense": mode_dense, "place": mode_place}
 
 

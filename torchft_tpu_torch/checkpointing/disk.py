@@ -17,16 +17,22 @@ covers *total* failures (every group lost) and planned restarts. Load
 happens BEFORE the first quorum so a resumed group reports its true step
 and heals forward, never backward.
 
-Multi-rank groups: exactly one writer per group (rank 0 by convention —
-pass ``is_writer=False`` elsewhere) and every rank restores from the
-shared file. The names keep the JAX package's grammar: ``<tag>_step<N>``,
-a write generation ``.g<K>`` (each incarnation claims the next one, so
-arbitration never hinges on mtime) and per-process sets
-``.proc<I>of<N>``. The port parses, ranks and prunes those sets as the
-JAX package does (a set counts only when complete), but writes no per-process
-files: a set of more than one file holds sharded leaves, which the port
-restores once it has sharded tensors (ROADMAP queue 1 item 5); restoring
-one raises.
+Multi-rank groups: for state that every rank holds whole, exactly one
+writer per group (rank 0 by convention — pass ``is_writer=False``
+elsewhere) and every rank restores from the shared file. When the state
+holds a DTensor on a mesh of more than one process (a sharded group), one
+writer can serialize only its own shards, so EVERY process writes its own
+``.proc<I>of<N>`` file (I its rank in the group's ``torch.distributed``
+world; the ``is_writer`` convention then applies per process) and
+:meth:`restore` pools the shards of all N files before the user callback
+rebuilds its DTensors (``serialization.from_transfer_tree``). Each
+process claims its write generation from the directory when its
+checkpointer is built, so a group builds all of them before any saves
+(as a train loop does: the first save follows a step together). The names
+keep the JAX package's grammar: ``<tag>_step<N>``, a write generation
+``.g<K>`` (each incarnation claims the next one, so arbitration never
+hinges on mtime) and the per-process sets; a set counts only when
+complete. Sets cross-read with the JAX package's both ways.
 """
 
 from __future__ import annotations
@@ -41,8 +47,9 @@ from typing import Any, Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from torchft_tpu_torch.checkpointing.serialization import load_state, save_state
-from torchft_tpu_torch.utils.tree import tree_map
+from torchft_tpu_torch.checkpointing.serialization import ShardedArray, load_state, save_state
+from torchft_tpu_torch.parallel.mesh import is_dtensor
+from torchft_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 logger = logging.getLogger(__name__)
 
@@ -52,6 +59,45 @@ _NAME = re.compile(
     r"^(?P<tag>.+)_step(?P<step>\d+)(?:\.g(?P<gen>\d+))?"
     r"(?:\.proc(?P<pidx>\d+)of(?P<pcount>\d+))?\.ckpt$"
 )
+
+
+def _needs_per_process(state: Any) -> bool:
+    """Whether a leaf is a DTensor whose mesh spans more than one process
+    (each rank of a group is one): one writer's shards would then be an
+    incomplete checkpoint."""
+    return any(is_dtensor(leaf) and leaf.device_mesh.size() > 1
+               for leaf in tree_leaves(state))
+
+
+def _merge_shard_trees(trees: List[Any]) -> Any:
+    """Merge per-process checkpoint trees: :class:`ShardedArray` leaves pool
+    their shards (deduplicated by index); every other leaf is taken from
+    the first tree (the writers replicate it)."""
+    flat = [tree_flatten(t) for t in trees]
+    leaves0, spec = flat[0]
+    for _, other in flat[1:]:
+        if other != spec:
+            # never pool shards across mismatched structures (a partial
+            # rollout renaming a key would pair shards with the wrong leaf)
+            raise ValueError(
+                f"per-process checkpoints disagree on tree structure: {other} != {spec}")
+    merged: List[Any] = []
+    for i, leaf in enumerate(leaves0):
+        if not isinstance(leaf, ShardedArray):
+            merged.append(leaf)
+            continue
+        seen: dict = {}
+        for leaves, _ in flat:
+            other = leaves[i]
+            if (not isinstance(other, ShardedArray) or other.shape != leaf.shape
+                    or other.dtype != leaf.dtype):
+                raise ValueError(
+                    f"per-process checkpoints disagree on leaf {leaf.shape}/{leaf.dtype}")
+            for idx, data in other.shards:
+                seen.setdefault(tuple(tuple(b) for b in idx), data)
+        merged.append(ShardedArray(leaf.dtype, leaf.shape, leaf.mesh_desc, leaf.spec_entries,
+                                   list(seen.items())))
+    return tree_unflatten(spec, merged)
 
 
 def _copy_leaf(leaf: Any) -> Any:
@@ -244,6 +290,15 @@ class DiskCheckpointer:
             return state
         return tree_map(_copy_leaf, state)
 
+    def _target_path(self, step: int, state: Any) -> str:
+        """The dense single-writer file, or this process's file of the set
+        when the state is sharded across processes."""
+        if _needs_per_process(state):
+            import torch.distributed as dist
+
+            return self._proc_path(step, dist.get_rank(), dist.get_world_size())
+        return self._path(step)
+
     def _write(self, step: int, state: Any, path: str) -> str:
         tmp = path + ".tmp"
         with self._io_lock:
@@ -260,7 +315,8 @@ class DiskCheckpointer:
         until the bytes are on disk regardless of ``async_save``."""
         step = self._manager.current_step()
         self._last_saved = step
-        return self._write(step, self._snapshot(), self._path(step))
+        state = self._snapshot()
+        return self._write(step, state, self._target_path(step, state))
 
     def maybe_save(self) -> Optional[str]:
         """Call once per loop iteration after ``should_commit``; saves at
@@ -282,7 +338,7 @@ class DiskCheckpointer:
             self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="tft_ckpt_disk")
         self._last_saved = step
         state = self._snapshot()  # captured NOW, written later
-        path = self._path(step)
+        path = self._target_path(step, state)
         fut = self._executor.submit(self._write, step, state, path)
 
         def on_done(f: Future) -> None:
@@ -360,20 +416,22 @@ class DiskCheckpointer:
     def restore(self) -> bool:
         """Load the newest complete snapshot if one exists; returns True on
         resume. Restores manager progress first so the first quorum reports
-        the resumed step. Call before the first quorum."""
+        the resumed step. Call before the first quorum. A per-process set is
+        merged first (:class:`ShardedArray` leaves pool every writer's
+        shards), so ``from_transfer_tree`` finds any rank's shard whichever
+        process wrote it."""
         existing = self._existing()
         if not existing:
             return False
         _, paths = existing[-1]
-        if len(paths) > 1:
-            raise NotImplementedError(
-                f"{paths[0]} is one file of a {len(paths)}-process checkpoint set: merging "
-                "sharded leaves waits for sharded tensors (ROADMAP queue 1 item 5)"
-            )
-        with open(paths[0], "rb") as f:
-            state = load_state(f)
+        trees = []
+        for path in paths:
+            with open(path, "rb") as f:
+                trees.append(load_state(f))
+        state = trees[0] if len(trees) == 1 else _merge_shard_trees(trees)
         self._manager.load_state_dict(state["torchft"])
         self._load_state_dict(state["user"])
         self._last_saved = self._manager.current_step()
-        logger.info("resumed from %s at step %d", paths[0], self._manager.current_step())
+        logger.info("resumed from %s at step %d%s", paths[0], self._manager.current_step(),
+                    "" if len(paths) == 1 else f" ({len(paths)} files merged)")
         return True

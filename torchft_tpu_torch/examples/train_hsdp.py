@@ -21,7 +21,9 @@ Env:
                                    bf16, at full depth more than one card
                                    holds: see ``train`` for a cut depth)
     FSDP/TP/SP/PP                  inner mesh axis sizes (default 2/2/1/1;
-                                   SP and PP above 1 are not ported yet)
+                                   SP shards the sequence, ring attention;
+                                   PP the layers, the GPipe ring with PP
+                                   microbatches a step)
     STEPS=3  BATCH=8  SEQ=16       training shape
     DATA_PLANE=tcp|device          cross-group backend (default tcp;
                                    device = groups as threads of one
@@ -75,7 +77,7 @@ PRESETS = {
 
 SHARDED_DEVICE_PLANE_MISSING = (
     "DATA_PLANE=device on a mesh of more than one rank (the device plane's "
-    "sharded-group case) is not ported yet: ROADMAP queue 1 item 5"
+    "sharded-group case) is not ported yet: ROADMAP queue 1 item 7"
 )
 
 
@@ -200,7 +202,7 @@ def main() -> None:
         pp=int(os.environ.get("PP", 1)),
     )
     train(
-        preset_config(os.environ.get("MODEL", "tiny")),
+        preset_config(os.environ.get("MODEL", "tiny"), pp=mesh_cfg.pp),
         mesh_cfg,
         steps=int(os.environ.get("STEPS", 3)),
         batch=int(os.environ.get("BATCH", 8)),

@@ -1,6 +1,7 @@
 """Decoder-only transformer LM — the port's counterpart of
-``torchft_tpu/models/transformer.py`` for ``pp=1``, no sequence
-parallelism and a dense FFN.
+``torchft_tpu/models/transformer.py`` with a dense FFN: dp, fsdp, tp,
+pipeline stages (``pp``) and sequence parallelism by ring attention
+(``sp``).
 
 Parameters are a plain tree of float32 master tensors with exactly the JAX
 package's structure, leading ``[pp, Lp]`` axes included, so weights carry
@@ -27,18 +28,30 @@ the products over ``tp`` (heads and FFN hidden dim) and reduces their
 partial sums. Rotary and attention, per (batch, head), run under
 ``local_map`` on each rank's shard, as the JAX ``_flash_sharded`` runs the
 kernel under ``shard_map``; so does the loss's softmax, after the vocab
-sharded over ``tp`` is gathered. pp, sp and ep above 1 are not ported
-(ROADMAP queue 1 items 5, 7 and 8).
+sharded over ``tp`` is gathered. Under ``sp`` the sequence stays
+sharded through every layer; rotary positions are offset by the rank's
+block and attention is the ring (``ops.attention.ring_attention_local``).
+Under ``pp`` the layers' leading ``[pp, Lp]`` axis is sharded over ``pp``
+and :func:`loss_fn` runs the microbatched GPipe ring
+(``parallel.pipeline.pipeline_forward``), its head on the last stage with
+only scalar sums crossing the stages. ``ep`` above 1 (MoE) is not ported
+(ROADMAP queue 1).
 
-Attention routing: ``"flash"`` -> the flash op (its CUDA kernels on the
-card, which raise for a shape they do not take), ``"plain"`` -> plain
-attention, ``"auto"`` -> flash on a CUDA device when the op takes the
-dtype, head dim and S
+Attention routing, in order: ``sp`` above 1 -> ring attention;
+``"flash"`` -> the flash op (its CUDA kernels on the card, which raise for
+a shape they do not take); ``"auto"`` -> flash on a CUDA device when the
+op takes the dtype, head dim and S
 (:func:`~torchft_tpu_torch.ops.flash_attention.op_supported`: the
 kernels' head dims 8, 16, 32 and 64 at any S, 128 in bf16 at S a multiple
 of 64, and the op's block rule, the Pallas op's, S a multiple of
-min(128, S)), else plain. The JAX package's TPU thresholds are not
-carried over; ``"chunked"`` is not ported yet.
+min(128, S)); then ``"chunked"``, or ``"auto"`` at S of at least
+``TORCHFT_TPU_ATTN_CHUNKED_MIN_S`` (1024), -> chunked attention where S is
+a multiple of the chunk (:func:`_use_chunked`, the JAX package's rule and
+variables); else plain. The JAX package engages flash under ``"auto"``
+only on a TPU past a scores-memory ceiling; the port engages it wherever
+the op takes the shape (ROADMAP queue 3, kept on purpose), so on the card
+the headline stays on the kernels and on the CPU ``"auto"`` routes as the
+JAX package does there.
 """
 
 from __future__ import annotations
@@ -57,10 +70,18 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from torchft_tpu_torch.ops.attention import attention
+from torchft_tpu_torch.ops.attention import attention, chunked_attention, ring_attention_local
 from torchft_tpu_torch.ops.flash_attention import flash_attention, op_supported
-from torchft_tpu_torch.ops.layers import rms_norm, rotary_embed, swiglu
-from torchft_tpu_torch.parallel.mesh import P, axis_size, place, placements
+from torchft_tpu_torch.ops.layers import rms_norm, rotary_embed
+from torchft_tpu_torch.parallel.mesh import (
+    P,
+    axis_size,
+    from_shard,
+    place,
+    placements,
+    sum_grads,
+    without_axis,
+)
 from torchft_tpu_torch.utils.platform import resolve_device
 from torchft_tpu_torch.utils.tree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
@@ -79,10 +100,8 @@ __all__ = [
 
 _LAYER_KEYS = ("ln1", "ln2", "wq", "wk", "wv", "wo", "w_gate", "w_in", "w_out")
 
-# the mesh axes the port shards over, and what the others wait for
+# the mesh axes the port does not shard over yet, and what they wait for
 _UNPORTED_AXES = {
-    "pp": "pp > 1 (pipeline stages) is not ported yet: ROADMAP queue 1 item 5",
-    "sp": "sp > 1 (ring attention) is not ported yet: ROADMAP queue 1 item 7",
     "ep": "ep > 1 (MoE experts) is not ported yet: ROADMAP queue 1 item 8",
 }
 
@@ -103,7 +122,15 @@ class TransformerConfig:
     # the backward; "dots" saves the projections' outputs and recomputes
     # the rest
     remat_policy: str = "all"
-    attention_impl: str = "auto"  # "auto" | "plain" | "flash"
+    pp: int = 1  # pipeline stages; n_layers % pp == 0
+    microbatches: int = 0  # 0 => pp
+    attention_impl: str = "auto"  # "auto" | "plain" | "chunked" | "flash"
+
+    @property
+    def layers_per_stage(self) -> int:
+        if self.n_layers % max(self.pp, 1):
+            raise ValueError(f"n_layers {self.n_layers} is not a multiple of pp {self.pp}")
+        return self.n_layers // max(self.pp, 1)
 
     @property
     def qkv_dim(self) -> int:
@@ -129,7 +156,8 @@ def init_params(
     ``jax.random``'s; use :func:`params_from_jax` to match the JAX
     package."""
     dev = resolve_device(device)
-    d, qkv, f, lp = cfg.d_model, cfg.qkv_dim, cfg.d_ff, cfg.n_layers
+    d, qkv, f = cfg.d_model, cfg.qkv_dim, cfg.d_ff
+    pp, lp = max(cfg.pp, 1), cfg.layers_per_stage
 
     def dense(*shape, fan_in):
         x = torch.randn(*shape, generator=generator, dtype=torch.float32)
@@ -141,15 +169,15 @@ def init_params(
     return {
         "embed": dense(cfg.vocab_size, d, fan_in=1.0),
         "layers": {
-            "ln1": ones(1, lp, d),
-            "ln2": ones(1, lp, d),
-            "wq": dense(1, lp, d, qkv, fan_in=d),
-            "wk": dense(1, lp, d, qkv, fan_in=d),
-            "wv": dense(1, lp, d, qkv, fan_in=d),
-            "wo": dense(1, lp, qkv, d, fan_in=qkv),
-            "w_gate": dense(1, lp, d, f, fan_in=d),
-            "w_in": dense(1, lp, d, f, fan_in=d),
-            "w_out": dense(1, lp, f, d, fan_in=f),
+            "ln1": ones(pp, lp, d),
+            "ln2": ones(pp, lp, d),
+            "wq": dense(pp, lp, d, qkv, fan_in=d),
+            "wk": dense(pp, lp, d, qkv, fan_in=d),
+            "wv": dense(pp, lp, d, qkv, fan_in=d),
+            "wo": dense(pp, lp, qkv, d, fan_in=qkv),
+            "w_gate": dense(pp, lp, d, f, fan_in=d),
+            "w_in": dense(pp, lp, d, f, fan_in=d),
+            "w_out": dense(pp, lp, f, d, fan_in=f),
         },
         "final_norm": ones(d),
         "out": dense(d, cfg.vocab_size, fan_in=d),
@@ -157,10 +185,10 @@ def init_params(
 
 
 def param_specs(cfg: Optional[TransformerConfig] = None) -> Dict[str, Any]:
-    """The JAX package's ``param_specs`` for ``pp=1`` and a dense FFN (the
-    only configuration the port takes, so ``cfg`` changes nothing): a
+    """The JAX package's ``param_specs`` for a dense FFN (the only
+    configuration the port takes, so ``cfg`` changes nothing): a
     :class:`~torchft_tpu_torch.parallel.mesh.P` per leaf (same tree as
-    :func:`init_params`)."""
+    :func:`init_params`; the layers' leading axis over ``pp``)."""
     row, col = P("pp", None, "fsdp", "tp"), P("pp", None, "tp", "fsdp")
     return {
         # [V, D]: vocab unsharded, D over (tp, fsdp), so the token gather
@@ -177,17 +205,20 @@ def param_specs(cfg: Optional[TransformerConfig] = None) -> Dict[str, Any]:
     }
 
 
-def check_mesh(mesh) -> None:
+def check_mesh(mesh, cfg: Optional[TransformerConfig] = None) -> None:
     """Raise ``NotImplementedError`` for a mesh axis the port does not
-    shard over yet (pp, sp or ep above 1)."""
+    shard over yet (ep above 1), and ``ValueError`` where ``cfg``'s
+    pipeline depth is not the mesh's ``pp``."""
     for axis, why in _UNPORTED_AXES.items():
         if axis_size(mesh, axis) > 1:
             raise NotImplementedError(why)
+    if cfg is not None and mesh is not None and max(cfg.pp, 1) != axis_size(mesh, "pp"):
+        raise ValueError(f"cfg.pp={cfg.pp} but the mesh's pp is {axis_size(mesh, 'pp')}")
 
 
-def param_placements(mesh) -> list:
+def param_placements(mesh, cfg: Optional[TransformerConfig] = None) -> list:
     """The DTensor placements of every leaf on ``mesh``, in leaf order."""
-    check_mesh(mesh)
+    check_mesh(mesh, cfg)
     return [placements(spec, mesh) for spec in tree_leaves(param_specs())]
 
 
@@ -204,9 +235,8 @@ def params_from_jax(tree: Dict[str, Any], device: str = "cuda", mesh=None) -> Di
     """The JAX package's params (its tree with numpy leaves, e.g.
     ``jax.tree_util.tree_map(np.asarray, params)``) as the port's params:
     the same tree of float32 tensors on ``device``, or placed on ``mesh``
-    (:func:`place_params`)."""
-    if tree["layers"]["wq"].shape[0] != 1:
-        raise NotImplementedError(_UNPORTED_AXES["pp"])
+    (:func:`place_params`). The layers' leading axis is the tree's
+    pipeline depth (``cfg.pp``), sharded over the mesh's ``pp``."""
     if set(tree["layers"]) != set(_LAYER_KEYS):
         raise NotImplementedError(_UNPORTED_AXES["ep"])
     dev = resolve_device(device) if mesh is None else torch.device(mesh.device_type)
@@ -219,18 +249,52 @@ def params_from_jax(tree: Dict[str, Any], device: str = "cuda", mesh=None) -> Di
 def _use_flash(cfg: TransformerConfig, seq_len: int, device: torch.device) -> bool:
     if cfg.attention_impl == "flash":
         return True
-    if cfg.attention_impl == "plain":
+    if cfg.attention_impl in ("plain", "chunked"):
         return False
-    if cfg.attention_impl == "chunked":
-        raise NotImplementedError(
-            "attention_impl='chunked' is not ported yet (ROADMAP: chunked and "
-            "ring attention)"
-        )
     if cfg.attention_impl != "auto":
         raise ValueError(
-            f"attention_impl must be 'auto'|'plain'|'flash', got {cfg.attention_impl!r}"
+            "attention_impl must be 'auto'|'plain'|'chunked'|'flash', "
+            f"got {cfg.attention_impl!r}"
         )
     return device.type == "cuda" and op_supported(cfg.dtype, cfg.head_dim, seq_len)
+
+
+def _env_int(name: str) -> Optional[int]:
+    """An integer environment variable; unset or unparseable -> None (a
+    malformed value is ignored, not taken as an override)."""
+    try:
+        return int(os.environ.get(name, ""))
+    except ValueError:
+        return None
+
+
+def _attn_chunk(seq_len: int) -> int:
+    """The q-block of chunked attention: 128 (256 at S 16384), the JAX
+    package's picks; ``TORCHFT_TPU_ATTN_CHUNK`` overrides."""
+    chunk = _env_int("TORCHFT_TPU_ATTN_CHUNK")
+    if chunk:
+        return chunk
+    return 256 if seq_len == 16384 else 128
+
+
+def _attn_tiers() -> Optional[int]:
+    """The causal k-prefix tier count, ``TORCHFT_TPU_ATTN_TIERS``; unset or
+    unparseable -> None, chunked attention's own pick."""
+    return _env_int("TORCHFT_TPU_ATTN_TIERS")
+
+
+def _use_chunked(cfg: TransformerConfig, seq_len: int) -> bool:
+    """Chunked attention for ``"chunked"``, and for ``"auto"`` at S of at
+    least ``TORCHFT_TPU_ATTN_CHUNKED_MIN_S`` (1024); never where S is not a
+    multiple of the chunk (plain attention then, as in the JAX package)."""
+    if seq_len % _attn_chunk(seq_len):
+        return False
+    if cfg.attention_impl == "chunked":
+        return True
+    if cfg.attention_impl != "auto":
+        return False
+    min_s = _env_int("TORCHFT_TPU_ATTN_CHUNKED_MIN_S")
+    return seq_len >= (1024 if min_s is None else min_s)
 
 
 # ---------------------------------------------------------------------------
@@ -240,9 +304,11 @@ def _use_flash(cfg: TransformerConfig, seq_len: int, device: torch.device) -> bo
 # activations [B, S, D]: batch over (dp, fsdp), sequence over sp
 _ACT = P(("dp", "fsdp"), "sp", None)
 # q/k/v and attention's output [B, S, H, Dh]: heads over tp too
-_HEADS = P(("dp", "fsdp"), None, "tp", None)
-# tokens, targets and the loss mask [B, S]
-_ROWS = P(("dp", "fsdp"), None)
+_HEADS = P(("dp", "fsdp"), "sp", "tp", None)
+# targets and the loss mask [B, S], laid out as the activations
+_ROWS = P(("dp", "fsdp"), "sp")
+# tokens while the targets are shifted (the roll crosses the sp blocks)
+_WHOLE_ROWS = P(("dp", "fsdp"), None)
 
 
 def _constrain(x, mesh, spec: P):
@@ -264,15 +330,68 @@ def _gather_fsdp(w, mesh):
     return w.redistribute(mesh, target)
 
 
-def _attend(q, k, v, cfg: TransformerConfig):
-    """Rotary embedding and causal attention of whole sequences, per
-    (batch, head): what each rank runs on its shard."""
+def _mm(h, w, mesh):
+    """``h @ w`` for an activation [..., K] and a weight [K, N]. Under sp
+    the activation's sequence dim is sharded, and DTensor's matmul
+    flattens [B, S] first, which torch 2.11 refuses for a sharded second
+    dim: each rank multiplies its own shards under ``local_map`` instead.
+    Per mesh dim: a contraction sharded on both sides gives a partial sum;
+    a weight sharded over N shards the output's last dim, and the
+    activation's gradient (each rank's share of N) is summed over that dim;
+    the activation's batch or sequence shards carry over, and the weight's
+    gradient (each rank's share of the rows) is summed over them."""
+    if mesh is None or axis_size(mesh, "sp") == 1:
+        return h @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    last = h.ndim - 1
+    hp, wp, out, h_sums, w_sums = list(h.placements), list(w.placements), [], [], []
+    for i in range(mesh.ndim):
+        h_k = isinstance(hp[i], Shard) and hp[i].dim == last
+        w_k = isinstance(wp[i], Shard) and wp[i].dim == 0
+        if h_k and w_k:
+            out.append(Partial())
+            continue
+        hp[i] = Replicate() if h_k else hp[i]  # contract whole on this mesh dim
+        wp[i] = Replicate() if w_k else wp[i]
+        if isinstance(wp[i], Shard):
+            out.append(Shard(last))
+            h_sums.append(mesh.get_group(i))
+        else:
+            out.append(hp[i])
+            if isinstance(hp[i], Shard):
+                w_sums.append(mesh.get_group(i))
+
+    def local_mm(hl, wl):
+        for group in h_sums:
+            hl = sum_grads(hl, group)
+        for group in w_sums:
+            wl = sum_grads(wl, group)
+        return hl @ wl
+
+    return _local_map(local_mm, out, (hp, wp), mesh)(h, w)
+
+
+def _attend(q, k, v, cfg: TransformerConfig, sp_group=None, sp_size: int = 1):
+    """Rotary embedding and causal attention, per (batch, head): what each
+    rank runs on its shard. Under ``sp`` (``sp_size`` above 1) q/k/v are
+    this rank's block of the sequence, at positions offset by its rank in
+    ``sp_group``, and attention is the ring."""
     s = q.shape[1]
     positions = torch.arange(s, device=q.device)
+    if sp_size > 1:
+        import torch.distributed as dist
+
+        positions = positions + dist.get_rank(sp_group) * s
     q = rotary_embed(q, positions, cfg.rope_theta)
     k = rotary_embed(k, positions, cfg.rope_theta)
+    if sp_size > 1:
+        return ring_attention_local(q, k, v, sp_size, causal=True, group=sp_group)
     if _use_flash(cfg, s, q.device):
         return flash_attention(q, k, v, causal=True)
+    if _use_chunked(cfg, s):
+        return chunked_attention(q, k, v, causal=True, chunk=_attn_chunk(s),
+                                 tiers=_attn_tiers())
     return attention(q, k, v, causal=True)
 
 
@@ -288,13 +407,16 @@ def _local_map(fn, out_placements, in_placements, mesh):
 
 def _attention(q, k, v, cfg: TransformerConfig, mesh):
     """:func:`_attend`, under ``local_map`` over every mesh axis when
-    sharded (the JAX ``_flash_sharded``): batch over (dp, fsdp), heads over
-    tp, each rank on its own shard."""
+    sharded (the JAX ``_flash_sharded``, and its ring's ``shard_map``):
+    batch over (dp, fsdp), sequence over sp, heads over tp, each rank on
+    its own shard."""
     if mesh is None:
         return _attend(q, k, v, cfg)
     heads = placements(_HEADS, mesh)
-    return _local_map(functools.partial(_attend, cfg=cfg), heads, (heads, heads, heads),
-                      mesh)(q, k, v)
+    sp = axis_size(mesh, "sp")
+    fn = functools.partial(_attend, cfg=cfg, sp_size=sp,
+                           sp_group=mesh.get_group("sp") if sp > 1 else None)
+    return _local_map(fn, heads, (heads, heads, heads), mesh)(q, k, v)
 
 
 def _layer(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: TransformerConfig,
@@ -304,14 +426,16 @@ def _layer(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: TransformerConfig,
         lp = {k: _gather_fsdp(w, mesh) for k, w in lp.items()}
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     b, s, _ = h.shape
-    q = (h @ lp["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (h @ lp["wk"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    v = (h @ lp["wv"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    q = _mm(h, lp["wq"], mesh).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = _mm(h, lp["wk"], mesh).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    v = _mm(h, lp["wv"], mesh).reshape(b, s, cfg.n_heads, cfg.head_dim)
     att = _attention(q, k, v, cfg, mesh)
     # under tp the projections' partial sums are reduced before the residual
-    x = x + _constrain(att.reshape(b, s, cfg.qkv_dim) @ lp["wo"], mesh, _ACT)
+    x = x + _constrain(_mm(att.reshape(b, s, cfg.qkv_dim), lp["wo"], mesh), mesh, _ACT)
     h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + _constrain(swiglu(h, lp["w_gate"], lp["w_in"], lp["w_out"]), mesh, _ACT)
+    # SwiGLU (``ops.layers.swiglu``), its products by _mm
+    ffn = _mm(F.silu(_mm(h, lp["w_gate"], mesh)) * _mm(h, lp["w_in"], mesh), lp["w_out"], mesh)
+    return x + _constrain(ffn, mesh, _ACT)
 
 
 # matrix products without batch dims: what "dots" saves
@@ -355,18 +479,69 @@ def _embed_lookup(params: Dict[str, Any], tokens: torch.Tensor, dt: torch.dtype,
     return _constrain(x, mesh, _ACT)
 
 
+def _local(x, mesh, spec: P) -> torch.Tensor:
+    """This rank's shard of ``x`` laid out by ``spec`` (``x`` itself
+    without a mesh)."""
+    return x if mesh is None else _constrain(x, mesh, spec).to_local()
+
+
+def _global(x: torch.Tensor, mesh, spec: P):
+    """The inverse of :func:`_local`: this rank's shard as the DTensor it
+    is a shard of (every sharded dim split evenly)."""
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import Shard
+
+    place_ = placements(spec, mesh)
+    shape = list(x.shape)
+    for i, p in enumerate(place_):
+        if isinstance(p, Shard):
+            shape[p.dim] *= mesh.size(i)
+    return from_shard(x, shape, mesh, place_)
+
+
+def _stage_fn(cfg: TransformerConfig, inner) -> Callable[..., torch.Tensor]:
+    """One pipeline stage (the JAX ``_make_stage_fn``): its ``Lp`` layers on
+    this rank's activations [mb, S, D], on the mesh less ``pp``."""
+    layer = _layer_fn(cfg)
+
+    def stage_fn(stage: Dict[str, Any], x: torch.Tensor) -> torch.Tensor:
+        x = _global(x, inner, _ACT)
+        for i in range(stage["wq"].shape[0]):
+            x = layer(x, {k: v[i] for k, v in stage.items()}, cfg, inner)
+        return _local(x, inner, _ACT)
+
+    return stage_fn
+
+
+def _microbatched(x: torch.Tensor, m: int) -> torch.Tensor:
+    """This rank's rows [B, ...] as ``m`` microbatches [m, B / m, ...]."""
+    if x.shape[0] % m:
+        raise ValueError(f"a rank's batch of {x.shape[0]} rows does not divide into {m} "
+                         "microbatches")
+    return x.reshape(m, x.shape[0] // m, *x.shape[1:])
+
+
 def _hidden_states(
     params: Dict[str, Any], tokens: torch.Tensor, cfg: TransformerConfig, mesh=None
 ) -> torch.Tensor:
     """tokens [B, S] -> final-norm hidden states [B, S, D] in cfg.dtype."""
-    check_mesh(mesh)
-    layer = _layer_fn(cfg)
+    check_mesh(mesh, cfg)
     dt = cfg.dtype
     x = _embed_lookup(params, tokens, dt, mesh)
     layers = {k: v.to(dt) for k, v in params["layers"].items()}
-    for i in range(layers["wq"].shape[1]):
-        lp = {k: v[0, i] for k, v in layers.items()}
-        x = layer(x, lp, cfg, mesh)
+    if max(cfg.pp, 1) == 1:
+        layer = _layer_fn(cfg)
+        for i in range(layers["wq"].shape[1]):
+            lp = {k: v[0, i] for k, v in layers.items()}
+            x = layer(x, lp, cfg, mesh)
+    else:
+        from torchft_tpu_torch.parallel.pipeline import pipeline_forward
+
+        x_loc = _local(x, mesh, _ACT)
+        x_mb = _microbatched(x_loc, cfg.microbatches or cfg.pp)
+        out = pipeline_forward(layers, x_mb, _stage_fn(cfg, without_axis(mesh, "pp")), mesh)
+        x = _global(out.reshape(x_loc.shape), mesh, _ACT)
     return rms_norm(x, params["final_norm"].to(dt), cfg.norm_eps)
 
 
@@ -376,7 +551,7 @@ def forward(
     """tokens [B, S] -> logits [B, S, V] in float32 (sharded: a DTensor,
     batch over (dp, fsdp), vocab over tp)."""
     x = _hidden_states(params, tokens, cfg, mesh)
-    return (x @ _gather_fsdp(params["out"].to(cfg.dtype), mesh)).float()
+    return _mm(x, _gather_fsdp(params["out"].to(cfg.dtype), mesh), mesh).float()
 
 
 def _loss_chunk_elems() -> int:
@@ -405,10 +580,13 @@ def _shifted_local(tokens: torch.Tensor):
 
 
 def _shifted(tokens: torch.Tensor, mesh=None):
+    """Targets and mask, laid out as the activations (the roll runs on
+    whole sequences, across the sp blocks)."""
     if mesh is None:
         return _shifted_local(tokens)
-    rows = placements(_ROWS, mesh)
-    return _local_map(_shifted_local, (rows, rows), (rows,), mesh)(tokens)
+    rows = placements(_WHOLE_ROWS, mesh)
+    targets, mask = _local_map(_shifted_local, (rows, rows), (rows,), mesh)(tokens)
+    return _constrain(targets, mesh, _ROWS), _constrain(mask, mesh, _ROWS)
 
 
 def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -422,14 +600,14 @@ def _nll_sum_local(logits, targets, mask):
 
 def _nll_sum(logits, targets, mask, mesh=None):
     """sum(nll * mask) over the rows: each rank sums its rows (the vocab
-    gathered over tp first), a partial sum over (dp, fsdp)."""
+    gathered over tp first), a partial sum over (dp, fsdp, sp)."""
     if mesh is None:
         return _nll_sum_local(logits, targets, mask)
     from torch.distributed.tensor import Partial, Shard
 
     rows = placements(_ROWS, mesh)
     batch = [Partial() if isinstance(p, Shard) else p for p in rows]
-    logit_rows = placements(P(("dp", "fsdp"), None, None), mesh)
+    logit_rows = placements(P(("dp", "fsdp"), "sp", None), mesh)
     return _local_map(_nll_sum_local, batch, (logit_rows, rows, rows), mesh)(
         logits, targets, mask)
 
@@ -444,9 +622,15 @@ def loss_fn(
 ) -> torch.Tensor:
     """Next-token cross entropy; position S-1 is unsupervised. Sharded,
     ``tokens`` is a DTensor (``TrainStep.shard_batch``) and the loss comes
-    back a plain tensor, equal on every rank."""
+    back a plain tensor, equal on every rank. With ``pp`` above 1 the head
+    runs on the pipeline's last stage (:func:`_pipelined_loss`). Under
+    ``sp`` the dense head stays (its logits are S / sp a rank), as in the
+    JAX package."""
+    if max(cfg.pp, 1) > 1 and mesh is not None:
+        return _pipelined_loss(params, tokens, cfg, mesh)
     b, s = tokens.shape
-    if _per_device_logit_elems(cfg, b, s, mesh) > _loss_chunk_elems():
+    if (axis_size(mesh, "sp") == 1
+            and _per_device_logit_elems(cfg, b, s, mesh) > _loss_chunk_elems()):
         return _chunked_loss(params, tokens, cfg, mesh)
     targets, mask = _shifted(tokens, mesh)
     nll = _nll_sum(forward(params, tokens, cfg, mesh), targets, mask, mesh)
@@ -480,3 +664,37 @@ def _chunked_loss(
         )
         nll_sum = part if nll_sum is None else nll_sum + part
     return _total(nll_sum, mesh) / _total(torch.sum(mask), mesh)
+
+
+def _pipelined_loss(
+    params: Dict[str, Any], tokens: torch.Tensor, cfg: TransformerConfig, mesh
+) -> torch.Tensor:
+    """The loss at ``pp`` above 1 with the pipeline's cheap exit: the final
+    norm, unembed and NLL run on the last stage, and only the NLL sum and
+    the token count cross the stages (the JAX ``_pipelined_loss``). The
+    targets are shifted before the pipeline, on whole sequences."""
+    from torchft_tpu_torch.parallel.pipeline import pipeline_forward
+
+    dt = cfg.dtype
+    m = cfg.microbatches or cfg.pp
+    inner = without_axis(mesh, "pp")
+    x = _local(_embed_lookup(params, tokens, dt, mesh), mesh, _ACT)
+    targets, mask = _shifted(tokens, mesh)
+    layers = {k: v.to(dt) for k, v in params["layers"].items()}
+    head_params = {"final_norm": params["final_norm"].to(dt), "out": params["out"].to(dt)}
+
+    def head_fn(hp, outs, t, msk):
+        h = _global(outs.reshape(-1, *outs.shape[2:]), inner, _ACT)
+        t = _global(t.reshape(-1, t.shape[-1]), inner, _ROWS)
+        msk = _global(msk.reshape(-1, msk.shape[-1]), inner, _ROWS)
+        h = rms_norm(h, hp["final_norm"], cfg.norm_eps)
+        nll = _nll_sum(_mm(h, _gather_fsdp(hp["out"], inner), inner).float(), t, msk, inner)
+        return {"nll": _total(nll, inner), "cnt": _total(torch.sum(msk), inner)}
+
+    res = pipeline_forward(
+        layers, _microbatched(x, m), _stage_fn(cfg, inner), mesh, head_fn=head_fn,
+        head_params=head_params,
+        head_extras=(_microbatched(_local(targets, mesh, _ROWS), m),
+                     _microbatched(_local(mask, mesh, _ROWS), m)),
+    )
+    return res["nll"] / res["cnt"]

@@ -29,7 +29,8 @@ import torch
 
 __all__ = [
     "MeshConfig", "make_mesh", "AXES", "axis_size", "P", "placements", "spec_entries",
-    "local_index", "from_full", "from_shard", "is_dtensor", "place",
+    "local_index", "from_full", "from_shard", "is_dtensor", "place", "without_axis",
+    "ppermute", "psum", "sum_grads",
 ]
 
 # canonical axis order, the JAX package's: outermost first
@@ -239,3 +240,102 @@ def place(t: torch.Tensor, mesh, target: Sequence[Any]):
     if is_dtensor(t):
         return t if list(t.placements) == list(target) else t.redistribute(mesh, target)
     return from_full(t, mesh, target)
+
+
+def without_axis(mesh, axis: str):
+    """``mesh`` less ``axis``: the submesh of this rank's coordinate on it
+    (``mesh`` itself where the axis is absent; None where it is the only
+    axis, so that the region runs on plain tensors)."""
+    if mesh is None or axis not in mesh.mesh_dim_names:
+        return mesh
+    names = tuple(n for n in mesh.mesh_dim_names if n != axis)
+    if not names:
+        return None
+    return mesh[names] if len(names) > 1 else mesh[names[0]]
+
+
+# ---------------------------------------------------------------------------
+# collectives over one mesh axis that autograd differentiates as JAX
+# transposes its own (a process group each: ``mesh.get_group(axis)``)
+# ---------------------------------------------------------------------------
+
+
+def _permute(x: torch.Tensor, group, shift: int) -> torch.Tensor:
+    """Send ``x`` to group rank ``(r + shift) % n``, receive from
+    ``(r - shift) % n``: one ``batch_isend_irecv``, its ops posted in the
+    same order on every rank."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    if shift % n == 0:
+        return x.clone()
+    r = dist.get_rank(group)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    ops = [dist.P2POp(dist.isend, x, dist.get_global_rank(group, (r + shift) % n), group),
+           dist.P2POp(dist.irecv, out, dist.get_global_rank(group, (r - shift) % n), group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, shift):
+        ctx.group, ctx.shift = group, shift
+        return _permute(x, group, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _permute(grad, ctx.group, -ctx.shift), None, None
+
+
+def ppermute(x: torch.Tensor, group, shift: int = 1) -> torch.Tensor:
+    """``jax.lax.ppermute`` with the cyclic perm ``r -> r + shift`` over
+    ``group``; its backward is the reverse permute. Every rank of the group
+    calls it, in the same order."""
+    return _PPermute.apply(x, group, shift)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group``, equal on every rank; its backward is
+    the identity on each rank, as JAX transposes a ``psum`` whose result is
+    replicated (``torch.distributed.nn``'s all-reduce sums the gradients
+    again, which would scale them by the group's size)."""
+    return _Psum.apply(x, group)
+
+
+class _SumGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def sum_grads(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` itself, whose gradient is summed over ``group``: a value
+    replicated over the group that each rank uses in its own way (JAX's
+    replicated ``shard_map`` input, whose transpose is a ``psum``)."""
+    return _SumGrads.apply(x, group)

@@ -17,8 +17,9 @@ keeps the eager step; on the CPU the step is always eager.
 
 With a ``mesh`` (:func:`~torchft_tpu_torch.parallel.mesh.make_mesh`) the
 params, gradients and optimizer state are DTensors placed by the
-transformer's ``param_specs`` and the batch is sharded over ``("dp",
-"fsdp")`` (:meth:`TrainStep.shard_batch`). On the card's one-rank group
+transformer's ``param_specs`` (the layers' leading axis over ``pp``)
+and the batch is sharded over ``("dp", "fsdp")``, its sequence over
+``sp`` (:meth:`TrainStep.shard_batch`). On the card's one-rank group
 the same DTensor code runs with every placement ``Replicate()``, and
 replays from CUDA graphs as the unsharded step does (:class:`StepGraphs`
 keys a DTensor by its local shard's address;
@@ -282,7 +283,7 @@ class TrainStep(GraphedStep):
         self.cfg = cfg
         self.mesh = mesh
         # the params' placements, in leaf order (None without a mesh)
-        self.placements = None if mesh is None else param_placements(mesh)
+        self.placements = None if mesh is None else param_placements(mesh, cfg)
 
     # -- state --
 
@@ -333,9 +334,10 @@ class TrainStep(GraphedStep):
                 }
 
     def shard_batch(self, tokens: torch.Tensor) -> torch.Tensor:
-        """``tokens`` on this step's device; under a mesh a DTensor sharded
-        over ``("dp", "fsdp")``. Every rank of a group holds the group's
-        whole batch (one sampler) and keeps its rows."""
+        """``tokens`` on this step's device; under a mesh a DTensor, its rows
+        sharded over ``("dp", "fsdp")`` and its sequence over ``sp``. Every
+        rank of a group holds the group's whole batch (one sampler) and
+        keeps its shard."""
         tokens = tokens.to(self.device)
         if self.mesh is None:
             return tokens
