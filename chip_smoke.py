@@ -24,7 +24,15 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    kernels, float32 and bf16): train_hsdp's tiny preset's B8 S16 H2, S 48
    (one tile, its last rows past S) causal and not, and S 200 (a ragged
    fourth tile); bf16 at head dims 32 and 64 where S is not a multiple of
-   64; the autograd op at the tiny preset's shape.
+   64; the autograd op at the tiny preset's shape. At the rest of the
+   shapes the Pallas op takes (``SHAPES_HELD``): bf16 at head dim 128 at S
+   16, 100 and 1000 causal and S 100 not (wgmma, the last tile masked),
+   float32 at 128 (S 256 causal and not, S 200) and both types at 256 (S
+   128 and 200; the FMA kernels' 32-row tiles), and 96, 80 and 40 padded
+   to 128 and 64 (S 192, both types, the true head dim's scale); the op at
+   bf16 D 128 S 96 with 32-row blocks and at ``SHAPES_OP`` (D 96, 128 in
+   float32, 256) against float32 attention; C's and Python's
+   ``supported`` agreeing over head dims 1-300; the op refusing 257.
 3. timing of each kernel at the shapes its main path gives it (D 64 at
    the headline's and at B1 S8192 and S32768 H8, where phase 14's
    long-context rows run it; D 128 at the Llama-2-7B width's, D 32 at
@@ -36,7 +44,10 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    its host cost per call, its plain version, the
    ``scaled_dot_product_attention`` yardsticks by both methods, the
    roofline bound and, for K2 and K3 at D 128 and K1-K3 at D 32, the
-   earlier design's time.
+   earlier design's time. Also at ``SHAPES_TIMED`` (float32 at D 128 at
+   the Llama width's shape, bf16 at 128 at B8 S16 H32, D 256 in both types
+   and D 96 padded to 128 at B2 S2048, a few launches each at the slow
+   float32 shapes), with the backend SDPA picks.
 4. the headline fault-tolerant training loop on one replica group:
    in-process lighthouse + store, Manager over the device data plane
    (CollectivesDevice, the JAX headline's wiring), TrainStep at d512 L8
@@ -220,7 +231,8 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    timeline and in ``/diagnosis.json``; the control leg writes none; one
    sha256 and 16/8/8 a step throughout. Printed: ``profiler_overhead``
    (one pair), steps/s with the black box armed and disarmed, the
-   bundle's size, the samples per plane.
+   bundle's size, the samples per plane. The kill, the diagnosis legs (in
+   turn) and ``profiler_overhead`` run at once.
 19. the fault matrix on the card (``torchft_tpu_torch.faultinject.runner``,
    in this process): the port's ``train_bytes`` example as the workers,
    bf16 on the card (K1-K3 at head dim 32), two groups per run, on three
@@ -298,6 +310,20 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    --mesh-worker``): the pp 2 loss equals one stage's to rtol 1e-5, ring
    attention equals plain attention to 2e-5, the gradients to 2e-5, the
    wall within MESH_WALL_S.
+23. K1-K3 at the rest of the shapes the Pallas op takes, in models, right
+   after phase 22 (a) and (b): (a) examples/train_hsdp.py's llama2-7b
+   preset at ``LLAMA_LAYERS`` layers, bf16, ``"auto"``, at the example's
+   default BATCH 8 x SEQ 16 (head dim 128 at an S the wgmma kernels take
+   with the last tile masked): ``TrainStep.grads`` eagerly and replayed
+   from a CUDA graph, bitwise equal, 8/4/4 flash launches in each, the
+   loss within 1e-2 of the plain route's; (b) the same width at 2 layers
+   in float32 through ``"flash"``, B1 S1024 (the FMA kernels at 128): the
+   loss within 1e-4 and each gradient leaf within 1e-3 in norm of the
+   plain route's, 4/2/2 flash launches.
+
+Phase 18 runs its kill, its diagnosis legs and ``profiler_overhead`` at
+once (its in-process steps/s with the black box armed and disarmed after
+them).
 
 Phases 4-18 and 21 replay each train step from CUDA graphs (phase 4's and
 phase 9's eager arms and phase 21's leg (b) aside); every group's graphs
@@ -447,6 +473,11 @@ for _n in ("flash_fwd", "flash_dq", "flash_dkv"):
     for _d in (8, 16):
         KERNEL_OF[(_n, _d, "f32")] = f"{_n}_kernelIfLi{_d}E"
         KERNEL_OF[(_n, _d, "bf16")] = f"{_n}_kernelI13__nv_bfloat16Li{_d}E"
+# the FMA kernels at head dims 128 (float32) and 256 (both types): 32-row tiles
+for _n in ("flash_fwd", "flash_dq", "flash_dkv"):
+    KERNEL_OF[(_n, 128, "f32")] = f"{_n}_kernelIfLi128E"
+    KERNEL_OF[(_n, 256, "f32")] = f"{_n}_kernelIfLi256E"
+    KERNEL_OF[(_n, 256, "bf16")] = f"{_n}_kernelI13__nv_bfloat16Li256E"
 BUILT = list(KERNEL_OF.values()) + [
     f"{n}I{t}Li{d}E" for n in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
     for t in ("f", "13__nv_bfloat16") for d in (32, 64)]
@@ -589,22 +620,36 @@ def _hold_lse(name, got, ref, tol=LSE_TOL, err=None) -> float:
     return err
 
 
+def _padded(fa, x, d):
+    """[BH, S, d] zero-padded to the kernels' head dim for ``d``, as the op
+    pads it (``fa.padded_head_dim``)."""
+    dp = fa.padded_head_dim(d)
+    return x if dp == d else torch.nn.functional.pad(x, (0, dp - d))
+
+
 def _check_kernels(fa, shape, seed, dtype=torch.bfloat16, causal=True):
     """K1, K2 and K3 against their plain versions on the same inputs, and
-    each launched twice on those inputs with bitwise equal results.
-    Returns each kernel's max |err|."""
+    each launched twice on those inputs with bitwise equal results. A head
+    dim the kernels are not built at runs zero-padded as the op pads it,
+    at its true D's scale, the outputs' first D columns held against the
+    plain versions on the unpadded inputs. Returns each kernel's max
+    |err|."""
     b, s, h, d = shape
-    tag = (f"b{b} s{s} h{h} d{d} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
-           f"{'' if causal else ' non-causal'}")
+    dp = fa.padded_head_dim(d)
+    tag = (f"b{b} s{s} h{h} d{d}{'' if dp == d else f' (padded to {dp})'} "
+           f"{'bf16' if dtype == torch.bfloat16 else 'f32'}{'' if causal else ' non-causal'}")
     o_bar, grad_bar, lse_tol = ((KERNEL_BAR, KERNEL_BAR, LSE_TOL) if dtype == torch.bfloat16
                                 else (F32_O_BAR, F32_GRAD_BAR, F32_LSE_TOL))
     q, k, v, do = _qkv(b, s, h, d, dtype, seed=seed)
     pq, pk, pv, pdo = map(_pack, (q, k, v, do))
+    kq, kk, kv, kdo = (_padded(fa, x, d) for x in (pq, pk, pv, pdo))
+    scale = d ** -0.5
     plain = "its plain version"
     res = {}
 
     # K1: O elementwise at the kernel bar, lse at its tolerance
-    o, lse = fa.fwd_kernel(pq, pk, pv, causal)
+    o, lse = fa.fwd_kernel(kq, kk, kv, causal, scale=scale)
+    o = o[..., :d]
     o_ref, lse_ref = fa.fwd_plain(pq, pk, pv, causal)
     torch.cuda.synchronize()
     res["flash_fwd"] = max(_hold(f"K1 flash_fwd O {tag}", o, o_ref, plain, **o_bar),
@@ -613,8 +658,9 @@ def _check_kernels(fa, shape, seed, dtype=torch.bfloat16, causal=True):
 
     # K2 / K3 vs their plain versions on the same (kernel) lse and delta
     delta = (pdo.float() * o.float()).sum(-1)
-    dq = fa.dq_kernel(pq, pk, pv, pdo, lse, delta, causal)
-    dk, dv = fa.dkv_kernel(pq, pk, pv, pdo, lse, delta, causal)
+    dq = fa.dq_kernel(kq, kk, kv, kdo, lse, delta, causal, scale=scale)[..., :d]
+    dk, dv = (x[..., :d] for x in fa.dkv_kernel(kq, kk, kv, kdo, lse, delta, causal,
+                                                 scale=scale))
     dq_ref = fa.dq_plain(pq, pk, pv, pdo, lse, delta, causal)
     res["flash_dq"] = _hold(f"K2 flash_dq {tag}", dq, dq_ref, plain, **grad_bar)
     del dq_ref
@@ -625,13 +671,13 @@ def _check_kernels(fa, shape, seed, dtype=torch.bfloat16, causal=True):
 
     # determinism: the checkpoint recompute must reproduce the forward
     # bit for bit (phase 5's identical checksums rest on it)
-    o2, lse2 = fa.fwd_kernel(pq, pk, pv, causal)
-    dq2 = fa.dq_kernel(pq, pk, pv, pdo, lse, delta, causal)
-    dk2, dv2 = fa.dkv_kernel(pq, pk, pv, pdo, lse, delta, causal)
+    o2, lse2 = fa.fwd_kernel(kq, kk, kv, causal, scale=scale)
+    dq2 = fa.dq_kernel(kq, kk, kv, kdo, lse, delta, causal, scale=scale)
+    dk2, dv2 = fa.dkv_kernel(kq, kk, kv, kdo, lse, delta, causal, scale=scale)
     torch.cuda.synchronize()
-    same = {"flash_fwd": torch.equal(o, o2) and torch.equal(lse, lse2),
-            "flash_dq": torch.equal(dq, dq2),
-            "flash_dkv": torch.equal(dk, dk2) and torch.equal(dv, dv2)}
+    same = {"flash_fwd": torch.equal(o, o2[..., :d]) and torch.equal(lse, lse2),
+            "flash_dq": torch.equal(dq, dq2[..., :d]),
+            "flash_dkv": torch.equal(dk, dk2[..., :d]) and torch.equal(dv, dv2[..., :d])}
     log(f"bitwise equal across two launches {tag}: {same}")
     check(all(same.values()), f"a kernel is not deterministic {tag}: {same}")
     return res
@@ -750,6 +796,82 @@ def phase_small_kernels():
     return errs
 
 
+# K1-K3 at the shapes the Pallas op takes beyond the earlier slices' (head
+# dim 128 in float32 and at any S in bf16, 256 in both types, other head
+# dims padded), held against their plain versions: (B, S, H, D), dtype,
+# causal, and the kernels entry (SHAPES_TIMED) whose max |err| it feeds
+SHAPES_HELD = (
+    [((2, s, 2, 128), torch.bfloat16, True, "d128_s16") for s in (16, 100, 1000)]
+    + [((2, 100, 2, 128), torch.bfloat16, False, "d128_s16"),
+       ((2, 256, 2, 128), torch.float32, True, "d128_f32"),
+       ((2, 256, 2, 128), torch.float32, False, "d128_f32"),
+       ((2, 200, 2, 128), torch.float32, True, "d128_f32")]
+    + [((2, s, 2, 256), dtype, True, label) for s in (128, 200)
+       for dtype, label in ((torch.float32, "d256_f32"), (torch.bfloat16, "d256"))]
+    + [((2, 192, 2, d), dtype, True, label) for d in (96, 80, 40)
+       for dtype, label in ((torch.float32, None), (torch.bfloat16, "d96" if d == 96 else None))]
+)
+# the autograd op against float32 attention there (S a multiple of the op's
+# 128-row blocks): D 96 (padded) in both types, 128 in float32, 256 in both
+SHAPES_OP = (((2, 256, 2, 96), torch.bfloat16), ((2, 256, 2, 96), torch.float32),
+             ((2, 256, 2, 128), torch.float32), ((2, 256, 2, 256), torch.bfloat16),
+             ((2, 256, 2, 256), torch.float32))
+
+
+def phase_shape_kernels():
+    """K1-K3 at every shape the Pallas op takes up to head dim 256, on the
+    card: C's and Python's ``supported`` agree over head dims 1-300 in both
+    types; each of ``SHAPES_HELD`` against the plain versions (the bf16
+    and float32 bars above; a padded head dim as the op pads it, at its
+    true scale); the op at bf16 D 128 S 96 with 32-row blocks and each of
+    ``SHAPES_OP`` against float32 attention (``_hold_op``); head dim 257
+    refused by the op. Returns {label: {kernel: max |err|}}."""
+    from torchft_tpu_torch.ops import flash_attention as fa
+
+    lib = fa._load()
+    grid = [(code, dtype, d, s) for code, dtype in ((0, torch.float32), (1, torch.bfloat16))
+            for d in range(1, 301) for s in (1, 16, 100, 1000, 4096, 65535 * 64, 65536 * 64)]
+    disagree = [(str(dtype), d, s) for code, dtype, d, s in grid
+                if bool(lib.tft_flash_supported(code, d, s)) != fa.supported(dtype, d, s)]
+    edge = {(code, d): bool(lib.tft_flash_supported(code, d, 100))
+            for code in (0, 1) for d in (256, 257)}
+    log(f"supported: C and Python agree on {len(grid) - len(disagree)} of {len(grid)} "
+        f"(dtype, head dim 1-300, S) cases; C at head dims 256 and 257: {edge}")
+    check(not disagree, f"supported: C and Python disagree at {disagree[:8]}")
+    check(edge == {(0, 256): True, (0, 257): False, (1, 256): True, (1, 257): False},
+          "supported: the C predicate does not take exactly the head dims up to 256")
+    errs = {}
+    for seed, (shape, dtype, causal, label) in enumerate(SHAPES_HELD, start=80):
+        for name, err in _check_kernels(fa, shape, seed, dtype, causal).items():
+            if label is not None:
+                errs.setdefault(label, {})
+                errs[label][name] = max(errs[label].get(name, 0.0), err)
+    # the op at the Pallas op's smaller blocks: S 96, a multiple of 32 (and
+    # not of the kernels' 64-row tiles)
+    q, k, v, do = _qkv(2, 96, 2, 128, torch.bfloat16, seed=95)
+    qs, ks, vs = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    o = fa.flash_attention(qs, ks, vs, causal=True, block_q=32, block_k=32)
+    o.backward(do)
+    o_pl, *g_pl = _plain_grads(q, k, v, do, True)
+    tag = "op bf16 causal b2 s96 h2 d128, blocks 32"
+    err = _max_err(o, o_pl)
+    log(f"{tag}: max|O-plain_f32|={err:.3e} (tol 2e-2)")
+    check(err <= 2e-2, f"{tag}: forward disagrees with plain attention")
+    for name, a, r in zip(("dq", "dk", "dv"), (qs.grad, ks.grad, vs.grad), g_pl):
+        _hold(f"{tag} {name}", a, r, "plain float32 attention", **OP_BAR)
+    for seed, (shape, dtype) in enumerate(SHAPES_OP, start=96):
+        _hold_op(shape, seed, dtype)
+    try:
+        x = torch.zeros(1, 128, 1, 257, device="cuda", dtype=torch.bfloat16)
+        fa.flash_attention(x, x, x)
+        refused = False
+    except ValueError:
+        refused = True
+    log(f"op at head dim 257: refused {refused}")
+    check(refused, "flash_attention took head dim 257")
+    return errs
+
+
 def _check_kernels_chunked(fa, shape, seed, chunk):
     """K1-K3 at a length whose [S, S] scores do not fit, with dO random on
     every row, held over query chunks of ``chunk`` rows: O, lse and dQ
@@ -863,7 +985,20 @@ def _bounds(shape, dtype=torch.bfloat16):
 COLD_SETS = 4  # input sets rotated for L2-cold times: 135-200 MB at D 64, over the 50 MB L2
 
 
-def phase_timing(shape, plain_chunk=None, plain_reps=25, dtype=torch.bfloat16):
+def _sdpa_backend(q, k, v) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these [B, H, S,
+    D] inputs, causal (PyTorch's own choice function; "unknown" where this
+    build has none)."""
+    try:
+        from torch.nn.attention import SDPBackend
+
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, is_causal=True)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:  # a private function
+        return f"unknown ({type(e).__name__})"
+
+
+def phase_timing(shape, plain_chunk=None, plain_reps=25, dtype=torch.bfloat16, reps=25,
+                 inner=5, earlier=EARLIER_GRAPH_MS):
     """Each kernel's time at ``shape`` (``dtype``, causal), launched eagerly
     (``ms``, the method of the first slice's records); its device time
     replayed from a CUDA graph with its inputs warm (one set, called back
@@ -871,28 +1006,34 @@ def phase_timing(shape, plain_chunk=None, plain_reps=25, dtype=torch.bfloat16):
     turn: ``ms_cold``; at D 32 all sets fit in the L2); its host cost per
     call; its plain version's time (median of ``plain_reps``; over query
     chunks of ``plain_chunk`` rows when given); and the
-    ``scaled_dot_product_attention`` yardsticks, each by both methods.
-    Returns (times, bounds, SDPA forward (eager, graph))."""
+    ``scaled_dot_product_attention`` yardsticks, each by both methods, with
+    the backend SDPA picked. ``reps`` x ``inner`` launches time a kernel (a
+    few at the FMA kernels' slow shapes). A head dim the kernels are not
+    built at runs zero-padded, as the op pads it (the bound counts the true
+    head dim's work). ``earlier``: the earlier designs' times printed
+    beside, by (kernel, head dim). Returns (times, bounds, SDPA forward
+    (eager, graph))."""
     import torch.nn.functional as F
 
     from torchft_tpu_torch.ops import flash_attention as fa
 
     b, s, h, d = shape
+    scale = d ** -0.5
     sets = []
     for seed in range(3, 3 + COLD_SETS):
         q, k, v, do = _qkv(b, s, h, d, dtype, seed=seed)
-        pq, pk, pv, pdo = map(_pack, (q, k, v, do))
-        o, lse = fa.fwd_kernel(pq, pk, pv, True)
+        pq, pk, pv, pdo = (_padded(fa, _pack(x), d) for x in (q, k, v, do))
+        o, lse = fa.fwd_kernel(pq, pk, pv, True, scale=scale)
         delta = (pdo.float() * o.float()).sum(-1)
         sets.append((pq, pk, pv, pdo, lse, delta))
     tiny = [x[:, :128].contiguous() for x in sets[0]]  # device keeps up: host cost
     calls = {
-        "flash_fwd": (lambda x: fa.fwd_kernel(*x[:3], True),
-                      lambda x, rows=None: fa.fwd_plain(*x[:3], True, rows=rows)),
-        "flash_dq": (lambda x: fa.dq_kernel(*x, True),
-                     lambda x, rows=None: fa.dq_plain(*x, True, rows=rows)),
-        "flash_dkv": (lambda x: fa.dkv_kernel(*x, True),
-                      lambda x, rows=None: fa.dkv_plain(*x, True, rows=rows)),
+        "flash_fwd": (lambda x: fa.fwd_kernel(*x[:3], True, scale=scale),
+                      lambda x, rows=None: fa.fwd_plain(*x[:3], True, rows=rows, scale=scale)),
+        "flash_dq": (lambda x: fa.dq_kernel(*x, True, scale=scale),
+                     lambda x, rows=None: fa.dq_plain(*x, True, rows=rows, scale=scale)),
+        "flash_dkv": (lambda x: fa.dkv_kernel(*x, True, scale=scale),
+                      lambda x, rows=None: fa.dkv_plain(*x, True, rows=rows, scale=scale)),
     }
     t = {}
     for name, (kernel, plain) in calls.items():
@@ -900,11 +1041,13 @@ def phase_timing(shape, plain_chunk=None, plain_reps=25, dtype=torch.bfloat16):
                  else (lambda: _plain_chunked(plain, sets[0], plain_chunk,
                                               summed=name == "flash_dkv")))
         t[name] = dict(
-            ms=gpu_time_ms(lambda: kernel(sets[0])),
-            ms_graph=gpu_time_ms(lambda: kernel(sets[0]), graph=True),
-            ms_cold=gpu_time_ms([lambda x=x: kernel(x) for x in sets], graph=True),
+            ms=gpu_time_ms(lambda: kernel(sets[0]), reps=reps, inner=inner),
+            ms_graph=gpu_time_ms(lambda: kernel(sets[0]), reps=reps, inner=inner, graph=True),
+            ms_cold=gpu_time_ms([lambda x=x: kernel(x) for x in sets], reps=reps, inner=inner,
+                                graph=True),
             host_us=host_us_per_call(lambda: kernel(tiny)),
-            plain_ms=gpu_time_ms(whole, reps=plain_reps, inner=1 if plain_chunk else 5),
+            plain_ms=gpu_time_ms(whole, reps=plain_reps,
+                                 inner=1 if plain_chunk or inner == 1 else 5),
         )
     del sets, tiny
 
@@ -921,15 +1064,20 @@ def phase_timing(shape, plain_chunk=None, plain_reps=25, dtype=torch.bfloat16):
         return torch.autograd.grad(o, (qg, kg, vg), doh)
 
     sdpa = {  # (eager, CUDA graph)
-        "fwd": (gpu_time_ms(sdpa_fwd), gpu_time_ms(sdpa_fwd, graph=True)),
-        "fwd_bwd": (gpu_time_ms(sdpa_fwd_bwd), gpu_time_ms(sdpa_fwd_bwd, graph=True)),
+        "fwd": (gpu_time_ms(sdpa_fwd, reps=reps, inner=inner),
+                gpu_time_ms(sdpa_fwd, reps=reps, inner=inner, graph=True)),
+        "fwd_bwd": (gpu_time_ms(sdpa_fwd_bwd, reps=reps, inner=inner),
+                    gpu_time_ms(sdpa_fwd_bwd, reps=reps, inner=inner, graph=True)),
     }
     bounds = _bounds(shape, dtype)
-    tag = f"b{b} s{s} h{h} d{d}" + ("" if dtype == torch.bfloat16 else " f32")
+    dp = fa.padded_head_dim(d)
+    tag = (f"b{b} s{s} h{h} d{d}" + ("" if dp == d else f" (padded to {dp})")
+           + ("" if dtype == torch.bfloat16 else " f32"))
+    log(f"sdpa(is_causal) {tag}: backend {_sdpa_backend(qh, kh, vh)}")
     for name, r in t.items():
         bound, by, flops, nbytes = bounds[name]
-        earlier = EARLIER_GRAPH_MS.get((name, d))
-        before = "" if earlier is None else f" (earlier design {earlier:.4f} ms)"
+        before = ("" if (name, d) not in earlier
+                  else f" (earlier design {earlier[(name, d)]:.4f} ms)")
         chunks = "" if plain_chunk is None else f" (query chunks of {plain_chunk} rows)"
         log(f"{name} {tag}: {r['ms']:.4f} ms eager (host launches included); CUDA graph "
             f"(device time) {r['ms_graph']:.4f} ms warm{before}, {r['ms_cold']:.4f} ms "
@@ -3268,7 +3416,7 @@ def _forensics_kill(tmp):
     r = measure_recovery(
         total_steps=FORENSICS_STEPS, op_timeout=RECOVERY_OP_TIMEOUT, heartbeat_timeout_ms=LEASE_MS,
         timeout_s=600.0,
-        env_extra={"TORCHFT_DP_CMA": "0",
+        env_extra={"DEVICE": "cuda", "TORCHFT_DP_CMA": "0",
                    "TORCHFT_BLACKBOX_DIR": os.path.join(forensics, "bb"),
                    "TORCHFT_FAULT_EVIDENCE_DIR": os.path.join(forensics, "evidence")},
         victim_env={"TORCHFT_FAULT_SCHEDULE": json.dumps(schedule)})
@@ -3346,7 +3494,7 @@ def _diag_leg(tmp, name, inject):
 
     leg = os.path.join(tmp, name)
     dirs = {"diag": os.path.join(leg, "diag"), "evidence": os.path.join(leg, "evidence")}
-    env = {"TORCHFT_DP_CMA": "0", "TORCHFT_DIAG_DIR": dirs["diag"],
+    env = {"DEVICE": "cuda", "TORCHFT_DP_CMA": "0", "TORCHFT_DIAG_DIR": dirs["diag"],
            "TORCHFT_DIAG_WINDOW_S": str(DIAG_WINDOW_S), "TORCHFT_PROF_BURST_HZ": str(DIAG_BURST_HZ),
            "TORCHFT_DIAG_TORCH": "1", "TORCHFT_STRAGGLER_MONITOR": "1",
            "TORCHFT_STRAGGLER_POLL_S": str(DIAG_POLL_S), **DIAG_STRAGGLER,
@@ -3500,37 +3648,39 @@ def phase_forensics():
     (c) Printed: ``benchmarks.profiler_overhead`` (one pair), the
     headline's steps/s with this process's black box armed and disarmed
     (BOX_PAIRS pairs), the bundle's size and the samples per plane.
-    Returns the workers' flash launches."""
+
+    (a), (b) and ``profiler_overhead`` run at once, each its own worker
+    processes and lighthouse (DEVICE=cuda in the workers' environment);
+    (b)'s injected and control legs stay in turn, and the in-process
+    steps/s of (c) come after them. Returns the workers' flash launches."""
     import tempfile
 
     from torchft_tpu_torch import bench
 
-    gc.collect()
-    torch.cuda.empty_cache()  # the workers need the card's memory
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="tft_torch_forensics_")
-    saved = os.environ.get("DEVICE")
-    os.environ["DEVICE"] = "cuda"
-    try:
-        launches = _forensics_kill(tmp)
-        log(f"forensics: kill and postmortem {time.perf_counter() - t0:.1f} s")
-        t1 = time.perf_counter()
-        launches += _forensics_diagnosis(tmp)
-        log(f"forensics: diagnosis legs {time.perf_counter() - t1:.1f} s")
-    finally:
-        if saved is None:
-            os.environ.pop("DEVICE")
-        else:
-            os.environ["DEVICE"] = saved
 
-    t1 = time.perf_counter()
-    ov = bench._run_json_subprocess(bench._module(
-        "profiler_overhead", "--runs", "1", "--steps", "10", "--warmup", "2"), 600,
-        env_extra={"DEVICE": "cuda"})["profiler_overhead"]
-    log(f"profiler_overhead: {json.dumps(ov)}; {time.perf_counter() - t1:.1f} s (one pair: "
-        f"printed, not held)")
+    def timed(name, fn):
+        start = time.perf_counter()
+        out = fn()
+        log(f"forensics: {name} {time.perf_counter() - start:.1f} s")
+        return out
+
+    def overhead():
+        return bench._run_json_subprocess(bench._module(
+            "profiler_overhead", "--runs", "1", "--steps", "10", "--warmup", "2"), 600,
+            env_extra={"DEVICE": "cuda"})["profiler_overhead"]
+
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        kill = pool.submit(timed, "kill and postmortem", lambda: _forensics_kill(tmp))
+        diag = pool.submit(timed, "diagnosis legs", lambda: _forensics_diagnosis(tmp))
+        ov = pool.submit(timed, "profiler_overhead", overhead)
+        launches = kill.result() + diag.result()
+        ov = ov.result()
+    log(f"profiler_overhead: {json.dumps(ov)} (one pair beside (a) and (b): printed, not held)")
     check(ov["steps_per_sec"] > 0 and ov["steps_per_sec_disarmed"] > 0,
           f"profiler_overhead: {ov}")
+
     t1 = time.perf_counter()
     rates = {True: [], False: []}
     for _ in range(BOX_PAIRS):
@@ -4467,6 +4617,128 @@ def phase_chunked():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: K1-K3 at the rest of the shapes the Pallas op takes
+# ---------------------------------------------------------------------------
+
+# phase 3's shapes for them, (B, S, H, D) and dtype, by kernels entry:
+# float32 at head dim 128 at the Llama width's shape; bf16 at 128 at
+# train_hsdp's own BATCH 8 x SEQ 16 (the wgmma kernels, the last tile
+# masked); head dim 256 (the FMA kernels) in both types and 96 (padded to
+# 128, wgmma) at B2 S2048, 4096 and 3072 columns a token
+SHAPES_TIMED = {
+    "d128_f32": ((2, 4096, 32, 128), torch.float32),
+    "d128_s16": ((8, 16, 32, 128), torch.bfloat16),
+    "d256": ((2, 2048, 16, 256), torch.bfloat16),
+    "d256_f32": ((2, 2048, 16, 256), torch.float32),
+    "d96": ((2, 2048, 32, 96), torch.bfloat16),
+}
+# launches a kernel at each timed shape: a few at the FMA kernels' slow
+# float32 and head dim 256 shapes (tens of ms a launch), few plain reps
+SHAPES_REPS = {"d128_f32": (3, 1, 1), "d128_s16": (25, 5, 5), "d256": (3, 1, 2),
+               "d256_f32": (3, 1, 2), "d96": (10, 2, 3)}  # (reps, inner, plain reps)
+# (a): train_hsdp's llama2-7b preset at its default BATCH 8 x SEQ 16
+# (examples/train_hsdp.py's defaults), the depth of phase 9
+SHAPES_LLAMA_S16 = dict(batch=8, seq=16)
+SHAPES_LOSS_TOL = 1e-2  # phase 9's bar
+# (b): the same width at 2 layers in float32 through "flash", B1 S1024; the
+# loss within 1e-4 and each leaf's gradient within 1e-3 of plain's in norm
+# (float32 throughout: summation order only, about 1e-6)
+SHAPES_F32 = dict(layers=2, batch=1, seq=1024)
+SHAPES_F32_LOSS_TOL = 1e-4
+SHAPES_F32_GRAD_REL = 1e-3
+
+
+def _shapes_llama_s16():
+    """Phase 23 (a): the llama2-7b preset at LLAMA_LAYERS layers, bf16,
+    ``"auto"``, at B8 S16: ``TrainStep.grads`` eagerly and replayed from a
+    CUDA graph (bitwise equal), 8/4/4 flash launches in each, the loss
+    within 1e-2 of the plain route's. Returns the launches of the two
+    calls."""
+    from torchft_tpu_torch.models import transformer as T
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.parallel.train_step import TrainStep
+
+    cfg = llama_config()
+    batch, seq = SHAPES_LLAMA_S16["batch"], SHAPES_LLAMA_S16["seq"]
+    check(T._use_flash(cfg, seq, torch.device("cuda")),
+          "attention_impl='auto' does not route head dim 128 at S 16 to the kernels")
+    params = TrainStep(cfg, device="cuda", graph=False).init_params(seed=0)
+    tokens = make_tokens(cfg, 0, batch, seq)
+    plain_loss, _ = _grads_of(
+        TrainStep(dataclasses.replace(cfg, attention_impl="plain"), graph=False), params, tokens)
+    expect = _launches_per_step(cfg)
+    fa.reset_launches()
+    e_loss, e_grads = _grads_of(TrainStep(cfg, graph=False), params, tokens)
+    eager_launches = dict(fa.LAUNCHES)
+    graphed = TrainStep(cfg, graph=True)
+    _grads_of(graphed, params, tokens)  # the warm-up and the capture
+    fa.reset_launches()
+    g_loss, g_grads = _grads_of(graphed, params, tokens)  # a replay
+    graph_launches = dict(fa.LAUNCHES)
+    same = g_loss == e_loss and all(torch.equal(a, b) for a, b in zip(g_grads, e_grads))
+    log(f"shapes (a) llama2-7b preset, {cfg.n_layers} of 32 layers, bf16, auto, B{batch} x "
+        f"S{seq} (head dim 128, S not a multiple of 64: wgmma, the last tile masked): loss "
+        f"eager {e_loss:.6f}, graphed {g_loss:.6f}, plain {plain_loss:.6f}; |loss - plain| "
+        f"{abs(e_loss - plain_loss):.3e} (tol {SHAPES_LOSS_TOL:g}); graphed replay equal to "
+        f"eager bitwise: {same}; flash launches eager {eager_launches}, replay "
+        f"{graph_launches} (expected {expect} a step)")
+    check(abs(e_loss - plain_loss) <= SHAPES_LOSS_TOL, "shapes (a): the loss disagrees with plain")
+    check(same, "shapes (a): the graphed step disagrees with the eager step (bar: bit for bit)")
+    check(eager_launches == expect and graph_launches == expect,
+          f"shapes (a): flash launches {eager_launches} / {graph_launches} != {expect}")
+    del e_grads, g_grads, graphed
+    return {n: eager_launches[n] + graph_launches[n] for n in expect}
+
+
+def _shapes_f32():
+    """Phase 23 (b): the same width at SHAPES_F32's 2 layers in float32
+    through ``"flash"`` (the FMA kernels at head dim 128), B1 S1024: the
+    loss within 1e-4 of the plain route's, each leaf's gradient within 1e-3
+    in norm, 4/2/2 flash launches. Returns those launches."""
+    from torchft_tpu_torch.ops import flash_attention as fa
+    from torchft_tpu_torch.parallel.train_step import TrainStep
+
+    c = SHAPES_F32
+    cfg = dataclasses.replace(llama_config(c["layers"]), dtype=torch.float32,
+                              attention_impl="flash")
+    params = TrainStep(cfg, device="cuda", graph=False).init_params(seed=0)
+    tokens = make_tokens(cfg, 0, c["batch"], c["seq"])
+    plain_loss, plain_grads = _grads_of(
+        TrainStep(dataclasses.replace(cfg, attention_impl="plain"), graph=False), params, tokens)
+    expect = _launches_per_step(cfg)
+    fa.reset_launches()
+    f_loss, f_grads = _grads_of(TrainStep(cfg, graph=False), params, tokens)
+    launches = dict(fa.LAUNCHES)
+    rel = _grad_rel(f_grads, plain_grads)
+    log(f"shapes (b) llama2-7b width, {cfg.n_layers} layers, float32, flash, B{c['batch']} x "
+        f"S{c['seq']} (head dim 128 on the FMA kernels): loss {f_loss:.7f}, plain "
+        f"{plain_loss:.7f}, |diff| {abs(f_loss - plain_loss):.3e} (tol {SHAPES_F32_LOSS_TOL:g}); "
+        f"worst leaf ||g - plain|| / ||plain|| {rel:.3e} (bar {SHAPES_F32_GRAD_REL:g}); flash "
+        f"launches {launches} (expected {expect})")
+    check(abs(f_loss - plain_loss) <= SHAPES_F32_LOSS_TOL,
+          "shapes (b): the loss disagrees with plain")
+    check(rel <= SHAPES_F32_GRAD_REL, "shapes (b): the gradients disagree with plain attention's")
+    check(launches == expect, f"shapes (b): flash launches {launches} != {expect}")
+    return launches
+
+
+def phase_shapes():
+    """Phase 23 (a) and (b) on the card. Returns their flash launches by
+    kernels entry ("d128_s16", "d128_f32")."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"d128_s16": _shapes_llama_s16()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["d128_f32"] = _shapes_f32()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"shapes: phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _mesh_worker(mode, rank, world, port, outdir) -> None:
     """``chip_smoke.py --mesh-worker MODE RANK WORLD PORT DIR``: one gloo
     rank of phase 22 (c) on the host's CPU (``device="cpu"`` asked for:
@@ -4648,21 +4920,32 @@ def main() -> None:
         errs = phase_kernels()
         errs.update(phase_small_kernels())
         errs.update(phase_long_kernels())
+        shape_errs = phase_shape_kernels()
         mesh.result()
     at("phase 3")
     small_timing = {(d, tag): phase_timing(_shape(dict(TINY, head_dim=d)), dtype=dt)
                     for d in (8, 16)
                     for dt, tag in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))}
-    timing = {64: phase_timing(_shape(HEADLINE)), 128: phase_timing(_shape(LLAMA)),
+    # the plain versions at the Llama width take 36-50 ms a call: 5 reps
+    timing = {64: phase_timing(_shape(HEADLINE)), 128: phase_timing(_shape(LLAMA), plain_reps=5),
               32: phase_timing(_shape(BYTES)),
               LONG_WHOLE["seq"]: phase_timing(_shape(LONG_WHOLE), plain_reps=5),
               LONG["seq"]: phase_timing(_shape(LONG), plain_chunk=LONG_PLAIN_CHUNK,
                                         plain_reps=3)}
+    shape_timing = {}
+    for label, (shape, dtype) in SHAPES_TIMED.items():
+        reps, inner, plain_reps = SHAPES_REPS[label]
+        shape_timing[label] = phase_timing(shape, plain_reps=plain_reps, dtype=dtype, reps=reps,
+                                           inner=inner, earlier={})
+        gc.collect()
+        torch.cuda.empty_cache()
     at("phase 4")
     launches = {64: phase_ft_loop()}
     phase_remat()
     at("phase 22 (a) and (b)")
     phase_chunked()
+    at("phase 23")
+    shape_launches = phase_shapes()
     at("phases 5-8")
     tcp_groups = phase_two_groups()
     phase_diloco()
@@ -4689,6 +4972,8 @@ def main() -> None:
     at("phase 17")
     fleet_launches = phase_fleet()
     at("phase 18")
+    gc.collect()
+    torch.cuda.empty_cache()  # the workers need the card's memory
     forensics_launches = phase_forensics()
     # phases 19, 20 and 21 run at once: each is worker processes that
     # mostly start up (import torch, CUDA, the first capture) and run tiny
@@ -4772,6 +5057,29 @@ def main() -> None:
                 "kernel": KERNEL_OF[(name, 64)], "source": SOURCE, "replaces": REPLACES[name],
                 "launches": long_rows[seq]["launches"][name],
                 "max_abs_err": errs[(name, seq)], "ms": t[name]["ms"],
+                "ms_graph": t[name]["ms_graph"], "ms_cold": t[name]["ms_cold"],
+                "plain_ms": t[name]["plain_ms"], "bound_ms": bounds[name][0],
+                "bound_by": bounds[name][1],
+                "library_ms": sdpa_fwd[0] if name == "flash_fwd" else None,
+                "library_ms_graph": sdpa_fwd[1] if name == "flash_fwd" else None,
+            })
+    # phase 23's shapes: head dim 128 in float32 (the FMA kernels; launched
+    # by phase 23 (b) at S 1024) and bf16 at S 16 (wgmma; phase 23 (a)),
+    # 256 in both types and 96 padded to 128: no path runs them (launches 0)
+    for label, (shape, dtype) in SHAPES_TIMED.items():
+        t, bounds, sdpa_fwd = shape_timing[label]
+        d = shape[3]
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        dp = fa.padded_head_dim(d)
+        for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+            kernels.append({
+                "name": f"{name}_{label}", "head_dim": d, "kernel_head_dim": dp,
+                "dtype": "float32" if tag == "f32" else "bfloat16", "seq": shape[1],
+                "route": "cuda",
+                "kernel": KERNEL_OF.get((name, dp, tag)) or KERNEL_OF[(name, dp)],
+                "source": SOURCE, "replaces": REPLACES[name],
+                "launches": shape_launches.get(label, {}).get(name, 0),
+                "max_abs_err": shape_errs[label][name], "ms": t[name]["ms"],
                 "ms_graph": t[name]["ms_graph"], "ms_cold": t[name]["ms_cold"],
                 "plain_ms": t[name]["plain_ms"], "bound_ms": bounds[name][0],
                 "bound_by": bounds[name][1],

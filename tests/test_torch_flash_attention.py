@@ -26,7 +26,7 @@ def _qkv(b=2, s=256, h=2, d=64, seed=0):
     return [rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(3)]
 
 
-HEAD_DIMS = (64, 32, 128)  # the head dims the card's kernels take
+HEAD_DIMS = (64, 32, 128)  # the paths' head dims (tests/test_torch_flash_shapes.py: 96, 256)
 
 
 def _at_head_dims(cases):
@@ -217,11 +217,10 @@ def test_kernel_wrappers_reject_cpu_tensors(call):
 
 
 def test_supported_shapes():
-    """The predicate that routes ``"auto"`` and guards the wrappers: head
-    dims 8, 16, 32 and 64 in float32 and bf16 at any S (the FMA kernels
-    mask the last tile; bf16 at 32 and 64 with S a multiple of 64 runs on
-    wgmma), 128 in bf16 at S a multiple of 64, at most 65535 tiles of 64
-    (a grid's y extent)."""
+    """The predicate that routes ``"auto"`` and guards the op: float32 and
+    bf16 at any head dim up to 256 (8, 16, 32, 64, 128 and 256 as built,
+    the others padded to the next) and any S (the kernels mask the last
+    tile), at most 65535 tiles of 64; head dims above 256 refused."""
     bf16, f32 = torch.bfloat16, torch.float32
     for d in (32, 64, 128):
         assert fa.supported(bf16, d, 4096) and fa.supported(bf16, d, 192)
@@ -229,16 +228,19 @@ def test_supported_shapes():
     # half-filled last block, which the predicate does not refuse
     assert fa.supported(bf16, 128, 320) and fa.supported(bf16, 128, 4096)
     assert fa.supported(f32, 32, 128) and fa.supported(f32, 64, 128)
-    assert not fa.supported(f32, 128, 128)  # float32 tiles at 128 pass shared memory
+    assert fa.supported(f32, 128, 128)  # the FMA kernels' 32-row tiles at 128
     # the tiny models' shapes: head dims 8 and 16, short and ragged S
     for d in (8, 16):
         for dtype in (f32, bf16):
             for s in (1, 16, 48, 100, 128, 200, 4096):
                 assert fa.supported(dtype, d, s)
-    # S not a multiple of 64: the FMA kernels at D <= 64, refused at 128
+    # S not a multiple of 64: the FMA kernels at D <= 64, wgmma at 128
     assert fa.supported(bf16, 64, 100) and fa.supported(f32, 32, 48)
-    assert not fa.supported(bf16, 128, 100) and not fa.supported(bf16, 128, 48)
+    assert fa.supported(bf16, 128, 100) and fa.supported(bf16, 128, 48)
+    # 96 runs padded to 128, 256 on the FMA kernels; above 256 refused
     for d in (96, 256):
+        assert fa.supported(bf16, d, 128) and fa.supported(f32, d, 128)
+    for d in (257, 512):
         assert not fa.supported(bf16, d, 128) and not fa.supported(f32, d, 128)
     assert not fa.supported(bf16, 64, 0)
     assert fa.supported(bf16, 64, 65535 * 64) and not fa.supported(bf16, 64, 65536 * 64)
@@ -252,13 +254,13 @@ def _need_card():
 
 @pytest.mark.cuda
 def test_c_predicate_agrees_on_card():
-    """csrc/flash_attention.cu's ``supported`` (what the launches accept)
-    and the Python predicate agree on every dtype, head dim and length
+    """csrc/flash_attention.cu's ``supported`` (what the op takes) and the
+    Python predicate agree on every dtype, head dim 1-300 and length
     tried."""
     _need_card()
     lib = fa._load()
     for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
-        for d in (8, 16, 32, 48, 64, 96, 128, 256):
+        for d in range(1, 301):
             for s in (0, 64, 100, 128, 192, 4096, 65535 * 64, 65536 * 64):
                 assert bool(lib.tft_flash_supported(code, d, s)) == fa.supported(dtype, d, s)
 
@@ -309,6 +311,19 @@ def test_c_predicate_agrees_on_card():
           for causal, bh, s in ((True, 16, 16), (True, 4, 48), (False, 4, 48), (True, 4, 200))],
         (32, torch.bfloat16, True, 4, 48),
         (64, torch.bfloat16, False, 4, 200),
+        # bf16 at 128 at any S on wgmma (the last tile masked, K3's last
+        # q-tile ragged); float32 at 128 and both types at 256 on the FMA
+        # kernels' 32-row tiles; 96, 80 and 40 padded to 128 and 64 at
+        # their true scale
+        *[(128, torch.bfloat16, True, 4, s) for s in (16, 100, 1000)],
+        (128, torch.bfloat16, False, 4, 100),
+        (128, torch.float32, True, 4, 256),
+        (128, torch.float32, False, 4, 256),
+        (128, torch.float32, True, 4, 200),
+        *[(256, dtype, True, 4, s) for dtype in (torch.float32, torch.bfloat16)
+          for s in (128, 200)],
+        *[(d, dtype, True, 4, 192) for d in (96, 80, 40)
+          for dtype in (torch.float32, torch.bfloat16)],
     ],
 )
 def test_kernels_match_plain_on_card(d, dtype, causal, bh, s):
@@ -318,11 +333,23 @@ def test_kernels_match_plain_on_card(d, dtype, causal, bh, s):
     q, k, v, do = (
         torch.randn(bh, s, d, device="cuda", generator=g).to(dtype) for _ in range(4)
     )
-    o, lse = fa.fwd_kernel(q, k, v, causal)
+    # a head dim the kernels are not built at runs as the op runs it:
+    # zero-padded, at its own scale, the first d columns kept
+    dp, scale = fa.padded_head_dim(d), d ** -0.5
+
+    def pad(x):
+        return torch.nn.functional.pad(x, (0, dp - d))
+
+    def cut(x):
+        return x[..., :d]
+
+    kq, kk, kv, kdo = map(pad, (q, k, v, do))
+    o, lse = fa.fwd_kernel(kq, kk, kv, causal, scale=scale)
+    o = cut(o)
     o_ref, lse_ref = fa.fwd_plain(q, k, v, causal)
     delta = (do.float() * o.float()).sum(-1)
-    got = (fa.dq_kernel(q, k, v, do, lse, delta, causal),
-           *fa.dkv_kernel(q, k, v, do, lse, delta, causal))
+    got = (cut(fa.dq_kernel(kq, kk, kv, kdo, lse, delta, causal, scale=scale)),
+           *map(cut, fa.dkv_kernel(kq, kk, kv, kdo, lse, delta, causal, scale=scale)))
     ref = (fa.dq_plain(q, k, v, do, lse, delta, causal),
            *fa.dkv_plain(q, k, v, do, lse, delta, causal))
     if dtype == torch.float32:
@@ -344,12 +371,22 @@ def test_kernels_match_plain_on_card(d, dtype, causal, bh, s):
         assert bool(((a - r).abs() <= bar).all())
     assert float((lse - lse_ref).abs().max()) <= 1e-4
     # deterministic: a second launch on the same inputs is bitwise equal
-    o2, lse2 = fa.fwd_kernel(q, k, v, causal)
-    dq2 = fa.dq_kernel(q, k, v, do, lse, delta, causal)
-    dk2, dv2 = fa.dkv_kernel(q, k, v, do, lse, delta, causal)
-    assert torch.equal(o, o2) and torch.equal(lse, lse2)
-    assert torch.equal(got[0], dq2)
-    assert torch.equal(got[1], dk2) and torch.equal(got[2], dv2)
+    o2, lse2 = fa.fwd_kernel(kq, kk, kv, causal, scale=scale)
+    dq2 = fa.dq_kernel(kq, kk, kv, kdo, lse, delta, causal, scale=scale)
+    dk2, dv2 = fa.dkv_kernel(kq, kk, kv, kdo, lse, delta, causal, scale=scale)
+    assert torch.equal(o, cut(o2)) and torch.equal(lse, lse2)
+    assert torch.equal(got[0], cut(dq2))
+    assert torch.equal(got[1], cut(dk2)) and torch.equal(got[2], cut(dv2))
+
+
+@pytest.mark.cuda
+def test_op_refuses_head_dims_above_256_on_card():
+    """``"flash"`` on the card raises above head dim 256 rather than run
+    plain attention."""
+    _need_card()
+    x = torch.zeros(1, 16, 1, 257, device="cuda")
+    with pytest.raises(ValueError, match="257"):
+        fa.flash_attention(x, x, x)
 
 
 @pytest.mark.cuda

@@ -152,12 +152,20 @@ def test_attention_routing():
         for dtype in (torch.float32, torch.bfloat16):
             assert T._use_flash(auto_at(head_dim, dtype), 48, cuda)
             assert not T._use_flash(auto_at(head_dim, dtype), 200, cuda)
-    # and sends the rest to plain attention instead of to a kernel that raises
-    assert not T._use_flash(auto_at(96), 128, cuda)
-    assert not T._use_flash(auto_at(128, torch.float32), 128, cuda)  # no float32 kernel at 128
-    assert not T._use_flash(auto_at(128), 100, cuda)  # wgmma at 128 takes S a multiple of 64
+    # every head dim up to 256 in both types at any S the op's blocks take
+    # (96 padded to 128, float32 at 128 and 256 on the FMA kernels, bf16 at
+    # 128 and S 16 on wgmma, the last tile masked) ...
+    assert T._use_flash(auto_at(96), 128, cuda)
+    assert T._use_flash(auto_at(128, torch.float32), 128, cuda)
+    assert T._use_flash(auto_at(128), 100, cuda)
+    assert T._use_flash(auto_at(128), 16, cuda)  # train_hsdp's llama2-7b at its SEQ 16
+    assert T._use_flash(auto_at(256, torch.float32), 128, cuda)
     assert T._use_flash(auto_at(32, torch.float32), 128, cuda)
-    for head_dim in (8, 16, 32, 64, 96, 128):
+    # ... and sends a head dim above 256 to plain attention instead of to
+    # the op, which raises there
+    assert not T._use_flash(auto_at(257), 128, cuda)
+    assert not T._use_flash(auto_at(512, torch.float32), 128, cuda)
+    for head_dim in (8, 16, 32, 64, 96, 128, 256, 257):
         for dtype in (torch.float32, torch.bfloat16):
             for s in (16, 48, 100, 128, 192, 200, 320, 1000, 1024, 4096):
                 routed = T._use_flash(auto_at(head_dim, dtype), s, cuda)

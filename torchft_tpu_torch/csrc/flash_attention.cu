@@ -5,19 +5,24 @@
 //   K1 forward  <- _fwd_kernel  (lines 67-109, pallas_call at 115)
 //   K2 dQ       <- _dq_kernel   (lines 145-174, pallas_call at 219)
 //   K3 dK/dV    <- _dkv_kernel  (lines 177-210, pallas_call at 238)
-// The Pallas kernels take any head dim D; these take D in {8, 16, 32, 64,
-// 128} (tft_flash_supported says which dtype takes which D and S). bf16 at
-// D 32, 64 and 128 with S a multiple of 64 runs on wgmma:
+// The Pallas kernels take any head dim D; these are instantiated at D 8,
+// 16, 32, 64, 128 and 256 in float32 and bf16, at any S, and the op
+// (torchft_tpu_torch/ops/flash_attention.py) pads every other D up to 256
+// with zero columns to the next of them, passing the true D's scale (a
+// zero column adds an exact 0 to every dot product). tft_flash_supported
+// states what the op takes, and D above 256 stays refused. bf16 at D 128
+// (any S) and at D 32 and 64 (S a multiple of 64) runs on wgmma:
 // flash_fwd_wgmma, flash_dq_wgmma and flash_dkv_wgmma (TMA, mbarriers,
-// wgmma; their notes below), templated on D. The FMA path,
-// flash_fwd_kernel, flash_dq_kernel and flash_dkv_kernel, templated on the
-// element type and D, takes the rest: float32 at D 8, 16, 32 and 64, and
-// bf16 at D 8 and 16 (wgmma's K of 16 bf16 values does not fit D 8, and
-// these are the tiny models' shapes), and at D 32 and 64 where S is not a
-// multiple of 64. It masks the last tile's rows and columns, so it takes
-// any S; its float32 products hold the parity tests at the JAX bars. float32
-// at D 128 is refused: the FMA tiles would pass the 227 KB of shared
-// memory.
+// wgmma; their notes below), templated on D; they mask the last tile. The
+// FMA path, flash_fwd_kernel, flash_dq_kernel and flash_dkv_kernel,
+// templated on the element type and D, takes the rest: float32 at every D,
+// and bf16 at D 8 and 16 (wgmma's K of 16 bf16 values does not fit D 8,
+// and these are the tiny models' shapes), at D 32 and 64 where S is not a
+// multiple of 64, and at D 256 (bf16 loaded into float32). It masks the
+// last tile's rows and columns, so it takes any S; its float32 products
+// hold the parity tests at the JAX bars. At D 128 and 256 its tiles are 32
+// rows, so that K3's six float32 tiles of D columns fit the 227 KB of
+// shared memory (201 KB at D 256).
 //
 // Layout: q, k, v, o, dO, dQ, dK, dV are [BH, S, D] row-major; lse and
 // delta are [BH, S] float32 (the TPU's 8-sublane broadcast and 128-lane
@@ -32,7 +37,8 @@
 // result is deterministic.
 //
 // FMA kernels (float32, and bf16 loaded into float32): a block has 4
-// warps; warp w owns rows [16w, 16w+16) of a 64-row tile, for the matrix
+// warps; warp w owns rows [16w, 16w+16) of a 64-row tile at D <= 64, and
+// [8w, 8w+8) of a 32-row tile at D 128 and 256 (Fma<D>), for the matrix
 // products and for the row-wise softmax, so most steps need only a warp
 // barrier. Tiles are converted to float32 as they are loaded, rows past S
 // as zeros; keys past S are masked like keys past the query, and query
@@ -41,7 +47,9 @@
 // shared memory is dynamic (cudaFuncSetAttribute). Every product is a
 // chain of serial FMAs from shared memory: the kernels do not try to reach
 // either bound (at D 8 and 16 a product of a 16-row stripe keeps 8 or 16
-// lanes to a row, 4 or 2 rows at once).
+// lanes to a row, 4 or 2 rows at once). At D 128 and 256 they are bound by
+// shared-memory loads (one or two a FMA): 2-8 TFLOP/s on the card against
+// its 67 in float32 (PERF.md), first kernels that are right.
 //
 // Numerics kept from the TPU kernels: mask value -1e30 where
 // k_pos > q_pos; blocks above the causal diagonal skipped
@@ -54,21 +62,35 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kTile = 64;     // rows of every Q / K / V tile
+constexpr int kTile = 64;     // rows of the wgmma kernels' boxes: S up to 65535 of them
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
 
 using bf16 = __nv_bfloat16;
 
-// Shared-memory row stride (floats) of the FMA kernels' tiles, for D <= 64:
-// odd, so that a warp reading a column touches 32 banks.
-constexpr int kLd = 65;
-constexpr size_t kTileBytes = sizeof(float) * kTile * kLd;
+// The FMA kernels' tile geometry by head dim. A tile is TR rows; warp w of
+// the block's 4 owns rows [RW w, RW w + RW) of it. At D <= 64, TR = 64 and
+// every tile has the row stride 65. At D 128 and 256, TR = 32: a 64-row
+// float32 tile of 128 columns is 33 KB, and K3 keeps six of them, so the
+// tiles are halved, with a stride of D + 1 for the D-column tiles (Q, K, V,
+// dO and the accumulators) and TR + 1 for the score tiles (S, P, dP, dS).
+// Odd strides: a warp reading a column touches 32 banks.
+template <int D>
+struct Fma {
+  static constexpr int TR = D <= 64 ? 64 : 32;  // rows of every tile
+  static constexpr int RW = TR / 4;             // rows a warp owns
+  static constexpr int CL = TR / 32;            // score columns a lane owns in a row
+  static constexpr int LD = (D > TR ? D : TR) + 1;
+  static constexpr int LS = TR + 1;
+  static constexpr size_t kD = sizeof(float) * TR * LD;  // bytes of a D-column tile
+  static constexpr size_t kS = sizeof(float) * TR * LS;  // bytes of a score tile
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -91,26 +113,27 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Copy the tile of [kTile x D] rows starting at `row0` (global row stride
-// D, `seq` rows in all) into shared memory as float32 (row stride kLd);
-// rows past `seq` read as zeros. All threads take part.
+// Copy the tile of [TR x D] rows starting at `row0` (global row stride D,
+// `seq` rows in all) into shared memory as float32 (row stride LD); rows
+// past `seq` read as zeros. All threads take part.
 template <int D, typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src, int row0,
                                           int seq) {
-  const int rows = min(kTile, seq - row0);
+  constexpr int TR = Fma<D>::TR, LD = Fma<D>::LD;
+  const int rows = min(TR, seq - row0);
   src += static_cast<size_t>(row0) * D;
-  for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+  for (int i = threadIdx.x; i < TR * D; i += kThreads) {
     const int r = i / D, c = i % D;
-    dst[r * kLd + c] = r < rows ? to_f32(src[r * D + c]) : 0.0f;
+    dst[r * LD + c] = r < rows ? to_f32(src[r * D + c]) : 0.0f;
   }
 }
 
-// The calling warp's stripe of a product: C[16 x N] (+)= A[16 x K] B[K x N],
+// The calling warp's stripe of a product: C[M x N] (+)= A[M x K] B[K x N],
 // N 8, 16 or a multiple of 32: min(N, 32) lanes share a row (lane l owns
 // columns l % N, + 32, ...) and 32 / min(N, 32) rows go at once.
 // A_T: A(m, k) is stored at A[k * lda + m] (a transposed operand);
 // B_T: B(k, n) is stored at B[n * ldb + k]. Row stride of C: ldc.
-template <bool A_T, bool B_T, int N>
+template <bool A_T, bool B_T, int M, int N>
 __device__ __forceinline__ void warp_mm(const float* A, int lda, const float* B, int ldb,
                                         float* C, int ldc, int K, bool accumulate) {
   constexpr int kLanes = N < 32 ? N : 32;  // lanes on one row
@@ -119,7 +142,7 @@ __device__ __forceinline__ void warp_mm(const float* A, int lda, const float* B,
   const int lane = threadIdx.x & 31;
   const int col = lane % kLanes;
   __syncwarp();
-  for (int r0 = 0; r0 < 16; r0 += kRows) {
+  for (int r0 = 0; r0 < M; r0 += kRows) {
     const int r = r0 + lane / kLanes;
     float c[NC];
 #pragma unroll
@@ -146,7 +169,17 @@ __device__ __forceinline__ float masked(float dot, float scale, int causal, int 
   return ((causal && kp > qp) || kp >= seq) ? kNegInf : s;
 }
 
-__host__ __device__ __forceinline__ int tiles(int seq) { return (seq + kTile - 1) / kTile; }
+template <int D>
+__host__ __device__ __forceinline__ int tiles(int seq) {
+  return (seq + Fma<D>::TR - 1) / Fma<D>::TR;
+}
+
+// The FMA grids are (bh, y, z): tile y + z * gridDim.y of S (a grid's y
+// extent stops at 65535, short of S / 32 at the longest S); blocks past the
+// last tile return at once.
+__device__ __forceinline__ int tile_index() {
+  return static_cast<int>(blockIdx.y + blockIdx.z * gridDim.y);
+}
 
 // ---------------------------------------------------------------------------
 // K1: forward, FMA. One block per (bh, q-tile); online softmax over k-tiles.
@@ -156,59 +189,71 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
                      float* __restrict__ lse, int seq, float scale, int causal) {
+  using F = Fma<D>;
+  constexpr int TR = F::TR, RW = F::RW, CL = F::CL, LD = F::LD, LS = F::LS;
   extern __shared__ __align__(128) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);
-  float* sK = sQ + kTile * kLd;
-  float* sV = sK + kTile * kLd;
-  float* sP = sV + kTile * kLd;
-  float* sS = sP + kTile * kLd;
-  float* sO = sS + kTile * kLd;
+  float* sK = sQ + TR * LD;
+  float* sV = sK + TR * LD;
+  float* sO = sV + TR * LD;
+  float* sS = sO + TR * LD;  // the scores, then P in place
+  float* sP = sS;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * 16;
-  const int qi = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * RW;
+  const int qi = tile_index();
+  if (qi >= tiles<D>(seq)) return;
   const size_t base = static_cast<size_t>(blockIdx.x) * seq * D;
 
-  load_tile<D>(sQ, q + base, qi * kTile, seq);
-  for (int i = threadIdx.x; i < kTile * kLd; i += kThreads) sO[i] = 0.0f;
-  float m[16], l[16];
+  load_tile<D>(sQ, q + base, qi * TR, seq);
+  for (int i = threadIdx.x; i < TR * LD; i += kThreads) sO[i] = 0.0f;
+  float m[RW], l[RW];
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
+  for (int r = 0; r < RW; ++r) {
     m[r] = kNegInf;
     l[r] = 0.0f;
   }
 
-  const int nk = causal ? qi + 1 : tiles(seq);
+  const int nk = causal ? qi + 1 : tiles<D>(seq);
   for (int j = 0; j < nk; ++j) {
     __syncthreads();  // every warp is done with the previous K/V tiles
-    load_tile<D>(sK, k + base, j * kTile, seq);
-    load_tile<D>(sV, v + base, j * kTile, seq);
+    load_tile<D>(sK, k + base, j * TR, seq);
+    load_tile<D>(sV, v + base, j * TR, seq);
     __syncthreads();
-    warp_mm<false, true, kTile>(sQ + r0 * kLd, kLd, sK, kLd, sS + r0 * kLd, kLd, D, false);
+    warp_mm<false, true, RW, TR>(sQ + r0 * LD, LD, sK, LD, sS + r0 * LS, LS, D, false);
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int row = r0 + r, qp = qi * kTile + row, kp = j * kTile + lane;
-      const float s0 = masked(sS[row * kLd + lane], scale, causal, qp, kp, seq);
-      const float s1 = masked(sS[row * kLd + lane + 32], scale, causal, qp, kp + 32, seq);
-      const float m_new = fmaxf(m[r], warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+    for (int r = 0; r < RW; ++r) {
+      const int row = r0 + r, qp = qi * TR + row;
+      float s[CL], mx = kNegInf;
+#pragma unroll
+      for (int h = 0; h < CL; ++h) {
+        const int c = lane + 32 * h;
+        s[h] = masked(sS[row * LS + c], scale, causal, qp, j * TR + c, seq);
+        mx = fmaxf(mx, s[h]);
+      }
+      const float m_new = fmaxf(m[r], warp_max(mx));
       const float corr = expf(m[r] - m_new);
-      l[r] = l[r] * corr + warp_sum(p0 + p1);
+      float sum = 0.0f;
+#pragma unroll
+      for (int h = 0; h < CL; ++h) {
+        const float p = expf(s[h] - m_new);
+        sum += p;
+        sP[row * LS + lane + 32 * h] = p;
+      }
+      l[r] = l[r] * corr + warp_sum(sum);
       m[r] = m_new;
-      sP[row * kLd + lane] = p0;
-      sP[row * kLd + lane + 32] = p1;
-      for (int c = lane; c < D; c += 32) sO[row * kLd + c] *= corr;
+      for (int c = lane; c < D; c += 32) sO[row * LD + c] *= corr;
     }
-    warp_mm<false, false, D>(sP + r0 * kLd, kLd, sV, kLd, sO + r0 * kLd, kLd, kTile, true);
+    warp_mm<false, false, RW, D>(sP + r0 * LS, LS, sV, LD, sO + r0 * LD, LD, TR, true);
   }
 
   __syncwarp();
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int row = r0 + r, qp = qi * kTile + row;
+  for (int r = 0; r < RW; ++r) {
+    const int row = r0 + r, qp = qi * TR + row;
     if (qp >= seq) break;  // rows past S: the rest of the stripe too
     const float lr = fmaxf(l[r], 1e-30f);
     T* orow = o + base + static_cast<size_t>(qp) * D;
-    for (int c = lane; c < D; c += 32) orow[c] = from_f32<T>(sO[row * kLd + c] / lr);
+    for (int c = lane; c < D; c += 32) orow[c] = from_f32<T>(sO[row * LD + c] / lr);
     if (lane == 0) lse[static_cast<size_t>(blockIdx.x) * seq + qp] = m[r] + logf(lr);
   }
 }
@@ -222,57 +267,60 @@ __global__ void __launch_bounds__(kThreads)
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     T* __restrict__ dq, int seq, float scale, int causal) {
+  using F = Fma<D>;
+  constexpr int TR = F::TR, RW = F::RW, CL = F::CL, LD = F::LD, LS = F::LS;
   extern __shared__ __align__(128) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);
-  float* sDO = sQ + kTile * kLd;
-  float* sK = sDO + kTile * kLd;
-  float* sV = sK + kTile * kLd;
-  float* sDS = sV + kTile * kLd;
-  float* sS = sDS + kTile * kLd;
-  float* sDP = sS + kTile * kLd;
-  float* sAcc = sDP + kTile * kLd;
+  float* sDO = sQ + TR * LD;
+  float* sK = sDO + TR * LD;
+  float* sV = sK + TR * LD;
+  float* sAcc = sV + TR * LD;
+  float* sS = sAcc + TR * LD;  // the scores, then dS in place
+  float* sDS = sS;
+  float* sDP = sS + TR * LS;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * 16;
-  const int qi = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * RW;
+  const int qi = tile_index();
+  if (qi >= tiles<D>(seq)) return;
   const size_t base = static_cast<size_t>(blockIdx.x) * seq * D;
   const size_t rbase = static_cast<size_t>(blockIdx.x) * seq;
 
-  load_tile<D>(sQ, q + base, qi * kTile, seq);
-  load_tile<D>(sDO, dout + base, qi * kTile, seq);
-  for (int i = threadIdx.x; i < kTile * kLd; i += kThreads) sAcc[i] = 0.0f;
+  load_tile<D>(sQ, q + base, qi * TR, seq);
+  load_tile<D>(sDO, dout + base, qi * TR, seq);
+  for (int i = threadIdx.x; i < TR * LD; i += kThreads) sAcc[i] = 0.0f;
 
-  const int nk = causal ? qi + 1 : tiles(seq);
+  const int nk = causal ? qi + 1 : tiles<D>(seq);
   for (int j = 0; j < nk; ++j) {
     __syncthreads();
-    load_tile<D>(sK, k + base, j * kTile, seq);
-    load_tile<D>(sV, v + base, j * kTile, seq);
+    load_tile<D>(sK, k + base, j * TR, seq);
+    load_tile<D>(sV, v + base, j * TR, seq);
     __syncthreads();
-    warp_mm<false, true, kTile>(sQ + r0 * kLd, kLd, sK, kLd, sS + r0 * kLd, kLd, D, false);
-    warp_mm<false, true, kTile>(sDO + r0 * kLd, kLd, sV, kLd, sDP + r0 * kLd, kLd, D, false);
+    warp_mm<false, true, RW, TR>(sQ + r0 * LD, LD, sK, LD, sS + r0 * LS, LS, D, false);
+    warp_mm<false, true, RW, TR>(sDO + r0 * LD, LD, sV, LD, sDP + r0 * LS, LS, D, false);
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int row = r0 + r, qp = qi * kTile + row;
+    for (int r = 0; r < RW; ++r) {
+      const int row = r0 + r, qp = qi * TR + row;
       // rows past S: zero dO, so zero dS (and never written)
       const float lse_r = qp < seq ? lse[rbase + qp] : 0.0f;
       const float delta_r = qp < seq ? delta[rbase + qp] : 0.0f;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
+      for (int h = 0; h < CL; ++h) {
         const int c = lane + 32 * h;
-        const float s = masked(sS[row * kLd + c], scale, causal, qp, j * kTile + c, seq);
+        const float s = masked(sS[row * LS + c], scale, causal, qp, j * TR + c, seq);
         const float p = expf(s - lse_r);
-        sDS[row * kLd + c] = p * (sDP[row * kLd + c] - delta_r) * scale;
+        sDS[row * LS + c] = p * (sDP[row * LS + c] - delta_r) * scale;
       }
     }
-    warp_mm<false, false, D>(sDS + r0 * kLd, kLd, sK, kLd, sAcc + r0 * kLd, kLd, kTile, true);
+    warp_mm<false, false, RW, D>(sDS + r0 * LS, LS, sK, LD, sAcc + r0 * LD, LD, TR, true);
   }
 
   __syncwarp();
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int row = r0 + r, qp = qi * kTile + row;
+  for (int r = 0; r < RW; ++r) {
+    const int row = r0 + r, qp = qi * TR + row;
     if (qp >= seq) break;
     T* out = dq + base + static_cast<size_t>(qp) * D;
-    for (int c = lane; c < D; c += 32) out[c] = from_f32<T>(sAcc[row * kLd + c]);
+    for (int c = lane; c < D; c += 32) out[c] = from_f32<T>(sAcc[row * LD + c]);
   }
 }
 
@@ -286,70 +334,76 @@ __global__ void __launch_bounds__(kThreads)
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      T* __restrict__ dk, T* __restrict__ dv, int seq, float scale,
                      int causal) {
+  using F = Fma<D>;
+  constexpr int TR = F::TR, RW = F::RW, CL = F::CL, LD = F::LD, LS = F::LS;
   extern __shared__ __align__(128) unsigned char smem[];
   float* sK = reinterpret_cast<float*>(smem);
-  float* sV = sK + kTile * kLd;
-  float* sQ = sV + kTile * kLd;
-  float* sDO = sQ + kTile * kLd;
-  float* sP = sDO + kTile * kLd;
-  float* sDS = sP + kTile * kLd;
-  float* sS = sDS + kTile * kLd;
-  float* sDP = sS + kTile * kLd;
-  float* sDK = sDP + kTile * kLd;
-  float* sDV = sDK + kTile * kLd;
+  float* sV = sK + TR * LD;
+  float* sQ = sV + TR * LD;
+  float* sDO = sQ + TR * LD;
+  float* sDK = sDO + TR * LD;
+  float* sDV = sDK + TR * LD;
+  // P overwrites the scores and dS overwrites dP in place (each element
+  // read and written by one thread): two score tiles, so that two blocks
+  // fit an SM at D 128 (107 KB each)
+  float* sS = sDV + TR * LD;
+  float* sP = sS;
+  float* sDP = sS + TR * LS;
+  float* sDS = sDP;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * 16;
-  const int kj = blockIdx.y;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * RW;
+  const int kj = tile_index();
+  const int nq = tiles<D>(seq);
+  if (kj >= nq) return;
   const size_t base = static_cast<size_t>(blockIdx.x) * seq * D;
 
-  load_tile<D>(sK, k + base, kj * kTile, seq);
-  load_tile<D>(sV, v + base, kj * kTile, seq);
-  for (int i = threadIdx.x; i < kTile * kLd; i += kThreads) {
+  load_tile<D>(sK, k + base, kj * TR, seq);
+  load_tile<D>(sV, v + base, kj * TR, seq);
+  for (int i = threadIdx.x; i < TR * LD; i += kThreads) {
     sDK[i] = 0.0f;
     sDV[i] = 0.0f;
   }
 
-  const int nq = tiles(seq);
   for (int i = causal ? kj : 0; i < nq; ++i) {
     __syncthreads();  // every warp is done with the previous Q/dO/P/dS tiles
-    load_tile<D>(sQ, q + base, i * kTile, seq);
-    load_tile<D>(sDO, dout + base, i * kTile, seq);
+    load_tile<D>(sQ, q + base, i * TR, seq);
+    load_tile<D>(sDO, dout + base, i * TR, seq);
     __syncthreads();
-    // warp w: q rows [r0, r0+16) of this q-tile
-    warp_mm<false, true, kTile>(sQ + r0 * kLd, kLd, sK, kLd, sS + r0 * kLd, kLd, D, false);
-    warp_mm<false, true, kTile>(sDO + r0 * kLd, kLd, sV, kLd, sDP + r0 * kLd, kLd, D, false);
+    // warp w: q rows [r0, r0 + RW) of this q-tile
+    warp_mm<false, true, RW, TR>(sQ + r0 * LD, LD, sK, LD, sS + r0 * LS, LS, D, false);
+    warp_mm<false, true, RW, TR>(sDO + r0 * LD, LD, sV, LD, sDP + r0 * LS, LS, D, false);
     const size_t rbase = static_cast<size_t>(blockIdx.x) * seq;
 #pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const int row = r0 + r, qp = i * kTile + row;
+    for (int r = 0; r < RW; ++r) {
+      const int row = r0 + r, qp = i * TR + row;
       // a query row past S adds nothing to dK and dV
       const bool live = qp < seq;
       const float lse_r = live ? lse[rbase + qp] : 0.0f;
       const float delta_r = live ? delta[rbase + qp] : 0.0f;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
+      for (int h = 0; h < CL; ++h) {
         const int c = lane + 32 * h;
-        const float s = masked(sS[row * kLd + c], scale, causal, qp, kj * kTile + c, seq);
+        const float s = masked(sS[row * LS + c], scale, causal, qp, kj * TR + c, seq);
         const float p = live ? expf(s - lse_r) : 0.0f;
-        sP[row * kLd + c] = p;
-        sDS[row * kLd + c] = p * (sDP[row * kLd + c] - delta_r) * scale;
+        sP[row * LS + c] = p;
+        sDS[row * LS + c] = p * (sDP[row * LS + c] - delta_r) * scale;
       }
     }
     __syncthreads();  // P and dS of all q rows are in place
-    // warp w: k rows [r0, r0+16): dV += P^T dO, dK += dS^T Q
-    warp_mm<true, false, D>(sP + r0, kLd, sDO, kLd, sDV + r0 * kLd, kLd, kTile, true);
-    warp_mm<true, false, D>(sDS + r0, kLd, sQ, kLd, sDK + r0 * kLd, kLd, kTile, true);
+    // warp w: k rows [r0, r0 + RW): dV += P^T dO, dK += dS^T Q
+    warp_mm<true, false, RW, D>(sP + r0, LS, sDO, LD, sDV + r0 * LD, LD, TR, true);
+    warp_mm<true, false, RW, D>(sDS + r0, LS, sQ, LD, sDK + r0 * LD, LD, TR, true);
   }
 
   __syncwarp();
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int row = r0 + r, kp = kj * kTile + row;
+  for (int r = 0; r < RW; ++r) {
+    const int row = r0 + r, kp = kj * TR + row;
     if (kp >= seq) break;
     const size_t off = base + static_cast<size_t>(kp) * D;
     for (int c = lane; c < D; c += 32) {
-      dk[off + c] = from_f32<T>(sDK[row * kLd + c]);
-      dv[off + c] = from_f32<T>(sDV[row * kLd + c]);
+      dk[off + c] = from_f32<T>(sDK[row * LD + c]);
+      dv[off + c] = from_f32<T>(sDV[row * LD + c]);
     }
   }
 }
@@ -502,15 +556,18 @@ __device__ __forceinline__ void stage_tile(bf16* tile, const float (&acc)[N], fl
 // Hand a ring stage back where the consumer warps load the ring themselves
 // (no producer warpgroup): each warp arrives once on the stage's "empty"
 // barrier, and the last of the block's kWarps warps to do so (a shared
-// count of the stage's releases, ever) issues its next load, `refill`.
+// count of the stage's releases, ever) issues its next load: that whole
+// warp calls `refill(lane)`.
 template <int kWarps, typename Refill>
 __device__ __forceinline__ void release_stage(uint64_t* empty, uint32_t* released,
                                               Refill&& refill) {
   __syncwarp();
+  uint32_t last = 0;
   if (threadIdx.x % 32 == 0) {
     hopper::mbar_arrive(empty);
-    if (atomicAdd(released, 1u) % kWarps == kWarps - 1) refill();
+    last = atomicAdd(released, 1u) % kWarps == kWarps - 1;
   }
+  if (__shfl_sync(0xffffffffu, last, 0)) refill(static_cast<int>(threadIdx.x % 32));
   __syncwarp();
 }
 
@@ -886,8 +943,8 @@ __global__ void __launch_bounds__(2 * kWg + kDqProducer<D>, 1)
       if constexpr (kPT > 0) {
         mbar_arrive(&sm.kv_empty[st]);
       } else {
-        release_stage<kWarps>(&sm.kv_empty[st], &sm.released[st], [&] {
-          if (it + kStages < nk) load_kv(it + kStages);
+        release_stage<kWarps>(&sm.kv_empty[st], &sm.released[st], [&](int l) {
+          if (l == 0 && it + kStages < nk) load_kv(it + kStages);
         });
       }
     };
@@ -1043,8 +1100,11 @@ __global__ void __launch_bounds__(2 * kWg + kDqProducer<D>, 1)
 // MUFU an element (at D 32 too). A block owns 128
 // keys, and each Q/dO tile streamed serves both consumers; while one
 // consumer computes P^T and dS^T, the other's products keep the tensor
-// cores busy. Where S is a multiple of 64 but not of 128, the last block's
-// second consumer has no keys: TMA zero-fills them and drops its stores.
+// cores busy. Where 128 does not divide S, the last block's keys run past
+// S (its second consumer may have none): TMA zero-fills them and drops
+// their stores. At D 128 any S is taken: the q-tiles number ceil(S / 64),
+// and the last one's queries past S have zero Q and dO rows and lse 1e30
+// (load_qdo), so they add exactly nothing.
 // ---------------------------------------------------------------------------
 
 // The block's consumer warpgroups (64 keys each); the queries a consumer
@@ -1092,7 +1152,7 @@ __global__ void __launch_bounds__(kDkvCons * kWg + kDkvProducer<D>, 1)
   DkvSmem<D>& sm = aligned_smem<DkvSmem<D>>(smem_raw);
   const int bh = blockIdx.x;
   const int kj = blockIdx.y;  // under the causal mask the first key tiles are the heaviest
-  const int nq = seq / kBox;
+  const int nq = (seq + kBox - 1) / kBox;  // q-tiles, the last one ragged where 64 does not divide S
   const int i0 = causal ? kCons * kj : 0;  // first q-tile that sees these keys
   const int wg = threadIdx.x / kWg;
 
@@ -1108,45 +1168,68 @@ __global__ void __launch_bounds__(kDkvCons * kWg + kDkvProducer<D>, 1)
   __syncthreads();
 
   // Q, dO, lse and delta of the n-th q-tile visited into stage n % kSt, once
-  // the consumers have released the tile kSt before it
+  // the consumers have released the tile kSt before it; called by a whole
+  // warp, whose lane 0 waits, arms the barrier and issues the copies. lse
+  // and delta come by bulk copy where the tile's 64 lie inside S and start
+  // on 16 bytes (S a multiple of 4); else the warp's lanes copy them, a
+  // query past S as lse 1e30 and delta 0, so its P^T and dS^T are 0 (its Q
+  // and dO rows are zero-filled too).
   const float* lse_bh = lse + static_cast<size_t>(bh) * seq;
   const float* delta_bh = delta + static_cast<size_t>(bh) * seq;
-  const auto load_qdo = [&](int n) {
+  const auto load_qdo = [&](int n, int lane) {
     const int i = i0 + n, st = n % kSt;
-    mbar_wait(&sm.empty[st], ((n / kSt) & 1) ^ 1);
-    mbar_expect_tx(&sm.full[st], 2 * kRowsBytes<D, kBox> + 2 * kBox * sizeof(float));
-    load_rows<D, kBox>(sm.q[st], &map_q, i * kBox, bh, &sm.full[st]);
-    load_rows<D, kBox>(sm.dout[st], &map_do, i * kBox, bh, &sm.full[st]);
-    bulk_load(sm.lse[st], lse_bh + i * kBox, kBox * sizeof(float), &sm.full[st]);
-    bulk_load(sm.delta[st], delta_bh + i * kBox, kBox * sizeof(float), &sm.full[st]);
+    const bool bulk = seq % 4 == 0 && (i + 1) * kBox <= seq;
+    if (lane == 0) mbar_wait(&sm.empty[st], ((n / kSt) & 1) ^ 1);
+    if (!bulk) {
+      __syncwarp();
+      for (int r = lane; r < kBox; r += 32) {
+        const int qp = i * kBox + r;
+        sm.lse[st][r] = qp < seq ? lse_bh[qp] : 1e30f;
+        sm.delta[st][r] = qp < seq ? delta_bh[qp] : 0.0f;
+      }
+      __threadfence_block();  // the lanes' stores before lane 0's arrival (a release)
+      __syncwarp();
+    }
+    if (lane == 0) {
+      mbar_expect_tx(&sm.full[st],
+                     2 * kRowsBytes<D, kBox> + (bulk ? 2 * kBox * sizeof(float) : 0));
+      load_rows<D, kBox>(sm.q[st], &map_q, i * kBox, bh, &sm.full[st]);
+      load_rows<D, kBox>(sm.dout[st], &map_do, i * kBox, bh, &sm.full[st]);
+      if (bulk) {
+        bulk_load(sm.lse[st], lse_bh + i * kBox, kBox * sizeof(float), &sm.full[st]);
+        bulk_load(sm.delta[st], delta_bh + i * kBox, kBox * sizeof(float), &sm.full[st]);
+      }
+    }
   };
-  // K and V once, then the first `tiles` q-tiles of the ring
-  const auto load_first = [&](int tiles) {
-    tma_prefetch(&map_q);
-    tma_prefetch(&map_do);
-    mbar_expect_tx(&sm.kv_full, 2 * kRowsBytes<D, KB>);
-    load_rows<D, KB>(sm.k, &map_k, kj * KB, bh, &sm.kv_full);
-    load_rows<D, KB>(sm.v, &map_v, kj * KB, bh, &sm.kv_full);
-    for (int n = 0; n < tiles; ++n) load_qdo(n);
+  // K and V once, then the first `tiles` q-tiles of the ring (a whole warp)
+  const auto load_first = [&](int tiles, int lane) {
+    if (lane == 0) {
+      tma_prefetch(&map_q);
+      tma_prefetch(&map_do);
+      mbar_expect_tx(&sm.kv_full, 2 * kRowsBytes<D, KB>);
+      load_rows<D, KB>(sm.k, &map_k, kj * KB, bh, &sm.kv_full);
+      load_rows<D, KB>(sm.v, &map_v, kj * KB, bh, &sm.kv_full);
+    }
+    for (int n = 0; n < tiles; ++n) load_qdo(n, lane);
   };
 
   if (kPT > 0 && wg == 0) {
-    // ---- producer warpgroup: every load from its first thread ----
+    // ---- producer warpgroup: every load from its first warp ----
     regs_dealloc<kProducerRegs>();
-    if (threadIdx.x == 0) load_first(nq - i0);
+    if (threadIdx.x < 32) load_first(nq - i0, threadIdx.x);
   } else {
     if constexpr (kPT > 0) regs_alloc<kConsumerRegs>();
     const int cw = kPT > 0 ? wg - 1 : wg, tid = threadIdx.x % kWg;
     const int warp = tid / 32, lane = tid % 32, t = lane % 4;
-    // without a producer, the first thread loads K, V and the ring's first
+    // without a producer, the first warp loads K, V and the ring's first
     // stages, and each stage is refilled by the last warp to release it
-    if (kPT == 0 && threadIdx.x == 0) load_first(nq - i0 < kSt ? nq - i0 : kSt);
+    if (kPT == 0 && threadIdx.x < 32) load_first(nq - i0 < kSt ? nq - i0 : kSt, lane);
     const auto release = [&](int st, int it) {
       if constexpr (kPT > 0) {
         mbar_arrive(&sm.empty[st]);
       } else {
-        release_stage<kWarps>(&sm.empty[st], &sm.released[st], [&] {
-          if (it + kSt < nq - i0) load_qdo(it + kSt);
+        release_stage<kWarps>(&sm.empty[st], &sm.released[st], [&](int l) {
+          if (it + kSt < nq - i0) load_qdo(it + kSt, l);
         });
       }
     };
@@ -1280,22 +1363,30 @@ __global__ void __launch_bounds__(kDkvCons * kWg + kDkvProducer<D>, 1)
 // host side
 // ---------------------------------------------------------------------------
 
-// What the kernels take (dtype 0 = float32, 1 = bfloat16): the single
-// statement of it, mirrored by torchft_tpu_torch.ops.flash_attention.supported.
-// Every grid is (bh, tiles of S); the tiles' count is the grid's y extent.
-// The FMA kernels take any S; the wgmma kernels S a multiple of 64.
+// What the op takes (dtype 0 = float32, 1 = bfloat16): the single
+// statement of it, mirrored by torchft_tpu_torch.ops.flash_attention.supported:
+// any head dim up to 256 (the op pads it with zeros to the next of the
+// instantiated ones, kHeadDims) and any S up to 65535 tiles of 64.
 constexpr int kMaxSeq = 65535 * kTile;
+constexpr int kMaxHeadDim = 256;
 bool supported(int dtype, int d, int seq) {
-  if (seq <= 0 || seq > kMaxSeq || (dtype != 0 && dtype != 1)) return false;
-  if (d == 8 || d == 16 || d == 32 || d == 64) return true;
-  return d == 128 && dtype == 1 && seq % kTile == 0;
+  return seq > 0 && seq <= kMaxSeq && d > 0 && d <= kMaxHeadDim && (dtype == 0 || dtype == 1);
 }
 
-// bf16 at D 32, 64 and 128 with S a multiple of 64 runs on wgmma; the rest
-// on the FMA kernels
-bool on_wgmma(int dtype, int d, int seq) { return dtype == 1 && d >= 32 && seq % kTile == 0; }
+// The head dims the launches take (the op pads the others up to one)
+bool instantiated(int d) {
+  return d == 8 || d == 16 || d == 32 || d == 64 || d == 128 || d == 256;
+}
 
-bool shape_ok(int dtype, int bh, int seq, int d) { return bh > 0 && supported(dtype, d, seq); }
+// bf16 at D 128 runs on wgmma at every S (the last tile masked), at D 32
+// and 64 where S is a multiple of 64; the rest on the FMA kernels
+bool on_wgmma(int dtype, int d, int seq) {
+  return dtype == 1 && (d == 128 || ((d == 32 || d == 64) && seq % kTile == 0));
+}
+
+bool shape_ok(int dtype, int bh, int seq, int d) {
+  return bh > 0 && instantiated(d) && supported(dtype, d, seq);
+}
 
 // Opt a kernel into its dynamic shared memory once per process.
 template <typename Kernel>
@@ -1414,14 +1505,20 @@ int dkv_hopper(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
+// An FMA grid: (bh, y, z) blocks covering `n` tiles of S (tile_index).
+dim3 fma_grid(int bh, int n) {
+  const int y = n < 65535 ? n : 65535;
+  return dim3(bh, y, (n + y - 1) / y);
+}
+
 template <typename T, int D>
 int fwd_fma(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
             int seq, float scale, int causal, cudaStream_t stream) {
   static bool ready = false;
-  const size_t smem = 6 * kTileBytes;
+  const size_t smem = 4 * Fma<D>::kD + Fma<D>::kS;
   cudaError_t err = allow_smem(flash_fwd_kernel<T, D>, smem, &ready);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, D><<<dim3(bh, tiles(seq)), kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, D><<<fma_grid(bh, tiles<D>(seq)), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, seq, scale, causal);
   return cudaGetLastError();
@@ -1432,10 +1529,10 @@ int dq_fma(const void* q, const void* k, const void* v, const void* dout, const 
            const float* delta, void* dqp, int bh, int seq, float scale, int causal,
            cudaStream_t stream) {
   static bool ready = false;
-  const size_t smem = 8 * kTileBytes;
+  const size_t smem = 5 * Fma<D>::kD + 2 * Fma<D>::kS;
   cudaError_t err = allow_smem(flash_dq_kernel<T, D>, smem, &ready);
   if (err != cudaSuccess) return err;
-  flash_dq_kernel<T, D><<<dim3(bh, tiles(seq)), kThreads, smem, stream>>>(
+  flash_dq_kernel<T, D><<<fma_grid(bh, tiles<D>(seq)), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dqp), seq, scale, causal);
   return cudaGetLastError();
@@ -1446,10 +1543,11 @@ int dkv_fma(const void* q, const void* k, const void* v, const void* dout, const
             const float* delta, void* dkp, void* dvp, int bh, int seq, float scale,
             int causal, cudaStream_t stream) {
   static bool ready = false;
-  const size_t smem = 10 * kTileBytes;
+  // 201 KB at D 256 (six 32 x 257 tiles and two 32 x 33), the most of any
+  const size_t smem = 6 * Fma<D>::kD + 2 * Fma<D>::kS;
   cudaError_t err = allow_smem(flash_dkv_kernel<T, D>, smem, &ready);
   if (err != cudaSuccess) return err;
-  flash_dkv_kernel<T, D><<<dim3(bh, tiles(seq)), kThreads, smem, stream>>>(
+  flash_dkv_kernel<T, D><<<fma_grid(bh, tiles<D>(seq)), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dkp), static_cast<T*>(dvp),
       seq, scale, causal);
@@ -1471,6 +1569,8 @@ struct DkvFma {
   static int run(A... a) { return dkv_fma<T, D>(a...); }
 };
 
+// The FMA instantiations: both types at 8, 16, 32, 64 and 256, float32
+// alone at 128 (bf16 at 128 runs on wgmma at every S).
 template <typename T, typename Launch, typename... A>
 int by_head_dim(int d, A... a) {
   switch (d) {
@@ -1478,6 +1578,10 @@ int by_head_dim(int d, A... a) {
     case 16: return Launch::template run<T, 16>(a...);
     case 32: return Launch::template run<T, 32>(a...);
     case 64: return Launch::template run<T, 64>(a...);
+    case 128:
+      if constexpr (std::is_same_v<T, float>) return Launch::template run<T, 128>(a...);
+      return cudaErrorInvalidValue;
+    case 256: return Launch::template run<T, 256>(a...);
     default: return cudaErrorInvalidValue;
   }
 }

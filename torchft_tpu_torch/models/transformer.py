@@ -41,10 +41,10 @@ Attention routing, in order: ``sp`` above 1 -> ring attention;
 ``"flash"`` -> the flash op (its CUDA kernels on the card, which raise for
 a shape they do not take); ``"auto"`` -> flash on a CUDA device when the
 op takes the dtype, head dim and S
-(:func:`~torchft_tpu_torch.ops.flash_attention.op_supported`: the
-kernels' head dims 8, 16, 32 and 64 at any S, 128 in bf16 at S a multiple
-of 64, and the op's block rule, the Pallas op's, S a multiple of
-min(128, S)); then ``"chunked"``, or ``"auto"`` at S of at least
+(:func:`~torchft_tpu_torch.ops.flash_attention.op_supported`: float32
+and bf16 at any head dim up to 256 and any S, a head dim the kernels are
+not built at padded to the next, and the op's block rule, the Pallas
+op's, S a multiple of min(128, S)); then ``"chunked"``, or ``"auto"`` at S of at least
 ``TORCHFT_TPU_ATTN_CHUNKED_MIN_S`` (1024), -> chunked attention where S is
 a multiple of the chunk (:func:`_use_chunked`, the JAX package's rule and
 variables); else plain. The JAX package engages flash under ``"auto"``

@@ -9,12 +9,16 @@ the card. The public op takes the plain route only for tensors on the
 CPU (plain :func:`~torchft_tpu_torch.ops.attention.attention` under
 autograd); a CUDA tensor launches the kernels or raises.
 
-:func:`supported` is the one statement of what the kernels take: float32
-and bf16 at head dims 8, 16, 32 and 64 at any S, and bf16 at 128 with S a
-multiple of :data:`TILE`. bf16 at 32, 64 and 128 with S a multiple of
-:data:`TILE` runs on the wgmma kernels; every other shape on the FMA
-kernels, which mask the last tile. The JAX op takes any head dim; the
-port's does not.
+:func:`supported` is the one statement of what the op takes: float32
+and bf16 at any head dim up to :data:`MAX_HEAD_DIM` (256) and any S up to
+65535 tiles of :data:`TILE`. The kernels are built at the head dims of
+:data:`KERNEL_HEAD_DIMS` (8, 16, 32, 64, 128, 256); the op pads any other
+with zero columns to the next of them (:func:`padded_head_dim`) inside its
+packing copy, hands the kernels the true head dim's scale, and slices the
+result back. bf16 at 128 (any S), and at 32 and 64 with S a multiple of
+:data:`TILE`, runs on the wgmma kernels; every other shape on the FMA
+kernels (32-row tiles at 128 and 256). Both mask the last tile. The JAX
+op also takes head dims above 256; the port's does not.
 
 The kernels are built with ``nvcc`` at first use into
 ``build/torch_kernels/``, keyed by a digest of every file under ``csrc/``,
@@ -60,21 +64,25 @@ __all__ = [
     "build_log",
     "supported",
     "op_supported",
+    "padded_head_dim",
     "TILE",
     "BLOCK",
+    "KERNEL_HEAD_DIMS",
+    "MAX_HEAD_DIM",
 ]
 
 CSRC_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc"
 )
-TILE = 64  # the kernels' tile rows: the wgmma kernels take S a multiple of it
+TILE = 64  # the wgmma kernels' tile rows; S up to 65535 of them
 # the op's default blocks, the Pallas op's: S must be a multiple of min(BLOCK, S)
 BLOCK = 128
-# head dims the FMA kernels take in both dtypes at any S (float32 tiles at
-# 128 pass the shared memory); bf16 at 128 runs on wgmma alone.
-# csrc/flash_attention.cu's `supported` says the same
-_FMA_HEAD_DIMS = (8, 16, 32, 64)
-_MAX_SEQ = 65535 * TILE  # a launch's grid holds at most 65535 tiles of S
+# the head dims the kernels are built at, in float32 and bf16 at any S; the
+# op pads every other head dim up to MAX_HEAD_DIM to the next of them.
+# csrc/flash_attention.cu's `supported` and `instantiated` say the same
+KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+_MAX_SEQ = 65535 * TILE
 _NEG_INF = -1e30
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -221,12 +229,21 @@ def _check(name: str, *tensors: torch.Tensor, dtype: torch.dtype) -> None:
 
 def supported(dtype: torch.dtype, head_dim: int, seq_len: int) -> bool:
     """Whether the kernels take q/k/v of this dtype, head dim and sequence
-    length (the model's ``"auto"`` attention routes by it)."""
-    if dtype not in _DTYPE_CODE or not 0 < seq_len <= _MAX_SEQ:
-        return False
-    if head_dim in _FMA_HEAD_DIMS:
-        return True
-    return head_dim == 128 and dtype == torch.bfloat16 and seq_len % TILE == 0
+    length, padded to :func:`padded_head_dim` where the head dim is not one
+    of :data:`KERNEL_HEAD_DIMS` (the model's ``"auto"`` attention routes by
+    it)."""
+    return (dtype in _DTYPE_CODE and 0 < head_dim <= MAX_HEAD_DIM
+            and 0 < seq_len <= _MAX_SEQ)
+
+
+def padded_head_dim(head_dim: int) -> int:
+    """The kernels' head dim that takes ``head_dim`` (the next of
+    :data:`KERNEL_HEAD_DIMS` at or above it); raises above
+    :data:`MAX_HEAD_DIM`."""
+    for d in KERNEL_HEAD_DIMS:
+        if head_dim <= d:
+            return d
+    raise ValueError(f"head dim {head_dim} above {MAX_HEAD_DIM} not supported")
 
 
 def op_supported(dtype: torch.dtype, head_dim: int, seq_len: int) -> bool:
@@ -243,11 +260,11 @@ def _check_qkv(name: str, q, k, v) -> Tuple[int, int, int]:
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"{name}: q/k/v must share one [BH, S, D] shape")
     bh, s, d = q.shape
-    if not supported(q.dtype, d, s):
+    if d not in KERNEL_HEAD_DIMS or not supported(q.dtype, d, s):
         raise ValueError(
             f"{name}: {q.dtype} at head dim {d}, seq len {s} not supported (head dims "
-            f"{_FMA_HEAD_DIMS} at any seq len up to {_MAX_SEQ}, and 128 in bfloat16 at a "
-            f"multiple of {TILE})"
+            f"{KERNEL_HEAD_DIMS} at any seq len up to {_MAX_SEQ}; flash_attention pads "
+            f"the others up to {MAX_HEAD_DIM})"
         )
     if not (q.device == k.device == v.device):
         raise ValueError(f"{name}: q/k/v on different devices")
@@ -265,10 +282,17 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _scale(scale: Optional[float], head_dim: int) -> float:
+    return head_dim ** -0.5 if scale is None else scale
+
+
 def fwd_kernel(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+    scale: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1 on the card: ``(o [BH,S,D] in q's dtype, lse [BH,S] float32)``."""
+    """K1 on the card: ``(o [BH,S,D] in q's dtype, lse [BH,S] float32)``.
+    ``scale`` multiplies the scores (default D^-0.5; a padded call passes
+    its true head dim's)."""
     bh, s, d = _check_qkv("flash_fwd", q, k, v)
     lib = _load()
     o = torch.empty_like(q)
@@ -277,7 +301,7 @@ def fwd_kernel(
     with torch.cuda.device(q.device):
         rc = lib.tft_flash_fwd(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            o.data_ptr(), lse.data_ptr(), bh, s, d, d ** -0.5, int(causal),
+            o.data_ptr(), lse.data_ptr(), bh, s, d, _scale(scale, d), int(causal),
             stream,
         )
     _raise_if_failed("flash_fwd", lib, rc)
@@ -294,8 +318,8 @@ def _check_bwd(name, q, k, v, do, lse, delta):
     return bh, s, d
 
 
-def dq_kernel(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
-    """K2 on the card: dQ in q's dtype."""
+def dq_kernel(q, k, v, do, lse, delta, causal: bool, scale=None) -> torch.Tensor:
+    """K2 on the card: dQ in q's dtype (``scale`` as :func:`fwd_kernel`'s)."""
     bh, s, d = _check_bwd("flash_dq", q, k, v, do, lse, delta)
     lib = _load()
     dq = torch.empty_like(q)
@@ -304,15 +328,17 @@ def dq_kernel(q, k, v, do, lse, delta, causal: bool) -> torch.Tensor:
         rc = lib.tft_flash_dq(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            bh, s, d, d ** -0.5, int(causal), stream,
+            bh, s, d, _scale(scale, d), int(causal), stream,
         )
     _raise_if_failed("flash_dq", lib, rc)
     _count_launch("flash_dq", stream)
     return dq
 
 
-def dkv_kernel(q, k, v, do, lse, delta, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3 on the card: (dK, dV) in k's / v's dtype."""
+def dkv_kernel(q, k, v, do, lse, delta, causal: bool,
+               scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 on the card: (dK, dV) in k's / v's dtype (``scale`` as
+    :func:`fwd_kernel`'s)."""
     bh, s, d = _check_bwd("flash_dkv", q, k, v, do, lse, delta)
     lib = _load()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -321,7 +347,7 @@ def dkv_kernel(q, k, v, do, lse, delta, causal: bool) -> Tuple[torch.Tensor, tor
         rc = lib.tft_flash_dkv(
             _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), bh, s, d, d ** -0.5, int(causal), stream,
+            dv.data_ptr(), bh, s, d, _scale(scale, d), int(causal), stream,
         )
     _raise_if_failed("flash_dkv", lib, rc)
     _count_launch("flash_dkv", stream)
@@ -333,11 +359,12 @@ def dkv_kernel(q, k, v, do, lse, delta, causal: bool) -> Tuple[torch.Tensor, tor
 # ---------------------------------------------------------------------------
 
 
-def _scores(q, k, causal, rows=None):
+def _scores(q, k, causal, rows=None, scale=None):
     """Scaled scores of query rows ``rows`` = (r0, r1) (default all) against
     every key, in float32, masked where a key lies past its query."""
     r0, r1 = rows if rows is not None else (0, q.shape[1])
-    scores = torch.einsum("bqd,bkd->bqk", q[:, r0:r1].float(), k.float()) * q.shape[-1] ** -0.5
+    scores = torch.einsum("bqd,bkd->bqk", q[:, r0:r1].float(), k.float()) * _scale(
+        scale, q.shape[-1])
     if causal:
         qpos = torch.arange(r0, r1, device=q.device)
         kpos = torch.arange(k.shape[1], device=q.device)
@@ -350,37 +377,39 @@ def _scores(q, k, causal, rows=None):
 # outputs for query rows [r0, r1) only, against every key: O, lse and dQ of
 # those rows, and those rows' share of the sums that make dK and dV (summed
 # over chunks of rows in float32, ``out_dtype``, they give all of dK and dV).
-# That holds the kernels at lengths whose [S, S] scores do not fit.
+# That holds the kernels at lengths whose [S, S] scores do not fit. Each
+# takes its kernel's ``scale`` too (default D^-0.5).
 
 
-def fwd_plain(q, k, v, causal: bool, rows=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def fwd_plain(q, k, v, causal: bool, rows=None,
+              scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """What K1 computes: (o in q's dtype, lse float32)."""
-    scores = _scores(q, k, causal, rows)
+    scores = _scores(q, k, causal, rows, scale)
     lse = torch.logsumexp(scores, dim=-1)
     p = torch.exp(scores - lse[..., None])
     o = torch.einsum("bqk,bkd->bqd", p, v.float())
     return o.to(q.dtype), lse
 
 
-def _dscores(q, k, v, do, lse, delta, causal, rows):
+def _dscores(q, k, v, do, lse, delta, causal, rows, scale):
     r0, r1 = rows if rows is not None else (0, q.shape[1])
-    p = torch.exp(_scores(q, k, causal, rows) - lse[:, r0:r1, None])
+    p = torch.exp(_scores(q, k, causal, rows, scale) - lse[:, r0:r1, None])
     dp = torch.einsum("bqd,bkd->bqk", do[:, r0:r1].float(), v.float())
-    ds = p * (dp - delta[:, r0:r1, None]) * q.shape[-1] ** -0.5
+    ds = p * (dp - delta[:, r0:r1, None]) * _scale(scale, q.shape[-1])
     return p, ds, (r0, r1)
 
 
-def dq_plain(q, k, v, do, lse, delta, causal: bool, rows=None) -> torch.Tensor:
+def dq_plain(q, k, v, do, lse, delta, causal: bool, rows=None, scale=None) -> torch.Tensor:
     """What K2 computes: dQ = sum_j dS_ij K_j, P recomputed from lse."""
-    _, ds, _ = _dscores(q, k, v, do, lse, delta, causal, rows)
+    _, ds, _ = _dscores(q, k, v, do, lse, delta, causal, rows, scale)
     return torch.einsum("bqk,bkd->bqd", ds, k.float()).to(q.dtype)
 
 
-def dkv_plain(q, k, v, do, lse, delta, causal: bool, rows=None,
-              out_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def dkv_plain(q, k, v, do, lse, delta, causal: bool, rows=None, out_dtype=None,
+              scale=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """What K3 computes: dK = sum_i dS_ij^T Q_i, dV = sum_i P_ij^T dO_i, in
     ``out_dtype`` (default k's and v's)."""
-    p, ds, (r0, r1) = _dscores(q, k, v, do, lse, delta, causal, rows)
+    p, ds, (r0, r1) = _dscores(q, k, v, do, lse, delta, causal, rows, scale)
     dk = torch.einsum("bqk,bqd->bkd", ds, q[:, r0:r1].float()).to(out_dtype or k.dtype)
     dv = torch.einsum("bqk,bqd->bkd", p, do[:, r0:r1].float()).to(out_dtype or v.dtype)
     return dk, dv
@@ -395,10 +424,10 @@ class _Flash(torch.autograd.Function):
     """The kernels' custom gradient (the ``_flash`` custom VJP)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        o, lse = fwd_kernel(q, k, v, causal)
+    def forward(ctx, q, k, v, causal, scale):
+        o, lse = fwd_kernel(q, k, v, causal, scale=scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal = causal
+        ctx.causal, ctx.scale = causal, scale
         return o
 
     @staticmethod
@@ -410,9 +439,9 @@ class _Flash(torch.autograd.Function):
         # its device time (scripts/torch_step_profile.py)
         with torch.profiler.record_function("flash_attention.delta"):
             delta = (do.float() * o.float()).sum(dim=-1)
-        dq = dq_kernel(q, k, v, do, lse, delta, ctx.causal)
-        dk, dv = dkv_kernel(q, k, v, do, lse, delta, ctx.causal)
-        return dq, dk, dv, None
+        dq = dq_kernel(q, k, v, do, lse, delta, ctx.causal, scale=ctx.scale)
+        dk, dv = dkv_kernel(q, k, v, do, lse, delta, ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention(
@@ -427,10 +456,11 @@ def flash_attention(
 
     Raises ``ValueError`` unless S is a multiple of the block sizes (as the
     JAX op does). The blocks only validate the shape: the CUDA kernels use
-    their own 64-row tiles, and on the card raise ``ValueError`` for what
-    :func:`supported` refuses (a head dim other than 8, 16, 32, 64 or 128,
-    float32 at 128, or bf16 at 128 with S not a multiple of 64), where the
-    JAX op takes any Dh. Differentiable through the dQ and dK/dV kernels."""
+    their own tiles. On the card it takes float32 and bf16 at any Dh up to
+    256 (:func:`supported`; a Dh that is not one of :data:`KERNEL_HEAD_DIMS`
+    runs padded with zero columns, :func:`padded_head_dim`) and raises
+    ``ValueError`` above 256, where the JAX op takes any Dh.
+    Differentiable through the dQ and dK/dV kernels."""
     b, s, h, d = q.shape
     bq, bk = min(block_q, s), min(block_k, s)
     if s % bq or s % bk:
@@ -439,9 +469,24 @@ def flash_attention(
         return attention(q, k, v, causal=causal)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return _flash_packed(q, k, v, causal)
+
+
+def _flash_packed(q, k, v, causal: bool) -> torch.Tensor:
+    """The op's kernel route: q/k/v [B, S, H, Dh] packed to [B*H, S, Dp] by
+    one copy each, Dp = :func:`padded_head_dim` (Dh), which raises above
+    256: zero columns past Dh come with the copy (a concatenation, no pass
+    of their own); the kernels scale by Dh^-0.5, the true head dim's, and
+    refuse what else :func:`supported` refuses; the output is a view of the
+    first Dh columns."""
+    b, s, h, d = q.shape
+    dp = padded_head_dim(d)
 
     def pack(x):
-        return x.transpose(1, 2).reshape(b * h, s, d).contiguous()
+        x = x.transpose(1, 2)
+        if dp != d:
+            x = torch.cat((x, x.new_zeros(()).expand(b, h, s, dp - d)), dim=-1)
+        return x.reshape(b * h, s, dp).contiguous()
 
-    o = _Flash.apply(pack(q), pack(k), pack(v), causal)
-    return o.reshape(b, h, s, d).transpose(1, 2)
+    o = _Flash.apply(pack(q), pack(k), pack(v), causal, d ** -0.5)
+    return o.reshape(b, h, s, dp)[..., :d].transpose(1, 2)
