@@ -28,7 +28,10 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    shapes the Pallas op takes (``SHAPES_HELD``): bf16 at head dim 128 at S
    16, 100 and 1000 causal and S 100 not (wgmma, the last tile masked),
    float32 at 128 (S 256 causal and not, S 200) and both types at 256 (S
-   128 and 200; the FMA kernels' 32-row tiles), and 96, 80 and 40 padded
+   128 and 200; float32 and bf16 K2 on the FMA kernels' 32-row tiles, bf16
+   K1 and K3 on wgmma; bf16 also at S 1024 causal and not, the rings
+   wrapping, a ragged S 1000 at an odd BH, and phase 23 (c)'s B1 S2048
+   H16 causal), and 96, 80 and 40 padded
    to 128 and 64 (S 192, both types, the true head dim's scale); the op at
    bf16 D 128 S 96 with 32-row blocks and at ``SHAPES_OP`` (D 96, 128 in
    float32, 256) against float32 attention; C's and Python's
@@ -319,7 +322,13 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    loss within 1e-2 of the plain route's; (b) the same width at 2 layers
    in float32 through ``"flash"``, B1 S1024 (the FMA kernels at 128): the
    loss within 1e-4 and each gradient leaf within 1e-3 in norm of the
-   plain route's, 4/2/2 flash launches.
+   plain route's, 4/2/2 flash launches; (c) the same 4096 columns a token
+   as 16 heads of 256 (Gemma-7B's head width) at 2 layers, bf16,
+   ``"auto"``, B1 S2048 (K1 and K3 on wgmma, K2 on the FMA kernel):
+   ``TrainStep.grads`` eagerly and replayed from a CUDA graph, bitwise
+   equal, 4/2/2 flash launches in each, the loss within 1e-2 and each
+   gradient leaf within 2^-5 in norm of the plain route's, and one eager
+   call under ``torch.profiler`` naming the three kernels.
 
 Phase 18 runs its kill, its diagnosis legs and ``profiler_overhead`` at
 once (its in-process steps/s with the black box armed and disarmed after
@@ -473,11 +482,13 @@ for _n in ("flash_fwd", "flash_dq", "flash_dkv"):
     for _d in (8, 16):
         KERNEL_OF[(_n, _d, "f32")] = f"{_n}_kernelIfLi{_d}E"
         KERNEL_OF[(_n, _d, "bf16")] = f"{_n}_kernelI13__nv_bfloat16Li{_d}E"
-# the FMA kernels at head dims 128 (float32) and 256 (both types): 32-row tiles
+# the FMA kernels at head dims 128 (float32) and 256 (float32, and K2 in
+# bf16): 32-row tiles; bf16 K1 and K3 at 256 on wgmma (256 threads)
 for _n in ("flash_fwd", "flash_dq", "flash_dkv"):
     KERNEL_OF[(_n, 128, "f32")] = f"{_n}_kernelIfLi128E"
     KERNEL_OF[(_n, 256, "f32")] = f"{_n}_kernelIfLi256E"
-    KERNEL_OF[(_n, 256, "bf16")] = f"{_n}_kernelI13__nv_bfloat16Li256E"
+    KERNEL_OF[(_n, 256, "bf16")] = (f"{_n}_kernelI13__nv_bfloat16Li256E" if _n == "flash_dq"
+                                    else f"{_n}_wgmmaILi256E")
 BUILT = list(KERNEL_OF.values()) + [
     f"{n}I{t}Li{d}E" for n in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
     for t in ("f", "13__nv_bfloat16") for d in (32, 64)]
@@ -486,10 +497,13 @@ BUILT = list(KERNEL_OF.values()) + [
 # K2 at head dim 128 with a producer warpgroup, 64 keys at once (384
 # threads) and K3 there with one consumer of 64 keys (256 threads),
 # B2 S4096 H32 D128; K1-K3 at head dim 32 on the FMA kernels, B8 S128 H4
-# D32; printed beside this run's times, not re-run
+# D32; bf16 K1 and K3 at head dim 256 on the FMA kernels, B2 S2048 H16
+# D256 (SHAPES_TIMED["d256"]); printed beside this run's times in phase
+# 3's log, not re-run (the kernels line holds only this run's numbers)
 EARLIER_GRAPH_MS = {("flash_dq", 128): 0.8810, ("flash_dkv", 128): 1.6509,
                     ("flash_fwd", 32): 0.0325, ("flash_dq", 32): 0.1053,
-                    ("flash_dkv", 32): 0.0505}
+                    ("flash_dkv", 32): 0.0505,
+                    ("flash_fwd", 256): 28.8739, ("flash_dkv", 256): 45.6399}
 
 
 def check_no_spills(build_log: str) -> None:
@@ -808,8 +822,14 @@ SHAPES_HELD = (
        ((2, 200, 2, 128), torch.float32, True, "d128_f32")]
     + [((2, s, 2, 256), dtype, True, label) for s in (128, 200)
        for dtype, label in ((torch.float32, "d256_f32"), (torch.bfloat16, "d256"))]
+    # bf16 K1 and K3 at 256 on wgmma: their rings wrap (S 1024), a ragged
+    # last tile at an odd BH (S 1000, B1 H3)
+    + [((b, s, h, 256), torch.bfloat16, causal, "d256")
+       for b, s, h in ((2, 1024, 2), (1, 1000, 3)) for causal in (True, False)]
     + [((2, 192, 2, d), dtype, True, label) for d in (96, 80, 40)
        for dtype, label in ((torch.float32, None), (torch.bfloat16, "d96" if d == 96 else None))]
+    # and at phase 23 (c)'s shape, the only path that runs them on the card
+    + [((1, 2048, 16, 256), torch.bfloat16, True, "d256")]
 )
 # the autograd op against float32 attention there (S a multiple of the op's
 # 128-row blocks): D 96 (padded) in both types, 128 in float32, 256 in both
@@ -4624,8 +4644,9 @@ def phase_chunked():
 # phase 3's shapes for them, (B, S, H, D) and dtype, by kernels entry:
 # float32 at head dim 128 at the Llama width's shape; bf16 at 128 at
 # train_hsdp's own BATCH 8 x SEQ 16 (the wgmma kernels, the last tile
-# masked); head dim 256 (the FMA kernels) in both types and 96 (padded to
-# 128, wgmma) at B2 S2048, 4096 and 3072 columns a token
+# masked); head dim 256 in both types (float32 on the FMA kernels; bf16 K1
+# and K3 on wgmma, K2 on the FMA kernel; phase 23 (c) runs it) and 96
+# (padded to 128, wgmma) at B2 S2048, 4096 and 3072 columns a token
 SHAPES_TIMED = {
     "d128_f32": ((2, 4096, 32, 128), torch.float32),
     "d128_s16": ((8, 16, 32, 128), torch.bfloat16),
@@ -4634,8 +4655,9 @@ SHAPES_TIMED = {
     "d96": ((2, 2048, 32, 96), torch.bfloat16),
 }
 # launches a kernel at each timed shape: a few at the FMA kernels' slow
-# float32 and head dim 256 shapes (tens of ms a launch), few plain reps
-SHAPES_REPS = {"d128_f32": (3, 1, 1), "d128_s16": (25, 5, 5), "d256": (3, 1, 2),
+# float32 and head dim 256 shapes (tens of ms a launch; bf16 K2 at 256),
+# few plain reps
+SHAPES_REPS = {"d128_f32": (3, 1, 1), "d128_s16": (25, 5, 5), "d256": (10, 2, 2),
                "d256_f32": (3, 1, 2), "d96": (10, 2, 3)}  # (reps, inner, plain reps)
 # (a): train_hsdp's llama2-7b preset at its default BATCH 8 x SEQ 16
 # (examples/train_hsdp.py's defaults), the depth of phase 9
@@ -4647,29 +4669,43 @@ SHAPES_LOSS_TOL = 1e-2  # phase 9's bar
 SHAPES_F32 = dict(layers=2, batch=1, seq=1024)
 SHAPES_F32_LOSS_TOL = 1e-4
 SHAPES_F32_GRAD_REL = 1e-3
+# (c): the preset's 4096 columns a token as 16 heads of 256 (Gemma-7B's head
+# width; a TransformerConfig of the port and of the JAX package), bf16,
+# "auto", B1 S2048; the loss within SHAPES_LOSS_TOL of plain's
+SHAPES_D256 = dict(layers=2, heads=16, head_dim=256, batch=1, seq=2048)
+# and each gradient leaf within 2^-5 of plain's in norm: bf16 products
+# summed in another order (a few ulps, 2^-8 each) through 2 layers, phase
+# 22 (a)'s bar at 8; a wrong K3 moves the K and V projections' leaves by O(1)
+SHAPES_D256_GRAD_REL = 2.0 ** -5
+# the kernels one eager call of (c) must run, by a piece of their demangled
+# names (torch.profiler), and the FMA K1 and K3, which it must not
+SHAPES_D256_KERNELS = {"flash_fwd": "flash_fwd_wgmma<256", "flash_dq":
+                       "flash_dq_kernel<__nv_bfloat16, 256>", "flash_dkv": "flash_dkv_wgmma<256"}
+SHAPES_D256_NOT = ("flash_fwd_kernel<", "flash_dkv_kernel<")
 
 
-def _shapes_llama_s16():
-    """Phase 23 (a): the llama2-7b preset at LLAMA_LAYERS layers, bf16,
-    ``"auto"``, at B8 S16: ``TrainStep.grads`` eagerly and replayed from a
-    CUDA graph (bitwise equal), 8/4/4 flash launches in each, the loss
-    within 1e-2 of the plain route's. Returns the launches of the two
-    calls."""
+def _shapes_auto(leg, cfg, batch, seq, what, grad_rel=None):
+    """Phase 23 (a) and (c): ``cfg`` (bf16, ``"auto"``) at B``batch`` x
+    S``seq``: ``TrainStep.grads`` eagerly and replayed from a CUDA graph
+    (bitwise equal), ``_launches_per_step`` flash launches in each, the
+    loss within 1e-2 of the plain route's and, given ``grad_rel``, each
+    leaf's eager gradient within it of the plain route's in norm. Returns
+    the launches of the two calls, the weights, the tokens and the eager
+    ``TrainStep``."""
     from torchft_tpu_torch.models import transformer as T
     from torchft_tpu_torch.ops import flash_attention as fa
     from torchft_tpu_torch.parallel.train_step import TrainStep
 
-    cfg = llama_config()
-    batch, seq = SHAPES_LLAMA_S16["batch"], SHAPES_LLAMA_S16["seq"]
     check(T._use_flash(cfg, seq, torch.device("cuda")),
-          "attention_impl='auto' does not route head dim 128 at S 16 to the kernels")
+          f"shapes ({leg}): attention_impl='auto' does not route {what} to the kernels")
     params = TrainStep(cfg, device="cuda", graph=False).init_params(seed=0)
     tokens = make_tokens(cfg, 0, batch, seq)
-    plain_loss, _ = _grads_of(
+    plain_loss, plain_grads = _grads_of(
         TrainStep(dataclasses.replace(cfg, attention_impl="plain"), graph=False), params, tokens)
     expect = _launches_per_step(cfg)
+    eager = TrainStep(cfg, graph=False)
     fa.reset_launches()
-    e_loss, e_grads = _grads_of(TrainStep(cfg, graph=False), params, tokens)
+    e_loss, e_grads = _grads_of(eager, params, tokens)
     eager_launches = dict(fa.LAUNCHES)
     graphed = TrainStep(cfg, graph=True)
     _grads_of(graphed, params, tokens)  # the warm-up and the capture
@@ -4677,18 +4713,33 @@ def _shapes_llama_s16():
     g_loss, g_grads = _grads_of(graphed, params, tokens)  # a replay
     graph_launches = dict(fa.LAUNCHES)
     same = g_loss == e_loss and all(torch.equal(a, b) for a, b in zip(g_grads, e_grads))
-    log(f"shapes (a) llama2-7b preset, {cfg.n_layers} of 32 layers, bf16, auto, B{batch} x "
-        f"S{seq} (head dim 128, S not a multiple of 64: wgmma, the last tile masked): loss "
+    rel = _grad_rel(e_grads, plain_grads)
+    log(f"shapes ({leg}) {what}, {cfg.n_layers} layers, bf16, auto, B{batch} x S{seq}: loss "
         f"eager {e_loss:.6f}, graphed {g_loss:.6f}, plain {plain_loss:.6f}; |loss - plain| "
-        f"{abs(e_loss - plain_loss):.3e} (tol {SHAPES_LOSS_TOL:g}); graphed replay equal to "
-        f"eager bitwise: {same}; flash launches eager {eager_launches}, replay "
-        f"{graph_launches} (expected {expect} a step)")
-    check(abs(e_loss - plain_loss) <= SHAPES_LOSS_TOL, "shapes (a): the loss disagrees with plain")
-    check(same, "shapes (a): the graphed step disagrees with the eager step (bar: bit for bit)")
+        f"{abs(e_loss - plain_loss):.3e} (tol {SHAPES_LOSS_TOL:g}); worst leaf ||g - plain|| / "
+        f"||plain|| {rel:.3e} (bar {'none' if grad_rel is None else f'{grad_rel:.4g}'}); "
+        f"graphed replay equal to eager bitwise: {same}; flash launches eager "
+        f"{eager_launches}, replay {graph_launches} (expected {expect} a step)")
+    check(abs(e_loss - plain_loss) <= SHAPES_LOSS_TOL,
+          f"shapes ({leg}): the loss disagrees with plain")
+    check(grad_rel is None or rel <= grad_rel,
+          f"shapes ({leg}): the gradients disagree with plain attention's")
+    check(same, f"shapes ({leg}): the graphed step disagrees with the eager step (bar: bit for "
+          "bit)")
     check(eager_launches == expect and graph_launches == expect,
-          f"shapes (a): flash launches {eager_launches} / {graph_launches} != {expect}")
-    del e_grads, g_grads, graphed
-    return {n: eager_launches[n] + graph_launches[n] for n in expect}
+          f"shapes ({leg}): flash launches {eager_launches} / {graph_launches} != {expect}")
+    launches = {n: eager_launches[n] + graph_launches[n] for n in expect}
+    return launches, params, tokens, eager
+
+
+def _shapes_llama_s16():
+    """Phase 23 (a): the llama2-7b preset at LLAMA_LAYERS layers, bf16,
+    ``"auto"``, at B8 S16 (``_shapes_auto``: 8/4/4 flash launches a call).
+    Returns the launches of the two calls."""
+    return _shapes_auto(
+        "a", llama_config(), SHAPES_LLAMA_S16["batch"], SHAPES_LLAMA_S16["seq"],
+        "the llama2-7b preset (head dim 128, S not a multiple of 64: wgmma, the last tile "
+        "masked)")[0]
 
 
 def _shapes_f32():
@@ -4723,9 +4774,38 @@ def _shapes_f32():
     return launches
 
 
+def _shapes_d256():
+    """Phase 23 (c): the llama2-7b preset's width as SHAPES_D256's 16 heads
+    of 256 at 2 layers, bf16, ``"auto"``, B1 S2048 (``_shapes_auto``: 4/2/2
+    flash launches a call, each leaf's gradient within
+    SHAPES_D256_GRAD_REL of plain's); one more eager call under ``torch.profiler``
+    runs K1 and K3 on wgmma and K2 on the FMA kernel (SHAPES_D256_KERNELS)
+    and neither FMA K1 nor K3. Returns the launches of the eager call and
+    the replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    c = SHAPES_D256
+    cfg = dataclasses.replace(llama_config(c["layers"]), n_heads=c["heads"],
+                              head_dim=c["head_dim"])
+    launches, params, tokens, eager = _shapes_auto(
+        "c", cfg, c["batch"], c["seq"], f"the llama2-7b width as {cfg.n_heads} heads of "
+        f"{cfg.head_dim} (K1 and K3 on wgmma, K2 on the FMA kernel)",
+        grad_rel=SHAPES_D256_GRAD_REL)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _grads_of(eager, params, tokens)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if e.device_type.name == "CUDA"}
+    ran = {n: sorted({m for m in names if piece in m}) for n, piece in SHAPES_D256_KERNELS.items()}
+    fma = sorted({m for m in names if any(piece in m for piece in SHAPES_D256_NOT)})
+    log(f"shapes (c): kernels one eager call ran, by the profiler {ran}; FMA K1/K3 {fma}")
+    check(all(ran.values()) and not fma,
+          f"shapes (c): the profiler saw {ran} and FMA K1/K3 {fma}")
+    return launches
+
+
 def phase_shapes():
-    """Phase 23 (a) and (b) on the card. Returns their flash launches by
-    kernels entry ("d128_s16", "d128_f32")."""
+    """Phase 23 (a), (b) and (c) on the card. Returns their flash launches
+    by kernels entry ("d128_s16", "d128_f32", "d256")."""
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
@@ -4733,6 +4813,9 @@ def phase_shapes():
     gc.collect()
     torch.cuda.empty_cache()
     out["d128_f32"] = _shapes_f32()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["d256"] = _shapes_d256()
     gc.collect()
     torch.cuda.empty_cache()
     log(f"shapes: phase wall {time.perf_counter() - t0:.1f} s")
@@ -4935,8 +5018,11 @@ def main() -> None:
     shape_timing = {}
     for label, (shape, dtype) in SHAPES_TIMED.items():
         reps, inner, plain_reps = SHAPES_REPS[label]
-        shape_timing[label] = phase_timing(shape, plain_reps=plain_reps, dtype=dtype, reps=reps,
-                                           inner=inner, earlier={})
+        # the earlier designs' times beside bf16 K1 and K3 at 256 (the keys
+        # name a head dim, and float32 at 256 keeps its design)
+        shape_timing[label] = phase_timing(
+            shape, plain_reps=plain_reps, dtype=dtype, reps=reps, inner=inner,
+            earlier=EARLIER_GRAPH_MS if label == "d256" else {})
         gc.collect()
         torch.cuda.empty_cache()
     at("phase 4")
@@ -5065,7 +5151,8 @@ def main() -> None:
             })
     # phase 23's shapes: head dim 128 in float32 (the FMA kernels; launched
     # by phase 23 (b) at S 1024) and bf16 at S 16 (wgmma; phase 23 (a)),
-    # 256 in both types and 96 padded to 128: no path runs them (launches 0)
+    # bf16 at 256 (phase 23 (c) at S 2048); float32 at 256 and 96 padded to
+    # 128: no path runs them (launches 0)
     for label, (shape, dtype) in SHAPES_TIMED.items():
         t, bounds, sdpa_fwd = shape_timing[label]
         d = shape[3]

@@ -1,21 +1,22 @@
 """The flash kernels of two checkouts of the port, alternated in fresh processes.
 
 Usage (one NVIDIA GPU):
-``python3 scripts/torch_flash_ab.py DIR_A DIR_B [--pairs 3] [--head-dim 32|64|128 ...] [--hashes]``
+``python3 scripts/torch_flash_ab.py DIR_A DIR_B [--pairs 3] [--head-dim 32|64|128|256 ...] [--hashes]``
 
 Each DIR is the root of a checkout that has a ``chip_smoke.py``. Both
 kernel libraries are built first, in parallel. With ``--hashes``, each
 tree then launches K1, K2 and K3 once on the same inputs at six shapes
-(head dims 64, 128 and 32, causal and not, ragged lengths among them;
+(head dims 64, 128, 32 and 256, causal and not, ragged lengths among them;
 K2's and K3's lse and delta from the plain forward, so that they do not
 depend on the tree's K1) and prints a sha256 of each kernel's outputs,
 and the script prints which kernels compute bitwise the same in both
 trees. Then each of ``--pairs`` rounds times, in a process of its own per
 checkout, K1, K2 and K3 at the shapes of each head dim's path (bf16,
 causal: B8 S1024 H8 at 64, the Llama-2-7B width's B2 S4096 H32 at 128,
-train_bytes' B8 S128 H4 at 32; every head dim unless ``--head-dim`` names
-some) by CUDA-graph replay with the inputs L2-warm (``chip_smoke.py``'s
-``gpu_time_ms``, the method of phase 3's ``ms_graph``), A then B in even
+train_bytes' B8 S128 H4 at 32, B2 S2048 H16 at 256; every head dim
+unless ``--head-dim`` names some) by CUDA-graph replay with the inputs
+L2-warm (``chip_smoke.py``'s ``gpu_time_ms``, the method of phase 3's
+``ms_graph``), A then B in even
 rounds and B then A in odd ones. Prints every run's times and, per side,
 kernel and head dim, the median, min and max.
 """
@@ -35,8 +36,10 @@ TIMES = """
 import torch
 import chip_smoke as c
 from torchft_tpu_torch.ops import flash_attention as fa
-for d, shape in {dims}:
-    b, s, h, _ = c._shape(getattr(c, shape))
+SHAPES = {{64: c._shape(c.HEADLINE), 128: c._shape(c.LLAMA), 32: c._shape(c.BYTES),
+          256: c.SHAPES_TIMED["d256"][0]}}
+for d in {dims}:
+    b, s, h, _ = SHAPES[d]
     q, k, v, do = c._qkv(b, s, h, d, torch.bfloat16, seed=3)
     pq, pk, pv, pdo = map(c._pack, (q, k, v, do))
     o, lse = fa.fwd_kernel(pq, pk, pv, True)
@@ -71,9 +74,11 @@ for seed, (shape, causal) in enumerate({shapes}, start=30):
 """
 HASH_SHAPES = [((8, 1024, 8, 64), True), ((2, 192, 2, 64), False),
                ((2, 1024, 4, 128), True), ((2, 320, 2, 128), False),
-               ((8, 128, 4, 32), True), ((2, 1024, 4, 32), False)]
-# head dim: chip_smoke.py's shape of its path
-HEAD_DIMS = {64: "HEADLINE", 128: "LLAMA", 32: "BYTES"}
+               ((8, 128, 4, 32), True), ((2, 1024, 4, 32), False),
+               ((1, 1000, 3, 256), True), ((2, 1024, 2, 256), False)]
+# the head dims timed, each at chip_smoke.py's shape of its path (256:
+# phase 3's SHAPES_TIMED["d256"])
+HEAD_DIMS = (64, 128, 32, 256)
 LINE = re.compile(r"^d(\d+) K1 ([0-9.]+) K2 ([0-9.]+) K3 ([0-9.]+)$", re.M)
 HASH_LINE = re.compile(r"^HASH (.*?) K1 (\w+) K2 (\w+) K3 (\w+)$", re.M)
 
@@ -108,7 +113,7 @@ def main() -> None:
     ap.add_argument("--hashes", action="store_true")
     args = ap.parse_args()
     dims = args.head_dim or list(HEAD_DIMS)
-    code = TIMES.format(dims=[(d, HEAD_DIMS[d]) for d in dims])
+    code = TIMES.format(dims=dims)
     trees = {"A": os.path.abspath(args.a), "B": os.path.abspath(args.b)}
     for side, tree in trees.items():
         print(f"{side}: {tree}", flush=True)

@@ -322,6 +322,11 @@ def test_c_predicate_agrees_on_card():
         (128, torch.float32, True, 4, 200),
         *[(256, dtype, True, 4, s) for dtype in (torch.float32, torch.bfloat16)
           for s in (128, 200)],
+        # bf16 at 256: K1 and K3 on wgmma (64-key stages; K3's consumers
+        # split D), K2 on the FMA kernel, at one tile, ragged lengths and
+        # the rings wrapping, with an odd BH
+        *[(256, torch.bfloat16, causal, 3, s) for s in (64, 200, 1000, 2048)
+          for causal in (True, False)],
         *[(d, dtype, True, 4, 192) for d in (96, 80, 40)
           for dtype in (torch.float32, torch.bfloat16)],
     ],
@@ -377,6 +382,58 @@ def test_kernels_match_plain_on_card(d, dtype, causal, bh, s):
     assert torch.equal(o, cut(o2)) and torch.equal(lse, lse2)
     assert torch.equal(got[0], cut(dq2))
     assert torch.equal(got[1], cut(dk2)) and torch.equal(got[2], cut(dv2))
+
+
+def _profiled_kernels(fn):
+    """The names of the kernels that ``fn()`` ran on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type.name == "CUDA"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "non-causal"])
+def test_mixed_backward_at_256_on_card(causal):
+    """bf16 at head dim 256 through the op's ``autograd.Function``: K1 and
+    K3 on wgmma, K2 on the FMA kernel, which reads the lse that the wgmma
+    K1 wrote (both [BH, S] float32). The output and the three gradients
+    against the plain versions (lse and delta from the op's own forward) at
+    the bf16 bars of ``test_kernels_match_plain_on_card``; one launch of
+    each kernel, and the kernels the profiler saw named by route."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bh, s, d = 3, 1000, 256
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, do = (torch.randn(bh, s, d, device="cuda", generator=g).to(torch.bfloat16)
+                   for _ in range(4))
+    qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
+    fa.reset_launches()
+
+    out = []
+
+    def run():
+        out.append(fa._Flash.apply(qs, ks, vs, causal, d ** -0.5))
+        out[0].backward(do)
+
+    names = _profiled_kernels(run)
+    o = out[0].detach()
+    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    assert any("flash_fwd_wgmma<256" in n for n in names), names
+    assert any("flash_dkv_wgmma<256" in n for n in names), names
+    assert any("flash_dq_kernel<" in n and "bfloat16, 256>" in n for n in names), names
+    assert not any("flash_fwd_kernel<" in n or "flash_dkv_kernel<" in n for n in names), names
+
+    o_ref, lse = fa.fwd_plain(q, k, v, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    ref = (o_ref, fa.dq_plain(q, k, v, do, lse, delta, causal),
+           *fa.dkv_plain(q, k, v, do, lse, delta, causal))
+    for a, r in zip((o, qs.grad, ks.grad, vs.grad), ref):
+        a, r = a.float(), r.float()
+        bar = 2.0 ** -6 * (r.abs() + r.pow(2).mean(-1, keepdim=True).sqrt()) + 1e-5
+        assert bool(((a - r).abs() <= bar).all())
 
 
 @pytest.mark.cuda

@@ -11,6 +11,9 @@ takes the plain route, so the padding path the card runs
 scale, the slice back) is held here with the kernels' plain versions in
 place of the kernels. The CUDA kernels at these shapes are held by
 ``tests/test_torch_flash_attention.py``'s card cases and ``chip_smoke.py``.
+The port's transformer at head dim 256 (the shape of ``chip_smoke.py``
+phase 23 (c), narrowed) is held against the JAX package's with its
+``"flash"`` through the Pallas op in interpret mode.
 """
 
 import functools
@@ -163,3 +166,74 @@ def test_op_takes_any_head_dim_on_the_cpu():
     the card it raises above 256: ``chip_smoke.py`` phase 2)."""
     x = torch.zeros(1, 16, 1, 257)
     assert fa.flash_attention(x, x, x).shape == x.shape
+
+
+# phase 23 (c)'s model, the llama2-7b preset regrouped as heads of 256
+# (Gemma-7B's head width), narrowed: 2 heads of 256 (d_model 512), 2 layers
+HD256_BASE = dict(vocab_size=64, d_model=512, n_layers=2, n_heads=2, head_dim=256, d_ff=512)
+HD256_TOKENS = (2, 64)
+
+
+def _numpy_params(jcfg):
+    """Weights of the JAX model's tree drawn with numpy (seed 0): matrices
+    N(0, 1/fan_in), as the JAX init scales them, and norm gains 1 + N(0,
+    0.1), so that the gains' gradients are not all alike."""
+    from torchft_tpu.models import transformer as J
+
+    jax = pytest.importorskip("jax")
+    rng = np.random.default_rng(0)
+
+    def leaf(path, shape):
+        name = path[-1].key
+        if name in ("ln1", "ln2", "final_norm"):
+            return (1 + 0.1 * rng.standard_normal(shape.shape)).astype(np.float32)
+        fan_in = 1 if name == "embed" else shape.shape[-2]
+        return (rng.standard_normal(shape.shape) * fan_in ** -0.5).astype(np.float32)
+
+    shapes = jax.eval_shape(lambda: J.init_params(jax.random.PRNGKey(0), jcfg))
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_model_256():
+    """The numpy weights, the tokens, and the JAX model's loss and gradients
+    with ``"flash"``: the Pallas op, in interpret mode on the CPU."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from torchft_tpu.models import transformer as J
+
+    jcfg = J.TransformerConfig(**HD256_BASE, dtype=jnp.float32, attention_impl="flash")
+    np_params = _numpy_params(jcfg)
+    tokens = np.random.default_rng(1).integers(0, HD256_BASE["vocab_size"],
+                                               HD256_TOKENS).astype(np.int32)
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p, t: J.loss_fn(p, t, jcfg, None)))(np_params, jnp.asarray(tokens))
+    return np_params, tokens, float(loss), [np.asarray(g)
+                                            for g in jax.tree_util.tree_leaves(grads)]
+
+
+@pytest.mark.parametrize("impl", ["flash", "auto"])
+def test_head_dim_256_model_matches_jax(impl):
+    """The port's transformer at head dim 256 (``"flash"``, and ``"auto"``,
+    which phase 23 (c) runs on the card; both take plain attention on the
+    CPU) against the JAX transformer through the Pallas op, on the same
+    numpy weights carried across by ``params_from_jax`` and the same
+    tokens: the loss at rtol 1e-5 and every gradient at atol 2e-5 (float32
+    end to end: summation order only, gradients of order 1e-3 to 1, as
+    ``tests/test_torch_transformer.py``)."""
+    from torchft_tpu_torch.models import transformer as T
+    from torchft_tpu_torch.utils.tree import tree_leaves
+
+    np_params, tokens, jax_loss, jax_grads = _jax_model_256()
+    params = T.params_from_jax(np_params, device="cpu")
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    cfg = T.TransformerConfig(**HD256_BASE, dtype=torch.float32, attention_impl=impl)
+    loss = T.loss_fn(params, torch.from_numpy(tokens), cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    np.testing.assert_allclose(float(loss.detach()), jax_loss, rtol=1e-5)
+    assert len(grads) == len(jax_grads)
+    for g, e in zip(grads, jax_grads):
+        np.testing.assert_allclose(g.numpy(), e, atol=2e-5)

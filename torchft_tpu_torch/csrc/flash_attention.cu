@@ -11,18 +11,19 @@
 // with zero columns to the next of them, passing the true D's scale (a
 // zero column adds an exact 0 to every dot product). tft_flash_supported
 // states what the op takes, and D above 256 stays refused. bf16 at D 128
-// (any S) and at D 32 and 64 (S a multiple of 64) runs on wgmma:
-// flash_fwd_wgmma, flash_dq_wgmma and flash_dkv_wgmma (TMA, mbarriers,
-// wgmma; their notes below), templated on D; they mask the last tile. The
-// FMA path, flash_fwd_kernel, flash_dq_kernel and flash_dkv_kernel,
-// templated on the element type and D, takes the rest: float32 at every D,
-// and bf16 at D 8 and 16 (wgmma's K of 16 bf16 values does not fit D 8,
-// and these are the tiny models' shapes), at D 32 and 64 where S is not a
-// multiple of 64, and at D 256 (bf16 loaded into float32). It masks the
-// last tile's rows and columns, so it takes any S; its float32 products
-// hold the parity tests at the JAX bars. At D 128 and 256 its tiles are 32
-// rows, so that K3's six float32 tiles of D columns fit the 227 KB of
-// shared memory (201 KB at D 256).
+// (any S), at D 32 and 64 (S a multiple of 64), and K1 and K3 at D 256
+// (any S) run on wgmma: flash_fwd_wgmma, flash_dq_wgmma and
+// flash_dkv_wgmma (TMA, mbarriers, wgmma; their notes below), templated on
+// D; they mask the last tile. The FMA path, flash_fwd_kernel,
+// flash_dq_kernel and flash_dkv_kernel, templated on the element type and
+// D, takes the rest: float32 at every D, and bf16 at D 8 and 16 (wgmma's K
+// of 16 bf16 values does not fit D 8, and these are the tiny models'
+// shapes), at D 32 and 64 where S is not a multiple of 64, and K2 at D 256
+// (bf16 loaded into float32; it reads the lse the wgmma K1 wrote, the same
+// [BH, S] float32). It masks the last tile's rows and columns, so it takes
+// any S; its float32 products hold the parity tests at the JAX bars. At D
+// 128 and 256 its tiles are 32 rows, so that K3's six float32 tiles of D
+// columns fit the 227 KB of shared memory (201 KB at D 256).
 //
 // Layout: q, k, v, o, dO, dQ, dK, dV are [BH, S, D] row-major; lse and
 // delta are [BH, S] float32 (the TPU's 8-sublane broadcast and 128-lane
@@ -410,19 +411,19 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---------------------------------------------------------------------------
 // bf16 K1, K2 and K3 for Hopper: TMA, mbarriers and wgmma, warp-specialised,
-// templated on the head dim D (32, 64 and 128).
+// templated on the head dim D (32, 64 and 128; K1 and K3 also 256).
 //
 // A block is consumer warpgroups (two, but one for K1 at D 32) and, but
-// for K2 and K3 at D 128, a producer warpgroup that gives up its
-// registers (setmaxnreg). One of the producer's threads (in K2 and K3 at
-// D 128, whichever consumer warp releases a stage last: release_stage)
-// keeps a ring of tiles in flight with TMA, each
+// for K2 and K3 at D 128 and K1 and K3 at D 256, a producer warpgroup that
+// gives up its registers (setmaxnreg). One of the producer's threads (in
+// the others, whichever consumer warp releases a stage last:
+// release_stage) keeps a ring of tiles in flight with TMA, each
 // stage completed on a "full" mbarrier and handed back on an "empty" one.
 // Each consumer owns 64 rows of the block's tile, runs wgmma on the tiles
 // that have arrived, and keeps its accumulators, running max and sum in
 // registers for the whole loop. Tiles are stored as D/C column blocks of
 // C columns ([D/C][rows][C], C = kCol<D>): C = 64 (128-byte rows, the
-// 128-byte swizzle) at D 64 and 128, C = 32 (64-byte rows, the 64-byte
+// 128-byte swizzle) at D 64, 128 and 256, C = 32 (64-byte rows, the 64-byte
 // swizzle) at D 32, where a row is 64 bytes (see hopper.cuh); one tensor
 // map format per head dim (box C x 64) serves every tensor. A product
 // over D (Q.K^T, dO.V^T) steps its K through the column blocks, one
@@ -451,7 +452,11 @@ __global__ void __launch_bounds__(kThreads)
 // warpgroups and nothing else (256 threads), their consumer warps issuing
 // the TMA loads: K3 at 250 registers, K2 taking a stage's 128 keys at once
 // (S 64 + dP 64 + dQ 64 + dS 32 registers). A K1 of 256 threads taking 128
-// keys at once was no faster on the card (PERF.md). At D 32 registers are
+// keys at once was no faster on the card (PERF.md). At D 256 O alone is
+// 128 registers and dK + dV 256: K1 takes D 128's layout in 256 threads
+// with 64-key stages (the ring and 128 query rows fill 192 KB), and K3's
+// two consumers split D (each owns the block's 64 keys and half of dK's
+// and dV's columns: dkv_tile). At D 32 registers are
 // no limit (O and dQ 16, dK and dV 32) and the path's S of 128 gives a
 // block one or two tiles to visit, so the ring never fills and a block's
 // time is its chain of latencies: K2 and K3 keep D 64's layout (384
@@ -596,78 +601,117 @@ __device__ __forceinline__ void release_stage(uint64_t* empty, uint32_t* release
 // q-tiles) at D 64 and 128; one at D 32, where S 128 leaves a block one
 // K/V tile: 64-row blocks (twice the blocks, 256 threads) each run one
 // Q load, one K/V load, one S, one softmax, one P.V and the store, and
-// were 15% faster than 128-row ones on the card (PERF.md).
+// were 15% faster than 128-row ones on the card (PERF.md). At D 256 (B2
+// S2048 H16: 68.7 GFLOP of causal products, 0.0695 ms, over 134 MB) O is
+// 128 registers, S 32 and P's fragments 16: a producer warpgroup's 168
+// would spill, so the block is the two consumers alone (256 threads, the
+// last warp to release a stage loading its next tile, as K2 at D 128),
+// and a stage holds 64 keys (Q's 128 rows and two stages of K and V are
+// 192 KB). A stage of 64 keys makes the diagonal two tiles, so the mask
+// is chosen per chunk: one that holds a key past S or past one of the
+// consumer's rows.
 // ---------------------------------------------------------------------------
+
+// keys a consumer takes at once (S holds KC/2 registers); the consumer
+// warpgroups of a block (64 query rows each); the keys of a ring stage;
+// the threads of the producer warpgroup (0: the consumer warps load the
+// ring)
+template <int D>
+constexpr int kFwdKeys = D >= 128 ? 64 : 128;
+template <int D>
+constexpr int kFwdCons = D == 32 ? 1 : 2;
+template <int D>
+constexpr int kFwdStageKeys = D == 256 ? 64 : 128;
+template <int D>
+constexpr int kFwdProducer = D == 256 ? 0 : kWg;
 
 template <int D, int QR>
 struct FwdSmem {
+  static constexpr int KS = kFwdStageKeys<D>;
   alignas(1024) bf16 q[QR * D];  // rows 64c..64c+63: consumer c
-  alignas(1024) bf16 k[kStages][128 * D];
-  alignas(1024) bf16 v[kStages][128 * D];
+  alignas(1024) bf16 k[kStages][KS * D];
+  alignas(1024) bf16 v[kStages][KS * D];
   uint64_t q_full;
   uint64_t kv_full[kStages];
   uint64_t kv_empty[kStages];
+  uint32_t released[kStages];  // warps that released the stage, ever (no producer)
 };
 
-// keys a consumer takes at once (S holds KC/2 registers), and the
-// consumer warpgroups of a block (64 query rows each)
-template <int D>
-constexpr int kFwdKeys = D == 128 ? 64 : 128;
-template <int D>
-constexpr int kFwdCons = D == 32 ? 1 : 2;
-
 template <int D, int KC = kFwdKeys<D>, int NC = kFwdCons<D>>
-__global__ void __launch_bounds__((NC + 1) * kWg, 1)
+__global__ void __launch_bounds__(NC * kWg + kFwdProducer<D>, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
                     const __grid_constant__ CUtensorMap map_o, float* __restrict__ lse,
                     int seq, float scale_log2, int causal) {
   using namespace hopper;
-  constexpr int NH = D / kCol<D>, QR = NC * kBox;  // QR: the block's query rows
+  // QR: the block's query rows; KS: a stage's keys
+  constexpr int NH = D / kCol<D>, QR = NC * kBox, KS = kFwdStageKeys<D>;
+  constexpr int kPT = kFwdProducer<D>;
+  // the "empty" barriers count consumer threads, or warps where the
+  // consumers load
+  constexpr int kWarps = NC * kWg / 32;
   extern __shared__ unsigned char smem_raw[];
   FwdSmem<D, QR>& sm = aligned_smem<FwdSmem<D, QR>>(smem_raw);
   const int bh = blockIdx.x;
   const int qi = (seq + QR - 1) / QR - 1 - static_cast<int>(blockIdx.y);  // heaviest first
-  // key tiles (128 keys) to visit: up to the one holding the last query row
-  const int nk = causal ? (qi * QR + QR - 1) / 128 + 1 : (seq + 127) / 128;
+  // key tiles (KS keys) to visit: up to the one holding the last query row
+  // (causal), and none wholly past seq
+  const int last = (seq + KS - 1) / KS;
+  const int nk = causal ? min((qi * QR + QR - 1) / KS + 1, last) : last;
   const int wg = threadIdx.x / kWg;
 
   if (threadIdx.x == 0) {
     mbar_init(&sm.q_full, 1);
     for (int s = 0; s < kStages; ++s) {
       mbar_init(&sm.kv_full[s], 1);
-      mbar_init(&sm.kv_empty[s], NC * kWg);
+      mbar_init(&sm.kv_empty[s], kPT > 0 ? NC * kWg : kWarps);
+      sm.released[s] = 0;
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (wg == 0) {
-    // ---- producer: Q once, then K/V tiles from the diagonal down ----
+  // Q once; the it-th K/V tile visited (tile nk - 1 - it, from the
+  // diagonal down) into stage it % kStages, once the consumers have
+  // released the tile kStages before it
+  const auto load_q = [&] {
+    tma_prefetch(&map_q);
+    tma_prefetch(&map_k);
+    tma_prefetch(&map_v);
+    mbar_expect_tx(&sm.q_full, kRowsBytes<D, QR>);
+    load_rows<D, QR>(sm.q, &map_q, qi * QR, bh, &sm.q_full);
+  };
+  const auto load_kv = [&](int it) {
+    const int j = nk - 1 - it, st = it % kStages;
+    mbar_wait(&sm.kv_empty[st], ((it / kStages) & 1) ^ 1);
+    mbar_expect_tx(&sm.kv_full[st], 2 * kRowsBytes<D, KS>);
+    load_rows<D, KS>(sm.k[st], &map_k, j * KS, bh, &sm.kv_full[st]);
+    load_rows<D, KS>(sm.v[st], &map_v, j * KS, bh, &sm.kv_full[st]);
+  };
+
+  if (kPT > 0 && wg == 0) {
+    // ---- producer warpgroup: every load from its first thread ----
     regs_dealloc<kProducerRegs>();
     if (threadIdx.x == 0) {
-      tma_prefetch(&map_q);
-      tma_prefetch(&map_k);
-      tma_prefetch(&map_v);
-      mbar_expect_tx(&sm.q_full, kRowsBytes<D, QR>);
-      load_rows<D, QR>(sm.q, &map_q, qi * QR, bh, &sm.q_full);
-      for (int it = 0; it < nk; ++it) {
-        const int j = nk - 1 - it, st = it % kStages;
-        mbar_wait(&sm.kv_empty[st], ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(&sm.kv_full[st], 2 * kRowsBytes<D, 128>);
-        load_rows<D, 128>(sm.k[st], &map_k, j * 128, bh, &sm.kv_full[st]);
-        load_rows<D, 128>(sm.v[st], &map_v, j * 128, bh, &sm.kv_full[st]);
-      }
+      load_q();
+      for (int it = 0; it < nk; ++it) load_kv(it);
     }
   } else {
     // ---- consumers: 64 query rows each ----
-    regs_alloc<kConsumerRegs>();
-    const int cw = wg - 1, tid = threadIdx.x % kWg;
+    if constexpr (kPT > 0) regs_alloc<kConsumerRegs>();
+    const int cw = kPT > 0 ? wg - 1 : wg, tid = threadIdx.x % kWg;
     const int warp = tid / 32, lane = tid % 32, t = lane % 4;
     const int r0 = warp * 16 + lane / 4;          // rows r0 and r0 + 8 of the 64
-    const int qrow = qi * QR + cw * kBox + r0;    // sequence position of row r0
+    const int row0 = qi * QR + cw * kBox;         // sequence position of the first row
+    const int qrow = row0 + r0;                   // sequence position of row r0
     bf16* q_rows = sm.q + cw * kBox * kCol<D>;
+    // without a producer, the first thread loads Q and the ring's first
+    // stages, and each stage is refilled by the last warp to release it
+    if (kPT == 0 && threadIdx.x == 0) {
+      load_q();
+      for (int it = 0; it < min(nk, kStages); ++it) load_kv(it);
+    }
 
     float o[NH][kCol<D> / 2];
 #pragma unroll
@@ -680,21 +724,23 @@ __global__ void __launch_bounds__((NC + 1) * kWg, 1)
     for (int it = 0; it < nk; ++it) {
       const int j = nk - 1 - it, st = it % kStages;
       mbar_wait(&sm.kv_full[st], (it / kStages) & 1);
-      // scale (log2 domain), mask the first tile visited
-      const bool mask = it == 0 && (causal || (j + 1) * 128 > seq);
 
 #pragma unroll
-      for (int c = 0; c < 128 / KC; ++c) {
-        const int key0 = j * 128 + c * KC;  // first key of the chunk
+      for (int c = 0; c < KS / KC; ++c) {
+        const int key0 = j * KS + c * KC;  // first key of the chunk
         // every key past seq, or past every query row of this consumer; the
         // first chunk taken always holds a key each row may see
-        if (key0 >= seq || (causal && key0 > qi * QR + cw * kBox + kBox - 1)) continue;
+        if (key0 >= seq || (causal && key0 > row0 + kBox - 1)) continue;
+        // scale (log2 domain); mask a chunk that holds a key past seq or
+        // (causal) past one of this consumer's rows: the diagonal's, or
+        // the ragged last one, which is the first visited
+        const bool mask = key0 + KC > seq || (causal && key0 + KC - 1 > row0);
         float s[KC / 2];
         wgmma_fence();
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
           const uint64_t q_desc = desc<D>(col_block<D, QR>(q_rows, h));
-          const uint64_t k_desc = desc<D>(col_block<D, 128>(sm.k[st], h) + c * KC * kCol<D>);
+          const uint64_t k_desc = desc<D>(col_block<D, KS>(sm.k[st], h) + c * KC * kCol<D>);
 #pragma unroll
           for (int kk = 0; kk < kKSteps<D>; ++kk)
             wgmma_ss(s, q_desc + 2 * kk, k_desc + 2 * kk, h + kk);
@@ -758,7 +804,7 @@ __global__ void __launch_bounds__((NC + 1) * kWg, 1)
         wgmma_fence();
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
-          const uint64_t v_desc = desc<D>(col_block<D, 128>(sm.v[st], h) + c * KC * kCol<D>);
+          const uint64_t v_desc = desc<D>(col_block<D, KS>(sm.v[st], h) + c * KC * kCol<D>);
 #pragma unroll
           for (int kk = 0; kk < KC / 16; ++kk)
             wgmma_rs_tb(o[h], pa[kk], v_desc + kMnStep<D> * kk, 1);
@@ -768,7 +814,13 @@ __global__ void __launch_bounds__((NC + 1) * kWg, 1)
 #pragma unroll
         for (int h = 0; h < NH; ++h) fence_regs(o[h]);
       }
-      mbar_arrive(&sm.kv_empty[st]);
+      if constexpr (kPT > 0) {
+        mbar_arrive(&sm.kv_empty[st]);
+      } else {
+        release_stage<kWarps>(&sm.kv_empty[st], &sm.released[st], [&](int l) {
+          if (l == 0 && it + kStages < nk) load_kv(it + kStages);
+        });
+      }
     }
 
     // ---- epilogue: O / l through shared memory (this warpgroup's Q rows,
@@ -786,7 +838,7 @@ __global__ void __launch_bounds__((NC + 1) * kWg, 1)
     fence_async_smem();
     warpgroup_sync(1 + cw);
     if (tid == 0) {
-      store_rows<D, QR>(&map_o, q_rows, qi * QR + cw * kBox, bh);
+      store_rows<D, QR>(&map_o, q_rows, row0, bh);
       tma_store_wait();
     }
     if (t == 0) {
@@ -1105,23 +1157,40 @@ __global__ void __launch_bounds__(2 * kWg + kDqProducer<D>, 1)
 // their stores. At D 128 any S is taken: the q-tiles number ceil(S / 64),
 // and the last one's queries past S have zero Q and dO rows and lse 1e30
 // (load_qdo), so they add exactly nothing.
+//
+// At D 256 (B2 S2048 H16: 137 GFLOP of causal products, 0.139 ms) dK and
+// dV of 64 keys are 256 registers a thread: one warpgroup cannot hold
+// them. The two consumers split D instead (kDkvSplit): both own the
+// block's 64 keys (the grid is BH x ceil(S / 64), the heaviest first),
+// consumer c the columns [128c, 128c + 128) of dK and dV (128 registers).
+// Both compute S^T and dP^T over all 256 columns, 1.5 times the block's
+// products but no exchange between them (dkv_tile); K and V are 64
+// KB and the two-stage Q/dO ring 128 KB. The epilogue waits for both
+// consumers before it overwrites K and V with dK and dV.
 // ---------------------------------------------------------------------------
 
 // The block's consumer warpgroups (64 keys each); the queries a consumer
 // takes at once (S^T and dP^T hold kDkvQueries/2 registers each); the
 // threads of the producer warpgroup (0: the consumer warps load); the
 // stages of the Q/dO ring.
+// At D 256 the two consumers split D (kDkvSplit): both own the block's
+// 64 keys, consumer c the dK and dV columns [128c, 128c + 128).
 constexpr int kDkvCons = 2;
 constexpr int kDkvQueries = 64;
+static_assert(kDkvQueries == kBox, "a q-tile of the ring is one product's queries");
 template <int D>
-constexpr int kDkvProducer = D == 128 ? 0 : kWg;
+constexpr bool kDkvSplit = D == 256;
+template <int D>
+constexpr int kDkvKeys = kDkvSplit<D> ? kBox : kDkvCons * kBox;  // the block's keys
+template <int D>
+constexpr int kDkvProducer = D >= 128 ? 0 : kWg;
 template <int D>
 constexpr int kDkvStages = D == 128 ? 3 : kStages;
 
 template <int D>
 struct DkvSmem {
-  alignas(1024) bf16 k[kDkvCons * kBox * D];  // keys 64c..64c+63: consumer c
-  alignas(1024) bf16 v[kDkvCons * kBox * D];
+  alignas(1024) bf16 k[kDkvKeys<D> * D];  // keys 64c..64c+63: consumer c (split: all)
+  alignas(1024) bf16 v[kDkvKeys<D> * D];
   alignas(1024) bf16 q[kDkvStages<D>][kBox * D];
   alignas(1024) bf16 dout[kDkvStages<D>][kBox * D];
   float lse[kDkvStages<D>][kBox];
@@ -1131,6 +1200,145 @@ struct DkvSmem {
   uint64_t empty[kDkvStages<D>];
   uint32_t released[kDkvStages<D>];  // warps that released the stage, ever (no producer)
 };
+
+// One q-tile of K3 for one consumer: S^T = K.Q^T and dP^T = V.dO^T over
+// all D columns of the consumer's 64 keys (k and v: their column blocks of
+// KB rows), then the consumer's column blocks [ho, ho + NO) of
+// dV += P^T.dO and dK += dS^T.Q (split D: each consumer computes S^T and
+// dP^T in full, no exchange between them, 1.5 times the block's products;
+// else ho 0 and NO every block). P^T is formed in place in S^T's registers.
+// Split, the products run in three commit groups (kStaged): S^T; then dV
+// with dP^T, so that S^T, dP^T and both fragments are never live at once
+// (dK 64 + dV 64 + P^T 32 + dP^T 32 + one fragment 16 registers at the
+// peak); then dK. Otherwise in two: S^T with dP^T, then dV with dK, P^T
+// and dS^T formed in one pass (three groups at D 64 spill under the
+// producer warpgroup's 168 registers, and were 4-6% slower at D 32 and
+// 64 on the card; PERF.md).
+template <int D, int KB, int NO>
+__device__ __forceinline__ void dkv_tile(bf16* k, bf16* v, bf16* q, bf16* dout,
+                                         const float* lse, const float* delta,
+                                         float (&dk)[NO][kCol<D> / 2],
+                                         float (&dv)[NO][kCol<D> / 2], int ho, int r0, int t,
+                                         bool mask, float scale, float scale_log2) {
+  using namespace hopper;
+  constexpr int NH = D / kCol<D>, NQ = kDkvQueries;
+  constexpr bool kStaged = kDkvSplit<D>;
+  float s[NQ / 2], dp[NQ / 2];
+  uint32_t pa[NQ / 16][4], da[NQ / 16][4];
+  // dP^T = V.dO^T (K-major)
+  const auto mma_dp = [&] {
+#pragma unroll
+    for (int h = 0; h < NH; ++h) {
+      const uint64_t v_desc = desc<D>(col_block<D, KB>(v, h));
+      const uint64_t do_desc = desc<D>(col_block<D, kBox>(dout, h));
+#pragma unroll
+      for (int kk = 0; kk < kKSteps<D>; ++kk)
+        wgmma_ss(dp, v_desc + 2 * kk, do_desc + 2 * kk, h + kk);
+    }
+  };
+  // dV += P^T.dO (dO MN-major)
+  const auto mma_dv = [&] {
+#pragma unroll
+    for (int h = 0; h < NO; ++h) {
+      const uint64_t do_desc = desc<D>(col_block<D, kBox>(dout, ho + h));
+#pragma unroll
+      for (int kk = 0; kk < NQ / 16; ++kk)
+        wgmma_rs_tb(dv[h], pa[kk], do_desc + kMnStep<D> * kk, 1);
+    }
+  };
+  // dS^T = P^T (dP^T - delta) scale in place of dP^T, rounded to bf16 in
+  // pairs: the queries of column group cc
+  const auto form_ds = [&](int cc) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float dl = delta[8 * cc + 2 * t + e];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int idx = 4 * cc + 2 * h + e;
+        dp[idx] = s[idx] * (dp[idx] - dl) * scale;
+      }
+    }
+    da[cc / 2][(cc % 2) * 2] = pack_bf16(dp[4 * cc], dp[4 * cc + 1]);
+    da[cc / 2][(cc % 2) * 2 + 1] = pack_bf16(dp[4 * cc + 2], dp[4 * cc + 3]);
+  };
+
+  wgmma_fence();
+#pragma unroll
+  for (int h = 0; h < NH; ++h) {
+    const uint64_t k_desc = desc<D>(col_block<D, KB>(k, h));
+    const uint64_t q_desc = desc<D>(col_block<D, kBox>(q, h));
+#pragma unroll
+    for (int kk = 0; kk < kKSteps<D>; ++kk) wgmma_ss(s, k_desc + 2 * kk, q_desc + 2 * kk, h + kk);
+  }
+  if constexpr (!kStaged) mma_dp();
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(s);
+  if constexpr (!kStaged) fence_regs(dp);
+
+  // P^T = exp2(s.scale.log2(e) - lse.log2(e)) in place, one FFMA and one
+  // MUFU an element (D 64: exp2f of the scaled score less lse.log2(e), its
+  // first design's numerics); masked: 0 (columns are queries)
+#pragma unroll
+  for (int cc = 0; cc < NQ / 8; ++cc) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int qcol = 8 * cc + 2 * t + e;
+      const float lse2 = lse[qcol] * kLog2e;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int idx = 4 * cc + 2 * h + e;
+        if constexpr (D != 64) {
+          s[idx] = mask && r0 + 8 * h > qcol ? 0.0f : exp2_ftz(fmaf(s[idx], scale_log2, -lse2));
+        } else {
+          float a = s[idx] * scale_log2;
+          if (mask && r0 + 8 * h > qcol) a = kNegInf;
+          s[idx] = exp2f(a - lse2);
+        }
+      }
+    }
+    pa[cc / 2][(cc % 2) * 2] = pack_bf16(s[4 * cc], s[4 * cc + 1]);
+    pa[cc / 2][(cc % 2) * 2 + 1] = pack_bf16(s[4 * cc + 2], s[4 * cc + 3]);
+    if constexpr (!kStaged) form_ds(cc);
+  }
+
+  if constexpr (kStaged) {
+#pragma unroll
+    for (int h = 0; h < NO; ++h) fence_regs(dv[h]);
+    wgmma_fence();
+    mma_dv();
+    mma_dp();
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int h = 0; h < NO; ++h) fence_regs(dv[h]);
+#pragma unroll
+    for (int cc = 0; cc < NQ / 8; ++cc) form_ds(cc);
+  }
+
+  // dK += dS^T.Q (Q MN-major), after dV in the same group unless staged
+#pragma unroll
+  for (int h = 0; h < NO; ++h) {
+    fence_regs(dk[h]);
+    if constexpr (!kStaged) fence_regs(dv[h]);
+  }
+  wgmma_fence();
+  if constexpr (!kStaged) mma_dv();
+#pragma unroll
+  for (int h = 0; h < NO; ++h) {
+    const uint64_t q_desc = desc<D>(col_block<D, kBox>(q, ho + h));
+#pragma unroll
+    for (int kk = 0; kk < NQ / 16; ++kk) wgmma_rs_tb(dk[h], da[kk], q_desc + kMnStep<D> * kk, 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int h = 0; h < NO; ++h) {
+    fence_regs(dk[h]);
+    if constexpr (!kStaged) fence_regs(dv[h]);
+  }
+}
 
 template <int D>
 __global__ void __launch_bounds__(kDkvCons * kWg + kDkvProducer<D>, 1)
@@ -1143,8 +1351,10 @@ __global__ void __launch_bounds__(kDkvCons * kWg + kDkvProducer<D>, 1)
                     const float* __restrict__ lse, const float* __restrict__ delta, int seq,
                     float scale, float scale_log2, int causal) {
   using namespace hopper;
-  constexpr int kCons = kDkvCons, NQ = kDkvQueries, kPT = kDkvProducer<D>, kSt = kDkvStages<D>;
-  constexpr int NH = D / kCol<D>, KB = kCons * kBox;  // KB: the block's keys
+  constexpr int kCons = kDkvCons, kPT = kDkvProducer<D>, kSt = kDkvStages<D>;
+  constexpr bool kSplit = kDkvSplit<D>;
+  // KB: the block's keys; NO: the column blocks of dK and dV a consumer owns
+  constexpr int NH = D / kCol<D>, KB = kDkvKeys<D>, NO = kSplit ? NH / kCons : NH;
   // the "empty" barriers count consumer threads, or warps where the
   // consumers load
   constexpr int kWarps = kCons * kWg / 32;
@@ -1153,7 +1363,7 @@ __global__ void __launch_bounds__(kDkvCons * kWg + kDkvProducer<D>, 1)
   const int bh = blockIdx.x;
   const int kj = blockIdx.y;  // under the causal mask the first key tiles are the heaviest
   const int nq = (seq + kBox - 1) / kBox;  // q-tiles, the last one ragged where 64 does not divide S
-  const int i0 = causal ? kCons * kj : 0;  // first q-tile that sees these keys
+  const int i0 = causal ? kj * (KB / kBox) : 0;  // first q-tile that sees these keys
   const int wg = threadIdx.x / kWg;
 
   if (threadIdx.x == 0) {
@@ -1234,13 +1444,15 @@ __global__ void __launch_bounds__(kDkvCons * kWg + kDkvProducer<D>, 1)
       }
     };
     const int r0 = warp * 16 + lane / 4;           // key rows r0 and r0 + 8 of the 64
-    bf16* k_rows = sm.k + cw * kBox * kCol<D>;
-    bf16* v_rows = sm.v + cw * kBox * kCol<D>;
-    const int diag = kCons * kj + cw;  // the q-tile holding the same positions as these keys
+    const int krow = kSplit ? 0 : cw * kBox;       // the consumer's first key of the block's
+    bf16* k_rows = sm.k + krow * kCol<D>;
+    bf16* v_rows = sm.v + krow * kCol<D>;
+    const int ho = kSplit ? cw * NO : 0;           // its first column block of dK and dV
+    const int diag = kj * (KB / kBox) + krow / kBox;  // the q-tile holding these keys' positions
 
-    float dk[NH][kCol<D> / 2], dv[NH][kCol<D> / 2];
+    float dk[NO][kCol<D> / 2], dv[NO][kCol<D> / 2];
 #pragma unroll
-    for (int h = 0; h < NH; ++h)
+    for (int h = 0; h < NO; ++h)
 #pragma unroll
       for (int i = 0; i < kCol<D> / 2; ++i) dk[h][i] = dv[h][i] = 0.0f;
 
@@ -1252,107 +1464,29 @@ __global__ void __launch_bounds__(kDkvCons * kWg + kDkvProducer<D>, 1)
         release(st, it);
         continue;
       }
-      const bool mask = causal && i == diag;
-#pragma unroll
-      for (int qc = 0; qc < kBox / NQ; ++qc) {
-        float s[NQ / 2], dp[NQ / 2];
-        wgmma_fence();
-#pragma unroll
-        for (int h = 0; h < NH; ++h) {
-          const uint64_t k_desc = desc<D>(col_block<D, KB>(k_rows, h));
-          const uint64_t q_desc = desc<D>(col_block<D, kBox>(sm.q[st], h) + qc * NQ * kCol<D>);
-#pragma unroll
-          for (int kk = 0; kk < kKSteps<D>; ++kk)
-            wgmma_ss(s, k_desc + 2 * kk, q_desc + 2 * kk, h + kk);
-        }
-#pragma unroll
-        for (int h = 0; h < NH; ++h) {
-          const uint64_t v_desc = desc<D>(col_block<D, KB>(v_rows, h));
-          const uint64_t do_desc = desc<D>(col_block<D, kBox>(sm.dout[st], h) + qc * NQ * kCol<D>);
-#pragma unroll
-          for (int kk = 0; kk < kKSteps<D>; ++kk)
-            wgmma_ss(dp, v_desc + 2 * kk, do_desc + 2 * kk, h + kk);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(s);
-        fence_regs(dp);
-
-        // P^T = exp2(s.scale.log2(e) - lse.log2(e)), dS^T = P^T (dP^T - delta) scale,
-        // columns are queries
-        uint32_t pa[NQ / 16][4], da[NQ / 16][4];
-#pragma unroll
-        for (int cc = 0; cc < NQ / 8; ++cc) {
-          float p[4], d[4];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int qcol = qc * NQ + 8 * cc + 2 * t + e;  // query of the q-tile
-            const float lse2 = sm.lse[st][qcol] * kLog2e, dl = sm.delta[st][qcol];
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int idx = 4 * cc + 2 * h + e;
-              if constexpr (D != 64) {  // one FFMA and one MUFU; masked: 0
-                p[2 * h + e] = mask && r0 + 8 * h > qcol
-                                   ? 0.0f
-                                   : exp2_ftz(fmaf(s[idx], scale_log2, -lse2));
-              } else {
-                float a = s[idx] * scale_log2;
-                if (mask && r0 + 8 * h > qcol) a = kNegInf;
-                p[2 * h + e] = exp2f(a - lse2);
-              }
-              d[2 * h + e] = p[2 * h + e] * (dp[idx] - dl) * scale;
-            }
-          }
-          pa[cc / 2][(cc % 2) * 2] = pack_bf16(p[0], p[1]);
-          pa[cc / 2][(cc % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
-          da[cc / 2][(cc % 2) * 2] = pack_bf16(d[0], d[1]);
-          da[cc / 2][(cc % 2) * 2 + 1] = pack_bf16(d[2], d[3]);
-        }
-
-#pragma unroll
-        for (int h = 0; h < NH; ++h) {
-          fence_regs(dk[h]);
-          fence_regs(dv[h]);
-        }
-        wgmma_fence();
-#pragma unroll
-        for (int h = 0; h < NH; ++h) {
-          const uint64_t do_desc = desc<D>(col_block<D, kBox>(sm.dout[st], h) + qc * NQ * kCol<D>);
-#pragma unroll
-          for (int kk = 0; kk < NQ / 16; ++kk)
-            wgmma_rs_tb(dv[h], pa[kk], do_desc + kMnStep<D> * kk, 1);
-        }
-#pragma unroll
-        for (int h = 0; h < NH; ++h) {
-          const uint64_t q_desc = desc<D>(col_block<D, kBox>(sm.q[st], h) + qc * NQ * kCol<D>);
-#pragma unroll
-          for (int kk = 0; kk < NQ / 16; ++kk)
-            wgmma_rs_tb(dk[h], da[kk], q_desc + kMnStep<D> * kk, 1);
-        }
-        wgmma_commit();
-        wgmma_wait<0>();
-#pragma unroll
-        for (int h = 0; h < NH; ++h) {
-          fence_regs(dk[h]);
-          fence_regs(dv[h]);
-        }
-      }
+      dkv_tile<D, KB, NO>(k_rows, v_rows, sm.q[st], sm.dout[st], sm.lse[st], sm.delta[st],
+                          dk, dv, ho, r0, t, causal && i == diag, scale, scale_log2);
       release(st, it);
     }
 
-    // ---- epilogue: dK, dV through this warpgroup's K/V rows and TMA stores
-    // (rows past seq are dropped) ----
-    warpgroup_sync(1 + cw);
+    // ---- epilogue: dK, dV through this warpgroup's K/V rows (split: its
+    // column blocks of them, once both consumers are done reading K and V)
+    // and TMA stores (rows past seq are dropped) ----
+    if constexpr (kSplit) __syncthreads();
+    else warpgroup_sync(1 + cw);
 #pragma unroll
-    for (int h = 0; h < NH; ++h) {
-      stage_tile(col_block<D, KB>(k_rows, h), dk[h], 1.0f, 1.0f, r0);
-      stage_tile(col_block<D, KB>(v_rows, h), dv[h], 1.0f, 1.0f, r0);
+    for (int h = 0; h < NO; ++h) {
+      stage_tile(col_block<D, KB>(k_rows, ho + h), dk[h], 1.0f, 1.0f, r0);
+      stage_tile(col_block<D, KB>(v_rows, ho + h), dv[h], 1.0f, 1.0f, r0);
     }
     fence_async_smem();
     warpgroup_sync(1 + cw);
     if (tid == 0) {
-      store_rows<D, KB>(&map_dk, k_rows, kj * KB + cw * kBox, bh);
-      store_rows<D, KB>(&map_dv, v_rows, kj * KB + cw * kBox, bh);
+#pragma unroll
+      for (int h = ho; h < ho + NO; ++h) {
+        tma_store(&map_dk, col_block<D, KB>(k_rows, h), h * kCol<D>, kj * KB + krow, bh);
+        tma_store(&map_dv, col_block<D, KB>(v_rows, h), h * kCol<D>, kj * KB + krow, bh);
+      }
       tma_store_wait();
     }
   }
@@ -1378,10 +1512,22 @@ bool instantiated(int d) {
   return d == 8 || d == 16 || d == 32 || d == 64 || d == 128 || d == 256;
 }
 
-// bf16 at D 128 runs on wgmma at every S (the last tile masked), at D 32
-// and 64 where S is a multiple of 64; the rest on the FMA kernels
-bool on_wgmma(int dtype, int d, int seq) {
-  return dtype == 1 && (d == 128 || ((d == 32 || d == 64) && seq % kTile == 0));
+// The three kernels, for the routing below
+enum class Kernel { kFwd, kDq, kDkv };
+
+// The bf16 head dims at which a kernel runs on wgmma at every S (the last
+// tile masked): 128, and 256 for K1 and K3 (K2 there on the FMA kernel).
+// The single statement of the routing: on_wgmma and the FMA
+// instantiations (fma_at) both follow it.
+constexpr bool wgmma_at_every_seq(Kernel kernel, int d) {
+  return d == 128 || (d == 256 && kernel != Kernel::kDq);
+}
+
+// bf16 runs on wgmma at those head dims and at 32 and 64 where S is a
+// multiple of 64; the rest on the FMA kernels
+bool on_wgmma(Kernel kernel, int dtype, int d, int seq) {
+  return dtype == 1 &&
+         (wgmma_at_every_seq(kernel, d) || ((d == 32 || d == 64) && seq % kTile == 0));
 }
 
 bool shape_ok(int dtype, int bh, int seq, int d) {
@@ -1457,8 +1603,8 @@ int fwd_hopper(const void* q, const void* k, const void* v, void* o, float* lse,
       (err = tensor_map<D>(&mv, v, bh, seq)) != cudaSuccess ||
       (err = tensor_map<D>(&mo, o, bh, seq)) != cudaSuccess)
     return err;
-  flash_fwd_wgmma<D><<<dim3(bh, (seq + kRows - 1) / kRows), (kFwdCons<D> + 1) * kWg, smem,
-                       stream>>>(mq, mk, mv, mo, lse, seq, scale * kLog2eHost, causal);
+  flash_fwd_wgmma<D><<<dim3(bh, (seq + kRows - 1) / kRows), kFwdCons<D> * kWg + kFwdProducer<D>,
+                       smem, stream>>>(mq, mk, mv, mo, lse, seq, scale * kLog2eHost, causal);
   return cudaGetLastError();
 }
 
@@ -1486,7 +1632,7 @@ template <int D>
 int dkv_hopper(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, void* dkp, void* dvp, int bh, int seq,
                float scale, int causal, cudaStream_t stream) {
-  constexpr int kKeys = kDkvCons * kBox;
+  constexpr int kKeys = kDkvKeys<D>;
   static bool ready = false;
   const size_t smem = sizeof(DkvSmem<D>) + 1024;
   cudaError_t err = allow_smem(flash_dkv_wgmma<D>, smem, &ready);
@@ -1557,31 +1703,41 @@ int dkv_fma(const void* q, const void* k, const void* v, const void* dout, const
 // The FMA launches as functors of (element type, head dim), so that one
 // switch over the head dim serves all three
 struct FwdFma {
+  static constexpr Kernel kKernel = Kernel::kFwd;
   template <typename T, int D, typename... A>
   static int run(A... a) { return fwd_fma<T, D>(a...); }
 };
 struct DqFma {
+  static constexpr Kernel kKernel = Kernel::kDq;
   template <typename T, int D, typename... A>
   static int run(A... a) { return dq_fma<T, D>(a...); }
 };
 struct DkvFma {
+  static constexpr Kernel kKernel = Kernel::kDkv;
   template <typename T, int D, typename... A>
   static int run(A... a) { return dkv_fma<T, D>(a...); }
 };
 
-// The FMA instantiations: both types at 8, 16, 32, 64 and 256, float32
-// alone at 128 (bf16 at 128 runs on wgmma at every S).
+// An FMA launch at head dim D, instantiated for float32 and for bf16 where
+// on_wgmma leaves it some S: both types at 8, 16, 32 and 64, float32 alone
+// at 128, float32 at 256 and K2 alone in bf16 there.
+template <typename T, typename Launch, int D, typename... A>
+int fma_at(A... a) {
+  if constexpr (std::is_same_v<T, float> || !wgmma_at_every_seq(Launch::kKernel, D))
+    return Launch::template run<T, D>(a...);
+  else
+    return cudaErrorInvalidValue;
+}
+
 template <typename T, typename Launch, typename... A>
 int by_head_dim(int d, A... a) {
   switch (d) {
-    case 8: return Launch::template run<T, 8>(a...);
-    case 16: return Launch::template run<T, 16>(a...);
-    case 32: return Launch::template run<T, 32>(a...);
-    case 64: return Launch::template run<T, 64>(a...);
-    case 128:
-      if constexpr (std::is_same_v<T, float>) return Launch::template run<T, 128>(a...);
-      return cudaErrorInvalidValue;
-    case 256: return Launch::template run<T, 256>(a...);
+    case 8: return fma_at<T, Launch, 8>(a...);
+    case 16: return fma_at<T, Launch, 16>(a...);
+    case 32: return fma_at<T, Launch, 32>(a...);
+    case 64: return fma_at<T, Launch, 64>(a...);
+    case 128: return fma_at<T, Launch, 128>(a...);
+    case 256: return fma_at<T, Launch, 256>(a...);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1599,9 +1755,10 @@ int tft_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* 
                   void* stream) {
   if (!shape_ok(dtype, bh, seq, d)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (on_wgmma(dtype, d, seq)) {
+  if (on_wgmma(Kernel::kFwd, dtype, d, seq)) {
     if (d == 32) return fwd_hopper<32>(q, k, v, o, lse, bh, seq, scale, causal, st);
     if (d == 64) return fwd_hopper<64>(q, k, v, o, lse, bh, seq, scale, causal, st);
+    if (d == 256) return fwd_hopper<256>(q, k, v, o, lse, bh, seq, scale, causal, st);
     return fwd_hopper<128>(q, k, v, o, lse, bh, seq, scale, causal, st);
   }
   if (dtype == 0) return by_head_dim<float, FwdFma>(d, q, k, v, o, lse, bh, seq, scale, causal, st);
@@ -1613,7 +1770,7 @@ int tft_flash_dq(int dtype, const void* q, const void* k, const void* v,
                  int bh, int seq, int d, float scale, int causal, void* stream) {
   if (!shape_ok(dtype, bh, seq, d)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (on_wgmma(dtype, d, seq)) {
+  if (on_wgmma(Kernel::kDq, dtype, d, seq)) {
     if (d == 32)
       return dq_hopper<32>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
     if (d == 64)
@@ -1633,11 +1790,13 @@ int tft_flash_dkv(int dtype, const void* q, const void* k, const void* v,
                   void* stream) {
   if (!shape_ok(dtype, bh, seq, d)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (on_wgmma(dtype, d, seq)) {
+  if (on_wgmma(Kernel::kDkv, dtype, d, seq)) {
     if (d == 32)
       return dkv_hopper<32>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
     if (d == 64)
       return dkv_hopper<64>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
+    if (d == 256)
+      return dkv_hopper<256>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
     return dkv_hopper<128>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
   }
   if (dtype == 0)

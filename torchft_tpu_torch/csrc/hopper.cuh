@@ -3,14 +3,14 @@
 // warpgroup register split. Inline PTX only; no library.
 //
 // Shared-memory tiles are column blocks of bf16 rows written by TMA with a
-// swizzle that matches the row's width. At head dims 64 and 128 a block is
-// [rows x 64], 128 bytes a row, with the 128-byte swizzle: the 16-byte chunk
-// c of row r lives at chunk c ^ (r % 8), and eight rows (1024 bytes) form
-// one swizzle atom. A head dim of 128 is two such column blocks (the
-// swizzle caps a box's row at 128 bytes). At head dim 32 the one block is
-// [rows x 32], 64 bytes a row, with the 64-byte swizzle: chunk c of row r
-// at c ^ ((r / 2) % 4), eight rows (512 bytes) an atom. Every tile starts
-// on a 1024-byte boundary.
+// swizzle that matches the row's width. At head dims 64, 128 and 256 a
+// block is [rows x 64], 128 bytes a row, with the 128-byte swizzle: the
+// 16-byte chunk c of row r lives at chunk c ^ (r % 8), and eight rows (1024
+// bytes) form one swizzle atom. A head dim of 128 is two such column blocks
+// (the swizzle caps a box's row at 128 bytes), 256 four. At head dim 32 the
+// one block is [rows x 32], 64 bytes a row, with the 64-byte swizzle: chunk
+// c of row r at c ^ ((r / 2) % 4), eight rows (512 bytes) an atom. Every
+// tile starts on a 1024-byte boundary.
 
 #pragma once
 
