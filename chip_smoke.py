@@ -28,8 +28,9 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    shapes the Pallas op takes (``SHAPES_HELD``): bf16 at head dim 128 at S
    16, 100 and 1000 causal and S 100 not (wgmma, the last tile masked),
    float32 at 128 (S 256 causal and not, S 200) and both types at 256 (S
-   128 and 200; float32 and bf16 K2 on the FMA kernels' 32-row tiles, bf16
-   K1 and K3 on wgmma; bf16 also at S 1024 causal and not, the rings
+   128 and 200; float32 K1 on the register-blocked kernel, K2 and K3 on
+   the FMA kernels' 32-row tiles, bf16 K1-K3 on wgmma; bf16 also at S 1024
+   causal and not, the rings
    wrapping, a ragged S 1000 at an odd BH, and phase 23 (c)'s B1 S2048
    H16 causal), and 96, 80 and 40 padded
    to 128 and 64 (S 192, both types, the true head dim's scale); the op at
@@ -320,11 +321,12 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    with the last tile masked): ``TrainStep.grads`` eagerly and replayed
    from a CUDA graph, bitwise equal, 8/4/4 flash launches in each, the
    loss within 1e-2 of the plain route's; (b) the same width at 2 layers
-   in float32 through ``"flash"``, B1 S1024 (the FMA kernels at 128): the
+   in float32 through ``"flash"``, B1 S1024 (K1 register-blocked, K2 and
+   K3 the FMA kernels at 128): the
    loss within 1e-4 and each gradient leaf within 1e-3 in norm of the
    plain route's, 4/2/2 flash launches; (c) the same 4096 columns a token
    as 16 heads of 256 (Gemma-7B's head width) at 2 layers, bf16,
-   ``"auto"``, B1 S2048 (K1 and K3 on wgmma, K2 on the FMA kernel):
+   ``"auto"``, B1 S2048 (K1-K3 on wgmma):
    ``TrainStep.grads`` eagerly and replayed from a CUDA graph, bitwise
    equal, 4/2/2 flash launches in each, the loss within 1e-2 and each
    gradient leaf within 2^-5 in norm of the plain route's, and one eager
@@ -482,13 +484,14 @@ for _n in ("flash_fwd", "flash_dq", "flash_dkv"):
     for _d in (8, 16):
         KERNEL_OF[(_n, _d, "f32")] = f"{_n}_kernelIfLi{_d}E"
         KERNEL_OF[(_n, _d, "bf16")] = f"{_n}_kernelI13__nv_bfloat16Li{_d}E"
-# the FMA kernels at head dims 128 (float32) and 256 (float32, and K2 in
-# bf16): 32-row tiles; bf16 K1 and K3 at 256 on wgmma (256 threads)
+# float32 at head dims 128 and 256: K1 on the register-blocked kernel
+# (flash_fwd_f32), K2 and K3 on the FMA kernels' 32-row tiles; bf16 K1-K3
+# at 256 on wgmma (256 threads)
 for _n in ("flash_fwd", "flash_dq", "flash_dkv"):
-    KERNEL_OF[(_n, 128, "f32")] = f"{_n}_kernelIfLi128E"
-    KERNEL_OF[(_n, 256, "f32")] = f"{_n}_kernelIfLi256E"
-    KERNEL_OF[(_n, 256, "bf16")] = (f"{_n}_kernelI13__nv_bfloat16Li256E" if _n == "flash_dq"
-                                    else f"{_n}_wgmmaILi256E")
+    for _d in (128, 256):
+        KERNEL_OF[(_n, _d, "f32")] = (f"flash_fwd_f32ILi{_d}E" if _n == "flash_fwd"
+                                      else f"{_n}_kernelIfLi{_d}E")
+    KERNEL_OF[(_n, 256, "bf16")] = f"{_n}_wgmmaILi256E"
 BUILT = list(KERNEL_OF.values()) + [
     f"{n}I{t}Li{d}E" for n in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
     for t in ("f", "13__nv_bfloat16") for d in (32, 64)]
@@ -497,13 +500,17 @@ BUILT = list(KERNEL_OF.values()) + [
 # K2 at head dim 128 with a producer warpgroup, 64 keys at once (384
 # threads) and K3 there with one consumer of 64 keys (256 threads),
 # B2 S4096 H32 D128; K1-K3 at head dim 32 on the FMA kernels, B8 S128 H4
-# D32; bf16 K1 and K3 at head dim 256 on the FMA kernels, B2 S2048 H16
-# D256 (SHAPES_TIMED["d256"]); printed beside this run's times in phase
-# 3's log, not re-run (the kernels line holds only this run's numbers)
+# D32; bf16 K1-K3 at head dim 256 on the FMA kernels, B2 S2048 H16
+# D256 (SHAPES_TIMED["d256"]), and float32 K1 on the FMA kernel there
+# ("d256_f32") and at B2 S4096 H32 D128 ("d128_f32"); printed beside this
+# run's times in phase 3's log, not re-run (the kernels line holds only
+# this run's numbers)
 EARLIER_GRAPH_MS = {("flash_dq", 128): 0.8810, ("flash_dkv", 128): 1.6509,
                     ("flash_fwd", 32): 0.0325, ("flash_dq", 32): 0.1053,
                     ("flash_dkv", 32): 0.0505,
-                    ("flash_fwd", 256): 28.8739, ("flash_dkv", 256): 45.6399}
+                    ("flash_fwd", 256): 28.8739, ("flash_dkv", 256): 45.6399,
+                    ("flash_dq", 256): 22.7956, ("flash_fwd", 256, "f32"): 30.9959,
+                    ("flash_fwd", 128, "f32"): 35.020}
 
 
 def check_no_spills(build_log: str) -> None:
@@ -1031,7 +1038,8 @@ def phase_timing(shape, plain_chunk=None, plain_reps=25, dtype=torch.bfloat16, r
     few at the FMA kernels' slow shapes). A head dim the kernels are not
     built at runs zero-padded, as the op pads it (the bound counts the true
     head dim's work). ``earlier``: the earlier designs' times printed
-    beside, by (kernel, head dim). Returns (times, bounds, SDPA forward
+    beside, by (kernel, head dim), and by (kernel, head dim, "f32") for
+    float32. Returns (times, bounds, SDPA forward
     (eager, graph))."""
     import torch.nn.functional as F
 
@@ -1096,8 +1104,9 @@ def phase_timing(shape, plain_chunk=None, plain_reps=25, dtype=torch.bfloat16, r
     log(f"sdpa(is_causal) {tag}: backend {_sdpa_backend(qh, kh, vh)}")
     for name, r in t.items():
         bound, by, flops, nbytes = bounds[name]
-        before = ("" if (name, d) not in earlier
-                  else f" (earlier design {earlier[(name, d)]:.4f} ms)")
+        key = (name, d) if dtype == torch.bfloat16 else (name, d, "f32")
+        before = ("" if key not in earlier
+                  else f" (earlier design {earlier[key]:.4f} ms)")
         chunks = "" if plain_chunk is None else f" (query chunks of {plain_chunk} rows)"
         log(f"{name} {tag}: {r['ms']:.4f} ms eager (host launches included); CUDA graph "
             f"(device time) {r['ms_graph']:.4f} ms warm{before}, {r['ms_cold']:.4f} ms "
@@ -4644,8 +4653,8 @@ def phase_chunked():
 # phase 3's shapes for them, (B, S, H, D) and dtype, by kernels entry:
 # float32 at head dim 128 at the Llama width's shape; bf16 at 128 at
 # train_hsdp's own BATCH 8 x SEQ 16 (the wgmma kernels, the last tile
-# masked); head dim 256 in both types (float32 on the FMA kernels; bf16 K1
-# and K3 on wgmma, K2 on the FMA kernel; phase 23 (c) runs it) and 96
+# masked); head dim 256 in both types (float32 K1 register-blocked, K2 and
+# K3 on the FMA kernels; bf16 K1-K3 on wgmma; phase 23 (c) runs it) and 96
 # (padded to 128, wgmma) at B2 S2048, 4096 and 3072 columns a token
 SHAPES_TIMED = {
     "d128_f32": ((2, 4096, 32, 128), torch.float32),
@@ -4655,8 +4664,7 @@ SHAPES_TIMED = {
     "d96": ((2, 2048, 32, 96), torch.bfloat16),
 }
 # launches a kernel at each timed shape: a few at the FMA kernels' slow
-# float32 and head dim 256 shapes (tens of ms a launch; bf16 K2 at 256),
-# few plain reps
+# float32 shapes (tens of ms a launch), few plain reps
 SHAPES_REPS = {"d128_f32": (3, 1, 1), "d128_s16": (25, 5, 5), "d256": (10, 2, 2),
                "d256_f32": (3, 1, 2), "d96": (10, 2, 3)}  # (reps, inner, plain reps)
 # (a): train_hsdp's llama2-7b preset at its default BATCH 8 x SEQ 16
@@ -4678,10 +4686,10 @@ SHAPES_D256 = dict(layers=2, heads=16, head_dim=256, batch=1, seq=2048)
 # 22 (a)'s bar at 8; a wrong K3 moves the K and V projections' leaves by O(1)
 SHAPES_D256_GRAD_REL = 2.0 ** -5
 # the kernels one eager call of (c) must run, by a piece of their demangled
-# names (torch.profiler), and the FMA K1 and K3, which it must not
-SHAPES_D256_KERNELS = {"flash_fwd": "flash_fwd_wgmma<256", "flash_dq":
-                       "flash_dq_kernel<__nv_bfloat16, 256>", "flash_dkv": "flash_dkv_wgmma<256"}
-SHAPES_D256_NOT = ("flash_fwd_kernel<", "flash_dkv_kernel<")
+# names (torch.profiler), and the FMA kernels, which it must not
+SHAPES_D256_KERNELS = {"flash_fwd": "flash_fwd_wgmma<256", "flash_dq": "flash_dq_wgmma<256",
+                       "flash_dkv": "flash_dkv_wgmma<256"}
+SHAPES_D256_NOT = ("flash_fwd_kernel<", "flash_dq_kernel<", "flash_dkv_kernel<")
 
 
 def _shapes_auto(leg, cfg, batch, seq, what, grad_rel=None):
@@ -4744,7 +4752,8 @@ def _shapes_llama_s16():
 
 def _shapes_f32():
     """Phase 23 (b): the same width at SHAPES_F32's 2 layers in float32
-    through ``"flash"`` (the FMA kernels at head dim 128), B1 S1024: the
+    through ``"flash"`` (head dim 128: K1 register-blocked, K2 and K3 the
+    FMA kernels), B1 S1024: the
     loss within 1e-4 of the plain route's, each leaf's gradient within 1e-3
     in norm, 4/2/2 flash launches. Returns those launches."""
     from torchft_tpu_torch.ops import flash_attention as fa
@@ -4763,7 +4772,7 @@ def _shapes_f32():
     launches = dict(fa.LAUNCHES)
     rel = _grad_rel(f_grads, plain_grads)
     log(f"shapes (b) llama2-7b width, {cfg.n_layers} layers, float32, flash, B{c['batch']} x "
-        f"S{c['seq']} (head dim 128 on the FMA kernels): loss {f_loss:.7f}, plain "
+        f"S{c['seq']} (head dim 128, float32 kernels): loss {f_loss:.7f}, plain "
         f"{plain_loss:.7f}, |diff| {abs(f_loss - plain_loss):.3e} (tol {SHAPES_F32_LOSS_TOL:g}); "
         f"worst leaf ||g - plain|| / ||plain|| {rel:.3e} (bar {SHAPES_F32_GRAD_REL:g}); flash "
         f"launches {launches} (expected {expect})")
@@ -4779,9 +4788,8 @@ def _shapes_d256():
     of 256 at 2 layers, bf16, ``"auto"``, B1 S2048 (``_shapes_auto``: 4/2/2
     flash launches a call, each leaf's gradient within
     SHAPES_D256_GRAD_REL of plain's); one more eager call under ``torch.profiler``
-    runs K1 and K3 on wgmma and K2 on the FMA kernel (SHAPES_D256_KERNELS)
-    and neither FMA K1 nor K3. Returns the launches of the eager call and
-    the replay."""
+    runs K1-K3 on wgmma (SHAPES_D256_KERNELS) and no FMA kernel. Returns
+    the launches of the eager call and the replay."""
     from torch.profiler import ProfilerActivity, profile
 
     c = SHAPES_D256
@@ -4789,7 +4797,7 @@ def _shapes_d256():
                               head_dim=c["head_dim"])
     launches, params, tokens, eager = _shapes_auto(
         "c", cfg, c["batch"], c["seq"], f"the llama2-7b width as {cfg.n_heads} heads of "
-        f"{cfg.head_dim} (K1 and K3 on wgmma, K2 on the FMA kernel)",
+        f"{cfg.head_dim} (K1-K3 on wgmma)",
         grad_rel=SHAPES_D256_GRAD_REL)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         _grads_of(eager, params, tokens)
@@ -4797,9 +4805,9 @@ def _shapes_d256():
     names = {e.name for e in prof.events() if e.device_type.name == "CUDA"}
     ran = {n: sorted({m for m in names if piece in m}) for n, piece in SHAPES_D256_KERNELS.items()}
     fma = sorted({m for m in names if any(piece in m for piece in SHAPES_D256_NOT)})
-    log(f"shapes (c): kernels one eager call ran, by the profiler {ran}; FMA K1/K3 {fma}")
+    log(f"shapes (c): kernels one eager call ran, by the profiler {ran}; FMA kernels {fma}")
     check(all(ran.values()) and not fma,
-          f"shapes (c): the profiler saw {ran} and FMA K1/K3 {fma}")
+          f"shapes (c): the profiler saw {ran} and FMA kernels {fma}")
     return launches
 
 
@@ -5018,11 +5026,10 @@ def main() -> None:
     shape_timing = {}
     for label, (shape, dtype) in SHAPES_TIMED.items():
         reps, inner, plain_reps = SHAPES_REPS[label]
-        # the earlier designs' times beside bf16 K1 and K3 at 256 (the keys
-        # name a head dim, and float32 at 256 keeps its design)
+        # the earlier designs' times beside bf16 K1-K3 at 256 and float32 K1
         shape_timing[label] = phase_timing(
             shape, plain_reps=plain_reps, dtype=dtype, reps=reps, inner=inner,
-            earlier=EARLIER_GRAPH_MS if label == "d256" else {})
+            earlier=EARLIER_GRAPH_MS if label in ("d256", "d256_f32", "d128_f32") else {})
         gc.collect()
         torch.cuda.empty_cache()
     at("phase 4")
@@ -5149,7 +5156,8 @@ def main() -> None:
                 "library_ms": sdpa_fwd[0] if name == "flash_fwd" else None,
                 "library_ms_graph": sdpa_fwd[1] if name == "flash_fwd" else None,
             })
-    # phase 23's shapes: head dim 128 in float32 (the FMA kernels; launched
+    # phase 23's shapes: head dim 128 in float32 (K1 register-blocked, K2
+    # and K3 the FMA kernels; launched
     # by phase 23 (b) at S 1024) and bf16 at S 16 (wgmma; phase 23 (a)),
     # bf16 at 256 (phase 23 (c) at S 2048); float32 at 256 and 96 padded to
     # 128: no path runs them (launches 0)

@@ -40,6 +40,17 @@ The variants (``--list``), each against the shipped source:
   bf16 pack of S: no exp2 and no dP arithmetic), ``*_elementwise`` (S and
   dP from a pattern of two FFMAs an element, dQ a fold of dS: no wgmma)
   and ``*_loads`` (both: the TMA ring, barriers and stores remain).
+- K2 at head dim 256 (B2 S2048 H16 D256; shipped: one 64-key stage taken
+  at once): ``k2_d256_kc32``, the stage taken as two 32-key chunks (S and
+  dP 16 registers each in place of 32); ``k2_d256_ring2x32``, a ring of
+  two 32-key stages taken whole (the next stage loading under this one's
+  products, 192 KB of shared memory); ``k2_d256_ring3x32``, three (224
+  KB).
+- float32 K1 at head dims 128 and 256 (B2 S4096 H32 D128, B2 S2048 H16
+  D256): ``k1_f32_d128_fma`` and ``k1_f32_d256_fma``, the FMA kernel
+  (32-row tiles) in place of the register-blocked one;
+  ``k1_f32_d128_rw8`` and ``k1_f32_d256_rw8``, the register-blocked
+  kernel with 8 query rows a warp (64-row blocks) in place of 16.
 
 ``--sass`` prints, for every build, the changed entry's instructions by
 opcode (``cuobjdump -sass`` from nvcc's directory).
@@ -64,13 +75,13 @@ from torchft_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from torchft_tpu_torch.utils.platform import build_dir  # noqa: E402
 
 # pieces of flash_attention.cu, each rewritten by some variants
-K1_KEYS = ("constexpr int kFwdKeys = D == 128 ? 64 : 128;",
+K1_KEYS = ("constexpr int kFwdKeys = D >= 128 ? 64 : 128;",
            "constexpr int kFwdKeys = D == 64 ? 128 : 64;")
 K1_CONS = ("constexpr int kFwdCons = D == 32 ? 1 : 2;", "constexpr int kFwdCons = 2;")
-K2_PRODUCER = ("constexpr int kDqProducer = D == 128 ? 0 : kWg;",
-               "constexpr int kDqProducer = kWg;")
+K2_PRODUCER = ("constexpr int kDqProducer = D >= 128 ? 0 : kWg;",
+               "constexpr int kDqProducer = D == 256 ? 0 : kWg;")
 K2_KEYS64 = ("constexpr int kDqKeys = D == 128 ? 128 : 64;", "constexpr int kDqKeys = 64;")
-K2_EXP2F = ("constexpr bool kDqOneMufu = D == 128;", "constexpr bool kDqOneMufu = false;")
+K2_EXP2F = ("constexpr bool kDqOneMufu = D >= 128;", "constexpr bool kDqOneMufu = D == 256;")
 PR6 = (K2_PRODUCER, K2_KEYS64, K2_EXP2F)
 # diagnostics: dS = S, rounded (no exp2, no dP arithmetic), in both forms ...
 K2_PRODUCTS = (
@@ -109,15 +120,30 @@ K2_NO_DQ = (
     "            dq[h][kk] += __uint_as_float(da[kk][0] ^ da[kk][1] ^ da[kk][2] ^ da[kk][3]);",
 )
 ELEMENTWISE = (K2_NO_S, K2_NO_DP, K2_NO_DQ)
+# K2's layout at head dim 256: a ring of 32-key stages, or 64 keys at once
+K2_KEYS32 = ("constexpr int kDqStageKeys = D == 256 ? 64 : 128;",
+             "constexpr int kDqStageKeys = D == 256 ? 32 : 128;")
+K2_RING2 = ("constexpr int kDqStages = D == 256 ? 1 : kStages;",
+            "constexpr int kDqStages = kStages;")
+K2_RING3 = ("constexpr int kDqStages = D == 256 ? 1 : kStages;",
+            "constexpr int kDqStages = D == 256 ? 3 : kStages;")
+K2_KC32 = ("constexpr int kDqKeys = D == 128 ? 128 : 64;",
+           "constexpr int kDqKeys = D == 128 ? 128 : D == 256 ? 32 : 64;")
+# float32 K1 at head dim 128, or 256, on the FMA kernel
+K1_F32_128 = ("constexpr bool f32_fwd_blocked(int d) { return d == 128 || d == 256; }",
+              "constexpr bool f32_fwd_blocked(int d) { return d == 256; }")
+K1_F32_256 = ("constexpr bool f32_fwd_blocked(int d) { return d == 128 || d == 256; }",
+              "constexpr bool f32_fwd_blocked(int d) { return d == 128; }")
+K1_F32_RW8 = ("constexpr int kF32WarpRows = 16;", "constexpr int kF32WarpRows = 8;")
 # K1's softmax alone: S from a pattern of one FFMA an element, O a fold of P
 K1_SOFTMAX = (
     ("""col_block<D, QR>(q_rows, h));
-          const uint64_t k_desc = desc<D>(col_block<D, 128>(sm.k[st], h) + c * KC * kCol<D>);
+          const uint64_t k_desc = desc<D>(col_block<D, KS>(sm.k[st], h) + c * KC * kCol<D>);
 #pragma unroll
           for (int kk = 0; kk < kKSteps<D>; ++kk)
             wgmma_ss(s, q_desc + 2 * kk, k_desc + 2 * kk, h + kk);""",
      """col_block<D, QR>(q_rows, h));
-          const uint64_t k_desc = desc<D>(col_block<D, 128>(sm.k[st], h) + c * KC * kCol<D>);
+          const uint64_t k_desc = desc<D>(col_block<D, KS>(sm.k[st], h) + c * KC * kCol<D>);
 #pragma unroll
           for (int kk = 0; kk < kKSteps<D>; ++kk)
             if (h == 0 && kk == 0)
@@ -142,18 +168,38 @@ VARIANTS = {
     "k2_d128_products": ("K2", 128, K2_PRODUCTS, False),
     "k2_d128_elementwise": ("K2", 128, ELEMENTWISE, False),
     "k2_d128_loads": ("K2", 128, ELEMENTWISE + K2_PRODUCTS, False),
+    "k2_d256_ring2x32": ("K2", 256, (K2_KEYS32, K2_RING2, K2_KC32), True),
+    "k2_d256_ring3x32": ("K2", 256, (K2_KEYS32, K2_RING3, K2_KC32), True),
+    "k2_d256_kc32": ("K2", 256, (K2_KC32,), True),
+    "k1_f32_d128_fma": ("K1f32", 128, (K1_F32_128,), True),
+    "k1_f32_d256_fma": ("K1f32", 256, (K1_F32_256,), True),
+    "k1_f32_d128_rw8": ("K1f32", 128, (K1_F32_RW8,), True),
+    "k1_f32_d256_rw8": ("K1f32", 256, (K1_F32_RW8,), True),
 }
-# the entry each kernel's variants change, as ptxas names it
+# the entry each kernel's variants change, as ptxas names it ("K1f32": K1
+# on float32 inputs)
 ENTRY = {("K1", 32): "flash_fwd_wgmmaILi32E", ("K1", 128): "flash_fwd_wgmmaILi128E",
-         ("K2", 128): "flash_dq_wgmmaILi128E"}
-# timing shapes (the head dim's path) and phase 2's check shapes (causal)
-TIMED = {32: c.BYTES, 128: c.LLAMA}
+         ("K2", 128): "flash_dq_wgmmaILi128E", ("K2", 256): "flash_dq_wgmmaILi256E",
+         ("K1f32", 128): "flash_fwd_f32ILi128E", ("K1f32", 256): "flash_fwd_f32ILi256E"}
+# the FMA K1 in float32, which the *_fma variants build in its place
+ENTRY_OF_VARIANT = {"k1_f32_d128_fma": "flash_fwd_kernelIfLi128E",
+                    "k1_f32_d256_fma": "flash_fwd_kernelIfLi256E"}
+# timing shapes (the head dim's path) and phase 2's check shapes (causal),
+# by (kernel, head dim)
+TIMED = {("K1", 32): c._shape(c.BYTES), ("K1", 128): c._shape(c.LLAMA),
+         ("K2", 128): c._shape(c.LLAMA), ("K2", 256): c.SHAPES_TIMED["d256"][0],
+         ("K1f32", 128): c.SHAPES_TIMED["d128_f32"][0],
+         ("K1f32", 256): c.SHAPES_TIMED["d256_f32"][0]}
 CHECKS = {
     32: [(c._shape(c.BYTES), True), ((2, 192, 2, 32), False), ((2, 320, 2, 32), True),
          ((2, 1024, 4, 32), True), ((2, 1024, 4, 32), False)],
     128: [((2, 1024, 4, 128), True), ((2, 1024, 4, 128), False), ((2, 192, 2, 128), True),
           ((2, 320, 2, 128), True), ((2, 320, 2, 128), False)],
+    256: [((2, 1024, 2, 256), True), ((2, 1024, 2, 256), False), ((1, 200, 3, 256), True),
+          ((1, 2048, 16, 256), True), ((1, 1000, 3, 256), False)],
 }
+# (reps, inner) of a timing: a few at float32's tens of ms a launch
+TIMING_REPS = {"K1f32": (5, 1)}
 
 
 def start_build(root: str, name: str, rewrites) -> tuple[str, subprocess.Popen]:
@@ -206,15 +252,19 @@ def sass_histogram(name: str, lib: str, entry: str) -> None:
               + " ".join(f"{op} {n}" for op, n in top[:24]), flush=True)
 
 
+def dtype_of(kernel: str) -> torch.dtype:
+    return torch.float32 if kernel.endswith("f32") else torch.bfloat16
+
+
 def call(kernel: str, inputs, causal: bool):
     pq, pk, pv, pdo, lse, delta = inputs
-    if kernel == "K1":
+    if kernel.startswith("K1"):
         return fa.fwd_kernel(pq, pk, pv, causal)
     return (fa.dq_kernel(pq, pk, pv, pdo, lse, delta, causal),)
 
 
-def make_inputs(shape, causal: bool, seed: int):
-    q, k, v, do = c._qkv(*shape, torch.bfloat16, seed=seed)
+def make_inputs(shape, causal: bool, seed: int, dtype=torch.bfloat16):
+    q, k, v, do = c._qkv(*shape, dtype, seed=seed)
     pq, pk, pv, pdo = map(c._pack, (q, k, v, do))
     o, lse = fa.fwd_plain(pq, pk, pv, causal)
     delta = (pdo.float() * o.float()).sum(-1)
@@ -223,13 +273,17 @@ def make_inputs(shape, causal: bool, seed: int):
 
 def hold(name: str, kernel: str, d: int) -> bool:
     """The variant against the plain version at phase 2's shapes of head dim
-    d, and bitwise across two launches. Returns whether every case held."""
+    d (bf16 at KERNEL_BAR and LSE_TOL, float32 at F32_O_BAR and
+    F32_LSE_TOL), and bitwise across two launches. Returns whether every
+    case held."""
     ok = True
+    f32 = dtype_of(kernel) == torch.float32
+    bar = c.F32_O_BAR if f32 else c.KERNEL_BAR
     for seed, (shape, causal) in enumerate(CHECKS[d], start=20):
-        x = make_inputs(shape, causal, seed)
+        x = make_inputs(shape, causal, seed, dtype_of(kernel))
         got = call(kernel, x, causal)
         again = call(kernel, x, causal)
-        if kernel == "K1":
+        if kernel.startswith("K1"):
             o_ref, lse_ref = fa.fwd_plain(*x[:3], causal)
             pairs = [("O", got[0], o_ref)]
             lse_err = float((got[1] - lse_ref).abs().max())
@@ -239,11 +293,10 @@ def hold(name: str, kernel: str, d: int) -> bool:
         worst = 0.0
         for _, a, r in pairs:
             a, r = a.float(), r.float()
-            bar = c.KERNEL_BAR
-            scale = r.abs() + r.pow(2).mean(-1, keepdim=True).sqrt()
+            scale = r.abs() + (r.pow(2).mean(-1, keepdim=True).sqrt() if bar["row_scaled"] else 0)
             worst = max(worst, float(((a - r).abs() / (bar["rtol"] * scale + bar["atol"])).max()))
         same = all(torch.equal(a, b) for a, b in zip(got, again))
-        held = worst <= 1.0 and lse_err <= c.LSE_TOL and same
+        held = worst <= 1.0 and lse_err <= (c.F32_LSE_TOL if f32 else c.LSE_TOL) and same
         ok &= held
         print(f"[{name}] {kernel} {shape} {'causal' if causal else 'non-causal'}: worst "
               f"err/bar {worst:.3f}, max|lse-ref| {lse_err:.3e}, bitwise across two "
@@ -285,10 +338,11 @@ def main() -> None:
         if proc.returncode != 0:
             print(log[-6000:])
             sys.exit(f"[{name}] nvcc failed (rc={proc.returncode})")
-        report(name, log, ENTRY[VARIANTS[name][:2]])
+        entry = ENTRY_OF_VARIANT.get(name, ENTRY[VARIANTS[name][:2]])
+        report(name, log, entry)
         libs[name] = fa.bind(out)
         if args.sass:
-            sass_histogram(name, out, ENTRY[VARIANTS[name][:2]])
+            sass_histogram(name, out, entry)
     if args.sass:
         for entry in sorted({ENTRY[VARIANTS[n][:2]] for n in names}):
             sass_histogram("shipped", shipped, entry)
@@ -302,12 +356,14 @@ def main() -> None:
             fa._lib = libs[name]
             if (name == "shipped" or VARIANTS[name][3]) and not hold(name, kernel, d):
                 failed.append(name)
-        inputs = make_inputs(c._shape(TIMED[d]), True, 3)
+        inputs = make_inputs(TIMED[(kernel, d)], True, 3, dtype_of(kernel))
+        reps, inner = TIMING_REPS.get(kernel, (25, 5))
         times = {name: [] for name in members}
         for r in range(args.rounds):
             for name in (members if r % 2 == 0 else members[::-1]):
                 fa._lib = libs[name]
-                t = c.gpu_time_ms(lambda: call(kernel, inputs, True), graph=True)
+                t = c.gpu_time_ms(lambda: call(kernel, inputs, True), reps=reps, inner=inner,
+                                  graph=True)
                 times[name].append(t)
                 print(f"round {r} {kernel} d{d} {name}: {t:.5f} ms", flush=True)
         for name, t in times.items():

@@ -312,9 +312,9 @@ def test_c_predicate_agrees_on_card():
         (32, torch.bfloat16, True, 4, 48),
         (64, torch.bfloat16, False, 4, 200),
         # bf16 at 128 at any S on wgmma (the last tile masked, K3's last
-        # q-tile ragged); float32 at 128 and both types at 256 on the FMA
-        # kernels' 32-row tiles; 96, 80 and 40 padded to 128 and 64 at
-        # their true scale
+        # q-tile ragged); float32 at 128 and 256 (K1 at 256 on the
+        # register-blocked kernel, the rest on the FMA kernels' 32-row
+        # tiles); 96, 80 and 40 padded to 128 and 64 at their true scale
         *[(128, torch.bfloat16, True, 4, s) for s in (16, 100, 1000)],
         (128, torch.bfloat16, False, 4, 100),
         (128, torch.float32, True, 4, 256),
@@ -322,11 +322,12 @@ def test_c_predicate_agrees_on_card():
         (128, torch.float32, True, 4, 200),
         *[(256, dtype, True, 4, s) for dtype in (torch.float32, torch.bfloat16)
           for s in (128, 200)],
-        # bf16 at 256: K1 and K3 on wgmma (64-key stages; K3's consumers
-        # split D), K2 on the FMA kernel, at one tile, ragged lengths and
-        # the rings wrapping, with an odd BH
-        *[(256, torch.bfloat16, causal, 3, s) for s in (64, 200, 1000, 2048)
-          for causal in (True, False)],
+        # at 256 in bf16: K1-K3 on wgmma (K1 64-key stages, K2 32-key
+        # stages, K3's consumers splitting D); in float32: K1 on 32-key
+        # cp.async stages of the register-blocked kernel; at one tile,
+        # ragged lengths and the rings wrapping, with an odd BH
+        *[(256, dtype, causal, 3, s) for dtype in (torch.bfloat16, torch.float32)
+          for s in (64, 200, 1000, 2048) for causal in (True, False)],
         *[(d, dtype, True, 4, 192) for d in (96, 80, 40)
           for dtype in (torch.float32, torch.bfloat16)],
     ],
@@ -397,9 +398,9 @@ def _profiled_kernels(fn):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "non-causal"])
 def test_mixed_backward_at_256_on_card(causal):
-    """bf16 at head dim 256 through the op's ``autograd.Function``: K1 and
-    K3 on wgmma, K2 on the FMA kernel, which reads the lse that the wgmma
-    K1 wrote (both [BH, S] float32). The output and the three gradients
+    """bf16 at head dim 256 through the op's ``autograd.Function``: K1, K2
+    and K3 on wgmma, K2 reading the lse that K1 wrote ([BH, S] float32).
+    The output and the three gradients
     against the plain versions (lse and delta from the op's own forward) at
     the bf16 bars of ``test_kernels_match_plain_on_card``; one launch of
     each kernel, and the kernels the profiler saw named by route."""
@@ -423,8 +424,9 @@ def test_mixed_backward_at_256_on_card(causal):
     assert fa.LAUNCHES == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
     assert any("flash_fwd_wgmma<256" in n for n in names), names
     assert any("flash_dkv_wgmma<256" in n for n in names), names
-    assert any("flash_dq_kernel<" in n and "bfloat16, 256>" in n for n in names), names
-    assert not any("flash_fwd_kernel<" in n or "flash_dkv_kernel<" in n for n in names), names
+    assert any("flash_dq_wgmma<256" in n for n in names), names
+    assert not any(k in n for n in names
+                   for k in ("flash_fwd_kernel<", "flash_dq_kernel<", "flash_dkv_kernel<")), names
 
     o_ref, lse = fa.fwd_plain(q, k, v, causal)
     delta = (do.float() * o.float()).sum(-1)

@@ -557,3 +557,123 @@ def test_wire_error_measures():
     assert wire_error(ref, ref) == {"tree": 0.0, "leaf": 0.0, "peak": 0.0}
     assert wire_error([torch.zeros_like(r) for r in ref], ref) == {"tree": 1.0, "leaf": 1.0,
                                                                    "peak": 1.0}
+
+
+# A child process runs one case of test_manager_shutdown_wait_false_joins_native_threads
+# (the lighthouses and the store live in the test's process, so the child's
+# tasks are the Manager's and the interpreter's alone). A native thread is a
+# task that is no Python thread: /proc/self/task less every native_id that
+# threading.enumerate() showed around the case.
+_SHUTDOWN_CHILD = r"""
+import json, os, sys, threading, time
+from datetime import timedelta
+import numpy as np
+from torchft_tpu_torch import _native
+from torchft_tpu_torch.checkpointing.http_transport import HTTPTransport
+from torchft_tpu_torch.collectives import CollectivesTcp
+from torchft_tpu_torch.manager import Manager
+from torchft_tpu_torch.store import StoreClient, StoreServer
+
+case, lh_one, lh_two, store_addr = sys.argv[1:5]
+seen = set()
+
+
+def native():
+    py = {t.native_id for t in threading.enumerate()}
+    seen.update(py)
+    return {int(t) for t in os.listdir("/proc/self/task")} - py
+
+
+def comm(tid):
+    try:
+        with open(f"/proc/self/task/{tid}/comm") as f:
+            return f.read().strip()
+    except OSError:
+        return "gone"
+
+
+def manager(lighthouse):
+    timeout = timedelta(seconds=10)
+    return Manager(collectives=CollectivesTcp(timeout=timeout), load_state_dict=lambda s: None,
+                   state_dict=lambda: {"w": np.ones(256, np.float32)}, min_replica_size=1,
+                   replica_id=f"shutdown_{case}", store_addr=store_addr, rank=0, world_size=1,
+                   lighthouse_addr=lighthouse, timeout=timeout)
+
+
+# the process-wide native sampler starts with the first served connection
+warm = StoreServer()
+client = StoreClient(warm.address())
+client.set("k", b"v")
+client.close()
+warm.shutdown()
+base = native()
+made = 0
+if case == "steps_and_staged_blob":
+    m = manager(lh_one)
+    for _ in range(2):
+        m.start_quorum()
+        m.allreduce_many([np.ones(64, np.float32)]).wait()
+        assert m.should_commit()
+    m._checkpoint_transport.send_checkpoint([1], 2, {"w": np.ones(256, np.float32)},
+                                            timedelta(seconds=5))
+    made = len(native() - base)
+    m.shutdown(wait=False)
+elif case == "quorum_in_flight":
+    m = manager(lh_two)  # two replicas wanted, one comes: the quorum waits
+    m.start_quorum()
+    time.sleep(0.5)
+    made = len(native() - base)
+    m.shutdown(wait=False)
+elif case == "staging_after_shutdown":
+    t = HTTPTransport(timeout=timedelta(seconds=5))
+    t.shutdown(wait=False)
+    t.send_checkpoint([1], 0, {"w": np.ones(256, np.float32)}, timedelta(seconds=5))
+elif case == "live_handles_at_exit":
+    store = StoreServer()
+    plane = _native.NativeDataPlane(0, 2, 2)
+    made = len(native() - base)
+    foreign = _native.NativeDataPlane(0, 2, 1)
+    _native._LIVE[foreign] = (os.getpid() + 1, "close")  # a forked parent's
+    _native.close_live()
+    assert not foreign._h == 0, "close_live closed another process's handle"
+    foreign.close()
+left = sorted(native() - base - seen)
+print(json.dumps({"made": made, "left": [(t, comm(t)) for t in left]}), flush=True)
+"""
+
+
+@pytest.mark.parametrize("case", ["steps_and_staged_blob", "quorum_in_flight",
+                                  "staging_after_shutdown", "live_handles_at_exit"])
+def test_manager_shutdown_wait_false_joins_native_threads(case):
+    """``Manager.shutdown(wait=False)`` returns with every native thread of
+    the manager joined (the manager server's acceptor, heartbeat and
+    connection threads, the blob server of a staged checkpoint), after
+    committed steps and with a quorum still in flight; a staging that runs
+    after the transport's shutdown makes no blob server; and at interpreter
+    exit ``_native.close_live`` stops this process's live handles (a store
+    server, a data plane) but not another process's. Tasks are named by
+    ``/proc/self/task/*/comm``."""
+    import json
+    import subprocess
+
+    from torchft_tpu_torch.coordination import LighthouseServer
+
+    lh_one = LighthouseServer(bind="[::]:0", min_replicas=1)
+    lh_two = LighthouseServer(bind="[::]:0", min_replicas=2)
+    store = StoreServer()
+    try:
+        out = subprocess.run(
+            [sys.executable, "-c", _SHUTDOWN_CHILD, case, lh_one.address(), lh_two.address(),
+             store.address()],
+            env=dict(os.environ, PYTHONPATH=os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__)))),
+            capture_output=True, text=True, timeout=120)
+    finally:
+        store.shutdown()
+        lh_two.shutdown()
+        lh_one.shutdown()
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    if case != "staging_after_shutdown":
+        assert res["made"] > 0, res  # the case did run native threads
+    assert res["left"] == [], res

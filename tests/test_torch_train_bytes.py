@@ -288,3 +288,45 @@ def test_ckpt_dir_resume_bit_identical_no_step_twice(tmp_path):
     mine = _trace(os.path.join(tmp, "resumed_trace0.jsonl"))
     assert [ln["step"] for ln in mine] == list(range(6))
     assert mine == _trace(os.path.join(tmp, "straight_trace0.jsonl"))
+
+
+EXIT_RUNS = 6  # three at a time, each on a lighthouse of its own
+
+
+def test_exits_cleanly_every_time(tmp_path):
+    """The worker's end, ``manager.shutdown(wait=False)`` and the
+    interpreter's exit, run EXIT_RUNS times: one group of two steps, half of
+    the runs with a disk checkpoint every step (``chip_smoke.py`` phase 20
+    (b)'s worker). Every run logs ``done:`` and exits 0, with no C++
+    ``terminate called`` (a native thread destroyed while still joinable)
+    and no fatal Python error."""
+    from torchft_tpu_torch.coordination import LighthouseServer
+
+    tmp = str(tmp_path)
+    _corpus(tmp, 3001)
+    for wave in range(EXIT_RUNS // 3):
+        lighthouses = [LighthouseServer(bind="[::]:0", min_replicas=1) for _ in range(3)]
+        procs = []
+        try:
+            for i, lh in enumerate(lighthouses):
+                run = 3 * wave + i
+                env = _env(dict(REPLICA_GROUP_ID="0", NUM_REPLICA_GROUPS="1", STEPS="2",
+                                BATCH="2", DATA_PATH=os.path.join(tmp, "corpus.bin"),
+                                TORCHFT_LIGHTHOUSE=lh.address().split("//", 1)[-1],
+                                DEVICE="cpu", PYTHONFAULTHANDLER="1"))
+                if run % 2:
+                    env.update(CKPT_DIR=os.path.join(tmp, f"ckpt{run}"), CKPT_EVERY="1")
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "torchft_tpu_torch.examples.train_bytes"], env=env,
+                    cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+            for p in procs:
+                out = p.communicate(timeout=120)[0].decode(errors="replace")
+                assert p.returncode == 0, (p.returncode, out[-3000:])
+                assert "done: step=2" in out, out[-3000:]
+                assert "terminate called" not in out and "Fatal Python" not in out, out[-3000:]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+            for lh in lighthouses:
+                lh.shutdown()

@@ -18,10 +18,12 @@ in ``LD_PRELOAD``); it must exist and report this loader's ABI.
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
 import os
 import threading
+import weakref
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 from torchft_tpu_torch.utils import wire
@@ -227,6 +229,38 @@ def _raise_status(code: int, msg: str) -> None:
 
 def _errbuf() -> ctypes.Array:
     return ctypes.create_string_buffer(_ERRLEN)
+
+
+# The live handles whose C++ side runs threads (the servers, the data
+# plane, the blob server), with the pid that made each. A C++ object that
+# is still alive when the process exits is destroyed by the library's
+# static destructors, under whatever threads are still running; so at
+# interpreter exit (after the non-daemon threads are joined) every live
+# handle of this process is stopped by its own close, which joins its
+# threads. A forked child's handles are not its own: it skips them.
+_LIVE: "weakref.WeakKeyDictionary[Any, Tuple[int, str]]" = weakref.WeakKeyDictionary()
+_LIVE_LOCK = threading.Lock()
+
+
+def track(obj: Any, close: str = "close") -> None:
+    """Stop ``obj`` by ``getattr(obj, close)()`` at interpreter exit if it
+    is still alive then (a close before that is the caller's)."""
+    with _LIVE_LOCK:
+        _LIVE[obj] = (os.getpid(), close)
+
+
+def close_live() -> None:
+    """Stop every live tracked handle of this process (``atexit``)."""
+    with _LIVE_LOCK:
+        live = [(obj, close) for obj, (pid, close) in _LIVE.items() if pid == os.getpid()]
+    for obj, close in live:
+        try:
+            getattr(obj, close)()
+        except Exception:  # noqa: BLE001 — the process is exiting
+            pass
+
+
+atexit.register(close_live)
 
 
 class NativeClient:
@@ -535,6 +569,7 @@ class NativeDataPlane:
         self.world = world
         self.nstripes = nstripes
         self.port = int(self._lib.tft_dp_port(self._h))
+        track(self)
 
     def connect(self, peer: int, host: str, port: int, timeout_ms: int) -> None:
         err = _errbuf()
@@ -621,6 +656,7 @@ class BlobServer:
         if self._h == 0:
             raise RuntimeError(f"blob server create: {err.value.decode()}")
         self.port = int(self._lib.tft_blob_serve_port(self._h))
+        track(self)
 
     def stage(self, ptrs: List[int], lens: List[int], token: int) -> None:
         """Open the serving window over the buffers at ``ptrs`` / ``lens``

@@ -193,6 +193,12 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
         # native core cannot serve (then the HTTP ranges do)
         self._blob = None
         self._blob_failed = False
+        # unguarded-ok: set once by shutdown, read by a staging that may
+        #   still run on the manager's quorum thread after
+        #   shutdown(wait=False): it then makes no blob server (whose
+        #   acceptor thread would outlive the transport), or closes the one
+        #   it made
+        self._closed = False
         # serving starts disallowed: readers block until the first staging.
         # Only the manager's quorum/commit path flips the window.
         self._lock.w_acquire()
@@ -436,13 +442,16 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
         HTTP ranges serving (the stripemeta then advertises no port) and is
         logged: phase 15 of ``chip_smoke.py`` fails a heal that should have
         ridden the blob plane and did not."""
-        if not HEAL_NATIVE or self._blob_failed:
+        if not HEAL_NATIVE or self._blob_failed or self._closed:
             return
         try:
             if self._blob is None:
                 from torchft_tpu_torch import _native
 
                 self._blob = _native.BlobServer()
+                if self._closed:  # shutdown ran meanwhile and saw no server
+                    self._blob.close()
+                    return
             self._blob.stage([b.ctypes.data for b in self._buffers], self._sizes, self._token)
         except Exception as e:  # noqa: BLE001 — the HTTP ranges stay correct
             logger.warning("native blob staging unavailable: %s", e)
@@ -751,6 +760,7 @@ class HTTPTransport(CheckpointTransport[T], Generic[T]):
         return state
 
     def shutdown(self, wait: bool = True) -> None:
+        self._closed = True
         self._server.shutdown()
         self._server.server_close()
         if self._blob is not None:

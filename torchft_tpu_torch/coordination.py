@@ -120,6 +120,7 @@ class LighthouseServer:
             quorum_tick_ms if quorum_tick_ms is not None else 100,
             heartbeat_timeout_ms if heartbeat_timeout_ms is not None else 5000,
         )
+        _native.track(self, "shutdown")
 
     def address(self) -> str:
         return self._address
@@ -162,6 +163,7 @@ class ManagerServer:
             _ms(heartbeat_interval),
             _ms(connect_timeout),
         )
+        _native.track(self, "shutdown")
 
     def address(self) -> str:
         return self._address

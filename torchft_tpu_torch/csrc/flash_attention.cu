@@ -11,19 +11,20 @@
 // with zero columns to the next of them, passing the true D's scale (a
 // zero column adds an exact 0 to every dot product). tft_flash_supported
 // states what the op takes, and D above 256 stays refused. bf16 at D 128
-// (any S), at D 32 and 64 (S a multiple of 64), and K1 and K3 at D 256
-// (any S) run on wgmma: flash_fwd_wgmma, flash_dq_wgmma and
-// flash_dkv_wgmma (TMA, mbarriers, wgmma; their notes below), templated on
-// D; they mask the last tile. The FMA path, flash_fwd_kernel,
+// and 256 (any S) and at D 32 and 64 (S a multiple of 64) runs on wgmma:
+// flash_fwd_wgmma, flash_dq_wgmma and flash_dkv_wgmma (TMA, mbarriers,
+// wgmma; their notes below), templated on D; they mask the last tile.
+// Float32 K1 at D 128 and 256 runs on flash_fwd_f32 (register-blocked FMAs
+// fed by cp.async; its note below). The FMA path, flash_fwd_kernel,
 // flash_dq_kernel and flash_dkv_kernel, templated on the element type and
-// D, takes the rest: float32 at every D, and bf16 at D 8 and 16 (wgmma's K
-// of 16 bf16 values does not fit D 8, and these are the tiny models'
-// shapes), at D 32 and 64 where S is not a multiple of 64, and K2 at D 256
-// (bf16 loaded into float32; it reads the lse the wgmma K1 wrote, the same
-// [BH, S] float32). It masks the last tile's rows and columns, so it takes
-// any S; its float32 products hold the parity tests at the JAX bars. At D
-// 128 and 256 its tiles are 32 rows, so that K3's six float32 tiles of D
-// columns fit the 227 KB of shared memory (201 KB at D 256).
+// D, takes the rest: float32 at every D (K1 at 128 and 256 aside), and
+// bf16 at D 8 and 16 (wgmma's K of 16 bf16 values does not fit D 8, and
+// these are the tiny models' shapes) and at D 32 and 64 where S is not a
+// multiple of 64.
+// It masks the last tile's rows and columns, so it takes any S; its
+// float32 products hold the parity tests at the JAX bars. At D 128 and 256
+// its tiles are 32 rows, so that K3's six float32 tiles of D columns fit
+// the 227 KB of shared memory (201 KB at D 256).
 //
 // Layout: q, k, v, o, dO, dQ, dK, dV are [BH, S, D] row-major; lse and
 // delta are [BH, S] float32 (the TPU's 8-sublane broadcast and 128-lane
@@ -260,6 +261,260 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// K1: forward, float32, register-blocked (flash_fwd_f32), at head dims 128
+// and 256. Replaces _fwd_kernel, torchft_tpu/ops/pallas/flash_attention.py:67
+// (pallas_call at :115), for float32 at those head dims.
+//
+// Bound at B2 S2048 H16 D256 (causal): 68.7 GFLOP of products, 1.03 ms at
+// the card's 67 float32 TFLOP/s, over 134 MB (0.04 ms): bound by
+// operations. Float32 keeps float32 arithmetic (TF32 would miss the JAX
+// bars), so the products are FMAs, and the design is about feeding them
+// from shared memory, whose 128 bytes a cycle serve a warp's float4 load
+// in four cycles against its FMA's quarter cycle: a lane must do about
+// four FMAs per float it loads. A block is 256 threads (8 warps) over a
+// q-tile of 8 RW rows (RW = kF32WarpRows, 16: 128 rows); Q stays in shared
+// memory; K and V arrive in 32-key stages by cp.async, one buffer each, K
+// of the next stage loading under this stage's softmax and P.V and V under
+// the next stage's S (Q 128 rows, K, V and P^T: 212 KB at D 256, 116 KB
+// at 128). Warp w owns query rows [RW w, RW w + RW) for everything, so
+// nothing but K and V crosses warps:
+//   S = Q.K^T: lane (y, x) = (lane / 8, lane % 8) computes the warp's rows
+//   y, y + 4, ... (RW / 4 of them) against keys x, x + 8, x + 16, x + 24
+//   from float4 loads along D (RW / 4 + 4 loads for 4 RW FMAs; 16-byte-odd
+//   row strides keep neighbouring rows and keys on distinct banks); the
+//   row's max and sum reduce over
+//   its 8 lanes by shuffles, and P goes to shared memory transposed
+//   ([key][row]);
+//   O += P.V: lane l owns the warp's RW rows x columns 4l + 128h + e (h <
+//   D / 128, e < 4), O in registers (128 a thread at D 256); a key costs
+//   RW / 4 broadcast float4 loads of P and D / 128 float4 loads of V for
+//   RW D / 32 FMAs; the rows' corrections come by shuffles.
+// expf and the mask follow the FMA kernel (scale, then -1e30 where k_pos >
+// q_pos or k_pos >= S; l clamped at 1e-30); tiles above the diagonal are
+// never loaded; the heaviest q-tiles go first; rows and keys past S load
+// as zeros (cp.async's source size 0) and rows past S are not written.
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Keys = 32;    // keys of a K or V stage
+constexpr int kF32Threads = 256;
+constexpr int kF32WarpRows = 16;  // query rows a warp owns (a block: 8 of it)
+
+template <int D>
+struct F32Fwd {
+  static constexpr int RW = kF32WarpRows;
+  static constexpr int ROWS = 8 * RW;           // query rows of a block
+  static constexpr int SR = RW / 4;             // S rows a lane computes
+  static constexpr int LD = D + 4;              // row stride of Q, K and V (floats)
+  static constexpr int LP = ROWS + 4;           // row stride of P^T
+  static constexpr int NV = D / 128;            // float4 column groups of O a lane owns
+  static constexpr size_t kBytes =
+      sizeof(float) * (ROWS * LD + 2 * kF32Keys * LD + kF32Keys * LP);
+};
+
+// 16 bytes from global to shared memory, asynchronously; `bytes` 0 fills
+// the 16 bytes with zeros (a row past S)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(hopper::smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [row0, row0 + R) of a [S, D] float32 head into `dst` (row stride
+// F32Fwd<D>::LD), rows past S as zeros; every thread of the block issues
+// its share.
+template <int D, int R>
+__device__ __forceinline__ void f32_rows_async(float* dst, const float* __restrict__ src,
+                                               int row0, int seq) {
+  constexpr int kChunks = D / 4;  // 16-byte chunks a row
+  for (int i = threadIdx.x; i < R * kChunks; i += kF32Threads) {
+    const int r = i / kChunks, c = 4 * (i % kChunks);
+    const bool live = row0 + r < seq;
+    cp_async16(dst + r * F32Fwd<D>::LD + c,
+               src + (live ? static_cast<size_t>(row0 + r) * D + c : 0), live ? 16 : 0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int seq, float scale, int causal) {
+  using F = F32Fwd<D>;
+  constexpr int RW = F::RW, ROWS = F::ROWS, SR = F::SR, LD = F::LD, LP = F::LP, NV = F::NV;
+  extern __shared__ __align__(16) float smem_f32[];
+  float* sQ = smem_f32;                  // [ROWS][LD]
+  float* sK = sQ + ROWS * LD;            // [kF32Keys][LD]
+  float* sV = sK + kF32Keys * LD;        // [kF32Keys][LD]
+  float* sPt = sV + kF32Keys * LD;       // [kF32Keys][LP]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int y = lane / 8, x = lane % 8;
+  const int qi = (seq + ROWS - 1) / ROWS - 1 - static_cast<int>(blockIdx.y);
+  const int q0 = qi * ROWS;                      // the tile's first row
+  const int ra = RW * warp + y;                  // S rows ra + 4r (r < SR) of the tile
+  const size_t base = static_cast<size_t>(blockIdx.x) * seq * D;
+  const int last = (seq + kF32Keys - 1) / kF32Keys;
+  const int nk = causal ? min((q0 + ROWS - 1) / kF32Keys + 1, last) : last;
+
+  // cp.async groups, in order: {Q, K0}, {V0}, then for each stage j {K(j +
+  // 1)} once every warp has its S and {V(j + 1)} once every warp has its
+  // P.V (empty past the last stage): K loads under the softmax and P.V, V
+  // under the next S
+  f32_rows_async<D, ROWS>(sQ, q + base, q0, seq);
+  f32_rows_async<D, kF32Keys>(sK, k + base, 0, seq);
+  cp_async_commit();
+  f32_rows_async<D, kF32Keys>(sV, v + base, 0, seq);
+  cp_async_commit();
+
+  float acc[RW][4 * NV];
+#pragma unroll
+  for (int r = 0; r < RW; ++r)
+#pragma unroll
+    for (int c = 0; c < 4 * NV; ++c) acc[r][c] = 0.0f;
+  float m[SR], l[SR];
+#pragma unroll
+  for (int r = 0; r < SR; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.0f;
+  }
+
+  for (int j = 0; j < nk; ++j) {
+    const int key0 = j * kF32Keys;
+    cp_async_wait<1>();  // K(j) has landed (V(j) may still be in flight)
+    __syncthreads();
+
+    // S for rows ra + 4r and keys x + 8i
+    float s[SR][4];
+#pragma unroll
+    for (int r = 0; r < SR; ++r)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[r][i] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 a[SR];
+#pragma unroll
+      for (int r = 0; r < SR; ++r)
+        a[r] = *reinterpret_cast<const float4*>(sQ + (ra + 4 * r) * LD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 kv = *reinterpret_cast<const float4*>(sK + (x + 8 * i) * LD + d);
+#pragma unroll
+        for (int r = 0; r < SR; ++r)
+          s[r][i] = fmaf(a[r].x, kv.x,
+                         fmaf(a[r].y, kv.y, fmaf(a[r].z, kv.z, fmaf(a[r].w, kv.w, s[r][i]))));
+      }
+    }
+    __syncthreads();  // every warp is done with K(j)
+    if (j + 1 < nk) f32_rows_async<D, kF32Keys>(sK, k + base, key0 + kF32Keys, seq);
+    cp_async_commit();
+
+    // scale and mask (the diagonal's tiles and the ragged last one); the
+    // rows' max and sum over their 8 lanes; P^T
+    const bool mask = key0 + kF32Keys > seq || (causal && key0 + kF32Keys - 1 > q0);
+    float corr[SR];
+#pragma unroll
+    for (int r = 0; r < SR; ++r) {
+      const int qp = q0 + ra + 4 * r;
+      float mx = kNegInf;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int kp = key0 + x + 8 * i;
+        s[r][i] *= scale;
+        if (mask && (kp >= seq || (causal && kp > qp))) s[r][i] = kNegInf;
+        mx = fmaxf(mx, s[r][i]);
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float mn = fmaxf(m[r], mx);
+      corr[r] = expf(m[r] - mn);
+      m[r] = mn;
+      float sum = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = expf(s[r][i] - mn);
+        sum += p;
+        sPt[(x + 8 * i) * LP + ra + 4 * r] = p;
+      }
+#pragma unroll
+      for (int off = 1; off < 8; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[r] = l[r] * corr[r] + sum;
+    }
+
+    // O: the warp's RW rows (row g + 4r is S row r of lanes 8g),
+    // corrected, += P.V
+#pragma unroll
+    for (int r = 0; r < SR; ++r)
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float c = __shfl_sync(0xffffffffu, corr[r], 8 * g);
+#pragma unroll
+        for (int e = 0; e < 4 * NV; ++e) acc[g + 4 * r][e] *= c;
+      }
+    cp_async_wait<1>();  // V(j) has landed (K(j + 1) may still be in flight)
+    __syncthreads();     // every thread's V(j) copies; P^T in place
+    const float* pw = sPt + RW * warp;
+#pragma unroll 2
+    for (int kk = 0; kk < kF32Keys; ++kk) {
+      float p[RW];
+#pragma unroll
+      for (int r4 = 0; r4 < RW / 4; ++r4) {
+        const float4 pv = *reinterpret_cast<const float4*>(pw + kk * LP + 4 * r4);
+        p[4 * r4] = pv.x;
+        p[4 * r4 + 1] = pv.y;
+        p[4 * r4 + 2] = pv.z;
+        p[4 * r4 + 3] = pv.w;
+      }
+#pragma unroll
+      for (int h = 0; h < NV; ++h) {
+        const float4 vv = *reinterpret_cast<const float4*>(sV + kk * LD + 4 * lane + 128 * h);
+#pragma unroll
+        for (int r = 0; r < RW; ++r) {
+          acc[r][4 * h] = fmaf(p[r], vv.x, acc[r][4 * h]);
+          acc[r][4 * h + 1] = fmaf(p[r], vv.y, acc[r][4 * h + 1]);
+          acc[r][4 * h + 2] = fmaf(p[r], vv.z, acc[r][4 * h + 2]);
+          acc[r][4 * h + 3] = fmaf(p[r], vv.w, acc[r][4 * h + 3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with V(j) and P^T
+    if (j + 1 < nk) f32_rows_async<D, kF32Keys>(sV, v + base, key0 + kF32Keys, seq);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // O / l and lse; rows past S are not written
+  float lr[SR];
+#pragma unroll
+  for (int r = 0; r < SR; ++r) {
+    lr[r] = fmaxf(l[r], 1e-30f);
+    if (x == 0 && q0 + ra + 4 * r < seq)
+      lse[static_cast<size_t>(blockIdx.x) * seq + q0 + ra + 4 * r] = m[r] + logf(lr[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < SR; ++r)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const float inv = 1.0f / __shfl_sync(0xffffffffu, lr[r], 8 * g);
+      const int qp = q0 + RW * warp + g + 4 * r;
+      if (qp >= seq) continue;
+      float* orow = o + base + static_cast<size_t>(qp) * D;
+#pragma unroll
+      for (int h = 0; h < NV; ++h)
+        *reinterpret_cast<float4*>(orow + 4 * lane + 128 * h) =
+            make_float4(acc[g + 4 * r][4 * h] * inv, acc[g + 4 * r][4 * h + 1] * inv,
+                        acc[g + 4 * r][4 * h + 2] * inv, acc[g + 4 * r][4 * h + 3] * inv);
+    }
+}
+
+// ---------------------------------------------------------------------------
 // K2: dQ, FMA. One block per (bh, q-tile); loops over k-tiles.
 // ---------------------------------------------------------------------------
 template <typename T, int D>
@@ -411,10 +666,10 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---------------------------------------------------------------------------
 // bf16 K1, K2 and K3 for Hopper: TMA, mbarriers and wgmma, warp-specialised,
-// templated on the head dim D (32, 64 and 128; K1 and K3 also 256).
+// templated on the head dim D (32, 64, 128 and 256).
 //
 // A block is consumer warpgroups (two, but one for K1 at D 32) and, but
-// for K2 and K3 at D 128 and K1 and K3 at D 256, a producer warpgroup that
+// for K2 and K3 at D 128 and K1-K3 at D 256, a producer warpgroup that
 // gives up its registers (setmaxnreg). One of the producer's threads (in
 // the others, whichever consumer warp releases a stage last:
 // release_stage) keeps a ring of tiles in flight with TMA, each
@@ -425,7 +680,8 @@ __global__ void __launch_bounds__(kThreads)
 // C columns ([D/C][rows][C], C = kCol<D>): C = 64 (128-byte rows, the
 // 128-byte swizzle) at D 64, 128 and 256, C = 32 (64-byte rows, the 64-byte
 // swizzle) at D 32, where a row is 64 bytes (see hopper.cuh); one tensor
-// map format per head dim (box C x 64) serves every tensor. A product
+// map format per head dim (box C x 64; K2's 32-key stages, a variant at
+// D 256, take boxes of 32 rows) serves every tensor. A product
 // over D (Q.K^T, dO.V^T) steps its K through the column blocks, one
 // descriptor each, C/16 k16 steps of 32 bytes inside a row; a product
 // whose N is D (P.V, dS.K, P^T.dO, dS^T.Q) is one m64nC product per
@@ -454,9 +710,10 @@ __global__ void __launch_bounds__(kThreads)
 // (S 64 + dP 64 + dQ 64 + dS 32 registers). A K1 of 256 threads taking 128
 // keys at once was no faster on the card (PERF.md). At D 256 O alone is
 // 128 registers and dK + dV 256: K1 takes D 128's layout in 256 threads
-// with 64-key stages (the ring and 128 query rows fill 192 KB), and K3's
-// two consumers split D (each owns the block's 64 keys and half of dK's
-// and dV's columns: dkv_tile). At D 32 registers are
+// with 64-key stages (the ring and 128 query rows fill 192 KB), K2 takes
+// 128 query rows of Q and dO (128 KB) and one 64-key stage (see K2), and
+// K3's two consumers split D (each owns the block's 64 keys and half of
+// dK's and dV's columns: dkv_tile). At D 32 registers are
 // no limit (O and dQ 16, dK and dV 32) and the path's S of 128 gives a
 // block one or two tiles to visit, so the ring never fills and a block's
 // time is its chain of latencies: K2 and K3 keep D 64's layout (384
@@ -512,17 +769,24 @@ __device__ __forceinline__ uint64_t desc(const void* p) {
 template <int D, int R>
 constexpr uint32_t kRowsBytes = R * D * sizeof(bf16);
 
+// Rows of the TMA box of a map whose tiles are R rows: 64 (kBox), or R
+// where a tile is shorter (K2's 32-key stages at head dim 256).
+template <int R>
+constexpr int kBoxRows = R < kBox ? R : kBox;
+
 // TMA-load rows [row0, row0 + R) of a [BH, S, D] tensor into `tile`
-// (R/64 boxes per column block), completing kRowsBytes<D, R> on `bar`.
-template <int D, int R>
+// (R/BR boxes of BR rows per column block; the map's box has BR rows),
+// completing kRowsBytes<D, R> on `bar`.
+template <int D, int R, int BR = kBox>
 __device__ __forceinline__ void load_rows(bf16* tile, const CUtensorMap* map, int row0, int bh,
                                           uint64_t* bar) {
+  static_assert(R % BR == 0, "a tile is whole boxes");
 #pragma unroll
   for (int h = 0; h < D / kCol<D>; ++h)
 #pragma unroll
-    for (int b = 0; b < R / kBox; ++b)
-      hopper::tma_load(col_block<D, R>(tile, h) + b * kBox * kCol<D>, map, h * kCol<D>,
-                       row0 + b * kBox, bh, bar);
+    for (int b = 0; b < R / BR; ++b)
+      hopper::tma_load(col_block<D, R>(tile, h) + b * BR * kCol<D>, map, h * kCol<D>,
+                       row0 + b * BR, bh, bar);
 }
 
 // TMA-store 64 rows (`rows`: their place in column block 0 of an R-row
@@ -889,33 +1153,51 @@ __global__ void __launch_bounds__(NC * kWg + kFwdProducer<D>, 1)
 // commit group for a chunk's products and the previous chunk's dQ, and
 // dS computed under a wgmma in flight (which ptxas serialised) were each
 // no faster.
+//
+// At D 256 (B2 S2048 H16: 103 GFLOP of causal products, 0.104 ms at 989
+// TFLOP/s, over 168 MB) dQ is 128 registers a thread, so the block is the
+// two consumers alone as at 128, and shared memory sets the rest: Q and dO
+// of 128 query rows are 128 KB and a K+V stage of 64 keys 64 KB, so two
+// such stages (256 KB) do not fit the 227 KB. The ring is one 64-key stage
+// (192 KB), refilled by the last warp to release it, and a consumer takes
+// its 64 keys at once (S and dP m64n64, 32 registers each; 220 in all, 0
+// spills). A chunk holding a key past S or past one of the consumer's rows
+// is masked (the diagonal spans two stages). On the card
+// (scripts/torch_flash_variants.py, PERF.md) the stage taken as two
+// 32-key chunks was 10% slower, and rings of two or three 32-key stages,
+// whose next stage loads under this one's products, 18%.
 // ---------------------------------------------------------------------------
 
 // K2's layout, by head dim: the threads of the producer warpgroup (0: the
-// consumer warps load the K/V ring), the keys a consumer takes at once (S
-// and dP hold KC/2 registers each), and whether P.scale is one FFMA and
-// one MUFU an element (the scale folded into the exponent, results below
-// 2^-126 flushed to zero; D 32 and 64 keep exp2f and their numerics).
+// consumer warps load the K/V ring), the keys of a ring stage and the
+// ring's stages, the keys a consumer takes at once (S and dP hold KC/2
+// registers each), and whether P.scale is one FFMA and one MUFU an element
+// (the scale folded into the exponent, results below 2^-126 flushed to
+// zero; D 32 and 64 keep exp2f and their numerics).
 template <int D>
-constexpr int kDqProducer = D == 128 ? 0 : kWg;
+constexpr int kDqProducer = D >= 128 ? 0 : kWg;
+template <int D>
+constexpr int kDqStageKeys = D == 256 ? 64 : 128;
+template <int D>
+constexpr int kDqStages = D == 256 ? 1 : kStages;
 template <int D>
 constexpr int kDqKeys = D == 128 ? 128 : 64;
 template <int D>
-constexpr bool kDqOneMufu = D == 128;
+constexpr bool kDqOneMufu = D >= 128;
 
-template <int D>
+template <int D, int KS = kDqStageKeys<D>, int NS = kDqStages<D>>
 struct DqSmem {
   alignas(1024) bf16 q[128 * D];  // rows 0-63: consumer 0, 64-127: consumer 1
   alignas(1024) bf16 dout[128 * D];
-  alignas(1024) bf16 k[kStages][128 * D];
-  alignas(1024) bf16 v[kStages][128 * D];
+  alignas(1024) bf16 k[NS][KS * D];
+  alignas(1024) bf16 v[NS][KS * D];
   uint64_t qdo_full;
-  uint64_t kv_full[kStages];
-  uint64_t kv_empty[kStages];
-  uint32_t released[kStages];  // warps that released the stage, ever (no producer)
+  uint64_t kv_full[NS];
+  uint64_t kv_empty[NS];
+  uint32_t released[NS];  // warps that released the stage, ever (no producer)
 };
 
-template <int D, int KC = kDqKeys<D>>
+template <int D, int KC = kDqKeys<D>, int KS = kDqStageKeys<D>, int NS = kDqStages<D>>
 __global__ void __launch_bounds__(2 * kWg + kDqProducer<D>, 1)
     flash_dq_wgmma(const __grid_constant__ CUtensorMap map_q,
                    const __grid_constant__ CUtensorMap map_k,
@@ -930,16 +1212,18 @@ __global__ void __launch_bounds__(2 * kWg + kDqProducer<D>, 1)
   // consumers load
   constexpr int kWarps = 2 * kWg / 32;
   extern __shared__ unsigned char smem_raw[];
-  DqSmem<D>& sm = aligned_smem<DqSmem<D>>(smem_raw);
+  DqSmem<D, KS, NS>& sm = aligned_smem<DqSmem<D, KS, NS>>(smem_raw);
   const int bh = blockIdx.x;
-  const int ntiles = (seq + 127) / 128;
-  const int qi = ntiles - 1 - static_cast<int>(blockIdx.y);  // heaviest first
-  const int nk = causal ? qi + 1 : ntiles;                   // key tiles to visit
+  const int qi = (seq + 127) / 128 - 1 - static_cast<int>(blockIdx.y);  // heaviest first
+  // key tiles (KS keys) to visit: up to the one holding the last query row
+  // (causal), and none wholly past seq
+  const int last = (seq + KS - 1) / KS;
+  const int nk = causal ? min((qi * 128 + 127) / KS + 1, last) : last;
   const int wg = threadIdx.x / kWg;
 
   if (threadIdx.x == 0) {
     mbar_init(&sm.qdo_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < NS; ++s) {
       mbar_init(&sm.kv_full[s], 1);
       mbar_init(&sm.kv_empty[s], kPT > 0 ? 2 * kWg : kWarps);
       sm.released[s] = 0;
@@ -949,8 +1233,8 @@ __global__ void __launch_bounds__(2 * kWg + kDqProducer<D>, 1)
   __syncthreads();
 
   // Q and dO once; the it-th K/V tile visited (tile nk - 1 - it, from the
-  // diagonal down) into stage it % kStages, once the consumers have
-  // released the tile kStages before it
+  // diagonal down) into stage it % NS, once the consumers have released
+  // the tile NS before it (K and V maps with boxes of min(KS, 64) rows)
   const auto load_qdo = [&] {
     tma_prefetch(&map_q);
     tma_prefetch(&map_do);
@@ -961,11 +1245,11 @@ __global__ void __launch_bounds__(2 * kWg + kDqProducer<D>, 1)
     load_rows<D, 128>(sm.dout, &map_do, qi * 128, bh, &sm.qdo_full);
   };
   const auto load_kv = [&](int it) {
-    const int j = nk - 1 - it, st = it % kStages;
-    mbar_wait(&sm.kv_empty[st], ((it / kStages) & 1) ^ 1);
-    mbar_expect_tx(&sm.kv_full[st], 2 * kRowsBytes<D, 128>);
-    load_rows<D, 128>(sm.k[st], &map_k, j * 128, bh, &sm.kv_full[st]);
-    load_rows<D, 128>(sm.v[st], &map_v, j * 128, bh, &sm.kv_full[st]);
+    const int j = nk - 1 - it, st = it % NS;
+    mbar_wait(&sm.kv_empty[st], ((it / NS) & 1) ^ 1);
+    mbar_expect_tx(&sm.kv_full[st], 2 * kRowsBytes<D, KS>);
+    load_rows<D, KS, kBoxRows<KS>>(sm.k[st], &map_k, j * KS, bh, &sm.kv_full[st]);
+    load_rows<D, KS, kBoxRows<KS>>(sm.v[st], &map_v, j * KS, bh, &sm.kv_full[st]);
   };
 
   if (kPT > 0 && wg == 0) {
@@ -981,22 +1265,23 @@ __global__ void __launch_bounds__(2 * kWg + kDqProducer<D>, 1)
     const int cw = kPT > 0 ? wg - 1 : wg, tid = threadIdx.x % kWg;
     const int warp = tid / 32, lane = tid % 32, t = lane % 4;
     const int r0 = warp * 16 + lane / 4;          // rows r0 and r0 + 8 of the 64
-    const int qrow = qi * 128 + cw * kBox + r0;   // sequence position of row r0
+    const int row0 = qi * 128 + cw * kBox;        // sequence position of the first row
+    const int qrow = row0 + r0;                   // sequence position of row r0
     bf16* q_rows = sm.q + cw * kBox * kCol<D>;
     bf16* do_rows = sm.dout + cw * kBox * kCol<D>;
     // without a producer, the first thread loads Q, dO and the ring's first
     // stages, and each stage is refilled by the last warp to release it
     if (kPT == 0 && threadIdx.x == 0) {
       load_qdo();
-      for (int it = 0; it < min(nk, kStages); ++it) load_kv(it);
+      for (int it = 0; it < min(nk, NS); ++it) load_kv(it);
     }
     const auto release = [&](int it) {
-      const int st = it % kStages;
+      const int st = it % NS;
       if constexpr (kPT > 0) {
         mbar_arrive(&sm.kv_empty[st]);
       } else {
         release_stage<kWarps>(&sm.kv_empty[st], &sm.released[st], [&](int l) {
-          if (l == 0 && it + kStages < nk) load_kv(it + kStages);
+          if (l == 0 && it + NS < nk) load_kv(it + NS);
         });
       }
     };
@@ -1021,21 +1306,23 @@ __global__ void __launch_bounds__(2 * kWg + kDqProducer<D>, 1)
 
     mbar_wait(&sm.qdo_full, 0);
     for (int it = 0; it < nk; ++it) {
-      const int j = nk - 1 - it, st = it % kStages;
-      mbar_wait(&sm.kv_full[st], (it / kStages) & 1);
-      const bool mask = it == 0 && (causal || (j + 1) * 128 > seq);
+      const int j = nk - 1 - it, st = it % NS;
+      mbar_wait(&sm.kv_full[st], (it / NS) & 1);
 
 #pragma unroll
-      for (int c = 0; c < 128 / KC; ++c) {
-        const int key0 = j * 128 + c * KC;  // first key of the chunk
+      for (int c = 0; c < KS / KC; ++c) {
+        const int key0 = j * KS + c * KC;  // first key of the chunk
         // every key past seq, or past every query row of this consumer
-        if (key0 >= seq || (causal && key0 > qi * 128 + cw * kBox + kBox - 1)) continue;
+        if (key0 >= seq || (causal && key0 > row0 + kBox - 1)) continue;
+        // mask a chunk that holds a key past seq or (causal) past one of
+        // this consumer's rows: the diagonal's, or the ragged last one
+        const bool mask = key0 + KC > seq || (causal && key0 + KC - 1 > row0);
         float s[KC / 2], dp[KC / 2];
         wgmma_fence();
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
           const uint64_t q_desc = desc<D>(col_block<D, 128>(q_rows, h));
-          const uint64_t k_desc = desc<D>(col_block<D, 128>(sm.k[st], h) + c * KC * kCol<D>);
+          const uint64_t k_desc = desc<D>(col_block<D, KS>(sm.k[st], h) + c * KC * kCol<D>);
 #pragma unroll
           for (int kk = 0; kk < kKSteps<D>; ++kk)
             wgmma_ss(s, q_desc + 2 * kk, k_desc + 2 * kk, h + kk);
@@ -1043,7 +1330,7 @@ __global__ void __launch_bounds__(2 * kWg + kDqProducer<D>, 1)
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
           const uint64_t do_desc = desc<D>(col_block<D, 128>(do_rows, h));
-          const uint64_t v_desc = desc<D>(col_block<D, 128>(sm.v[st], h) + c * KC * kCol<D>);
+          const uint64_t v_desc = desc<D>(col_block<D, KS>(sm.v[st], h) + c * KC * kCol<D>);
 #pragma unroll
           for (int kk = 0; kk < kKSteps<D>; ++kk)
             wgmma_ss(dp, do_desc + 2 * kk, v_desc + 2 * kk, h + kk);
@@ -1093,7 +1380,7 @@ __global__ void __launch_bounds__(2 * kWg + kDqProducer<D>, 1)
         wgmma_fence();
 #pragma unroll
         for (int h = 0; h < NH; ++h) {
-          const uint64_t k_desc = desc<D>(col_block<D, 128>(sm.k[st], h) + c * KC * kCol<D>);
+          const uint64_t k_desc = desc<D>(col_block<D, KS>(sm.k[st], h) + c * KC * kCol<D>);
 #pragma unroll
           for (int kk = 0; kk < KC / 16; ++kk)
             wgmma_rs_tb(dq[h], da[kk], k_desc + kMnStep<D> * kk, 1);
@@ -1512,22 +1799,19 @@ bool instantiated(int d) {
   return d == 8 || d == 16 || d == 32 || d == 64 || d == 128 || d == 256;
 }
 
-// The three kernels, for the routing below
-enum class Kernel { kFwd, kDq, kDkv };
+// The bf16 head dims at which the kernels run on wgmma at every S (the last
+// tile masked): 128 and 256. The single statement of the routing: on_wgmma
+// and the FMA instantiations (fma_at) both follow it.
+constexpr bool wgmma_at_every_seq(int d) { return d == 128 || d == 256; }
 
-// The bf16 head dims at which a kernel runs on wgmma at every S (the last
-// tile masked): 128, and 256 for K1 and K3 (K2 there on the FMA kernel).
-// The single statement of the routing: on_wgmma and the FMA
-// instantiations (fma_at) both follow it.
-constexpr bool wgmma_at_every_seq(Kernel kernel, int d) {
-  return d == 128 || (d == 256 && kernel != Kernel::kDq);
-}
+// The float32 head dims at which K1 runs on the register-blocked kernel
+// (flash_fwd_f32); fma_at follows it too.
+constexpr bool f32_fwd_blocked(int d) { return d == 128 || d == 256; }
 
 // bf16 runs on wgmma at those head dims and at 32 and 64 where S is a
 // multiple of 64; the rest on the FMA kernels
-bool on_wgmma(Kernel kernel, int dtype, int d, int seq) {
-  return dtype == 1 &&
-         (wgmma_at_every_seq(kernel, d) || ((d == 32 || d == 64) && seq % kTile == 0));
+bool on_wgmma(int dtype, int d, int seq) {
+  return dtype == 1 && (wgmma_at_every_seq(d) || ((d == 32 || d == 64) && seq % kTile == 0));
 }
 
 bool shape_ok(int dtype, int bh, int seq, int d) {
@@ -1565,18 +1849,19 @@ EncodeTiled tensor_map_encoder() {
 }
 
 // A [BH, S, D] bf16 tensor as the 3-D map {D, S, BH} with box
-// {kCol<D>, 64, 1} and the swizzle of that row width (128 bytes at head
-// dims 64 and 128, 64 at 32). The map holds the base pointer, so it is made
-// per launch and passed by value (__grid_constant__).
+// {kCol<D>, rows, 1} (rows 64, or 32 for K2's 32-key stages at head dim
+// 256) and the swizzle of that row width (128 bytes at head dims 64, 128
+// and 256, 64 at 32). The map holds the base pointer, so it is made per
+// launch and passed by value (__grid_constant__).
 template <int D>
-cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int bh, int seq) {
+cudaError_t tensor_map(CUtensorMap* map, const void* ptr, int bh, int seq, int rows = kBox) {
   const EncodeTiled encode = tensor_map_encoder();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(seq),
                               static_cast<cuuint64_t>(bh)};
   const cuuint64_t strides[2] = {D * sizeof(bf16),
                                  static_cast<cuuint64_t>(seq) * D * sizeof(bf16)};
-  const cuuint32_t box[3] = {kCol<D>, kBox, 1};
+  const cuuint32_t box[3] = {kCol<D>, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUtensorMapSwizzle swizzle =
       kCol<D> == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
@@ -1612,14 +1897,15 @@ template <int D>
 int dq_hopper(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* delta, void* dqp, int bh, int seq, float scale,
               int causal, cudaStream_t stream) {
+  constexpr int kKvBox = kBoxRows<kDqStageKeys<D>>;  // rows of a K/V box
   static bool ready = false;
   const size_t smem = sizeof(DqSmem<D>) + 1024;
   cudaError_t err = allow_smem(flash_dq_wgmma<D>, smem, &ready);
   if (err != cudaSuccess) return err;
   CUtensorMap mq, mk, mv, mdo, mdq;
   if ((err = tensor_map<D>(&mq, q, bh, seq)) != cudaSuccess ||
-      (err = tensor_map<D>(&mk, k, bh, seq)) != cudaSuccess ||
-      (err = tensor_map<D>(&mv, v, bh, seq)) != cudaSuccess ||
+      (err = tensor_map<D>(&mk, k, bh, seq, kKvBox)) != cudaSuccess ||
+      (err = tensor_map<D>(&mv, v, bh, seq, kKvBox)) != cudaSuccess ||
       (err = tensor_map<D>(&mdo, dout, bh, seq)) != cudaSuccess ||
       (err = tensor_map<D>(&mdq, dqp, bh, seq)) != cudaSuccess)
     return err;
@@ -1670,6 +1956,20 @@ int fwd_fma(const void* q, const void* k, const void* v, void* o, float* lse, in
   return cudaGetLastError();
 }
 
+template <int D>
+int fwd_f32(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int seq,
+            float scale, int causal, cudaStream_t stream) {
+  using F = F32Fwd<D>;
+  static bool ready = false;
+  const size_t smem = F::kBytes;
+  cudaError_t err = allow_smem(flash_fwd_f32<D>, smem, &ready);
+  if (err != cudaSuccess) return err;
+  flash_fwd_f32<D><<<dim3(bh, (seq + F::ROWS - 1) / F::ROWS), kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), lse, seq, scale, causal);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 int dq_fma(const void* q, const void* k, const void* v, const void* dout, const float* lse,
            const float* delta, void* dqp, int bh, int seq, float scale, int causal,
@@ -1703,27 +2003,30 @@ int dkv_fma(const void* q, const void* k, const void* v, const void* dout, const
 // The FMA launches as functors of (element type, head dim), so that one
 // switch over the head dim serves all three
 struct FwdFma {
-  static constexpr Kernel kKernel = Kernel::kFwd;
   template <typename T, int D, typename... A>
   static int run(A... a) { return fwd_fma<T, D>(a...); }
 };
 struct DqFma {
-  static constexpr Kernel kKernel = Kernel::kDq;
   template <typename T, int D, typename... A>
   static int run(A... a) { return dq_fma<T, D>(a...); }
 };
 struct DkvFma {
-  static constexpr Kernel kKernel = Kernel::kDkv;
   template <typename T, int D, typename... A>
   static int run(A... a) { return dkv_fma<T, D>(a...); }
 };
 
 // An FMA launch at head dim D, instantiated for float32 and for bf16 where
 // on_wgmma leaves it some S: both types at 8, 16, 32 and 64, float32 alone
-// at 128, float32 at 256 and K2 alone in bf16 there.
+// at 128 and 256 (K1 there on flash_fwd_f32); no bf16 kernel at 128 or
+// 256.
+template <typename T, typename Launch, int D>
+constexpr bool on_fma = std::is_same_v<T, float>
+                            ? !(std::is_same_v<Launch, FwdFma> && f32_fwd_blocked(D))
+                            : !wgmma_at_every_seq(D);
+
 template <typename T, typename Launch, int D, typename... A>
 int fma_at(A... a) {
-  if constexpr (std::is_same_v<T, float> || !wgmma_at_every_seq(Launch::kKernel, D))
+  if constexpr (on_fma<T, Launch, D>)
     return Launch::template run<T, D>(a...);
   else
     return cudaErrorInvalidValue;
@@ -1755,11 +2058,15 @@ int tft_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* 
                   void* stream) {
   if (!shape_ok(dtype, bh, seq, d)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (on_wgmma(Kernel::kFwd, dtype, d, seq)) {
+  if (on_wgmma(dtype, d, seq)) {
     if (d == 32) return fwd_hopper<32>(q, k, v, o, lse, bh, seq, scale, causal, st);
     if (d == 64) return fwd_hopper<64>(q, k, v, o, lse, bh, seq, scale, causal, st);
     if (d == 256) return fwd_hopper<256>(q, k, v, o, lse, bh, seq, scale, causal, st);
     return fwd_hopper<128>(q, k, v, o, lse, bh, seq, scale, causal, st);
+  }
+  if (dtype == 0 && f32_fwd_blocked(d)) {
+    if (d == 128) return fwd_f32<128>(q, k, v, o, lse, bh, seq, scale, causal, st);
+    return fwd_f32<256>(q, k, v, o, lse, bh, seq, scale, causal, st);
   }
   if (dtype == 0) return by_head_dim<float, FwdFma>(d, q, k, v, o, lse, bh, seq, scale, causal, st);
   return by_head_dim<bf16, FwdFma>(d, q, k, v, o, lse, bh, seq, scale, causal, st);
@@ -1770,11 +2077,13 @@ int tft_flash_dq(int dtype, const void* q, const void* k, const void* v,
                  int bh, int seq, int d, float scale, int causal, void* stream) {
   if (!shape_ok(dtype, bh, seq, d)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (on_wgmma(Kernel::kDq, dtype, d, seq)) {
+  if (on_wgmma(dtype, d, seq)) {
     if (d == 32)
       return dq_hopper<32>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
     if (d == 64)
       return dq_hopper<64>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
+    if (d == 256)
+      return dq_hopper<256>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
     return dq_hopper<128>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
   }
   if (dtype == 0)
@@ -1790,7 +2099,7 @@ int tft_flash_dkv(int dtype, const void* q, const void* k, const void* v,
                   void* stream) {
   if (!shape_ok(dtype, bh, seq, d)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (on_wgmma(Kernel::kDkv, dtype, d, seq)) {
+  if (on_wgmma(dtype, d, seq)) {
     if (d == 32)
       return dkv_hopper<32>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
     if (d == 64)

@@ -689,7 +689,13 @@ class Manager:
         return f"{self._replica_id}:{self._step_label}:{self._quorum_id}"
 
     def shutdown(self, wait: bool = True) -> None:
-        """Shut down the manager server, checkpoint transport and data plane."""
+        """Shut down the manager server, checkpoint transport and data plane.
+
+        Every native handle (the manager server's heartbeat, acceptor and
+        connection threads, the blob server, the striped data plane) is
+        stopped, its threads joined, before this returns, whatever
+        ``wait``; ``wait=False`` leaves only the Python executors' work in
+        flight, and a quorum that lands after it reconfigures nothing."""
         self._shutting_down = True
         self._watchdog.stop()
         if self._diagnosis is not None:
@@ -970,6 +976,10 @@ class Manager:
             self._logger.info(
                 f"reconfiguring for quorum_id={quorum.quorum_id} store={store_prefixed_addr}"
             )
+            if self._shutting_down:
+                # shutdown(wait=False) has stopped the data plane: a quorum
+                # that lands after it builds no new one
+                raise RuntimeError("manager shut down")
             self._collectives.configure(
                 store_prefixed_addr, quorum.replica_rank, quorum.replica_world_size
             )

@@ -15,11 +15,11 @@ and bf16 at any head dim up to :data:`MAX_HEAD_DIM` (256) and any S up to
 :data:`KERNEL_HEAD_DIMS` (8, 16, 32, 64, 128, 256); the op pads any other
 with zero columns to the next of them (:func:`padded_head_dim`) inside its
 packing copy, hands the kernels the true head dim's scale, and slices the
-result back. bf16 at 128 (any S), at 32 and 64 with S a multiple of
-:data:`TILE`, and K1 and K3 at 256 (any S) run on the wgmma kernels;
-every other shape on the FMA kernels (32-row tiles at 128 and 256), K2 in
-bf16 at 256 among them. Both mask the last tile. The JAX op also takes
-head dims above 256; the port's does not.
+result back. bf16 at 128 and 256 (any S), and at 32 and 64 with S a
+multiple of :data:`TILE`, runs on the wgmma kernels; float32 K1 at 128
+and 256 on the register-blocked FMA kernel; every other shape on the FMA
+kernels (32-row tiles at 128 and 256). All mask the last tile. The JAX op
+also takes head dims above 256; the port's does not.
 
 The kernels are built with ``nvcc`` at first use into
 ``build/torch_kernels/``, keyed by a digest of every file under ``csrc/``,

@@ -26,6 +26,7 @@ class StoreServer:
 
     def __init__(self, bind: str = "[::]:0") -> None:
         self._handle, self._address = _native.store_create(bind)
+        _native.track(self, "shutdown")
 
     def address(self) -> str:
         """``host:port`` of this store."""
