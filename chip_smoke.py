@@ -29,8 +29,8 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    16, 100 and 1000 causal and S 100 not (wgmma, the last tile masked),
    float32 at 128 (S 256 causal and not, S 200) and both types at 256 (S
    128 and 200; float32 K1 on the register-blocked kernel, K2 and K3 on
-   the FMA kernels' 32-row tiles, bf16 K1-K3 on wgmma; bf16 also at S 1024
-   causal and not, the rings
+   the tensor cores as three TF32 products, bf16 K1-K3 on wgmma; bf16
+   also at S 1024 causal and not, the rings
    wrapping, a ragged S 1000 at an odd BH, and phase 23 (c)'s B1 S2048
    H16 causal), and 96, 80 and 40 padded
    to 128 and 64 (S 192, both types, the true head dim's scale); the op at
@@ -322,9 +322,11 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    from a CUDA graph, bitwise equal, 8/4/4 flash launches in each, the
    loss within 1e-2 of the plain route's; (b) the same width at 2 layers
    in float32 through ``"flash"``, B1 S1024 (K1 register-blocked, K2 and
-   K3 the FMA kernels at 128): the
+   K3 on the tensor cores, 3xTF32), and again as 16 heads of 256: the
    loss within 1e-4 and each gradient leaf within 1e-3 in norm of the
-   plain route's, 4/2/2 flash launches; (c) the same 4096 columns a token
+   plain route's, 4/2/2 flash launches, and one eager call under
+   ``torch.profiler`` naming ``flash_dq_f32`` and ``flash_dkv_f32`` and no
+   FMA kernel; (c) the same 4096 columns a token
    as 16 heads of 256 (Gemma-7B's head width) at 2 layers, bf16,
    ``"auto"``, B1 S2048 (K1-K3 on wgmma):
    ``TrainStep.grads`` eagerly and replayed from a CUDA graph, bitwise
@@ -371,6 +373,7 @@ import torch
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM dense TF32 (a float32 product: three of them)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 HEADLINE = dict(batch=8, seq=1024, heads=8, head_dim=64)
 # the Llama-2-7B preset (examples/train_hsdp.py:68-75) at Llama 2's context
@@ -485,12 +488,11 @@ for _n in ("flash_fwd", "flash_dq", "flash_dkv"):
         KERNEL_OF[(_n, _d, "f32")] = f"{_n}_kernelIfLi{_d}E"
         KERNEL_OF[(_n, _d, "bf16")] = f"{_n}_kernelI13__nv_bfloat16Li{_d}E"
 # float32 at head dims 128 and 256: K1 on the register-blocked kernel
-# (flash_fwd_f32), K2 and K3 on the FMA kernels' 32-row tiles; bf16 K1-K3
-# at 256 on wgmma (256 threads)
+# (flash_fwd_f32), K2 and K3 on the tensor cores as three TF32 products
+# (flash_dq_f32, flash_dkv_f32); bf16 K1-K3 at 256 on wgmma (256 threads)
 for _n in ("flash_fwd", "flash_dq", "flash_dkv"):
     for _d in (128, 256):
-        KERNEL_OF[(_n, _d, "f32")] = (f"flash_fwd_f32ILi{_d}E" if _n == "flash_fwd"
-                                      else f"{_n}_kernelIfLi{_d}E")
+        KERNEL_OF[(_n, _d, "f32")] = f"{_n}_f32ILi{_d}E"
     KERNEL_OF[(_n, 256, "bf16")] = f"{_n}_wgmmaILi256E"
 BUILT = list(KERNEL_OF.values()) + [
     f"{n}I{t}Li{d}E" for n in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
@@ -501,7 +503,7 @@ BUILT = list(KERNEL_OF.values()) + [
 # threads) and K3 there with one consumer of 64 keys (256 threads),
 # B2 S4096 H32 D128; K1-K3 at head dim 32 on the FMA kernels, B8 S128 H4
 # D32; bf16 K1-K3 at head dim 256 on the FMA kernels, B2 S2048 H16
-# D256 (SHAPES_TIMED["d256"]), and float32 K1 on the FMA kernel there
+# D256 (SHAPES_TIMED["d256"]), and float32 K1-K3 on the FMA kernels there
 # ("d256_f32") and at B2 S4096 H32 D128 ("d128_f32"); printed beside this
 # run's times in phase 3's log, not re-run (the kernels line holds only
 # this run's numbers)
@@ -510,7 +512,9 @@ EARLIER_GRAPH_MS = {("flash_dq", 128): 0.8810, ("flash_dkv", 128): 1.6509,
                     ("flash_dkv", 32): 0.0505,
                     ("flash_fwd", 256): 28.8739, ("flash_dkv", 256): 45.6399,
                     ("flash_dq", 256): 22.7956, ("flash_fwd", 256, "f32"): 30.9959,
-                    ("flash_fwd", 128, "f32"): 35.020}
+                    ("flash_fwd", 128, "f32"): 35.020, ("flash_dq", 128, "f32"): 57.1831,
+                    ("flash_dkv", 128, "f32"): 86.1331, ("flash_dq", 256, "f32"): 23.2256,
+                    ("flash_dkv", 256, "f32"): 33.5093}
 
 
 def check_no_spills(build_log: str) -> None:
@@ -987,14 +991,15 @@ def _bounds(shape, dtype=torch.bfloat16):
     """Least time for each kernel's work at ``shape`` (B, S, H, D; causal)
     in ``dtype``: the bytes it must move (inputs read once, outputs written
     once) over HBM rate, and the causal matmul FLOPs these inputs need over
-    the card's peak for the type (bf16 on the tensor cores, float32
-    outside them)."""
+    the card's fastest rate for the type: bf16 on the tensor cores, float32
+    as three TF32 products on them (at a third of the TF32 peak, more than
+    float32 outside them reaches; ``_fma_bound`` gives that bound)."""
     b, s, h, d = shape
     bh = b * h
     tensor = bh * s * d * torch.empty(0, dtype=dtype).element_size()  # one [BH,S,D]
     row = bh * s * 4  # one f32 [BH,S]
     pairs = bh * s * (s + 1) // 2  # causal (q, k) pairs
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_TF32_FLOPS / 3
     work = {  # (matmuls of 2*D flops per pair, bytes)
         "flash_fwd": (2, 4 * tensor + row),  # q,k,v in; o, lse out
         "flash_dq": (3, 5 * tensor + 2 * row),  # q,k,v,dO,lse,delta in; dq out
@@ -1007,6 +1012,13 @@ def _bounds(shape, dtype=torch.bfloat16):
         out[name] = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
                      flops, nbytes)
     return out
+
+
+def _fma_bound(flops) -> float:
+    """ms of ``flops`` of float32 products at the card's float32 peak outside
+    the tensor cores: the bound of the FMA kernels' path, kept beside the
+    float32 ``bound_ms`` (three TF32 products)."""
+    return flops / PEAK_F32_FLOPS * 1e3
 
 
 COLD_SETS = 4  # input sets rotated for L2-cold times: 135-200 MB at D 64, over the 50 MB L2
@@ -1108,11 +1120,13 @@ def phase_timing(shape, plain_chunk=None, plain_reps=25, dtype=torch.bfloat16, r
         before = ("" if key not in earlier
                   else f" (earlier design {earlier[key]:.4f} ms)")
         chunks = "" if plain_chunk is None else f" (query chunks of {plain_chunk} rows)"
+        fma = ("" if dtype == torch.bfloat16 or d not in (128, 256)
+               else f" (FMAs outside the tensor cores {_fma_bound(flops):.4g} ms)")
         log(f"{name} {tag}: {r['ms']:.4f} ms eager (host launches included); CUDA graph "
             f"(device time) {r['ms_graph']:.4f} ms warm{before}, {r['ms_cold']:.4f} ms "
             f"L2-cold; host {r['host_us']:.1f} us/call; plain {r['plain_ms']:.4f} ms{chunks}; "
             f"bound "
-            f"{bound:.3g} ms by {by}: {flops / 1e9:.3g} GFLOP, {nbytes / 1e6:.3g} MB")
+            f"{bound:.3g} ms by {by}{fma}: {flops / 1e9:.3g} GFLOP, {nbytes / 1e6:.3g} MB")
     for i, method in enumerate(("eager", "CUDA graph")):
         fwd, both = sdpa["fwd"][i], sdpa["fwd_bwd"][i]
         key = "ms" if i == 0 else "ms_graph"
@@ -4654,8 +4668,9 @@ def phase_chunked():
 # float32 at head dim 128 at the Llama width's shape; bf16 at 128 at
 # train_hsdp's own BATCH 8 x SEQ 16 (the wgmma kernels, the last tile
 # masked); head dim 256 in both types (float32 K1 register-blocked, K2 and
-# K3 on the FMA kernels; bf16 K1-K3 on wgmma; phase 23 (c) runs it) and 96
-# (padded to 128, wgmma) at B2 S2048, 4096 and 3072 columns a token
+# K3 on the tensor cores; bf16 K1-K3 on wgmma; phase 23 (b) and (c) run
+# them) and 96 (padded to 128, wgmma) at B2 S2048, 4096 and 3072 columns a
+# token
 SHAPES_TIMED = {
     "d128_f32": ((2, 4096, 32, 128), torch.float32),
     "d128_s16": ((8, 16, 32, 128), torch.bfloat16),
@@ -4663,20 +4678,26 @@ SHAPES_TIMED = {
     "d256_f32": ((2, 2048, 16, 256), torch.float32),
     "d96": ((2, 2048, 32, 96), torch.bfloat16),
 }
-# launches a kernel at each timed shape: a few at the FMA kernels' slow
-# float32 shapes (tens of ms a launch), few plain reps
-SHAPES_REPS = {"d128_f32": (3, 1, 1), "d128_s16": (25, 5, 5), "d256": (10, 2, 2),
-               "d256_f32": (3, 1, 2), "d96": (10, 2, 3)}  # (reps, inner, plain reps)
+# launches a kernel at each timed shape: fewer at float32's milliseconds a
+# launch, few plain reps (tens of ms at the Llama width)
+SHAPES_REPS = {"d128_f32": (5, 2, 1), "d128_s16": (25, 5, 5), "d256": (10, 2, 2),
+               "d256_f32": (10, 2, 2), "d96": (10, 2, 3)}  # (reps, inner, plain reps)
 # (a): train_hsdp's llama2-7b preset at its default BATCH 8 x SEQ 16
 # (examples/train_hsdp.py's defaults), the depth of phase 9
 SHAPES_LLAMA_S16 = dict(batch=8, seq=16)
 SHAPES_LOSS_TOL = 1e-2  # phase 9's bar
-# (b): the same width at 2 layers in float32 through "flash", B1 S1024; the
-# loss within 1e-4 and each leaf's gradient within 1e-3 of plain's in norm
-# (float32 throughout: summation order only, about 1e-6)
+# (b): the same width at 2 layers in float32 through "flash", B1 S1024, at
+# 32 heads of 128 and at 16 of 256; the loss within 1e-4 and each leaf's
+# gradient within 1e-3 of plain's in norm (float32 throughout: summation
+# order only, about 1e-6)
 SHAPES_F32 = dict(layers=2, batch=1, seq=1024)
+SHAPES_F32_HEADS = ((32, 128), (16, 256))  # (heads, head dim)
 SHAPES_F32_LOSS_TOL = 1e-4
 SHAPES_F32_GRAD_REL = 1e-3
+# the kernels one eager call of (b) must run at head dim D, by a piece of
+# their demangled names, and the float32 FMA K2 and K3, which it must not
+SHAPES_F32_KERNELS = {"flash_dq": "flash_dq_f32<", "flash_dkv": "flash_dkv_f32<"}
+SHAPES_F32_NOT = ("flash_dq_kernel<float", "flash_dkv_kernel<float")
 # (c): the preset's 4096 columns a token as 16 heads of 256 (Gemma-7B's head
 # width; a TransformerConfig of the port and of the JAX package), bf16,
 # "auto", B1 S2048; the loss within SHAPES_LOSS_TOL of plain's
@@ -4750,36 +4771,54 @@ def _shapes_llama_s16():
         "masked)")[0]
 
 
-def _shapes_f32():
+def _shapes_f32(heads, head_dim):
     """Phase 23 (b): the same width at SHAPES_F32's 2 layers in float32
-    through ``"flash"`` (head dim 128: K1 register-blocked, K2 and K3 the
-    FMA kernels), B1 S1024: the
-    loss within 1e-4 of the plain route's, each leaf's gradient within 1e-3
-    in norm, 4/2/2 flash launches. Returns those launches."""
+    through ``"flash"`` as ``heads`` heads of ``head_dim`` (128 or 256: K1
+    register-blocked, K2 and K3 on the tensor cores), B1 S1024: the loss
+    within 1e-4 of the plain route's, each leaf's gradient within 1e-3 in
+    norm, 4/2/2 flash launches; one more eager call under
+    ``torch.profiler`` runs K2 and K3 on ``SHAPES_F32_KERNELS`` and no
+    float32 FMA kernel. Returns the launches of the first call."""
+    from torch.profiler import ProfilerActivity, profile
+
     from torchft_tpu_torch.ops import flash_attention as fa
     from torchft_tpu_torch.parallel.train_step import TrainStep
 
     c = SHAPES_F32
     cfg = dataclasses.replace(llama_config(c["layers"]), dtype=torch.float32,
-                              attention_impl="flash")
+                              attention_impl="flash", n_heads=heads, head_dim=head_dim)
     params = TrainStep(cfg, device="cuda", graph=False).init_params(seed=0)
     tokens = make_tokens(cfg, 0, c["batch"], c["seq"])
     plain_loss, plain_grads = _grads_of(
         TrainStep(dataclasses.replace(cfg, attention_impl="plain"), graph=False), params, tokens)
     expect = _launches_per_step(cfg)
     fa.reset_launches()
-    f_loss, f_grads = _grads_of(TrainStep(cfg, graph=False), params, tokens)
+    step = TrainStep(cfg, graph=False)
+    f_loss, f_grads = _grads_of(step, params, tokens)
     launches = dict(fa.LAUNCHES)
     rel = _grad_rel(f_grads, plain_grads)
-    log(f"shapes (b) llama2-7b width, {cfg.n_layers} layers, float32, flash, B{c['batch']} x "
-        f"S{c['seq']} (head dim 128, float32 kernels): loss {f_loss:.7f}, plain "
+    tag = f"{heads} heads of {head_dim}"
+    log(f"shapes (b) llama2-7b width as {tag}, {cfg.n_layers} layers, float32, flash, "
+        f"B{c['batch']} x S{c['seq']} (float32 kernels): loss {f_loss:.7f}, plain "
         f"{plain_loss:.7f}, |diff| {abs(f_loss - plain_loss):.3e} (tol {SHAPES_F32_LOSS_TOL:g}); "
         f"worst leaf ||g - plain|| / ||plain|| {rel:.3e} (bar {SHAPES_F32_GRAD_REL:g}); flash "
         f"launches {launches} (expected {expect})")
     check(abs(f_loss - plain_loss) <= SHAPES_F32_LOSS_TOL,
-          "shapes (b): the loss disagrees with plain")
-    check(rel <= SHAPES_F32_GRAD_REL, "shapes (b): the gradients disagree with plain attention's")
-    check(launches == expect, f"shapes (b): flash launches {launches} != {expect}")
+          f"shapes (b) {tag}: the loss disagrees with plain")
+    check(rel <= SHAPES_F32_GRAD_REL,
+          f"shapes (b) {tag}: the gradients disagree with plain attention's")
+    check(launches == expect, f"shapes (b) {tag}: flash launches {launches} != {expect}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _grads_of(step, params, tokens)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if e.device_type.name == "CUDA"}
+    ran = {n: sorted({m for m in names if f"{piece}{head_dim}>" in m})
+           for n, piece in SHAPES_F32_KERNELS.items()}
+    fma = sorted({m for m in names if any(piece in m for piece in SHAPES_F32_NOT)})
+    log(f"shapes (b) {tag}: K2 and K3 one eager call ran, by the profiler {ran}; float32 FMA "
+        f"K2/K3 {fma}")
+    check(all(ran.values()) and not fma,
+          f"shapes (b) {tag}: the profiler saw {ran} and float32 FMA kernels {fma}")
     return launches
 
 
@@ -4813,16 +4852,17 @@ def _shapes_d256():
 
 def phase_shapes():
     """Phase 23 (a), (b) and (c) on the card. Returns their flash launches
-    by kernels entry ("d128_s16", "d128_f32", "d256")."""
+    by kernels entry ("d128_s16", "d128_f32", "d256_f32", "d256")."""
     t0 = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     out = {"d128_s16": _shapes_llama_s16()}
     gc.collect()
     torch.cuda.empty_cache()
-    out["d128_f32"] = _shapes_f32()
-    gc.collect()
-    torch.cuda.empty_cache()
+    for heads, head_dim in SHAPES_F32_HEADS:
+        out[f"d{head_dim}_f32"] = _shapes_f32(heads, head_dim)
+        gc.collect()
+        torch.cuda.empty_cache()
     out["d256"] = _shapes_d256()
     gc.collect()
     torch.cuda.empty_cache()
@@ -5156,11 +5196,11 @@ def main() -> None:
                 "library_ms": sdpa_fwd[0] if name == "flash_fwd" else None,
                 "library_ms_graph": sdpa_fwd[1] if name == "flash_fwd" else None,
             })
-    # phase 23's shapes: head dim 128 in float32 (K1 register-blocked, K2
-    # and K3 the FMA kernels; launched
-    # by phase 23 (b) at S 1024) and bf16 at S 16 (wgmma; phase 23 (a)),
-    # bf16 at 256 (phase 23 (c) at S 2048); float32 at 256 and 96 padded to
-    # 128: no path runs them (launches 0)
+    # phase 23's shapes: float32 at head dims 128 and 256 (K1
+    # register-blocked, K2 and K3 on the tensor cores, with the FMA path's
+    # bound beside; launched by phase 23 (b) at S 1024), bf16
+    # at 128 at S 16 (wgmma; phase 23 (a)), bf16 at 256 (phase 23 (c) at S
+    # 2048); 96 padded to 128: no path runs it (launches 0)
     for label, (shape, dtype) in SHAPES_TIMED.items():
         t, bounds, sdpa_fwd = shape_timing[label]
         d = shape[3]
@@ -5181,6 +5221,8 @@ def main() -> None:
                 "library_ms": sdpa_fwd[0] if name == "flash_fwd" else None,
                 "library_ms_graph": sdpa_fwd[1] if name == "flash_fwd" else None,
             })
+            if tag == "f32":
+                kernels[-1]["bound_fma_ms"] = _fma_bound(bounds[name][2])
     log(json.dumps({"kernels": kernels}))
     log(f"chip_smoke.py: {time.perf_counter() - started:.1f} s")
     log(smi)

@@ -13,7 +13,8 @@ changes are printed. A variant that computes the kernel's own function is
 then held against the plain version (``chip_smoke.KERNEL_BAR``, O and lse
 for K1, dQ for K2) and against itself across two launches, at the shapes
 phase 2 of ``chip_smoke.py`` gives that head dim; a diagnostic variant
-(it computes something else) is only timed. Last, over ``--rounds``
+(it computes something else) is only timed. At head dim 128 the checks
+include the timed B2 S4096 H32, causal. Last, over ``--rounds``
 rounds, in one process, each variant and ``shipped`` are timed in turn
 (the order reversed every other round) by CUDA-graph replay with the
 inputs L2-warm (``chip_smoke.gpu_time_ms``, phase 3's ``ms_graph``) at the
@@ -51,6 +52,25 @@ The variants (``--list``), each against the shipped source:
   (32-row tiles) in place of the register-blocked one;
   ``k1_f32_d128_rw8`` and ``k1_f32_d256_rw8``, the register-blocked
   kernel with 8 query rows a warp (64-row blocks) in place of 16.
+- float32 K2 and K3 at head dims 128 and 256 (the same shapes, both
+  kernels timed and held: dQ, dK and dV at F32_GRAD_BAR):
+  ``k23_f32_d128_fma`` and ``k23_f32_d256_fma``, the FMA kernels (32-row
+  tiles) in place of the 3xTF32 ones; ``k23_f32_d128_fmablock`` and
+  ``k23_f32_d256_fmablock``, the 3xTF32 kernels' layout with its products
+  as register-blocked FMAs (a lane computes its own C fragments: 2 x 2 NT
+  of S a float4 step, the score tile's rows from its quad by shuffles for
+  dQ, dK and dV); ``k23_f32_d128_direct``, dQ, dK and dV's products added
+  straight into their accumulators, which the tensor cores' float32 sums
+  truncate (held at B2 S4096 H32 among the checks), in place of a k step's
+  products summed from zero and added once.
+
+The FMA kernels at float32 head dims 128 and 256 are no longer in the
+source: the ``*_fma`` variants build ``csrc/`` as of ``FMA_REVISION``,
+the last revision that held them, which the script unpacks with ``git
+archive`` into ``build/csrc_<revision>/``. A copy of the repo without its
+git history needs that directory made beforehand, from a checkout that
+has it: ``mkdir -p build/csrc_672292b && git archive 672292b
+torchft_tpu_torch/csrc | tar -x -C build/csrc_672292b``.
 
 ``--sass`` prints, for every build, the changed entry's instructions by
 opcode (``cuobjdump -sass`` from nvcc's directory).
@@ -129,7 +149,7 @@ K2_RING3 = ("constexpr int kDqStages = D == 256 ? 1 : kStages;",
             "constexpr int kDqStages = D == 256 ? 3 : kStages;")
 K2_KC32 = ("constexpr int kDqKeys = D == 128 ? 128 : 64;",
            "constexpr int kDqKeys = D == 128 ? 128 : D == 256 ? 32 : 64;")
-# float32 K1 at head dim 128, or 256, on the FMA kernel
+# float32 K1 at head dim 128, or 256, on the FMA kernel (FMA_REVISION's source)
 K1_F32_128 = ("constexpr bool f32_fwd_blocked(int d) { return d == 128 || d == 256; }",
               "constexpr bool f32_fwd_blocked(int d) { return d == 256; }")
 K1_F32_256 = ("constexpr bool f32_fwd_blocked(int d) { return d == 128 || d == 256; }",
@@ -153,7 +173,151 @@ K1_SOFTMAX = (
      "            o[h][kk] += __uint_as_float(pa[kk][0] ^ pa[kk][1] ^ pa[kk][2] ^ pa[kk][3]);"),
 )
 
-# name: (kernel, head dim, rewrites, computes the kernel's function)
+# the last revision with the FMA kernels at float32 head dims 128 and 256
+# (32-row tiles), which the *_fma variants build
+FMA_REVISION = "672292b"
+# the 3xTF32 kernels' layout with register-blocked FMA products: stages left
+# as they land (split_rows does nothing), and each lane computes its own C
+# fragments (mma_rows: rows g, g + 8 against B rows 8n + 2t, 8n + 2t + 1 by
+# float4 steps; mma_cols: the score tile's rows 2t, 2t + 1, 8 + 2t, 9 + 2t
+# from the lanes that hold them, by shuffles, against X's columns 16m + 2g,
+# + 1)
+SPLIT_ROWS = """  constexpr int kChunks = D / 4;
+  for (int i = threadIdx.x; i < R * kChunks; i += kF32Threads) {
+    const int off = (i / kChunks) * (D + 4) + 4 * (i % kChunks);
+    float x[4];
+    load<4>(x, hi + off);
+    const Split<4> f = split<4>(x);
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(f.lo[0], f.lo[1], f.lo[2], f.lo[3]);
+  }"""
+ROWS_MMA = """  constexpr int LD = D + 4, LQ = 2 * D + 8;
+  const int off = g * LD + 8 * t;
+  // k step s of chunk c takes pair c / 2 + 4t + s, at slot (4t + s) ^ (t >> 1) past c / 2
+  const float* ae = a + g * LQ + 16 * t + 4 * (t >> 1);  // even s
+  const float* ao = a + g * LQ + 16 * t - 4 * (t >> 1);  // odd s
+#pragma unroll 1
+  for (int c = 0; c < DC; c += 32) {
+    Split<4> fa[4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      float x[4];
+      load<4>(x, (s % 2 ? ao : ae) + 2 * c + 4 * s);
+      fa[s] = split<4>(x);
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      float z[8];
+      load<8>(z, b + off + 8 * n * LD + c);
+      if constexpr (kPre) {
+        // the three products in three accumulators: chains of 4 mma, not 12
+        // (faster here; in the other path, K2's, one chain is)
+        float zl[8], d[3][4] = {};
+        load<8>(zl, bl + off + 8 * n * LD + c);
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const Split<2> fb = presplit<2>({z[2 * s], z[2 * s + 1]}, {zl[2 * s], zl[2 * s + 1]});
+          mma_tf32(d[0], fa[s].lo, fb.hi);
+          mma_tf32(d[1], fa[s].hi, fb.lo);
+          mma_tf32(d[2], fa[s].hi, fb.hi);
+        }
+        add4(d[0], d[1]);
+        add4(d[0], d[2]);
+        add4(acc[n], d[0]);
+      } else {
+        float d[4] = {};
+#pragma unroll
+        for (int s = 0; s < 4; ++s) mma3(d, fa[s], split<2>({z[2 * s], z[2 * s + 1]}));
+        add4(acc[n], d);
+      }
+    }
+  }"""
+ROWS_FMA = """  constexpr int LD = D + 4, LQ = 2 * D + 8;
+  const float* aq = a + g * LQ;  // the tile's quad-row g (load_tiles)
+  const float* br = b + 2 * t * LD;
+#pragma unroll 4
+  for (int c = 0; c < DC; c += 4) {
+    const int p = c / 2, swz = (p >> 3) & 1;
+    const float4 q0 = *reinterpret_cast<const float4*>(aq + 4 * (p ^ swz));
+    const float4 q1 = *reinterpret_cast<const float4*>(aq + 4 * ((p + 1) ^ swz));
+    const float4 x = make_float4(q0.x, q0.z, q1.x, q1.z);  // row g, columns c .. c + 3
+    const float4 y = make_float4(q0.y, q0.w, q1.y, q1.w);  // row g + 8
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float4 z = *reinterpret_cast<const float4*>(br + (8 * n + e) * LD + c);
+        acc[n][e] = fmaf(x.x, z.x, fmaf(x.y, z.y, fmaf(x.z, z.z, fmaf(x.w, z.w, acc[n][e]))));
+        acc[n][2 + e] =
+            fmaf(y.x, z.x, fmaf(y.y, z.y, fmaf(y.z, z.z, fmaf(y.w, z.w, acc[n][2 + e]))));
+      }
+  }"""
+COLS_MMA = """  constexpr int LD = D + 4;
+  const Split<2> bp[2] = {split<2>({p[0], p[1]}), split<2>({p[2], p[3]})};
+  const Split<2> bq[2] = {split<2>({q[0], q[1]}), split<2>({q[2], q[3]})};
+  const int off = 2 * t * LD + 2 * g;
+#pragma unroll
+  for (int m = 0; m < NM; ++m) {
+    Split<4> a[2];  // k steps over rows 2t, 2t + 1 and 8 + 2t, 9 + 2t
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float* r = x + off + 8 * k * LD + 16 * m;
+      const float2 u = *reinterpret_cast<const float2*>(r);
+      const float2 w = *reinterpret_cast<const float2*>(r + LD);
+      if constexpr (kPre) {
+        const float* rl = xl + off + 8 * k * LD + 16 * m;
+        const float2 ul = *reinterpret_cast<const float2*>(rl);
+        const float2 wl = *reinterpret_cast<const float2*>(rl + LD);
+        a[k] = presplit<4>({u.x, u.y, w.x, w.y}, {ul.x, ul.y, wl.x, wl.y});
+      } else {
+        a[k] = split<4>({u.x, u.y, w.x, w.y});
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float d[4] = {};
+      mma3(d, a[0], bp[u]);
+      mma3(d, a[1], bq[u]);
+      add4(acc[m][u], d);
+    }
+  }"""
+COLS_FMA = """  constexpr int LD = D + 4;
+  float pr[4][16];  // the score tile's rows 2t, 2t + 1, 8 + 2t, 9 + 2t
+#pragma unroll
+  for (int tt = 0; tt < 4; ++tt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int src = 4 * (2 * t + h) + tt;
+      pr[h][2 * tt] = __shfl_sync(0xffffffffu, p[0], src);
+      pr[h][2 * tt + 1] = __shfl_sync(0xffffffffu, p[1], src);
+      pr[h][8 + 2 * tt] = __shfl_sync(0xffffffffu, q[0], src);
+      pr[h][9 + 2 * tt] = __shfl_sync(0xffffffffu, q[1], src);
+      pr[2 + h][2 * tt] = __shfl_sync(0xffffffffu, p[2], src);
+      pr[2 + h][2 * tt + 1] = __shfl_sync(0xffffffffu, p[3], src);
+      pr[2 + h][8 + 2 * tt] = __shfl_sync(0xffffffffu, q[2], src);
+      pr[2 + h][9 + 2 * tt] = __shfl_sync(0xffffffffu, q[3], src);
+    }
+  const float* xr = x + 2 * g;
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      const float2 xv = *reinterpret_cast<const float2*>(xr + kk * LD + 16 * m);
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[m][u][e] = fmaf(pr[2 * u + (e & 1)][kk], e < 2 ? xv.x : xv.y, acc[m][u][e]);
+    }"""
+K23_FMABLOCK = ((SPLIT_ROWS, "  (void)hi, (void)lo;"), (ROWS_MMA, ROWS_FMA), (COLS_MMA, COLS_FMA))
+# mma_cols' products added straight into the accumulators (whose float32
+# sums the tensor cores truncate), in place of summed from zero over two k
+# steps and then added
+K23_DIRECT = (("""      float d[4] = {};
+      mma3(d, a[0], bp[u]);
+      mma3(d, a[1], bq[u]);
+      add4(acc[m][u], d);""", """      mma3(acc[m][u], a[0], bp[u]);
+      mma3(acc[m][u], a[1], bq[u]);"""),)
+# name: (kernel or kernels, head dim, rewrites, computes the kernels' function)
 VARIANTS = {
     "k1_d32_nc2": ("K1", 32, (K1_CONS,), True),
     "k1_d32_kc64": ("K1", 32, (K1_KEYS,), True),
@@ -175,37 +339,75 @@ VARIANTS = {
     "k1_f32_d256_fma": ("K1f32", 256, (K1_F32_256,), True),
     "k1_f32_d128_rw8": ("K1f32", 128, (K1_F32_RW8,), True),
     "k1_f32_d256_rw8": ("K1f32", 256, (K1_F32_RW8,), True),
+    "k23_f32_d128_fma": (("K2f32", "K3f32"), 128, (), True),
+    "k23_f32_d256_fma": (("K2f32", "K3f32"), 256, (), True),
+    "k23_f32_d128_fmablock": (("K2f32", "K3f32"), 128, K23_FMABLOCK, True),
+    "k23_f32_d256_fmablock": (("K2f32", "K3f32"), 256, K23_FMABLOCK, True),
+    "k23_f32_d128_direct": (("K2f32", "K3f32"), 128, K23_DIRECT, True),
 }
+
+
+def kinds(name: str) -> list[tuple[str, int]]:
+    """The (kernel, head dim) groups a variant is held and timed in."""
+    kernel, d = VARIANTS[name][:2]
+    return [(k, d) for k in (kernel if isinstance(kernel, tuple) else (kernel,))]
+
+
 # the entry each kernel's variants change, as ptxas names it ("K1f32": K1
 # on float32 inputs)
 ENTRY = {("K1", 32): "flash_fwd_wgmmaILi32E", ("K1", 128): "flash_fwd_wgmmaILi128E",
          ("K2", 128): "flash_dq_wgmmaILi128E", ("K2", 256): "flash_dq_wgmmaILi256E",
-         ("K1f32", 128): "flash_fwd_f32ILi128E", ("K1f32", 256): "flash_fwd_f32ILi256E"}
-# the FMA K1 in float32, which the *_fma variants build in its place
-ENTRY_OF_VARIANT = {"k1_f32_d128_fma": "flash_fwd_kernelIfLi128E",
-                    "k1_f32_d256_fma": "flash_fwd_kernelIfLi256E"}
+         ("K1f32", 128): "flash_fwd_f32ILi128E", ("K1f32", 256): "flash_fwd_f32ILi256E",
+         **{(f"K{i}f32", d): f"flash_{n}_f32ILi{d}E" for i, n in ((2, "dq"), (3, "dkv"))
+            for d in (128, 256)}}
+# the FMA kernels in float32, which the *_fma variants build in their place,
+# by (variant, kernel)
+ENTRY_OF_VARIANT = {("k1_f32_d128_fma", "K1f32"): "flash_fwd_kernelIfLi128E",
+                    ("k1_f32_d256_fma", "K1f32"): "flash_fwd_kernelIfLi256E",
+                    **{(f"k23_f32_d{d}_fma", f"K{i}f32"): f"flash_{n}_kernelIfLi{d}E"
+                       for i, n in ((2, "dq"), (3, "dkv")) for d in (128, 256)}}
 # timing shapes (the head dim's path) and phase 2's check shapes (causal),
 # by (kernel, head dim)
 TIMED = {("K1", 32): c._shape(c.BYTES), ("K1", 128): c._shape(c.LLAMA),
          ("K2", 128): c._shape(c.LLAMA), ("K2", 256): c.SHAPES_TIMED["d256"][0],
-         ("K1f32", 128): c.SHAPES_TIMED["d128_f32"][0],
-         ("K1f32", 256): c.SHAPES_TIMED["d256_f32"][0]}
+         **{(k, d): c.SHAPES_TIMED[f"d{d}_f32"][0] for k in ("K1f32", "K2f32", "K3f32")
+            for d in (128, 256)}}
 CHECKS = {
     32: [(c._shape(c.BYTES), True), ((2, 192, 2, 32), False), ((2, 320, 2, 32), True),
          ((2, 1024, 4, 32), True), ((2, 1024, 4, 32), False)],
     128: [((2, 1024, 4, 128), True), ((2, 1024, 4, 128), False), ((2, 192, 2, 128), True),
-          ((2, 320, 2, 128), True), ((2, 320, 2, 128), False)],
+          ((2, 320, 2, 128), True), ((2, 320, 2, 128), False), ((2, 4096, 32, 128), True)],
     256: [((2, 1024, 2, 256), True), ((2, 1024, 2, 256), False), ((1, 200, 3, 256), True),
           ((1, 2048, 16, 256), True), ((1, 1000, 3, 256), False)],
 }
-# (reps, inner) of a timing: a few at float32's tens of ms a launch
-TIMING_REPS = {"K1f32": (5, 1)}
+# (reps, inner) of a timing: a few at float32's milliseconds a launch
+TIMING_REPS = {"K1f32": (5, 1), "K2f32": (10, 2), "K3f32": (10, 2)}
+
+
+def revision_csrc(rev: str) -> str:
+    """``csrc/`` as of ``rev``, unpacked by ``git archive`` under the repo's
+    ignored ``build/`` (a copy without git history needs it there already)."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    dest = os.path.join(repo, "build", f"csrc_{rev}")
+    csrc = os.path.join(dest, "torchft_tpu_torch", "csrc")
+    if not os.path.isdir(csrc):
+        if not os.path.isdir(os.path.join(repo, ".git")):
+            sys.exit(f"{csrc} is missing and there is no git history to unpack it from: "
+                     f"mkdir -p {dest} && git archive {rev} torchft_tpu_torch/csrc | "
+                     f"tar -x -C {dest}")
+        os.makedirs(dest, exist_ok=True)
+        tar = subprocess.run(["git", "-C", repo, "archive", rev, "torchft_tpu_torch/csrc"],
+                             capture_output=True, check=True).stdout
+        subprocess.run(["tar", "-x", "-C", dest], input=tar, check=True)
+    return csrc
 
 
 def start_build(root: str, name: str, rewrites) -> tuple[str, subprocess.Popen]:
     csrc = os.path.join(root, name)
     shutil.rmtree(csrc, ignore_errors=True)
-    shutil.copytree(fa.CSRC_DIR, csrc)
+    # the *_fma variants: the FMA kernels at float32 head dims 128 and 256
+    shutil.copytree(revision_csrc(FMA_REVISION) if name.endswith("_fma") else fa.CSRC_DIR,
+                    csrc)
     src = os.path.join(csrc, "flash_attention.cu")
     with open(src) as f:
         text = f.read()
@@ -260,6 +462,8 @@ def call(kernel: str, inputs, causal: bool):
     pq, pk, pv, pdo, lse, delta = inputs
     if kernel.startswith("K1"):
         return fa.fwd_kernel(pq, pk, pv, causal)
+    if kernel.startswith("K3"):
+        return fa.dkv_kernel(pq, pk, pv, pdo, lse, delta, causal)
     return (fa.dq_kernel(pq, pk, pv, pdo, lse, delta, causal),)
 
 
@@ -274,11 +478,12 @@ def make_inputs(shape, causal: bool, seed: int, dtype=torch.bfloat16):
 def hold(name: str, kernel: str, d: int) -> bool:
     """The variant against the plain version at phase 2's shapes of head dim
     d (bf16 at KERNEL_BAR and LSE_TOL, float32 at F32_O_BAR and
-    F32_LSE_TOL), and bitwise across two launches. Returns whether every
-    case held."""
+    F32_LSE_TOL, float32 gradients at F32_GRAD_BAR), and bitwise across two
+    launches. Returns whether every case held."""
     ok = True
     f32 = dtype_of(kernel) == torch.float32
-    bar = c.F32_O_BAR if f32 else c.KERNEL_BAR
+    bar = (c.KERNEL_BAR if not f32 else c.F32_O_BAR if kernel.startswith("K1")
+           else c.F32_GRAD_BAR)
     for seed, (shape, causal) in enumerate(CHECKS[d], start=20):
         x = make_inputs(shape, causal, seed, dtype_of(kernel))
         got = call(kernel, x, causal)
@@ -287,6 +492,9 @@ def hold(name: str, kernel: str, d: int) -> bool:
             o_ref, lse_ref = fa.fwd_plain(*x[:3], causal)
             pairs = [("O", got[0], o_ref)]
             lse_err = float((got[1] - lse_ref).abs().max())
+        elif kernel.startswith("K3"):
+            pairs = list(zip(("dK", "dV"), got, fa.dkv_plain(*x, causal)))
+            lse_err = 0.0
         else:
             pairs = [("dQ", got[0], fa.dq_plain(*x, causal))]
             lse_err = 0.0
@@ -314,7 +522,8 @@ def main() -> None:
     args = ap.parse_args()
     if args.list:
         for name, (kernel, d, _, exact) in VARIANTS.items():
-            print(f"{name}: {kernel} at head dim {d}{'' if exact else ' (diagnostic)'}")
+            kernels = "+".join(kernel) if isinstance(kernel, tuple) else kernel
+            print(f"{name}: {kernels} at head dim {d}{'' if exact else ' (diagnostic)'}")
         return
     names = args.names or list(VARIANTS)
     unknown = [n for n in names if n not in VARIANTS]
@@ -330,7 +539,8 @@ def main() -> None:
     builds = {name: start_build(root, name, VARIANTS[name][2]) for name in names}
     shipped = fa.build()
     libs = {"shipped": fa.bind(shipped)}
-    for entry in sorted({ENTRY[VARIANTS[n][:2]] for n in names}):
+    changed = sorted({ENTRY[kd] for n in names for kd in kinds(n)})
+    for entry in changed:
         report("shipped", fa.build_log(), entry)
     failed = []
     for name, (out, proc) in builds.items():
@@ -338,19 +548,21 @@ def main() -> None:
         if proc.returncode != 0:
             print(log[-6000:])
             sys.exit(f"[{name}] nvcc failed (rc={proc.returncode})")
-        entry = ENTRY_OF_VARIANT.get(name, ENTRY[VARIANTS[name][:2]])
-        report(name, log, entry)
         libs[name] = fa.bind(out)
-        if args.sass:
-            sass_histogram(name, out, entry)
+        for kd in kinds(name):
+            entry = ENTRY_OF_VARIANT.get((name, kd[0]), ENTRY[kd])
+            report(name, log, entry)
+            if args.sass:
+                sass_histogram(name, out, entry)
     if args.sass:
-        for entry in sorted({ENTRY[VARIANTS[n][:2]] for n in names}):
+        for entry in changed:
             sass_histogram("shipped", shipped, entry)
 
     # (kernel, head dim) -> the libraries timed there, "shipped" first
     groups: dict[tuple[str, int], list[str]] = {}
     for name in names:
-        groups.setdefault(VARIANTS[name][:2], ["shipped"]).append(name)
+        for kd in kinds(name):
+            groups.setdefault(kd, ["shipped"]).append(name)
     for (kernel, d), members in groups.items():
         for name in members:
             fa._lib = libs[name]

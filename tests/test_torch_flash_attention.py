@@ -228,7 +228,7 @@ def test_supported_shapes():
     # half-filled last block, which the predicate does not refuse
     assert fa.supported(bf16, 128, 320) and fa.supported(bf16, 128, 4096)
     assert fa.supported(f32, 32, 128) and fa.supported(f32, 64, 128)
-    assert fa.supported(f32, 128, 128)  # the FMA kernels' 32-row tiles at 128
+    assert fa.supported(f32, 128, 128)  # K1 register-blocked, K2 and K3 on the tensor cores
     # the tiny models' shapes: head dims 8 and 16, short and ragged S
     for d in (8, 16):
         for dtype in (f32, bf16):
@@ -312,9 +312,9 @@ def test_c_predicate_agrees_on_card():
         (32, torch.bfloat16, True, 4, 48),
         (64, torch.bfloat16, False, 4, 200),
         # bf16 at 128 at any S on wgmma (the last tile masked, K3's last
-        # q-tile ragged); float32 at 128 and 256 (K1 at 256 on the
-        # register-blocked kernel, the rest on the FMA kernels' 32-row
-        # tiles); 96, 80 and 40 padded to 128 and 64 at their true scale
+        # q-tile ragged); float32 at 128 and 256 (K1 on the
+        # register-blocked kernel, K2 and K3 on the tensor cores); 96, 80
+        # and 40 padded to 128 and 64 at their true scale
         *[(128, torch.bfloat16, True, 4, s) for s in (16, 100, 1000)],
         (128, torch.bfloat16, False, 4, 100),
         (128, torch.float32, True, 4, 256),
@@ -324,12 +324,19 @@ def test_c_predicate_agrees_on_card():
           for s in (128, 200)],
         # at 256 in bf16: K1-K3 on wgmma (K1 64-key stages, K2 32-key
         # stages, K3's consumers splitting D); in float32: K1 on 32-key
-        # cp.async stages of the register-blocked kernel; at one tile,
-        # ragged lengths and the rings wrapping, with an odd BH
+        # cp.async stages of the register-blocked kernel, K2 and K3 on
+        # the tensor cores (3xTF32); at one tile, ragged lengths and the
+        # rings wrapping, with an odd BH
         *[(256, dtype, causal, 3, s) for dtype in (torch.bfloat16, torch.float32)
           for s in (64, 200, 1000, 2048) for causal in (True, False)],
         *[(d, dtype, True, 4, 192) for d in (96, 80, 40)
           for dtype in (torch.float32, torch.bfloat16)],
+        # float32 at 128 on 256's grid (K2 and K3 on the tensor cores: one
+        # tile, ragged, the stages wrapping) and at the timed shape (B2
+        # H32 S4096)
+        *[(128, torch.float32, causal, 3, s) for s in (64, 200, 1000, 2048)
+          for causal in (True, False)],
+        (128, torch.float32, True, 64, 4096),
     ],
 )
 def test_kernels_match_plain_on_card(d, dtype, causal, bh, s):

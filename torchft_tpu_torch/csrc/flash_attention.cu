@@ -14,17 +14,19 @@
 // and 256 (any S) and at D 32 and 64 (S a multiple of 64) runs on wgmma:
 // flash_fwd_wgmma, flash_dq_wgmma and flash_dkv_wgmma (TMA, mbarriers,
 // wgmma; their notes below), templated on D; they mask the last tile.
-// Float32 K1 at D 128 and 256 runs on flash_fwd_f32 (register-blocked FMAs
-// fed by cp.async; its note below). The FMA path, flash_fwd_kernel,
-// flash_dq_kernel and flash_dkv_kernel, templated on the element type and
-// D, takes the rest: float32 at every D (K1 at 128 and 256 aside), and
-// bf16 at D 8 and 16 (wgmma's K of 16 bf16 values does not fit D 8, and
-// these are the tiny models' shapes) and at D 32 and 64 where S is not a
-// multiple of 64.
+// Float32 at D 128 and 256 runs K1 on flash_fwd_f32 (register-blocked
+// FMAs fed by cp.async) and K2 and K3 on flash_dq_f32 and flash_dkv_f32
+// (the tensor cores, every product as three TF32 products, mma.sync);
+// their notes below. The FMA path, flash_fwd_kernel, flash_dq_kernel and
+// flash_dkv_kernel, templated on the element type and D, takes the rest:
+// float32 at D 8-64, and bf16 at D 8 and 16 (wgmma's K of 16 bf16 values
+// does not fit D 8, and these are the tiny models' shapes) and at D 32 and
+// 64 where S is not a multiple of 64.
 // It masks the last tile's rows and columns, so it takes any S; its
-// float32 products hold the parity tests at the JAX bars. At D 128 and 256
-// its tiles are 32 rows, so that K3's six float32 tiles of D columns fit
-// the 227 KB of shared memory (201 KB at D 256).
+// float32 products hold the parity tests at the JAX bars. It is built at
+// D 8-64 alone (64-row tiles, Fma<D>); its 32-row form at D 128 and 256
+// is in the sources before the float32 tensor-core kernels, which
+// scripts/torch_flash_variants.py's *_fma arms build to time it.
 //
 // Layout: q, k, v, o, dO, dQ, dK, dV are [BH, S, D] row-major; lse and
 // delta are [BH, S] float32 (the TPU's 8-sublane broadcast and 128-lane
@@ -39,19 +41,19 @@
 // result is deterministic.
 //
 // FMA kernels (float32, and bf16 loaded into float32): a block has 4
-// warps; warp w owns rows [16w, 16w+16) of a 64-row tile at D <= 64, and
-// [8w, 8w+8) of a 32-row tile at D 128 and 256 (Fma<D>), for the matrix
-// products and for the row-wise softmax, so most steps need only a warp
-// barrier. Tiles are converted to float32 as they are loaded, rows past S
-// as zeros; keys past S are masked like keys past the query, and query
-// rows past S are neither written nor summed into dK and dV. Tiles, score
+// warps; warp w owns rows [16w, 16w+16) of a 64-row tile (Fma<D>), for
+// the matrix products and for the row-wise softmax, so most steps need
+// only a warp barrier. Tiles are converted to float32 as they are loaded,
+// rows past S as zeros; keys past S are masked like keys past the query,
+// and query rows past S are neither written nor summed into dK and dV. Tiles, score
 // tiles and accumulators live in shared memory; they pass 48 KB, so
 // shared memory is dynamic (cudaFuncSetAttribute). Every product is a
 // chain of serial FMAs from shared memory: the kernels do not try to reach
 // either bound (at D 8 and 16 a product of a 16-row stripe keeps 8 or 16
-// lanes to a row, 4 or 2 rows at once). At D 128 and 256 they are bound by
-// shared-memory loads (one or two a FMA): 2-8 TFLOP/s on the card against
-// its 67 in float32 (PERF.md), first kernels that are right.
+// lanes to a row, 4 or 2 rows at once). At D 128 and 256 they were bound
+// by shared-memory loads (one or two a FMA): 2-8 TFLOP/s on the card
+// against its 67 in float32 (PERF.md), which is why no dtype runs them
+// there.
 //
 // Numerics kept from the TPU kernels: mask value -1e30 where
 // k_pos > q_pos; blocks above the causal diagonal skipped
@@ -70,25 +72,24 @@
 
 namespace {
 
-constexpr int kTile = 64;     // rows of the wgmma kernels' boxes: S up to 65535 of them
+constexpr int kTile = 64;     // rows of a wgmma box and an FMA tile: S up to 65535 of them
 constexpr int kThreads = 128;
 constexpr float kNegInf = -1e30f;
 
 using bf16 = __nv_bfloat16;
 
-// The FMA kernels' tile geometry by head dim. A tile is TR rows; warp w of
-// the block's 4 owns rows [RW w, RW w + RW) of it. At D <= 64, TR = 64 and
-// every tile has the row stride 65. At D 128 and 256, TR = 32: a 64-row
-// float32 tile of 128 columns is 33 KB, and K3 keeps six of them, so the
-// tiles are halved, with a stride of D + 1 for the D-column tiles (Q, K, V,
-// dO and the accumulators) and TR + 1 for the score tiles (S, P, dP, dS).
-// Odd strides: a warp reading a column touches 32 banks.
+// The FMA kernels' tile geometry: a tile is TR = 64 rows, one block a tile
+// (grid (bh, tiles of S)), and warp w of the block's 4 owns rows
+// [RW w, RW w + RW) of it. Every tile, of D columns (Q, K, V, dO and the
+// accumulators) or of scores (S, P, dP, dS), has the row stride 65: odd, so
+// a warp reading a column touches 32 banks.
 template <int D>
 struct Fma {
-  static constexpr int TR = D <= 64 ? 64 : 32;  // rows of every tile
-  static constexpr int RW = TR / 4;             // rows a warp owns
-  static constexpr int CL = TR / 32;            // score columns a lane owns in a row
-  static constexpr int LD = (D > TR ? D : TR) + 1;
+  static_assert(D <= 64, "the FMA kernels are built at head dims up to 64");
+  static constexpr int TR = kTile;     // rows of every tile: a grid's y extent covers S
+  static constexpr int RW = TR / 4;    // rows a warp owns
+  static constexpr int CL = TR / 32;   // score columns a lane owns in a row
+  static constexpr int LD = TR + 1;
   static constexpr int LS = TR + 1;
   static constexpr size_t kD = sizeof(float) * TR * LD;  // bytes of a D-column tile
   static constexpr size_t kS = sizeof(float) * TR * LS;  // bytes of a score tile
@@ -176,13 +177,6 @@ __host__ __device__ __forceinline__ int tiles(int seq) {
   return (seq + Fma<D>::TR - 1) / Fma<D>::TR;
 }
 
-// The FMA grids are (bh, y, z): tile y + z * gridDim.y of S (a grid's y
-// extent stops at 65535, short of S / 32 at the longest S); blocks past the
-// last tile return at once.
-__device__ __forceinline__ int tile_index() {
-  return static_cast<int>(blockIdx.y + blockIdx.z * gridDim.y);
-}
-
 // ---------------------------------------------------------------------------
 // K1: forward, FMA. One block per (bh, q-tile); online softmax over k-tiles.
 // ---------------------------------------------------------------------------
@@ -202,8 +196,7 @@ __global__ void __launch_bounds__(kThreads)
   float* sP = sS;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * RW;
-  const int qi = tile_index();
-  if (qi >= tiles<D>(seq)) return;
+  const int qi = blockIdx.y;
   const size_t base = static_cast<size_t>(blockIdx.x) * seq * D;
 
   load_tile<D>(sQ, q + base, qi * TR, seq);
@@ -515,6 +508,566 @@ __global__ void __launch_bounds__(kF32Threads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// K2 and K3, float32, on the tensor cores (flash_dq_f32, flash_dkv_f32), at
+// head dims 128 and 256. Replace _dq_kernel and _dkv_kernel,
+// torchft_tpu/ops/pallas/flash_attention.py:145 and :177 (pallas_calls at
+// :219 and :238), for float32 at those head dims.
+//
+// Bound at B2 S4096 H32 D128 (causal): K2 412 GFLOP of products, K3 550,
+// 6.16 and 8.21 ms at the card's 67 float32 TFLOP/s outside the tensor
+// cores, over 0.2-0.4 GB: bound by operations. TF32 alone misses the JAX
+// bars, so every product runs as three TF32 products (3xTF32) on
+// mma.sync.m16n8k8: each operand value x is taken as hi + lo, hi = x as
+// the tensor cores read it (truncated to TF32) and lo = x - hi (split),
+// and lo.hi + hi.lo + hi.hi is summed in float32 (lo.lo, within 2^-20 of
+// the product, is dropped), from zero for each k step or two and then
+// added to the accumulator (add4): 2.50 and 3.33 ms at the card's 495 TF32
+// TFLOP/s over three. The mma alone reach about that rate (the
+// k23_*_mmaonly diagnostic of scripts/torch_flash_variants.py); the loads,
+// splits and adds that feed them take the rest (PERF.md).
+// Both kernels are 256 threads (8 warps), each warp owning 16 rows of the
+// scores (the m16 tile) and its rows of the output, in registers
+// throughout. A stage's shared operands (K and V in K2, Q and dO in K3)
+// arrive by cp.async into one buffer each and are split once by the
+// threads that copied them (split_rows: lo beside the rows), not by each
+// warp (in K3; K2 splits K and V in each warp's registers, which measured
+// as fast and keeps shared memory to two arrays); each buffer is
+// released as soon as every warp is done with it, so that the next stage's
+// copy runs under the other tensor's products:
+//   K2 (flash_dq_f32): 16 query rows a warp; Q and dO of the block's rows
+//   stay in shared memory, K and V arrive in stages of 32 keys. Per stage
+//   a warp computes dP = dO.V^T (V then released), S = Q.K^T, dS = P (dP
+//   - delta) scale in place, and dQ += dS.K (K released). At D 256 dQ is
+//   128 registers and Q and dO of 128 rows would be 266 KB, so a block
+//   takes 64 rows and two warps share each 16, one taking each half of a
+//   stage's keys; the pair sums its two partial dQs through shared memory
+//   at the end, in a fixed order.
+//   K3 (flash_dkv_f32): 16 keys a warp; K and V of the block's keys stay
+//   in shared memory, Q and dO arrive in stages (32 queries at D 128, 16
+//   at 256) with the queries' lse and delta. Per stage a warp computes
+//   dP^T = V.dO^T, S^T = K.Q^T, P^T and dS^T in place, dV += P^T.dO (dO
+//   released), dK += dS^T.Q (Q released). At D 256 dK + dV of 16 keys
+//   would be 256 registers, so two warps share 16 keys, each owning half
+//   of D of dK and dV. Each takes half of S^T and dP^T's contraction (its
+//   own 128 columns) and the pair adds each other's partial sums through
+//   shared memory under a 64-thread barrier (F32Dkv::XCH): the products
+//   of one warp's 16 keys, not the 1.5x the bf16 K3 computes at 256 with
+//   both warps taking S^T and dP^T in full (slower: PERF.md).
+// Fragments (m16n8k8, TF32): lane l = 4g + t holds A at rows g, g + 8 and
+// columns t, t + 4; B at rows t, t + 4 and column g; C at rows g, g + 8 and
+// columns 2t, 2t + 1. Two permutations keep every load conflict-free from
+// rows of stride LD = D + 4 floats (4 mod 32):
+//   over the contraction of a score product (mma_rows: S, dP, S^T, dP^T),
+//   lane t reads columns c + 8t .. c + 8t + 7 of a 32-column chunk c (two
+//   float4 a row), and k step s of the chunk takes its column t as c + 8t
+//   + 2s and t + 4 as c + 8t + 2s + 1, for A and B alike;
+//   a product of a score tile P with a stage's rows X (mma_cols: dS.K,
+//   P^T.dO, dS^T.Q) runs transposed, (P.X)^T = X^T.P^T: P's C fragments
+//   are B as they stand (tile column 2t as k = t, 2t + 1 as t + 4), so X's
+//   rows 2t and 2t + 1 are A's k = t and t + 4, and A's rows g and g + 8
+//   are X's columns 2g and 2g + 1 of a 16-column tile: two float2 loads
+//   make an A fragment, and a lane holds its output rows 2t, 2t + 1, 8 +
+//   2t, 9 + 2t at columns 2g, 2g + 1 of each tile (frag_out).
+// Numerics as the FMA kernels: scale, then -1e30 where k_pos > q_pos or
+// k_pos >= S, P = expf(s - lse), dS = P (dP - delta) scale; rows and keys
+// past S load as zeros, query rows past S give P = 0 (K3) and are not
+// written (K2), keys past S are not written (K3). Tiles above the diagonal
+// are never loaded, and a warp skips a stage whose keys all lie past its
+// rows (K2) or whose queries all lie before its keys (K3). One block per
+// output tile, no atomics: the results are bitwise deterministic.
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct F32Dq {
+  static constexpr int WQ = D == 256 ? 2 : 1;  // warps sharing 16 query rows
+  static constexpr int ROWS = 16 * 8 / WQ;     // query rows of a block
+  static constexpr int KS = 32;                // keys of a K or V stage
+  static constexpr int KW = KS / WQ;           // keys a warp takes of a stage
+  static constexpr int LD = D + 4;
+  static constexpr size_t kBytes = sizeof(float) * LD * 2 * (ROWS + KS);
+};
+
+template <int D>
+struct F32Dkv {
+  static constexpr int WD = D == 256 ? 2 : 1;  // warps sharing 16 keys, each owning D / WD columns
+  static constexpr int KEYS = 16 * 8 / WD;     // keys of a block
+  static constexpr int QS = D == 256 ? 16 : 32;  // queries of a Q or dO stage
+  // where two warps share 16 keys, each takes half of S^T and dP^T's
+  // contraction and hands its partner its partial sums (flash_dkv_f32)
+  static constexpr bool XCH = WD == 2;
+  static constexpr int LD = D + 4;
+  static constexpr size_t kBytes =
+      sizeof(float) * (LD * (2 * KEYS + 4 * QS) + 2 * QS + (XCH ? kF32Threads * QS : 0));
+};
+
+// An A fragment (4 values) or a B fragment (2) as its TF32 hi and lo parts
+template <int N>
+struct Split {
+  uint32_t hi[N], lo[N];
+};
+
+// x = hi + lo. The tensor cores read the top 19 bits of a TF32 operand (x
+// truncated), so hi is x as it is, and lo = x - x truncated, exact, and
+// truncated in turn: within 2^-20 of x, for two instructions a value
+// (cvt.rna.tf32.f32 compiles to four or five, and hi rounded to nearest
+// takes a register of its own)
+template <int N>
+__device__ __forceinline__ Split<N> split(const float (&x)[N]) {
+  Split<N> f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    f.hi[i] = __float_as_uint(x[i]);
+    f.lo[i] = __float_as_uint(x[i] - __uint_as_float(f.hi[i] & 0xffffe000u));
+  }
+  return f;
+}
+
+// The values at `hi` and `lo` (a stage split by split_rows) as a fragment
+template <int N>
+__device__ __forceinline__ Split<N> presplit(const float (&hi)[N], const float (&lo)[N]) {
+  Split<N> f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    f.hi[i] = __float_as_uint(hi[i]);
+    f.lo[i] = __float_as_uint(lo[i]);
+  }
+  return f;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a.b in 3xTF32, the small products first
+__device__ __forceinline__ void mma3(float (&c)[4], const Split<4>& a, const Split<2>& b) {
+  mma_tf32(c, a.lo, b.hi);
+  mma_tf32(c, a.hi, b.lo);
+  mma_tf32(c, a.hi, b.hi);
+}
+
+// acc += d, rounded to nearest. The tensor cores' float32 accumulation
+// truncates, at the accumulator's magnitude: three mma a k step straight
+// into an accumulator summed over thousands of keys shrink it by about
+// 2^-23 each (1.8e-4 of dV at S 4096, causal), so the products of a few k
+// steps are summed from zero and added here
+__device__ __forceinline__ void add4(float (&acc)[4], const float (&d)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += d[e];
+}
+
+template <int N>
+__device__ __forceinline__ void load(float (&x)[N], const float* p) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 u = *reinterpret_cast<const float4*>(p + i);
+    x[i] = u.x, x[i + 1] = u.y, x[i + 2] = u.z, x[i + 3] = u.w;
+  }
+}
+
+// A stage of R rows that this thread copied by cp.async (f32_rows_async's
+// share) and has seen land, split: the rows stay as they are as hi, and
+// `lo` takes the rest (split)
+template <int D, int R>
+__device__ __forceinline__ void split_rows(const float* hi, float* lo) {
+  constexpr int kChunks = D / 4;
+  for (int i = threadIdx.x; i < R * kChunks; i += kF32Threads) {
+    const int off = (i / kChunks) * (D + 4) + 4 * (i % kChunks);
+    float x[4];
+    load<4>(x, hi + off);
+    const Split<4> f = split<4>(x);
+    *reinterpret_cast<uint4*>(lo + off) = make_uint4(f.lo[0], f.lo[1], f.lo[2], f.lo[3]);
+  }
+}
+
+// R rows of a [S, D] float32 head from `row0` (past S zeros) as R / 16
+// tiles of 16 rows, each laid out for mma_rows' A fragments: quad-row g
+// (row stride 2D + 8) holds, at quad slot p ^ ((p >> 3) & 1), the pair p of
+// columns 2p, 2p + 1 of rows g and g + 8, in the A fragment's order, so
+// that one float4 load is a fragment (two loads of row-major rows and four
+// register moves were); the slot swizzle keeps the loads conflict-free.
+// Every thread of the block takes part; plain loads (once a block).
+template <int D, int R>
+__device__ __forceinline__ void load_tiles(float* dst, const float* __restrict__ src, int row0,
+                                           int seq) {
+  constexpr int LQ = 2 * D + 8, kChunks = D / 4;
+  for (int i = threadIdx.x; i < R / 2 * kChunks; i += kF32Threads) {
+    const int tile = i / (8 * kChunks), g = i / kChunks % 8, j = i % kChunks;
+    const int ra = row0 + 16 * tile + g, rb = ra + 8;
+    const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4 x = ra < seq ? *reinterpret_cast<const float4*>(src + static_cast<size_t>(ra) * D + 4 * j) : zero;
+    const float4 y = rb < seq ? *reinterpret_cast<const float4*>(src + static_cast<size_t>(rb) * D + 4 * j) : zero;
+    float* q = dst + (8 * tile + g) * LQ;
+    const int p = 2 * j, swz = (p >> 3) & 1;
+    *reinterpret_cast<float4*>(q + 4 * (p ^ swz)) = make_float4(x.x, y.x, x.y, y.y);
+    *reinterpret_cast<float4*>(q + 4 * ((p + 1) ^ swz)) = make_float4(x.z, y.z, x.w, y.w);
+  }
+}
+
+// acc[n] += A.B^T over DC columns (D, or a multiple of 32 from where `a`
+// and `b` point): A the 16-row tile at `a` (load_tiles), split here; B the
+// NT x 8 rows at `b` (kPre: split by split_rows, lo at `bl`; else split
+// here), row stride D + 4; acc[n] is the C fragment of B's rows 8n .. 8n +
+// 7 (mma_rows in the note above)
+template <int D, int NT, bool kPre, int DC = D>
+__device__ __forceinline__ void mma_rows(float (&acc)[NT][4], const float* a, const float* b,
+                                         const float* bl, int g, int t) {
+  constexpr int LD = D + 4, LQ = 2 * D + 8;
+  const int off = g * LD + 8 * t;
+  // k step s of chunk c takes pair c / 2 + 4t + s, at slot (4t + s) ^ (t >> 1) past c / 2
+  const float* ae = a + g * LQ + 16 * t + 4 * (t >> 1);  // even s
+  const float* ao = a + g * LQ + 16 * t - 4 * (t >> 1);  // odd s
+#pragma unroll 1
+  for (int c = 0; c < DC; c += 32) {
+    Split<4> fa[4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      float x[4];
+      load<4>(x, (s % 2 ? ao : ae) + 2 * c + 4 * s);
+      fa[s] = split<4>(x);
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      float z[8];
+      load<8>(z, b + off + 8 * n * LD + c);
+      if constexpr (kPre) {
+        // the three products in three accumulators: chains of 4 mma, not 12
+        // (faster here; in the other path, K2's, one chain is)
+        float zl[8], d[3][4] = {};
+        load<8>(zl, bl + off + 8 * n * LD + c);
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const Split<2> fb = presplit<2>({z[2 * s], z[2 * s + 1]}, {zl[2 * s], zl[2 * s + 1]});
+          mma_tf32(d[0], fa[s].lo, fb.hi);
+          mma_tf32(d[1], fa[s].hi, fb.lo);
+          mma_tf32(d[2], fa[s].hi, fb.hi);
+        }
+        add4(d[0], d[1]);
+        add4(d[0], d[2]);
+        add4(acc[n], d[0]);
+      } else {
+        float d[4] = {};
+#pragma unroll
+        for (int s = 0; s < 4; ++s) mma3(d, fa[s], split<2>({z[2 * s], z[2 * s + 1]}));
+        add4(acc[n], d);
+      }
+    }
+  }
+}
+
+// acc[m][u] += (P.X)^T over 16 rows of X, two k steps: P the warp's 16 x
+// 16 score tile as the C fragments `p` (its columns 0-7) and `q` (8-15);
+// X the 16 rows at `x` (kPre: split by split_rows, lo at `xl`; else split
+// here), row stride D + 4, NM tiles of 16 columns. acc[m][u] is the C
+// fragment of (P.X)^T's columns 16m + 2g, + 1 and rows 8u + 2t, + 1
+// (mma_cols in the note above; frag_out writes it)
+template <int D, int NM, bool kPre>
+__device__ __forceinline__ void mma_cols(float (&acc)[NM][2][4], const float (&p)[4],
+                                         const float (&q)[4], const float* x, const float* xl,
+                                         int g, int t) {
+  constexpr int LD = D + 4;
+  const Split<2> bp[2] = {split<2>({p[0], p[1]}), split<2>({p[2], p[3]})};
+  const Split<2> bq[2] = {split<2>({q[0], q[1]}), split<2>({q[2], q[3]})};
+  const int off = 2 * t * LD + 2 * g;
+#pragma unroll
+  for (int m = 0; m < NM; ++m) {
+    Split<4> a[2];  // k steps over rows 2t, 2t + 1 and 8 + 2t, 9 + 2t
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float* r = x + off + 8 * k * LD + 16 * m;
+      const float2 u = *reinterpret_cast<const float2*>(r);
+      const float2 w = *reinterpret_cast<const float2*>(r + LD);
+      if constexpr (kPre) {
+        const float* rl = xl + off + 8 * k * LD + 16 * m;
+        const float2 ul = *reinterpret_cast<const float2*>(rl);
+        const float2 wl = *reinterpret_cast<const float2*>(rl + LD);
+        a[k] = presplit<4>({u.x, u.y, w.x, w.y}, {ul.x, ul.y, wl.x, wl.y});
+      } else {
+        a[k] = split<4>({u.x, u.y, w.x, w.y});
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      float d[4] = {};
+      mma3(d, a[0], bp[u]);
+      mma3(d, a[1], bq[u]);
+      add4(acc[m][u], d);
+    }
+  }
+}
+
+// Tile m of `acc` (mma_cols' layout) to the 16 rows at `out` (row stride
+// `ld`), rows below `rows` alone; `add` adds what is there instead
+template <int NM>
+__device__ __forceinline__ void frag_out(float* out, int ld, float (&acc)[NM][2][4], int m,
+                                         int g, int t, int rows, bool add = false) {
+#pragma unroll
+  for (int u = 0; u < 2; ++u)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = 8 * u + 2 * t + e;
+      if (r >= rows) continue;
+      float2* p = reinterpret_cast<float2*>(out + r * ld + 16 * m + 2 * g);
+      if (add) {
+        const float2 y = *p;
+        acc[m][u][e] += y.x;
+        acc[m][u][2 + e] += y.y;
+      } else {
+        *p = make_float2(acc[m][u][e], acc[m][u][2 + e]);
+      }
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 float* __restrict__ dq, int seq, float scale, int causal) {
+  using F = F32Dq<D>;
+  constexpr int ROWS = F::ROWS, KS = F::KS, KW = F::KW, NT = KW / 8, LD = F::LD;
+  constexpr int NM = D / 16, OWN = NM / F::WQ;
+  static_assert(NT % 2 == 0, "mma_cols takes the score tiles in pairs");
+  extern __shared__ __align__(16) float smem_f32[];
+  float* sQ = smem_f32;         // [ROWS][LD]: Q as ROWS / 16 tiles (load_tiles)
+  float* sDO = sQ + ROWS * LD;  // [ROWS][LD]: dO, the same
+  float* sK = sDO + ROWS * LD;  // [KS][LD]: K
+  float* sV = sK + KS * LD;     // [KS][LD]: V
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int r0 = 16 * (warp / F::WQ);  // the warp's rows of the tile
+  const int half = warp % F::WQ;       // which KW keys of a stage it takes
+  const int qi = (seq + ROWS - 1) / ROWS - 1 - static_cast<int>(blockIdx.y);  // heaviest first
+  const int q0 = qi * ROWS;
+  const size_t base = static_cast<size_t>(blockIdx.x) * seq * D;
+  const size_t rbase = static_cast<size_t>(blockIdx.x) * seq;
+  const int last = (seq + KS - 1) / KS;
+  const int nk = causal ? min((q0 + ROWS - 1) / KS + 1, last) : last;
+  const int qa = q0 + r0 + g, qb = qa + 8;  // this lane's rows (past S: zero dO, so zero dS)
+  const float lse_a = qa < seq ? lse[rbase + qa] : 0.0f, lse_b = qb < seq ? lse[rbase + qb] : 0.0f;
+  const float del_a = qa < seq ? delta[rbase + qa] : 0.0f;
+  const float del_b = qb < seq ? delta[rbase + qb] : 0.0f;
+
+  // cp.async groups, in order: {V0}, {K0}, then per stage j, V(j + 1) once
+  // every warp has its dP and K(j + 1) once every warp has its dQ (empty
+  // past the last stage): V loads under S and dQ, K under the next stage's
+  // dP; Q and dO meanwhile, as mma_rows' tiles
+  f32_rows_async<D, KS>(sV, v + base, 0, seq);
+  cp_async_commit();
+  f32_rows_async<D, KS>(sK, k + base, 0, seq);
+  cp_async_commit();
+  load_tiles<D, ROWS>(sQ, q + base, q0, seq);
+  load_tiles<D, ROWS>(sDO, dout + base, q0, seq);
+
+  float acc[NM][2][4];  // dQ^T
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[m][e / 4][e % 4] = 0.0f;
+
+  for (int j = 0; j < nk; ++j) {
+    const int key0 = j * KS + half * KW;  // the warp's first key
+    const bool live = !causal || key0 <= q0 + r0 + 15;
+    const int kw = half * KW * LD;        // its keys' rows in the stage
+    cp_async_wait<1>();                   // V(j) has landed
+    __syncthreads();
+    float s[NT][4] = {}, dp[NT][4] = {};
+    if (live) mma_rows<D, NT, false>(dp, sDO + r0 * LD, sV + kw, nullptr, g, t);
+    cp_async_wait<0>();  // K(j) has landed
+    __syncthreads();  // and every warp is done with V(j)
+    if (j + 1 < nk) f32_rows_async<D, KS>(sV, v + base, (j + 1) * KS, seq);
+    cp_async_commit();
+    if (live) {
+      mma_rows<D, NT, false>(s, sQ + r0 * LD, sK + kw, nullptr, g, t);
+      const bool mask = key0 + KW > seq || (causal && key0 + KW - 1 > q0 + r0);
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = key0 + 8 * n + 2 * t + (e & 1), qp = e < 2 ? qa : qb;
+          float x = s[n][e] * scale;
+          if (mask && (kp >= seq || (causal && kp > qp))) x = kNegInf;
+          const float p = expf(x - (e < 2 ? lse_a : lse_b));
+          s[n][e] = p * (dp[n][e] - (e < 2 ? del_a : del_b)) * scale;  // dS
+        }
+#pragma unroll
+      for (int n = 0; n < NT; n += 2)
+        mma_cols<D, NM, false>(acc, s[n], s[n + 1], sK + kw + 8 * n * LD, nullptr, g, t);
+    }
+    __syncthreads();  // every warp is done with K(j)
+    if (j + 1 < nk) f32_rows_async<D, KS>(sK, k + base, (j + 1) * KS, seq);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // dQ; at D 256 each warp of a pair writes OWN tiles of columns (half 0
+  // the first) and hands the other warp its partial sum of the rest
+  // through a slab of shared memory (16 rows a warp, over Q and dO, which
+  // every warp is done with)
+  if constexpr (F::WQ == 2) {
+    float* mine = sQ + warp * 16 * LD;
+    float* theirs = sQ + (warp ^ 1) * 16 * LD;
+#pragma unroll
+    for (int m = 0; m < NM; ++m)
+      if (m / OWN != half) frag_out<NM>(mine, LD, acc, m, g, t, 16);
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < NM; ++m)
+      if (m / OWN == half) frag_out<NM>(theirs, LD, acc, m, g, t, 16, true);
+  }
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+    if (m / OWN == half)
+      frag_out<NM>(dq + base + static_cast<size_t>(q0 + r0) * D, D, acc, m, g, t,
+                   seq - (q0 + r0));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kF32Threads, 1)
+    flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  float* __restrict__ dk, float* __restrict__ dv, int seq, float scale,
+                  int causal) {
+  using F = F32Dkv<D>;
+  constexpr int KEYS = F::KEYS, QS = F::QS, NT = QS / 8, LD = F::LD;
+  constexpr int NM = D / 16 / F::WD;  // tiles of 16 columns of dK and dV a warp owns
+  constexpr int DC = F::XCH ? D / 2 : D;  // columns of S^T and dP^T's contraction a warp takes
+  static_assert(NT % 2 == 0, "mma_cols takes the score tiles in pairs");
+  extern __shared__ __align__(16) float smem_f32[];
+  float* sK = smem_f32;         // [KEYS][LD]: K as KEYS / 16 tiles (load_tiles)
+  float* sV = sK + KEYS * LD;   // [KEYS][LD]: V, the same
+  float* sQ = sV + KEYS * LD;   // [QS][LD]: the stage's Q, hi
+  float* sDO = sQ + QS * LD;    // [QS][LD]: dO, hi
+  float* sQl = sDO + QS * LD;   // [QS][LD]: Q's lo
+  float* sDOl = sQl + QS * LD;  // [QS][LD]: dO's lo
+  float* sL = sDOl + QS * LD;   // [QS]: lse of the stage's queries
+  float* sD = sL + QS;          // [QS]: delta
+  float* sX = sD + QS;          // XCH: [8 warps][2 NT][32 lanes] float4, partial S^T and dP^T
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int r0 = 16 * (warp / F::WD);           // the warp's keys of the block
+  const int c0 = (warp % F::WD) * (D / F::WD);  // its columns of dK and dV
+  const int cr = F::XCH ? c0 : 0;  // and of S^T and dP^T's contraction (DC from it)
+  const int k0 = static_cast<int>(blockIdx.y) * KEYS;  // the heaviest (causal) first
+  const size_t base = static_cast<size_t>(blockIdx.x) * seq * D;
+  const size_t rbase = static_cast<size_t>(blockIdx.x) * seq;
+  const int nq = (seq + QS - 1) / QS;
+  const int first = causal ? k0 / QS : 0;  // stages before it lie before every key
+  const int ka = k0 + r0 + g, kb = ka + 8;  // this lane's keys
+
+  // dO, lse and delta of stage i (4 bytes a copy: a head's [S] row is
+  // 16-byte aligned only where S is a multiple of 4); past S zeros
+  auto stage_do = [&](int i) {
+    f32_rows_async<D, QS>(sDO, dout + base, i * QS, seq);
+    const int r = threadIdx.x % QS, qp = i * QS + r;
+    if (threadIdx.x < 2 * QS) {
+      const float* src = (threadIdx.x < QS ? lse : delta) + rbase + (qp < seq ? qp : 0);
+      float* dst = (threadIdx.x < QS ? sL : sD) + r;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(hopper::smem_addr(dst)),
+                   "l"(src), "r"(qp < seq ? 4 : 0)
+                   : "memory");
+    }
+  };
+  // cp.async groups, in order: {dO and lse, delta of stage first}, {Q},
+  // then per stage i, dO(i + 1) once every warp has its dV and Q(i + 1)
+  // once every warp has its dK (empty past the last stage): dO loads under
+  // dK, Q under the next stage's dP^T; K and V meanwhile, as mma_rows' tiles
+  stage_do(first);
+  cp_async_commit();
+  f32_rows_async<D, QS>(sQ, q + base, first * QS, seq);
+  cp_async_commit();
+  load_tiles<D, KEYS>(sK, k + base, k0, seq);
+  load_tiles<D, KEYS>(sV, v + base, k0, seq);
+
+  float dka[NM][2][4], dva[NM][2][4];  // dK^T, dV^T
+#pragma unroll
+  for (int m = 0; m < NM; ++m)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) dka[m][e / 4][e % 4] = dva[m][e / 4][e % 4] = 0.0f;
+
+  for (int i = first; i < nq; ++i) {
+    const int qs0 = i * QS;
+    const bool live = !causal || qs0 + QS - 1 >= k0 + r0;
+    cp_async_wait<1>();  // dO(i), lse and delta have landed
+    split_rows<D, QS>(sDO, sDOl);
+    __syncthreads();
+    float s[NT][4] = {}, dp[NT][4] = {};  // S^T, dP^T: keys x queries
+    // (A's column cr of the 16-row tile lies 2 cr floats in: load_tiles)
+    if (live) mma_rows<D, NT, true, DC>(dp, sV + r0 * LD + 2 * cr, sDO + cr, sDOl + cr, g, t);
+    cp_async_wait<0>();  // Q(i) has landed
+    split_rows<D, QS>(sQ, sQl);
+    __syncthreads();
+    if (live) {
+      mma_rows<D, NT, true, DC>(s, sK + r0 * LD + 2 * cr, sQ + cr, sQl + cr, g, t);
+      if constexpr (F::XCH) {
+        // the pair's halves of the contraction summed: both warps add the
+        // same two numbers, so both hold the same S^T and dP^T bit for bit
+        float4* mine = reinterpret_cast<float4*>(sX) + warp * 64 * NT + lane;
+        const float4* theirs = reinterpret_cast<const float4*>(sX) + (warp ^ 1) * 64 * NT + lane;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          mine[64 * n] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+          mine[64 * n + 32] = make_float4(dp[n][0], dp[n][1], dp[n][2], dp[n][3]);
+        }
+        asm volatile("bar.sync %0, 64;\n" ::"r"(1 + warp / 2) : "memory");  // the pair alone
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float4 x = theirs[64 * n], y = theirs[64 * n + 32];
+          s[n][0] += x.x, s[n][1] += x.y, s[n][2] += x.z, s[n][3] += x.w;
+          dp[n][0] += y.x, dp[n][1] += y.y, dp[n][2] += y.z, dp[n][3] += y.w;
+        }
+      }
+      const bool mask = k0 + r0 + 16 > seq || (causal && k0 + r0 + 15 > qs0);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int qp0 = qs0 + 8 * n + 2 * t;
+        const float2 lq = *reinterpret_cast<const float2*>(sL + 8 * n + 2 * t);
+        const float2 dl = *reinterpret_cast<const float2*>(sD + 8 * n + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = e < 2 ? ka : kb, qp = qp0 + (e & 1);
+          float x = s[n][e] * scale;
+          if (mask && (kp >= seq || (causal && kp > qp))) x = kNegInf;
+          // a query row past S adds nothing to dK and dV
+          const float p = qp < seq ? expf(x - (e & 1 ? lq.y : lq.x)) : 0.0f;
+          s[n][e] = p;                                                  // P^T
+          dp[n][e] = p * (dp[n][e] - (e & 1 ? dl.y : dl.x)) * scale;    // dS^T
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NT; n += 2)
+        mma_cols<D, NM, true>(dva, s[n], s[n + 1], sDO + 8 * n * LD + c0,
+                              sDOl + 8 * n * LD + c0, g, t);
+    }
+    __syncthreads();  // every warp is done with dO(i), lse and delta
+    if (i + 1 < nq) stage_do(i + 1);
+    cp_async_commit();
+    if (live) {
+#pragma unroll
+      for (int n = 0; n < NT; n += 2)
+        mma_cols<D, NM, true>(dka, dp[n], dp[n + 1], sQ + 8 * n * LD + c0, sQl + 8 * n * LD + c0,
+                              g, t);
+    }
+    __syncthreads();  // every warp is done with Q(i)
+    if (i + 1 < nq) f32_rows_async<D, QS>(sQ, q + base, (i + 1) * QS, seq);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // keys past S are not written
+  const size_t out = base + static_cast<size_t>(k0 + r0) * D + c0;
+#pragma unroll
+  for (int m = 0; m < NM; ++m) {
+    frag_out<NM>(dk + out, D, dka, m, g, t, seq - (k0 + r0));
+    frag_out<NM>(dv + out, D, dva, m, g, t, seq - (k0 + r0));
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K2: dQ, FMA. One block per (bh, q-tile); loops over k-tiles.
 // ---------------------------------------------------------------------------
 template <typename T, int D>
@@ -536,8 +1089,7 @@ __global__ void __launch_bounds__(kThreads)
   float* sDP = sS + TR * LS;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * RW;
-  const int qi = tile_index();
-  if (qi >= tiles<D>(seq)) return;
+  const int qi = blockIdx.y;
   const size_t base = static_cast<size_t>(blockIdx.x) * seq * D;
   const size_t rbase = static_cast<size_t>(blockIdx.x) * seq;
 
@@ -608,9 +1160,8 @@ __global__ void __launch_bounds__(kThreads)
   float* sDS = sDP;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, r0 = warp * RW;
-  const int kj = tile_index();
+  const int kj = blockIdx.y;
   const int nq = tiles<D>(seq);
-  if (kj >= nq) return;
   const size_t base = static_cast<size_t>(blockIdx.x) * seq * D;
 
   load_tile<D>(sK, k + base, kj * TR, seq);
@@ -1805,8 +2356,9 @@ bool instantiated(int d) {
 constexpr bool wgmma_at_every_seq(int d) { return d == 128 || d == 256; }
 
 // The float32 head dims at which K1 runs on the register-blocked kernel
-// (flash_fwd_f32); fma_at follows it too.
-constexpr bool f32_fwd_blocked(int d) { return d == 128 || d == 256; }
+// (flash_fwd_f32), and K2 and K3 on the tensor cores (flash_dq_f32,
+// flash_dkv_f32).
+constexpr bool f32_at(int d) { return d == 128 || d == 256; }
 
 // bf16 runs on wgmma at those head dims and at 32 and 64 where S is a
 // multiple of 64; the rest on the FMA kernels
@@ -1937,12 +2489,6 @@ int dkv_hopper(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
-// An FMA grid: (bh, y, z) blocks covering `n` tiles of S (tile_index).
-dim3 fma_grid(int bh, int n) {
-  const int y = n < 65535 ? n : 65535;
-  return dim3(bh, y, (n + y - 1) / y);
-}
-
 template <typename T, int D>
 int fwd_fma(const void* q, const void* k, const void* v, void* o, float* lse, int bh,
             int seq, float scale, int causal, cudaStream_t stream) {
@@ -1950,7 +2496,7 @@ int fwd_fma(const void* q, const void* k, const void* v, void* o, float* lse, in
   const size_t smem = 4 * Fma<D>::kD + Fma<D>::kS;
   cudaError_t err = allow_smem(flash_fwd_kernel<T, D>, smem, &ready);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<T, D><<<fma_grid(bh, tiles<D>(seq)), kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, D><<<dim3(bh, tiles<D>(seq)), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, seq, scale, causal);
   return cudaGetLastError();
@@ -1970,6 +2516,35 @@ int fwd_f32(const void* q, const void* k, const void* v, void* o, float* lse, in
   return cudaGetLastError();
 }
 
+template <int D>
+int dq_f32(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+           const float* delta, void* dqp, int bh, int seq, float scale, int causal,
+           cudaStream_t stream) {
+  using F = F32Dq<D>;
+  static bool ready = false;
+  cudaError_t err = allow_smem(flash_dq_f32<D>, F::kBytes, &ready);
+  if (err != cudaSuccess) return err;
+  flash_dq_f32<D><<<dim3(bh, (seq + F::ROWS - 1) / F::ROWS), kF32Threads, F::kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dqp), seq, scale, causal);
+  return cudaGetLastError();
+}
+
+template <int D>
+int dkv_f32(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+            const float* delta, void* dkp, void* dvp, int bh, int seq, float scale, int causal,
+            cudaStream_t stream) {
+  using F = F32Dkv<D>;
+  static bool ready = false;
+  cudaError_t err = allow_smem(flash_dkv_f32<D>, F::kBytes, &ready);
+  if (err != cudaSuccess) return err;
+  flash_dkv_f32<D><<<dim3(bh, (seq + F::KEYS - 1) / F::KEYS), kF32Threads, F::kBytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, delta, static_cast<float*>(dkp),
+      static_cast<float*>(dvp), seq, scale, causal);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 int dq_fma(const void* q, const void* k, const void* v, const void* dout, const float* lse,
            const float* delta, void* dqp, int bh, int seq, float scale, int causal,
@@ -1978,7 +2553,7 @@ int dq_fma(const void* q, const void* k, const void* v, const void* dout, const 
   const size_t smem = 5 * Fma<D>::kD + 2 * Fma<D>::kS;
   cudaError_t err = allow_smem(flash_dq_kernel<T, D>, smem, &ready);
   if (err != cudaSuccess) return err;
-  flash_dq_kernel<T, D><<<fma_grid(bh, tiles<D>(seq)), kThreads, smem, stream>>>(
+  flash_dq_kernel<T, D><<<dim3(bh, tiles<D>(seq)), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dqp), seq, scale, causal);
   return cudaGetLastError();
@@ -1989,11 +2564,11 @@ int dkv_fma(const void* q, const void* k, const void* v, const void* dout, const
             const float* delta, void* dkp, void* dvp, int bh, int seq, float scale,
             int causal, cudaStream_t stream) {
   static bool ready = false;
-  // 201 KB at D 256 (six 32 x 257 tiles and two 32 x 33), the most of any
+  // 130 KB (six 64 x 65 tiles and two), the most of any
   const size_t smem = 6 * Fma<D>::kD + 2 * Fma<D>::kS;
   cudaError_t err = allow_smem(flash_dkv_kernel<T, D>, smem, &ready);
   if (err != cudaSuccess) return err;
-  flash_dkv_kernel<T, D><<<fma_grid(bh, tiles<D>(seq)), kThreads, smem, stream>>>(
+  flash_dkv_kernel<T, D><<<dim3(bh, tiles<D>(seq)), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dkp), static_cast<T*>(dvp),
       seq, scale, causal);
@@ -2016,17 +2591,15 @@ struct DkvFma {
 };
 
 // An FMA launch at head dim D, instantiated for float32 and for bf16 where
-// on_wgmma leaves it some S: both types at 8, 16, 32 and 64, float32 alone
-// at 128 and 256 (K1 there on flash_fwd_f32); no bf16 kernel at 128 or
-// 256.
-template <typename T, typename Launch, int D>
-constexpr bool on_fma = std::is_same_v<T, float>
-                            ? !(std::is_same_v<Launch, FwdFma> && f32_fwd_blocked(D))
-                            : !wgmma_at_every_seq(D);
+// on_wgmma leaves it some S: both types at 8, 16, 32 and 64; no kernel at
+// 128 or 256 (float32 K1 there on flash_fwd_f32, K2 and K3 on
+// flash_dq_f32 and flash_dkv_f32, bf16 on wgmma).
+template <typename T, int D>
+constexpr bool on_fma = !(std::is_same_v<T, float> ? f32_at(D) : wgmma_at_every_seq(D));
 
 template <typename T, typename Launch, int D, typename... A>
 int fma_at(A... a) {
-  if constexpr (on_fma<T, Launch, D>)
+  if constexpr (on_fma<T, D>)
     return Launch::template run<T, D>(a...);
   else
     return cudaErrorInvalidValue;
@@ -2064,7 +2637,7 @@ int tft_flash_fwd(int dtype, const void* q, const void* k, const void* v, void* 
     if (d == 256) return fwd_hopper<256>(q, k, v, o, lse, bh, seq, scale, causal, st);
     return fwd_hopper<128>(q, k, v, o, lse, bh, seq, scale, causal, st);
   }
-  if (dtype == 0 && f32_fwd_blocked(d)) {
+  if (dtype == 0 && f32_at(d)) {
     if (d == 128) return fwd_f32<128>(q, k, v, o, lse, bh, seq, scale, causal, st);
     return fwd_f32<256>(q, k, v, o, lse, bh, seq, scale, causal, st);
   }
@@ -2085,6 +2658,10 @@ int tft_flash_dq(int dtype, const void* q, const void* k, const void* v,
     if (d == 256)
       return dq_hopper<256>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
     return dq_hopper<128>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
+  }
+  if (dtype == 0 && f32_at(d)) {
+    if (d == 128) return dq_f32<128>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
+    return dq_f32<256>(q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal, st);
   }
   if (dtype == 0)
     return by_head_dim<float, DqFma>(d, q, k, v, dout, lse, delta, dqp, bh, seq, scale, causal,
@@ -2107,6 +2684,11 @@ int tft_flash_dkv(int dtype, const void* q, const void* k, const void* v,
     if (d == 256)
       return dkv_hopper<256>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
     return dkv_hopper<128>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
+  }
+  if (dtype == 0 && f32_at(d)) {
+    if (d == 128)
+      return dkv_f32<128>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
+    return dkv_f32<256>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale, causal, st);
   }
   if (dtype == 0)
     return by_head_dim<float, DkvFma>(d, q, k, v, dout, lse, delta, dkp, dvp, bh, seq, scale,

@@ -16,10 +16,11 @@ and bf16 at any head dim up to :data:`MAX_HEAD_DIM` (256) and any S up to
 with zero columns to the next of them (:func:`padded_head_dim`) inside its
 packing copy, hands the kernels the true head dim's scale, and slices the
 result back. bf16 at 128 and 256 (any S), and at 32 and 64 with S a
-multiple of :data:`TILE`, runs on the wgmma kernels; float32 K1 at 128
-and 256 on the register-blocked FMA kernel; every other shape on the FMA
-kernels (32-row tiles at 128 and 256). All mask the last tile. The JAX op
-also takes head dims above 256; the port's does not.
+multiple of :data:`TILE`, runs on the wgmma kernels; float32 at 128 and
+256 on K1 register-blocked (FMAs) and K2 and K3 on the tensor cores (every
+product as three TF32 products); every other shape on the FMA kernels.
+All mask the last tile. The JAX op also takes head dims above 256; the
+port's does not.
 
 The kernels are built with ``nvcc`` at first use into
 ``build/torch_kernels/``, keyed by a digest of every file under ``csrc/``,
