@@ -20,11 +20,14 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    long-context bench's lengths (D 64): K1-K3 whole at B2 S4096 H8 and
    B1 S8192 H8, and at B1 S16384 and S32768 H8 over chunks of 4096 query
    rows (dO random on every row: O, lse and dQ chunk by chunk, dK and dV
-   against the chunks' float32 sum). At head dims 8 and 16 (the FMA
-   kernels, float32 and bf16): train_hsdp's tiny preset's B8 S16 H2, S 48
-   (one tile, its last rows past S) causal and not, and S 200 (a ragged
-   fourth tile); bf16 at head dims 32 and 64 where S is not a multiple of
-   64; the autograd op at the tiny preset's shape. At the rest of the
+   against the chunks' float32 sum). At head dims 8 and 16, float32 and
+   bf16 (K1 on the FMA kernel; K2 and K3 on ``flash_dq_small`` and
+   ``flash_dkv_small``, tiles of 16, 32 or 64 rows by S, bf16 on
+   mma.sync): train_hsdp's tiny preset's B8 S16 H2 (one 16-row tile), S 32
+   (one 32-row tile), S 48 (a 64-row tile, its last rows past S) causal and
+   not, S 65 (a second 64-row tile of one row) and S 200 (a ragged fourth
+   tile); bf16 at head dims 32 and 64 where S is not a multiple of 64 (the
+   FMA kernels); the autograd op at the tiny preset's shape. At the rest of the
    shapes the Pallas op takes (``SHAPES_HELD``): bf16 at head dim 128 at S
    16, 100 and 1000 causal and S 100 not (wgmma, the last tile masked),
    float32 at 128 (S 256 causal and not, S 200) and both types at 256 (S
@@ -41,7 +44,8 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    the headline's and at B1 S8192 and S32768 H8, where phase 14's
    long-context rows run it; D 128 at the Llama-2-7B width's, D 32 at
    train_bytes'; D 8 and 16, float32 and bf16, at the tiny preset's B8
-   S16 H2, where phase 21 (a) runs D 8 in float32; at S 32768 the plain
+   S16 H2, where phase 21 (a) runs D 8 in float32: K1 on the FMA kernel,
+   K2 and K3 on the small kernels' 16-row tile; at S 32768 the plain
    versions run on query chunks):
    launched eagerly between CUDA events (``ms``), and replayed from a CUDA
    graph (device time alone) with its inputs warm in the L2 and L2-cold;
@@ -50,8 +54,10 @@ Phases, each of which either passes or ends the run with a non-zero exit:
    roofline bound and, for K2 and K3 at D 128 and K1-K3 at D 32, the
    earlier design's time. Also at ``SHAPES_TIMED`` (float32 at D 128 at
    the Llama width's shape, bf16 at 128 at B8 S16 H32, D 256 in both types
-   and D 96 padded to 128 at B2 S2048, a few launches each at the slow
-   float32 shapes), with the backend SDPA picks.
+   and D 96 padded to 128 at B2 S2048; the FMA kernels in float32 at D 64
+   at the headline's shape and at D 32 at train_bytes', and in bf16 at D
+   64 at B2 S1000 H8 and at D 32 at B2 S200 H8; a few launches each at the
+   slow float32 shapes), with the backend SDPA picks.
 4. the headline fault-tolerant training loop on one replica group:
    in-process lighthouse + store, Manager over the device data plane
    (CollectivesDevice, the JAX headline's wiring), TrainStep at d512 L8
@@ -386,9 +392,10 @@ BYTES = dict(batch=8, seq=128, heads=4, head_dim=32)
 # timed at the same shape
 TINY = dict(batch=8, seq=16, heads=2, head_dim=8)
 # head dims 8 and 16 held against the plain versions: the tiny preset's
-# shape, S 48 (one tile, its last 16 rows past S) causal and not, and S 200
-# (four tiles, the last ragged)
-SMALL_HELD = ((8, 16, 2), (2, 48, 2), (2, 200, 2))
+# shape (K2 and K3 on one 16-row tile), S 48 (one 64-row tile, its last 16
+# rows past S) causal and not, S 200 (four tiles, the last ragged), S 32
+# (one 32-row tile) and S 65 (a second 64-row tile of one row)
+SMALL_HELD = ((8, 16, 2), (2, 48, 2), (2, 200, 2), (2, 32, 2), (2, 65, 2))
 # the headline's attention at the long-context bench's lengths
 # (benchmarks/long_context.py), timed at S 8192 and 32768
 LONG_WHOLE = dict(batch=1, seq=8192, heads=8, head_dim=64)
@@ -481,12 +488,22 @@ def host_us_per_call(fn, calls: int = 200) -> float:
 # and 64, off the bf16 paths
 KERNEL_OF = {(n, d): f"{n}_wgmmaILi{d}E" for n in ("flash_fwd", "flash_dq", "flash_dkv")
              for d in (64, 128, 32)}
-# the FMA kernels (float32 and bf16, 13__nv_bfloat16 in the mangled name)
-# at head dims 8 and 16, by (kernel, head dim, dtype)
-for _n in ("flash_fwd", "flash_dq", "flash_dkv"):
-    for _d in (8, 16):
+# head dims 8 and 16, float32 and bf16 (13__nv_bfloat16 in the mangled
+# name), by (kernel, head dim, dtype): K1 on the FMA kernel, K2 and K3 on
+# flash_dq_small and flash_dkv_small at their 16-row tile (the tiny
+# preset's S 16; SMALL_TILES lists every tile built)
+SMALL_TILES = (16, 32, 64)
+for _d in (8, 16):
+    for _t, _m in (("f32", "f"), ("bf16", "13__nv_bfloat16")):
+        KERNEL_OF[("flash_fwd", _d, _t)] = f"flash_fwd_kernelI{_m}Li{_d}E"
+        for _n in ("flash_dq", "flash_dkv"):
+            KERNEL_OF[(_n, _d, _t)] = f"{_n}_smallI{_m}Li{_d}ELi16E"
+# the FMA kernels at head dims 32 and 64: float32 at any S, bf16 where S is
+# not a multiple of 64 ("bf16_fma"; wgmma at the rest)
+for _d in (32, 64):
+    for _n in ("flash_fwd", "flash_dq", "flash_dkv"):
         KERNEL_OF[(_n, _d, "f32")] = f"{_n}_kernelIfLi{_d}E"
-        KERNEL_OF[(_n, _d, "bf16")] = f"{_n}_kernelI13__nv_bfloat16Li{_d}E"
+        KERNEL_OF[(_n, _d, "bf16_fma")] = f"{_n}_kernelI13__nv_bfloat16Li{_d}E"
 # float32 at head dims 128 and 256: K1 on the register-blocked kernel
 # (flash_fwd_f32), K2 and K3 on the tensor cores as three TF32 products
 # (flash_dq_f32, flash_dkv_f32); bf16 K1-K3 at 256 on wgmma (256 threads)
@@ -495,8 +512,8 @@ for _n in ("flash_fwd", "flash_dq", "flash_dkv"):
         KERNEL_OF[(_n, _d, "f32")] = f"{_n}_f32ILi{_d}E"
     KERNEL_OF[(_n, 256, "bf16")] = f"{_n}_wgmmaILi256E"
 BUILT = list(KERNEL_OF.values()) + [
-    f"{n}I{t}Li{d}E" for n in ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
-    for t in ("f", "13__nv_bfloat16") for d in (32, 64)]
+    f"{n}_smallI{m}Li{d}ELi{tr}E" for n in ("flash_dq", "flash_dkv")
+    for m in ("f", "13__nv_bfloat16") for d in (8, 16) for tr in SMALL_TILES if tr != 16]
 # Earlier designs, by CUDA graph, L2-warm, at the shapes of their head
 # dim's path (chip_smoke.py phase 3 on an NVIDIA H100 80GB HBM3 at 700 W):
 # K2 at head dim 128 with a producer warpgroup, 64 keys at once (384
@@ -796,10 +813,11 @@ def phase_kernels():
 
 
 def phase_small_kernels():
-    """K1-K3 at head dims 8 and 16 (the FMA kernels), float32 and bf16,
-    against their plain versions at ``SMALL_HELD`` (the tiny preset's
-    shape; S 48 causal and not; S 200), and bf16 at head dims 32 and 64
-    where S is not a multiple of 64 (the FMA kernels too); the autograd op
+    """K1-K3 at head dims 8 and 16 (K1 on the FMA kernel, K2 and K3 on the
+    small kernels at each of their tiles), float32 and bf16, against their
+    plain versions at ``SMALL_HELD`` (the tiny preset's shape; S 48 causal
+    and not; S 200, 32 and 65), and bf16 at head dims 32 and 64 where S is
+    not a multiple of 64 (the FMA kernels); the autograd op
     against plain attention at the tiny preset's shape. The bars are the
     float32 and bf16 rows' above. Returns {(kernel, head dim, dtype): max
     |err|}."""
@@ -841,6 +859,11 @@ SHAPES_HELD = (
        for dtype, label in ((torch.float32, None), (torch.bfloat16, "d96" if d == 96 else None))]
     # and at phase 23 (c)'s shape, the only path that runs them on the card
     + [((1, 2048, 16, 256), torch.bfloat16, True, "d256")]
+    # the FMA kernels at 32 and 64 at their timed shapes' head dims and S
+    + [((2, 1024, 2, 64), torch.float32, True, "d64_f32"),
+       (_shape(BYTES), torch.float32, True, "d32_f32"),
+       ((2, 1000, 2, 64), torch.bfloat16, True, "d64_s1000"),
+       ((2, 200, 2, 32), torch.bfloat16, True, "d32_s200")]
 )
 # the autograd op against float32 attention there (S a multiple of the op's
 # 128-row blocks): D 96 (padded) in both types, 128 in float32, 256 in both
@@ -4670,18 +4693,26 @@ def phase_chunked():
 # masked); head dim 256 in both types (float32 K1 register-blocked, K2 and
 # K3 on the tensor cores; bf16 K1-K3 on wgmma; phase 23 (b) and (c) run
 # them) and 96 (padded to 128, wgmma) at B2 S2048, 4096 and 3072 columns a
-# token
+# token. The FMA kernels at 32 and 64, which no path runs on the card:
+# float32 at the headline's attention shape (D 64) and at train_bytes' (D
+# 32), bf16 where S is not a multiple of 64 (D 64 at S 1000, D 32 at S 200)
 SHAPES_TIMED = {
     "d128_f32": ((2, 4096, 32, 128), torch.float32),
     "d128_s16": ((8, 16, 32, 128), torch.bfloat16),
     "d256": ((2, 2048, 16, 256), torch.bfloat16),
     "d256_f32": ((2, 2048, 16, 256), torch.float32),
     "d96": ((2, 2048, 32, 96), torch.bfloat16),
+    "d64_f32": ((8, 1024, 8, 64), torch.float32),
+    "d32_f32": ((8, 128, 4, 32), torch.float32),
+    "d64_s1000": ((2, 1000, 8, 64), torch.bfloat16),
+    "d32_s200": ((2, 200, 8, 32), torch.bfloat16),
 }
 # launches a kernel at each timed shape: fewer at float32's milliseconds a
 # launch, few plain reps (tens of ms at the Llama width)
 SHAPES_REPS = {"d128_f32": (5, 2, 1), "d128_s16": (25, 5, 5), "d256": (10, 2, 2),
-               "d256_f32": (10, 2, 2), "d96": (10, 2, 3)}  # (reps, inner, plain reps)
+               "d256_f32": (10, 2, 2), "d96": (10, 2, 3), "d64_f32": (5, 2, 3),
+               "d32_f32": (25, 5, 5), "d64_s1000": (10, 2, 5),
+               "d32_s200": (25, 5, 5)}  # (reps, inner, plain reps)
 # (a): train_hsdp's llama2-7b preset at its default BATCH 8 x SEQ 16
 # (examples/train_hsdp.py's defaults), the depth of phase 9
 SHAPES_LLAMA_S16 = dict(batch=8, seq=16)
@@ -5162,9 +5193,10 @@ def main() -> None:
                 kernels[-1]["launches_fault_matrix"] = fault_launches[name]
                 # phase 20's legs (a) and (b): the launcher's train_bytes workers
                 kernels[-1]["launches_deployment"] = deploy_launches["deployment"][name]
-    # head dims 8 and 16 on the FMA kernels, float32 and bf16, timed at the
-    # tiny preset's B8 S16 H2: phase 21 (a) runs head dim 8 in float32; no
-    # path runs the other three (launches 0)
+    # head dims 8 and 16, float32 and bf16 (K1 on the FMA kernel, K2 and K3
+    # on the small kernels' 16-row tile), timed at the tiny preset's B8 S16
+    # H2: phase 21 (a) runs head dim 8 in float32; no path runs the other
+    # three (launches 0)
     for (d, tag), (t, bounds, sdpa_fwd) in small_timing.items():
         for name in ("flash_fwd", "flash_dq", "flash_dkv"):
             kernels.append({
@@ -5200,18 +5232,22 @@ def main() -> None:
     # register-blocked, K2 and K3 on the tensor cores, with the FMA path's
     # bound beside; launched by phase 23 (b) at S 1024), bf16
     # at 128 at S 16 (wgmma; phase 23 (a)), bf16 at 256 (phase 23 (c) at S
-    # 2048); 96 padded to 128: no path runs it (launches 0)
+    # 2048); 96 padded to 128, and the FMA kernels at 32 and 64 in float32
+    # and in bf16 at a ragged S: no path runs them (launches 0)
     for label, (shape, dtype) in SHAPES_TIMED.items():
         t, bounds, sdpa_fwd = shape_timing[label]
         d = shape[3]
         tag = "f32" if dtype == torch.float32 else "bf16"
         dp = fa.padded_head_dim(d)
+        # bf16 at 32 and 64 off wgmma where S is not a multiple of 64
+        fma = tag == "bf16" and dp in (32, 64) and shape[1] % 64
         for name in ("flash_fwd", "flash_dq", "flash_dkv"):
             kernels.append({
                 "name": f"{name}_{label}", "head_dim": d, "kernel_head_dim": dp,
                 "dtype": "float32" if tag == "f32" else "bfloat16", "seq": shape[1],
                 "route": "cuda",
-                "kernel": KERNEL_OF.get((name, dp, tag)) or KERNEL_OF[(name, dp)],
+                "kernel": (KERNEL_OF[(name, dp, "bf16_fma")] if fma
+                           else KERNEL_OF.get((name, dp, tag)) or KERNEL_OF[(name, dp)]),
                 "source": SOURCE, "replaces": REPLACES[name],
                 "launches": shape_launches.get(label, {}).get(name, 0),
                 "max_abs_err": shape_errs[label][name], "ms": t[name]["ms"],

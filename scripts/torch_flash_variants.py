@@ -63,14 +63,29 @@ The variants (``--list``), each against the shipped source:
   straight into their accumulators, which the tensor cores' float32 sums
   truncate (held at B2 S4096 H32 among the checks), in place of a k step's
   products summed from zero and added once.
+- K2 and K3 at head dims 8 and 16, both dtypes (timed at the tiny
+  preset's B8 S16 H2 and at B8 S48 H2 and B8 S200 H2, held at phase 2's
+  ``SMALL_HELD`` shapes and the tiles' edges): ``k23_d8_tile64`` and
+  ``k23_d16_tile64``, the 64-row FMA kernels (``flash_dq_kernel`` and
+  ``flash_dkv_kernel``) in place of ``flash_dq_small`` and
+  ``flash_dkv_small``; ``k23_f32_d8_rolled`` and ``k23_f32_d16_rolled``,
+  the float32 small kernels with their loops over a step's keys (K2) and
+  queries (K3) rolled (less code) in place of unrolled; ``k23_d16_nobounds``,
+  both small kernels without their ``__launch_bounds__``. Each of these
+  groups also times
+  ``scaled_dot_product_attention``'s backward (forward and backward less
+  the forward, by graph) at its shapes, a yardstick the port never calls.
 
 The FMA kernels at float32 head dims 128 and 256 are no longer in the
 source: the ``*_fma`` variants build ``csrc/`` as of ``FMA_REVISION``,
-the last revision that held them, which the script unpacks with ``git
-archive`` into ``build/csrc_<revision>/``. A copy of the repo without its
-git history needs that directory made beforehand, from a checkout that
-has it: ``mkdir -p build/csrc_672292b && git archive 672292b
-torchft_tpu_torch/csrc | tar -x -C build/csrc_672292b``.
+the last revision that held them, and the ``*_tile64`` variants as of
+``TILE64_REVISION`` (the last with the FMA K2 and K3 at head dims 8 and
+16), which the script unpacks with ``git archive`` into
+``build/csrc_<revision>/``. A copy of the repo without its git history
+needs those directories made beforehand, from a checkout that has it:
+``mkdir -p build/csrc_672292b && git archive 672292b
+torchft_tpu_torch/csrc | tar -x -C build/csrc_672292b`` (and the same for
+a812130).
 
 ``--sass`` prints, for every build, the changed entry's instructions by
 opcode (``cuobjdump -sass`` from nvcc's directory).
@@ -176,6 +191,9 @@ K1_SOFTMAX = (
 # the last revision with the FMA kernels at float32 head dims 128 and 256
 # (32-row tiles), which the *_fma variants build
 FMA_REVISION = "672292b"
+# the last revision with K2 and K3 at head dims 8 and 16 on the 64-row FMA
+# kernels, which the *_tile64 variants build
+TILE64_REVISION = "a812130"
 # the 3xTF32 kernels' layout with register-blocked FMA products: stages left
 # as they land (split_rows does nothing), and each lane computes its own C
 # fragments (mma_rows: rows g, g + 8 against B rows 8n + 2t, 8n + 2t + 1 by
@@ -317,6 +335,19 @@ K23_DIRECT = (("""      float d[4] = {};
       mma3(d, a[1], bq[u]);
       add4(acc[m][u], d);""", """      mma3(acc[m][u], a[0], bp[u]);
       mma3(acc[m][u], a[1], bq[u]);"""),)
+# the small kernels' float32 loops over a step's keys (K2) and queries (K3)
+# rolled, one key or query an iteration, in place of unrolled: less code
+SMALL_F32_ROLLED = tuple(
+    ("#pragma unroll\n        for (int h = 0; h < 2; ++h)\n#pragma unroll\n"
+     "          for (int e = 0; e < 2; ++e) {\n"
+     "            const int c = 16 * st + 8 * h + 2 * t + e" + tail,
+     "#pragma unroll 1\n        for (int h = 0; h < 2; ++h)\n#pragma unroll 1\n"
+     "          for (int e = 0; e < 2; ++e) {\n"
+     "            const int c = 16 * st + 8 * h + 2 * t + e" + tail)
+    for tail in (";  // the key's row in the tile", ", qp = q0 + c;  // the query's row in the tile"))
+# the small kernels without their launch bounds (2 TR threads, one block an SM)
+SMALL_NO_BOUNDS = tuple((f"__launch_bounds__(2 * TR, 1)\n    {n}(", f"\n    {n}(")
+                        for n in ("flash_dq_small", "flash_dkv_small"))
 # name: (kernel or kernels, head dim, rewrites, computes the kernels' function)
 VARIANTS = {
     "k1_d32_nc2": ("K1", 32, (K1_CONS,), True),
@@ -344,7 +375,15 @@ VARIANTS = {
     "k23_f32_d128_fmablock": (("K2f32", "K3f32"), 128, K23_FMABLOCK, True),
     "k23_f32_d256_fmablock": (("K2f32", "K3f32"), 256, K23_FMABLOCK, True),
     "k23_f32_d128_direct": (("K2f32", "K3f32"), 128, K23_DIRECT, True),
+    "k23_d8_tile64": (("K2", "K3", "K2f32", "K3f32"), 8, (), True),
+    "k23_d16_tile64": (("K2", "K3", "K2f32", "K3f32"), 16, (), True),
+    "k23_d16_nobounds": (("K2", "K3", "K2f32", "K3f32"), 16, SMALL_NO_BOUNDS, True),
+    "k23_f32_d8_rolled": (("K2f32", "K3f32"), 8, SMALL_F32_ROLLED, True),
+    "k23_f32_d16_rolled": (("K2f32", "K3f32"), 16, SMALL_F32_ROLLED, True),
 }
+# the revision a variant builds csrc/ from, by its name's suffix (else the
+# source as it is)
+REVISION_OF_SUFFIX = {"_fma": FMA_REVISION, "_tile64": TILE64_REVISION}
 
 
 def kinds(name: str) -> list[tuple[str, int]]:
@@ -359,19 +398,29 @@ ENTRY = {("K1", 32): "flash_fwd_wgmmaILi32E", ("K1", 128): "flash_fwd_wgmmaILi12
          ("K2", 128): "flash_dq_wgmmaILi128E", ("K2", 256): "flash_dq_wgmmaILi256E",
          ("K1f32", 128): "flash_fwd_f32ILi128E", ("K1f32", 256): "flash_fwd_f32ILi256E",
          **{(f"K{i}f32", d): f"flash_{n}_f32ILi{d}E" for i, n in ((2, "dq"), (3, "dkv"))
-            for d in (128, 256)}}
+            for d in (128, 256)},
+         # the small kernels at every tile (the piece names all three)
+         **{(f"K{i}{k}", d): f"flash_{n}_smallI{m}Li{d}E" for i, n in ((2, "dq"), (3, "dkv"))
+            for k, m in (("", "13__nv_bfloat16"), ("f32", "f")) for d in (8, 16)}}
 # the FMA kernels in float32, which the *_fma variants build in their place,
 # by (variant, kernel)
 ENTRY_OF_VARIANT = {("k1_f32_d128_fma", "K1f32"): "flash_fwd_kernelIfLi128E",
                     ("k1_f32_d256_fma", "K1f32"): "flash_fwd_kernelIfLi256E",
                     **{(f"k23_f32_d{d}_fma", f"K{i}f32"): f"flash_{n}_kernelIfLi{d}E"
-                       for i, n in ((2, "dq"), (3, "dkv")) for d in (128, 256)}}
-# timing shapes (the head dim's path) and phase 2's check shapes (causal),
-# by (kernel, head dim)
+                       for i, n in ((2, "dq"), (3, "dkv")) for d in (128, 256)},
+                    # the 64-row FMA K2 and K3 at 8 and 16
+                    **{(f"k23_d{d}_tile64", f"K{i}{k}"): f"flash_{n}_kernelI{m}Li{d}E"
+                       for i, n in ((2, "dq"), (3, "dkv"))
+                       for k, m in (("", "13__nv_bfloat16"), ("f32", "f")) for d in (8, 16)}}
+# timing shapes (the head dim's path), one or a list, and phase 2's check
+# shapes (causal), by (kernel, head dim)
 TIMED = {("K1", 32): c._shape(c.BYTES), ("K1", 128): c._shape(c.LLAMA),
          ("K2", 128): c._shape(c.LLAMA), ("K2", 256): c.SHAPES_TIMED["d256"][0],
          **{(k, d): c.SHAPES_TIMED[f"d{d}_f32"][0] for k in ("K1f32", "K2f32", "K3f32")
-            for d in (128, 256)}}
+            for d in (128, 256)},
+         # the tiny preset's B8 S16 H2, and S 48 and 200 at its batch
+         **{(k, d): [(8, s, 2, d) for s in (16, 48, 200)]
+            for k in ("K2", "K3", "K2f32", "K3f32") for d in (8, 16)}}
 CHECKS = {
     32: [(c._shape(c.BYTES), True), ((2, 192, 2, 32), False), ((2, 320, 2, 32), True),
          ((2, 1024, 4, 32), True), ((2, 1024, 4, 32), False)],
@@ -379,6 +428,10 @@ CHECKS = {
           ((2, 320, 2, 128), True), ((2, 320, 2, 128), False), ((2, 4096, 32, 128), True)],
     256: [((2, 1024, 2, 256), True), ((2, 1024, 2, 256), False), ((1, 200, 3, 256), True),
           ((1, 2048, 16, 256), True), ((1, 1000, 3, 256), False)],
+    # SMALL_HELD, S 48 non-causal, and the tiles' edges at an odd BH
+    **{d: [((b, s, h, d), True) for b, s, h in c.SMALL_HELD] + [((2, 48, 2, d), False)]
+       + [((1, s, 3, d), causal) for s in (1, 15, 17, 33, 64) for causal in (True, False)]
+       for d in (8, 16)},
 }
 # (reps, inner) of a timing: a few at float32's milliseconds a launch
 TIMING_REPS = {"K1f32": (5, 1), "K2f32": (10, 2), "K3f32": (10, 2)}
@@ -406,8 +459,8 @@ def start_build(root: str, name: str, rewrites) -> tuple[str, subprocess.Popen]:
     csrc = os.path.join(root, name)
     shutil.rmtree(csrc, ignore_errors=True)
     # the *_fma variants: the FMA kernels at float32 head dims 128 and 256
-    shutil.copytree(revision_csrc(FMA_REVISION) if name.endswith("_fma") else fa.CSRC_DIR,
-                    csrc)
+    rev = next((r for suffix, r in REVISION_OF_SUFFIX.items() if name.endswith(suffix)), None)
+    shutil.copytree(revision_csrc(rev) if rev else fa.CSRC_DIR, csrc)
     src = os.path.join(csrc, "flash_attention.cu")
     with open(src) as f:
         text = f.read()
@@ -429,7 +482,8 @@ def report(name: str, log: str, entry: str) -> None:
         if entry not in lines[0]:
             continue
         stats = [ln.strip() for ln in lines[1:] if ln.strip()]
-        found = re.search(r"(flash_\w+?wgmma)(I.*?E)E", lines[0])
+        found = re.search(r"(flash_(?:fwd|dq|dkv)_\w*?(?:wgmma|small|kernel|f32))(I.*?E)E",
+                          lines[0])
         print(f"[{name}] {found.group(1) if found else entry}{found.group(2) if found else ''}: "
               + " | ".join(stats), flush=True)
     for line in log.splitlines():
@@ -473,6 +527,28 @@ def make_inputs(shape, causal: bool, seed: int, dtype=torch.bfloat16):
     o, lse = fa.fwd_plain(pq, pk, pv, causal)
     delta = (pdo.float() * o.float()).sum(-1)
     return pq, pk, pv, pdo, lse, delta
+
+
+def sdpa_backward(shape, dtype) -> None:
+    """Print ``scaled_dot_product_attention``'s backward at ``shape``
+    (causal): forward and backward less the forward, each by graph (phase
+    3's method), a yardstick the port never calls."""
+    import torch.nn.functional as F
+
+    q, k, v, do = (x.transpose(1, 2).contiguous() for x in c._qkv(*shape, dtype, seed=3))
+    qg, kg, vg = (x.detach().clone().requires_grad_(True) for x in (q, k, v))
+
+    def fwd():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        return torch.autograd.grad(o, (qg, kg, vg), do)
+
+    f, fb = (c.gpu_time_ms(fn, graph=True) for fn in (fwd, fwd_bwd))
+    tag = "bf16" if dtype == torch.bfloat16 else "f32"
+    print(f"sdpa {tag} b{shape[0]} s{shape[1]} h{shape[2]} d{shape[3]}: forward {f:.5f} ms, "
+          f"forward+backward {fb:.5f} ms, backward alone {fb - f:.5f} ms by graph", flush=True)
 
 
 def hold(name: str, kernel: str, d: int) -> bool:
@@ -568,19 +644,25 @@ def main() -> None:
             fa._lib = libs[name]
             if (name == "shipped" or VARIANTS[name][3]) and not hold(name, kernel, d):
                 failed.append(name)
-        inputs = make_inputs(TIMED[(kernel, d)], True, 3, dtype_of(kernel))
-        reps, inner = TIMING_REPS.get(kernel, (25, 5))
-        times = {name: [] for name in members}
-        for r in range(args.rounds):
-            for name in (members if r % 2 == 0 else members[::-1]):
-                fa._lib = libs[name]
-                t = c.gpu_time_ms(lambda: call(kernel, inputs, True), reps=reps, inner=inner,
-                                  graph=True)
-                times[name].append(t)
-                print(f"round {r} {kernel} d{d} {name}: {t:.5f} ms", flush=True)
-        for name, t in times.items():
-            print(f"{kernel} d{d} {name}: median {statistics.median(t):.5f} min {min(t):.5f} "
-                  f"max {max(t):.5f} ms by graph over {len(t)} rounds", flush=True)
+        shapes = TIMED[(kernel, d)]
+        for shape in shapes if isinstance(shapes, list) else [shapes]:
+            inputs = make_inputs(shape, True, 3, dtype_of(kernel))
+            # a few launches at float32's milliseconds (head dims 128, 256)
+            reps, inner = TIMING_REPS.get(kernel, (25, 5)) if d >= 128 else (25, 5)
+            at = f"{kernel} d{d} b{shape[0]} s{shape[1]} h{shape[2]}"
+            times = {name: [] for name in members}
+            for r in range(args.rounds):
+                for name in (members if r % 2 == 0 else members[::-1]):
+                    fa._lib = libs[name]
+                    t = c.gpu_time_ms(lambda: call(kernel, inputs, True), reps=reps, inner=inner,
+                                      graph=True)
+                    times[name].append(t)
+                    print(f"round {r} {at} {name}: {t:.5f} ms", flush=True)
+            for name, t in times.items():
+                print(f"{at} {name}: median {statistics.median(t):.5f} min {min(t):.5f} "
+                      f"max {max(t):.5f} ms by graph over {len(t)} rounds", flush=True)
+            if d <= 16 and kernel.startswith("K3"):
+                sdpa_backward(shape, dtype_of(kernel))
     fa._lib = libs["shipped"]
     if failed:
         sys.exit(f"failed to hold: {failed}")

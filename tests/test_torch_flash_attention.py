@@ -4,7 +4,8 @@ The same numpy inputs go through ``torchft_tpu.ops.pallas.flash_attention``
 (interpret mode on the CPU, as its own tests run it) and through
 ``torchft_tpu_torch.ops.flash_attention`` (its plain version, since the
 tensors lie on the CPU), at head dims 32, 64 and 128, and at 8 and 16
-with the short sequences the tiny models run (S 16 and 48). The card tests hold the CUDA kernels against their plain
+with the short sequences the tiny models run (S 16, 32, 48 and 64). The card
+tests hold the CUDA kernels against their plain
 versions and skip without a GPU; they import no JAX, so on the card they
 run with ``python -m pytest --noconftest -m cuda
 tests/test_torch_flash_attention.py``.
@@ -81,14 +82,16 @@ def test_grads_match_jax_kernels(d, s):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(e), atol=3e-4)
 
 
+# S 16 (the tiny preset's), 32, 48 and 64: the card's K2 and K3 at these
+# head dims take tiles of 16, 32 and 64 rows by S; the JAX op one block
 SMALL = [pytest.param(d, s, c, id=f"d{d}-s{s}-{'causal' if c else 'full'}")
-         for d in (8, 16) for s in (16, 48) for c in (True, False)]
+         for d in (8, 16) for s in (16, 48, 32, 64) for c in (True, False)]
 
 
 @pytest.mark.parametrize("d,s,causal", SMALL)
 def test_small_head_dims_match_jax_kernel(d, s, causal):
     """Head dims 8 and 16 at the short sequences of the tiny models (S 16,
-    the tiny preset's; S 48), each one block (min(128, S)) as the JAX op
+    the tiny preset's; S 32, 48 and 64), each one block (min(128, S)) as the JAX op
     takes it: the forward and the gradients of the port's op (its plain
     version on the CPU) against the Pallas kernels in interpret mode, at
     the JAX test's float32 bar 2e-5."""
@@ -112,8 +115,8 @@ def test_small_head_dims_match_jax_kernel(d, s, causal):
     pytest.param(d, 200, c, id=f"d{d}-s200-{'causal' if c else 'full'}")
     for d in (8, 16) for c in (True, False)])
 def test_small_plain_kernel_versions_match_autograd(d, s, causal):
-    """fwd_plain / dq_plain / dkv_plain at head dims 8 and 16, S 16, 48 and
-    the ragged 200 the card holds the FMA kernels at, against plain
+    """fwd_plain / dq_plain / dkv_plain at head dims 8 and 16, S 16, 32, 48,
+    64 and the ragged 200 the card holds the kernels at, against plain
     attention and its autograd gradients (float32: 1e-5)."""
     test_plain_kernel_versions_match_autograd(d, causal, s)
 
@@ -303,12 +306,16 @@ def test_c_predicate_agrees_on_card():
         (32, torch.bfloat16, True, 4, 320),
         (32, torch.float32, True, 32, 256),
         (32, torch.float32, False, 4, 192),
-        # head dims 8 and 16 on the FMA kernels in both dtypes: the tiny
+        # head dims 8 and 16 in both dtypes (K1 on the FMA kernel, K2 and K3
+        # on the small kernels' tiles of 16, 32 and 64 rows): the tiny
         # preset's B8 H2 S16, one tile with its rows past S (S 48), and a
-        # ragged last tile (S 200); bf16 at 32 and 64 where S is not a
-        # multiple of 64 (the FMA kernels too)
+        # ragged last tile (S 200); at each tile's edges (S 1, 15, 17, 32,
+        # 33, 64, 65) causal and not, at an odd BH; bf16 at 32 and 64 where
+        # S is not a multiple of 64 (the FMA kernels)
         *[(d, dtype, causal, bh, s) for d in (8, 16) for dtype in (torch.float32, torch.bfloat16)
           for causal, bh, s in ((True, 16, 16), (True, 4, 48), (False, 4, 48), (True, 4, 200))],
+        *[(d, dtype, causal, 3, s) for d in (8, 16) for dtype in (torch.float32, torch.bfloat16)
+          for s in (1, 15, 17, 32, 33, 64, 65) for causal in (True, False)],
         (32, torch.bfloat16, True, 4, 48),
         (64, torch.bfloat16, False, 4, 200),
         # bf16 at 128 at any S on wgmma (the last tile masked, K3's last

@@ -626,6 +626,10 @@ elif case == "quorum_in_flight":
     m.shutdown(wait=False)
 elif case == "staging_after_shutdown":
     t = HTTPTransport(timeout=timedelta(seconds=5))
+    # the transport's HTTP server thread (tft_ckpt_http) is a Python thread:
+    # seen here, its id is no native task after shutdown(wait=False), whose
+    # serve_forever returns at once but whose task may still be leaving
+    native()
     t.shutdown(wait=False)
     t.send_checkpoint([1], 0, {"w": np.ones(256, np.float32)}, timedelta(seconds=5))
 elif case == "live_handles_at_exit":

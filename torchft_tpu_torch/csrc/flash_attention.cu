@@ -17,16 +17,20 @@
 // Float32 at D 128 and 256 runs K1 on flash_fwd_f32 (register-blocked
 // FMAs fed by cp.async) and K2 and K3 on flash_dq_f32 and flash_dkv_f32
 // (the tensor cores, every product as three TF32 products, mma.sync);
-// their notes below. The FMA path, flash_fwd_kernel, flash_dq_kernel and
-// flash_dkv_kernel, templated on the element type and D, takes the rest:
-// float32 at D 8-64, and bf16 at D 8 and 16 (wgmma's K of 16 bf16 values
-// does not fit D 8, and these are the tiny models' shapes) and at D 32 and
-// 64 where S is not a multiple of 64.
+// their notes below. K2 and K3 at D 8 and 16, both types, run on
+// flash_dq_small and flash_dkv_small (tiles of 16, 32 or 64 rows by S;
+// bf16 on mma.sync, float32 on register-held FMAs; their note below). The
+// FMA path, flash_fwd_kernel, flash_dq_kernel and flash_dkv_kernel,
+// templated on the element type and D, takes the rest: K1 at D 8 and 16
+// in both types (wgmma's K of 16 bf16 values does not fit D 8, and these
+// are the tiny models' shapes), and K1-K3 in float32 at D 32 and 64 and in
+// bf16 at D 32 and 64 where S is not a multiple of 64.
 // It masks the last tile's rows and columns, so it takes any S; its
 // float32 products hold the parity tests at the JAX bars. It is built at
-// D 8-64 alone (64-row tiles, Fma<D>); its 32-row form at D 128 and 256
-// is in the sources before the float32 tensor-core kernels, which
-// scripts/torch_flash_variants.py's *_fma arms build to time it.
+// D 8-64 alone (64-row tiles, Fma<D>; K2 and K3 at 32 and 64); its 32-row
+// form at D 128 and 256 is in the sources before the float32 tensor-core
+// kernels, which scripts/torch_flash_variants.py's *_fma arms build to
+// time it.
 //
 // Layout: q, k, v, o, dO, dQ, dK, dV are [BH, S, D] row-major; lse and
 // delta are [BH, S] float32 (the TPU's 8-sublane broadcast and 128-lane
@@ -1211,6 +1215,491 @@ __global__ void __launch_bounds__(kThreads)
     for (int c = lane; c < D; c += 32) {
       dk[off + c] = from_f32<T>(sDK[row * LD + c]);
       dv[off + c] = from_f32<T>(sDV[row * LD + c]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K2 and K3 at head dims 8 and 16 (flash_dq_small, flash_dkv_small), float32
+// and bf16, for the short sequences of the tiny models (train_hsdp's tiny
+// preset: head dim 8, S 16). Replace _dq_kernel and _dkv_kernel,
+// torchft_tpu/ops/pallas/flash_attention.py:145 and :177 (pallas_calls at
+// :219 and :238), at those head dims.
+//
+// Bound: at B8 S16 H2 a launch moves 10-40 KB and computes well under a
+// MFLOP, nanoseconds of either on this card; what it costs is the chain of
+// dependent steps from its first load to its last store. The 64-row FMA
+// kernels these replace took 9-18 us there (PERF.md): a 64-row tile at S 16
+// (three of four warps on rows past S, K2's dS.K and K3's P^T.dO and
+// dS^T.Q over 64 rows of which 48 are zeros), every product a chain of
+// serial FMAs from shared memory over a runtime length, and 64 x 65-float
+// accumulators zero-filled in shared memory. Here:
+// - a tile is TR rows, TR (16, 32 or 64) the smallest that holds min(S,
+//   64) (small_tile) and a template parameter. A block is TR / 16 warps,
+//   warp w owning 16 rows of its tile (K2: query rows, K3: keys); grid (BH,
+//   ceil(S / TR)). K2 loops over key tiles up to the diagonal and K3 over
+//   query tiles from it, 16 keys (queries) a step; every loop over D, TR
+//   and the steps unrolls. A warp whose rows lie past S does no work, nor
+//   a step wholly past S or (causal) wholly masked.
+// - Accumulators (dQ; dK and dV) live in registers.
+// - bf16: every product on the tensor cores (mma.sync, bf16 operands,
+//   float32 sums): S and dP over D as m16n8k8 at D 8 and m16n8k16 at D 16,
+//   dS.K, P^T.dO and dS^T.Q over a step's 16 keys (queries) as m16n8k16.
+//   The C fragments of a step's two 8-column chunks, paired into bf16
+//   registers, are the A fragment of that step. P and dS enter as two bf16
+//   terms each (split_step: hi = x rounded, lo = x - hi rounded), two mma
+//   a product. The Pallas kernels round them once (ds.astype(k.dtype) at
+//   :170, p.astype(do.dtype) at :202, ds.astype(q.dtype) at :205), and at
+//   D 8 that rounding alone breaks the bf16 bar against the float32 plain
+//   versions (chip_smoke.KERNEL_BAR: a row's rms over 8 columns is often
+//   small beside the rounding's error) in 1-6% of random inputs and on
+//   the card (PERF.md), where hi + lo, within 2^-16 of x, leaves
+//   the output's rounding alone. The warp's own rows (Q and dO in K2, K
+//   and V in K3) are A fragments loaded once from device memory; a tile's
+//   other operands arrive in shared memory as rows (B of S and dP) and as
+//   columns (B of dS.K, P^T.dO, dS^T.Q), each row stride 4 x an odd number
+//   of words (small_ld), so that every fragment load is conflict-free.
+// - float32: float32 FMAs in the same layout. Lane 4g + t owns rows g and
+//   g + 8 of its warp's 16 and columns 2t, 2t + 1 of each 8 (keys in K2,
+//   queries in K3): S and dP are dot products over D of the warp's rows, in
+//   registers from the start, with the tile's rows from shared memory; dQ
+//   (dK, dV) is each lane's partial sum over its own columns, summed over
+//   the quad by two shuffles at the end (a fixed order).
+// Numerics as the FMA kernels: scale, then -1e30 where k_pos > q_pos or
+// k_pos >= S, P = expf(s - lse), dS = P (dP - delta) scale; rows past S
+// load as zeros, query rows past S give P = 0 (K3) and are not written
+// (K2), keys past S are not written (K3). One block per output tile, no
+// atomics: the results are bitwise deterministic.
+// ---------------------------------------------------------------------------
+
+// The row stride, in bf16 values, of a shared tile of rows of n values (n
+// 8-64): 4 x an odd number of 32-bit words, so that a fragment load (lane
+// 4g + t reading word t, or t + 4, of row g) touches all 32 banks
+__host__ __device__ constexpr int small_ld(int n) { return 2 * ((n / 2) | 4); }
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// c += a.b, m16n8k16, bf16 operands, float32 sums. Lane 4g + t holds A at
+// rows g, g + 8 and columns 2t, 2t + 1 (a0, a1) and 8 + 2t, 9 + 2t (a2,
+// a3); B at rows 2t, 2t + 1 (b0) and 8 + 2t, 9 + 2t (b1) of column g; C at
+// rows g (c0, c1), g + 8 (c2, c3) and columns 2t, 2t + 1.
+__device__ __forceinline__ void mma_k16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a.b, m16n8k8: A (a0, a1) and B (b) as m16n8k16's first halves
+__device__ __forceinline__ void mma_k8(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
+// The A fragment of the 16 rows from `row0` of a [S, D] bf16 head (rows
+// past S zeros): D / 4 registers, a[2h + u] holding row g + 8u at columns
+// 8h + 2t, + 1
+template <int D>
+__device__ __forceinline__ void load_frag(uint32_t (&a)[D / 4], const bf16* __restrict__ src,
+                                          int row0, int seq, int g, int t) {
+#pragma unroll
+  for (int h = 0; h < D / 8; ++h)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int r = row0 + g + 8 * u;
+      a[2 * h + u] = r < seq ? ld32(src + static_cast<size_t>(r) * D + 8 * h + 2 * t) : 0u;
+    }
+}
+
+// c += the warp's 16 rows (A fragment a) . the 8 rows at `b` (row stride
+// ld) over D: S or dP of 8 columns
+template <int D>
+__device__ __forceinline__ void mma_over_d(float (&c)[4], const uint32_t (&a)[D / 4],
+                                           const bf16* b, int ld, int g, int t) {
+  const bf16* row = b + g * ld + 2 * t;
+  if constexpr (D == 8)
+    mma_k8(c, a[0], a[1], ld32(row));
+  else
+    mma_k16(c, a, ld32(row), ld32(row + 8));
+}
+
+// c[n] += a . X over a step's 16 rows of X, a the step's scores as an A
+// fragment and X given by its columns: `cols` + (8n + g) ld holds column
+// 8n + g of the step's rows (a transposed tile from the step's first row)
+template <int D>
+__device__ __forceinline__ void mma_over_16(float (&c)[D / 8][4], const uint32_t (&a)[4],
+                                            const bf16* cols, int ld, int g, int t) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const bf16* p = cols + (8 * n + g) * ld + 2 * t;
+    mma_k16(c[n], a, ld32(p), ld32(p + 8));
+  }
+}
+
+// The A fragment of a step's scores from the C fragments of its two
+// 8-column chunks, as two bf16 terms: hi, x rounded to bf16, and lo, x -
+// hi rounded (hi + lo is within 2^-16 of x)
+__device__ __forceinline__ void split_step(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                           const float (&x)[2][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float a = x[i / 2][2 * (i % 2)], b = x[i / 2][2 * (i % 2) + 1];
+    hi[i] = hopper::pack_bf16(a, b);
+    lo[i] = hopper::pack_bf16(a - __uint_as_float(hi[i] << 16),
+                              b - __uint_as_float(hi[i] & 0xffff0000u));
+  }
+}
+
+// Copy the TR rows of a [S, D] bf16 head from `row0` (past S zeros) into
+// shared memory as rows (stride small_ld(D)) and, where `cols` is given,
+// as columns too (D rows of stride small_ld(TR)). 16 bytes a thread.
+template <int D, int TR>
+__device__ __forceinline__ void stage_bf16(bf16* rows, bf16* cols, const bf16* __restrict__ src,
+                                           int row0, int seq) {
+  constexpr int LK = small_ld(D), LT = small_ld(TR), kVec = D / 8;
+  for (int i = threadIdx.x; i < TR * kVec; i += 2 * TR) {
+    const int r = i / kVec, c = 8 * (i % kVec);
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < seq)
+      x = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + c);
+    *reinterpret_cast<uint4*>(rows + r * LK + c) = x;
+    if (cols != nullptr) {
+      const uint32_t w[4] = {x.x, x.y, x.z, x.w};  // value m in the half m % 2 of word m / 2
+#pragma unroll
+      for (int m = 0; m < 8; ++m)
+        cols[(c + m) * LT + r] =
+            __ushort_as_bfloat16(static_cast<unsigned short>(w[m / 2] >> (16 * (m % 2))));
+    }
+  }
+}
+
+// The same for float32: rows alone, stride D + 4 (a lane's float4 loads of
+// four rows 2 apart touch four distinct groups of banks)
+template <int D, int TR>
+__device__ __forceinline__ void stage_f32(float* rows, const float* __restrict__ src, int row0,
+                                          int seq) {
+  constexpr int kVec = D / 4;
+  for (int i = threadIdx.x; i < TR * kVec; i += 2 * TR) {
+    const int r = i / kVec, c = 4 * (i % kVec);
+    float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (row0 + r < seq)
+      x = *reinterpret_cast<const float4*>(src + static_cast<size_t>(row0 + r) * D + c);
+    *reinterpret_cast<float4*>(rows + r * (D + 4) + c) = x;
+  }
+}
+
+// Row `row` of a [S, D] float32 head (past S zeros) into registers
+template <int D>
+__device__ __forceinline__ void load_row(float (&x)[D], const float* __restrict__ src, int row,
+                                         int seq) {
+  if (row < seq) {
+    load<D>(x, src + static_cast<size_t>(row) * D);
+  } else {
+#pragma unroll
+    for (int i = 0; i < D; ++i) x[i] = 0.0f;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ float dot(const float (&a)[N], const float (&b)[N]) {
+  float x = 0.0f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) x = fmaf(a[i], b[i], x);
+  return x;
+}
+
+// x summed over the four lanes of a quad (every lane gets the sum)
+template <int N>
+__device__ __forceinline__ void quad_sum(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    x[i] += __shfl_xor_sync(0xffffffffu, x[i], 1);
+    x[i] += __shfl_xor_sync(0xffffffffu, x[i], 2);
+  }
+}
+
+// Lane t of a quad writes columns [t D / 4, (t + 1) D / 4) of a float32
+// row summed over the quad (quad_sum): the select keeps x in registers
+template <int D>
+__device__ __forceinline__ void store_quarter(float* out, const float (&x)[D], int t) {
+  constexpr int W = D / 4;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (c != t) continue;
+    if constexpr (W == 2)
+      *reinterpret_cast<float2*>(out + 2 * c) = make_float2(x[2 * c], x[2 * c + 1]);
+    else
+      *reinterpret_cast<float4*>(out + 4 * c) =
+          make_float4(x[4 * c], x[4 * c + 1], x[4 * c + 2], x[4 * c + 3]);
+  }
+}
+
+// The TR rows' lse and delta from `row0` (past S: 0) into shared memory
+template <int TR>
+__device__ __forceinline__ void stage_lse(float* sl, float* sd, const float* __restrict__ lse,
+                                          const float* __restrict__ delta, int row0, int seq) {
+  for (int r = threadIdx.x; r < TR; r += 2 * TR) {
+    sl[r] = row0 + r < seq ? lse[row0 + r] : 0.0f;
+    sd[r] = row0 + r < seq ? delta[row0 + r] : 0.0f;
+  }
+}
+
+template <typename T, int D, int TR>
+__global__ void __launch_bounds__(2 * TR, 1)
+    flash_dq_small(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                   const T* __restrict__ dout, const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dq, int seq, float scale,
+                   int causal) {
+  static_assert(D == 8 || D == 16, "head dims 8 and 16");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int qi = blockIdx.y, r0 = qi * TR + 16 * warp;  // the warp's first query row
+  const bool live = r0 < seq;
+  const size_t base = static_cast<size_t>(blockIdx.x) * seq * D;
+  const size_t rbase = static_cast<size_t>(blockIdx.x) * seq;
+  // rows g and g + 8 of the warp's (past S: zeros, with a zero dO)
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int row = r0 + g + 8 * u;
+    lse_r[u] = row < seq ? lse[rbase + row] : 0.0f;
+    delta_r[u] = row < seq ? delta[rbase + row] : 0.0f;
+  }
+  const int nk = causal ? qi + 1 : (seq + TR - 1) / TR;
+
+  if constexpr (std::is_same_v<T, bf16>) {
+    constexpr int LK = small_ld(D), LT = small_ld(TR);
+    __shared__ __align__(16) bf16 sK[TR * LK], sKT[D * LT], sV[TR * LK];
+    uint32_t aq[D / 4], ado[D / 4];
+    load_frag<D>(aq, q + base, r0, seq, g, t);
+    load_frag<D>(ado, dout + base, r0, seq, g, t);
+    float acc[D / 8][4] = {};
+    for (int j = 0; j < nk; ++j) {
+      const int k0 = j * TR;
+      __syncthreads();  // every warp is done with the previous K and V
+      stage_bf16<D, TR>(sK, sKT, k + base, k0, seq);
+      stage_bf16<D, TR>(sV, nullptr, v + base, k0, seq);
+      __syncthreads();
+      if (!live) continue;
+#pragma unroll
+      for (int st = 0; st < TR / 16; ++st) {
+        const int kb = k0 + 16 * st;  // the step's first key
+        if (kb >= seq || (causal && kb > r0 + 15)) break;
+        float s[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mma_over_d<D>(s[h], aq, sK + (16 * st + 8 * h) * LK, LK, g, t);
+          mma_over_d<D>(dp[h], ado, sV + (16 * st + 8 * h) * LK, LK, g, t);
+        }
+        // dS in place of S: rows r0 + g (+ 8), keys kb + 8h + 2t (+ 1)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int u = e / 2;
+            const float p = expf(masked(s[h][e], scale, causal, r0 + g + 8 * u,
+                                        kb + 8 * h + 2 * t + e % 2, seq) - lse_r[u]);
+            s[h][e] = p * (dp[h][e] - delta_r[u]) * scale;
+          }
+        uint32_t hi[4], lo[4];
+        split_step(hi, lo, s);
+        mma_over_16<D>(acc, lo, sKT + 16 * st, LT, g, t);
+        mma_over_16<D>(acc, hi, sKT + 16 * st, LT, g, t);
+      }
+    }
+    if (!live) return;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int row = r0 + g + 8 * u;
+      if (row >= seq) continue;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(dq + base + static_cast<size_t>(row) * D + 8 * n + 2 * t) =
+            hopper::pack_bf16(acc[n][2 * u], acc[n][2 * u + 1]);
+    }
+  } else {
+    constexpr int LF = D + 4;
+    __shared__ __align__(16) float sK[TR * LF], sV[TR * LF];
+    float qr[2][D], dor[2][D], acc[2][D] = {};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      load_row<D>(qr[u], q + base, r0 + g + 8 * u, seq);
+      load_row<D>(dor[u], dout + base, r0 + g + 8 * u, seq);
+    }
+    for (int j = 0; j < nk; ++j) {
+      const int k0 = j * TR;
+      __syncthreads();
+      stage_f32<D, TR>(sK, k + base, k0, seq);
+      stage_f32<D, TR>(sV, v + base, k0, seq);
+      __syncthreads();
+      if (!live) continue;
+#pragma unroll
+      for (int st = 0; st < TR / 16; ++st) {
+        const int kb = k0 + 16 * st;
+        if (kb >= seq || (causal && kb > r0 + 15)) break;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 16 * st + 8 * h + 2 * t + e;  // the key's row in the tile
+            float kr[D], vr[D];
+            load<D>(kr, sK + c * LF);
+            load<D>(vr, sV + c * LF);
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const float p = expf(masked(dot<D>(qr[u], kr), scale, causal, r0 + g + 8 * u,
+                                          k0 + c, seq) - lse_r[u]);
+              const float ds = p * (dot<D>(dor[u], vr) - delta_r[u]) * scale;
+#pragma unroll
+              for (int i = 0; i < D; ++i) acc[u][i] = fmaf(ds, kr[i], acc[u][i]);
+            }
+          }
+      }
+    }
+    if (!live) return;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      quad_sum<D>(acc[u]);
+      const int row = r0 + g + 8 * u;
+      if (row < seq) store_quarter<D>(dq + base + static_cast<size_t>(row) * D, acc[u], t);
+    }
+  }
+}
+
+template <typename T, int D, int TR>
+__global__ void __launch_bounds__(2 * TR, 1)
+    flash_dkv_small(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                    int seq, float scale, int causal) {
+  static_assert(D == 8 || D == 16, "head dims 8 and 16");
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int kj = blockIdx.y, k0 = kj * TR + 16 * warp;  // the warp's first key
+  const bool live = k0 < seq;
+  const int nq = (seq + TR - 1) / TR;
+  const size_t base = static_cast<size_t>(blockIdx.x) * seq * D;
+  const size_t rbase = static_cast<size_t>(blockIdx.x) * seq;
+  __shared__ float sL[TR], sD[TR];  // the query tile's lse and delta (past S: 0)
+
+  if constexpr (std::is_same_v<T, bf16>) {
+    constexpr int LK = small_ld(D), LT = small_ld(TR);
+    __shared__ __align__(16) bf16 sQ[TR * LK], sQT[D * LT], sDO[TR * LK], sDOT[D * LT];
+    uint32_t ak[D / 4], av[D / 4];
+    load_frag<D>(ak, k + base, k0, seq, g, t);
+    load_frag<D>(av, v + base, k0, seq, g, t);
+    float dka[D / 8][4] = {}, dva[D / 8][4] = {};
+    for (int i = causal ? kj : 0; i < nq; ++i) {
+      const int q0 = i * TR;
+      __syncthreads();  // every warp is done with the previous Q, dO, lse and delta
+      stage_bf16<D, TR>(sQ, sQT, q + base, q0, seq);
+      stage_bf16<D, TR>(sDO, sDOT, dout + base, q0, seq);
+      stage_lse<TR>(sL, sD, lse + rbase, delta + rbase, q0, seq);
+      __syncthreads();
+      if (!live) continue;
+#pragma unroll
+      for (int st = 0; st < TR / 16; ++st) {
+        const int qb = q0 + 16 * st;  // the step's first query
+        if (qb >= seq) break;
+        if (causal && qb + 15 < k0) continue;
+        // S^T and dP^T: rows the keys k0 + g (+ 8), columns the queries
+        // qb + 8h + 2t (+ 1)
+        float s[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          mma_over_d<D>(s[h], ak, sQ + (16 * st + 8 * h) * LK, LK, g, t);
+          mma_over_d<D>(dp[h], av, sDO + (16 * st + 8 * h) * LK, LK, g, t);
+        }
+        // P^T in place of S^T, dS^T in place of dP^T
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 16 * st + 8 * h + 2 * t + e % 2, qp = q0 + c;
+            const float p = qp < seq ? expf(masked(s[h][e], scale, causal, qp,
+                                                   k0 + g + 8 * (e / 2), seq) - sL[c])
+                                     : 0.0f;
+            s[h][e] = p;
+            dp[h][e] = p * (dp[h][e] - sD[c]) * scale;
+          }
+        uint32_t hi[4], lo[4];
+        split_step(hi, lo, s);
+        mma_over_16<D>(dva, lo, sDOT + 16 * st, LT, g, t);
+        mma_over_16<D>(dva, hi, sDOT + 16 * st, LT, g, t);
+        split_step(hi, lo, dp);
+        mma_over_16<D>(dka, lo, sQT + 16 * st, LT, g, t);
+        mma_over_16<D>(dka, hi, sQT + 16 * st, LT, g, t);
+      }
+    }
+    if (!live) return;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int key = k0 + g + 8 * u;
+      if (key >= seq) continue;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const size_t off = base + static_cast<size_t>(key) * D + 8 * n + 2 * t;
+        *reinterpret_cast<uint32_t*>(dk + off) = hopper::pack_bf16(dka[n][2 * u], dka[n][2 * u + 1]);
+        *reinterpret_cast<uint32_t*>(dv + off) = hopper::pack_bf16(dva[n][2 * u], dva[n][2 * u + 1]);
+      }
+    }
+  } else {
+    constexpr int LF = D + 4;
+    __shared__ __align__(16) float sQ[TR * LF], sDO[TR * LF];
+    float kr[2][D], vr[2][D], dka[2][D] = {}, dva[2][D] = {};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      load_row<D>(kr[u], k + base, k0 + g + 8 * u, seq);
+      load_row<D>(vr[u], v + base, k0 + g + 8 * u, seq);
+    }
+    for (int i = causal ? kj : 0; i < nq; ++i) {
+      const int q0 = i * TR;
+      __syncthreads();
+      stage_f32<D, TR>(sQ, q + base, q0, seq);
+      stage_f32<D, TR>(sDO, dout + base, q0, seq);
+      stage_lse<TR>(sL, sD, lse + rbase, delta + rbase, q0, seq);
+      __syncthreads();
+      if (!live) continue;
+#pragma unroll
+      for (int st = 0; st < TR / 16; ++st) {
+        const int qb = q0 + 16 * st;
+        if (qb >= seq) break;
+        if (causal && qb + 15 < k0) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 16 * st + 8 * h + 2 * t + e, qp = q0 + c;  // the query's row in the tile
+            if (qp >= seq) continue;
+            float qv[D], dov[D];
+            load<D>(qv, sQ + c * LF);
+            load<D>(dov, sDO + c * LF);
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const float p = expf(masked(dot<D>(kr[u], qv), scale, causal, qp, k0 + g + 8 * u,
+                                          seq) - sL[c]);
+              const float ds = p * (dot<D>(vr[u], dov) - sD[c]) * scale;
+#pragma unroll
+              for (int x = 0; x < D; ++x) {
+                dva[u][x] = fmaf(p, dov[x], dva[u][x]);
+                dka[u][x] = fmaf(ds, qv[x], dka[u][x]);
+              }
+            }
+          }
+      }
+    }
+    if (!live) return;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      quad_sum<D>(dka[u]);
+      quad_sum<D>(dva[u]);
+      const int key = k0 + g + 8 * u;
+      if (key >= seq) continue;
+      store_quarter<D>(dk + base + static_cast<size_t>(key) * D, dka[u], t);
+      store_quarter<D>(dv + base + static_cast<size_t>(key) * D, dva[u], t);
     }
   }
 }
@@ -2575,24 +3064,84 @@ int dkv_fma(const void* q, const void* k, const void* v, const void* dout, const
   return cudaGetLastError();
 }
 
-// The FMA launches as functors of (element type, head dim), so that one
-// switch over the head dim serves all three
+// The tile rows of K2 and K3 at head dims 8 and 16 (flash_dq_small,
+// flash_dkv_small): the smallest of 16, 32 and 64 that holds min(S, 64).
+// The single statement of their tiling; dq_small and dkv_small follow it.
+constexpr int small_tile(int seq) { return seq <= 16 ? 16 : seq <= 32 ? 32 : 64; }
+
+template <typename T, int D, int TR>
+int dq_small_at(const void* q, const void* k, const void* v, const void* dout,
+                const float* lse, const float* delta, void* dqp, int bh, int seq, float scale,
+                int causal, cudaStream_t stream) {
+  flash_dq_small<T, D, TR><<<dim3(bh, (seq + TR - 1) / TR), 2 * TR, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dqp), seq, scale, causal);
+  return cudaGetLastError();
+}
+
+template <typename T, int D, int TR>
+int dkv_small_at(const void* q, const void* k, const void* v, const void* dout,
+                 const float* lse, const float* delta, void* dkp, void* dvp, int bh, int seq,
+                 float scale, int causal, cudaStream_t stream) {
+  flash_dkv_small<T, D, TR><<<dim3(bh, (seq + TR - 1) / TR), 2 * TR, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dkp), static_cast<T*>(dvp),
+      seq, scale, causal);
+  return cudaGetLastError();
+}
+
+// K2 and K3 at head dims 8 and 16, at the tile small_tile(seq) gives
+template <typename T, int D, typename... A>
+int dq_small(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+             const float* delta, void* dqp, int bh, int seq, A... a) {
+  const int tr = small_tile(seq);
+  if (tr == 16) return dq_small_at<T, D, 16>(q, k, v, dout, lse, delta, dqp, bh, seq, a...);
+  if (tr == 32) return dq_small_at<T, D, 32>(q, k, v, dout, lse, delta, dqp, bh, seq, a...);
+  return dq_small_at<T, D, 64>(q, k, v, dout, lse, delta, dqp, bh, seq, a...);
+}
+
+template <typename T, int D, typename... A>
+int dkv_small(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+              const float* delta, void* dkp, void* dvp, int bh, int seq, A... a) {
+  const int tr = small_tile(seq);
+  if (tr == 16)
+    return dkv_small_at<T, D, 16>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, a...);
+  if (tr == 32)
+    return dkv_small_at<T, D, 32>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, a...);
+  return dkv_small_at<T, D, 64>(q, k, v, dout, lse, delta, dkp, dvp, bh, seq, a...);
+}
+
+// The launches off wgmma and the float32 tensor-core kernels as functors
+// of (element type, head dim), so that one switch over the head dim serves
+// all three: K1 on the FMA kernel, K2 and K3 on the FMA kernels at 32 and
+// 64 and on flash_dq_small / flash_dkv_small at 8 and 16
 struct FwdFma {
   template <typename T, int D, typename... A>
   static int run(A... a) { return fwd_fma<T, D>(a...); }
 };
 struct DqFma {
   template <typename T, int D, typename... A>
-  static int run(A... a) { return dq_fma<T, D>(a...); }
+  static int run(A... a) {
+    if constexpr (D <= 16)
+      return dq_small<T, D>(a...);
+    else
+      return dq_fma<T, D>(a...);
+  }
 };
 struct DkvFma {
   template <typename T, int D, typename... A>
-  static int run(A... a) { return dkv_fma<T, D>(a...); }
+  static int run(A... a) {
+    if constexpr (D <= 16)
+      return dkv_small<T, D>(a...);
+    else
+      return dkv_fma<T, D>(a...);
+  }
 };
 
-// An FMA launch at head dim D, instantiated for float32 and for bf16 where
-// on_wgmma leaves it some S: both types at 8, 16, 32 and 64; no kernel at
-// 128 or 256 (float32 K1 there on flash_fwd_f32, K2 and K3 on
+// A launch of those functors at head dim D, instantiated for float32 and
+// for bf16 where on_wgmma leaves it some S: both types at 8, 16, 32 and 64
+// (K2 and K3 at 8 and 16 on the small kernels, at small_tile's tiles); no
+// kernel at 128 or 256 (float32 K1 there on flash_fwd_f32, K2 and K3 on
 // flash_dq_f32 and flash_dkv_f32, bf16 on wgmma).
 template <typename T, int D>
 constexpr bool on_fma = !(std::is_same_v<T, float> ? f32_at(D) : wgmma_at_every_seq(D));
